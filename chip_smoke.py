@@ -13,8 +13,9 @@ result) if it fails:
    ``nvcc`` (one process per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
    bitwise, at the main path's shape and on edge batches, then timed beside
-   its plain version, its bound and (where one exists) one PyTorch call
-   computing the same function;
+   its plain version, its bound, (where one exists) one PyTorch call
+   computing the same function, and one ``torch.sum`` reading its main
+   input (what a plain read of those bytes takes on the card);
 4. entry: the one-batch suite step of ``torchmetrics_tpu_torch._entry.entry``
    (C=8, T=32, N=256) on the card, as a user calls it (``fn(*args)``): each
    kernel must launch once and the values must agree with the same step on
@@ -29,8 +30,9 @@ result) if it fails:
    with a numpy reference for accuracy and F1.
 
 The last lines of standard output are a ``[kernels]`` line per kernel, a
-``[summary]`` line with the slice's throughput, busy share and device time
-by kernel, ``nvidia-smi``'s line, the ``kernels`` JSON object and
+``[summary]`` line with the slice's throughput, busy share, device time by
+kernel and, per pass, the launches of the argmax, prefix-sum and int32-sum
+kernels that K1 and K2 took over, ``nvidia-smi``'s line, the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -203,6 +205,14 @@ def _kernel_only_us(found, name):
     return sum(t for t, _ in mine) / launches if launches else None
 
 
+def _read_floor(x):
+    """One PyTorch reduction over the kernel's main input: what a plain read of
+    those bytes takes on this card, beside the bound (a yardstick, not the function)."""
+    import torch
+
+    return torch.sum(x)
+
+
 def _bound(n_bytes, n_ops):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -233,68 +243,91 @@ def _assert_bitwise(got, want, what):
     return float(err)
 
 
-def check_binned_curve_hist(device, batches):
-    """K1 against ``binned_curve_hist_plain``: main-path shape, edge batch, other grids; then timed."""
+def _assert_state_counts(state, valid, what):
+    """At every threshold each valid entry is either below it or at/above it."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import binned_curve_hist, binned_curve_hist_plain
+    per_threshold = state.to(torch.int64).sum((1, 2, 3))
+    _require(bool((per_threshold == valid).all()), f"{what}: a threshold counted {per_threshold.tolist()[:3]}..., not {valid}")
+
+
+def check_binned_curve_state(device, batches):
+    """K1 against ``binned_curve_state_plain``: main-path shape, edge batches, other grids; then timed."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _uniform_grid
+    from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain
     from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
 
     thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
+    affine = _uniform_grid(THRESHOLDS)
+    _require(affine is not None, "the int grid does not take the affine bin index")
     probs = [torch.softmax(logits, dim=1).contiguous() for logits, _ in batches]
-    arg_sets = [(p, thr, labels, True) for p, (_, labels) in zip(probs, batches)]
+    arg_sets = [(p, thr, labels, True, affine) for p, (_, labels) in zip(probs, batches)]
+    plain_sets = [a[:4] for a in arg_sets]
 
-    # the main path's shape: (65536, 64) probabilities, labels mode, T=128
-    max_err = _assert_bitwise(
-        binned_curve_hist(*arg_sets[0]), binned_curve_hist_plain(*arg_sets[0]), "binned_curve_hist, main-path shape"
-    )
+    # the main path's shape: (65536, 64) probabilities, labels mode, T=128, both bin indices
+    want = binned_curve_state_plain(*plain_sets[0])
+    max_err = _assert_bitwise(binned_curve_state(*arg_sets[0]), want, "binned_curve_state, main-path shape")
+    _assert_bitwise(binned_curve_state(*plain_sets[0]), want, "binned_curve_state, main-path shape, binary search")
 
-    # edge batch: every grid point, <0, >1, NaN, +-inf, ignored and out-of-range labels
+    # edge batch: every grid point, <0, >1, NaN, +-inf, an all-NaN row, ignored and out-of-range labels
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
     n, k = 4099, NUM_CLASSES
     edge = torch.rand((n, k), generator=gen, device=device)
     flat = edge.view(-1)
     flat[:THRESHOLDS] = thr
-    specials = torch.tensor([-0.5, -1e-30, 1.5, 1.0 + 1e-6, float("nan"), float("inf"), float("-inf"), 0.0, 1.0], device=device)
+    specials = torch.tensor([-0.5, -1e-30, 1.5, 1.0 + 1e-6, float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0], device=device)
     flat[THRESHOLDS : THRESHOLDS + specials.numel()] = specials
     flat[-specials.numel() :] = specials
+    edge[7] = float("nan")
     labels = torch.randint(-1, k + 3, (n,), generator=gen, device=device, dtype=torch.int32)
     binary = torch.randint(-1, 3, (n, k), generator=gen, device=device, dtype=torch.int64)
     irregular = torch.sort(torch.rand(97, generator=gen, device=device)).values
     irregular[10:13] = irregular[10]  # repeated thresholds
+    grid6000 = _linspace_like_jax(0.0, 1.0, 6000, device=device)
+    grid13000 = _linspace_like_jax(0.0, 1.0, 13000, device=device)
     cases = [
-        ("edge batch, labels mode, T=128", edge, thr, labels, True),
-        ("edge batch, binary mode, T=128", edge, thr, binary, False),
-        ("edge batch, non-uniform grid T=97", edge, irregular, labels, True),
-        ("edge batch, T=1500 (histogram in global memory)", edge, _linspace_like_jax(0.0, 1.0, 1500, device=device), labels, True),
-        ("edge batch, K=4, T=13000 (thresholds in global memory)", edge[:, :4].contiguous(),
-         _linspace_like_jax(0.0, 1.0, 13000, device=device), binary[:, :4].contiguous(), False),
+        ("edge batch, labels mode, T=128", edge, thr, labels, True, affine),
+        ("edge batch, int64 labels, T=128", edge, thr, labels.to(torch.int64), True, affine),
+        ("edge batch, binary mode, T=128", edge, thr, binary, False, affine),
+        ("edge batch, non-uniform grid T=97 (binary search)", edge, irregular, labels, True, _uniform_grid(irregular)),
+        ("edge batch, K=7 (scalar loads)", edge[:, :7].contiguous(), thr, binary[:, :7].contiguous(), False, affine),
+        ("edge batch, T=6000 (histogram in global memory)", edge, grid6000, labels, True, _uniform_grid(6000)),
+        ("edge batch, K=4, T=13000 (thresholds in global memory)", edge[:, :4].contiguous(), grid13000,
+         binary[:, :4].contiguous(), False, _uniform_grid(13000)),
     ]
-    for what, p, t_grid, target, mode in cases:
-        got = binned_curve_hist(p, t_grid, target, mode)
-        _assert_bitwise(got, binned_curve_hist_plain(p, t_grid, target, mode), f"binned_curve_hist, {what}")
+    for what, p, t_grid, target, mode, aff in cases:
+        got = binned_curve_state(p, t_grid, target, mode, aff)
+        _assert_bitwise(got, binned_curve_state_plain(p, t_grid, target, mode), f"binned_curve_state, {what}")
         valid = int((target >= 0).sum()) * (p.shape[1] if mode else 1)
-        _require(int(got.sum()) == valid, f"binned_curve_hist, {what}: counted {int(got.sum())} of {valid} entries")
-    before = binned_curve_hist.launches
-    empty = binned_curve_hist(edge[:0], thr, labels[:0], True)
-    _require(binned_curve_hist.launches == before, "binned_curve_hist: an empty batch counted a launch")
-    _require(int(empty.abs().sum()) == 0 and empty.shape == (THRESHOLDS + 1, k, 2), "binned_curve_hist: empty batch not zero")
+        _assert_state_counts(got, valid, f"binned_curve_state, {what}")
+    before = binned_curve_state.launches
+    empty = binned_curve_state(edge[:0], thr, labels[:0], True, affine)
+    _require(binned_curve_state.launches == before, "binned_curve_state: an empty batch counted a launch")
+    _require(int(empty.abs().sum()) == 0 and empty.shape == (THRESHOLDS, k, 2, 2), "binned_curve_state: empty batch not zero")
     torch.cuda.synchronize()
     print(
-        f"[kernels] binned_curve_hist: bitwise equal to its plain version at {BATCH}x{NUM_CLASSES} T={THRESHOLDS}"
-        f" and on {len(cases)} edge cases; an empty batch launches nothing"
+        f"[kernels] binned_curve_state: bitwise equal to its plain version at {BATCH}x{NUM_CLASSES} T={THRESHOLDS}"
+        f" (affine and binary-search bin index) and on {len(cases)} edge cases; an empty batch launches nothing"
     )
 
-    times = _measure([("kernel", binned_curve_hist, arg_sets), ("plain", binned_curve_hist_plain, arg_sets)])
+    times = _measure(
+        [
+            ("kernel", binned_curve_state, arg_sets),
+            ("plain", binned_curve_state_plain, plain_sets),
+            ("read_floor", _read_floor, [(p,) for p in probs]),
+        ]
+    )
     n_elem = BATCH * NUM_CLASSES
-    n_bytes = n_elem * 4 + BATCH * 4 + THRESHOLDS * 4 + (THRESHOLDS + 1) * NUM_CLASSES * 2 * 4
-    n_ops = n_elem * (math.ceil(math.log2(THRESHOLDS + 1)) + 1)  # binary-search compares + one add
+    n_bytes = n_elem * 4 + BATCH * 4 + THRESHOLDS * 4 + THRESHOLDS * NUM_CLASSES * 4 * 4
+    n_ops = n_elem * 6  # affine bin index: subtract, multiply, three compares, one add
     bound_ms, bound_by = _bound(n_bytes, n_ops)
     return {
-        "name": "binned_curve_hist",
+        "name": "binned_curve_state",
         "route": "cuda",
-        "source": "torchmetrics_tpu_torch/csrc/binned_curve_hist.cu",
+        "source": "torchmetrics_tpu_torch/csrc/binned_curve_state.cu",
         "replaces": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:295",
         "max_abs_err": max_err,
         "ms": times["kernel"]["device_ms"],
@@ -303,64 +336,86 @@ def check_binned_curve_hist(device, batches):
         "bound_by": bound_by,
         "library_ms": None,
         "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
-        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "binned_curve_hist"),
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "binned_curve_state"),
         "bytes": n_bytes,
+        "read_floor_ms": times["read_floor"]["device_ms"],
     }
 
 
-def check_confusion_hist(device, batches):
-    """K2 against ``confusion_hist_plain``: main-path shape, edge batches; then timed beside ``torch.bincount``."""
+def _hard_rows(scores):
+    """Rows jnp.argmax rules on, written into the first rows of ``scores``: ties, NaN, -inf, +-0."""
+    c = scores.shape[1]
+    scores[0] = float("nan")  # all NaN: 0
+    scores[1] = float("-inf")  # all -inf: 0
+    scores[2] = 0.0
+    scores[2, ::2] = -0.0  # -0 and 0 tie: 0
+    scores[3] = 0.25  # all tied: 0
+    scores[4, c // 2 :] = 1e9  # tied maxima: the first of them
+    scores[5, c - 1] = float("nan")  # one NaN beats every number
+    scores[6, 1:] = float("inf")
+    scores[6, 3] = float("nan")  # NaN beats +inf
+    return scores
+
+
+def check_stat_counts(device, batches):
+    """K2 against ``stat_counts_plain``: main-path shape, edge batches; then timed beside ``torch.argmax``."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import confusion_hist, confusion_hist_plain
+    from torchmetrics_tpu_torch.ops import stat_counts, stat_counts_plain
 
     c = NUM_CLASSES
-    preds = [torch.argmax(logits, dim=1).to(torch.int32) for logits, _ in batches]
-    arg_sets = [(p, labels, c) for p, (_, labels) in zip(preds, batches)]
-    max_err = _assert_bitwise(confusion_hist(*arg_sets[0]), confusion_hist_plain(*arg_sets[0]), "confusion_hist, main-path shape")
+    arg_sets = [(logits, labels, c) for logits, labels in batches]
+    max_err = _assert_bitwise(stat_counts(*arg_sets[0]), stat_counts_plain(*arg_sets[0]), "stat_counts, main-path shape")
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
     n = 70001
+    s_edge = _hard_rows(torch.randn((n, c), generator=gen, device=device))
+    s_odd = _hard_rows(torch.randn((n, 7), generator=gen, device=device))
+    s_wide = _hard_rows(torch.randn((3001, 4000), generator=gen, device=device))
     p_edge = torch.randint(-3, c + 3, (n,), generator=gen, device=device, dtype=torch.int32)
     t_edge = torch.randint(-3, c + 3, (n,), generator=gen, device=device, dtype=torch.int64)
     t_ign = t_edge.clone()
     t_ign[::7] = 5
     cases = [
-        ("out-of-range labels, no ignore_index", p_edge, t_edge, c, None),
-        ("ignore_index=5", p_edge, t_ign, c, 5),
-        ("ignore_index=-1 outside the classes", p_edge, t_edge, c, -1),
-        ("C=300 (histogram in global memory)", p_edge * 4, t_edge * 4, 300, None),
-        ("C=2", p_edge.remainder(2), t_edge.remainder(2), 2, None),
+        ("scores, out-of-range targets, no ignore_index", s_edge, t_edge, c, None),
+        ("scores, ignore_index=5", s_edge, t_ign, c, 5),
+        ("scores, ignore_index=-1 outside the classes", s_edge, t_edge, c, -1),
+        ("scores, C=7 (scalar loads)", s_odd, t_edge.remainder(9) - 1, 7, 3),
+        ("scores, C=4000 (partials in global memory)", s_wide, t_edge[:3001] * 60, 4000, None),
+        ("int32 labels, out of range", p_edge, t_edge, c, None),
+        ("int64 labels, ignore_index=5", p_edge.to(torch.int64) + 2**32, t_ign, c, 5),
+        ("int32 labels, C=2", p_edge.remainder(2), t_edge.remainder(2), 2, None),
     ]
     for what, p, t, nc, ignore in cases:
-        _assert_bitwise(confusion_hist(p, t, nc, ignore), confusion_hist_plain(p, t, nc, ignore), f"confusion_hist, {what}")
-    before = confusion_hist.launches
-    empty = confusion_hist(p_edge[:0], t_edge[:0], c, 5)
-    _require(confusion_hist.launches == before, "confusion_hist: an empty batch counted a launch")
-    _require(int(empty.abs().sum()) == 0 and empty.shape == (c, c), "confusion_hist: empty batch not zero")
+        _assert_bitwise(stat_counts(p, t, nc, ignore), stat_counts_plain(p, t, nc, ignore), f"stat_counts, {what}")
+    before = stat_counts.launches
+    empty = stat_counts(s_edge[:0], t_edge[:0], c, 5)
+    _require(stat_counts.launches == before, "stat_counts: an empty batch counted a launch")
+    _require(int(empty.abs().sum()) == 0 and empty.shape == (4, c), "stat_counts: empty batch not zero")
     torch.cuda.synchronize()
     print(
-        f"[kernels] confusion_hist: bitwise equal to its plain version at N={BATCH} C={NUM_CLASSES}"
+        f"[kernels] stat_counts: bitwise equal to its plain version at N={BATCH} C={NUM_CLASSES}"
         f" and on {len(cases)} edge cases; an empty batch launches nothing"
     )
 
-    index = [(t.to(torch.int64) * c + p.to(torch.int64),) for p, t, _ in arg_sets]
+    def library(logits):  # only a part of the function: the argmax that K2 fuses
+        return torch.argmax(logits, dim=1)
 
-    def library(flat_index):
-        return torch.bincount(flat_index, minlength=c * c)
-
-    # the library call is timed on its own precomputed index; the kernel and
-    # the plain version take the labels
     times = _measure(
-        [("kernel", confusion_hist, arg_sets), ("plain", confusion_hist_plain, arg_sets), ("library", library, index)]
+        [
+            ("kernel", stat_counts, arg_sets),
+            ("plain", stat_counts_plain, arg_sets),
+            ("library", library, [(logits,) for logits, _ in batches]),
+            ("read_floor", _read_floor, [(logits,) for logits, _ in batches]),
+        ]
     )
-    n_bytes = 2 * BATCH * 4 + c * c * 4
-    bound_ms, bound_by = _bound(n_bytes, 3 * BATCH)  # multiply-add, compare, add per sample
+    n_bytes = BATCH * c * 4 + BATCH * 4 + 4 * c * 4
+    bound_ms, bound_by = _bound(n_bytes, BATCH * c)  # one compare per score
     return {
-        "name": "confusion_hist",
+        "name": "stat_counts",
         "route": "cuda",
-        "source": "torchmetrics_tpu_torch/csrc/confusion_hist.cu",
+        "source": "torchmetrics_tpu_torch/csrc/stat_counts.cu",
         "replaces": "torchmetrics_tpu/functional/classification/stat_scores.py:300",
         "max_abs_err": max_err,
         "ms": times["kernel"]["device_ms"],
@@ -369,8 +424,9 @@ def check_confusion_hist(device, batches):
         "bound_by": bound_by,
         "library_ms": times["library"]["device_ms"],
         "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
-        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "confusion_hist"),
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "stat_counts"),
         "bytes": n_bytes,
+        "read_floor_ms": times["read_floor"]["device_ms"],
     }
 
 
@@ -418,12 +474,23 @@ def _short_kernel_name(key):
     return base if not tag or tag.group(1) in base else f"{base}[{tag.group(1)}]"
 
 
+# device kernels the redesigned K1 and K2 took over, by a pattern of their names
+WATCHED_LAUNCHES = {"argmax": r"ArgMax", "cumsum": r"[Ss]can", "int32_sum": r"sum_functor<int\b"}
+
+
+def _watched_launches(found):
+    """Launches, by WATCHED_LAUNCHES pattern, among the profiler's device kernels."""
+    import re
+
+    return {what: sum(n for key, (_, n) in found.items() if re.search(pat, key)) for what, pat in WATCHED_LAUNCHES.items()}
+
+
 def _expected_states_plain(batches, device):
     """The suite's final states from the same stream folded through the plain
     versions of the kernels (and the plain micro path), on the card."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import binned_curve_hist_plain, confusion_hist_plain
+    from torchmetrics_tpu_torch.ops import binned_curve_state_plain, stat_counts_plain
     from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
 
     c = NUM_CLASSES
@@ -440,15 +507,9 @@ def _expected_states_plain(batches, device):
         acc["fp"] += miss
         acc["fn"] += miss
         acc["tn"] += c * BATCH - (hit + 2 * miss)
-        cm = confusion_hist_plain(pred, labels, c)
-        tp = torch.diagonal(cm)
-        f1["tp"] += tp
-        f1["fp"] += cm.sum(0, dtype=torch.int32) - tp
-        f1["fn"] += cm.sum(1, dtype=torch.int32) - tp
-        f1["tn"] += cm.sum(dtype=torch.int32) - (cm.sum(0, dtype=torch.int32) + cm.sum(1, dtype=torch.int32) - tp)
-        hist = binned_curve_hist_plain(torch.softmax(logits, dim=1), thr, labels, True)
-        cum = hist.cumsum(0, dtype=torch.int32)
-        confmat += torch.stack([cum[:THRESHOLDS], cum[THRESHOLDS:] - cum[:THRESHOLDS]], dim=-1)
+        for name, counts in zip(("tp", "fp", "tn", "fn"), stat_counts_plain(logits, labels, c)):
+            f1[name] += counts
+        confmat += binned_curve_state_plain(torch.softmax(logits, dim=1), thr, labels, True)
     return {"acc": acc, "f1": f1, "auroc": {"confmat": confmat}}
 
 
@@ -547,6 +608,11 @@ def phase_slice(device, batches, kernels):
         f" {busy_us / (steady * 1e6):.3f} of the unprofiled median window ({steady * 1e6:.1f} us),"
         f" {busy_us / wall_us:.3f} of the profiled one ({wall_us:.1f} us)"
     )
+    watched = _watched_launches(found)
+    print(
+        f"[profile] launches per pass of {NUM_BATCHES} updates: {sum(n for _, n in found.values())} device kernels;"
+        f" {watched}"
+    )
     top = sorted(found.items(), key=lambda kv: -kv[1][0])
     for key, (t, n) in top[:12]:
         print(f"[profile]   {t:10.1f} us  {n:4d} launches  {key[:110]}")
@@ -570,6 +636,8 @@ def phase_slice(device, batches, kernels):
         "busy_share": busy_us / (steady * 1e6),
         "top": [(_short_kernel_name(key), t, n) for key, (t, n) in top[:6]],
         "host_calls": stats.total_calls,
+        "watched": watched,
+        "device_launches": sum(n for _, n in found.values()),
     }
 
 
@@ -597,7 +665,7 @@ def main() -> int:
     device, smi = phase_device()
     build_s = phase_build()
     batches = _main_path_batches(device)
-    rows = [check_binned_curve_hist(device, batches), check_confusion_hist(device, batches)]
+    rows = [check_binned_curve_state(device, batches), check_stat_counts(device, batches)]
     entry_diffs = phase_entry(KERNELS)
     run = phase_slice(device, batches, KERNELS)
     for row in rows:
@@ -606,7 +674,8 @@ def main() -> int:
         print(
             f"[kernels] {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
             f" plain {row['plain_ms']:.5f}, library {row['library_ms']}, bound {row['bound_ms']:.5f}"
-            f" ({row['bound_by']}, {row['bytes']} B), launches {row['launches']}; stream ms per call: {stream}"
+            f" ({row['bound_by']}, {row['bytes']} B), read floor {row['read_floor_ms']:.5f} (torch.sum of the main input),"
+            f" launches {row['launches']}; stream ms per call: {stream}"
         )
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lo, hi = run["steady_range_ms"]
@@ -615,7 +684,8 @@ def main() -> int:
         f" suite {run['first_sps']:.1f} samples/s first pass, {run['steady_sps']:.1f} steady (median of"
         f" {STEADY_PASSES} passes of {NUM_BATCHES} batches, {lo:.2f}-{hi:.2f} ms); busy share {run['busy_share']:.3f}"
         f" ({run['busy_us']:.1f} us in kernels); device us by kernel:"
-        f" {'; '.join(f'{name} {t:.1f}/{n}' for name, t, n in run['top'])}; host {run['host_calls']} Python calls"
+        f" {'; '.join(f'{name} {t:.1f}/{n}' for name, t, n in run['top'])}; launches per pass {run['device_launches']},"
+        f" of them {', '.join(f'{k} {v}' for k, v in run['watched'].items())}; host {run['host_calls']} Python calls"
         f" per pass; total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

@@ -2,9 +2,9 @@
 # Licensed under the Apache License, Version 2.0.
 """Parity of the port's binned curve state (kernel K1's module) with JAX's.
 
-``torchmetrics_tpu_torch``'s ``_binned_curve_state`` builds the
-``(T, ..., 2, 2)`` int32 state from the histogram of
-:func:`~torchmetrics_tpu_torch.ops.binned_curve_hist`; on the CPU tensors
+``torchmetrics_tpu_torch``'s ``_binned_curve_state`` takes the
+``(T, ..., 2, 2)`` int32 state from
+:func:`~torchmetrics_tpu_torch.ops.binned_curve_state`; on the CPU tensors
 used here that is the plain PyTorch version. It is held BITWISE against
 both formulations of the JAX package's ``_binned_curve_state`` (bucketize,
 which the CPU backend picks, and the jitted contraction), on probability
@@ -23,7 +23,7 @@ import torch
 # a function named ``precision_recall_curve``
 jprc = importlib.import_module("torchmetrics_tpu.functional.classification.precision_recall_curve")
 tprc = importlib.import_module("torchmetrics_tpu_torch.functional.classification.precision_recall_curve")
-from torchmetrics_tpu_torch.ops import binned_curve_hist, binned_curve_hist_plain
+from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain
 
 _CONTRACTION = jax.jit(jprc._binned_curve_state)  # traced thresholds: the contraction path
 
@@ -155,6 +155,7 @@ def test_module_fixes_grid_order_once(thresholds):
     jm = J.classification.MulticlassPrecisionRecallCurve(num_classes=c, thresholds=thresholds)
     tm = T.MulticlassPrecisionRecallCurve(num_classes=c, thresholds=thresholds, device="cpu")
     assert tm._thresholds_ascend is isinstance(thresholds, int)
+    assert (tm._thresholds_affine is not None) is isinstance(thresholds, int)
     for _ in range(2):
         p = rng.random((n, c)).astype(np.float32)
         p /= p.sum(1, keepdims=True)
@@ -170,24 +171,26 @@ def test_hist_counts_every_valid_entry_once():
     p = torch.from_numpy(rng.random((n, k)).astype(np.float32))
     t = torch.from_numpy(rng.integers(-1, 2, (n, k)).astype(np.int64))
     thr = torch.linspace(0, 1, len_t)
-    hist = binned_curve_hist(p, thr, t, labels=False)
-    assert hist.shape == (len_t + 1, k, 2) and hist.dtype == torch.int32
-    assert int(hist.sum()) == int((t >= 0).sum())
-    np.testing.assert_array_equal(hist.numpy(), binned_curve_hist_plain(p, thr, t, False).numpy())
+    state = binned_curve_state(p, thr, t, labels=False)
+    assert state.shape == (len_t, k, 2, 2) and state.dtype == torch.int32
+    # at every threshold each valid entry is either below or at/above it
+    per_threshold = state.sum((1, 2, 3))
+    assert per_threshold.tolist() == [int((t >= 0).sum())] * len_t
+    np.testing.assert_array_equal(state.numpy(), binned_curve_state_plain(p, thr, t, False).numpy())
 
 
 def test_hist_cpu_path_never_counts_a_launch():
-    before = binned_curve_hist.launches
+    before = binned_curve_state.launches
     p = torch.rand(10, 2)
-    binned_curve_hist(p, torch.linspace(0, 1, 5), torch.zeros(10, dtype=torch.int32), labels=True)
-    assert binned_curve_hist.launches == before
+    binned_curve_state(p, torch.linspace(0, 1, 5), torch.zeros(10, dtype=torch.int32), labels=True, affine=(0.0, 4.0))
+    assert binned_curve_state.launches == before
 
 
 def test_hist_empty_batch_is_zero_and_counts_no_launch():
-    before = binned_curve_hist.launches
-    hist = binned_curve_hist(torch.zeros(0, 3), torch.linspace(0, 1, 5), torch.zeros(0, dtype=torch.int32), labels=True)
-    assert hist.shape == (6, 3, 2) and hist.dtype == torch.int32 and int(hist.abs().sum()) == 0
-    assert binned_curve_hist.launches == before
+    before = binned_curve_state.launches
+    state = binned_curve_state(torch.zeros(0, 3), torch.linspace(0, 1, 5), torch.zeros(0, dtype=torch.int32), labels=True)
+    assert state.shape == (5, 3, 2, 2) and state.dtype == torch.int32 and int(state.abs().sum()) == 0
+    assert binned_curve_state.launches == before
 
 
 @pytest.mark.parametrize(
@@ -202,7 +205,82 @@ def test_hist_empty_batch_is_zero_and_counts_no_launch():
 )
 def test_hist_rejects_what_the_kernel_does_not_take(p, thr, t, labels):
     with pytest.raises(ValueError):
-        binned_curve_hist(p, thr, t, labels)
+        binned_curve_state(p, thr, t, labels)
+
+
+def _jax_grid(kind, len_t):
+    if kind == "uniform":
+        return np.array(jnp.linspace(0.0, 1.0, len_t))
+    return np.sort(np.random.RandomState(len_t).rand(len_t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [5, 8])
+@pytest.mark.parametrize("labels", [True, False], ids=["labels", "binary"])
+@pytest.mark.parametrize("len_t", [1, 2, 3, 128])
+@pytest.mark.parametrize("grid", ["uniform", "irregular"])
+def test_plain_state_matches_jax(grid, len_t, labels, k):
+    """K1's plain version (histogram, prefix, stack) against JAX's
+    ``_binned_curve_state``: NaN, +-inf, values on the grid, masked targets,
+    K not a multiple of 4, both target modes; bitwise."""
+    thr = _jax_grid(grid, len_t)
+    rng = np.random.default_rng(31 + len_t)
+    n = 257
+    p = _probs(rng, (n, k), thr)
+    if labels:
+        target = rng.integers(-1, k + 2, n).astype(np.int32)
+        target_bin = np.asarray(jax.nn.one_hot(np.clip(target, 0, k - 1), k, dtype=jnp.int32))
+        valid = np.broadcast_to((target >= 0)[:, None], (n, k))
+    else:
+        target = rng.integers(-1, 3, (n, k)).astype(np.int32)
+        target_bin, valid = target, target >= 0
+    got = binned_curve_state_plain(torch.from_numpy(p), torch.from_numpy(thr), torch.from_numpy(target), labels)
+    want = np.asarray(jprc._binned_curve_state(jnp.asarray(p), jnp.asarray(target_bin), jnp.asarray(valid), jnp.asarray(thr)))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("labels", [True, False], ids=["labels", "binary"])
+def test_int64_target_is_cut_to_int32(labels):
+    """An int64 label is read as ``static_cast<int>`` reads it, as ``astype(jnp.int32)`` cuts it."""
+    rng = np.random.default_rng(32)
+    n, k = 64, 4
+    p = torch.from_numpy(rng.random((n, k)).astype(np.float32))
+    small = rng.integers(-1, k if labels else 2, n if labels else (n, k))
+    wide = small + rng.choice([-(2**32), 2**32, 2**33], small.shape)  # the same low 32 bits
+    thr = torch.from_numpy(np.array(jnp.linspace(0.0, 1.0, 7)))
+    got = binned_curve_state_plain(p, thr, torch.from_numpy(wide.astype(np.int64)), labels)
+    want = binned_curve_state_plain(p, thr, torch.from_numpy(wide.astype(np.int32)), labels)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(), binned_curve_state_plain(p, thr, torch.from_numpy(small), labels).numpy())
+
+
+_MARGIN_GRIDS = {
+    **{f"linspace{n}": np.asarray(jnp.linspace(0.0, 1.0, n), np.float64) for n in (1, 2, 3, 4, 5, 7, 16, 32, 100, 128, 129, 1000, 4097)},
+    "linspace_shifted": np.asarray(jnp.linspace(-2.0, 3.0, 41), np.float64),
+    "irregular": np.sort(np.random.RandomState(3).rand(50)),
+    "near_uniform_jitter": np.linspace(0.0, 1.0, 64) + np.r_[0.0, 1e-3, np.zeros(62)],
+    "duplicates": np.array([0.0, 0.1, 0.1, 0.5, 0.9, 1.0]),
+    "nan": np.r_[np.linspace(0.0, 1.0, 8), np.nan],
+    "inf": np.r_[np.linspace(0.0, 1.0, 8), np.inf],
+    "constant": np.zeros(5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_MARGIN_GRIDS))
+def test_uniform_bin_margin_ok_matches_jax(name):
+    """The port's copy of ``_uniform_bin_margin_ok`` decides as JAX's does."""
+    thr = _MARGIN_GRIDS[name]
+    assert tprc._uniform_bin_margin_ok(thr) is jprc._uniform_bin_margin_ok(thr)
+
+
+@pytest.mark.parametrize("num", [2, 3, 8, 32, 128, 1000])
+def test_uniform_grid_of_an_int_grid(num):
+    """An integer ``thresholds`` always gets the affine bin index, with JAX's ``lo`` and ``scale``."""
+    lo, scale = tprc._uniform_grid(num)
+    grid = np.asarray(jnp.linspace(0.0, 1.0, num), np.float64)
+    assert lo == grid[0] and scale == (num - 1) / (grid[-1] - grid[0])
+    assert tprc._uniform_grid(torch.tensor([0.3, 0.1, 0.2])) is None  # not sorted
+    assert tprc._uniform_grid(_MARGIN_GRIDS["irregular"]) is None
 
 
 @pytest.mark.parametrize("average", [None, "micro"])

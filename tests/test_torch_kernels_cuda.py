@@ -4,9 +4,9 @@
 
 Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` (the kernels are built
 from ``torchmetrics_tpu_torch/csrc`` at first use) and skip without them.
-Run them on a machine with a card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
-Each kernel is held bitwise (integer counts) against its plain version on
-the same CUDA inputs, and its launch counter must move.
+Run them on a machine with a card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
+Each dispatch path of each kernel is held bitwise (integer counts) against
+its plain version on the same CUDA inputs, and its launch counter must move.
 """
 import shutil
 
@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from torchmetrics_tpu_torch.ops import binned_curve_hist, binned_curve_hist_plain, confusion_hist, confusion_hist_plain
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _uniform_grid
+from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain, stat_counts, stat_counts_plain
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
 
 pytestmark = pytest.mark.cuda
@@ -29,48 +30,80 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("labels", [True, False])
-@pytest.mark.parametrize("len_t", [5, 128, 2000])
-def test_binned_curve_hist_matches_plain(card, labels, len_t):
+# T=5 and 128: histogram in shared memory; 6000 and 13000: tiles narrowed
+# until it fits, else in global memory; 13000: thresholds in global memory
+@pytest.mark.parametrize("uniform", [True, False], ids=["affine", "search"])
+@pytest.mark.parametrize("k", [7, 64], ids=["scalar", "float4"])
+@pytest.mark.parametrize("len_t", [5, 128, 6000, 13000])
+@pytest.mark.parametrize("labels", [True, False], ids=["labels", "binary"])
+def test_binned_curve_state_matches_plain(card, labels, len_t, k, uniform):
     rng = np.random.default_rng(41)
-    n, k = 4099, 7
+    n = 20000
     p = rng.random((n, k)).astype(np.float32)
-    p.reshape(-1)[:6] = [np.nan, np.inf, -np.inf, -0.5, 1.5, 0.0]
+    p[3, :] = np.nan  # an all-NaN row
+    p.reshape(-1)[:6] = [np.nan, np.inf, -np.inf, -0.5, 1.5, -0.0]
     thr = _linspace_like_jax(0.0, 1.0, len_t, device=card)
     p.reshape(-1)[6 : 6 + min(len_t, 100)] = thr[: min(len_t, 100)].cpu().numpy()
-    target = rng.integers(-1, k + 2, n if labels else (n, k)).astype(np.int32)
+    dtype = np.int64 if len_t == 128 else np.int32
+    target = rng.integers(-1, k + 2, n if labels else (n, k)).astype(dtype)
     pc, tc = torch.from_numpy(p).to(card), torch.from_numpy(target).to(card)
-    before = binned_curve_hist.launches
-    got = binned_curve_hist(pc, thr, tc, labels)
+    affine = _uniform_grid(len_t) if uniform else None
+    assert (affine is not None) is uniform
+    before = binned_curve_state.launches
+    got = binned_curve_state(pc, thr, tc, labels, affine)
     torch.cuda.synchronize()
-    assert binned_curve_hist.launches == before + 1
-    torch.testing.assert_close(got, binned_curve_hist_plain(pc, thr, tc, labels), rtol=0, atol=0)
+    assert binned_curve_state.launches == before + 1
+    torch.testing.assert_close(got, binned_curve_state_plain(pc, thr, tc, labels), rtol=0, atol=0)
+
+
+def test_binned_curve_state_irregular_grid(card):
+    rng = np.random.default_rng(43)
+    p = torch.from_numpy(rng.random((30000, 64)).astype(np.float32)).to(card)
+    thr = torch.sort(torch.from_numpy(rng.random(97).astype(np.float32))).values.to(card)
+    thr[10:13] = thr[10]  # repeated thresholds
+    target = torch.from_numpy(rng.integers(0, 64, 30000).astype(np.int32)).to(card)
+    got = binned_curve_state(p, thr, target, True, _uniform_grid(thr))
+    torch.testing.assert_close(got, binned_curve_state_plain(p, thr, target, True), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("ignore_index", [None, 3, -7])
-@pytest.mark.parametrize("num_classes", [2, 64, 300])
-def test_confusion_hist_matches_plain(card, ignore_index, num_classes):
+@pytest.mark.parametrize(
+    "mode,num_classes", [("scores", 64), ("scores", 7), ("scores", 4000), ("int32", 64), ("int64", 300)]
+)
+def test_stat_counts_matches_plain(card, mode, num_classes, ignore_index):
     rng = np.random.default_rng(42)
-    n = 70001
-    preds = torch.from_numpy(rng.integers(-2, num_classes + 2, n).astype(np.int32)).to(card)
+    n = 3001 if num_classes == 4000 else 70001
+    if mode == "scores":
+        scores = rng.standard_normal((n, num_classes)).astype(np.float32)
+        scores[0, :] = np.nan
+        scores[1, :] = -np.inf
+        scores[2, :] = 0.0
+        scores[2, ::2] = -0.0
+        scores[3, 1:] = 1.0
+        scores[4, num_classes - 1] = np.nan
+        preds = torch.from_numpy(scores).to(card)
+    else:
+        preds = torch.from_numpy(rng.integers(-2, num_classes + 2, n).astype(np.int32 if mode == "int32" else np.int64))
+        preds = preds.to(card)
     target = torch.from_numpy(rng.integers(-2, num_classes + 2, n).astype(np.int64)).to(card)
     if ignore_index is not None:
         target[::11] = ignore_index
-    before = confusion_hist.launches
-    got = confusion_hist(preds, target, num_classes, ignore_index)
+    before = stat_counts.launches
+    got = stat_counts(preds, target, num_classes, ignore_index)
     torch.cuda.synchronize()
-    assert confusion_hist.launches == before + 1
-    torch.testing.assert_close(got, confusion_hist_plain(preds, target, num_classes, ignore_index), rtol=0, atol=0)
+    assert stat_counts.launches == before + 1
+    torch.testing.assert_close(got, stat_counts_plain(preds, target, num_classes, ignore_index), rtol=0, atol=0)
 
 
 def test_empty_batches_launch_nothing(card):
-    """An empty batch comes back as a zeroed histogram; no kernel runs and no launch is counted."""
-    before = (binned_curve_hist.launches, confusion_hist.launches)
+    """An empty batch comes back as a zeroed state; no kernel runs and no launch is counted."""
+    before = (binned_curve_state.launches, stat_counts.launches)
     thr = _linspace_like_jax(0.0, 1.0, 9, device=card)
-    hist = binned_curve_hist(torch.zeros(0, 4, device=card), thr, torch.zeros(0, dtype=torch.int32, device=card), True)
+    state = binned_curve_state(torch.zeros(0, 4, device=card), thr, torch.zeros(0, dtype=torch.int32, device=card), True)
     empty = torch.zeros(0, dtype=torch.int32, device=card)
-    cm = confusion_hist(empty, empty, 4, None)
+    counts = stat_counts(empty, empty, 4, None)
+    scores = stat_counts(torch.zeros(0, 4, device=card), empty, 4, 2)
     torch.cuda.synchronize()
-    assert (binned_curve_hist.launches, confusion_hist.launches) == before
-    assert hist.shape == (10, 4, 2) and int(hist.abs().sum()) == 0
-    assert cm.shape == (4, 4) and int(cm.abs().sum()) == 0
+    assert (binned_curve_state.launches, stat_counts.launches) == before
+    assert state.shape == (9, 4, 2, 2) and int(state.abs().sum()) == 0
+    assert counts.shape == scores.shape == (4, 4) and int(counts.abs().sum()) == int(scores.abs().sum()) == 0

@@ -2,9 +2,9 @@
 # Licensed under the Apache License, Version 2.0.
 """Parity of the port's stat scores (kernel K2's module) with the JAX package's.
 
-The multiclass confusion matrix comes from
-:func:`~torchmetrics_tpu_torch.ops.confusion_hist`, whose plain PyTorch
-version runs on the CPU tensors used here. tp/fp/tn/fn must be bitwise
+The multiclass confusion-matrix branch runs in
+:func:`~torchmetrics_tpu_torch.ops.stat_counts` (the argmax of the scores
+fused in), whose plain PyTorch version runs on the CPU tensors used here. tp/fp/tn/fn must be bitwise
 equal to JAX's and int32: macro and micro, with and without
 ``ignore_index``, argmax ties, NaN rows, out-of-range labels under
 ``validate_args=False``, and the one-hot (top_k > 1, samplewise) path.
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torchmetrics_tpu_torch.ops import confusion_hist, confusion_hist_plain
+from torchmetrics_tpu_torch.ops import stat_counts, stat_counts_plain
 
 jss = importlib.import_module("torchmetrics_tpu.functional.classification.stat_scores")
 tss = importlib.import_module("torchmetrics_tpu_torch.functional.classification.stat_scores")
@@ -101,24 +101,95 @@ def test_confusion_hist_int64_labels_and_launch_count():
     rng = np.random.default_rng(24)
     preds = torch.from_numpy(rng.integers(0, 6, 300))
     target = torch.from_numpy(rng.integers(0, 6, 300))
-    before = confusion_hist.launches
-    cm = confusion_hist(preds, target, 6)
-    assert confusion_hist.launches == before  # the CPU path is the plain version: no launch
-    assert cm.dtype == torch.int32 and cm.shape == (6, 6)
-    np.testing.assert_array_equal(cm.numpy(), confusion_hist_plain(preds, target, 6).numpy())
-    assert int(cm.sum()) == 300
-    np.testing.assert_array_equal(
-        cm.numpy(), np.histogram2d(target.numpy(), preds.numpy(), bins=6, range=[[0, 6], [0, 6]])[0].astype(np.int32)
-    )
+    before = stat_counts.launches
+    counts = stat_counts(preds, target, 6)
+    assert stat_counts.launches == before  # the CPU path is the plain version: no launch
+    assert counts.dtype == torch.int32 and counts.shape == (4, 6)
+    np.testing.assert_array_equal(counts.numpy(), stat_counts_plain(preds, target, 6).numpy())
+    cm = np.histogram2d(target.numpy(), preds.numpy(), bins=6, range=[[0, 6], [0, 6]])[0].astype(np.int64)
+    tp = np.diag(cm)
+    fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+    np.testing.assert_array_equal(counts.numpy(), np.stack([tp, fp, 300 - (fp + fn + tp), fn]))
 
 
 @pytest.mark.parametrize("ignore_index", [None, 2])
 def test_confusion_hist_empty_batch_is_zero_and_counts_no_launch(ignore_index):
-    before = confusion_hist.launches
+    before = stat_counts.launches
     empty = torch.zeros(0, dtype=torch.int32)
-    cm = confusion_hist(empty, empty, 5, ignore_index)
-    assert cm.shape == (5, 5) and cm.dtype == torch.int32 and int(cm.abs().sum()) == 0
-    assert confusion_hist.launches == before
+    counts = stat_counts(empty, empty, 5, ignore_index)
+    assert counts.shape == (4, 5) and counts.dtype == torch.int32 and int(counts.abs().sum()) == 0
+    scores = stat_counts(torch.zeros(0, 5), empty, 5, ignore_index)
+    assert scores.shape == (4, 5) and int(scores.abs().sum()) == 0
+    assert stat_counts.launches == before
+
+
+def _hard_scores(rng, n, c):
+    """Probabilities with the rows ``jnp.argmax`` rules on: ties, NaN, all -inf, +-0, +inf."""
+    p = _probs(rng, n, c)
+    p[0, :] = 0.5  # all tied: the first index
+    p[1, :] = np.nan  # all NaN: 0
+    p[2, :] = -np.inf  # all -inf: 0
+    p[3, :] = 0.0
+    p[3, ::2] = -0.0  # -0 and 0 tie
+    p[4, c - 1] = np.nan  # one NaN wins over larger numbers
+    p[5, 1:] = np.inf
+    p[5, c - 1] = np.nan  # NaN beats +inf
+    p[6, :] = 0.1
+    p[6, c // 2 :] = 0.9  # tied maxima: the first of them
+    p[7, :] = [np.nan if i % 2 else 1.0 for i in range(c)]  # the first NaN
+    return p
+
+
+@pytest.mark.parametrize("average", ["macro", "weighted", None])
+@pytest.mark.parametrize("ignore_index", [None, 2, -1, 9])
+@pytest.mark.parametrize("c", [3, 7, 8])
+def test_fused_scores_update_bitwise(c, ignore_index, average):
+    """K2's plain version on float scores (the format keeps them) against
+    JAX's format + update: argmax edge rows, ignore_index in and out of the
+    classes, out-of-range targets as ``validate_args=False`` lets through,
+    C a multiple of 4 or not."""
+    rng = np.random.default_rng(29 + c)
+    n = 300
+    p = _hard_scores(rng, n, c)
+    t = rng.integers(-2, c + 2, n).astype(np.int32)
+    if ignore_index is not None:
+        t[rng.random(n) < 0.1] = ignore_index
+    jp, jt = jss._multiclass_stat_scores_format(jnp.asarray(p), jnp.asarray(t))
+    want = jss._multiclass_stat_scores_update(jp, jt, c, 1, average, "global", ignore_index)
+    tp_, tt = tss._multiclass_stat_scores_format(torch.from_numpy(p), torch.from_numpy(t), 1, average, "global")
+    assert tp_.shape == (n, c) and tp_.dtype == torch.float32 and tt.shape == (n,)  # the scores reach K2
+    got = tss._multiclass_stat_scores_update(tp_, tt, c, 1, average, "global", ignore_index)
+    _assert_counts_equal(got, want)
+    _assert_counts_equal(tuple(stat_counts_plain(tp_, tt, c, ignore_index)), want)
+
+
+def test_fused_scores_with_extra_dims_bitwise():
+    """(N, C, X) scores: the format moves the classes last, so K2 sees (N*X, C)."""
+    rng = np.random.default_rng(33)
+    n, c, extra = 40, 5, 3
+    p = rng.random((n, c, extra)).astype(np.float32)
+    t = rng.integers(0, c, (n, extra)).astype(np.int32)
+    jp, jt = jss._multiclass_stat_scores_format(jnp.asarray(p), jnp.asarray(t))
+    want = jss._multiclass_stat_scores_update(jp, jt, c)
+    tp_, tt = tss._multiclass_stat_scores_format(torch.from_numpy(p), torch.from_numpy(t), 1, "macro")
+    assert tp_.shape == (n * extra, c)
+    _assert_counts_equal(tss._multiclass_stat_scores_update(tp_, tt, c), want)
+
+
+@pytest.mark.parametrize("scores", [True, False], ids=["scores", "labels"])
+def test_stat_counts_int64_labels_are_cut_to_int32(scores):
+    """int64 labels are read as ``static_cast<int>`` reads them, as ``astype(jnp.int32)`` cuts them."""
+    rng = np.random.default_rng(34)
+    n, c = 128, 6
+    preds = torch.from_numpy(_probs(rng, n, c)) if scores else torch.from_numpy(rng.integers(0, c, n))
+    small = rng.integers(-1, c + 1, n)
+    wide = small + rng.choice([-(2**32), 2**32, 3 * 2**32], n)  # the same low 32 bits
+    if not scores:
+        preds = preds + torch.from_numpy(rng.choice([0, 2**32], n))
+    for ignore_index in (None, 3):
+        got = stat_counts_plain(preds, torch.from_numpy(wide), c, ignore_index)
+        want = stat_counts_plain(preds.to(torch.int32) if not scores else preds, torch.from_numpy(small), c, ignore_index)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("top_k,multidim_average", [(2, "global"), (1, "samplewise"), (3, "samplewise")])

@@ -5,8 +5,8 @@
 :func:`entry` returns ``(fn, example_args)``: ``fn(preds, target)`` evaluates
 accuracy + macro-F1 + binned macro-AUROC over one batch of multiclass logits
 (C=8, T=32, N=256) through the same functional pieces as the JAX entry, so
-the confusion matrix goes through kernel K2 and the binned curve through K1
-on the card. The example arguments are numpy arrays from the same seed as
+the stat scores (argmax fused) go through kernel K2 and the binned curve
+through K1 on the card. The example arguments are numpy arrays from the same seed as
 the JAX entry's. ``fn`` moves its inputs to the entry's device, the card
 unless the caller asks for ``device="cpu"``; as with the module metrics,
 :func:`entry` raises when no CUDA device exists and the CPU was not asked
@@ -24,6 +24,7 @@ from torchmetrics_tpu_torch.functional.classification.f_beta import _fbeta_reduc
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_update,
+    _uniform_grid,
 )
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_format,
@@ -45,13 +46,14 @@ def entry(
     device = resolve_device(device, "entry")
     num_classes = NUM_CLASSES
     thresholds = _linspace_like_jax(0.0, 1.0, NUM_THRESHOLDS, device=device)
+    affine = _uniform_grid(NUM_THRESHOLDS)  # fixed with the grid, on the host
 
     def suite_step(preds, target) -> Dict[str, torch.Tensor]:
         preds, target = _to_tensor(preds, device), _to_tensor(target, device)
-        p, t = _multiclass_stat_scores_format(preds, target, top_k=1)
+        p, t = _multiclass_stat_scores_format(preds, target, top_k=1, average="macro")
         tp, fp, tn, fn = _multiclass_stat_scores_update(p, t, num_classes, average="macro")
         cp, ct, _ = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds)
-        curve = _multiclass_precision_recall_curve_update(cp, ct, num_classes, thresholds, ascending=True)
+        curve = _multiclass_precision_recall_curve_update(cp, ct, num_classes, thresholds, ascending=True, affine=affine)
         return {
             "accuracy": tp.sum() / torch.clamp((tp + fn).sum(), min=1),
             "f1_macro": _fbeta_reduce(tp, fp, tn, fn, 1.0, "macro", "global", False, 0),

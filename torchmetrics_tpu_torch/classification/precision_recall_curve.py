@@ -4,7 +4,9 @@
 (counterpart of ``torchmetrics_tpu/classification/precision_recall_curve.py``).
 
 The state is the fixed-shape ``(T, ..., 2, 2)`` int32 confusion tensor with
-``dist_reduce_fx="sum"``, built each batch by kernel K1. The exact mode
+``dist_reduce_fx="sum"``, written each batch by kernel K1 in one launch. The
+module asks once, at init, whether its grid ascends and whether K1's O(1)
+bin index is exact on it. The exact mode
 (``thresholds=None``, unbounded ``cat`` states) is not ported yet.
 """
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_update,
     _require_binned,
     _thresholds_ascend,
+    _uniform_grid,
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
@@ -79,6 +82,7 @@ class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
         self.validate_args = validate_args
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
         self._thresholds_ascend = _thresholds_ascend(self.thresholds)
+        self._thresholds_affine = _uniform_grid(self.thresholds) if self._thresholds_ascend else None
         self._create_curve_state((len(self.thresholds), 2, 2))
 
     def update(self, preds: Tensor, target: Tensor) -> None:
@@ -87,7 +91,9 @@ class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
         if self.validate_args:
             _binary_precision_recall_curve_tensor_validation(preds, target, self.ignore_index)
         preds, target, _ = _binary_precision_recall_curve_format(preds, target, self.thresholds, self.ignore_index)
-        state = _binary_precision_recall_curve_update(preds, target, self.thresholds, self._thresholds_ascend)
+        state = _binary_precision_recall_curve_update(
+            preds, target, self.thresholds, self._thresholds_ascend, self._thresholds_affine
+        )
         self._update_curve_state(state)
 
     def compute(self) -> Tuple[Tensor, Tensor, Tensor]:
@@ -117,6 +123,7 @@ class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
         self.validate_args = validate_args
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
         self._thresholds_ascend = _thresholds_ascend(self.thresholds)
+        self._thresholds_affine = _uniform_grid(self.thresholds) if self._thresholds_ascend else None
         len_t = len(self.thresholds)
         self._create_curve_state((len_t, 2, 2) if average == "micro" else (len_t, num_classes, 2, 2))
 
@@ -129,7 +136,7 @@ class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
             preds, target, self.num_classes, self.thresholds, self.ignore_index, self.average
         )
         state = _multiclass_precision_recall_curve_update(
-            preds, target, self.num_classes, self.thresholds, self.average, self._thresholds_ascend
+            preds, target, self.num_classes, self.thresholds, self.average, self._thresholds_ascend, self._thresholds_affine
         )
         self._update_curve_state(state)
 

@@ -108,7 +108,7 @@ class BinaryStatScores(_AbstractStatScores):
 
 
 class MulticlassStatScores(_AbstractStatScores):
-    """Multiclass tp/fp/tn/fn; the confusion matrix comes from kernel K2."""
+    """Multiclass tp/fp/tn/fn; kernel K2 counts them from the scores in one launch."""
 
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = None
@@ -142,7 +142,7 @@ class MulticlassStatScores(_AbstractStatScores):
         preds, target = self._inputs(preds, target)
         if self.validate_args:
             _multiclass_stat_scores_tensor_validation(preds, target, self.num_classes, self.multidim_average, self.ignore_index)
-        preds, target = _multiclass_stat_scores_format(preds, target, self.top_k)
+        preds, target = _multiclass_stat_scores_format(preds, target, self.top_k, self.average, self.multidim_average)
         tp, fp, tn, fn = _multiclass_stat_scores_update(
             preds, target, self.num_classes, self.top_k, self.average, self.multidim_average, self.ignore_index
         )

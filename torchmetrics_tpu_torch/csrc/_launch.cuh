@@ -1,8 +1,8 @@
 // Copyright The TorchMetrics-TPU contributors.
 // Licensed under the Apache License, Version 2.0.
 //
-// Launch policy shared by the port's histogram kernels: the block size, the
-// shared-memory limits, and the grid cap of a grid-stride loop.
+// Launch policy shared by the port's kernels: the block size, the
+// shared-memory limits, and the card's SM count.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,41 +12,37 @@
 namespace hist_launch {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kHistSmemLimit = 200 * 1024;
-
-// The grid is capped at the blocks the card holds at once (a grid-stride
-// loop covers the rest). That cap, and the shared-memory opt-in above
-// 48 KB, are asked of the CUDA runtime once per kernel instantiation,
-// device and shared-memory size, then kept: the queries cost more host
-// time than the launch itself.
 constexpr int kMaxDevices = 64;
 
-struct GridCap {
-  size_t smem;
-  long long blocks;  // 0: not asked yet
+// What the runtime is asked once per kernel instantiation and device, then
+// kept: the queries and the attribute call cost more host time than the
+// launch itself.
+struct LaunchCache {
+  int sms;            // 0: not asked yet
+  size_t smem_optin;  // dynamic shared memory the kernel may already use
 };
 
+// The SM count of the current device, and the opt-in above 48 KB of dynamic
+// shared memory for `kernel`, both through `cache` (kMaxDevices entries).
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t smem, GridCap* cache, long long* blocks) {
+cudaError_t prepare(Kernel kernel, size_t smem, LaunchCache* cache, int* sms) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  GridCap* slot = device < kMaxDevices ? &cache[device] : nullptr;
-  if (slot != nullptr && slot->blocks > 0 && slot->smem == smem) {
-    *blocks = slot->blocks;
-    return cudaSuccess;
+  LaunchCache scratch = {0, kDefaultSmem};
+  LaunchCache* slot = device < kMaxDevices ? &cache[device] : &scratch;
+  if (slot->sms == 0) {
+    if ((err = cudaDeviceGetAttribute(&slot->sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+    if (slot->smem_optin < kDefaultSmem) slot->smem_optin = kDefaultSmem;
   }
-  if (smem > kDefaultSmem) {
+  if (smem > slot->smem_optin) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
+    slot->smem_optin = smem;
   }
-  int sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess) return err;
-  if (per_sm < 1) per_sm = 1;  // an impossible configuration then fails at launch and is reported
-  *blocks = static_cast<long long>(per_sm) * sms;
-  if (slot != nullptr) *slot = GridCap{smem, *blocks};
+  *sms = slot->sms;
   return cudaSuccess;
 }
 

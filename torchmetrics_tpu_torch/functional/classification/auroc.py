@@ -18,6 +18,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _uniform_grid,
 )
 from torchmetrics_tpu_torch.functional.classification.roc import _binary_roc_compute, _multiclass_roc_compute
 from torchmetrics_tpu_torch.utilities.compute import _auc_compute_without_check, _safe_divide
@@ -110,8 +111,9 @@ def binary_auroc(
         _binary_auroc_arg_validation(max_fpr, thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
     ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
-    state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_auroc_compute(state, thresholds, max_fpr)
 
 
@@ -155,6 +157,7 @@ def multiclass_auroc(
         _multiclass_auroc_arg_validation(num_classes, average, thresholds, ignore_index)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
     ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds, ignore_index)
-    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ascending=ascending)
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ascending=ascending, affine=affine)
     return _multiclass_auroc_compute(state, num_classes, average, thresholds)

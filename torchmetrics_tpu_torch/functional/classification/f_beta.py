@@ -90,7 +90,7 @@ def multiclass_fbeta_score(
         _validate_beta(beta)
         _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index, zero_division)
         _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index)
-    preds, target = _multiclass_stat_scores_format(preds, target, top_k)
+    preds, target = _multiclass_stat_scores_format(preds, target, top_k, average, multidim_average)
     tp, fp, tn, fn = _multiclass_stat_scores_update(preds, target, num_classes, top_k, average, multidim_average, ignore_index)
     return _fbeta_reduce(tp, fp, tn, fn, beta, average, multidim_average, zero_division=zero_division)
 

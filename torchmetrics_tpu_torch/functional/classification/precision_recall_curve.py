@@ -4,9 +4,9 @@
 ``torchmetrics_tpu/functional/classification/precision_recall_curve.py``).
 
 With ``thresholds`` given, the state is the static ``(T, 2, 2)`` /
-``(T, C, 2, 2)`` int32 multi-threshold confusion tensor. It comes from one
-histogram of ``(#{thresholds <= p}, class, target)`` built by the hand
-kernel K1 (:func:`~torchmetrics_tpu_torch.ops.binned_curve_hist`) and a
+``(T, C, 2, 2)`` int32 multi-threshold confusion tensor. The hand kernel K1
+(:func:`~torchmetrics_tpu_torch.ops.binned_curve_state`) writes it in one
+launch: the histogram of ``(#{thresholds <= p}, class, target)`` and its
 prefix sum over the bins, the JAX package's bucketize formulation. An
 integer ``thresholds`` builds the grid with :func:`_linspace_like_jax`, so
 both packages bin against the same float32 values.
@@ -20,13 +20,14 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from torchmetrics_tpu_torch.ops import binned_curve_hist
+from torchmetrics_tpu_torch.ops import binned_curve_state
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax, _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _to_tensors
 
 Tensor = torch.Tensor
 ThresholdsArg = Optional[Union[int, List[float], Tensor, np.ndarray]]
+Affine = Optional[Tuple[float, float]]
 
 _EXACT_MODE_MESSAGE = (
     "thresholds=None (the exact, unbinned curve) is not ported to the PyTorch package yet (ROADMAP A4a);"
@@ -73,8 +74,66 @@ def _thresholds_ascend(thresholds: Optional[Tensor]) -> bool:
     return bool(torch.all((lo <= hi) | torch.isnan(hi)))
 
 
+def _uniform_bin_margin_ok(thr: np.ndarray) -> bool:
+    """True when the 3-compare affine bin index is provably exact for the
+    grid ``thr`` (sorted, float64 here): a copy of the JAX package's
+    ``_uniform_bin_margin_ok``, which the port may not import.
+
+    The affine index computes ``k = trunc((p - lo) * scale)`` in float32 and
+    corrects it with three ordered compares, so it is exact iff the true
+    count ``s(p) = #{t: thr[t] <= p}`` always lies in ``[k, k+3]``. With a
+    relative error budget of ``2^-20`` on the affine map, sufficient
+    conditions, checkable per grid point:
+
+    - upper: ``thr[k+3] >= lo + (k+1)(1+2^-20)/scale`` for every k;
+    - lower: ``thr[k-1] <= lo + k(1-2^-20)/scale`` for every k.
+
+    A ``linspace`` grid passes with huge slack; an irregular grid fails and
+    takes the binary search.
+    """
+    len_t = thr.shape[0]
+    if len_t < 2:
+        return False
+    lo, hi = float(thr[0]), float(thr[-1])
+    if not np.isfinite(thr).all() or hi <= lo:
+        return False
+    eps = 2.0**-20
+    scale = (len_t - 1) / (hi - lo)
+    k = np.arange(0, len_t - 3, dtype=np.float64)
+    if len(k) and not np.all(thr[3:] >= lo + (k + 1) * (1 + eps) / scale):
+        return False
+    k = np.arange(1, len_t, dtype=np.float64)
+    return bool(np.all(thr[:-1] <= lo + k * (1 - eps) / scale))
+
+
+def _uniform_grid(thresholds: ThresholdsArg) -> Affine:
+    """``(lo, scale)`` of K1's affine bin index where it is exact on this grid
+    (sorted, and :func:`_uniform_bin_margin_ok`), else ``None``: K1 then
+    searches the thresholds. ``scale`` is ``(T - 1) / (hi - lo)`` in float64;
+    the kernel takes it in float32, as JAX's ``_threshold_bins`` does.
+
+    Reads the grid on the host (an int builds it there): asked once, where a
+    metric fixes its grid, never per batch.
+    """
+    if thresholds is None:
+        return None
+    if isinstance(thresholds, int):
+        thresholds = _linspace_like_jax(0.0, 1.0, thresholds)
+    if isinstance(thresholds, Tensor):
+        thresholds = thresholds.detach().cpu().numpy()
+    thr = np.asarray(thresholds, dtype=np.float64)
+    if thr.ndim != 1 or thr.size == 0 or np.any(np.diff(thr) < 0) or not _uniform_bin_margin_ok(thr):
+        return None
+    return float(thr[0]), (thr.shape[0] - 1) / float(thr[-1] - thr[0])
+
+
 def _binned_curve_state(
-    preds: Tensor, target: Tensor, thresholds: Tensor, labels: bool = False, ascending: bool = False
+    preds: Tensor,
+    target: Tensor,
+    thresholds: Tensor,
+    labels: bool = False,
+    ascending: bool = False,
+    affine: Affine = None,
 ) -> Tensor:
     """The ``(T, ..., 2, 2)`` int32 binned confusion state from flat probabilities.
 
@@ -93,7 +152,8 @@ def _binned_curve_state(
     already ascend (``ascending``, see :func:`_thresholds_ascend`), they are
     sorted first and the state's threshold axis is put back in the caller's
     order after; each count depends only on its own threshold's value, so
-    the result is the same for any order.
+    the result is the same for any order. ``affine`` (from
+    :func:`_uniform_grid`, for an ascending grid) lets the kernel bin in O(1).
     """
     len_t = thresholds.shape[0]
     inner = tuple(preds.shape[1:])
@@ -103,11 +163,8 @@ def _binned_curve_state(
     order = None
     if not ascending:
         thr, order = torch.sort(thr, stable=True)
-    hist = binned_curve_hist(p, thr, tgt, labels)  # (T+1, K, 2)
-    # below[t] = entries with pred < thr_t (bin <= t); the last prefix row is the total
-    cum = hist.cumsum(0, dtype=torch.int32)
-    below = cum[:len_t]
-    state = torch.stack([below, cum[len_t:] - below], dim=-1)  # [t, k, target, pred]
+        affine = None
+    state = binned_curve_state(p, thr, tgt, labels, affine)  # (T, K, 2, 2): [t, k, target, pred]
     if order is not None:
         state = torch.empty_like(state).index_copy_(0, order, state)
     return state.reshape((len_t,) + inner + (2, 2))
@@ -167,12 +224,13 @@ def _binary_precision_recall_curve_format(
 
 
 def _binary_precision_recall_curve_update(
-    preds: Tensor, target: Tensor, thresholds: Optional[Tensor], ascending: bool = False
+    preds: Tensor, target: Tensor, thresholds: Optional[Tensor], ascending: bool = False, affine: Affine = None
 ) -> Tensor:
-    """Binned: K1 histogram + prefix sum -> (T, 2, 2). ``ascending``: the
-    thresholds are known to ascend, so they are not sorted again."""
+    """Binned: the (T, 2, 2) state from one K1 launch. ``ascending``: the
+    thresholds are known to ascend, so they are not sorted again; ``affine``:
+    see :func:`_uniform_grid`."""
     _require_binned(thresholds)
-    return _binned_curve_state(preds, target, thresholds, ascending=ascending)
+    return _binned_curve_state(preds, target, thresholds, ascending=ascending, affine=affine)
 
 
 def _binary_precision_recall_curve_compute(state: Tensor, thresholds: Optional[Tensor], pos_label: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
@@ -201,8 +259,9 @@ def binary_precision_recall_curve(
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
     ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
-    state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_precision_recall_curve_compute(state, thresholds)
 
 
@@ -282,13 +341,14 @@ def _multiclass_precision_recall_curve_update(
     thresholds: Optional[Tensor],
     average: Optional[str] = None,
     ascending: bool = False,
+    affine: Affine = None,
 ) -> Tensor:
     """Binned: the (T, C, 2, 2) confusion tensor from one K1 launch (labels
-    mode). ``ascending`` as in :func:`_binary_precision_recall_curve_update`."""
+    mode). ``ascending`` and ``affine`` as in :func:`_binary_precision_recall_curve_update`."""
     _require_binned(thresholds)
     if average == "micro":
-        return _binary_precision_recall_curve_update(preds, target, thresholds, ascending)
-    return _binned_curve_state(preds, target, thresholds, labels=True, ascending=ascending)
+        return _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
+    return _binned_curve_state(preds, target, thresholds, labels=True, ascending=ascending, affine=affine)
 
 
 def _multiclass_precision_recall_curve_compute(
@@ -326,9 +386,10 @@ def multiclass_precision_recall_curve(
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
     ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index, average
     )
-    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, average, ascending)
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, average, ascending, affine)
     return _multiclass_precision_recall_curve_compute(state, num_classes, thresholds, average)
 

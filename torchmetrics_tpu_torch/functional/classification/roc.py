@@ -18,6 +18,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
     _require_binned,
+    _uniform_grid,
 )
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
 from torchmetrics_tpu_torch.utilities.data import _to_tensors
@@ -50,8 +51,9 @@ def binary_roc(
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
     ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
-    state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending)
+    state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_roc_compute(state, thresholds)
 
 
@@ -91,8 +93,9 @@ def multiclass_roc(
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
     ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index, average
     )
-    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, average, ascending)
+    state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, average, ascending, affine)
     return _multiclass_roc_compute(state, num_classes, thresholds, average)

@@ -5,10 +5,11 @@
 
 Binary and multiclass. Ignored positions are masked arithmetically, as in
 the JAX package, so shapes never depend on the data. The multiclass
-confusion-matrix bincount runs in the hand kernel K2
-(:func:`~torchmetrics_tpu_torch.ops.confusion_hist`); the micro fast path
-and the one-hot path (``top_k > 1`` or samplewise) are plain PyTorch, as
-they are plain ``jnp`` in JAX. Every count is int32, as in JAX.
+confusion-matrix branch runs in the hand kernel K2
+(:func:`~torchmetrics_tpu_torch.ops.stat_counts`), which takes the float
+scores and writes tp/fp/tn/fn in one launch, the argmax fused in; the micro
+fast path and the one-hot path (``top_k > 1`` or samplewise) are plain
+PyTorch, as they are plain ``jnp`` in JAX. Every count is int32, as in JAX.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from torchmetrics_tpu_torch.ops import confusion_hist
+from torchmetrics_tpu_torch.ops import stat_counts
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
 from torchmetrics_tpu_torch.utilities.compute import normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _to_tensors, select_topk
@@ -223,9 +224,25 @@ def _multiclass_stat_scores_tensor_validation(
             )
 
 
-def _multiclass_stat_scores_format(preds: Tensor, target: Tensor, top_k: int = 1) -> Tuple[Tensor, Tensor]:
-    """Argmax probabilities (first maximum wins, as ``jnp.argmax``) and flatten extra dims."""
+def _multiclass_stat_scores_format(
+    preds: Tensor,
+    target: Tensor,
+    top_k: int = 1,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+) -> Tuple[Tensor, Tensor]:
+    """Argmax probabilities (first maximum wins, as ``jnp.argmax``) and flatten extra dims.
+
+    Where the update's confusion-matrix branch will count them (``top_k == 1``,
+    ``multidim_average == "global"``, ``average != "micro"``), float scores
+    stay un-argmaxed: ``(M, C)`` float32 scores and an ``(M,)`` target go to K2,
+    which fuses the argmax (float64 scores become float32, as ``jnp.asarray``
+    makes them with 64-bit types off). The defaults argmax, as the JAX function does.
+    """
     if preds.ndim == target.ndim + 1 and top_k == 1:
+        if multidim_average == "global" and average != "micro":
+            scores = torch.movedim(preds, 1, -1).reshape(-1, preds.shape[1])
+            return scores.to(torch.float32), target.reshape(-1)
         preds = torch.argmax(preds, dim=1)
     preds = preds.reshape(*preds.shape[:2], -1) if top_k != 1 else preds.reshape(preds.shape[0], -1)
     target = target.reshape(target.shape[0], -1)
@@ -241,7 +258,8 @@ def _multiclass_stat_scores_update(
     multidim_average: str = "global",
     ignore_index: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """tp/fp/tn/fn (int32): one-hot path, micro fast path, or the K2 confusion matrix."""
+    """tp/fp/tn/fn (int32): one-hot path, micro fast path, or K2 (label
+    pairs, or ``(M, C)`` scores with an ``(M,)`` target from the format)."""
     if multidim_average == "samplewise" or top_k != 1:
         ignore_mask = (target == ignore_index) if ignore_index is not None else None
         if top_k > 1:
@@ -272,11 +290,9 @@ def _multiclass_stat_scores_update(
         fn = fp
         tn = num_classes * valid.sum(dtype=_I32) - (fp + fn + tp)
         return tp, fp, tn, fn
-    confmat = confusion_hist(preds, target, num_classes, ignore_index)
-    tp = torch.diagonal(confmat)
-    fp = confmat.sum(0, dtype=_I32) - tp
-    fn = confmat.sum(1, dtype=_I32) - tp
-    tn = confmat.sum(dtype=_I32) - (fp + fn + tp)
+    if preds.ndim != target.ndim + 1:
+        preds, target = preds.reshape(-1), target.reshape(-1)
+    tp, fp, tn, fn = stat_counts(preds, target, num_classes, ignore_index)
     return tp, fp, tn, fn
 
 
@@ -320,6 +336,6 @@ def multiclass_stat_scores(
     if validate_args:
         _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)
         _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index)
-    preds, target = _multiclass_stat_scores_format(preds, target, top_k)
+    preds, target = _multiclass_stat_scores_format(preds, target, top_k, average, multidim_average)
     tp, fp, tn, fn = _multiclass_stat_scores_update(preds, target, num_classes, top_k, average, multidim_average, ignore_index)
     return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)

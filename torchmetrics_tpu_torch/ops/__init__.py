@@ -2,17 +2,17 @@
 # Licensed under the Apache License, Version 2.0.
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
-- :func:`binned_curve_hist` (K1, ``csrc/binned_curve_hist.cu``): the binned
-  multi-threshold confusion histogram of the precision-recall curve family.
-- :func:`confusion_hist` (K2, ``csrc/confusion_hist.cu``): the confusion-matrix
-  bincount of the multiclass stat-scores family.
+- :func:`binned_curve_state` (K1, ``csrc/binned_curve_state.cu``): the binned
+  multi-threshold confusion state of the precision-recall curve family.
+- :func:`stat_counts` (K2, ``csrc/stat_counts.cu``): the argmax, the
+  confusion counts and the tp/fp/tn/fn of the multiclass stat-scores family.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute.
 """
-from torchmetrics_tpu_torch.ops.binned_curve_hist import binned_curve_hist, binned_curve_hist_plain
-from torchmetrics_tpu_torch.ops.confusion_hist import confusion_hist, confusion_hist_plain
+from torchmetrics_tpu_torch.ops.binned_curve_state import binned_curve_state, binned_curve_state_plain
+from torchmetrics_tpu_torch.ops.stat_counts import stat_counts, stat_counts_plain
 
 #: every kernel wrapper of the port, by kernel name
-KERNELS = {"binned_curve_hist": binned_curve_hist, "confusion_hist": confusion_hist}
+KERNELS = {"binned_curve_state": binned_curve_state, "stat_counts": stat_counts}
 
-__all__ = ["KERNELS", "binned_curve_hist", "binned_curve_hist_plain", "confusion_hist", "confusion_hist_plain"]
+__all__ = ["KERNELS", "binned_curve_state", "binned_curve_state_plain", "stat_counts", "stat_counts_plain"]

@@ -1,0 +1,147 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""K2 ``stat_counts``: the multiclass stat scores tp, fp, tn, fn of a batch,
+the argmax of the scores fused in, and its plain PyTorch version.
+
+Counterpart of ``jnp.argmax`` in
+``torchmetrics_tpu/functional/classification/stat_scores.py::_multiclass_stat_scores_format``
+followed by the bincount branch of ``::_multiclass_stat_scores_update``.
+The kernel is ``csrc/stat_counts.cu``; its source note gives the bound and
+the design. On a CPU tensor :func:`stat_counts` computes the plain version;
+on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from torchmetrics_tpu_torch.ops import _build
+from torchmetrics_tpu_torch.utilities.data import _bincount
+
+_ARGTYPES = [
+    ctypes.c_void_p,  # preds
+    ctypes.c_int,  # preds_mode
+    ctypes.c_void_p,  # target
+    ctypes.c_int,  # target64
+    ctypes.c_longlong,  # n
+    ctypes.c_int,  # num_classes
+    ctypes.c_int,  # llpr
+    ctypes.c_int,  # has_ignore
+    ctypes.c_int,  # ignore_index
+    ctypes.c_void_p,  # out
+    ctypes.c_void_p,  # stream
+]
+_INTS = (torch.int32, torch.int64)
+
+
+def _is_scores(preds: torch.Tensor, target: torch.Tensor) -> bool:
+    """(N, C) scores with an (N,) target; otherwise both are class indices."""
+    return preds.ndim == target.ndim + 1
+
+
+def stat_counts_plain(
+    preds: torch.Tensor, target: torch.Tensor, num_classes: int, ignore_index: Optional[int] = None
+) -> torch.Tensor:
+    """The (4, C) int32 rows tp, fp, tn, fn; see :func:`stat_counts`.
+
+    The JAX package's arithmetic step for step: the argmax of scores, int32
+    indices ``target * C + pred`` (``pred`` clamped and ignored entries sent
+    to a trash bin at ``C**2`` when ``ignore_index`` is set), counted with
+    ``jnp.bincount`` semantics (:func:`~torchmetrics_tpu_torch.utilities.data._bincount`),
+    then the diagonal and the row and column sums of the matrix.
+    """
+    c = num_classes
+    if _is_scores(preds, target):
+        preds = torch.argmax(preds, dim=1)
+    preds = preds.reshape(-1).to(torch.int32)
+    target = target.reshape(-1).to(torch.int32)
+    if ignore_index is not None:
+        valid = target != ignore_index
+        idx = torch.where(valid, target * c + preds.clamp(0, c - 1), torch.full_like(target, c * c))
+        bins = _bincount(idx, minlength=c * c + 1)[: c * c]
+    else:
+        bins = _bincount(target * c + preds, minlength=c * c)
+    confmat = bins.reshape(c, c)
+    tp = torch.diagonal(confmat)
+    fp = confmat.sum(0, dtype=torch.int32) - tp
+    fn = confmat.sum(1, dtype=torch.int32) - tp
+    tn = confmat.sum(dtype=torch.int32) - (fp + fn + tp)
+    return torch.stack([tp, fp, tn, fn])
+
+
+def _lanes_per_row_log2(vectors: int) -> int:
+    """log2 of the lanes that share a row: about four vectors per lane, at most a warp."""
+    llpr = 0
+    while (1 << llpr) < 32 and (1 << llpr) * 4 < vectors:
+        llpr += 1
+    return llpr
+
+
+def stat_counts(
+    preds: torch.Tensor, target: torch.Tensor, num_classes: int, ignore_index: Optional[int] = None
+) -> torch.Tensor:
+    """(4, C) int32 rows tp, fp, tn, fn of one batch of multiclass predictions.
+
+    ``preds`` is (N, C) float32 scores, whose argmax along the classes is the
+    prediction (``jnp.argmax``: the first NaN, else the first maximum), or
+    (N,) int32/int64 class indices; ``target`` is (N,) int32/int64. int64
+    labels are cut to int32, as the JAX update casts them.
+
+    CUDA tensors go through the hand kernel; CPU tensors through
+    :func:`stat_counts_plain`.
+    """
+    if preds.device.type == "cpu" and target.device.type == "cpu":
+        return stat_counts_plain(preds, target, num_classes, ignore_index)
+    if preds.device.type != "cuda" or target.device != preds.device:
+        raise ValueError(f"stat_counts: preds on {preds.device} and target on {target.device}; expected one CUDA device")
+    if target.dtype not in _INTS:
+        raise TypeError(f"stat_counts: expected an int32/int64 target, got {target.dtype}")
+    if not 1 <= num_classes <= 46340:  # C*C must fit in int32
+        raise ValueError(f"stat_counts: num_classes={num_classes} out of range")
+    if ignore_index is not None and not -(2**31) <= ignore_index < 2**31:
+        raise ValueError(f"stat_counts: ignore_index={ignore_index} does not fit in int32")
+    target = target.reshape(-1).contiguous()
+    scores = _is_scores(preds, target)
+    llpr = 0
+    if scores:
+        if preds.dtype != torch.float32 or preds.shape != (target.numel(), num_classes):
+            raise ValueError(
+                f"stat_counts: expected ({target.numel()}, {num_classes}) float32 scores, got {tuple(preds.shape)} {preds.dtype}"
+            )
+        preds = preds.contiguous()
+        vec4 = num_classes % 4 == 0 and preds.data_ptr() % 16 == 0
+        mode = 0 if vec4 else 1
+        llpr = _lanes_per_row_log2(num_classes // 4 if vec4 else num_classes)
+    else:
+        if preds.dtype not in _INTS:
+            raise TypeError(f"stat_counts: expected int32/int64 labels or (N, C) float32 scores, got {preds.dtype}")
+        preds = preds.reshape(-1).contiguous()
+        if preds.numel() != target.numel():
+            raise ValueError(f"stat_counts: {preds.numel()} preds but {target.numel()} targets")
+        mode = 2 if preds.dtype == torch.int32 else 3
+    out = torch.zeros((4, num_classes), dtype=torch.int32, device=preds.device)
+    if target.numel() == 0:  # nothing to count: no launch, and none is counted
+        return out
+    fn = _build.function("stat_counts", _ARGTYPES)
+    with torch.cuda.device(preds.device):
+        status = fn(
+            preds.data_ptr(),
+            mode,
+            target.data_ptr(),
+            int(target.dtype == torch.int64),
+            target.numel(),
+            num_classes,
+            llpr,
+            int(ignore_index is not None),
+            ignore_index if ignore_index is not None else 0,
+            out.data_ptr(),
+            torch.cuda.current_stream(preds.device).cuda_stream,
+        )
+    _build.check(status, "stat_counts")
+    stat_counts.launches += 1
+    return out
+
+
+stat_counts.launches = 0  # launches of the CUDA kernel (the plain version is not counted)
