@@ -27,13 +27,29 @@ result) if it fails:
    counts of the kernels are zeroed just before and read just after, the
    final states must equal bitwise those of the same stream folded through
    the plain versions, and the values must be finite, in [0, 1] and agree
-   with a numpy reference for accuracy and F1.
+   with a numpy reference for accuracy and F1;
+6. exact: ``MulticlassAUROC`` and ``MulticlassAveragePrecision`` at their
+   defaults (``thresholds=None``, macro) over the same stream, one compute
+   group; per-class values within 1e-6 of the same stream folded on the CPU
+   through the port and within 1e-4 of a float64 numpy/scipy reference, one
+   class's padded curve bitwise equal on the card and the CPU; compute's
+   device time, launches, the sort's share and the peak memory;
+7. multilabel: ``MultilabelAccuracy``, ``MultilabelF1Score(macro)`` and
+   ``MultilabelAUROC(macro, thresholds=128)`` over 8 batches of 65536 x 64
+   logits with {0, 1} targets, about 1% ignored (-1); K1 must launch once per
+   batch, in matrix mode; the final int32 states must equal bitwise the
+   stream folded with K1's plain version, and the values a numpy reference
+   within 1e-6 / 1e-5 / 1e-5.
 
-The last lines of standard output are a ``[kernels]`` line per kernel, a
-``[summary]`` line with the slice's throughput, busy share, device time by
-kernel and, per pass, the launches of the argmax, prefix-sum and int32-sum
-kernels that K1 and K2 took over, ``nvidia-smi``'s line, the ``kernels`` JSON object and
-``{"ok": true, "device": {...}}``.
+Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
+against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
+
+The last lines of standard output are a ``[kernels]`` line per kernel (and
+one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
+busy share, device time by kernel and, per pass, the launches of the argmax,
+prefix-sum and int32-sum kernels that K1 and K2 took over, and the exact and
+multilabel phases' device times, ``nvidia-smi``'s line, the ``kernels`` JSON
+object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -179,7 +195,11 @@ def _device_ms(fn, arg_sets, reps=PROFILE_REPS):
     found, busy_us, _ = _profile(one_call, reps)
     if busy_us <= 0:
         raise SmokeFailure(f"torch.profiler saw no device time for {getattr(fn, '__name__', fn)}")
-    return busy_us / reps / 1e3, found
+    # each kernel's mean time per launch times its launches per call: the same as
+    # busy_us / reps for a whole trace, and still right for one that lost events
+    # (torch.profiler on an H100 was seen to drop some launches of a kernel from a trace)
+    per_call_us = sum(t / n * max(1, round(n / reps)) for t, n in found.values() if n)
+    return per_call_us / 1e3, found
 
 
 def _measure(versions):
@@ -579,11 +599,25 @@ def phase_slice(device, batches, kernels):
     _require(abs(vals["acc"] - want_acc) <= 1e-6, f"accuracy {vals['acc']} vs numpy {want_acc}")
     _require(abs(vals["f1"] - want_f1) <= 1e-5, f"macro F1 {vals['f1']} vs numpy {want_f1}")
 
-    # steady state: the groups are settled, updates only (no first-update
-    # comparisons); STEADY_PASSES passes over the stream, the median reported
+    steady = _steady_and_profile("slice", suite, batches)
+    samples = NUM_BATCHES * BATCH
+    print(
+        f"[slice] {samples} samples: first pass (update + group formation + compute) {seconds:.4f} s ="
+        f" {samples / seconds:.1f} samples/s; steady updates, median of {STEADY_PASSES} passes {steady['median_s']:.4f} s ="
+        f" {samples / steady['median_s']:.1f} samples/s (passes: {', '.join(f'{p:.4f}' for p in steady['passes'])} s)"
+    )
+    return {"launches": launches, "first_sps": samples / seconds, "steady_sps": samples / steady["median_s"], **steady}
+
+
+def _steady_and_profile(tag, suite, batches):
+    """Steady passes of ``suite.update`` over ``batches`` (the compute groups are
+    settled, updates only), their median, and where one pass's device time
+    goes, by kernel, and the host's; printed under ``[tag]``, ``[profile]`` and ``[host]``."""
+    import torch
+
     def steady_pass():
-        for logits, labels in batches:
-            suite.update(logits, labels)
+        for batch in batches:
+            suite.update(*batch)
 
     passes = []
     for _ in range(STEADY_PASSES):
@@ -594,23 +628,16 @@ def phase_slice(device, batches, kernels):
         torch.cuda.synchronize()
         passes.append(time.perf_counter() - t1)
     steady = statistics.median(passes)
-    samples = NUM_BATCHES * BATCH
-    print(
-        f"[slice] {samples} samples: first pass (update + group formation + compute) {seconds:.4f} s ="
-        f" {samples / seconds:.1f} samples/s; steady updates, median of {STEADY_PASSES} passes {steady:.4f} s ="
-        f" {samples / steady:.1f} samples/s (passes: {', '.join(f'{p:.4f}' for p in passes)} s)"
-    )
 
-    # where the steady updates' device time goes, by kernel, and the host's
     found, busy_us, wall_us = _profile(steady_pass, 1)
     print(
-        f"[profile] steady pass of {NUM_BATCHES} updates: device busy {busy_us:.1f} us in kernels; busy share"
+        f"[profile] {tag}, steady pass of {len(batches)} updates: device busy {busy_us:.1f} us in kernels; busy share"
         f" {busy_us / (steady * 1e6):.3f} of the unprofiled median window ({steady * 1e6:.1f} us),"
         f" {busy_us / wall_us:.3f} of the profiled one ({wall_us:.1f} us)"
     )
     watched = _watched_launches(found)
     print(
-        f"[profile] launches per pass of {NUM_BATCHES} updates: {sum(n for _, n in found.values())} device kernels;"
+        f"[profile] {tag}, launches per pass of {len(batches)} updates: {sum(n for _, n in found.values())} device kernels;"
         f" {watched}"
     )
     top = sorted(found.items(), key=lambda kv: -kv[1][0])
@@ -626,11 +653,10 @@ def phase_slice(device, batches, kernels):
     stats.sort_stats("tottime").print_stats(12)
     for line in text.getvalue().splitlines():
         if line.strip() and ("function calls" in line or not line.startswith(("   Ordered", "         "))):
-            print(f"[host] {line[:150]}")
+            print(f"[host] {tag}: {line[:150]}")
     return {
-        "launches": launches,
-        "first_sps": samples / seconds,
-        "steady_sps": samples / steady,
+        "median_s": steady,
+        "passes": passes,
         "steady_range_ms": (min(passes) * 1e3, max(passes) * 1e3),
         "busy_us": busy_us,
         "busy_share": busy_us / (steady * 1e6),
@@ -639,6 +665,309 @@ def phase_slice(device, batches, kernels):
         "watched": watched,
         "device_launches": sum(n for _, n in found.values()),
     }
+
+
+# --------------------------------------------------------------- K1 matrix mode
+
+
+def _multilabel_batches(device):
+    """The multilabel stream: NUM_BATCHES (logits, targets) pairs of BATCH x NUM_CLASSES labels, made on
+    the card from SEED + 3; targets in {0, 1}, about 1% of them -1 (``ignore_index=-1``)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    batches = []
+    for _ in range(NUM_BATCHES):
+        logits = torch.randn((BATCH, NUM_CLASSES), generator=gen, device=device, dtype=torch.float32)
+        target = torch.randint(0, 2, (BATCH, NUM_CLASSES), generator=gen, device=device, dtype=torch.int32)
+        ignored = torch.rand((BATCH, NUM_CLASSES), generator=gen, device=device) < 0.01
+        batches.append((logits, torch.where(ignored, -1, target)))
+    return batches
+
+
+def check_binned_curve_matrix_mode(device, ml_batches):
+    """K1 in matrix mode (an (N, K) target, -1 masking an entry), the multilabel path's
+    launch, against its plain version at the bench's width; then timed."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _uniform_grid
+    from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain
+    from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
+
+    thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
+    affine = _uniform_grid(THRESHOLDS)
+    arg_sets = [(torch.sigmoid(logits), thr, target, False, affine) for logits, target in ml_batches]
+    plain_sets = [a[:4] for a in arg_sets]
+    want = binned_curve_state_plain(*plain_sets[0])
+    max_err = _assert_bitwise(binned_curve_state(*arg_sets[0]), want, "binned_curve_state, matrix mode, bench width")
+    _assert_bitwise(binned_curve_state(*plain_sets[0]), want, "binned_curve_state, matrix mode, binary search")
+    _assert_state_counts(want, int((ml_batches[0][1] >= 0).sum()), "binned_curve_state, matrix mode")
+    times = _measure(
+        [
+            ("kernel", binned_curve_state, arg_sets),
+            ("plain", binned_curve_state_plain, plain_sets),
+            ("read_floor", _read_floor, [(a[0],) for a in arg_sets]),
+        ]
+    )
+    n_elem = BATCH * NUM_CLASSES
+    n_bytes = n_elem * 4 * 2 + THRESHOLDS * 4 + THRESHOLDS * NUM_CLASSES * 4 * 4  # probabilities, int32 targets, grid, state
+    bound_ms, bound_by = _bound(n_bytes, n_elem * 6)
+    row = {
+        "ms": times["kernel"]["device_ms"],
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "binned_curve_state"),
+        "plain_ms": times["plain"]["device_ms"],
+        "read_floor_ms": times["read_floor"]["device_ms"],
+        "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bytes": n_bytes,
+        "max_abs_err": max_err,
+    }
+    print(
+        f"[kernels] binned_curve_state, matrix mode: bitwise equal to its plain version at {BATCH}x{NUM_CLASSES}"
+        f" T={THRESHOLDS} with -1 entries (affine and binary-search bin index)"
+    )
+    return row
+
+
+# ---------------------------------------------------------------------- exact
+
+# kernels of the exact path's sort, by a pattern of their device names, and
+# the kinds its compute time is split into (the first pattern that matches)
+SORT_KERNELS = r"[Ss]ort"
+EXACT_KINDS = {"sort": SORT_KERNELS, "scan (cumsum, cummax)": r"scan", "gather": r"gather|index",
+               "copy and cast": r"copy|Cat", "reduce": r"reduce"}
+
+
+def _numpy_exact_reference(preds, target):
+    """Per-class AUROC (the Mann-Whitney statistic with midranks) and AP (from a
+    stable descending sort, tie groups merged) of the stored probabilities, in
+    float64 with numpy and scipy."""
+    import numpy as np
+    from scipy.stats import rankdata
+
+    p = preds.cpu().numpy().astype(np.float64)
+    y = target.cpu().numpy()
+    p, y = p[y >= 0], y[y >= 0]
+    ranks = rankdata(p, axis=0)
+    auroc, ap = np.empty(p.shape[1]), np.empty(p.shape[1])
+    for c in range(p.shape[1]):
+        pos = y == c
+        n_pos, n_neg = pos.sum(), (~pos).sum()
+        auroc[c] = (ranks[pos, c].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+        order = np.argsort(-p[:, c], kind="stable")
+        ps, ys = p[order, c], pos[order]
+        tps = np.cumsum(ys)
+        ends = np.r_[ps[1:] != ps[:-1], True]
+        tp_e, seen = tps[ends], np.arange(1, len(ys) + 1)[ends]
+        ap[c] = np.sum(np.diff(np.r_[0, tp_e]) * tp_e / seen) / n_pos
+    return auroc, ap
+
+
+def phase_exact(device, batches, kernels):
+    """MulticlassAUROC and MulticlassAveragePrecision at their exact defaults
+    (``thresholds=None``, macro) over the slice's stream: one compute group;
+    per-class values against the CPU fold and a float64 reference; one class's
+    padded curve bitwise against the CPU; compute's device time, launches,
+    sort share and peak memory."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.classification.auroc import _multiclass_auroc_compute
+    from torchmetrics_tpu_torch.functional.classification.average_precision import _multiclass_average_precision_compute
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _binary_clf_curve_padded
+
+    c = NUM_CLASSES
+    suite = tm.MetricCollection(
+        {
+            "auroc": tm.MulticlassAUROC(num_classes=c, validate_args=False, device=device),
+            "ap": tm.MulticlassAveragePrecision(num_classes=c, validate_args=False, device=device),
+        },
+        compute_groups=True,
+    )
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for logits, labels in batches:
+        suite.update(logits, labels)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    _require(groups == [["ap", "auroc"]], f"exact: compute groups {groups}, expected AUROC and AP in one")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    values = suite.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    vals = {k: float(v) for k, v in values.items()}
+    for k, v in vals.items():
+        _require(math.isfinite(v) and 0.0 <= v <= 1.0, f"exact: {k}={v} is not a finite value in [0, 1]")
+
+    state = suite["auroc"]._curve_state()
+    per_class = {
+        "auroc": _multiclass_auroc_compute(state, c, None).cpu(),
+        "ap": _multiclass_average_precision_compute(state, c, None).cpu(),
+    }
+    for k in per_class:
+        _require(abs(vals[k] - float(per_class[k].mean())) <= 1e-6, f"exact: macro {k} {vals[k]} vs mean of its classes")
+    cpu = {
+        "auroc": tm.MulticlassAUROC(num_classes=c, average=None, validate_args=False, device="cpu"),
+        "ap": tm.MulticlassAveragePrecision(num_classes=c, average=None, validate_args=False, device="cpu"),
+    }
+    for logits, labels in batches:
+        for metric in cpu.values():
+            metric.update(logits.cpu(), labels.cpu())
+    err_cpu = {k: float((per_class[k] - cpu[k].compute()).abs().max()) for k in cpu}
+    ref_auroc, ref_ap = _numpy_exact_reference(*state)
+    err_ref = {
+        "auroc": float(abs(per_class["auroc"].double().numpy() - ref_auroc).max()),
+        "ap": float(abs(per_class["ap"].double().numpy() - ref_ap).max()),
+    }
+    for k in cpu:
+        _require(err_cpu[k] <= 1e-6, f"exact: per-class {k} on the card vs the CPU fold: max |diff| {err_cpu[k]}")
+        _require(err_ref[k] <= 1e-4, f"exact: per-class {k} vs the float64 reference: max |diff| {err_ref[k]}")
+
+    preds, target = state
+    tgt = torch.where(target >= 0, (target == 0).to(torch.int32), -1)
+    card_curve = _binary_clf_curve_padded(preds[:, 0], tgt)
+    cpu_curve = _binary_clf_curve_padded(preds[:, 0].cpu(), tgt.cpu())
+    for what, g, w in zip(("fps", "tps", "thresholds", "mask"), card_curve, cpu_curve):
+        g = g.cpu()
+        same = torch.equal(g.view(torch.int32), w.view(torch.int32)) if g.is_floating_point() else torch.equal(g, w)
+        _require(same, f"exact: class 0's padded curve, {what}, differs between the card and the CPU")
+
+    def compute_once():
+        for metric in suite.values(copy_state=False):
+            metric._computed = None
+        suite.compute()
+
+    found, busy_us, _ = _profile(compute_once, 3)
+    import re
+
+    sort_us = sum(t for key, (t, _) in found.items() if re.search(SORT_KERNELS, key))
+    kinds = {}
+    for key, (t, n) in found.items():
+        kind = next((k for k, pat in EXACT_KINDS.items() if re.search(pat, key)), "other")
+        us, count = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (us + t / 3, count + n / 3)
+    print("[exact] compute device us by kind: " + "; ".join(f"{k} {us:.1f} in {n:.0f}" for k, (us, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    device_launches = sum(n for _, n in found.values()) / 3
+    top = sorted(found.items(), key=lambda kv: -kv[1][0])
+    for key, (t, n) in top[:10]:
+        print(f"[exact]   {t / 3:10.1f} us  {n / 3:6.1f} launches  {key[:110]}")
+    samples = NUM_BATCHES * BATCH
+    print(
+        f"[exact] MulticlassAUROC + MulticlassAveragePrecision (thresholds=None, macro) over {samples}x{c}:"
+        f" values {vals}; hand-kernel launches {launches}; update pass {update_s:.4f} s; first compute {compute_s:.4f} s wall;"
+        f" compute device {busy_us / 3 / 1e3:.3f} ms, {device_launches:.0f} device kernels, sort share {sort_us / busy_us:.3f};"
+        f" peak memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held before compute);"
+        f" per-class max |card - CPU| {err_cpu}, max |card - float64 reference| {err_ref};"
+        " class 0's padded curve bitwise equal on the card and the CPU"
+    )
+    return {"compute_ms": busy_us / 3 / 1e3, "sort_share": sort_us / busy_us, "peak_mib": peak / 2**20}
+
+
+# ----------------------------------------------------------------- multilabel
+
+
+def _numpy_multilabel_reference(ml_batches):
+    """Macro accuracy, macro F1 (at 0.5) and macro binned AUROC (T=128) of the
+    multilabel stream in float64 with numpy; ignored (-1) entries dropped."""
+    import numpy as np
+
+    logits = np.concatenate([logits.cpu().numpy() for logits, _ in ml_batches]).astype(np.float64)
+    y = np.concatenate([target.cpu().numpy() for _, target in ml_batches])
+    pred = logits > 0  # sigmoid(x) > 0.5; an ignored entry (-1) is neither 0 nor 1
+    tp = (pred & (y == 1)).sum(0)
+    fp = (pred & (y == 0)).sum(0)
+    tn = (~pred & (y == 0)).sum(0)
+    fn = (~pred & (y == 1)).sum(0)
+    acc = ((tp + tn) / (tp + tn + fp + fn)).mean()
+    f1 = (2 * tp / np.maximum(2 * tp + fp + fn, 1)).mean()
+    thr = np.linspace(0, 1, THRESHOLDS).astype(np.float32).astype(np.float64)
+    bins = np.searchsorted(thr, 1 / (1 + np.exp(-logits)), side="right")  # thresholds <= p
+    aucs = []
+    for k in range(y.shape[1]):
+        ge = []
+        for label in (1, 0):
+            hist = np.bincount(bins[y[:, k] == label, k], minlength=THRESHOLDS + 1)
+            ge.append(np.cumsum(hist[::-1])[::-1][1:] / hist.sum())  # share with p >= thr_t
+        tpr, fpr = ge[0][::-1], ge[1][::-1]
+        aucs.append(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+    return acc, f1, float(np.mean(aucs))
+
+
+def phase_multilabel(device, ml_batches, kernels):
+    """MultilabelAccuracy, MultilabelF1Score(macro) and MultilabelAUROC(macro,
+    thresholds=128) over the multilabel stream: K1 launches once per batch in
+    matrix mode; states bitwise against the stream folded with K1's plain
+    version; values against a numpy reference; the steady pass profiled."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+        _multilabel_stat_scores_format,
+        _multilabel_stat_scores_update,
+    )
+    from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain
+    from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax, normalize_logits_if_needed
+
+    c = NUM_CLASSES
+    common = {"ignore_index": -1, "validate_args": False, "device": device}
+    suite = tm.MetricCollection(
+        {
+            "acc": tm.MultilabelAccuracy(num_labels=c, **common),
+            "f1": tm.MultilabelF1Score(num_labels=c, average="macro", **common),
+            "auroc": tm.MultilabelAUROC(num_labels=c, average="macro", thresholds=THRESHOLDS, **common),
+        },
+        compute_groups=True,
+    )
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    binned_curve_state.matrix_launches = 0
+    for logits, target in ml_batches:
+        suite.update(logits, target)
+    values = suite.compute()
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    matrix = binned_curve_state.matrix_launches
+    _require(
+        launches["binned_curve_state"] == matrix == NUM_BATCHES,
+        f"multilabel: K1 launched {launches['binned_curve_state']} times ({matrix} in matrix mode), expected {NUM_BATCHES}",
+    )
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    _require(groups == [["acc", "f1"], ["auroc"]], f"multilabel: compute groups {groups}, expected accuracy and F1 in one")
+
+    thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
+    want = {k: torch.zeros(c, dtype=torch.int32, device=device) for k in ("tp", "fp", "tn", "fn")}
+    confmat = torch.zeros((THRESHOLDS, c, 2, 2), dtype=torch.int32, device=device)
+    for logits, target in ml_batches:
+        preds, tgt = _multilabel_stat_scores_format(logits, target, c, 0.5, -1)
+        for name, counts in zip(("tp", "fp", "tn", "fn"), _multilabel_stat_scores_update(preds, tgt)):
+            want[name] += counts
+        confmat += binned_curve_state_plain(normalize_logits_if_needed(logits, "sigmoid"), thr, target, False)
+    for key in ("acc", "f1"):
+        for name, counts in want.items():
+            _assert_bitwise(getattr(suite[key], name), counts, f"multilabel state {key}.{name}")
+    _assert_bitwise(suite["auroc"].confmat, confmat, "multilabel state auroc.confmat")
+
+    vals = {k: float(v) for k, v in values.items()}
+    ref = dict(zip(("acc", "f1", "auroc"), _numpy_multilabel_reference(ml_batches)))
+    for k, tol in (("acc", 1e-6), ("f1", 1e-5), ("auroc", 1e-5)):
+        _require(abs(vals[k] - ref[k]) <= tol, f"multilabel: {k} {vals[k]} vs numpy {ref[k]} (tolerance {tol})")
+    steady = _steady_and_profile("multilabel", suite, ml_batches)
+    print(
+        f"[multilabel] {NUM_BATCHES}x{BATCH}x{c} logits, 1% ignored: values {vals} (numpy {ref}); launches {launches},"
+        f" K1 in matrix mode {matrix}; states bitwise equal to the fold with K1's plain version; steady pass"
+        f" {steady['median_s'] * 1e3:.3f} ms median, device work {steady['busy_us']:.1f} us in"
+        f" {steady['device_launches']} device kernels, busy share {steady['busy_share']:.3f}"
+    )
+    return {"launches": launches, **steady}
 
 
 # ----------------------------------------------------------------------- main
@@ -665,11 +994,18 @@ def main() -> int:
     device, smi = phase_device()
     build_s = phase_build()
     batches = _main_path_batches(device)
+    ml_batches = _multilabel_batches(device)
     rows = [check_binned_curve_state(device, batches), check_stat_counts(device, batches)]
+    matrix_row = check_binned_curve_matrix_mode(device, ml_batches)
     entry_diffs = phase_entry(KERNELS)
     run = phase_slice(device, batches, KERNELS)
+    exact = phase_exact(device, batches, KERNELS)
+    ml_run = phase_multilabel(device, ml_batches, KERNELS)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
+    matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", library_ms=None,
+                      launches=ml_run["launches"]["binned_curve_state"])
+    for row in rows + [matrix_row]:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
             f"[kernels] {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
@@ -686,7 +1022,9 @@ def main() -> int:
         f" ({run['busy_us']:.1f} us in kernels); device us by kernel:"
         f" {'; '.join(f'{name} {t:.1f}/{n}' for name, t, n in run['top'])}; launches per pass {run['device_launches']},"
         f" of them {', '.join(f'{k} {v}' for k, v in run['watched'].items())}; host {run['host_calls']} Python calls"
-        f" per pass; total {time.perf_counter() - t_start:.1f} s"
+        f" per pass; exact compute {exact['compute_ms']:.3f} ms device, sort share {exact['sort_share']:.3f}, peak"
+        f" {exact['peak_mib']:.1f} MiB; multilabel steady pass {ml_run['busy_us']:.1f} us device, busy share"
+        f" {ml_run['busy_share']:.3f}; total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

@@ -302,5 +302,10 @@ def test_multiclass_update_through_format(average):
 
 
 def test_exact_mode_is_refused_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprc.binary_precision_recall_curve(torch.rand(8), torch.randint(0, 2, (8,)), thresholds=None)
+    """The exact mode (``thresholds=None``), once refused, is ported: it builds
+    the unique-threshold curve and raises nothing (parity in test_torch_exact_curve.py)."""
+    p = torch.tensor([0.1, 0.4, 0.4, 0.8])
+    t = torch.tensor([0, 1, 0, 1])
+    precision, recall, thr = tprc.binary_precision_recall_curve(p, t, thresholds=None)
+    assert thr.tolist() == pytest.approx([0.1, 0.4, 0.8])
+    assert precision.tolist() == pytest.approx([0.5, 2 / 3, 1.0, 1.0]) and recall.tolist() == [1.0, 1.0, 0.5, 0.0]

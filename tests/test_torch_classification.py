@@ -373,10 +373,10 @@ def test_task_wrappers_dispatch():
     assert isinstance(T.Accuracy(task="multiclass", num_classes=3, device="cpu"), T.MulticlassAccuracy)
     assert isinstance(T.F1Score(task="binary", device="cpu"), T.BinaryF1Score)
     assert isinstance(T.AUROC(task="multiclass", num_classes=3, thresholds=5, device="cpu"), T.MulticlassAUROC)
-    with pytest.raises(NotImplementedError, match="multilabel"):
-        T.Accuracy(task="multilabel", num_labels=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.MulticlassAUROC(num_classes=3, device="cpu")  # thresholds=None: the exact mode
+    assert isinstance(T.Accuracy(task="multilabel", num_labels=3, device="cpu"), T.MultilabelAccuracy)
+    assert isinstance(T.AUROC(task="multilabel", num_labels=3, device="cpu"), T.MultilabelAUROC)
+    exact = T.MulticlassAUROC(num_classes=3, device="cpu")  # thresholds=None: the exact mode
+    assert exact.thresholds is None and exact.preds == [] and exact.target == []
 
 
 # ------------------------------------------------------------- functional API

@@ -1,13 +1,19 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""The port's hand CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's hand CUDA kernels against their plain PyTorch versions, on a card,
+and the exact curve path on the card against the same path on the CPU.
 
 Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` (the kernels are built
 from ``torchmetrics_tpu_torch/csrc`` at first use) and skip without them.
 Run them on a machine with a card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest``.
 Each dispatch path of each kernel is held bitwise (integer counts) against
 its plain version on the same CUDA inputs, and its launch counter must move.
+The exact curve has no hand kernel: its padded curve must equal the CPU's
+bitwise (the sort's order on NaN, signed zeros and ignored entries) and its
+AUROC and AP within 1e-6 (float32 sums in another order).
 """
+import importlib
+
 import shutil
 
 import numpy as np
@@ -15,6 +21,11 @@ import pytest
 import torch
 
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _uniform_grid
+from torchmetrics_tpu_torch.functional.classification.auroc import _multiclass_auroc_compute, _multilabel_auroc_compute
+from torchmetrics_tpu_torch.functional.classification.average_precision import (
+    _multiclass_average_precision_compute,
+    _multilabel_average_precision_compute,
+)
 from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain, stat_counts, stat_counts_plain
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
 
@@ -107,3 +118,52 @@ def test_empty_batches_launch_nothing(card):
     assert (binned_curve_state.launches, stat_counts.launches) == before
     assert state.shape == (9, 4, 2, 2) and int(state.abs().sum()) == 0
     assert counts.shape == scores.shape == (4, 4) and int(counts.abs().sum()) == int(scores.abs().sum()) == 0
+
+
+def test_binned_curve_state_matrix_mode_at_bench_width(card):
+    """The multilabel path: K1's matrix mode at 65536x64, T=128, with -1 (ignored) entries."""
+    rng = np.random.default_rng(44)
+    n, k = 65536, 64
+    p = torch.sigmoid(torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))).to(card)
+    target = rng.integers(0, 2, (n, k)).astype(np.int32)
+    target.reshape(-1)[rng.integers(0, n * k, n * k // 100)] = -1
+    tc = torch.from_numpy(target).to(card)
+    thr = _linspace_like_jax(0.0, 1.0, 128, device=card)
+    before = binned_curve_state.launches
+    got = binned_curve_state(p, thr, tc, False, _uniform_grid(128))
+    torch.cuda.synchronize()
+    assert binned_curve_state.launches == before + 1
+    torch.testing.assert_close(got, binned_curve_state_plain(p, thr, tc, False), rtol=0, atol=0)
+
+
+def test_exact_padded_curve_on_the_card_equals_cpu(card):
+    """NaN last (after the ignored entries), +-0 tied in input order, +-inf, ties."""
+    prc = importlib.import_module("torchmetrics_tpu_torch.functional.classification.precision_recall_curve")
+    rng = np.random.default_rng(45)
+    p = np.round(rng.random(100003), 3).astype(np.float32)
+    specials = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+    p[rng.integers(0, p.size, 3000)] = specials[rng.integers(0, specials.size, 3000)]
+    t = rng.integers(-1, 2, p.size).astype(np.int32)
+    cpu = prc._binary_clf_curve_padded(torch.from_numpy(p), torch.from_numpy(t))
+    gpu = prc._binary_clf_curve_padded(torch.from_numpy(p).to(card), torch.from_numpy(t).to(card))
+    for g, c in zip(gpu, cpu):
+        assert torch.equal(g.cpu().view(torch.uint8) if g.is_floating_point() else g.cpu(), c.view(torch.uint8) if c.is_floating_point() else c)
+
+
+@pytest.mark.parametrize("task", ["multiclass", "multilabel"])
+def test_exact_auroc_and_ap_on_the_card_equal_cpu(card, task):
+    rng = np.random.default_rng(46)
+    n, c = 131072, 64
+    logits = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+    if task == "multiclass":
+        preds = torch.softmax(logits, dim=1)
+        target = torch.from_numpy(rng.integers(-1, c, n).astype(np.int32))
+        fns = (lambda s: _multiclass_auroc_compute(s, c, None), lambda s: _multiclass_average_precision_compute(s, c, None))
+    else:
+        preds = torch.sigmoid(logits)
+        target = torch.from_numpy(rng.integers(-1, 2, (n, c)).astype(np.int32))
+        fns = (lambda s: _multilabel_auroc_compute(s, c, None, None), lambda s: _multilabel_average_precision_compute(s, c, None, None))
+    for fn in fns:
+        want = fn((preds, target))
+        got = fn((preds.to(card), target.to(card)))
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)

@@ -11,21 +11,35 @@ version, which CPU tensors use. See ROADMAP.md for what is ported so far.
 from torchmetrics_tpu_torch.classification import (
     AUROC,
     Accuracy,
-    BinaryAccuracy,
+    AveragePrecision,
     BinaryAUROC,
+    BinaryAccuracy,
+    BinaryAveragePrecision,
     BinaryF1Score,
     BinaryFBetaScore,
     BinaryPrecisionRecallCurve,
+    BinaryROC,
     BinaryStatScores,
     F1Score,
     FBetaScore,
-    MulticlassAccuracy,
     MulticlassAUROC,
+    MulticlassAccuracy,
+    MulticlassAveragePrecision,
     MulticlassF1Score,
     MulticlassFBetaScore,
     MulticlassPrecisionRecallCurve,
+    MulticlassROC,
     MulticlassStatScores,
+    MultilabelAUROC,
+    MultilabelAccuracy,
+    MultilabelAveragePrecision,
+    MultilabelF1Score,
+    MultilabelFBetaScore,
+    MultilabelPrecisionRecallCurve,
+    MultilabelROC,
+    MultilabelStatScores,
     PrecisionRecallCurve,
+    ROC,
     StatScores,
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
@@ -34,22 +48,36 @@ from torchmetrics_tpu_torch.metric import Metric
 __all__ = [
     "AUROC",
     "Accuracy",
-    "BinaryAccuracy",
+    "AveragePrecision",
     "BinaryAUROC",
+    "BinaryAccuracy",
+    "BinaryAveragePrecision",
     "BinaryF1Score",
     "BinaryFBetaScore",
     "BinaryPrecisionRecallCurve",
+    "BinaryROC",
     "BinaryStatScores",
     "F1Score",
     "FBetaScore",
     "Metric",
     "MetricCollection",
-    "MulticlassAccuracy",
     "MulticlassAUROC",
+    "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassPrecisionRecallCurve",
+    "MulticlassROC",
     "MulticlassStatScores",
+    "MultilabelAUROC",
+    "MultilabelAccuracy",
+    "MultilabelAveragePrecision",
+    "MultilabelF1Score",
+    "MultilabelFBetaScore",
+    "MultilabelPrecisionRecallCurve",
+    "MultilabelROC",
+    "MultilabelStatScores",
     "PrecisionRecallCurve",
+    "ROC",
     "StatScores",
 ]

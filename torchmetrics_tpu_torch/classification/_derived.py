@@ -6,16 +6,14 @@
 One factory subclasses the StatScores state machines and swaps in the
 family's reduce function. A reduce adapter has the signature
 ``reduce(tp, fp, tn, fn, average, multidim_average, multilabel, top_k, zero_division)``.
-Multilabel classes are not ported yet: the task wrapper refuses
-``task="multilabel"``.
 """
 from __future__ import annotations
 
 import sys
 from typing import Any, Callable, Optional
 
-from torchmetrics_tpu_torch.classification.base import _MULTILABEL_MESSAGE, _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores, MultilabelStatScores
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
@@ -25,7 +23,7 @@ def make_stat_scores_family(
     reduce: Callable,
     higher_is_better: bool = True,
 ) -> tuple:
-    """Build ``(Binary<Name>, Multiclass<Name>, <Name>)`` module classes."""
+    """Build ``(Binary<Name>, Multiclass<Name>, Multilabel<Name>, <Name>)`` module classes."""
 
     class _Binary(BinaryStatScores):
         def compute(self):
@@ -36,6 +34,11 @@ def make_stat_scores_family(
         def compute(self):
             tp, fp, tn, fn = self._final_state()
             return reduce(tp, fp, tn, fn, self.average, self.multidim_average, False, self.top_k, self.zero_division)
+
+    class _Multilabel(MultilabelStatScores):
+        def compute(self):
+            tp, fp, tn, fn = self._final_state()
+            return reduce(tp, fp, tn, fn, self.average, self.multidim_average, True, 1, self.zero_division)
 
     class _Wrapper(_ClassificationTaskWrapper):
         def __new__(  # type: ignore[misc]
@@ -61,18 +64,22 @@ def make_stat_scores_family(
                 if not isinstance(top_k, int):
                     raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
                 return _Multiclass(num_classes, top_k, average, **kwargs)
-            raise NotImplementedError(_MULTILABEL_MESSAGE)
+            if task == ClassificationTask.MULTILABEL:
+                if not isinstance(num_labels, int):
+                    raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+                return _Multilabel(num_labels, threshold, average, **kwargs)
+            raise ValueError(f"Not handled value: {task}")
 
     # bind the classes into the caller's module under their public names, so
     # pickling finds them (pickle looks classes up by __module__ + __qualname__)
     # and the state-spec fingerprint, which hashes the class name, matches JAX's
     caller_module = sys._getframe(1).f_globals.get("__name__", __name__)
-    for klass, prefix in ((_Binary, "Binary"), (_Multiclass, "Multiclass")):
+    for klass, prefix in ((_Binary, "Binary"), (_Multiclass, "Multiclass"), (_Multilabel, "Multilabel")):
         klass.__name__ = klass.__qualname__ = f"{prefix}{name}"
         klass.__module__ = caller_module
         klass.__doc__ = f"{prefix} {name} module metric."
         klass.higher_is_better = higher_is_better
     _Wrapper.__name__ = _Wrapper.__qualname__ = name
     _Wrapper.__module__ = caller_module
-    _Wrapper.__doc__ = f"Task-dispatching {name} (binary and multiclass)."
-    return _Binary, _Multiclass, _Wrapper
+    _Wrapper.__doc__ = f"Task-dispatching {name}."
+    return _Binary, _Multiclass, _Multilabel, _Wrapper

@@ -11,6 +11,6 @@ def _reduce(tp, fp, tn, fn, average, multidim_average, multilabel, top_k, zero_d
     return _accuracy_reduce(tp, fp, tn, fn, average, multidim_average, multilabel, top_k)
 
 
-BinaryAccuracy, MulticlassAccuracy, Accuracy = make_stat_scores_family("Accuracy", _reduce)
+BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy, Accuracy = make_stat_scores_family("Accuracy", _reduce)
 
-__all__ = ["BinaryAccuracy", "MulticlassAccuracy", "Accuracy"]
+__all__ = ["BinaryAccuracy", "MulticlassAccuracy", "MultilabelAccuracy", "Accuracy"]

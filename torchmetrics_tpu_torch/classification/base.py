@@ -9,8 +9,6 @@ from typing import Any
 
 from torchmetrics_tpu_torch.metric import Metric
 
-_MULTILABEL_MESSAGE = "task='multilabel' is not ported to the PyTorch package yet (ROADMAP A4b)"
-
 
 class _ClassificationTaskWrapper(Metric):
     """Base for task-dispatching classification metrics."""

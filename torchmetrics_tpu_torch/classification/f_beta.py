@@ -1,13 +1,12 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""F-beta / F1 module metrics, binary and multiclass (counterpart of
-``torchmetrics_tpu/classification/f_beta.py``)."""
+"""F-beta / F1 module metrics (counterpart of ``torchmetrics_tpu/classification/f_beta.py``)."""
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from torchmetrics_tpu_torch.classification.base import _MULTILABEL_MESSAGE, _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores, MultilabelStatScores
 from torchmetrics_tpu_torch.functional.classification.f_beta import _fbeta_reduce
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
@@ -82,6 +81,44 @@ class MulticlassFBetaScore(MulticlassStatScores):
         return _fbeta_reduce(tp, fp, tn, fn, self.beta, self.average, self.multidim_average, zero_division=self.zero_division)
 
 
+class MultilabelFBetaScore(MultilabelStatScores):
+    """Multilabel F-beta."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def __init__(
+        self,
+        beta: float,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_labels=num_labels,
+            threshold=threshold,
+            average=average,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=validate_args,
+            **kwargs,
+        )
+        if validate_args:
+            _validate_beta(beta)
+        self.beta = beta
+
+    def compute(self):
+        tp, fp, tn, fn = self._final_state()
+        return _fbeta_reduce(
+            tp, fp, tn, fn, self.beta, self.average, self.multidim_average, multilabel=True, zero_division=self.zero_division
+        )
+
+
 class BinaryF1Score(BinaryFBetaScore):
     """Binary F1."""
 
@@ -112,8 +149,24 @@ class MulticlassF1Score(MulticlassFBetaScore):
         super().__init__(1.0, num_classes, top_k, average, multidim_average, ignore_index, validate_args, **kwargs)
 
 
+class MultilabelF1Score(MultilabelFBetaScore):
+    """Multilabel F1."""
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(1.0, num_labels, threshold, average, multidim_average, ignore_index, validate_args, **kwargs)
+
+
 class FBetaScore(_ClassificationTaskWrapper):
-    """Task-dispatching F-beta (binary and multiclass)."""
+    """Task-dispatching F-beta."""
 
     def __new__(  # type: ignore[misc]
         cls,
@@ -139,11 +192,15 @@ class FBetaScore(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassFBetaScore(beta, num_classes, top_k, average, **kwargs)
-        raise NotImplementedError(_MULTILABEL_MESSAGE)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelFBetaScore(beta, num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Not handled value: {task}")
 
 
 class F1Score(_ClassificationTaskWrapper):
-    """Task-dispatching F1 (binary and multiclass)."""
+    """Task-dispatching F1."""
 
     def __new__(  # type: ignore[misc]
         cls,
@@ -168,7 +225,20 @@ class F1Score(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassF1Score(num_classes, top_k, average, **kwargs)
-        raise NotImplementedError(_MULTILABEL_MESSAGE)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelF1Score(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Not handled value: {task}")
 
 
-__all__ = ["BinaryFBetaScore", "MulticlassFBetaScore", "FBetaScore", "BinaryF1Score", "MulticlassF1Score", "F1Score"]
+__all__ = [
+    "BinaryFBetaScore",
+    "MulticlassFBetaScore",
+    "MultilabelFBetaScore",
+    "FBetaScore",
+    "BinaryF1Score",
+    "MulticlassF1Score",
+    "MultilabelF1Score",
+    "F1Score",
+]

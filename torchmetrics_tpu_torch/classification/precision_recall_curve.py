@@ -1,22 +1,29 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""PrecisionRecallCurve module metrics, binary and multiclass, binned mode
-(counterpart of ``torchmetrics_tpu/classification/precision_recall_curve.py``).
+"""PrecisionRecallCurve module metrics (counterpart of
+``torchmetrics_tpu/classification/precision_recall_curve.py``).
 
-The state is the fixed-shape ``(T, ..., 2, 2)`` int32 confusion tensor with
-``dist_reduce_fx="sum"``, written each batch by kernel K1 in one launch. The
-module asks once, at init, whether its grid ascends and whether K1's O(1)
-bin index is exact on it. The exact mode
-(``thresholds=None``, unbounded ``cat`` states) is not ported yet.
+Two state modes, registered with the same ``add_state`` calls as JAX's, so
+the ``state_spec`` fingerprints of the two packages match:
+
+- **binned** (``thresholds`` given): the fixed-shape ``(T, ..., 2, 2)`` int32
+  confusion tensor with ``dist_reduce_fx="sum"``, written each batch by
+  kernel K1 in one launch (labels mode for multiclass, matrix mode for
+  binary, micro and multilabel). The module asks once, at init, whether its
+  grid ascends and whether K1's O(1) bin index is exact on it.
+- **exact** (``thresholds=None``, the default): append-lists ``preds`` and
+  ``target`` with ``dist_reduce_fx="cat"``. An update only appends (no host
+  sync); compute concatenates them and builds the unique-threshold curve.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
-from torchmetrics_tpu_torch.classification.base import _MULTILABEL_MESSAGE, _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    CurveState,
     ThresholdsArg,
     _adjust_threshold_arg,
     _binary_precision_recall_curve_arg_validation,
@@ -29,12 +36,17 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
-    _require_binned,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_compute,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
     _thresholds_ascend,
     _uniform_grid,
 )
 from torchmetrics_tpu_torch.metric import Metric
-from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
+from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+from torchmetrics_tpu_torch.utilities.enums import _task_call
 
 Tensor = torch.Tensor
 
@@ -46,26 +58,48 @@ class _AbstractCurveMetric(Metric):
     higher_is_better = None
     full_state_update = False
 
+    preds: List[Tensor]
+    target: List[Tensor]
     confmat: Tensor
-    thresholds: Tensor
+    thresholds: Optional[Tensor]
 
-    def _create_curve_state(self, state_shape: Tuple[int, ...]) -> None:
-        self.add_state("confmat", torch.zeros(state_shape, dtype=torch.int32), dist_reduce_fx="sum")
+    def _create_curve_state(self, thresholds: ThresholdsArg, state_shape) -> None:
+        """Fix the grid (``None``: the exact mode) and register the states.
 
-    def _update_curve_state(self, state: Tensor) -> None:
-        self.confmat = self.confmat + state
+        ``state_shape(T)`` is the binned state's shape for a grid of ``T``
+        thresholds.
+        """
+        self.thresholds = _adjust_threshold_arg(thresholds, self.device)
+        self._thresholds_ascend = _thresholds_ascend(self.thresholds)
+        self._thresholds_affine = _uniform_grid(self.thresholds) if self._thresholds_ascend else None
+        if self.thresholds is None:
+            # the exact curve over every seen score: unbounded by its contract
+            self.add_state("preds", [], dist_reduce_fx="cat")
+            self.add_state("target", [], dist_reduce_fx="cat")
+        else:
+            self.add_state("confmat", torch.zeros(state_shape(len(self.thresholds)), dtype=torch.int32), dist_reduce_fx="sum")
 
-    def _curve_state(self) -> Tensor:
+    def _update_curve_state(self, state: CurveState) -> None:
+        if isinstance(state, tuple):
+            self.preds.append(state[0])
+            self.target.append(state[1])
+        else:
+            self.confmat = self.confmat + state
+
+    def _curve_state(self) -> CurveState:
+        if self.thresholds is None:
+            return dim_zero_cat(self.preds), dim_zero_cat(self.target)
         return self.confmat
 
     def to(self, device) -> "_AbstractCurveMetric":
         super().to(device)
-        self.thresholds = self.thresholds.to(self.device)
+        if self.thresholds is not None:
+            self.thresholds = self.thresholds.to(self.device)
         return self
 
 
 class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
-    """Binary precision-recall curve (binned)."""
+    """Binary precision-recall curve."""
 
     def __init__(
         self,
@@ -77,13 +111,9 @@ class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
         super().__init__(**kwargs)
         if validate_args:
             _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
-        _require_binned(thresholds)
         self.ignore_index = ignore_index
         self.validate_args = validate_args
-        self.thresholds = _adjust_threshold_arg(thresholds, self.device)
-        self._thresholds_ascend = _thresholds_ascend(self.thresholds)
-        self._thresholds_affine = _uniform_grid(self.thresholds) if self._thresholds_ascend else None
-        self._create_curve_state((len(self.thresholds), 2, 2))
+        self._create_curve_state(thresholds, lambda len_t: (len_t, 2, 2))
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update state with predictions and targets."""
@@ -102,7 +132,7 @@ class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
 
 
 class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
-    """Multiclass precision-recall curves (binned)."""
+    """Multiclass precision-recall curves."""
 
     def __init__(
         self,
@@ -116,16 +146,13 @@ class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
         super().__init__(**kwargs)
         if validate_args:
             _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
-        _require_binned(thresholds)
         self.num_classes = num_classes
         self.average = average
         self.ignore_index = ignore_index
         self.validate_args = validate_args
-        self.thresholds = _adjust_threshold_arg(thresholds, self.device)
-        self._thresholds_ascend = _thresholds_ascend(self.thresholds)
-        self._thresholds_affine = _uniform_grid(self.thresholds) if self._thresholds_ascend else None
-        len_t = len(self.thresholds)
-        self._create_curve_state((len_t, 2, 2) if average == "micro" else (len_t, num_classes, 2, 2))
+        self._create_curve_state(
+            thresholds, lambda len_t: (len_t, 2, 2) if average == "micro" else (len_t, num_classes, 2, 2)
+        )
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update state with predictions and targets."""
@@ -140,13 +167,50 @@ class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
         )
         self._update_curve_state(state)
 
-    def compute(self) -> Tuple[Tensor, Tensor, Tensor]:
+    def compute(self):
         """Compute the final per-class curves."""
         return _multiclass_precision_recall_curve_compute(self._curve_state(), self.num_classes, self.thresholds, self.average)
 
 
+class MultilabelPrecisionRecallCurve(_AbstractCurveMetric):
+    """Multilabel precision-recall curves; the binned state comes from K1's matrix mode."""
+
+    def __init__(
+        self,
+        num_labels: int,
+        thresholds: ThresholdsArg = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        self.num_labels = num_labels
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_curve_state(thresholds, lambda len_t: (len_t, num_labels, 2, 2))
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Update state with predictions and targets."""
+        preds, target = self._inputs(preds, target)
+        if self.validate_args:
+            _multilabel_precision_recall_curve_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        preds, target, _ = _multilabel_precision_recall_curve_format(
+            preds, target, self.num_labels, self.thresholds, self.ignore_index
+        )
+        state = _multilabel_precision_recall_curve_update(
+            preds, target, self.num_labels, self.thresholds, self._thresholds_ascend, self._thresholds_affine
+        )
+        self._update_curve_state(state)
+
+    def compute(self):
+        """Compute the final per-label curves."""
+        return _multilabel_precision_recall_curve_compute(self._curve_state(), self.num_labels, self.thresholds, self.ignore_index)
+
+
 class PrecisionRecallCurve(_ClassificationTaskWrapper):
-    """Task-dispatching PrecisionRecallCurve (binary and multiclass, binned)."""
+    """Task-dispatching PrecisionRecallCurve."""
 
     def __new__(  # type: ignore[misc]
         cls,
@@ -158,15 +222,20 @@ class PrecisionRecallCurve(_ClassificationTaskWrapper):
         validate_args: bool = True,
         **kwargs: Any,
     ) -> Metric:
-        task = ClassificationTask.from_str(task)
         kwargs.update({"thresholds": thresholds, "ignore_index": ignore_index, "validate_args": validate_args})
-        if task == ClassificationTask.BINARY:
-            return BinaryPrecisionRecallCurve(**kwargs)
-        if task == ClassificationTask.MULTICLASS:
-            if not isinstance(num_classes, int):
-                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
-            return MulticlassPrecisionRecallCurve(num_classes, **kwargs)
-        raise NotImplementedError(_MULTILABEL_MESSAGE)
+        return _task_call(
+            task,
+            num_classes,
+            num_labels,
+            lambda: BinaryPrecisionRecallCurve(**kwargs),
+            lambda: MulticlassPrecisionRecallCurve(num_classes, **kwargs),
+            lambda: MultilabelPrecisionRecallCurve(num_labels, **kwargs),
+        )
 
 
-__all__ = ["BinaryPrecisionRecallCurve", "MulticlassPrecisionRecallCurve", "PrecisionRecallCurve"]
+__all__ = [
+    "BinaryPrecisionRecallCurve",
+    "MulticlassPrecisionRecallCurve",
+    "MultilabelPrecisionRecallCurve",
+    "PrecisionRecallCurve",
+]

@@ -1,7 +1,7 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""StatScores module metrics, binary and multiclass (counterpart of
-``torchmetrics_tpu/classification/stat_scores.py``).
+"""StatScores module metrics, binary, multiclass and multilabel (counterpart
+of ``torchmetrics_tpu/classification/stat_scores.py``).
 
 States are int32 tp/fp/tn/fn counters with ``dist_reduce_fx="sum"``
 (scalar, or per class), or append-lists with ``"cat"`` for samplewise.
@@ -12,7 +12,7 @@ from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
-from torchmetrics_tpu_torch.classification.base import _MULTILABEL_MESSAGE, _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _binary_stat_scores_arg_validation,
     _binary_stat_scores_compute,
@@ -24,6 +24,11 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_compute,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
@@ -154,8 +159,53 @@ class MulticlassStatScores(_AbstractStatScores):
         return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
 
 
+class MultilabelStatScores(_AbstractStatScores):
+    """Multilabel tp/fp/tn/fn per label (elementwise compares and int32 sums)."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        zero_division = kwargs.pop("zero_division", 0)
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index, zero_division)
+        self.num_labels = num_labels
+        self.threshold = threshold
+        self.average = average
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self.zero_division = zero_division
+        self._create_state(size=num_labels, multidim_average=multidim_average)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Update state with predictions and targets."""
+        preds, target = self._inputs(preds, target)
+        if self.validate_args:
+            _multilabel_stat_scores_tensor_validation(preds, target, self.num_labels, self.multidim_average, self.ignore_index)
+        preds, target = _multilabel_stat_scores_format(preds, target, self.num_labels, self.threshold, self.ignore_index)
+        tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, self.multidim_average)
+        self._update_state(tp, fp, tn, fn)
+
+    def compute(self) -> Tensor:
+        """Compute the final statistics."""
+        tp, fp, tn, fn = self._final_state()
+        return _multilabel_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
+
+
 class StatScores(_ClassificationTaskWrapper):
-    """Task-dispatching StatScores (binary and multiclass)."""
+    """Task-dispatching StatScores."""
 
     def __new__(  # type: ignore[misc]
         cls,
@@ -180,4 +230,8 @@ class StatScores(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassStatScores(num_classes, top_k, average, **kwargs)
-        raise NotImplementedError(_MULTILABEL_MESSAGE)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelStatScores(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Not handled value: {task}")

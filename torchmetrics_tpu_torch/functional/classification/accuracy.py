@@ -1,6 +1,6 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""Accuracy (counterpart of ``torchmetrics_tpu/functional/classification/accuracy.py``), binary and multiclass."""
+"""Accuracy (counterpart of ``torchmetrics_tpu/functional/classification/accuracy.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,9 +16,14 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 from torchmetrics_tpu_torch.utilities.compute import _adjust_weights_safe_divide, _dim_sum, _safe_divide
 from torchmetrics_tpu_torch.utilities.data import _to_tensors
+from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
 Tensor = torch.Tensor
 
@@ -83,3 +88,53 @@ def multiclass_accuracy(
     preds, target = _multiclass_stat_scores_format(preds, target, top_k, average, multidim_average)
     tp, fp, tn, fn = _multiclass_stat_scores_update(preds, target, num_classes, top_k, average, multidim_average, ignore_index)
     return _accuracy_reduce(tp, fp, tn, fn, average=average, multidim_average=multidim_average, top_k=top_k)
+
+
+def multilabel_accuracy(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Multilabel accuracy."""
+    preds, target = _to_tensors(preds, target)
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, multidim_average)
+    return _accuracy_reduce(tp, fp, tn, fn, average=average, multidim_average=multidim_average, multilabel=True)
+
+
+def accuracy(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Task-dispatching accuracy."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary_accuracy(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    if task == ClassificationTask.MULTICLASS:
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+        if not isinstance(top_k, int):
+            raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+        return multiclass_accuracy(preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args)
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_accuracy(preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args)
+    raise ValueError(f"Not handled value: {task}")

@@ -1,6 +1,11 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""AUROC, binned mode (counterpart of ``torchmetrics_tpu/functional/classification/auroc.py``)."""
+"""AUROC, binned and exact (counterpart of ``torchmetrics_tpu/functional/classification/auroc.py``).
+
+The exact AUROC (``thresholds=None``, no ``max_fpr``) integrates the padded
+unique-threshold curve on the device, as JAX does; the classes of a
+multiclass metric, or the labels of a multilabel one, share one batched
+stable sort of the ``(C, M)`` transpose."""
 from __future__ import annotations
 
 from typing import List, Optional, Union
@@ -9,6 +14,7 @@ import numpy as np
 import torch
 
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    CurveState,
     ThresholdsArg,
     _binary_precision_recall_curve_arg_validation,
     _binary_precision_recall_curve_format,
@@ -18,11 +24,21 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
+    _clf_curve_padded_rows,
     _uniform_grid,
 )
-from torchmetrics_tpu_torch.functional.classification.roc import _binary_roc_compute, _multiclass_roc_compute
+from torchmetrics_tpu_torch.functional.classification.roc import (
+    _binary_roc_compute,
+    _multiclass_roc_compute,
+    _multilabel_roc_compute,
+)
 from torchmetrics_tpu_torch.utilities.compute import _auc_compute_without_check, _safe_divide
-from torchmetrics_tpu_torch.utilities.data import _to_tensors
+from torchmetrics_tpu_torch.utilities.data import _bincount, _float32_inputs, _to_tensors
+from torchmetrics_tpu_torch.utilities.enums import _task_call
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -76,7 +92,7 @@ def _binary_auroc_arg_validation(
         raise ValueError(f"Arguments `max_fpr` should be a float in range (0, 1], but got: {max_fpr}")
 
 
-def _binary_auroc_compute(state: Tensor, thresholds: Optional[Tensor], max_fpr: Optional[float] = None, pos_label: int = 1) -> Tensor:
+def _binary_auroc_compute(state: CurveState, thresholds: Optional[Tensor], max_fpr: Optional[float] = None, pos_label: int = 1) -> Tensor:
     """AUROC with the optional McClish partial-AUC correction.
 
     The ``max_fpr`` branch interpolates one point on the host, as the JAX
@@ -97,6 +113,41 @@ def _binary_auroc_compute(state: Tensor, thresholds: Optional[Tensor], max_fpr: 
     return 0.5 * (1 + (partial_auc - min_area) / (max_area - min_area))
 
 
+def _previous_group_end(values: Tensor, mask: Tensor) -> Tensor:
+    """At each position of the rows, ``values`` at the last masked position before
+    it (0 before the first): a shifted running maximum of the masked values,
+    which ascend along a curve."""
+    ends = torch.where(mask, values, torch.zeros_like(values))
+    running = torch.cummax(ends, dim=-1).values
+    return torch.cat([torch.zeros_like(running[..., :1]), running[..., :-1]], -1)
+
+
+def _auroc_exact_rows(preds: Tensor, target: Tensor, pos_label: Union[int, Tensor] = 1) -> Tensor:
+    """Exact AUROC of every row of ``preds`` (R, N), on the device, static shapes.
+
+    Trapezoids over the padded curve of :func:`_clf_curve_padded_rows`:
+    ``sum_g (tp_g + tp_prev) / 2 * (fp_g - fp_prev) / (P * N)`` over the tie
+    groups, the Mann-Whitney midrank statistic. float32 products, as in JAX.
+    ``target`` and ``pos_label`` as there; a row without positives or
+    negatives gives 0.
+    """
+    if preds.shape[-1] == 0:
+        return torch.zeros(preds.shape[:-1], dtype=torch.float32, device=preds.device)
+    fps, tps, _, mask = _clf_curve_padded_rows(preds, target, pos_label)
+    prev_tps = _previous_group_end(tps, mask).to(torch.float32)
+    prev_fps = _previous_group_end(fps, mask).to(torch.float32)
+    tps_f, fps_f = tps.to(torch.float32), fps.to(torch.float32)
+    area = torch.where(mask, 0.5 * (tps_f + prev_tps) * (fps_f - prev_fps), torch.zeros_like(tps_f)).sum(-1)
+    n_pos, n_neg = tps_f[..., -1], fps_f[..., -1]
+    return torch.where((n_pos > 0) & (n_neg > 0), area / torch.clamp(n_pos * n_neg, min=1.0), torch.zeros_like(area))
+
+
+def _binary_auroc_exact_device(preds: Tensor, target: Tensor) -> Tensor:
+    """Exact (unbinned) AUROC on the device: the rank statistic of the padded
+    curve; entries with ``target < 0`` carry no weight."""
+    return _auroc_exact_rows(_float32_inputs(preds).reshape(1, -1), target.reshape(1, -1))[0]
+
+
 def binary_auroc(
     preds: Tensor,
     target: Tensor,
@@ -105,7 +156,7 @@ def binary_auroc(
     ignore_index: Optional[int] = None,
     validate_args: bool = True,
 ) -> Tensor:
-    """Binary AUROC (binned)."""
+    """Binary AUROC (binned, or exact: the rank statistic on the device)."""
     preds, target = _to_tensors(preds, target)
     if validate_args:
         _binary_auroc_arg_validation(max_fpr, thresholds, ignore_index)
@@ -113,6 +164,8 @@ def binary_auroc(
     ascending = isinstance(thresholds, int)  # the linspace grid
     affine = _uniform_grid(thresholds) if ascending else None
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    if thresholds is None and max_fpr is None:
+        return _binary_auroc_exact_device(preds, target)
     state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_auroc_compute(state, thresholds, max_fpr)
 
@@ -129,13 +182,30 @@ def _multiclass_auroc_arg_validation(
         raise ValueError(f"Expected argument `average` to be one of {allowed_average} but got {average}")
 
 
+def _multiclass_auroc_exact_device(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
+    """Per-class exact AUROC, one-vs-rest, on the device: one stable sort of the
+    ``(C, M)`` transpose of ``preds`` (M, C) for every class at once. ``target``
+    (M,) uses -1 for ignored samples."""
+    classes = torch.arange(num_classes, device=preds.device, dtype=target.dtype)[:, None]
+    return _auroc_exact_rows(preds.T, target, classes)
+
+
+def _class_support(target: Tensor, num_classes: int) -> Tensor:
+    """float32 count of each class among the valid targets (the weights of ``average="weighted"``)."""
+    return _bincount(torch.where(target >= 0, target, torch.full_like(target, num_classes)), num_classes).to(torch.float32)
+
+
 def _multiclass_auroc_compute(
-    state: Tensor,
+    state: CurveState,
     num_classes: int,
     average: Optional[str] = "macro",
     thresholds: Optional[Tensor] = None,
 ) -> Tensor:
-    """Per-class AUROC from the binned state, then the reduction."""
+    """Per-class AUROC from the binned state or the exact stream, then the reduction."""
+    if thresholds is None and isinstance(state, tuple):
+        preds, target = state
+        res = _multiclass_auroc_exact_device(preds, target, num_classes)
+        return _reduce_auroc_values(res, average, weights=_class_support(target, num_classes))
     fpr, tpr, _ = _multiclass_roc_compute(state, num_classes, thresholds)
     # per-class support tp+fn, identical at every threshold -> read slot 0
     weights = state[0, :, 1, :].sum(-1).to(torch.float32)
@@ -151,7 +221,7 @@ def multiclass_auroc(
     ignore_index: Optional[int] = None,
     validate_args: bool = True,
 ) -> Tensor:
-    """Multiclass AUROC (binned)."""
+    """Multiclass AUROC."""
     preds, target = _to_tensors(preds, target)
     if validate_args:
         _multiclass_auroc_arg_validation(num_classes, average, thresholds, ignore_index)
@@ -161,3 +231,83 @@ def multiclass_auroc(
     preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds, ignore_index)
     state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ascending=ascending, affine=affine)
     return _multiclass_auroc_compute(state, num_classes, average, thresholds)
+
+
+def _multilabel_auroc_exact_device(preds: Tensor, target: Tensor) -> Tensor:
+    """Per-label exact AUROC on the device: one stable sort of the ``(L, M)``
+    transposes; -1 entries carry no weight."""
+    return _auroc_exact_rows(preds.T, target.T)
+
+
+def _multilabel_auroc_compute(
+    state: CurveState,
+    num_labels: int,
+    average: Optional[str],
+    thresholds: Optional[Tensor],
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    """Per-label AUROC (or micro: of the flattened stream), then the reduction."""
+    if average == "micro":
+        if thresholds is None and isinstance(state, tuple):
+            return _binary_auroc_exact_device(state[0].reshape(-1), state[1].reshape(-1))
+        return _binary_auroc_compute(state.sum(1, dtype=state.dtype), thresholds, max_fpr=None)
+    if thresholds is None and isinstance(state, tuple):
+        preds, target = state
+        res = _multilabel_auroc_exact_device(preds, target)
+        return _reduce_auroc_values(res, average, weights=(target == 1).sum(0, dtype=torch.int32).to(torch.float32))
+    fpr, tpr, _ = _multilabel_roc_compute(state, num_labels, thresholds, ignore_index)
+    weights = state[0, :, 1, :].sum(-1).to(torch.float32)
+    return _reduce_auroc(fpr, tpr, average, weights=weights)
+
+
+def _multilabel_auroc_arg_validation(
+    num_labels: int, average: Optional[str], thresholds: ThresholdsArg = None, ignore_index: Optional[int] = None
+) -> None:
+    _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+    allowed_average = ("micro", "macro", "weighted", "none", None)
+    if average not in allowed_average:
+        raise ValueError(f"Expected argument `average` to be one of {allowed_average} but got {average}")
+
+
+def multilabel_auroc(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    average: Optional[str] = "macro",
+    thresholds: ThresholdsArg = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Multilabel AUROC."""
+    preds, target = _to_tensors(preds, target)
+    if validate_args:
+        _multilabel_auroc_arg_validation(num_labels, average, thresholds, ignore_index)
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    ascending = isinstance(thresholds, int)  # the linspace grid
+    affine = _uniform_grid(thresholds) if ascending else None
+    preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds, ignore_index)
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ascending, affine)
+    return _multilabel_auroc_compute(state, num_labels, average, thresholds, ignore_index)
+
+
+def auroc(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    thresholds: ThresholdsArg = None,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "macro",
+    max_fpr: Optional[float] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Task-dispatching AUROC."""
+    return _task_call(
+        task,
+        num_classes,
+        num_labels,
+        lambda: binary_auroc(preds, target, max_fpr, thresholds, ignore_index, validate_args),
+        lambda: multiclass_auroc(preds, target, num_classes, average, thresholds, ignore_index, validate_args),
+        lambda: multilabel_auroc(preds, target, num_labels, average, thresholds, ignore_index, validate_args),
+    )

@@ -3,13 +3,14 @@
 """stat_scores: the root state machine of the classification suite
 (counterpart of ``torchmetrics_tpu/functional/classification/stat_scores.py``).
 
-Binary and multiclass. Ignored positions are masked arithmetically, as in
-the JAX package, so shapes never depend on the data. The multiclass
+Binary, multiclass and multilabel. Ignored positions are masked
+arithmetically, as in the JAX package, so shapes never depend on the data. The multiclass
 confusion-matrix branch runs in the hand kernel K2
 (:func:`~torchmetrics_tpu_torch.ops.stat_counts`), which takes the float
 scores and writes tp/fp/tn/fn in one launch, the argmax fused in; the micro
 fast path and the one-hot path (``top_k > 1`` or samplewise) are plain
-PyTorch, as they are plain ``jnp`` in JAX. Every count is int32, as in JAX.
+PyTorch, as they are plain ``jnp`` in JAX, and so are the multilabel counts
+(elementwise compares and sums). Every count is int32, as in JAX.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from typing import Optional, Tuple, Union
 import torch
 
 from torchmetrics_tpu_torch.ops import stat_counts
-from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_binary_target, _check_same_shape
 from torchmetrics_tpu_torch.utilities.compute import normalize_logits_if_needed
-from torchmetrics_tpu_torch.utilities.data import _to_tensors, select_topk
+from torchmetrics_tpu_torch.utilities.data import _float32_inputs, _to_tensors, select_topk
+from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
 Tensor = torch.Tensor
 _I32 = torch.int32
@@ -58,14 +60,7 @@ def _binary_stat_scores_tensor_validation(
     _check_same_shape(preds, target)
     if multidim_average != "global" and preds.ndim < 2:
         raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
-    unique_ok = (target == 0) | (target == 1)
-    if ignore_index is not None:
-        unique_ok = unique_ok | (target == ignore_index)
-    if not bool(torch.all(unique_ok)):
-        raise RuntimeError(
-            f"Detected the following values in `target`: {torch.unique(target)} but expected only"
-            f" the following values {[0, 1] + ([ignore_index] if ignore_index is not None else [])}."
-        )
+    _check_binary_target(target, ignore_index)
     if not preds.is_floating_point() and not bool(torch.all((preds == 0) | (preds == 1))):
         raise RuntimeError(
             "Detected non-floating point predictions that are not binary. If you want to"
@@ -339,3 +334,145 @@ def multiclass_stat_scores(
     preds, target = _multiclass_stat_scores_format(preds, target, top_k, average, multidim_average)
     tp, fp, tn, fn = _multiclass_stat_scores_update(preds, target, num_classes, top_k, average, multidim_average, ignore_index)
     return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+# ------------------------------------------------------------------ multilabel
+
+
+def _multilabel_stat_scores_arg_validation(
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    zero_division: float = 0,
+) -> None:
+    """Validate non-tensor args."""
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float, but got {threshold}.")
+    allowed_average = ("micro", "macro", "weighted", "none", None)
+    if average not in allowed_average:
+        raise ValueError(f"Expected argument `average` to be one of {allowed_average}, but got {average}")
+    allowed_multidim_average = ("global", "samplewise")
+    if multidim_average not in allowed_multidim_average:
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of {allowed_multidim_average}, but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
+    if zero_division not in [0, 1]:
+        raise ValueError(f"Expected argument `zero_division` to be 0 or 1, but got {zero_division}.")
+
+
+def _multilabel_stat_scores_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    """Validate tensor shapes/values (reads values back to the host)."""
+    _check_same_shape(preds, target)
+    if preds.ndim < 2:
+        raise ValueError(f"Expected both `preds` and `target` to be at least 2D, but got {preds.ndim}D")
+    if preds.shape[1] != num_labels:
+        raise ValueError(
+            f"Expected both `preds` and `target` to have second dimension equal to `num_labels`={num_labels},"
+            f" but got {preds.shape[1]}"
+        )
+    if multidim_average != "global" and preds.ndim < 3:
+        raise ValueError("Expected input to be at least 3D when multidim_average is set to `samplewise`")
+    _check_binary_target(target, ignore_index)
+
+
+def _multilabel_stat_scores_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Threshold probabilities (sigmoid first where some value lies outside
+    [0, 1]) and flatten to ``(N, L, X)`` int32; ignored targets become -1."""
+    if preds.is_floating_point():
+        preds = normalize_logits_if_needed(_float32_inputs(preds), "sigmoid")
+        preds = preds > threshold
+    preds = preds.reshape(*preds.shape[:2], -1).to(_I32)
+    target = target.reshape(*target.shape[:2], -1).to(_I32)
+    if ignore_index is not None:
+        target = torch.where(target == ignore_index, torch.full_like(target, -1), target)
+    return preds, target
+
+
+def _multilabel_stat_scores_update(
+    preds: Tensor,
+    target: Tensor,
+    multidim_average: str = "global",
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per-label int32 counts with masked arithmetic: ``(L,)`` global, ``(N, L)`` samplewise."""
+    valid = target >= 0
+    sum_dims = (0, -1) if multidim_average == "global" else (-1,)
+    tp = ((target == preds) & (target == 1) & valid).sum(sum_dims, dtype=_I32)
+    fn = ((target != preds) & (target == 1) & valid).sum(sum_dims, dtype=_I32)
+    fp = ((target != preds) & (target == 0) & valid).sum(sum_dims, dtype=_I32)
+    tn = ((target == preds) & (target == 0) & valid).sum(sum_dims, dtype=_I32)
+    return tp, fp, tn, fn
+
+
+#: stack stats + support and apply the average strategy, as for multiclass
+_multilabel_stat_scores_compute = _multiclass_stat_scores_compute
+
+
+def multilabel_stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Compute tp/fp/tn/fn/support for multilabel tasks."""
+    preds, target = _to_tensors(preds, target)
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, multidim_average)
+    return _multilabel_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+# ------------------------------------------------------------------- dispatch
+
+
+def stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Task-dispatching stat_scores."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary_stat_scores(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    if task == ClassificationTask.MULTICLASS:
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+        if not isinstance(top_k, int):
+            raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+        return multiclass_stat_scores(preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args)
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_stat_scores(preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args)
+    raise ValueError(f"Not handled value: {task}")

@@ -144,7 +144,9 @@ def binned_curve_state(
         )
     _build.check(status, "binned_curve_state")
     binned_curve_state.launches += 1
+    binned_curve_state.matrix_launches += int(not labels)
     return state
 
 
 binned_curve_state.launches = 0  # launches of the CUDA kernel (the plain version is not counted)
+binned_curve_state.matrix_launches = 0  # of them, launches in matrix mode (an (N, K) target: binary, micro, multilabel)

@@ -9,7 +9,7 @@ true for everything. Value checks read the data back to the host; pass
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -17,6 +17,18 @@ import torch
 def _is_concrete(x: Any) -> bool:
     """True when ``x`` holds real values — always, under eager PyTorch."""
     return True
+
+
+def _check_binary_target(target: torch.Tensor, ignore_index: Optional[int] = None) -> None:
+    """Raise unless every target is 0, 1 or ``ignore_index`` (reads values back to the host)."""
+    ok = (target == 0) | (target == 1)
+    if ignore_index is not None:
+        ok = ok | (target == ignore_index)
+    if not bool(torch.all(ok)):
+        raise RuntimeError(
+            f"Detected the following values in `target`: {torch.unique(target)} but expected only"
+            f" the following values {[0, 1] + ([ignore_index] if ignore_index is not None else [])}."
+        )
 
 
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:

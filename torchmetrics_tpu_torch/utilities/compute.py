@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -53,6 +54,56 @@ def _auc_compute_without_check(x: torch.Tensor, y: torch.Tensor, direction: floa
     dx = torch.diff(x, dim=axis)
     n = y.shape[axis]
     return ((y.narrow(axis, 1, n - 1) + y.narrow(axis, 0, n - 1)) / 2.0 * dx).sum(dim=axis) * direction
+
+
+def _auc_compute(x: torch.Tensor, y: torch.Tensor, reorder: bool = False) -> torch.Tensor:
+    """AUC with monotonicity handling: a decreasing ``x`` integrates with
+    direction -1, a non-monotone one gives NaN (no host sync), as in JAX."""
+    if reorder:
+        order = torch.sort(x, stable=True).indices
+        x, y = x[order], y[order]
+        direction = torch.tensor(1.0, device=x.device)
+    else:
+        dx = torch.diff(x)
+        one = torch.tensor(1.0, device=x.device)
+        decreasing = torch.where(torch.all(dx <= 0), -one, torch.full_like(one, float("nan")))
+        direction = torch.where(torch.any(dx < 0), decreasing, one)
+    return _auc_compute_without_check(x, y, direction)
+
+
+def auc(x: torch.Tensor, y: torch.Tensor, reorder: bool = False) -> torch.Tensor:
+    """Area under the curve ``y(x)`` by the trapezoidal rule."""
+    if x.ndim != 1 or y.ndim != 1:
+        raise ValueError(f"Expected 1d arrays, got x.ndim={x.ndim}, y.ndim={y.ndim}")
+    if x.shape[0] != y.shape[0]:
+        raise ValueError("x and y must have the same length")
+    return _auc_compute(x, y, reorder=reorder)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """1-D linear interpolation with ``jnp.interp``'s semantics (PyTorch has no ``interp``).
+
+    ``xp`` ascends and may repeat (an ROC's fpr axis does): the segment is
+    found by ``searchsorted(side="right")``, a segment of zero width takes
+    its left value, and points beyond either end take ``fp[0]`` / ``fp[-1]``.
+    XLA's CPU compiler fuses ``fp[i-1] + (delta / dx) * df`` into one FMA;
+    the product of two float32 values is exact in float64, so the FMA is
+    replayed there and rounded once more to float32. That matches the FMA
+    bit for bit unless the float64 sum lands on a float32 rounding tie
+    (a double rounding, then one ulp apart).
+    """
+    xp = xp.to(x.dtype).contiguous()
+    fp = fp if fp.is_floating_point() else fp.to(torch.float32)
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(1, xp.shape[0] - 1)
+    lo_x, lo_f = xp[i - 1], fp[i - 1]
+    dx = xp[i] - lo_x
+    zero_width = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    slope = (x - lo_x) / torch.where(zero_width, torch.ones_like(dx), dx)
+    wide = torch.float64 if fp.dtype == torch.float32 else fp.dtype
+    fused = (lo_f.to(wide) + slope.to(wide) * (fp[i] - lo_f).to(wide)).to(fp.dtype)
+    f = torch.where(zero_width, lo_f, fused)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
 
 
 def normalize_logits_if_needed(tensor: torch.Tensor, normalization: str = "sigmoid") -> torch.Tensor:

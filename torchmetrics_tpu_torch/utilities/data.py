@@ -107,6 +107,11 @@ def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor, rtol: float = 1e-5, a
     return bool(torch.allclose(tensor1.to(torch.float32), tensor2.to(tensor1.device, torch.float32), rtol=rtol, atol=atol))
 
 
+def _float32_inputs(preds: torch.Tensor) -> torch.Tensor:
+    """float64 predictions become float32, as ``jnp.asarray`` makes them with 64-bit types off."""
+    return preds.to(torch.float32) if preds.dtype == torch.float64 else preds
+
+
 def _to_tensors(preds: Any, target: Any) -> Tuple[torch.Tensor, torch.Tensor]:
     """``preds`` as a tensor where it lies, and ``target`` as a tensor beside it."""
     preds = _to_tensor(preds)

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 from enum import Enum
+from typing import Callable, Optional
 
 
 class EnumStr(str, Enum):
@@ -43,3 +44,21 @@ class ClassificationTask(EnumStr):
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
 
+
+def _task_call(
+    task: str, num_classes: Optional[int], num_labels: Optional[int], binary: Callable, multiclass: Callable, multilabel: Callable
+):
+    """The result of the call for ``task``, one of three zero-argument calls, after
+    checking that the task's class or label count is an int."""
+    task_enum = ClassificationTask.from_str(task)
+    if task_enum == ClassificationTask.BINARY:
+        return binary()
+    if task_enum == ClassificationTask.MULTICLASS:
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+        return multiclass()
+    if task_enum == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel()
+    raise ValueError(f"Not handled value: {task}")
