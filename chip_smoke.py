@@ -40,6 +40,18 @@ result) if it fails:
    batch, in matrix mode; the final int32 states must equal bitwise the
    stream folded with K1's plain version, and the values a numpy reference
    within 1e-6 / 1e-5 / 1e-5.
+8. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+   replay per batch: final states bitwise equal to the plain fold and values
+   to the unfused ``compute()``; the wrappers' counters moved by the
+   warm-up's launch and the capture's recorded one alone; K1 and K2 once per
+   replayed batch, counted from the profiler trace (a trace without them
+   fails); in a steady pass the host launches the graphs and copies the
+   inputs, no kernel; the steady pass beside the unfused one, in turns, and
+   the states after every timed pass equal to a whole number of plain folds;
+   ``run_scan`` of the 8 batches and ``run_stream`` from pinned host numpy
+   batches, the states after each timed pass held the same way; a
+   ``validate_args=True`` suite captured; the exact group fused with
+   CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -47,8 +59,8 @@ against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
 The last lines of standard output are a ``[kernels]`` line per kernel (and
 one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
-prefix-sum and int32-sum kernels that K1 and K2 took over, and the exact and
-multilabel phases' device times, ``nvidia-smi``'s line, the ``kernels`` JSON
+prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
+multilabel phases' device times and the fused phase's passes, ``nvidia-smi``'s line, the ``kernels`` JSON
 object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -550,21 +562,31 @@ def _numpy_reference_values(batches):
     return tp.sum() / cm.sum(), f1[present].mean()
 
 
+def _headline_suite(tm, validate_args=False):
+    return tm.MetricCollection(
+        {
+            "acc": tm.MulticlassAccuracy(num_classes=NUM_CLASSES, average="micro", validate_args=validate_args, device="cuda"),
+            "f1": tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", validate_args=validate_args, device="cuda"),
+            "auroc": tm.MulticlassAUROC(
+                num_classes=NUM_CLASSES, average="macro", thresholds=THRESHOLDS, validate_args=validate_args, device="cuda"
+            ),
+        },
+        compute_groups=True,
+    )
+
+
+def _require_states_bitwise(suite, expected, what):
+    for key, states in expected.items():
+        for name, want in states.items():
+            _assert_bitwise(getattr(suite[key], name), want, f"{what}: state {key}.{name}")
+
+
 def phase_slice(device, batches, kernels):
     import torch
 
     import torchmetrics_tpu_torch as tm
 
-    suite = tm.MetricCollection(
-        {
-            "acc": tm.MulticlassAccuracy(num_classes=NUM_CLASSES, average="micro", validate_args=False, device="cuda"),
-            "f1": tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", validate_args=False, device="cuda"),
-            "auroc": tm.MulticlassAUROC(
-                num_classes=NUM_CLASSES, average="macro", thresholds=THRESHOLDS, validate_args=False, device="cuda"
-            ),
-        },
-        compute_groups=True,
-    )
+    suite = _headline_suite(tm)
     for wrapper in kernels.values():
         wrapper.launches = 0
     torch.cuda.synchronize()
@@ -584,11 +606,7 @@ def phase_slice(device, batches, kernels):
     groups = sorted(sorted(g) for g in suite.compute_groups.values())
     _require(groups == [["acc"], ["auroc"], ["f1"]], f"compute groups {groups}, expected each metric on its own")
 
-    expected = _expected_states_plain(batches, device)
-    for key, states in expected.items():
-        metric = suite[key]
-        for name, want in states.items():
-            _assert_bitwise(getattr(metric, name), want, f"suite state {key}.{name}")
+    _require_states_bitwise(suite, _expected_states_plain(batches, device), "slice")
     print("[slice] final states equal bitwise to the stream folded through the plain versions")
 
     vals = {k: float(v) for k, v in values.items()}
@@ -599,29 +617,31 @@ def phase_slice(device, batches, kernels):
     _require(abs(vals["acc"] - want_acc) <= 1e-6, f"accuracy {vals['acc']} vs numpy {want_acc}")
     _require(abs(vals["f1"] - want_f1) <= 1e-5, f"macro F1 {vals['f1']} vs numpy {want_f1}")
 
-    steady = _steady_and_profile("slice", suite, batches)
+    steady = _steady_and_profile("slice", suite.update, batches, reset=suite.reset)
     samples = NUM_BATCHES * BATCH
     print(
         f"[slice] {samples} samples: first pass (update + group formation + compute) {seconds:.4f} s ="
         f" {samples / seconds:.1f} samples/s; steady updates, median of {STEADY_PASSES} passes {steady['median_s']:.4f} s ="
         f" {samples / steady['median_s']:.1f} samples/s (passes: {', '.join(f'{p:.4f}' for p in steady['passes'])} s)"
     )
-    return {"launches": launches, "first_sps": samples / seconds, "steady_sps": samples / steady["median_s"], **steady}
+    return {"launches": launches, "first_sps": samples / seconds, "steady_sps": samples / steady["median_s"], "values": values, **steady}
 
 
-def _steady_and_profile(tag, suite, batches):
-    """Steady passes of ``suite.update`` over ``batches`` (the compute groups are
-    settled, updates only), their median, and where one pass's device time
-    goes, by kernel, and the host's; printed under ``[tag]``, ``[profile]`` and ``[host]``."""
+def _steady_and_profile(tag, update, batches, reset=None):
+    """Steady passes of ``update`` over ``batches`` (a suite's, its compute
+    groups settled, or a fused plan's, its graph captured; ``reset`` before
+    each pass where given), their median, and where one pass's device time
+    goes, by kernel, and the host's; printed under ``[profile]`` and ``[host]``."""
     import torch
 
     def steady_pass():
         for batch in batches:
-            suite.update(*batch)
+            update(*batch)
 
     passes = []
     for _ in range(STEADY_PASSES):
-        suite.reset()
+        if reset is not None:
+            reset()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         steady_pass()
@@ -655,6 +675,7 @@ def _steady_and_profile(tag, suite, batches):
         if line.strip() and ("function calls" in line or not line.startswith(("   Ordered", "         "))):
             print(f"[host] {tag}: {line[:150]}")
     return {
+        "found": found,
         "median_s": steady,
         "passes": passes,
         "steady_range_ms": (min(passes) * 1e3, max(passes) * 1e3),
@@ -869,7 +890,7 @@ def phase_exact(device, batches, kernels):
         f" per-class max |card - CPU| {err_cpu}, max |card - float64 reference| {err_ref};"
         " class 0's padded curve bitwise equal on the card and the CPU"
     )
-    return {"compute_ms": busy_us / 3 / 1e3, "sort_share": sort_us / busy_us, "peak_mib": peak / 2**20}
+    return {"compute_ms": busy_us / 3 / 1e3, "sort_share": sort_us / busy_us, "peak_mib": peak / 2**20, "values": values}
 
 
 # ----------------------------------------------------------------- multilabel
@@ -960,7 +981,7 @@ def phase_multilabel(device, ml_batches, kernels):
     ref = dict(zip(("acc", "f1", "auroc"), _numpy_multilabel_reference(ml_batches)))
     for k, tol in (("acc", 1e-6), ("f1", 1e-5), ("auroc", 1e-5)):
         _require(abs(vals[k] - ref[k]) <= tol, f"multilabel: {k} {vals[k]} vs numpy {ref[k]} (tolerance {tol})")
-    steady = _steady_and_profile("multilabel", suite, ml_batches)
+    steady = _steady_and_profile("multilabel", suite.update, ml_batches, reset=suite.reset)
     print(
         f"[multilabel] {NUM_BATCHES}x{BATCH}x{c} logits, 1% ignored: values {vals} (numpy {ref}); launches {launches},"
         f" K1 in matrix mode {matrix}; states bitwise equal to the fold with K1's plain version; steady pass"
@@ -968,6 +989,219 @@ def phase_multilabel(device, ml_batches, kernels):
         f" {steady['device_launches']} device kernels, busy share {steady['busy_share']:.3f}"
     )
     return {"launches": launches, **steady}
+
+
+# ---------------------------------------------------------------------- fused
+
+
+def _fresh_plan(suite, batches, **options):
+    """``suite.fused()`` after two eager updates (the compute groups form) and a reset, so the plan starts from zero states."""
+    suite.update(*batches[0])
+    suite.update(*batches[1])
+    suite.reset()
+    return suite.fused(**options)
+
+
+def _require_values_bitwise(got, want, what):
+    import torch
+
+    _require(sorted(got) == sorted(want), f"{what}: value keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        _require(torch.equal(got[k], want[k]), f"{what}: {k} {float(got[k])!r} vs unfused {float(want[k])!r}")
+
+
+def _require_plan_passes(plan, suite, expected, what):
+    """Fold ``plan`` back and hold ``suite``'s states bitwise against the plain
+    fold times the number of whole passes the plan has applied (integer counts)."""
+    applied = plan.updates_applied
+    _require(applied % NUM_BATCHES == 0, f"{what}: {applied} updates applied, not whole passes of {NUM_BATCHES}")
+    plan.fold_back()
+    passes = applied // NUM_BATCHES
+    _require_states_bitwise(suite, {k: {n: passes * v for n, v in st.items()} for k, st in expected.items()}, f"{what}, {passes} passes")
+    return passes
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_fused(device, batches, kernels, slice_run, exact_run):
+    """The headline suite through ``suite.fused()`` (one CUDA graph replay per
+    batch): states bitwise equal to the unfused slice's fold and values to its
+    ``compute()``; K1 and K2 launched once per batch inside the replays,
+    counted from the profiler trace; the steady pass against the unfused one,
+    in turns; one ``run_scan`` of the 8 batches, one ``run_stream`` from
+    pinned host numpy batches, and the exact group fused with a CatBuffer of
+    NUM_BATCHES * BATCH rows, its values equal to the unfused exact phase's."""
+    import re
+
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    expected = _expected_states_plain(batches, device)
+    suite = _headline_suite(tm)
+    plan = _fresh_plan(suite, batches)
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    capture_s = _timed(lambda: plan.update(*batches[0]))  # warm-up, capture and the first replay
+    rest_s = _timed(lambda: [plan.update(*b) for b in batches[1:]])
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    print(
+        f"[fused] first pass: wrapper counts {launches} (the warm-up step's launch and the capture's recorded one;"
+        f" the {NUM_BATCHES} replays run without the wrappers); graphs captured {len(plan._captured)}"
+    )
+    for name, count in launches.items():
+        _require(count == 2, f"fused: kernel {name}'s wrapper counted {count} launches, expected 1 warm-up + 1 captured")
+    _require(len(plan._captured) == 1, f"fused: {len(plan._captured)} graphs captured for one batch shape")
+    plan.fold_back()
+    values = suite.compute()
+    _require_states_bitwise(suite, expected, "fused")
+    _require_values_bitwise(values, slice_run["values"], "fused")
+    print("[fused] final states equal bitwise to the plain fold; values equal bitwise to the unfused compute()")
+
+    # the steady fused pass; K1 and K2 in the replays, counted from the profiler trace
+    steady = _steady_and_profile("fused", plan.update, batches)
+    found, traces = steady["found"], 1
+    while True:
+        per_pass = {name: sum(n for key, (_, n) in found.items() if f"{name}_kernel" in key) for name in kernels}
+        # torch.profiler on an H100 was seen to drop launches from a trace: up to three traced passes
+        if all(n == NUM_BATCHES for n in per_pass.values()) or traces == 3:
+            break
+        found, _, _ = _profile(lambda: [plan.update(*b) for b in batches], 1)
+        traces += 1
+    print(f"[fused] hand-kernel launches per steady pass of {NUM_BATCHES} replays, from the profiler trace ({traces} traced): {per_pass}")
+    for name, count in per_pass.items():
+        _require(count == NUM_BATCHES, f"fused: the trace of a steady pass shows kernel {name} {count} times, expected {NUM_BATCHES}")
+    _require(all(w.launches == 2 for w in kernels.values()), f"fused: a replay moved a wrapper's count {launches}")
+
+    # no eager step: the host launched no kernel in a steady pass, only the graphs and the input copies
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            plan.update(*batch)
+        torch.cuda.synchronize()
+    host = {evt.key: evt.count for evt in prof.key_averages() if re.match(r"cu(da)?(GraphLaunch|LaunchKernel|MemcpyAsync)", evt.key)}
+    print(f"[fused] host CUDA calls in a steady pass: {host}")
+    _require(sum(n for k, n in host.items() if "GraphLaunch" in k) == NUM_BATCHES, f"fused: graph launches {host}")
+    _require(not any(n for k, n in host.items() if "LaunchKernel" in k), f"fused: the host launched kernels itself {host}")
+
+    # unfused and fused passes in turns, on the same batches
+    unfused = _headline_suite(tm)
+    unfused.update(*batches[0])
+    unfused.update(*batches[1])
+    turns = {"unfused": [], "fused": []}
+    for _ in range(STEADY_PASSES):
+        unfused.reset()
+        turns["unfused"].append(_timed(lambda: [unfused.update(*b) for b in batches]))
+        turns["fused"].append(_timed(lambda: [plan.update(*b) for b in batches]))
+    medians = {k: statistics.median(v) for k, v in turns.items()}
+    fused_passes = _require_plan_passes(plan, suite, expected, "fused steady passes")
+
+    # run_scan: one graph over the stacked 8 batches
+    scan_suite = _headline_suite(tm)
+    scan_plan = _fresh_plan(scan_suite, batches)
+    scan_first_s = _timed(lambda: scan_plan.run_scan(batches))
+    scan_plan.fold_back()
+    _require_states_bitwise(scan_suite, expected, "fused run_scan")
+    _require_values_bitwise(scan_suite.compute(), slice_run["values"], "fused run_scan")
+    stacked = scan_plan.stage(batches)
+    scan_s = statistics.median(_timed(lambda: scan_plan.run_scan(stacked)) for _ in range(STEADY_PASSES))
+    _require_plan_passes(scan_plan, scan_suite, expected, "fused run_scan")
+
+    # run_stream: pinned host numpy batches through the DeviceFeed
+    host_batches = []
+    for logits, labels in batches:
+        pl = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+        pt = torch.empty(labels.shape, dtype=labels.dtype, pin_memory=True)
+        pl.copy_(logits)
+        pt.copy_(labels)
+        host_batches.append((pl.numpy(), pt.numpy()))
+    stream_suite = _headline_suite(tm)
+    stream_plan = _fresh_plan(stream_suite, batches)
+    stream_first_s = _timed(lambda: stream_plan.run_stream(host_batches))
+    stream_plan.fold_back()
+    _require_states_bitwise(stream_suite, expected, "fused run_stream")
+    _require_values_bitwise(stream_suite.compute(), slice_run["values"], "fused run_stream")
+    stream_times = []
+    for _ in range(3):  # every timed pass held against the plain fold
+        stream_times.append(_timed(lambda: stream_plan.run_stream(host_batches)))
+        _require_plan_passes(stream_plan, stream_suite, expected, "fused run_stream")
+    stream_s = statistics.median(stream_times)
+
+    def copies_alone():  # the same host batches to the card, one after another, with nothing else
+        for pl, pt in host_batches:
+            torch.from_numpy(pl).to(device, non_blocking=True)
+            torch.from_numpy(pt).to(device, non_blocking=True)
+
+    h2d_s = statistics.median(_timed(copies_alone) for _ in range(3))
+    h2d_bytes = sum(pl.nbytes + pt.nbytes for pl, pt in host_batches)
+
+    # validate_args=True: the value checks skip themselves under capture
+    checked = _headline_suite(tm, validate_args=True)
+    checked_plan = _fresh_plan(checked, batches)
+    for batch in batches:
+        checked_plan.update(*batch)
+    checked_plan.fold_back()
+    _require_states_bitwise(checked, expected, "fused, validate_args=True")
+
+    # the exact group, its cat states in CatBuffers of NUM_BATCHES * BATCH rows
+    exact = tm.MetricCollection(
+        {
+            "auroc": tm.MulticlassAUROC(num_classes=NUM_CLASSES, validate_args=False, device=device),
+            "ap": tm.MulticlassAveragePrecision(num_classes=NUM_CLASSES, validate_args=False, device=device),
+        },
+        compute_groups=True,
+    )
+    exact_plan = _fresh_plan(exact, batches, cat_capacity=NUM_BATCHES * BATCH, example_batch=batches[0])
+    exact_first_s = _timed(lambda: [exact_plan.update(*b) for b in batches])
+    exact_plan.fold_back()
+    exact_values = exact.compute()
+    _require_values_bitwise(exact_values, exact_run["values"], "fused exact group")
+    carry = exact_plan.state["members"][exact_plan._infos[0].key]["preds"]
+    print(
+        f"[fused] exact group (thresholds=None): CatBuffer {tuple(carry.data.shape)} {carry.data.dtype},"
+        f" {carry.data.numel() * carry.data.element_size() / 1e6:.1f} MB; values {({k: float(v) for k, v in exact_values.items()})}"
+        f" equal bitwise to the unfused exact phase's; first pass (layout probe, warm-up, capture, 8 replays) {exact_first_s:.4f} s"
+    )
+
+    samples = NUM_BATCHES * BATCH
+    print(
+        f"[fused] headline suite, {NUM_BATCHES}x{BATCH}x{NUM_CLASSES}: first update (warm-up + capture + replay) {capture_s:.4f} s,"
+        f" then {NUM_BATCHES - 1} replays {rest_s:.4f} s; steady pass median of {STEADY_PASSES} {steady['median_s'] * 1e3:.3f} ms"
+        f" = {samples / steady['median_s']:.1f} samples/s; busy share {steady['busy_share']:.3f}"
+        f" ({steady['busy_us']:.1f} us device in {steady['device_launches']} device kernels per pass); host"
+        f" {steady['host_calls']} Python calls per pass (unfused slice: {slice_run['host_calls']})"
+    )
+    print(
+        f"[fused] in turns, {STEADY_PASSES} passes each: unfused median {medians['unfused'] * 1e3:.3f} ms"
+        f" ({', '.join(f'{t * 1e3:.3f}' for t in turns['unfused'])}), fused median {medians['fused'] * 1e3:.3f} ms"
+        f" ({', '.join(f'{t * 1e3:.3f}' for t in turns['fused'])}); ratio {medians['unfused'] / medians['fused']:.2f}"
+    )
+    print(
+        f"[fused] run_scan of {NUM_BATCHES} batches: first {scan_first_s:.4f} s (stack, warm-up, capture, replay),"
+        f" then {scan_s * 1e3:.3f} ms per replay (median of {STEADY_PASSES}); run_stream from pinned host numpy:"
+        f" first {stream_first_s:.4f} s, then {stream_s * 1e3:.3f} ms per pass (median of 3), against {h2d_s * 1e3:.3f} ms"
+        f" for the {h2d_bytes} bytes' host-to-device copies alone ({h2d_bytes / h2d_s / 1e9:.1f} GB/s); both states bitwise"
+        f" equal to the plain fold, and after every timed pass to the plain fold times the passes applied"
+        f" ({fused_passes} for the update plan); validate_args=True suite captured and equal"
+    )
+    return {
+        **steady,
+        "capture_s": capture_s,
+        "turns": medians,
+        "scan_ms": scan_s * 1e3,
+        "stream_ms": stream_s * 1e3,
+        "h2d_ms": h2d_s * 1e3,
+        "per_pass": per_pass,
+    }
 
 
 # ----------------------------------------------------------------------- main
@@ -1001,6 +1235,7 @@ def main() -> int:
     run = phase_slice(device, batches, KERNELS)
     exact = phase_exact(device, batches, KERNELS)
     ml_run = phase_multilabel(device, ml_batches, KERNELS)
+    fused = phase_fused(device, batches, KERNELS, run, exact)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
     matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", library_ms=None,
@@ -1024,7 +1259,11 @@ def main() -> int:
         f" of them {', '.join(f'{k} {v}' for k, v in run['watched'].items())}; host {run['host_calls']} Python calls"
         f" per pass; exact compute {exact['compute_ms']:.3f} ms device, sort share {exact['sort_share']:.3f}, peak"
         f" {exact['peak_mib']:.1f} MiB; multilabel steady pass {ml_run['busy_us']:.1f} us device, busy share"
-        f" {ml_run['busy_share']:.3f}; total {time.perf_counter() - t_start:.1f} s"
+        f" {ml_run['busy_share']:.3f}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
+        f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
+        f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
+        f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"
+        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

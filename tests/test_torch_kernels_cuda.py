@@ -10,7 +10,10 @@ Each dispatch path of each kernel is held bitwise (integer counts) against
 its plain version on the same CUDA inputs, and its launch counter must move.
 The exact curve has no hand kernel: its padded curve must equal the CPU's
 bitwise (the sort's order on NaN, signed zeros and ignored entries) and its
-AUROC and AP within 1e-6 (float32 sums in another order).
+AUROC and AP within 1e-6 (float32 sums in another order). The fused plan's
+captured CUDA graphs must give the eager path's states and values bitwise,
+capture a second graph for a new batch shape, and raise (never run eagerly)
+where a capture fails; DeviceFeed stages pinned numpy batches on the card.
 """
 import importlib
 
@@ -26,7 +29,9 @@ from torchmetrics_tpu_torch.functional.classification.average_precision import (
     _multiclass_average_precision_compute,
     _multilabel_average_precision_compute,
 )
+import torchmetrics_tpu_torch as T
 from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain, stat_counts, stat_counts_plain
+from torchmetrics_tpu_torch.parallel import DeviceFeed
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
 
 pytestmark = pytest.mark.cuda
@@ -167,3 +172,137 @@ def test_exact_auroc_and_ap_on_the_card_equal_cpu(card, task):
         want = fn((preds, target))
         got = fn((preds.to(card), target.to(card)))
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------ the fused plan
+
+
+def _fused_suite(card, validate_args=False, exact=False):
+    c, kw = 16, {"validate_args": validate_args, "device": card}
+    if exact:
+        return T.MetricCollection({"auroc": T.MulticlassAUROC(num_classes=c, **kw), "ap": T.MulticlassAveragePrecision(num_classes=c, **kw)})
+    return T.MetricCollection(
+        {
+            "acc": T.MulticlassAccuracy(num_classes=c, average="micro", **kw),
+            "f1": T.MulticlassF1Score(num_classes=c, average="macro", **kw),
+            "f2": T.MulticlassFBetaScore(beta=2.0, num_classes=c, average="macro", **kw),
+            "auroc": T.MulticlassAUROC(num_classes=c, thresholds=64, **kw),
+        }
+    )
+
+
+def _fused_batches(card, n_batches=5, n=4096, seed=47):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    return [
+        (torch.randn((n, 16), generator=gen, device=card), torch.randint(0, 16, (n,), generator=gen, device=card, dtype=torch.int32))
+        for _ in range(n_batches)
+    ]
+
+
+def _assert_collections_bitwise(ref, fus):
+    for key in ref.keys(keep_base=True):
+        a, b = dict.__getitem__(ref, key), dict.__getitem__(fus, key)
+        assert a._update_count == b._update_count
+        for name in a._defaults:
+            x, y = getattr(a, name), getattr(b, name)
+            if isinstance(x, list):
+                x, y = torch.cat(x), torch.cat(y)
+            assert torch.equal(x, y), f"{key}.{name}"
+    want, got = ref.compute(), fus.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("mode", ["update", "scan"])
+@pytest.mark.parametrize("validate_args", [False, True], ids=["plain", "validate_args"])
+def test_fused_plan_graph_equals_eager(card, validate_args, mode):
+    """Captured on the card: states and values bitwise equal to the eager
+    collection; a validate_args=True suite captures (its value checks skip
+    themselves under capture); the replays run K1 and K2 once each, as a
+    profiler trace shows, and leave the wrappers' counters alone."""
+    batches = _fused_batches(card)
+    ref, fus = _fused_suite(card, validate_args), _fused_suite(card, validate_args)
+    for b in batches:
+        ref.update(*b)
+    fus.update(*batches[0])
+    fus.update(*batches[1])
+    plan = fus.fused()
+    if mode == "scan":
+        plan.run_scan(batches[2:])
+    else:
+        plan.update(*batches[2])  # warm-up, capture, first replay
+        before = (binned_curve_state.launches, stat_counts.launches)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            plan.update(*batches[3])
+            plan.update(*batches[4])
+            torch.cuda.synchronize()
+        traced = {k: sum(e.count for e in prof.key_averages() if f"{k}_kernel" in e.key) for k in ("binned_curve_state", "stat_counts")}
+        assert traced == {"binned_curve_state": 2, "stat_counts": 2}
+        assert (binned_curve_state.launches, stat_counts.launches) == before
+    assert len(plan._captured) == 1
+    plan.fold_back()
+    _assert_collections_bitwise(ref, fus)
+
+
+def test_fused_plan_exact_group_on_the_card(card):
+    batches = _fused_batches(card, n_batches=4)
+    ref, fus = _fused_suite(card, exact=True), _fused_suite(card, exact=True)
+    for b in batches:
+        ref.update(*b)
+    fus.update(*batches[0])
+    fus.update(*batches[1])
+    plan = fus.fused(cat_capacity=4 * 4096, example_batch=batches[0])
+    plan.update(*batches[2])
+    plan.update(*batches[3])
+    plan.fold_back()
+    _assert_collections_bitwise(ref, fus)
+
+
+def test_fused_plan_new_batch_shape_captures_a_second_graph(card):
+    batches = _fused_batches(card, n_batches=4)
+    short = tuple(x[:1000] for x in batches[3])
+    ref, fus = _fused_suite(card), _fused_suite(card)
+    for b in batches[:3] + [short]:
+        ref.update(*b)
+    fus.update(*batches[0])
+    fus.update(*batches[1])
+    plan = fus.fused()
+    plan.update(*batches[2])
+    plan.update(*short)
+    assert len(plan._captured) == 2
+    plan.fold_back()
+    _assert_collections_bitwise(ref, fus)
+
+
+def test_fused_plan_capture_failure_raises(card):
+    """A host read inside update cannot be captured: the plan raises naming
+    the member, and the carry is left as it was (no eager run)."""
+
+    class _HostRead(T.Metric):
+        def __init__(self):
+            super().__init__(device=card)
+            self.add_state("total", torch.zeros((), device=card), dist_reduce_fx="sum")
+
+        def update(self, preds, target):
+            self.total = self.total + float(preds.sum())
+
+        def compute(self):
+            return self.total
+
+    col = T.MetricCollection({"host": _HostRead()})
+    plan = col.fused()
+    with pytest.raises(RuntimeError, match=r"capturing the fused step .* member 'host' \(_HostRead.update\)"):
+        plan.update(torch.ones(8, device=card), torch.ones(8, device=card))
+    assert int(plan.state["_update_count"]) == 0 and float(plan.state["members"]["host"]["total"]) == 0.0
+
+
+def test_device_feed_stages_pinned_numpy_on_the_card(card):
+    pinned = [torch.empty((1024, 16), pin_memory=True) for _ in range(3)]
+    for i, t in enumerate(pinned):
+        t.fill_(i)
+    batches = [(t.numpy(), np.full(1024, i, np.int32)) for i, t in enumerate(pinned)]
+    out = list(DeviceFeed(batches, depth=2))
+    assert len(out) == 3
+    for i, (x, y) in enumerate(out):
+        assert x.device.type == "cuda" and y.device.type == "cuda"
+        assert bool((x == i).all()) and bool((y == i).all())

@@ -10,12 +10,12 @@ observation, as in the JAX package: candidates are bucketed by their state
 specs (names, kinds, shapes, dtypes, reductions), compared by value, and
 merged only when the partitions seen at two separate updates agree.
 
-Not ported yet: ``fused``, ``sliced`` and ``plot``.
+Not ported yet: ``sliced`` and ``plot``.
 """
 from __future__ import annotations
 
 from copy import deepcopy
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.data import _flatten_dict, allclose
@@ -291,6 +291,49 @@ class MetricCollection(dict):
             m.reset()
         if self._enable_compute_groups and self._groups_checked:
             self._state_is_copy = False
+
+    def fused(
+        self,
+        *,
+        cat_capacity: Optional[int] = None,
+        example_batch: Optional[Tuple[Any, ...]] = None,
+        donate: bool = True,
+        mesh: Optional[Any] = None,
+        axis_name: str = "data",
+    ) -> Any:
+        """This collection's whole update as ONE step, updated in place.
+
+        Returns a :class:`~torchmetrics_tpu_torch.parallel.fused.FusedCollectionPlan`:
+        on the card its ``update(*batch)`` is one replay of a captured CUDA
+        graph however many metrics are attached (compute-group leaders run;
+        members keep riding the state-ref propagation), ``run_scan`` replays
+        one graph per chunk of batches, and ``fold_back()`` puts the totals
+        back into the members so ``compute()`` and checkpointing are
+        unchanged; on the CPU the same step runs eagerly::
+
+            suite.update(p, t); suite.update(p, t)   # let groups form
+            plan = suite.fused()
+            for batch in stream:
+                plan.update(*batch)
+            plan.fold_back()
+            values = suite.compute()
+
+        ``cat_capacity``/``example_batch`` are required when any member has
+        list ("cat") states (they become fixed-capacity CatBuffer carries).
+        ``mesh``/``axis_name`` (the sharded variant) are not ported yet.
+        Fusion-ineligible members raise with a per-member report; see
+        :func:`~torchmetrics_tpu_torch.parallel.fused.fusion_report`.
+        """
+        from torchmetrics_tpu_torch.parallel.fused import FusedCollectionPlan
+
+        return FusedCollectionPlan(
+            self,
+            cat_capacity=cat_capacity,
+            example_batch=example_batch,
+            donate=donate,
+            mesh=mesh,
+            axis_name=axis_name,
+        )
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         """Deep copy with optional new prefix/postfix."""

@@ -36,6 +36,7 @@ from torchmetrics_tpu_torch.functional.classification.roc import (
     _multiclass_roc_compute,
     _multilabel_roc_compute,
 )
+from torchmetrics_tpu_torch.utilities.checks import _is_concrete
 from torchmetrics_tpu_torch.utilities.compute import _auc_compute_without_check, _safe_divide
 from torchmetrics_tpu_torch.utilities.data import _bincount, _float32_inputs, _to_tensors
 from torchmetrics_tpu_torch.utilities.enums import _task_call
@@ -51,7 +52,7 @@ def _reduce_auroc_values(res: Tensor, average: Optional[str], weights: Optional[
     """
     if average is None or average == "none":
         return res
-    if bool(torch.isnan(res).any()):
+    if _is_concrete(res) and bool(torch.isnan(res).any()):
         rank_zero_warn(
             f"Average precision score for one or more classes was `nan`. Ignoring these classes in {average}-average",
             UserWarning,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from torchmetrics_tpu_torch.ops import binned_curve_state
-from torchmetrics_tpu_torch.utilities.checks import _check_binary_target, _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_binary_target, _check_same_shape, _is_concrete
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax, _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _float32_inputs, _to_tensor, _to_tensors
 from torchmetrics_tpu_torch.utilities.enums import _task_call
@@ -297,7 +297,8 @@ def _binary_precision_recall_curve_tensor_validation(preds: Tensor, target: Tens
     _check_same_shape(preds, target)
     if not preds.is_floating_point():
         raise ValueError(f"Expected argument `preds` to be an floating tensor, but got tensor with dtype {preds.dtype}")
-    _check_binary_target(target, ignore_index)
+    if _is_concrete(target):
+        _check_binary_target(target, ignore_index)
 
 
 def _binary_precision_recall_curve_format(
@@ -416,6 +417,8 @@ def _multiclass_precision_recall_curve_tensor_validation(
         )
     if preds.shape[0] != target.shape[0] or preds.shape[2:] != target.shape[1:]:
         raise ValueError("Expected the shape of `preds` should be (N, C, ...) and the shape of `target` should be (N, ...).")
+    if not _is_concrete(target):
+        return
     ok = (target >= 0) & (target < num_classes)
     if ignore_index is not None:
         ok = ok | (target == ignore_index)
@@ -540,7 +543,8 @@ def _multilabel_precision_recall_curve_tensor_validation(
         raise ValueError(f"Expected `preds` to be a float tensor, but got {preds.dtype}")
     if preds.ndim < 2 or preds.shape[1] != num_labels:
         raise ValueError(f"Expected both `preds` and `target` to have 2nd dimension equal to `num_labels`={num_labels}")
-    _check_binary_target(target, ignore_index)
+    if _is_concrete(target):
+        _check_binary_target(target, ignore_index)
 
 
 def _multilabel_precision_recall_curve_format(

@@ -19,7 +19,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from torchmetrics_tpu_torch.ops import stat_counts
-from torchmetrics_tpu_torch.utilities.checks import _check_binary_target, _check_same_shape
+from torchmetrics_tpu_torch.utilities.checks import _check_binary_target, _check_same_shape, _is_concrete
 from torchmetrics_tpu_torch.utilities.compute import normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _float32_inputs, _to_tensors, select_topk
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
@@ -60,8 +60,9 @@ def _binary_stat_scores_tensor_validation(
     _check_same_shape(preds, target)
     if multidim_average != "global" and preds.ndim < 2:
         raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
-    _check_binary_target(target, ignore_index)
-    if not preds.is_floating_point() and not bool(torch.all((preds == 0) | (preds == 1))):
+    if _is_concrete(target):
+        _check_binary_target(target, ignore_index)
+    if not preds.is_floating_point() and _is_concrete(preds) and not bool(torch.all((preds == 0) | (preds == 1))):
         raise RuntimeError(
             "Detected non-floating point predictions that are not binary. If you want to"
             " use logits or probabilities, please pass a float tensor."
@@ -199,6 +200,8 @@ def _multiclass_stat_scores_tensor_validation(
             "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
             " and `preds` should be (N, C, ...)."
         )
+    if not _is_concrete(target):
+        return
     check_value = num_classes if ignore_index is None else num_classes + 1
     checks = ((target, "target"),) + (((preds, "preds"),) if not preds.is_floating_point() else ())
     for t, name in checks:
@@ -384,7 +387,8 @@ def _multilabel_stat_scores_tensor_validation(
         )
     if multidim_average != "global" and preds.ndim < 3:
         raise ValueError("Expected input to be at least 3D when multidim_average is set to `samplewise`")
-    _check_binary_target(target, ignore_index)
+    if _is_concrete(target):
+        _check_binary_target(target, ignore_index)
 
 
 def _multilabel_stat_scores_format(

@@ -7,7 +7,10 @@
 - :func:`stat_counts` (K2, ``csrc/stat_counts.cu``): the argmax, the
   confusion counts and the tp/fp/tn/fn of the multiclass stat-scores family.
 
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+Each wrapper counts its kernel launches in its ``launches`` attribute. A
+CUDA graph that holds a launch replays it without the wrapper, so a count
+moves when a capture records the launch and never at a replay; a profiler
+trace counts the replays' launches.
 """
 from torchmetrics_tpu_torch.ops.binned_curve_state import binned_curve_state, binned_curve_state_plain
 from torchmetrics_tpu_torch.ops.stat_counts import stat_counts, stat_counts_plain

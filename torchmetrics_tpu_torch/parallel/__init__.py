@@ -1,0 +1,36 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""The collection plane of the port (counterpart of ``torchmetrics_tpu/parallel``).
+
+- :mod:`~torchmetrics_tpu_torch.parallel.fused`: a whole ``MetricCollection``'s
+  update as one step on an in-place state carry, captured as one CUDA graph
+  on the card (``MetricCollection.fused()``);
+- :mod:`~torchmetrics_tpu_torch.parallel.cat_buffer`: fixed-capacity append
+  buffers that carry list ("cat") states through that step;
+- :mod:`~torchmetrics_tpu_torch.parallel.feed`: the double-buffered
+  host→device batch feed.
+
+Not ported yet (ROADMAP): the sharded plane and ``cat_buffer_all_gather``
+(A6), the sliced and windowed planes (A10).
+"""
+from torchmetrics_tpu_torch.parallel.cat_buffer import (
+    CatBuffer,
+    cat_buffer_append,
+    cat_buffer_init,
+    cat_buffer_merge,
+    cat_buffer_values,
+)
+from torchmetrics_tpu_torch.parallel.feed import DeviceFeed
+from torchmetrics_tpu_torch.parallel.fused import FusedCollectionPlan, fusion_ineligibility, fusion_report
+
+__all__ = [
+    "CatBuffer",
+    "DeviceFeed",
+    "FusedCollectionPlan",
+    "cat_buffer_append",
+    "cat_buffer_init",
+    "cat_buffer_merge",
+    "cat_buffer_values",
+    "fusion_ineligibility",
+    "fusion_report",
+]

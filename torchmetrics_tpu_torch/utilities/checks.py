@@ -2,10 +2,12 @@
 # Licensed under the Apache License, Version 2.0.
 """Input validation helpers (counterpart of ``torchmetrics_tpu/utilities/checks.py``).
 
-PyTorch runs eagerly, so every tensor holds real values and the value
-checks of the ``validate_args`` contract always run: ``_is_concrete`` is
-true for everything. Value checks read the data back to the host; pass
-``validate_args=False`` to keep a CUDA update free of host syncs.
+Shape and dtype checks always run. Value checks read the data back to the
+host, so they run only where :func:`_is_concrete` holds, as the JAX package
+runs them only outside ``jit``: eagerly always, and never while a CUDA graph
+is being captured (the fused plan's step), where a host read would end the
+capture. Pass ``validate_args=False`` to keep an eager CUDA update free of
+host syncs too.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ import torch
 
 
 def _is_concrete(x: Any) -> bool:
-    """True when ``x`` holds real values — always, under eager PyTorch."""
-    return True
+    """True when ``x``'s values can be read on the host now: false only for a
+    CUDA tensor while the current stream is capturing a CUDA graph, the
+    counterpart of a tracer under ``jit``."""
+    return not (isinstance(x, torch.Tensor) and x.is_cuda and torch.cuda.is_current_stream_capturing())
 
 
 def _check_binary_target(target: torch.Tensor, ignore_index: Optional[int] = None) -> None:
