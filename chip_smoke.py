@@ -52,6 +52,19 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
+9. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+   one gloo group on ``cuda:0``: the collectives the port asks of gloo on
+   CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
+   1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
+   equal bitwise to the single-process fold and the values to phase 5's);
+   the exact group's uneven cat gather (5 batches against 3; the per-class
+   values equal bitwise to phase 6's; unsync restores the local rows);
+   ``ShardedMetric`` and ``suite.fused(mesh=...)`` with half the rows of
+   every batch on each rank (states bitwise equal to the single-process
+   fold; K1 and K2 once per batch in a profiler trace of the plan); a
+   corrupt payload from rank 1 failing the object gather on both ranks,
+   then healing. A rank that fails or outlives DIST_TIMEOUT_S fails the
+   script. The times it prints are gloo's through the host on one card.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -60,8 +73,8 @@ The last lines of standard output are a ``[kernels]`` line per kernel (and
 one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
-multilabel phases' device times and the fused phase's passes, ``nvidia-smi``'s line, the ``kernels`` JSON
-object (K1 and K2) and ``{"ok": true, "device": {...}}``.
+multilabel phases' device times, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
+line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -204,9 +217,12 @@ def _device_ms(fn, arg_sets, reps=PROFILE_REPS):
         fn(*arg_sets[state["i"] % len(arg_sets)])
         state["i"] += 1
 
-    found, busy_us, _ = _profile(one_call, reps)
-    if busy_us <= 0:
-        raise SmokeFailure(f"torch.profiler saw no device time for {getattr(fn, '__name__', fn)}")
+    for _ in range(3):  # torch.profiler on an H100 was seen to return a trace without device events
+        found, busy_us, _ = _profile(one_call, reps)
+        if busy_us > 0:
+            break
+    else:
+        raise SmokeFailure(f"torch.profiler saw no device time for {getattr(fn, '__name__', fn)} in 3 traces: {found}")
     # each kernel's mean time per launch times its launches per call: the same as
     # busy_us / reps for a whole trace, and still right for one that lost events
     # (torch.profiler on an H100 was seen to drop some launches of a kernel from a trace)
@@ -890,7 +906,8 @@ def phase_exact(device, batches, kernels):
         f" per-class max |card - CPU| {err_cpu}, max |card - float64 reference| {err_ref};"
         " class 0's padded curve bitwise equal on the card and the CPU"
     )
-    return {"compute_ms": busy_us / 3 / 1e3, "sort_share": sort_us / busy_us, "peak_mib": peak / 2**20, "values": values}
+    return {"compute_ms": busy_us / 3 / 1e3, "sort_share": sort_us / busy_us, "peak_mib": peak / 2**20, "values": values,
+            "per_class": per_class}
 
 
 # ----------------------------------------------------------------- multilabel
@@ -1204,6 +1221,259 @@ def phase_fused(device, batches, kernels, slice_run, exact_run):
     }
 
 
+# ----------------------------------------------------------------------- dist
+
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 420  # the whole phase: both ranks' start, every check, every timing
+DIST_REPS = 5
+
+
+def _kernel_launches_traced(fn, names):
+    """Launches of each hand kernel in a profiler trace of ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {name: sum(e.count for e in prof.key_averages() if f"{name}_kernel" in e.key) for name in names}
+
+
+def _median_timed(fn, reps=DIST_REPS):
+    return statistics.median(_timed(fn) for _ in range(reps))
+
+
+def _dist_rank(rank, world, addr, out_dir):
+    """One rank of the dist phase: a gloo group of ``world`` ranks sharing
+    ``cuda:0``. Raises on any failed check; the parent then exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=addr, world_size=world, rank=rank)
+    try:
+        result = _dist_checks(rank, world, out_dir)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_checks(rank, world, out_dir):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.classification.auroc import _multiclass_auroc_compute
+    from torchmetrics_tpu_torch.functional.classification.average_precision import _multiclass_average_precision_compute
+    from torchmetrics_tpu_torch.ops import KERNELS
+    from torchmetrics_tpu_torch.parallel import ShardedMetric
+    from torchmetrics_tpu_torch.robustness import faults
+    from torchmetrics_tpu_torch.utilities.distributed import _all_gather, all_reduce_, gather_all_objects
+    from torchmetrics_tpu_torch.utilities.exceptions import SyncError
+
+    device = torch.device("cuda", 0)
+    want = torch.load(os.path.join(out_dir, "expected.pt"))
+    want["slice_values"] = {k: v.to(device) for k, v in want["slice_values"].items()}
+    want["exact_values"] = {k: v.to(device) for k, v in want["exact_values"].items()}
+    batches = _main_path_batches(device)
+    expected = _expected_states_plain(batches, device)
+    out = {"rank": rank}
+
+    # the collectives the port asks of gloo, on CUDA tensors (a refusal raises SyncError)
+    taken = []
+    for dtype in (torch.int32, torch.int64, torch.float32):
+        x = torch.arange(4, device=device).to(dtype) + rank
+        gathered = _all_gather(x, None)
+        _require([int(g[0]) for g in gathered] == list(range(world)), f"all_gather of {dtype} on the card")
+        taken.append(f"all_gather {dtype}")
+        for op in ("SUM", "MAX", "MIN"):
+            all_reduce_(x.clone(), getattr(dist.ReduceOp, op))
+            taken.append(f"all_reduce {op} {dtype}")
+    out["gloo_cuda_collectives"] = taken
+
+    # 1) replica sync: each rank folds half the stream, compute() syncs
+    suite = _headline_suite(tm)
+    per_rank = NUM_BATCHES // world
+    mine = batches[rank * per_rank : (rank + 1) * per_rank]
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    for batch in mine:
+        suite.update(*batch)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in KERNELS.items()}
+    _require(all(n == per_rank for n in launches.values()), f"rank {rank}: K1/K2 launches {launches}, expected {per_rank} each")
+    out["sync_launches"] = launches
+    values = suite.compute()
+    _require_values_bitwise(values, want["slice_values"], f"rank {rank}: synced suite values")
+    members = suite.values(copy_state=False)
+    for m in members:
+        m.sync()
+    _require_states_bitwise(suite, expected, f"rank {rank}: synced suite")
+    for m in members:
+        m.unsync()
+    state_bytes = sum(t.numel() * t.element_size() for m in members for t in m.state_tree().values())
+
+    def compute_again():
+        for m in members:
+            m._computed = None
+        suite.compute()
+
+    def sync_alone():
+        for m in members:
+            m.sync()
+        torch.cuda.synchronize()
+        for m in members:
+            m.unsync()
+
+    out["suite_compute_ms"] = _median_timed(compute_again) * 1e3
+    out["suite_sync_ms"] = _median_timed(sync_alone) * 1e3
+    out["suite_state_bytes"] = state_bytes
+
+    # 2) uneven cat gather: the exact group, 5 batches on rank 0 and 3 on rank 1
+    c = NUM_CLASSES
+    exact = tm.MetricCollection(
+        {
+            "auroc": tm.MulticlassAUROC(num_classes=c, validate_args=False, device=device),
+            "ap": tm.MulticlassAveragePrecision(num_classes=c, validate_args=False, device=device),
+        },
+        compute_groups=True,
+    )
+    cut = 5
+    for batch in (batches[:cut] if rank == 0 else batches[cut:]):
+        exact.update(*batch)
+    local_rows = (cut if rank == 0 else NUM_BATCHES - cut) * BATCH
+    _require_values_bitwise(exact.compute(), want["exact_values"], f"rank {rank}: synced exact values")
+    auroc = exact["auroc"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    auroc.sync()
+    torch.cuda.synchronize()
+    out["exact_gather_ms"] = (time.perf_counter() - t0) * 1e3
+    state = auroc._curve_state()
+    _require(state[0].shape == (NUM_BATCHES * BATCH, c), f"rank {rank}: gathered preds {tuple(state[0].shape)}")
+    per_class = {"auroc": _multiclass_auroc_compute(state, c, None).cpu(), "ap": _multiclass_average_precision_compute(state, c, None).cpu()}
+    for k, v in per_class.items():
+        _require(torch.equal(v, want["exact_per_class"][k]), f"rank {rank}: synced per-class {k} differs from the exact phase's")
+    auroc.unsync()
+    held = sum(x.shape[0] for x in auroc.preds)
+    _require(held == local_rows, f"rank {rank}: after unsync the exact state holds {held} rows, not {local_rows}")
+    out["exact_rows"] = [local_rows, NUM_BATCHES * BATCH]
+    del exact, auroc, state
+
+    # 3) sharded update: every rank gets half the rows of every batch
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    rows = BATCH // world
+    local = [tuple(x[rank * rows : (rank + 1) * rows] for x in batch) for batch in batches]
+    sharded = _headline_suite(tm)
+    wrapped = {key: ShardedMetric(m, mesh) for key, m in sharded.items(keep_base=True)}
+    for batch in local:
+        for m in wrapped.values():
+            m.update(*batch)
+    _require_states_bitwise(sharded, expected, f"rank {rank}: ShardedMetric")
+    _require_values_bitwise(sharded.compute(), want["slice_values"], f"rank {rank}: ShardedMetric values")
+
+    fused_suite = _headline_suite(tm)
+    plan = _fresh_plan(fused_suite, local, mesh=mesh)
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    first_s = _timed(lambda: [plan.update(*b) for b in local])
+    counted = {name: w.launches for name, w in KERNELS.items()}
+    _require(all(n == 2 for n in counted.values()), f"rank {rank}: sharded plan wrapper counts {counted}, expected warm-up + capture")
+    traced = _kernel_launches_traced(lambda: [plan.update(*b) for b in local], KERNELS)
+    _require(all(n == NUM_BATCHES for n in traced.values()), f"rank {rank}: sharded plan K1/K2 per pass in the trace {traced}")
+    out["sharded_plan_launches_per_pass"] = traced
+    passes = [_timed(lambda: [plan.update(*b) for b in local]) for _ in range(DIST_REPS)]
+    out["sharded_pass_ms"] = statistics.median(passes) * 1e3
+    out["sharded_first_pass_ms"] = first_s * 1e3
+    applied = plan.updates_applied
+    _require(applied == NUM_BATCHES * (2 + DIST_REPS), f"rank {rank}: {applied} sharded plan updates applied")
+    plan.fold_back()
+    n = applied // NUM_BATCHES
+    _require_states_bitwise(fused_suite, {k: {s: n * v for s, v in st.items()} for k, st in expected.items()}, f"rank {rank}: sharded plan, {n} passes")
+
+    # 4) fault drill: a corrupt payload from rank 1 fails the object gather on both ranks, then heals
+    faults.install_from_env("corrupt:gather_bytes.payload:rank=1:count=1")
+    try:
+        gather_all_objects(("drill", rank))
+        raise SmokeFailure(f"rank {rank}: the corrupt object gather did not raise")
+    except SyncError as err:
+        _require("rank 1" in str(err) and "corrupt" in str(err), f"rank {rank}: SyncError {err}")
+        out["drill_error"] = str(err)
+    faults.clear()
+    _require(gather_all_objects(("drill", rank)) == [("drill", r) for r in range(world)], f"rank {rank}: the healed gather")
+    return out
+
+
+def phase_dist(slice_run, exact_run, fused_run, smi):
+    """Two gloo ranks on ``cuda:0`` (spawned, ``_dist_rank``): replica sync of
+    the headline suite, the exact group's uneven cat gather, the sharded
+    update and sharded fused plan, and a corrupt-payload drill. A rank that
+    fails or outlives DIST_TIMEOUT_S fails the phase; its processes are killed."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    torch.save(
+        {
+            "slice_values": {k: v.cpu() for k, v in slice_run["values"].items()},
+            "exact_values": {k: v.cpu() for k, v in exact_run["values"].items()},
+            "exact_per_class": exact_run["per_class"],
+        },
+        os.path.join(out_dir, "expected.pt"),
+    )
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dist_rank, args=(DIST_WORLD, addr, out_dir), nprocs=DIST_WORLD, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                raise SmokeFailure(f"dist: the ranks outlived {DIST_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for rank in range(DIST_WORLD):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    note = "gloo stages CUDA tensors through the host: these times describe gloo on one card, not NCCL"
+    print(f"[dist] {DIST_WORLD} gloo ranks on cuda:0, all checks passed on both in {seconds:.1f} s (spawn included)")
+    print(f"[dist] gloo took on CUDA tensors: {', '.join(r0['gloo_cuda_collectives'])}")
+    print(
+        f"[dist] replica sync: K1/K2 launches per rank {[r['sync_launches'] for r in ranks]} ({NUM_BATCHES // DIST_WORLD} local batches"
+        f" each); synced states bitwise equal to the single-process fold, values to the slice phase's"
+    )
+    for r in ranks:
+        print(
+            f"[dist] rank {r['rank']}: suite compute() with its sync {r['suite_compute_ms']:.3f} ms, the sync alone"
+            f" {r['suite_sync_ms']:.3f} ms ({r['suite_state_bytes']} B of states; median of {DIST_REPS}); {smi}; {note}"
+        )
+        print(
+            f"[dist] rank {r['rank']}: exact group {r['exact_rows'][0]} local rows, gathered to {r['exact_rows'][1]}:"
+            f" MulticlassAUROC's sync {r['exact_gather_ms']:.3f} ms; per-class values bitwise equal to the exact phase's; {smi}; {note}"
+        )
+        print(
+            f"[dist] rank {r['rank']}: sharded fused pass of {NUM_BATCHES} half batches {r['sharded_pass_ms']:.3f} ms"
+            f" (median of {DIST_REPS}; first pass with captures {r['sharded_first_pass_ms']:.3f} ms) against the local"
+            f" fused pass {fused_run['median_s'] * 1e3:.3f} ms; K1/K2 per pass in the trace {r['sharded_plan_launches_per_pass']};"
+            f" {smi}; {note}"
+        )
+    print(f"[dist] fault drill: {r0['drill_error']!r} on both ranks; the next gather healed")
+    return {"seconds": seconds, "ranks": ranks}
+
+
 # ----------------------------------------------------------------------- main
 
 
@@ -1236,6 +1506,7 @@ def main() -> int:
     exact = phase_exact(device, batches, KERNELS)
     ml_run = phase_multilabel(device, ml_batches, KERNELS)
     fused = phase_fused(device, batches, KERNELS, run, exact)
+    dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
     matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", library_ms=None,
@@ -1263,7 +1534,9 @@ def main() -> int:
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"
-        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); total {time.perf_counter() - t_start:.1f} s"
+        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); dist phase"
+        f" {dist_run['seconds']:.1f} s, sharded fused pass {dist_run['ranks'][0]['sharded_pass_ms']:.3f} ms (gloo on one card);"
+        f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

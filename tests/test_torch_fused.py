@@ -428,7 +428,23 @@ def test_fused_cat_overflow_raises_on_fold_back():
         plan.fold_back()
 
 
+class _StackedSum(T.Metric):
+    """An array state whose reduction stacks (``dist_reduce_fx=None``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("total", torch.zeros(()), dist_reduce_fx=None)
+
+    def update(self, preds, target):
+        self.total = self.total + preds.sum()
+
+    def compute(self):
+        return self.total
+
+
 def test_fused_mesh_is_not_ported():
-    col = T.MetricCollection({"acc": T.MulticlassAccuracy(num_classes=C, device="cpu")})
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    """The sharded plan is ported (tests/test_torch_sharded.py); what it still
+    refuses, as JAX's does, is an array state whose fold would stack."""
+    col = T.MetricCollection({"acc": T.MulticlassAccuracy(num_classes=C, device="cpu"), "st": _StackedSum(device="cpu")})
+    with pytest.raises(ValueError, match="cannot fuse 'st'.*array state 'total'.*dist_reduce_fx=None"):
         col.fused(mesh=object())

@@ -14,8 +14,14 @@ AUROC and AP within 1e-6 (float32 sums in another order). The fused plan's
 captured CUDA graphs must give the eager path's states and values bitwise,
 capture a second graph for a new batch shape, and raise (never run eagerly)
 where a capture fails; DeviceFeed stages pinned numpy batches on the card.
+Two ranks of one gloo group share the card (this file run as a script is
+their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
+and the sharded fused plan's graphs give the eager ``sharded_update``'s
+states and values bitwise.
 """
 import importlib
+import sys
+from pathlib import Path
 
 import shutil
 
@@ -306,3 +312,67 @@ def test_device_feed_stages_pinned_numpy_on_the_card(card):
     for i, (x, y) in enumerate(out):
         assert x.device.type == "cuda" and y.device.type == "cuda"
         assert bool((x == i).all()) and bool((y == i).all())
+
+
+# ------------------------------------------------- two ranks on one card
+
+
+def _dist_worker(argv) -> None:
+    """One of two gloo ranks on ``cuda:0``: the gathers and the sharded plan."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torchmetrics_tpu_torch.parallel import sharded_update
+    from torchmetrics_tpu_torch.utilities.distributed import gather_all_objects, gather_all_tensors
+
+    rank, world, addr = int(argv[1]), int(argv[2]), argv[3]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=addr, world_size=world, rank=rank)
+    try:
+        card = torch.device("cuda", 0)
+        # uneven shapes, ndim > 8, and an empty rank's (0,) float32 beside int32 rows
+        local = torch.arange(3 + 4 * rank, dtype=torch.float32, device=card).reshape(1, -1) + 10 * rank
+        got = gather_all_tensors(local)
+        assert [tuple(g.shape) for g in got] == [(1, 3), (1, 7)] and all(g.device == card for g in got), got
+        assert torch.equal(got[1], torch.arange(7, dtype=torch.float32, device=card).reshape(1, -1) + 10)
+        deep = gather_all_tensors(torch.full((1,) * 9 + (2 + rank,), float(rank), device=card))
+        assert [tuple(g.shape) for g in deep] == [(1,) * 9 + (2,), (1,) * 9 + (3,)]
+        rows = torch.arange(6, dtype=torch.int32, device=card) if rank == 0 else torch.zeros(0, device=card)
+        got = gather_all_tensors(rows)
+        assert got[0].dtype == got[1].dtype == torch.int32 and tuple(got[1].shape) == (0,), got
+        assert gather_all_objects(("x" * (3 + rank), rank))[1] == ("xxxx", 1)
+
+        # the sharded fused plan (graphs around the collectives) == eager sharded_update
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        batches = _fused_batches(card, n_batches=4)
+        local_batches = [tuple(x[rank * 2048 : (rank + 1) * 2048] for x in b) for b in batches]
+        for exact in (False, True):
+            ref, fus = _fused_suite(card, exact=exact), _fused_suite(card, exact=exact)
+            for b in local_batches:
+                for m in ref.values(copy_state=False):
+                    sharded_update(m, mesh, *b)
+            opts = {"cat_capacity": 4 * 4096, "example_batch": local_batches[0]} if exact else {}
+            plan = fus.fused(mesh=mesh, **opts)
+            for b in local_batches:
+                plan.update(*b)
+            assert len(plan._sharded) == 1 and next(iter(plan._sharded.values())).fold_graph is not None
+            plan.fold_back()
+            _assert_collections_bitwise(ref, fus)
+        dist.barrier()
+        print(f"rank {rank}: card sync checks passed", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_share_the_card_through_gloo(card, tmp_path):
+    """Two gloo ranks on one card: CUDA tensors gather with uneven shapes, and
+    the sharded fused plan's graphs equal the eager sharded update bitwise."""
+    from tests.test_torch_sync import run_workers
+
+    for rank, (rc, out) in enumerate(run_workers(Path(__file__), "cuda", tmp_path, timeout=300)):
+        assert rc == 0, f"rank {rank} failed:\n{out}"
+        assert f"rank {rank}: card sync checks passed" in out, out
+
+
+if __name__ == "__main__":
+    _dist_worker(sys.argv)

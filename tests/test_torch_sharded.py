@@ -1,0 +1,364 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""The port's sharded plane (``sharded_update``, ``ShardedMetric``,
+``suite.fused(mesh=...)``, ``mesh_reduce_tree``, ``cat_buffer_all_gather``)
+on a 2-rank gloo ``DeviceMesh``, against the JAX package's on a 2-device
+virtual CPU mesh.
+
+This file run as a script is the worker (``python tests/test_torch_sharded.py
+<rank> <world> <addr> sharded <out_dir>``; no JAX): each rank gets half the
+rows of every batch, drives the port's sharded paths, checks what it can on
+its own (values bitwise equal to the port's single-process fold, each
+reduction kind of ``mesh_reduce_tree`` against its definition, the
+rank-ordered gather of CatBuffers) and saves its states (``.npz``). The
+parent holds them against JAX's ``sharded_update`` and ``fused(mesh=...)``
+over the whole batches: integer states, CatBuffers and the exact group's cat
+states bitwise; the suite's values within the budgets of
+``tests/test_torch_fused.py`` (rtol 1e-6, atol 1e-7 from probabilities).
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_sync import run_workers
+
+C, N, NB, THR = 5, 48, 4, 16
+HALF = N // 2
+
+
+def _batches():
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(NB):
+        x = rng.standard_normal((N, C)).astype(np.float32)
+        probs = (np.exp(x) / np.exp(x).sum(1, keepdims=True)).astype(np.float32)
+        out.append((probs, rng.integers(0, C, N).astype(np.int32)))
+    return out
+
+
+def _members(pkg, exact=False, **kw):
+    """The headline suite, or the exact group (cat states), of ``pkg``."""
+    cls = pkg.classification if not hasattr(pkg, "BinaryAccuracy") else pkg
+    if exact:
+        return {
+            "auroc": cls.MulticlassAUROC(num_classes=C, **kw),
+            "ap": cls.MulticlassAveragePrecision(num_classes=C, **kw),
+        }
+    return {
+        "acc": cls.MulticlassAccuracy(num_classes=C, average="micro", **kw),
+        "f1": cls.MulticlassF1Score(num_classes=C, average="macro", **kw),
+        "auroc": cls.MulticlassAUROC(num_classes=C, thresholds=THR, **kw),
+    }
+
+
+def _flat(value) -> np.ndarray:
+    if isinstance(value, (list, tuple)):
+        return np.concatenate([np.atleast_1d(np.asarray(v)) for v in value])
+    return np.asarray(value)
+
+
+def _save_members(saved: dict, prefix: str, members: dict) -> None:
+    for key, metric in members.items():
+        for name, value in metric.state_tree().items():
+            saved[f"{prefix}.{key}.{name}"] = _flat([v.numpy() for v in value] if isinstance(value, list) else value.numpy())
+
+
+# -------------------------------------------------------------------- worker
+
+
+def _check_mesh_reduce_tree(rank: int, mesh) -> None:
+    from torchmetrics_tpu_torch.parallel import mesh_reduce_tree
+
+    def part(r):
+        g = torch.Generator().manual_seed(100 + r)
+        return {
+            "s": torch.randint(0, 9, (3,), generator=g, dtype=torch.int32),
+            "m": torch.rand(3, generator=g),
+            "mx": torch.rand(2, 2, generator=g),
+            "mn": torch.rand(2, generator=g),
+            "c": torch.rand(2 + r, generator=g),
+            "n": torch.rand(2, generator=g),
+            "f": torch.rand(3, generator=g),
+            "lc": [torch.rand(2, generator=g), torch.rand(1, generator=g)],
+            "ln": [torch.rand(3, generator=g)],
+        }
+
+    reductions = {"s": "sum", "m": "mean", "mx": "max", "mn": "min", "c": "cat", "n": None,
+                  "f": lambda x: x.sum(0) * 2, "lc": "cat", "ln": None}
+    mine, parts = part(rank), [part(0), part(1)]
+    before = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone() for k, v in mine.items()}
+    got = mesh_reduce_tree(reductions, mine, "data", mesh=mesh)
+    want = {
+        "s": parts[0]["s"] + parts[1]["s"],
+        "m": (parts[0]["m"] + parts[1]["m"]) / 2,
+        "mx": torch.maximum(parts[0]["mx"], parts[1]["mx"]),
+        "mn": torch.minimum(parts[0]["mn"], parts[1]["mn"]),
+        "c": torch.cat([parts[0]["c"], parts[1]["c"]]),
+        "n": torch.stack([parts[0]["n"], parts[1]["n"]]),
+        "f": torch.stack([parts[0]["f"], parts[1]["f"]]).sum(0) * 2,
+        "lc": [torch.cat([parts[0]["lc"][i], parts[1]["lc"][i]]) for i in range(2)],
+        "ln": [torch.cat([parts[0]["ln"][0], parts[1]["ln"][0]])],
+    }
+    assert list(got) == list(want), list(got)
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, list):
+            assert len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w)), key
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), (key, g, w)
+    for key, value in before.items():  # the input tree is not written
+        now = mine[key]
+        assert all(torch.equal(a, b) for a, b in zip(now, value)) if isinstance(value, list) else torch.equal(now, value), key
+
+
+def _check_cat_buffer_all_gather(rank: int, mesh, saved: dict) -> None:
+    from torchmetrics_tpu_torch.parallel import cat_buffer_all_gather, cat_buffer_append, cat_buffer_init
+
+    rows = torch.arange(14, dtype=torch.float32).reshape(7, 2) + 100 * rank
+    buf = cat_buffer_append(cat_buffer_init(5, (2,)), rows[: 2 if rank == 0 else 7])  # rank 1 overflows
+    out = cat_buffer_all_gather(buf, "data", mesh=mesh)
+    assert out.data.shape == (10, 2) and int(out.count) == 7 and bool(out.overflowed), out
+    want = torch.zeros(10, 2)
+    want[:2] = torch.arange(4, dtype=torch.float32).reshape(2, 2)
+    want[2:7] = torch.arange(10, dtype=torch.float32).reshape(5, 2) + 100
+    assert torch.equal(out.data, want), out.data
+    saved.update({"gather.data": out.data.numpy(), "gather.count": out.count.numpy(), "gather.overflowed": out.overflowed.numpy()})
+
+
+def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import torchmetrics_tpu_torch as T
+    from torchmetrics_tpu_torch.parallel import ShardedMetric, sharded_update
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    batches = [tuple(torch.from_numpy(x) for x in b) for b in _batches()]
+    shard = slice(rank * HALF, (rank + 1) * HALF)
+    local = [tuple(x[shard] for x in b) for b in batches]
+    saved: dict = {}
+
+    def single(exact=False):
+        """The port's single-process fold of the whole batches."""
+        members = _members(T, exact=exact, device="cpu", distributed_available_fn=lambda: False)
+        for b in batches:
+            for m in members.values():
+                m.update(*b)
+        return members
+
+    # 1) ShardedMetric / sharded_update: every rank's metric holds the whole batch's totals
+    ref = single()
+    sharded = {k: ShardedMetric(m, mesh) for k, m in _members(T, device="cpu").items()}
+    for b in local:
+        for m in sharded.values():
+            m.update(*b)
+    for key, m in sharded.items():
+        assert torch.equal(m.compute(), ref[key].compute()), f"sharded {key}: {m.compute()} vs {ref[key].compute()}"
+        assert m._mesh_replicated and not m._is_synced
+    _save_members(saved, "sharded", {k: m._metric for k, m in sharded.items()})
+
+    # forward: the batch value over every rank's shard
+    fwd = ShardedMetric(T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu"), mesh)
+    one = T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu", distributed_available_fn=lambda: False)
+    for b, lb in zip(batches[:2], local[:2]):
+        one.reset()
+        one.update(*b)
+        assert torch.equal(fwd(*lb), one.compute()), "ShardedMetric.forward batch value"
+
+    ref_exact = single(exact=True)
+    exact = _members(T, exact=True, device="cpu")
+    for b in local:
+        for m in exact.values():
+            sharded_update(m, mesh, *b)
+    for key, m in exact.items():
+        assert torch.equal(m.compute(), ref_exact[key].compute()), f"sharded exact {key}"
+    _save_members(saved, "sharded_exact", exact)
+
+    # 2) the sharded fused plan: update and run_scan
+    for mode in ("update", "scan"):
+        suite = T.MetricCollection(_members(T, device="cpu"))
+        suite.update(*local[0])
+        suite.update(*local[1])
+        suite.reset()
+        plan = suite.fused(mesh=mesh)
+        if mode == "update":
+            for b in local:
+                plan.update(*b)
+        else:
+            plan.run_scan(local)
+        assert plan.updates_applied == NB
+        plan.fold_back()
+        values = suite.compute()
+        for key in ref:
+            assert torch.equal(values[key], ref[key].compute()), f"fused {mode} {key}: {values[key]}"
+        _save_members(saved, f"fused_{mode}", {k: suite[k] for k in ref})
+        saved.update({f"fused_{mode}.value.{k}": v.numpy() for k, v in values.items()})
+
+    cap = N * NB + 8
+    group = T.MetricCollection(_members(T, exact=True, device="cpu"), compute_groups=False)
+    plan = group.fused(mesh=mesh, cat_capacity=cap, example_batch=local[0])
+    for b in local:
+        plan.update(*b)
+    carry = plan.state["members"]
+    for key in ("auroc", "ap"):
+        for name in ("preds", "target"):
+            buf = carry[key][name]
+            saved.update({f"fused_exact.{key}.{name}.{part}": t.numpy() for part, t in zip(buf._fields, buf)})
+    plan.fold_back()
+    for key, value in group.compute().items():
+        assert torch.equal(value, ref_exact[key].compute()), f"fused exact {key}"
+
+    # 3) the building blocks
+    _check_mesh_reduce_tree(rank, mesh)
+    _check_cat_buffer_all_gather(rank, mesh, saved)
+
+    np.savez(out_dir / f"sharded_rank{rank}.npz", **saved)
+    dist.barrier()
+    print(f"rank {rank}: all sharded checks passed", flush=True)
+
+
+def _worker_main(argv) -> None:
+    import torch.distributed as dist
+
+    rank, world, addr, out_dir = int(argv[1]), int(argv[2]), argv[3], Path(argv[5])
+    dist.init_process_group("gloo", init_method=addr, world_size=world, rank=rank)
+    try:
+        _scenario_sharded(rank, world, out_dir)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- the tests
+
+
+def _jax_mesh():
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:2]), ("data",))
+
+
+def _assert_bitwise(got: np.ndarray, want: np.ndarray, what: str) -> None:
+    assert got.dtype == want.dtype and got.shape == want.shape, (what, got.dtype, want.dtype, got.shape, want.shape)
+    np.testing.assert_array_equal(np.atleast_1d(got).view(np.uint8), np.atleast_1d(want).view(np.uint8), err_msg=what)
+
+
+def _assert_members(saved: dict, prefix: str, members: dict) -> None:
+    for key, metric in members.items():
+        for name, value in metric.state_tree().items():
+            _assert_bitwise(saved[f"{prefix}.{key}.{name}"], _flat(value), f"{prefix}.{key}.{name}")
+
+
+@pytest.fixture(scope="module")
+def worker_states(tmp_path_factory):
+    """Run the 2-rank worker once for this file's tests; each rank's saved states."""
+    out_dir = tmp_path_factory.mktemp("sharded")
+    results = run_workers(Path(__file__), "sharded", out_dir, timeout=120)
+    for rank, (rc, out) in enumerate(results):
+        assert rc == 0, f"rank {rank} failed:\n{out}"
+        assert f"rank {rank}: all sharded checks passed" in out, out
+    return [dict(np.load(out_dir / f"sharded_rank{rank}.npz")) for rank in range(2)]
+
+
+@pytest.fixture(scope="module")
+def jax_batches():
+    import jax.numpy as jnp
+
+    return [tuple(jnp.asarray(x) for x in b) for b in _batches()]
+
+
+def _jax_sharded(batches, exact=False):
+    import torchmetrics_tpu as J
+    from torchmetrics_tpu.parallel import sharded_update
+
+    mesh = _jax_mesh()
+    members = _members(J, exact=exact)
+    for b in batches:
+        for m in members.values():
+            sharded_update(m, mesh, *b)
+    return members
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["suite", "exact_group"])
+def test_sharded_update_matches_jax(worker_states, jax_batches, exact):
+    """Both ranks' states after ``ShardedMetric``/``sharded_update`` over
+    their halves == JAX's ``sharded_update`` over the whole batches."""
+    members = _jax_sharded(jax_batches, exact=exact)
+    for saved in worker_states:
+        _assert_members(saved, "sharded_exact" if exact else "sharded", members)
+
+
+@pytest.mark.parametrize("mode", ["update", "scan"])
+def test_fused_mesh_matches_jax(worker_states, jax_batches, mode):
+    """``suite.fused(mesh=...)`` on both ranks == JAX's ``fused(mesh=...)``:
+    states bitwise, values within the probability budget."""
+    import torchmetrics_tpu as J
+
+    fused = J.MetricCollection(_members(J))
+    fused.update(*jax_batches[0])
+    fused.update(*jax_batches[1])
+    fused.reset()
+    plan = fused.fused(mesh=_jax_mesh())
+    for b in jax_batches:
+        plan.update(*b)
+    plan.fold_back()
+    values = {k: np.asarray(v) for k, v in fused.compute().items()}
+    for saved in worker_states:
+        _assert_members(saved, f"fused_{mode}", {k: fused[k] for k in values})
+        for key, want in values.items():
+            np.testing.assert_allclose(saved[f"fused_{mode}.value.{key}"], want, rtol=1e-6, atol=1e-7, err_msg=key)
+
+
+def test_fused_mesh_catbuffers_match_jax(worker_states, jax_batches):
+    """The exact group's CatBuffer carries (data, count, overflowed) == JAX's, bitwise."""
+    import torchmetrics_tpu as J
+
+    group = J.MetricCollection(_members(J, exact=True), compute_groups=False)
+    plan = group.fused(mesh=_jax_mesh(), cat_capacity=N * NB + 8, example_batch=jax_batches[0])
+    for b in jax_batches:
+        plan.update(*b)
+    for saved in worker_states:
+        for key in ("auroc", "ap"):
+            for name in ("preds", "target"):
+                jbuf = plan.state["members"][key][name]
+                for part, want in zip(jbuf._fields, jbuf):
+                    _assert_bitwise(saved[f"fused_exact.{key}.{name}.{part}"], np.asarray(want), f"{key}.{name}.{part}")
+
+
+def test_cat_buffer_all_gather_matches_jax(worker_states):
+    for saved in worker_states:
+        _assert_gather_matches_jax(saved)
+
+
+def _assert_gather_matches_jax(saved: dict) -> None:
+    """JAX's ``cat_buffer_all_gather`` over the two devices' buffers of the worker's check."""
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from torchmetrics_tpu.parallel.cat_buffer import CatBuffer, cat_buffer_all_gather, cat_buffer_append, cat_buffer_init
+    from torchmetrics_tpu.parallel.sharded import shard_map
+
+    bufs = []
+    for rank in range(2):
+        rows = np.arange(14, dtype=np.float32).reshape(7, 2) + 100 * rank
+        bufs.append(cat_buffer_append(cat_buffer_init(5, (2,)), jnp.asarray(rows[: 2 if rank == 0 else 7])))
+    data = jnp.concatenate([b.data for b in bufs])
+    count = jnp.stack([b.count for b in bufs])
+    over = jnp.stack([b.overflowed for b in bufs])
+
+    def per_device(d, c, o):
+        return cat_buffer_all_gather(CatBuffer(d, c[0], o[0]), "data")
+
+    out = shard_map(per_device, mesh=_jax_mesh(), in_specs=(P("data"), P("data"), P("data")), out_specs=P())(data, count, over)
+    _assert_bitwise(saved["gather.data"], np.asarray(out.data), "gather.data")
+    _assert_bitwise(saved["gather.count"], np.asarray(out.count), "gather.count")
+    _assert_bitwise(saved["gather.overflowed"], np.asarray(out.overflowed), "gather.overflowed")
+
+
+if __name__ == "__main__":
+    _worker_main(sys.argv)

@@ -203,3 +203,43 @@ def test_dim_zero_and_flatten_dict():
     with pytest.raises(ValueError):
         tdata.dim_zero_cat([])
     assert jax.numpy is jnp  # both packages are loaded here; the port itself never imports jax
+
+
+# ------------------------------------------------------- input placement
+
+
+def _small_multiclass(seed=0, n=32, c=4):
+    rng = np.random.default_rng(seed)
+    p = rng.random((n, c)).astype(np.float32)
+    return (p / p.sum(1, keepdims=True)).astype(np.float32), rng.integers(0, c, n).astype(np.int32)
+
+
+def test_numpy_inputs_to_a_functional_go_to_the_card():
+    """A numpy (or list) input to a port functional goes to the card, as a module
+    metric's inputs do, and raises without one; it never drops to the CPU."""
+    from torchmetrics_tpu_torch.functional.classification import multiclass_auroc
+
+    p, t = _small_multiclass()
+    if torch.cuda.is_available():
+        assert multiclass_auroc(p, t, num_classes=4, thresholds=8).device.type == "cuda"
+        assert tdata._to_tensor([1, 2]).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device is available. Pass CPU tensors"):
+        multiclass_auroc(p, t, num_classes=4, thresholds=8)
+    with pytest.raises(RuntimeError, match="a list input was asked to run on cuda"):
+        tdata._to_tensor([1, 2])
+
+
+def test_cpu_tensors_to_a_functional_stay_on_the_cpu():
+    """A torch tensor runs where it lies; list ``thresholds`` go beside ``preds``."""
+    from torchmetrics_tpu.functional.classification import multiclass_auroc as j_auroc
+    from torchmetrics_tpu_torch.functional.classification import multiclass_auroc
+
+    p, t = _small_multiclass()
+    for thresholds in (8, [0.1, 0.4, 0.6, 0.9], np.asarray([0.2, 0.5, 0.8], np.float32)):
+        got = multiclass_auroc(torch.from_numpy(p), torch.from_numpy(t), num_classes=4, thresholds=thresholds)
+        want = np.asarray(j_auroc(jnp.asarray(p), jnp.asarray(t), num_classes=4, thresholds=thresholds))
+        assert got.device.type == "cpu"
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    target = tdata._to_tensor(t, torch.device("cpu"))  # an explicit device is honoured
+    assert target.device.type == "cpu" and target.dtype == torch.int32

@@ -44,6 +44,7 @@ from torchmetrics_tpu_torch.classification import (
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.robustness import SyncConfig
 
 __all__ = [
     "AUROC",
@@ -80,4 +81,5 @@ __all__ = [
     "PrecisionRecallCurve",
     "ROC",
     "StatScores",
+    "SyncConfig",
 ]

@@ -320,7 +320,10 @@ class MetricCollection(dict):
 
         ``cat_capacity``/``example_batch`` are required when any member has
         list ("cat") states (they become fixed-capacity CatBuffer carries).
-        ``mesh``/``axis_name`` (the sharded variant) are not ported yet.
+        ``mesh``/``axis_name`` build the sharded variant over a
+        ``torch.distributed`` ``DeviceMesh`` dim: every rank drives the plan
+        with its local shard of each batch and every rank's carry holds the
+        whole batch's totals (see :mod:`~torchmetrics_tpu_torch.parallel.fused`).
         Fusion-ineligible members raise with a per-member report; see
         :func:`~torchmetrics_tpu_torch.parallel.fused.fusion_report`.
         """

@@ -13,21 +13,35 @@ Every metric runs on the device it is given, ``"cuda"`` by default. With no
 CUDA device present, construction raises unless ``device="cpu"`` was asked
 for: the metric never moves to the CPU on its own.
 
-Not ported yet (later slices, see ROADMAP.md): distributed sync (the state
-stays local), sketch ``"merge"`` states, tracing hooks, fault injection,
-StateGuard, the sliced plane, plotting and arithmetic composition.
+In a multi-process job (an initialised ``torch.distributed`` group of more
+than one rank) ``compute()`` syncs the states across the ranks first, as the
+JAX package does: every state is gathered with
+:func:`~torchmetrics_tpu_torch.utilities.distributed.gather_all_tensors` and
+reduced with its ``dist_reduce_fx``, under the retries, rollback and
+``on_error`` policy of a :class:`~torchmetrics_tpu_torch.robustness.SyncConfig`,
+and the local states come back after the value is computed. ``sync``,
+``unsync``, ``sync_context`` and ``dist_sync_on_step`` work as there.
+
+Not ported yet (later slices, see ROADMAP.md): sketch ``"merge"`` states,
+tracing hooks, StateGuard, the sliced plane, plotting and arithmetic
+composition.
 """
 from __future__ import annotations
 
 import functools
 import inspect
+import threading
+import time
+from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from torchmetrics_tpu_torch._reduction_names import VALID_REDUCTION_NAMES
+from torchmetrics_tpu_torch.robustness import faults
+from torchmetrics_tpu_torch.robustness.sync_config import DEFAULT_SYNC_CONFIG, SyncConfig
 from torchmetrics_tpu_torch.utilities.data import (
     _flatten,
     _squeeze_if_scalar,
@@ -37,7 +51,11 @@ from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_mean,
     dim_zero_min,
     dim_zero_sum,
+    resolve_device,
 )
+from torchmetrics_tpu_torch.utilities.distributed import distributed_available as _dist_available
+from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors
+from torchmetrics_tpu_torch.utilities.exceptions import SyncError, SyncWarning, TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 _REDUCTION_MAP: Dict[str, Callable] = {
@@ -48,22 +66,6 @@ _REDUCTION_MAP: Dict[str, Callable] = {
     "max": dim_zero_max,
 }
 assert set(_REDUCTION_MAP) | {"merge"} == set(VALID_REDUCTION_NAMES)
-
-
-def resolve_device(device: Union[str, torch.device], owner: str) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist.
-
-    Raises rather than falling back to the CPU: a metric asked to run on the
-    card that silently ran on the host would report numbers of another
-    machine.
-    """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{owner} was asked to run on {device}, but no CUDA device is available."
-            " Pass device='cpu' to run it on the CPU."
-        )
-    return device
 
 
 def _as_state_tensor(value: Any, device: torch.device) -> torch.Tensor:
@@ -100,9 +102,27 @@ class Metric:
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", "cuda"), type(self).__name__)
+        # the JAX package's config kwargs, with its validation messages
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
+        if not isinstance(self.compute_on_cpu, bool):
+            raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a `bool` but got {self.compute_on_cpu}")
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be a `bool` but got {self.dist_sync_on_step}")
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError(f"Expected keyword argument `dist_sync_fn` to be an callable function but got {self.dist_sync_fn}")
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or _dist_available
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         if not isinstance(self.compute_with_cache, bool):
             raise ValueError(f"Expected keyword argument `compute_with_cache` to be a `bool` but got {self.compute_with_cache}")
+        self.sync_config = kwargs.pop("sync_config", None)
+        if self.sync_config is not None and not isinstance(self.sync_config, SyncConfig):
+            raise ValueError(f"Expected keyword argument `sync_config` to be a `SyncConfig` but got {self.sync_config}")
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -113,6 +133,15 @@ class Metric:
 
         self._update_count = 0
         self._computed: Any = None
+        self._to_sync = self.sync_on_compute
+        self._should_unsync = True
+
+        # sync bookkeeping: the pre-sync local state while synced
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
+        # set by a sharded fold: the states already cover every rank of the
+        # mesh, so sync() leaves them alone until reset()
+        self._mesh_replicated = False
         self._rewrap()
 
     # ------------------------------------------------------------------ wrap
@@ -223,6 +252,37 @@ class Metric:
         place, so references suffice; list states get a shallow copy."""
         return {attr: list(v) if isinstance(v, list) else v for attr, v in self.state_tree().items()}
 
+    @contextmanager
+    def _scratch(self) -> Iterator[None]:
+        """Run updates on this metric for their resulting state tree only: on
+        exit the states, the update count, the cached value and the
+        mesh-replicated flag are restored as they were."""
+        saved = self._copy_state_dict()
+        count, computed, replicated = self._update_count, self._computed, self._mesh_replicated
+        try:
+            yield
+        finally:
+            self._install_state_tree(saved)  # self-snapshot: trusted
+            self._update_count, self._computed, self._mesh_replicated = count, computed, replicated
+
+    def _fold_sharded_state(self, part: Dict[str, Any], prev_count: int) -> None:
+        """Fold one merged sharded-update event (``parallel.sharded_update``)
+        into the live state.
+
+        ``part`` is the state one ``update`` over the whole (all ranks')
+        batch would have produced. The first event loads it; later ones
+        merge it with the declared reductions, ``"mean"`` states weighted by
+        the running update count. The states then cover every rank of the
+        mesh, so ``compute()`` does not sync them again (until ``reset()``).
+        """
+        if prev_count == 0:
+            self.load_state_tree(part)
+        else:
+            from torchmetrics_tpu_torch.parallel.sharded import tree_merge
+
+            self.load_state_tree(tree_merge(self._reductions, self.state_tree(), part, weight_a=prev_count, weight_b=1))
+        self._mesh_replicated = True
+
     # ---------------------------------------------------------------- update
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
@@ -246,8 +306,19 @@ class Metric:
                     else:
                         setattr(self, attr, prior)
                 raise
+            if self.compute_on_cpu:
+                self._move_list_states_to_cpu()
+            if faults._ACTIVE:  # simulated preemption between completed updates (checkpoint drills)
+                faults.fire("update.preempt")
 
         return wrapped_func
+
+    def _move_list_states_to_cpu(self) -> None:
+        """Move list states to host memory (``compute_on_cpu=True``, the user's request)."""
+        for key in self._defaults:
+            current = getattr(self, key)
+            if isinstance(current, list):
+                setattr(self, key, [c.cpu() for c in current])
 
     def update(self, *_: Any, **__: Any) -> None:  # pragma: no cover - abstract
         """Override in subclass: fold a batch into the metric state."""
@@ -265,7 +336,12 @@ class Metric:
                 )
             if self._computed is not None:
                 return self._computed
-            value = _squeeze_if_scalar(compute(*args, **kwargs))
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn,
+                should_sync=self._to_sync,
+                should_unsync=self._should_unsync,
+            ):
+                value = _squeeze_if_scalar(compute(*args, **kwargs))
             if self.compute_with_cache:
                 self._computed = value
             return value
@@ -281,8 +357,11 @@ class Metric:
         return self.forward(*args, **kwargs)
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
-        """Accumulate globally AND return the batch-local value."""
-        if self.full_state_update or self.full_state_update is None:
+        """Accumulate globally AND return the batch-local value (synced across
+        the ranks with ``dist_sync_on_step=True``)."""
+        if self._is_synced:
+            raise TorchMetricsUserError("The Metric shouldn't be synced when performing ``forward``")
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             return self._forward_full_state_update(*args, **kwargs)
         return self._forward_reduce_state_update(*args, **kwargs)
 
@@ -291,8 +370,10 @@ class Metric:
         value on a fresh state and restore the global one."""
         self.update(*args, **kwargs)
         _update_count = self._update_count
+        self._to_sync = self.dist_sync_on_step
         _temp_compute_with_cache = self.compute_with_cache
         self.compute_with_cache = False
+        self._should_unsync = False
 
         cache = self._copy_state_dict()
         self.reset()
@@ -301,8 +382,11 @@ class Metric:
 
         self._install_state_tree(cache)
         self._update_count = _update_count
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
         self.compute_with_cache = _temp_compute_with_cache
         self._computed = None
+        self._is_synced = False
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -312,8 +396,10 @@ class Metric:
         _update_count = self._update_count
         self.reset()
 
+        self._to_sync = self.dist_sync_on_step
         _temp_compute_with_cache = self.compute_with_cache
         self.compute_with_cache = False
+        self._should_unsync = False
 
         self.update(*args, **kwargs)
         self._update_count = _update_count + 1
@@ -321,8 +407,11 @@ class Metric:
 
         self._reduce_states(global_state)
 
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
         self.compute_with_cache = _temp_compute_with_cache
         self._computed = None
+        self._is_synced = False
         return batch_val
 
     def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
@@ -355,11 +444,159 @@ class Metric:
                 raise TypeError(f"Unsupported reduce_fn: {reduce_fn}")
             setattr(self, attr, reduced)
 
+    # ------------------------------------------------------------------ sync
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
+        """Gather every state from all ranks and apply its reduction."""
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+        for attr, reduction_fn in self._reductions.items():
+            if reduction_fn == "cat" and isinstance(input_dict[attr], list) and len(input_dict[attr]) > 1:
+                input_dict[attr] = [dim_zero_cat(input_dict[attr])]
+            if reduction_fn == "cat" and isinstance(input_dict[attr], list) and len(input_dict[attr]) == 0:
+                # a rank with no data contributes an empty tensor
+                input_dict[attr] = [torch.zeros((0,), dtype=torch.float32, device=self._device)]
+
+        output_dict: Dict[str, Any] = {}
+        group = self.process_group if process_group is None else process_group
+        for attr, value in input_dict.items():
+            if faults._ACTIVE:  # mid-sync fault point: earlier states are already gathered
+                faults.fire("sync.state_gather")
+            if isinstance(value, list):
+                output_dict[attr] = [dist_sync_fn(v, group=group) for v in value]
+            else:
+                output_dict[attr] = dist_sync_fn(value, group=group)
+
+        for attr, reduction_fn in self._reductions.items():
+            if faults._ACTIVE:  # mid-apply fault point: earlier states are already overwritten
+                faults.fire("sync.state_apply")
+            gathered = output_dict[attr]
+            if isinstance(gathered, list) and len(gathered) == 0:
+                setattr(self, attr, [])
+                continue
+            if isinstance(gathered[0], list):
+                gathered = _flatten(gathered)
+            else:
+                gathered = torch.stack(gathered)
+            if isinstance(reduction_fn, str):
+                reduction_fn = _REDUCTION_MAP[reduction_fn]
+            if not (callable(reduction_fn) or reduction_fn is None):
+                raise TypeError("reduction_fn must be callable or None")
+            reduced = reduction_fn(gathered) if reduction_fn is not None else gathered
+            setattr(self, attr, reduced)
+
+    def _sync_dist_bounded(self, dist_sync_fn: Callable, process_group: Optional[Any], timeout_s: Optional[float]) -> None:
+        """Run ``_sync_dist``, optionally under a wall-clock budget.
+
+        With a timeout the collectives run on a daemon worker thread and a
+        straggler raises :class:`SyncError` instead of hanging forever. The
+        abandoned attempt cannot be cancelled: if it ever completes it may
+        still write states, which the caller's cache-restore then overwrites;
+        a timed-out group should be considered poisoned (see ``SyncConfig``).
+        """
+        if not timeout_s:
+            self._sync_dist(dist_sync_fn, process_group=process_group)
+            return
+        box: Dict[str, Any] = {}
+
+        def _runner() -> None:
+            try:
+                self._sync_dist(dist_sync_fn, process_group=process_group)
+            except BaseException as err:  # noqa: BLE001 - handed to the waiting thread, which raises it
+                box["err"] = err
+
+        worker = threading.Thread(target=_runner, daemon=True, name=f"tm-tpu-sync-{type(self).__name__}")
+        worker.start()
+        worker.join(timeout_s)
+        if worker.is_alive():
+            raise SyncError(f"{type(self).__name__}.sync() timed out after {timeout_s}s — straggler rank or lost host?")
+        if "err" in box:
+            raise box["err"]
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        sync_config: Optional[SyncConfig] = None,
+    ) -> None:
+        """Sync the states across ranks, fault-tolerantly.
+
+        Attempts are governed by ``sync_config`` (argument, else the metric's
+        ``sync_config`` kwarg, else :data:`DEFAULT_SYNC_CONFIG`): each failed
+        attempt rolls the states back to the pre-sync cache, so a mid-gather
+        failure never leaves the metric half-synced, then retries with
+        exponential backoff. Exhausted attempts raise :class:`SyncError`, or,
+        with ``on_error="local"``, keep the local-only state with a single
+        :class:`SyncWarning` (rank zero only).
+        """
+        if self._is_synced and should_sync:
+            raise TorchMetricsUserError("The Metric has already been synced.")
+        if distributed_available is None and self.distributed_available_fn is not None:
+            distributed_available = self.distributed_available_fn
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed or self._mesh_replicated:
+            return
+        if dist_sync_fn is None:
+            dist_sync_fn = gather_all_tensors
+        cfg = sync_config or self.sync_config or DEFAULT_SYNC_CONFIG
+        # cache the prior state so accumulation can continue locally after
+        # unsync AND so any failed attempt can roll back cleanly
+        self._cache = self._copy_state_dict()
+        group = process_group or self.process_group
+        last_err: Optional[BaseException] = None
+        for attempt in range(cfg.attempts):
+            try:
+                if faults._ACTIVE:
+                    faults.fire("sync.attempt")
+                self._sync_dist_bounded(dist_sync_fn, group, cfg.timeout_s)
+                self._is_synced = True
+                return
+            except Exception as err:
+                # roll back any partial overwrite before retrying or surfacing;
+                # fresh list copies so a later attempt cannot alias the cache
+                self._install_state_tree({k: list(v) if isinstance(v, list) else v for k, v in self._cache.items()})
+                last_err = err
+                if attempt + 1 < cfg.attempts:
+                    time.sleep(cfg.backoff(attempt))
+        self._cache = None
+        if cfg.on_error == "local":
+            rank_zero_warn(
+                f"{type(self).__name__}.sync() failed after {cfg.attempts} attempt(s) ({last_err}); falling back"
+                " to local-only state (SyncConfig.on_error='local') — reported values cover this process only.",
+                SyncWarning,
+            )
+            return
+        raise SyncError(f"{type(self).__name__}.sync() failed after {cfg.attempts} attempt(s): {last_err}") from last_err
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the cached pre-sync local state."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise TorchMetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._install_state_tree(self._cache)  # self-snapshot: trusted
+        self._is_synced = False
+        self._cache = None
+
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> "_SyncContext":
+        """Context manager: sync on enter, unsync on exit."""
+        return _SyncContext(self, dist_sync_fn, process_group, should_sync, should_unsync, distributed_available)
+
     # ------------------------------------------------------------------ reset
     def reset(self) -> None:
         """Reset all states to their defaults."""
         self._update_count = 0
         self._computed = None
+        self._mesh_replicated = False
         for attr, default in self._defaults.items():
             setattr(self, attr, [] if isinstance(default, list) else default)
 
@@ -436,3 +673,21 @@ class Metric:
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+
+class _SyncContext:
+    def __init__(self, metric: Metric, dist_sync_fn, process_group, should_sync, should_unsync, distributed_available) -> None:
+        self.metric = metric
+        self.kwargs = dict(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        self.should_unsync = should_unsync
+
+    def __enter__(self) -> None:
+        self.metric.sync(**self.kwargs)
+
+    def __exit__(self, *exc: Any) -> None:
+        self.metric.unsync(should_unsync=self.should_unsync and self.metric._is_synced)

@@ -8,13 +8,16 @@
 - :mod:`~torchmetrics_tpu_torch.parallel.cat_buffer`: fixed-capacity append
   buffers that carry list ("cat") states through that step;
 - :mod:`~torchmetrics_tpu_torch.parallel.feed`: the double-buffered
-  host→device batch feed.
+  host→device batch feed;
+- :mod:`~torchmetrics_tpu_torch.parallel.sharded`: sharded updates over a
+  ``torch.distributed`` device mesh (``sharded_update``, ``ShardedMetric``)
+  and the partial-state merges under them.
 
-Not ported yet (ROADMAP): the sharded plane and ``cat_buffer_all_gather``
-(A6), the sliced and windowed planes (A10).
+Not ported yet (ROADMAP): the sliced and windowed planes (A10).
 """
 from torchmetrics_tpu_torch.parallel.cat_buffer import (
     CatBuffer,
+    cat_buffer_all_gather,
     cat_buffer_append,
     cat_buffer_init,
     cat_buffer_merge,
@@ -22,15 +25,30 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
 )
 from torchmetrics_tpu_torch.parallel.feed import DeviceFeed
 from torchmetrics_tpu_torch.parallel.fused import FusedCollectionPlan, fusion_ineligibility, fusion_report
+from torchmetrics_tpu_torch.parallel.sharded import (
+    ShardedMetric,
+    make_sharded_update,
+    mesh_reduce_tree,
+    metric_merge,
+    sharded_update,
+    tree_merge,
+)
 
 __all__ = [
     "CatBuffer",
     "DeviceFeed",
     "FusedCollectionPlan",
+    "ShardedMetric",
+    "cat_buffer_all_gather",
     "cat_buffer_append",
     "cat_buffer_init",
     "cat_buffer_merge",
     "cat_buffer_values",
     "fusion_ineligibility",
     "fusion_report",
+    "make_sharded_update",
+    "mesh_reduce_tree",
+    "metric_merge",
+    "sharded_update",
+    "tree_merge",
 ]

@@ -24,14 +24,13 @@ rows kept, ``count`` and ``overflowed`` are JAX's bit for bit.
 The public functions are pure, as in JAX: they copy the buffer and update
 the copy in place with :func:`_append_` or :func:`_merge_`. The fused plan
 appends to its own buffers in place, its counterpart of a donated carry.
-
-Not ported yet: ``cat_buffer_all_gather``, which needs a process group
-(ROADMAP A6).
+:func:`cat_buffer_all_gather` merges every rank's buffer over a
+``torch.distributed`` group (the sharded fused plan's cat members).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +38,7 @@ Tensor = torch.Tensor
 
 __all__ = [
     "CatBuffer",
+    "cat_buffer_all_gather",
     "cat_buffer_append",
     "cat_buffer_init",
     "cat_buffer_merge",
@@ -131,6 +131,39 @@ def cat_buffer_merge(a: CatBuffer, b: CatBuffer) -> CatBuffer:
     return out
 
 
+def cat_buffer_all_gather(buf: CatBuffer, axis_name: str = "data", *, mesh: Optional[Any] = None) -> CatBuffer:
+    """Cross-rank merge: every rank's valid rows, in rank order, in one buffer.
+
+    Every rank of ``mesh``'s dim ``axis_name`` (the default group with
+    ``mesh=None``) calls it with its own buffer; each gets the same result,
+    of capacity ``world * capacity``, with ``count`` summed and
+    ``overflowed`` OR-ed (the JAX function runs inside ``shard_map`` over a
+    mesh axis instead). Rank order makes it deterministic, so sort-based
+    metrics see the same rows on every rank. The rows past the valid ones
+    are zeros, as in JAX.
+    """
+    from torchmetrics_tpu_torch.parallel.sharded import _axis_group
+    from torchmetrics_tpu_torch.utilities.distributed import gather_all_tensors
+
+    group = _axis_group(mesh, axis_name)
+    datas = gather_all_tensors(buf.data, group=group)
+    meta = torch.stack([buf.count.to(torch.int32), buf.overflowed.to(torch.int32)])
+    metas = torch.stack(gather_all_tensors(meta, group=group))
+    counts = metas[:, 0]
+    offsets = torch.cumsum(counts, 0) - counts  # exclusive prefix sum
+    capacity = sum(d.shape[0] for d in datas)
+    out = cat_buffer_init(capacity, tuple(buf.data.shape[1:]), buf.data.dtype, buf.data.device)
+    storage = _storage(out)
+    for rank, data in enumerate(datas):
+        rows = torch.arange(data.shape[0], device=data.device)
+        # invalid rows route to the spare row, which nothing reads
+        dest = torch.where(rows < counts[rank], offsets[rank] + rows, capacity)
+        storage.index_copy_(0, dest, data)
+    out.count.copy_(counts.sum())
+    out.overflowed.copy_(metas[:, 1].any())
+    return out
+
+
 def cat_buffer_values(buf: CatBuffer) -> Tensor:
     """The valid rows (reads the count on the host). Raises if the buffer ever overflowed."""
     if bool(buf.overflowed):
@@ -148,16 +181,10 @@ def infer_cat_layout(metric: Any, example_batch: Tuple[Any, ...]) -> Dict[str, T
     evaluation, so the update runs once on the example batch, from a reset
     state, and the metric's state, count and cached value are restored after.
     """
-    saved = metric._copy_state_dict()
-    saved_count, saved_computed = metric._update_count, metric._computed
-    try:
+    with metric._scratch():
         metric.reset()
         metric.update(*example_batch)
         appended_by_key = {k: [torch.atleast_1d(x) for x in v] for k, v in metric.state_tree().items() if isinstance(v, list)}
-    finally:
-        metric._install_state_tree(saved)  # self-snapshot: trusted
-        metric._update_count = saved_count
-        metric._computed = saved_computed
     layout = {}
     for key, appended in appended_by_key.items():
         if not appended:

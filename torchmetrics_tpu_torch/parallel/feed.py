@@ -30,10 +30,9 @@ one being staged).
 the staging itself failing) is captured by the staging thread and re-raised
 to the consumer on its next iteration step, at the position where the batch
 would have appeared. Abandoning the iterator early (``break``) stops the
-producer thread promptly: it never blocks forever on a full queue.
-
-Not ported yet: the ``feed.stage`` fault-injection point, which waits for
-``robustness/faults.py`` (ROADMAP A6).
+producer thread promptly: it never blocks forever on a full queue. The
+``feed.stage`` fault point (``robustness/faults.py``) fires on the staging
+thread before each batch is staged, to rehearse exactly that.
 """
 from __future__ import annotations
 
@@ -44,6 +43,8 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from torchmetrics_tpu_torch.robustness import faults
 
 __all__ = ["DeviceFeed"]
 
@@ -137,6 +138,8 @@ class DeviceFeed:
         and the copies are waited for on the host, so a producer may reuse
         its host buffers (pinned ones too) as soon as the next batch is asked for.
         """
+        if faults._ACTIVE:  # staging-fault drill: a poisoned batch or transfer
+            faults.fire("feed.stage")
 
         def leaf(x: Any) -> Any:
             if isinstance(x, (np.ndarray, np.generic)):

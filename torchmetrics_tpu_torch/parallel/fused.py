@@ -51,9 +51,31 @@ host-side counters, wrappers of child metrics and metrics without states
 are refused with a per-member report (:func:`fusion_report`), with the JAX
 package's reasons.
 
-Not ported yet (ROADMAP): the sharded variant (``mesh=``, A6); obs spans,
-device telemetry and cost attribution (A12); sketch ``"merge"`` members
-(A9, refused by ``Metric.add_state``); the cross-plan compiled-step cache.
+**The sharded variant** (``mesh=``, a ``torch.distributed`` ``DeviceMesh``,
+and ``axis_name``, one of its dims): every rank of that dim drives the plan
+with its LOCAL shard of each batch, and every rank's carry ends up holding
+the whole batch's totals, as ``sharded_update`` leaves a metric. Per batch:
+
+1. a captured graph runs each leader's update from a fresh state on the
+   shard and writes the partial states into static buffers (list states
+   into a per-shape CatBuffer);
+2. :func:`~torchmetrics_tpu_torch.parallel.sharded.mesh_reduce_tree` (array
+   states) and :func:`~torchmetrics_tpu_torch.parallel.cat_buffer.cat_buffer_all_gather`
+   (list states) reduce them over the dim's group OUTSIDE the graph: a gloo
+   collective cannot be captured;
+3. a second captured graph folds the reduced partials into the carry with
+   ``tree_merge``'s count-weighted rule (the first event loads them, as
+   ``sharded_update`` does) and appends the gathered rows.
+
+On the CPU the same three steps run eagerly. ``run_scan`` drives the chunk's
+batches one by one (the collectives sit between the graphs). An array state
+whose reduction is ``None`` or a callable is refused, naming the member, as
+in JAX: its stacking fold would grow the carry every step.
+
+Not ported yet (ROADMAP): obs spans, device telemetry and cost attribution
+(A12); sketch ``"merge"`` members (A9, refused by ``Metric.add_state``); the
+cross-plan compiled-step cache; capturing NCCL collectives in the sharded
+step's graph.
 """
 from __future__ import annotations
 
@@ -67,10 +89,13 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
     CatBuffer,
     _append_,
     _copy,
+    _merge_,
+    cat_buffer_all_gather,
     cat_buffer_init,
     cat_buffer_values,
     infer_cat_layout,
 )
+from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics, mesh_reduce_tree, tree_merge
 
 __all__ = ["FusedCollectionPlan", "fusion_ineligibility", "fusion_report"]
 
@@ -82,43 +107,6 @@ _POSITIONAL_KINDS = (
 
 
 # ---------------------------------------------------------------- eligibility
-
-
-def _walk_metrics(metric: Any) -> List[Tuple[str, Any]]:
-    """Depth-first ``[(path, metric), ...]`` over ``metric`` and every Metric
-    reachable through its attributes, held directly or inside nested
-    list/tuple/dict values (a copy of ``parallel/sharded.py::_walk_metrics``
-    of the JAX package, without its set check: fusion only asks whether a
-    metric has children)."""
-    from torchmetrics_tpu_torch.metric import Metric
-
-    def find(seg: str, val: Any, found: list, visiting: set) -> None:
-        if isinstance(val, Metric):
-            found.append((seg, val))
-        elif isinstance(val, (list, tuple, dict)):
-            if id(val) in visiting:  # self-referential container
-                return
-            visiting.add(id(val))
-            items = val.items() if isinstance(val, dict) else enumerate(val)
-            for k, v in items:
-                find(f"{seg}[{k}]", v, found, visiting)
-
-    seen = {id(metric)}
-    out = [("", metric)]
-    stack = [("", metric)]
-    while stack:
-        path, m = stack.pop()
-        for attr, val in vars(m).items():
-            found: list = []
-            find(attr, val, found, set())
-            for seg, child in found:
-                if id(child) in seen:
-                    continue
-                seen.add(id(child))
-                child_path = f"{path}/{seg}" if path else seg
-                out.append((child_path, child))
-                stack.append((child_path, child))
-    return out
 
 
 def fusion_ineligibility(metric: Any) -> Optional[str]:
@@ -189,6 +177,36 @@ def _copy_tree(tree: Any) -> Any:
     return tree.clone()
 
 
+def _clone_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Static copies of a reduced partial tree (CatBuffers with their spare row)."""
+    return {k: _copy(v) if isinstance(v, CatBuffer) else v.clone() for k, v in tree.items()}
+
+
+def _copy_into(static: Dict[str, Any], tree: Dict[str, Any]) -> None:
+    """Copy a reduced partial tree into the static buffers of the fold graph."""
+    for k, v in tree.items():
+        dst = static[k]
+        if isinstance(v, CatBuffer):
+            for d, src in zip(dst, v):
+                d.copy_(src)
+        else:
+            dst.copy_(v)
+
+
+def _fresh_buffers(info: "_MemberInfo", tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """Static buffers for one leader's fresh partial state, shaped by ``tree``:
+    array states as they are, list states as a CatBuffer holding one batch's rows."""
+    out: Dict[str, Any] = {}
+    for name, value in tree.items():
+        if name in info.list_keys:
+            elem, dtype = info.layout[name]
+            rows = sum(torch.atleast_1d(v).shape[0] for v in value)
+            out[name] = cat_buffer_init(rows, elem, dtype, device)
+        else:
+            out[name] = torch.empty_like(value)
+    return out
+
+
 def _concat_rows(appended: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([torch.atleast_1d(x) for x in appended])
 
@@ -222,9 +240,7 @@ def _member_update(info: _MemberInfo, mstate: Dict[str, Any], batch: Tuple[torch
     tree is returned; the metric is restored after. List ("cat") states are
     installed empty, so the tree holds what this batch appends."""
     metric = info.metric
-    saved = metric._copy_state_dict()
-    saved_count, saved_computed = metric._update_count, metric._computed
-    try:
+    with metric._scratch():
         install = {k: v for k, v in mstate.items() if k not in info.list_keys and k != "_update_count"}
         for k in info.list_keys:
             install[k] = []
@@ -232,10 +248,6 @@ def _member_update(info: _MemberInfo, mstate: Dict[str, Any], batch: Tuple[torch
         metric._computed = None
         metric.update(*batch)
         return metric.state_tree()
-    finally:
-        metric._install_state_tree(saved)  # self-snapshot: trusted
-        metric._update_count = saved_count
-        metric._computed = saved_computed
 
 
 def _write_back(info: _MemberInfo, mstate: Dict[str, Any], tree: Dict[str, Any]) -> None:
@@ -260,6 +272,58 @@ class _Captured(NamedTuple):
 
     graph: Any  # torch.cuda.CUDAGraph
     inputs: Tuple[torch.Tensor, ...]
+
+
+class _ShardedStep(NamedTuple):
+    """The sharded plan's buffers for one input signature: static inputs, the
+    fresh partial states of the local shard, their reduced counterparts, and
+    the two graphs around the collectives (``None`` on the CPU)."""
+
+    inputs: Tuple[torch.Tensor, ...]
+    fresh: Dict[str, Dict[str, Any]]
+    reduced: Dict[str, Dict[str, Any]]
+    fresh_graph: Any
+    fold_graph: Any
+
+
+def _write_fresh(info: _MemberInfo, fresh: Dict[str, Any], tree: Dict[str, Any]) -> None:
+    """Write one leader's fresh partial state tree into its static buffers."""
+    for name, value in tree.items():
+        buf = fresh[name]
+        if name in info.list_keys:
+            buf.count.zero_()
+            buf.overflowed.zero_()
+            if value:
+                _append_(buf, _concat_rows(value).to(buf.data.dtype))
+        elif value.shape != buf.shape or value.dtype != buf.dtype:
+            raise ValueError(
+                f"member {info.key!r}: state {name!r} changed from {tuple(buf.shape)} {buf.dtype}"
+                f" to {tuple(value.shape)} {value.dtype} between updates; a fused carry keeps its shape and dtype"
+            )
+        else:
+            buf.copy_(value)
+
+
+def _fold_reduced(info: _MemberInfo, mstate: Dict[str, Any], reduced: Dict[str, Any]) -> None:
+    """Fold one leader's mesh-reduced partial state into its carry, in place.
+
+    The count-weighted ``tree_merge`` of ``sharded_update``; while the
+    carried count is 0 the reduced state is loaded instead (selected on the
+    device, so one captured graph serves every step)."""
+    prev = mstate["_update_count"]
+    arrays = [k for k in reduced if k not in info.list_keys]
+    merged = tree_merge(
+        {k: info.metric._reductions[k] for k in arrays},
+        {k: mstate[k] for k in arrays},
+        {k: reduced[k] for k in arrays},
+        weight_a=prev,
+        weight_b=1,
+    )
+    for k in arrays:
+        mstate[k].copy_(torch.where(prev == 0, reduced[k], merged[k]))
+    for k in info.list_keys:
+        _merge_(mstate[k], reduced[k])
+    mstate["_update_count"].add_(1)
 
 
 # ------------------------------------------------------------------- the plan
@@ -294,7 +358,10 @@ class FusedCollectionPlan:
             ``False``: every read of ``plan.state`` returns a copy of the
             carry, which later updates leave unchanged (a copy of every state
             per read).
-        mesh/axis_name: the sharded variant; not ported yet (ROADMAP A6).
+        mesh/axis_name: build the sharded variant over the ``DeviceMesh``
+            dim ``axis_name``: each rank passes its local shard of every
+            batch, and every rank's carry holds the whole batch's totals
+            (see the module docstring).
     """
 
     def __init__(
@@ -309,10 +376,6 @@ class FusedCollectionPlan:
     ) -> None:
         from torchmetrics_tpu_torch.collections import MetricCollection
 
-        if mesh is not None:
-            raise NotImplementedError(
-                f"the sharded fused plan (mesh=..., axis_name={axis_name!r}) is not ported yet: ROADMAP A6 (distributed sync)"
-            )
         members, groups = _resolve_members(target)
         report = {k: fusion_ineligibility(m) for k, m in members.items()}
         bad = {k: r for k, r in report.items() if r}
@@ -330,9 +393,26 @@ class FusedCollectionPlan:
         self._donate = bool(donate)
         self._cat_capacity = cat_capacity
         self._infos = [_MemberInfo(cg[0], members[cg[0]], cat_capacity, example_batch) for cg in groups]
+        self._mesh = mesh
+        self._axis = axis_name
+        if mesh is not None:
+            # the sharded carry folds fresh events with tree_merge: a None or
+            # callable reduction on an ARRAY state stacks (its shape grows
+            # every step), which a fixed-shape carry cannot hold
+            for info in self._infos:
+                for name, red in info.metric._reductions.items():
+                    if name not in info.list_keys and not isinstance(red, str):
+                        raise ValueError(
+                            f"cannot fuse {info.key!r} ({type(info.metric).__name__}) over a mesh:"
+                            f" array state {name!r} declares dist_reduce_fx={red!r}, whose stacking"
+                            " fold grows the state per step; fixed-shape carries need a named"
+                            " reduction (sum/mean/max/min)"
+                        )
         self._carry = self._initial_state()
         self._captured: Dict[Any, _Captured] = {}
+        self._sharded: Dict[Any, _ShardedStep] = {}
         self._pool: Any = None
+        self._side: Any = None  # the side stream of warm-ups and captures
         self._in_member: Optional[str] = None  # the leader whose update the step is running
 
     def _initial_state(self) -> Dict[str, Any]:
@@ -375,6 +455,83 @@ class FusedCollectionPlan:
         for i in range(stacked[0].shape[0]):
             self._step(carry, tuple(s[i] for s in stacked))
 
+    def _fresh_trees(self, batch: Tuple[torch.Tensor, ...]) -> List[Dict[str, Any]]:
+        """Every leader's update of ``batch`` from a fresh (default) state."""
+        trees = []
+        for info in self._infos:
+            self._in_member = info.key
+            trees.append(_member_update(info, info.metric._defaults, batch))
+        self._in_member = None
+        return trees
+
+    def _fresh_step(self, fresh: Dict[str, Dict[str, Any]], batch: Tuple[torch.Tensor, ...]) -> None:
+        for info, tree in zip(self._infos, self._fresh_trees(batch)):
+            _write_fresh(info, fresh[info.key], tree)
+
+    def _reduce(self, fresh: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+        """The fresh partial states reduced over the mesh dim (collectives;
+        outside any graph). Every leader's array states go through one
+        ``mesh_reduce_tree``, so states of one op and dtype share one collective."""
+        arrays, reductions = {}, {}
+        for info in self._infos:
+            for k, v in fresh[info.key].items():
+                if k not in info.list_keys:
+                    arrays[(info.key, k)] = v
+                    reductions[(info.key, k)] = info.metric._reductions[k]
+        reduced = mesh_reduce_tree(reductions, arrays, self._axis, mesh=self._mesh)
+        out: Dict[str, Dict[str, Any]] = {info.key: {} for info in self._infos}
+        for (key, name), value in reduced.items():
+            out[key][name] = value
+        for info in self._infos:
+            for k in info.list_keys:
+                out[info.key][k] = cat_buffer_all_gather(fresh[info.key][k], self._axis, mesh=self._mesh)
+        return out
+
+    def _fold_step(self, carry: Dict[str, Any], reduced: Dict[str, Dict[str, Any]]) -> None:
+        for info in self._infos:
+            _fold_reduced(info, carry["members"][info.key], reduced[info.key])
+        carry["_update_count"].add_(1)
+
+    def _run_sharded(self, batch: Tuple[torch.Tensor, ...]) -> None:
+        """One batch through the sharded plan: fresh partials (a graph replay
+        on the card), the collectives, the fold (a second replay)."""
+        key = tuple((tuple(b.shape), b.dtype) for b in batch)
+        step = self._sharded.get(key)
+        if step is None:
+            self._sharded[key] = self._build_sharded(batch)
+            return  # the build ran this batch
+        for dst, src in zip(step.inputs, batch):
+            dst.copy_(src)
+        if step.fresh_graph is None:
+            self._fresh_step(step.fresh, step.inputs)
+            self._fold_step(self._carry, self._reduce(step.fresh))
+            return
+        step.fresh_graph.replay()
+        for name, part in self._reduce(step.fresh).items():
+            _copy_into(step.reduced[name], part)
+        step.fold_graph.replay()
+
+    def _build_sharded(self, batch: Tuple[torch.Tensor, ...]) -> _ShardedStep:
+        """Allocate the static buffers of a new input signature, sized by one
+        fresh update (the warm-up on the card), and run ``batch`` through
+        them; on the card capture the fresh and the fold graphs on the way."""
+        cuda = self._device.type == "cuda"
+        inputs = tuple(b.to(self._device, copy=True) for b in batch)
+        trees = self._warm(lambda: self._fresh_trees(inputs)) if cuda else self._fresh_trees(inputs)
+        fresh = {info.key: _fresh_buffers(info, tree, self._device) for info, tree in zip(self._infos, trees)}
+        if not cuda:
+            for info, tree in zip(self._infos, trees):
+                _write_fresh(info, fresh[info.key], tree)
+            self._fold_step(self._carry, self._reduce(fresh))
+            return _ShardedStep(inputs, fresh, {}, None, None)
+        fresh_graph = self._record(lambda: self._fresh_step(fresh, inputs))
+        fresh_graph.replay()
+        reduced = {key: _clone_tree(part) for key, part in self._reduce(fresh).items()}
+        self._warm(lambda: self._fold_step(_copy_tree(self._carry), reduced))
+        fold_graph = self._record(lambda: self._fold_step(self._carry, reduced))
+        fold_graph.replay()
+        return _ShardedStep(inputs, fresh, reduced, fresh_graph, fold_graph)
+
     def _run(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> None:
         """Run ``body(carry, batch)``: eagerly on the CPU; on the card as a
         replay of the graph captured for this body and input signature."""
@@ -395,19 +552,31 @@ class FusedCollectionPlan:
         inputs = tuple(torch.empty(b.shape, dtype=b.dtype, device=self._device) for b in batch)
         for dst, src in zip(inputs, batch):
             dst.copy_(src)
+        self._warm(lambda: body(_copy_tree(self._carry), inputs))
+        return _Captured(self._record(lambda: body(self._carry, inputs)), inputs)
+
+    def _warm(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` once on the side stream (a warm-up: it builds the hand
+        kernels and fills their launch caches), ordered after and before the
+        current stream's work; returns what ``fn`` returns."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self._device)
         current = torch.cuda.current_stream(self._device)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            body(_copy_tree(self._carry), inputs)
-        current.wait_stream(side)
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            out = fn()
+        current.wait_stream(self._side)
+        return out
+
+    def _record(self, fn: Callable[[], None]) -> Any:
+        """``fn`` captured as a CUDA graph on the side stream (after its warm-up)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         try:
             # thread_local: a DeviceFeed thread may pin and copy meanwhile
-            with torch.cuda.graph(graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
-                body(self._carry, inputs)
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._side, capture_error_mode="thread_local"):
+                fn()
         except Exception as err:
             where = self._in_member
             call = f"member {where!r} ({type(self.members[where]).__name__}.update)" if where else "the carry's write-back"
@@ -419,7 +588,7 @@ class FusedCollectionPlan:
             ) from err
         finally:
             self._in_member = None
-        return _Captured(graph, inputs)
+        return graph
 
     # ------------------------------------------------------------------ drive
     @property
@@ -435,15 +604,27 @@ class FusedCollectionPlan:
         return int(self._carry["_update_count"])
 
     def update(self, *batch: Any) -> None:
-        """Apply one batch: one graph replay for the whole collection on the card."""
-        self._run(self._step, tuple(_as_input(b) for b in batch))
+        """Apply one batch: one graph replay for the whole collection on the
+        card (two around the collectives for a sharded plan, whose ``batch``
+        is this rank's shard)."""
+        batch = tuple(_as_input(b) for b in batch)
+        if self._mesh is not None:
+            self._run_sharded(batch)
+        else:
+            self._run(self._step, batch)
 
     def run_scan(self, batches: Any) -> None:
         """Push a chunk of batches through the step: on the card one replay of
-        a graph captured for the chunk's length and signature. ``batches`` is
-        a sequence of positional batch tuples (stacked here) or an already
-        stacked tuple of tensors whose leading axis is the chunk."""
-        self._run(self._chunk, self.stage(batches))
+        a graph captured for the chunk's length and signature (a sharded plan
+        takes the chunk's batches one by one). ``batches`` is a sequence of
+        positional batch tuples (stacked here) or an already stacked tuple of
+        tensors whose leading axis is the chunk."""
+        stacked = self.stage(batches)
+        if self._mesh is not None:
+            for i in range(stacked[0].shape[0]):
+                self._run_sharded(tuple(s[i] for s in stacked))
+        else:
+            self._run(self._chunk, stacked)
 
     def run_stream(self, batches: Iterable[Any], prefetch: int = 2) -> None:
         """Drive an iterable of host batches through the double-buffered
@@ -501,6 +682,10 @@ class FusedCollectionPlan:
                 member = self.members[key]
                 member._update_count = leader._update_count
                 member._computed = None
+        if self._mesh is not None:
+            # the totals cover every rank's shards: compute() must not sync them again
+            for member in self.members.values():
+                member._mesh_replicated = True
         if self._collection is not None:
             # members hold (or will lazily receive) leader state: the same
             # post-update invariant MetricCollection.update leaves behind

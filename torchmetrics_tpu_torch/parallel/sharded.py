@@ -1,0 +1,300 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""Sharded metric updates over a ``torch.distributed`` device mesh
+(counterpart of ``torchmetrics_tpu/parallel/sharded.py``).
+
+In JAX, ``sharded_update(metric, mesh, *global_batch, axis_name="data")``
+runs in ONE process over a ``jax.sharding.Mesh``: it splits the batch over
+the devices of the axis and merges the per-device partial states with
+``psum``/``pmax``/``all_gather``. PyTorch's idiom is one process per device,
+so here:
+
+- ``mesh`` is a :class:`torch.distributed.device_mesh.DeviceMesh` and
+  ``axis_name`` names one of its dims (``init_device_mesh(device_type,
+  (world,), mesh_dim_names=("data",))``);
+- every rank calls with its LOCAL shard of the batch;
+- each rank runs the metric's ``update`` on its shard from a fresh state,
+  and :func:`mesh_reduce_tree` merges the partial states over the group of
+  that mesh dim, with the collective matching each state's reduction:
+
+==============  ===============================================
+dist_reduce_fx  collective over the mesh dim's group
+==============  ===============================================
+``"sum"``       ``all_reduce(SUM)``
+``"mean"``      ``all_reduce(SUM)``, then divide by the ranks
+``"max"``       ``all_reduce(MAX)``
+``"min"``       ``all_reduce(MIN)``
+``"cat"``       rank-ordered gather + flatten
+``None``        rank-ordered gather, stacked (list states: flattened)
+custom fn       fn on the stacked gather
+==============  ===============================================
+
+- the merged state is the same on every rank, and folds into the metric
+  with :func:`tree_merge`'s count-weighted rule; the first event loads it.
+  The metric's states then cover every rank's shard, so its ``compute()``
+  does not sync them again until ``reset()`` (the JAX regime needs no
+  ``sync()`` either: its mesh lives in one process). Mixing plain local
+  updates into a sharded-updated metric is not supported.
+
+The gathers go through
+:func:`~torchmetrics_tpu_torch.utilities.distributed.gather_all_tensors`,
+so ranks whose shards differ in length still merge in rank order.
+
+Not ported yet (ROADMAP): wrapper metrics (their children's states, A7),
+sketch ``"merge"`` states (A9), and the compiled-step cache
+(``plan_cache_lookup``/``make_jit_update``): PyTorch runs the step eagerly.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from torchmetrics_tpu_torch.parallel.cat_buffer import CatBuffer, cat_buffer_merge
+from torchmetrics_tpu_torch.utilities.distributed import all_reduce_, gather_all_tensors, world_size
+
+__all__ = ["ShardedMetric", "make_sharded_update", "mesh_reduce_tree", "metric_merge", "sharded_update", "tree_merge"]
+
+
+# ------------------------------------------------------------------ pure merge
+
+
+def metric_merge(
+    reduction: Optional[str | Callable], a: Any, b: Any, weight_a: Any = 1.0, weight_b: Any = 1.0
+) -> Any:
+    """Pairwise-merge two state values under a declared reduction.
+
+    ``weight_a``/``weight_b`` are the update counts behind each part, used
+    to merge ``"mean"`` states as a correctly weighted average; with the
+    defaults a pair of equal-weight parts averages to ``(a + b) / 2``.
+    """
+    if reduction == "sum":
+        return a + b
+    if reduction == "mean":
+        return (weight_a * a + weight_b * b) / (weight_a + weight_b)
+    if reduction == "max":
+        return torch.maximum(a, b)
+    if reduction == "min":
+        return torch.minimum(a, b)
+    if reduction == "cat":
+        if isinstance(a, CatBuffer):
+            return cat_buffer_merge(a, b)
+        if isinstance(a, list):
+            return list(a) + list(b)
+        return torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)])
+    if reduction is None:
+        if isinstance(a, list):
+            return list(a) + list(b)
+        return torch.stack([a, b])
+    if callable(reduction):
+        return reduction(torch.stack([a, b]))
+    raise ValueError(f"Unknown reduction {reduction!r}")
+
+
+def tree_merge(
+    reductions: Dict[str, Any],
+    state_a: Dict[str, Any],
+    state_b: Dict[str, Any],
+    weight_a: Any = 1.0,
+    weight_b: Any = 1.0,
+) -> Dict[str, Any]:
+    """Merge two state trees keyed by per-state reductions (weights affect ``"mean"`` only)."""
+    return {k: metric_merge(reductions[k], state_a[k], state_b[k], weight_a, weight_b) for k in state_a}
+
+
+def _axis_group(mesh: Optional[Any], axis_name: str) -> Optional[Any]:
+    """The process group of ``mesh``'s dim ``axis_name`` (the default group without a mesh)."""
+    return None if mesh is None else mesh.get_group(axis_name)
+
+
+_ELEMENTWISE_OPS = {"sum": "SUM", "mean": "SUM", "max": "MAX", "min": "MIN"}
+
+
+def mesh_reduce_tree(
+    reductions: Dict[str, Any], state: Dict[str, Any], axis_name: str = "data", *, mesh: Optional[Any] = None
+) -> Dict[str, Any]:
+    """Reduce every rank's partial-state tree over ``mesh``'s dim ``axis_name``.
+
+    Every rank of that dim's group calls it with its own partial state (the
+    JAX function runs inside ``shard_map`` with the axis bound; here the
+    ranks are processes). Returns new tensors, the same on every rank; the
+    input tree is not written. ``mesh=None`` reduces over the default group.
+    Elementwise states of one collective and dtype travel together, as one
+    flat ``all_reduce``: the sums are the same element by element.
+    """
+    group = _axis_group(mesh, axis_name)
+    n = world_size(group)
+
+    def gather(v: torch.Tensor) -> list:
+        return gather_all_tensors(v, group=group)
+
+    out: Dict[str, Any] = {}
+    buckets: Dict[Tuple[str, torch.dtype], list] = {}
+    for key, value in state.items():
+        reduction = reductions[key]
+        if isinstance(value, list) and reduction in ("cat", None):
+            # rank-extend: each appended tensor gathers in rank order and flattens
+            out[key] = [torch.cat([torch.atleast_1d(g) for g in gather(v)]) for v in value]
+        elif reduction in _ELEMENTWISE_OPS:
+            buckets.setdefault((_ELEMENTWISE_OPS[reduction], value.dtype), []).append(key)
+        elif reduction == "cat":
+            out[key] = torch.cat([torch.atleast_1d(g) for g in gather(value)])
+        elif reduction is None:
+            out[key] = torch.stack(gather(value))
+        elif callable(reduction):
+            out[key] = reduction(torch.stack(gather(value)))
+        else:
+            raise ValueError(f"Unknown reduction {reduction!r} for state {key!r}")
+    for (op, _), keys in buckets.items():
+        flat = all_reduce_(torch.cat([state[k].reshape(-1) for k in keys]), getattr(dist.ReduceOp, op), group)
+        for key, part in zip(keys, flat.split([state[k].numel() for k in keys])):
+            part = part.view(state[key].shape)
+            out[key] = part / n if reductions[key] == "mean" else part
+    return {key: out[key] for key in state}
+
+
+# ------------------------------------------------------------- sharded update
+
+
+def _walk_metrics(metric: Any) -> List[Tuple[str, Any]]:
+    """Depth-first ``[(path, metric), ...]`` over ``metric`` and every Metric
+    reachable through its attributes, held directly or inside nested
+    list/tuple/dict values (the JAX function without its set check: fusion
+    and the sharded update only ask whether a metric has children)."""
+    from torchmetrics_tpu_torch.metric import Metric
+
+    def find(seg: str, val: Any, found: list, visiting: set) -> None:
+        if isinstance(val, Metric):
+            found.append((seg, val))
+        elif isinstance(val, (list, tuple, dict)):
+            if id(val) in visiting:  # self-referential container
+                return
+            visiting.add(id(val))
+            items = val.items() if isinstance(val, dict) else enumerate(val)
+            for k, v in items:
+                find(f"{seg}[{k}]", v, found, visiting)
+
+    seen = {id(metric)}
+    out = [("", metric)]
+    stack = [("", metric)]
+    while stack:
+        path, m = stack.pop()
+        for attr, val in vars(m).items():
+            found: list = []
+            find(attr, val, found, set())
+            for seg, child in found:
+                if id(child) in seen:
+                    continue
+                seen.add(id(child))
+                child_path = f"{path}/{seg}" if path else seg
+                out.append((child_path, child))
+                stack.append((child_path, child))
+    return out
+
+
+def _batch_update_state(metric: Any, args: Tuple, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """Run ``metric.update`` on a fresh state and return the resulting tree;
+    the metric's own state, count and cached value are restored after."""
+    with metric._scratch():
+        metric.reset()
+        metric.update(*args, **kwargs)
+        return metric.state_tree()
+
+
+def _check_shardable(metric: Any) -> None:
+    reason = getattr(metric, "_sharded_update_unsupported", None)
+    if reason:
+        raise ValueError(f"{type(metric).__name__} does not support sharded_update: {reason}")
+    children = [path for path, _ in _walk_metrics(metric)[1:]]
+    if children:
+        raise NotImplementedError(
+            f"{type(metric).__name__} wraps child metrics at {children}: sharded_update of wrapper metrics"
+            " is not ported yet (ROADMAP A7)"
+        )
+
+
+def make_sharded_update(metric: Any, mesh: Any, axis_name: str = "data") -> Callable[..., Dict[str, Any]]:
+    """Build ``(local_batch...) -> merged state tree``.
+
+    The returned function runs ``metric``'s update on this rank's shard from
+    a fresh state and reduces the partial states over ``mesh``'s dim
+    ``axis_name`` (:func:`mesh_reduce_tree`): the result, the same on every
+    rank, is the state one update over the whole batch would produce, ready
+    for :meth:`Metric.load_state_tree` or :func:`tree_merge`.
+    """
+    _check_shardable(metric)
+    reductions = dict(metric._reductions)
+
+    def sharded(*args: Any) -> Dict[str, Any]:
+        partial = _batch_update_state(metric, args, {})
+        return mesh_reduce_tree(reductions, partial, axis_name, mesh=mesh)
+
+    return sharded
+
+
+def sharded_update(metric: Any, mesh: Any, *args: Any, axis_name: str = "data") -> None:
+    """Execute one sharded update step and fold the result into ``metric``.
+
+    Every rank of ``mesh``'s dim ``axis_name`` calls it with its local shard::
+
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        sharded_update(acc, mesh, local_preds, local_target)
+
+    Afterwards every rank's metric holds the state of an update over the
+    whole batch (the JAX call takes the whole batch in one process and
+    splits it over the mesh's devices).
+    """
+    merged = make_sharded_update(metric, mesh, axis_name=axis_name)(*args)
+    prev_count = metric._update_count
+    metric._computed = None
+    metric._update_count += 1
+    metric._fold_sharded_state({n: merged[n] for n in metric._defaults}, prev_count)
+
+
+class ShardedMetric:
+    """Wrap a metric so ``update``/``forward`` run sharded over a mesh dim.
+
+    Drop-in shell: all other attribute access proxies to the wrapped metric.
+    """
+
+    def __init__(self, metric: Any, mesh: Any, axis_name: str = "data") -> None:
+        object.__setattr__(self, "_metric", metric)
+        object.__setattr__(self, "_mesh", mesh)
+        object.__setattr__(self, "_axis_name", axis_name)
+
+    def update(self, *args: Any) -> None:
+        sharded_update(self._metric, self._mesh, *args, axis_name=self._axis_name)
+
+    def forward(self, *args: Any) -> Any:
+        """Sharded accumulate + the batch's value over every rank's shard."""
+        prev_count = self._metric._update_count
+        self.update(*args)
+        metric = self._metric
+        if prev_count > 0:
+            # the batch value needs a fresh state: run the sharded step once
+            # more on a reset metric, compute, then restore
+            saved = metric._copy_state_dict()
+            count = metric._update_count
+            metric.reset()
+            sharded_update(metric, self._mesh, *args, axis_name=self._axis_name)
+            batch_val = metric.compute()
+            metric._install_state_tree(saved)  # self-snapshot: trusted
+            metric._update_count = count
+            metric._computed = None
+            return batch_val
+        val = metric.compute()
+        metric._computed = None
+        return val
+
+    def __call__(self, *args: Any) -> Any:
+        return self.forward(*args)
+
+    def compute(self) -> Any:
+        return self._metric.compute()
+
+    def reset(self) -> None:
+        self._metric.reset()
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(object.__getattribute__(self, "_metric"), name)

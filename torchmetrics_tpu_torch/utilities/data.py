@@ -112,14 +112,37 @@ def _float32_inputs(preds: torch.Tensor) -> torch.Tensor:
     return preds.to(torch.float32) if preds.dtype == torch.float64 else preds
 
 
+def resolve_device(
+    device: Union[str, torch.device], owner: str, hint: str = "Pass device='cpu' to run it on the CPU."
+) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist.
+
+    Raises rather than falling back to the CPU: a metric asked to run on the
+    card that silently ran on the host would report numbers of another
+    machine. ``hint`` ends the error's message: how the caller asks for the CPU.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{owner} was asked to run on {device}, but no CUDA device is available. {hint}")
+    return device
+
+
 def _to_tensors(preds: Any, target: Any) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``preds`` as a tensor where it lies, and ``target`` as a tensor beside it."""
+    """``preds`` as a tensor (see :func:`_to_tensor`), and ``target`` as a tensor beside it."""
     preds = _to_tensor(preds)
     return preds, _to_tensor(target, preds.device)
 
 
 def _to_tensor(x: Any, device: Union[str, torch.device, None] = None) -> torch.Tensor:
-    """An input as a tensor on ``device`` (``None``: where it already is)."""
+    """An input as a tensor on ``device``.
+
+    With ``device=None`` a tensor stays where it lies, and anything else
+    (numpy arrays, lists, scalars) goes to the card, as a module metric's
+    inputs do: without a card that raises, it never drops to the CPU. A
+    caller who wants the CPU passes CPU tensors.
+    """
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
+    if device is None:
+        device = resolve_device("cuda", f"a {type(x).__name__} input", "Pass CPU tensors to run on the CPU.")
     return torch.as_tensor(np.asarray(x), device=device)
