@@ -40,7 +40,20 @@ result) if it fails:
    batch, in matrix mode; the final int32 states must equal bitwise the
    stream folded with K1's plain version, and the values a numpy reference
    within 1e-6 / 1e-5 / 1e-5.
-8. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+8. families: the stat-scores families (``MulticlassPrecision``, ``Recall``,
+   ``NegativePredictiveValue``, ``Specificity``, ``HammingDistance``, macro;
+   one compute group, K2 once per batch) and the confusion-matrix families
+   (``MulticlassConfusionMatrix``, ``JaccardIndex``, ``MatthewsCorrCoef``,
+   ``CohenKappa``; one compute group, one C x C ``confmat`` counted with
+   plain PyTorch ops) in one collection over the slice's stream: ``confmat``
+   bitwise equal to a numpy ``np.bincount`` fold brought to the host and
+   tp/fp/tn/fn to the counts derived from it; values within FAMILY_ATOL of
+   numpy float64; the same collection through ``suite.fused()`` bitwise
+   equal, K2 once per replay in the trace; ``torch.argmax`` and the
+   confusion matrix on the hard rows equal to the CPU's; the eager and fused
+   steady passes profiled; the confusion-matrix update alone timed beside
+   its bound and ``torch.bincount`` on the same indices.
+9. fused: the slice's suite through ``suite.fused()``, one CUDA graph
    replay per batch: final states bitwise equal to the plain fold and values
    to the unfused ``compute()``; the wrappers' counters moved by the
    warm-up's launch and the capture's recorded one alone; K1 and K2 once per
@@ -52,7 +65,7 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-9. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+10. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -73,7 +86,8 @@ The last lines of standard output are a ``[kernels]`` line per kernel (and
 one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
-multilabel phases' device times, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
+multilabel phases' device times, the families phase's passes and confusion-matrix update, the fused
+phase's passes and the dist phase's time, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1008,6 +1022,220 @@ def phase_multilabel(device, ml_batches, kernels):
     return {"launches": launches, **steady}
 
 
+# ------------------------------------------------------------------- families
+
+# the stat-scores families (one compute group: tp/fp/tn/fn, K2 once per batch)
+# and the confusion-matrix families (one compute group: a C x C int32 confmat)
+FAMILY_STAT = {
+    "prec": "MulticlassPrecision",
+    "rec": "MulticlassRecall",
+    "npv": "MulticlassNegativePredictiveValue",
+    "spec": "MulticlassSpecificity",
+    "ham": "MulticlassHammingDistance",
+}
+FAMILY_CONFMAT = {
+    "cm": "MulticlassConfusionMatrix",
+    "jac": "MulticlassJaccardIndex",
+    "mcc": "MulticlassMatthewsCorrCoef",
+    "kappa": "MulticlassCohenKappa",
+}
+# values against numpy float64 on the same counts: float32 divisions and
+# reductions over 64 classes (and MCC's and kappa's float32 squares of counts
+# up to 524288) stay far inside this absolute budget
+FAMILY_ATOL = 1e-5
+
+
+def _family_suite(tm):
+    kw = {"num_classes": NUM_CLASSES, "validate_args": False, "device": "cuda"}
+    members = {key: getattr(tm, name)(average="macro", **kw) for key, name in FAMILY_STAT.items()}
+    members.update({key: getattr(tm, name)(**kw) for key, name in FAMILY_CONFMAT.items()})
+    return tm.MetricCollection(members, compute_groups=True)
+
+
+def _numpy_family_reference(batches):
+    """The stream's confusion matrix from a numpy argmax and ``np.bincount`` on
+    the host, the int32 tp/fp/tn/fn derived from it, and every family's value
+    in float64 (macro over the classes present, as the port averages)."""
+    import numpy as np
+
+    c = NUM_CLASSES
+    cm = np.zeros(c * c, np.int64)
+    for logits, labels in batches:
+        pred = logits.cpu().numpy().argmax(1)
+        cm += np.bincount(labels.cpu().numpy().astype(np.int64) * c + pred, minlength=c * c)
+    cm = cm.reshape(c, c)
+    f = cm.astype(np.float64)
+    tp = np.diag(f)
+    fp, fn = f.sum(0) - tp, f.sum(1) - tp
+    tn = f.sum() - tp - fp - fn
+    present = (tp + fp + fn) > 0
+
+    def ratio(num, den):
+        return np.where(den > 0, num / np.where(den > 0, den, 1), 0.0)
+
+    def macro(score):
+        return score[present].mean()
+
+    s, tk, pk = f.sum(), f.sum(1), f.sum(0)
+    mcc = (np.trace(f) * s - (tk * pk).sum()) / np.sqrt((s**2 - (pk * pk).sum()) * (s**2 - (tk * tk).sum()))
+    expected = np.outer(tk, pk) / s
+    off = 1.0 - np.eye(c)
+    union = tk + pk - tp
+    values = {
+        "prec": macro(ratio(tp, tp + fp)),
+        "rec": macro(ratio(tp, tp + fn)),
+        "npv": macro(ratio(tn, tn + fn)),
+        "spec": macro(ratio(tn, tn + fp)),
+        "ham": macro(1.0 - ratio(tp, tp + fn)),
+        "jac": ratio(tp, union)[union > 0].mean(),
+        "mcc": mcc,
+        "kappa": 1.0 - (off * f).sum() / (off * expected).sum(),
+    }
+    counts = {"tp": tp, "fp": fp, "tn": tn, "fn": fn}
+    return cm.astype(np.int32), {k: v.astype(np.int32) for k, v in counts.items()}, values
+
+
+def _confmat_update(logits, labels):
+    """The confusion-matrix family's update of one batch, as the module runs it: argmax, indices, count."""
+    from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
+        _multiclass_confusion_matrix_format,
+        _multiclass_confusion_matrix_update,
+    )
+
+    preds, target = _multiclass_confusion_matrix_format(logits, labels)
+    return _multiclass_confusion_matrix_update(preds, target, NUM_CLASSES)
+
+
+def phase_families(device, batches, kernels):
+    """The stat-scores families (precision, recall, NPV, specificity, Hamming;
+    macro) and the confusion-matrix families (confusion matrix, Jaccard, MCC,
+    kappa) in one collection over the slice's stream: two compute groups; K2
+    once per batch; ``confmat`` bitwise equal to a numpy ``np.bincount`` fold
+    and tp/fp/tn/fn to the counts derived from it; values within FAMILY_ATOL
+    of numpy float64; the same collection through ``suite.fused()`` bitwise
+    equal, K2 once per replay in the trace; the confusion-matrix update
+    alone timed beside its bound and ``torch.bincount`` on the same indices;
+    ``torch.argmax`` and the confusion matrix on the hard rows against the CPU's."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.classification import multiclass_confusion_matrix
+
+    t_phase = time.perf_counter()
+    c = NUM_CLASSES
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    hard = _hard_rows(torch.randn((4096, c), generator=gen, device=device))
+    hard_target = torch.randint(0, c, (4096,), generator=gen, device=device, dtype=torch.int32)
+    _require(
+        torch.equal(torch.argmax(hard, dim=1).cpu(), torch.argmax(hard.cpu(), dim=1)),
+        "families: torch.argmax on the card differs from the CPU's on the hard rows (ties, NaN, -inf, +-0)",
+    )
+    hard_cm = multiclass_confusion_matrix(hard, hard_target, c, validate_args=False)
+    _require(
+        torch.equal(hard_cm.cpu(), multiclass_confusion_matrix(hard.cpu(), hard_target.cpu(), c, validate_args=False)),
+        "families: the confusion matrix of the hard rows differs between the card and the CPU",
+    )
+    suite = _family_suite(tm)
+    suite.update(*batches[0])  # two updates form the compute groups; then one leader per group updates
+    suite.update(*batches[1])
+    suite.reset()
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    for logits, labels in batches:
+        suite.update(logits, labels)
+    values = suite.compute()
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    _require(launches["stat_counts"] == NUM_BATCHES, f"families: K2 launched {launches['stat_counts']} times, expected {NUM_BATCHES}")
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    want_groups = sorted([sorted(FAMILY_CONFMAT), sorted(FAMILY_STAT)])
+    _require(groups == want_groups, f"families: compute groups {groups}, expected {want_groups}")
+
+    cm, counts, ref = _numpy_family_reference(batches)
+    expected = {
+        "cm": {"confmat": torch.from_numpy(cm).to(device)},
+        "prec": {name: torch.from_numpy(v).to(device) for name, v in counts.items()},
+    }
+    _require_states_bitwise(suite, expected, "families")
+    _require(torch.equal(values["cm"].cpu(), torch.from_numpy(cm)), "families: the confusion matrix's value is not its state")
+    vals = {k: float(v) for k, v in values.items() if k != "cm"}
+    diffs = {k: abs(vals[k] - ref[k]) for k in vals}
+    for k, d in diffs.items():
+        _require(math.isfinite(vals[k]) and d <= FAMILY_ATOL, f"families: {k} {vals[k]} vs numpy float64 {ref[k]}")
+    print(
+        f"[families] launches over {NUM_BATCHES} batches {launches}; compute groups {groups}; confmat bitwise equal to"
+        f" the numpy np.bincount fold, tp/fp/tn/fn to the counts derived from it; values {vals}; |card - numpy float64|"
+        f" max {max(diffs.values()):.2e} (budget {FAMILY_ATOL})"
+    )
+    eager = _steady_and_profile("families", suite.update, batches, reset=suite.reset)
+
+    # the same collection fused: one graph replay per batch
+    fused_suite = _family_suite(tm)
+    plan = _fresh_plan(fused_suite, batches)
+    capture_s = _timed(lambda: [plan.update(*b) for b in batches])
+    _require(len(plan._captured) == 1, f"families fused: {len(plan._captured)} graphs captured for one batch shape")
+    plan.fold_back()
+    _require_states_bitwise(fused_suite, expected, "families fused")
+    _require_values_bitwise(fused_suite.compute(), values, "families fused")
+    fused = _steady_and_profile("families fused", plan.update, batches)
+    found, traces = fused["found"], 1
+    while True:
+        k2 = sum(n for key, (_, n) in found.items() if "stat_counts_kernel" in key)
+        if k2 == NUM_BATCHES or traces == 3:  # the trace may drop launches: up to three traced passes
+            break
+        found, _, _ = _profile(lambda: [plan.update(*b) for b in batches], 1)
+        traces += 1
+    _require(k2 == NUM_BATCHES, f"families fused: the trace of a steady pass shows K2 {k2} times, expected {NUM_BATCHES}")
+    fused_passes = _require_plan_passes(plan, fused_suite, expected, "families fused steady passes")
+
+    # the confusion-matrix update alone, and torch.bincount on the same indices
+    arg_sets = list(batches)
+    index_sets = [(labels * c + torch.argmax(logits, dim=1).to(torch.int32),) for logits, labels in batches]
+    for (logits, labels), (idx,) in zip(batches, index_sets):
+        want = torch.bincount(idx, minlength=c * c).reshape(c, c).to(torch.int32)
+        _require(torch.equal(_confmat_update(logits, labels), want), "families: the confusion-matrix update differs from torch.bincount")
+
+    def library(idx):  # not capture-safe: it reads the indices' max on the host to size its output
+        return torch.bincount(idx, minlength=c * c)
+
+    times = _measure([("update", _confmat_update, arg_sets), ("library", library, index_sets)])
+    per_call = sum(n for _, n in times["update"]["found"].values()) / PROFILE_REPS
+    n_bytes = BATCH * c * 4 + BATCH * 4 + c * c * 4
+    bound_ms, bound_by = _bound(n_bytes, BATCH * c)
+    for tag, run in (("eager", eager), ("fused", fused)):
+        print(
+            f"[families] {tag} steady pass {run['median_s'] * 1e3:.3f} ms median, device {run['busy_us']:.1f} us in"
+            f" {run['device_launches']} device kernels, busy share {run['busy_share']:.3f}; device us by kernel:"
+            f" {'; '.join(f'{name} {t:.1f}/{n}' for name, t, n in run['top'])}"
+        )
+    print(
+        f"[families] fused: K2 {k2} per pass in the trace; first fused pass (warm-up, capture, {NUM_BATCHES} replays)"
+        f" {capture_s:.4f} s; states bitwise after {fused_passes} passes; the card's argmax and confusion matrix equal"
+        f" the CPU's on the hard rows"
+    )
+    print(
+        f"[families] confusion-matrix update alone (argmax, indices, capture-safe count), per batch of {BATCH}x{c}: device"
+        f" {times['update']['device_ms']:.5f} ms in {per_call:.1f} device kernels ({per_call * NUM_BATCHES:.0f} per pass),"
+        f" stream {times['update']['stream_ms']:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}, {n_bytes} B); torch.bincount on"
+        f" the same indices {times['library']['device_ms']:.5f} ms device, {times['library']['stream_ms']:.5f} ms stream"
+    )
+    for key, (t, n) in sorted(times["update"]["found"].items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[families]   update: {t / PROFILE_REPS:8.2f} us per call  {n / PROFILE_REPS:4.1f} launches per call  {key[:100]}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[families] phase {seconds:.1f} s")
+    return {
+        "seconds": seconds,
+        "eager": eager,
+        "fused": fused,
+        "launches": launches,
+        "update_ms": times["update"]["device_ms"],
+        "update_kernels": per_call,
+        "bound_ms": bound_ms,
+        "bincount_ms": times["library"]["device_ms"],
+    }
+
+
 # ---------------------------------------------------------------------- fused
 
 
@@ -1024,7 +1252,7 @@ def _require_values_bitwise(got, want, what):
 
     _require(sorted(got) == sorted(want), f"{what}: value keys {sorted(got)} vs {sorted(want)}")
     for k in want:
-        _require(torch.equal(got[k], want[k]), f"{what}: {k} {float(got[k])!r} vs unfused {float(want[k])!r}")
+        _require(torch.equal(got[k], want[k]), f"{what}: {k} {got[k].tolist()!r} vs unfused {want[k].tolist()!r}")
 
 
 def _require_plan_passes(plan, suite, expected, what):
@@ -1505,6 +1733,7 @@ def main() -> int:
     run = phase_slice(device, batches, KERNELS)
     exact = phase_exact(device, batches, KERNELS)
     ml_run = phase_multilabel(device, ml_batches, KERNELS)
+    fam = phase_families(device, batches, KERNELS)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
@@ -1530,7 +1759,9 @@ def main() -> int:
         f" of them {', '.join(f'{k} {v}' for k, v in run['watched'].items())}; host {run['host_calls']} Python calls"
         f" per pass; exact compute {exact['compute_ms']:.3f} ms device, sort share {exact['sort_share']:.3f}, peak"
         f" {exact['peak_mib']:.1f} MiB; multilabel steady pass {ml_run['busy_us']:.1f} us device, busy share"
-        f" {ml_run['busy_share']:.3f}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
+        f" {ml_run['busy_share']:.3f}; families phase {fam['seconds']:.1f} s, eager pass {fam['eager']['median_s'] * 1e3:.3f} ms, fused"
+        f" {fam['fused']['median_s'] * 1e3:.3f} ms, confmat update {fam['update_ms']:.5f} ms device (bound"
+        f" {fam['bound_ms']:.5f}, torch.bincount {fam['bincount_ms']:.5f}); fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"

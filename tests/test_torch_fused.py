@@ -29,15 +29,35 @@ from torchmetrics_tpu_torch.parallel import FusedCollectionPlan, fusion_ineligib
 
 C, L, THR, N = 5, 4, 16, 48
 RTOL, ATOL = 1e-6, 1e-7
-KINDS = ["headline", "shared_group", "exact", "multilabel"]
+KINDS = ["headline", "shared_group", "exact", "multilabel", "families"]
+FAMILY_CLASSES = {
+    "prec": "Precision",
+    "rec": "Recall",
+    "npv": "NegativePredictiveValue",
+    "spec": "Specificity",
+    "ham": "HammingDistance",
+    "cm": "ConfusionMatrix",
+    "jac": "JaccardIndex",
+    "mcc": "MatthewsCorrCoef",
+    "kappa": "CohenKappa",
+    "em": "ExactMatch",
+}
 
 
 def _members(pkg, kind):
-    """The four suites: the headline suite; a real compute group (macro accuracy,
+    """The five suites: the headline suite; a real compute group (macro accuracy,
     F1 and F-beta share their tp/fp/tn/fn); the exact AUROC + AP group (cat
-    states, CatBuffer carries); the multilabel suite."""
+    states, CatBuffer carries); the multilabel suite; the stat-scores and
+    confusion-matrix families (two compute groups, one tp/fp/tn/fn and one
+    C x C ``confmat``) beside exact match."""
     cls = pkg.classification if pkg is J else pkg
     kw = {} if pkg is J else {"device": "cpu"}
+    if kind == "families":
+        macro = {"average": "macro"}
+        return {
+            key: getattr(cls, f"Multiclass{name}")(num_classes=C, **(macro if key in ("prec", "rec", "npv", "spec", "ham") else {}), **kw)
+            for key, name in FAMILY_CLASSES.items()
+        }
     if kind == "headline":
         return {
             "acc": cls.MulticlassAccuracy(num_classes=C, average="micro", **kw),
@@ -125,7 +145,7 @@ def _assert_carry_matches_jax(jstate, tstate):
 def _assert_values_close(want, got, atol):
     assert sorted(want) == sorted(got)
     for k in want:
-        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=RTOL, atol=atol, err_msg=k)
+        np.testing.assert_allclose(np.asarray(got[k], np.float64), np.asarray(want[k], np.float64), rtol=RTOL, atol=atol, err_msg=k)
 
 
 def _assert_values_bitwise(want, got):
@@ -160,7 +180,7 @@ def test_fused_carry_and_values_match_jax_on_probabilities(kind, mode):
         tc.update(*_t(b))
     jplan, tplan = _fuse(jc, kind, batches, _j), _fuse(tc, kind, batches, _t)
     assert [sorted(g) for g in tplan.groups] == [sorted(g) for g in jplan.groups]
-    if kind in ("shared_group", "exact", "multilabel"):
+    if kind in ("shared_group", "exact", "multilabel", "families"):
         assert len(tplan._infos) < len(tc)  # a real group: one leader runs for several members
     _drive(jplan, batches[2:], _j, mode)
     _drive(tplan, batches[2:], _t, mode)
@@ -389,6 +409,26 @@ def test_fusion_report_and_refusal_match_jax():
     assert report["none"] == "declares no registered states"
     with pytest.raises(ValueError, match="kw: .*kwargs-only"):
         _probe_classes(T).fused()
+
+
+def test_fusion_report_of_the_families_matches_jax():
+    """Every stat-scores and confusion-matrix family and exact match, in each
+    of its tasks, is fusable in both packages, with the same report."""
+    def members(pkg):
+        cls = pkg.classification if pkg is J else pkg
+        kw = {} if pkg is J else {"device": "cpu"}
+        out = {}
+        for name in FAMILY_CLASSES.values():
+            for task, args in (("binary", {}), ("multiclass", {"num_classes": C}), ("multilabel", {"num_labels": L})):
+                klass = getattr(cls, f"{task.capitalize()}{name}", None)
+                if klass is not None:
+                    out[f"{task}_{name}"] = klass(**args, **kw)
+        out["samplewise_exact_match"] = cls.MulticlassExactMatch(num_classes=C, multidim_average="samplewise", **kw)
+        return pkg.MetricCollection(out, compute_groups=False)
+
+    report = fusion_report(members(T))
+    assert report == j_fusion_report(members(J))
+    assert len(report) == 29 and all(reason is None for reason in report.values()), report
 
 
 def test_fusion_report_is_read_only():

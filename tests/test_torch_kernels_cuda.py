@@ -14,6 +14,8 @@ AUROC and AP within 1e-6 (float32 sums in another order). The fused plan's
 captured CUDA graphs must give the eager path's states and values bitwise,
 capture a second graph for a new batch shape, and raise (never run eagerly)
 where a capture fails; DeviceFeed stages pinned numpy batches on the card.
+The confusion-matrix families count on the card what the CPU counts, out-of-range
+labels included, and capture in a fused plan.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -302,6 +304,96 @@ def test_fused_plan_capture_failure_raises(card):
     assert int(plan.state["_update_count"]) == 0 and float(plan.state["members"]["host"]["total"]) == 0.0
 
 
+def _family_suite(device, ignore_index=None):
+    """The stat-scores and confusion-matrix families over 64 classes: two compute groups."""
+    kw = {"num_classes": 64, "ignore_index": ignore_index, "validate_args": False, "device": device}
+    return T.MetricCollection(
+        {
+            "prec": T.MulticlassPrecision(average="macro", **kw),
+            "rec": T.MulticlassRecall(average="macro", **kw),
+            "ham": T.MulticlassHammingDistance(average="macro", **kw),
+            "cm": T.MulticlassConfusionMatrix(**kw),
+            "jac": T.MulticlassJaccardIndex(**kw),
+            "mcc": T.MulticlassMatthewsCorrCoef(**kw),
+            "kappa": T.MulticlassCohenKappa(weights="quadratic", **kw),
+        }
+    )
+
+
+def _family_batches(card, ignore_index, n_batches=3):
+    """65536 x 64 logits; labels over [-3, 67), so some lie outside the classes, a tenth set to ``ignore_index``."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(53)
+    out = []
+    for _ in range(n_batches):
+        logits = torch.randn((65536, 64), generator=gen, device=card)
+        labels = torch.randint(-3, 67, (65536,), generator=gen, device=card, dtype=torch.int32)
+        if ignore_index is not None:
+            labels[::10] = ignore_index
+        out.append((logits, labels))
+    return out
+
+
+@pytest.mark.parametrize("ignore_index", [None, 5, -1])
+def test_confusion_matrix_family_on_the_card_equals_cpu(card, ignore_index):
+    """At 65536 x 64 with out-of-range labels: the card's int32 ``confmat``
+    and tp/fp/tn/fn equal the CPU fold's bitwise (the capture-safe count
+    keeps jnp.bincount's rules on the card), the values within 1e-5."""
+    batches = _family_batches(card, ignore_index)
+    on_card, on_cpu = _family_suite(card, ignore_index), _family_suite("cpu", ignore_index)
+    for logits, labels in batches:
+        on_card.update(logits, labels)
+        on_cpu.update(logits.cpu(), labels.cpu())
+    for key, name in (("cm", "confmat"), ("prec", "tp"), ("prec", "fp"), ("prec", "tn"), ("prec", "fn")):
+        got, want = getattr(on_card[key], name), getattr(on_cpu[key], name)
+        assert got.device.type == card.type and got.dtype == want.dtype == torch.int32
+        assert torch.equal(got.cpu(), want), f"{key}.{name}"
+    got, want = on_card.compute(), on_cpu.compute()
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-6)
+
+
+def test_confusion_matrix_family_fused_graph_equals_eager(card):
+    """The families through ``suite.fused()``: the count captures (no host
+    read), the replays' states and values equal the eager fold bitwise, and
+    each replay runs K2 once for the stat-scores group."""
+    batches = _family_batches(card, 5, n_batches=5)
+    ref, fus = _family_suite(card, 5), _family_suite(card, 5)
+    for b in batches:
+        ref.update(*b)
+    fus.update(*batches[0])
+    fus.update(*batches[1])
+    plan = fus.fused()
+    plan.update(*batches[2])  # warm-up, capture, first replay
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        plan.update(*batches[3])
+        plan.update(*batches[4])
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages() if "stat_counts_kernel" in e.key) == 2
+    assert len(plan._captured) == 1
+    plan.fold_back()
+    _assert_collections_bitwise(ref, fus)
+
+
+def test_argmax_hard_rows_on_the_card_match_cpu(card):
+    """``torch.argmax`` on the card keeps the CPU's (and ``jnp.argmax``'s) rule
+    on ties, NaN, -inf and signed zeros; so does the confusion matrix built on it."""
+    scores = torch.randn((64, 64))
+    scores[0] = float("nan")
+    scores[1] = float("-inf")
+    scores[2] = 0.0
+    scores[2, ::2] = -0.0
+    scores[3] = 0.25
+    scores[4, 32:] = 1e9
+    scores[5, 63] = float("nan")
+    scores[6, 1:] = float("inf")
+    scores[6, 3] = float("nan")
+    assert torch.equal(torch.argmax(scores.to(card), dim=1).cpu(), torch.argmax(scores, dim=1))
+    target = torch.arange(64, dtype=torch.int32)
+    got = T.functional.multiclass_confusion_matrix(scores.to(card), target.to(card), 64)
+    assert torch.equal(got.cpu(), T.functional.multiclass_confusion_matrix(scores, target, 64))
+
+
 def test_device_feed_stages_pinned_numpy_on_the_card(card):
     pinned = [torch.empty((1024, 16), pin_memory=True) for _ in range(3)]
     for i, t in enumerate(pinned):
@@ -372,6 +464,31 @@ def test_two_ranks_share_the_card_through_gloo(card, tmp_path):
     for rank, (rc, out) in enumerate(run_workers(Path(__file__), "cuda", tmp_path, timeout=300)):
         assert rc == 0, f"rank {rank} failed:\n{out}"
         assert f"rank {rank}: card sync checks passed" in out, out
+
+
+# last in the file: it makes one capture fail on purpose
+def test_count_captures_where_torch_bincount_cannot(card):
+    """``torch.bincount`` reads its input's max on the host, which a CUDA graph
+    cannot capture; ``_bincount`` (fixed bins, no host read) captures, and its
+    replay counts what ``torch.bincount`` counts eagerly."""
+    from torchmetrics_tpu_torch.utilities.data import _bincount
+
+    idx = torch.randint(0, 4096, (65536,), device=card, dtype=torch.int32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _bincount(idx, 4096)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _bincount(idx, 4096)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.bincount(idx, minlength=4096).to(torch.int32))
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            torch.bincount(idx, minlength=4096)
+    torch.cuda.synchronize()
 
 
 if __name__ == "__main__":

@@ -10,11 +10,14 @@ This file run as a script is the worker (``python tests/test_torch_sharded.py
 rows of every batch, drives the port's sharded paths, checks what it can on
 its own (values bitwise equal to the port's single-process fold, each
 reduction kind of ``mesh_reduce_tree`` against its definition, the
-rank-ordered gather of CatBuffers) and saves its states (``.npz``). The
+rank-ordered gather of CatBuffers; rank-local and sharded updates refused
+in either order until ``reset()``) and saves its states (``.npz``). The
 parent holds them against JAX's ``sharded_update`` and ``fused(mesh=...)``
 over the whole batches: integer states, CatBuffers and the exact group's cat
 states bitwise; the suite's values within the budgets of
 ``tests/test_torch_fused.py`` (rtol 1e-6, atol 1e-7 from probabilities).
+At world size 1 (a one-rank group in this process) the mix is accepted and
+gives JAX's states.
 """
 from __future__ import annotations
 
@@ -130,6 +133,56 @@ def _check_cat_buffer_all_gather(rank: int, mesh, saved: dict) -> None:
     saved.update({"gather.data": out.data.numpy(), "gather.count": out.count.numpy(), "gather.overflowed": out.overflowed.numpy()})
 
 
+def _refused(call, *args) -> str:
+    """The message of the TorchMetricsUserError that ``call(*args)`` must raise."""
+    from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+
+    try:
+        call(*args)
+    except TorchMetricsUserError as err:
+        assert "reset()" in str(err), f"the refusal does not say how to clear the state: {err}"
+        return str(err)
+    raise AssertionError(f"{getattr(call, '__name__', call)} mixed rank-local and sharded updates without an error")
+
+
+def _check_mixing_is_refused(T, mesh, local) -> None:
+    """A plain update()/forward() after a sharded fold, a sharded fold after
+    plain updates, and a plan seeded from the other regime's state all raise,
+    leave the state as it was, and pass after reset()."""
+    from torchmetrics_tpu_torch.parallel import sharded_update
+
+    def acc():
+        return T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu")
+
+    m = acc()
+    sharded_update(m, mesh, *local[0])
+    before = {k: v.clone() for k, v in m.state_tree().items()}
+    _refused(m.update, *local[1])
+    _refused(m.forward, *local[1])
+    assert m._update_count == 1 and m._mesh_replicated, "a refused update moved the count or the flag"
+    assert all(torch.equal(v, before[k]) for k, v in m.state_tree().items()), "a refused update changed the state"
+    m.reset()
+    m.update(*local[1])  # after reset() a plain update is accepted
+    _refused(sharded_update, m, mesh, *local[0])  # the collective ran on both ranks; both refuse after it
+    assert m._update_count == 1 and not m._mesh_replicated, "a refused sharded fold moved the count or the flag"
+    m.reset()
+    sharded_update(m, mesh, *local[0])
+    assert m._update_count == 1 and m._mesh_replicated
+
+    suite = T.MetricCollection({"acc": acc(), "f1": T.MulticlassF1Score(num_classes=C, device="cpu")})
+    suite.update(*local[0])
+    _refused(lambda: suite.fused(mesh=mesh))  # a mesh plan seeded from rank-local states
+    suite.reset()
+    plan = suite.fused(mesh=mesh)
+    plan.update(*local[0])
+    plan.fold_back()
+    _refused(suite.update, *local[1])
+    _refused(lambda: suite.fused())  # a local plan seeded from mesh-replicated states
+    suite.reset()
+    suite.fused().update(*local[1])
+    print(f"rank {torch.distributed.get_rank()}: mixing refused in both orders, accepted after reset()", flush=True)
+
+
 def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -217,6 +270,9 @@ def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
     _check_mesh_reduce_tree(rank, mesh)
     _check_cat_buffer_all_gather(rank, mesh, saved)
 
+    # 4) rank-local and sharded updates do not mix while sync would run
+    _check_mixing_is_refused(T, mesh, local)
+
     np.savez(out_dir / f"sharded_rank{rank}.npz", **saved)
     dist.barrier()
     print(f"rank {rank}: all sharded checks passed", flush=True)
@@ -262,6 +318,7 @@ def worker_states(tmp_path_factory):
     for rank, (rc, out) in enumerate(results):
         assert rc == 0, f"rank {rank} failed:\n{out}"
         assert f"rank {rank}: all sharded checks passed" in out, out
+        assert f"rank {rank}: mixing refused in both orders" in out, out
     return [dict(np.load(out_dir / f"sharded_rank{rank}.npz")) for rank in range(2)]
 
 
@@ -358,6 +415,45 @@ def _assert_gather_matches_jax(saved: dict) -> None:
     _assert_bitwise(saved["gather.data"], np.asarray(out.data), "gather.data")
     _assert_bitwise(saved["gather.count"], np.asarray(out.count), "gather.count")
     _assert_bitwise(saved["gather.overflowed"], np.asarray(out.overflowed), "gather.overflowed")
+
+
+@pytest.fixture
+def single_rank_mesh():
+    """A one-rank gloo group (an in-process store, no port) and its DeviceMesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("order", ["sharded_then_plain", "plain_then_sharded"])
+def test_single_rank_mix_matches_jax(single_rank_mesh, jax_batches, order):
+    """At world size 1 sync never runs, so mixing plain and sharded updates is
+    accepted, as JAX's one-process mesh accepts it, with JAX's states bitwise."""
+    import torchmetrics_tpu as J
+    from torchmetrics_tpu.parallel import sharded_update as jax_sharded_update
+
+    import torchmetrics_tpu_torch as T
+    from torchmetrics_tpu_torch.parallel import sharded_update
+
+    port, ref = _members(T, device="cpu"), _members(J)
+    for i, (jb, b) in enumerate(zip(jax_batches, _batches())):
+        b = tuple(torch.from_numpy(x) for x in b)
+        sharded = (i % 2 == 0) == (order == "sharded_then_plain")
+        for key in port:
+            if sharded:
+                sharded_update(port[key], single_rank_mesh, *b)
+                jax_sharded_update(ref[key], _jax_mesh(), *jb)
+            else:
+                port[key].update(*b)
+                ref[key].update(*jb)
+    _assert_members({f"mix.{k}.{n}": _flat(v.numpy()) for k, m in port.items() for n, v in m.state_tree().items()}, "mix", ref)
+    for key in port:
+        np.testing.assert_allclose(port[key].compute().numpy(), np.asarray(ref[key].compute()), rtol=1e-6, atol=1e-7, err_msg=key)
 
 
 if __name__ == "__main__":

@@ -128,11 +128,15 @@ def _moments_cls():
 
 
 def _suite(T, **kw):
+    """The headline suite, with a stat-scores family (precision shares F1's
+    compute group) and a confusion matrix."""
     return T.MetricCollection(
         {
             "acc": T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu", **kw),
             "f1": T.MulticlassF1Score(num_classes=C, average="macro", device="cpu", **kw),
             "auroc": T.MulticlassAUROC(num_classes=C, thresholds=16, device="cpu", **kw),
+            "prec": T.MulticlassPrecision(num_classes=C, average="macro", device="cpu", **kw),
+            "cm": T.MulticlassConfusionMatrix(num_classes=C, device="cpu", **kw),
         }
     )
 
@@ -183,7 +187,7 @@ def _scenario_full(rank: int, world: int, out_dir: Path) -> None:
     ref_values = ref_suite.compute()
     for k in ref_values:
         assert torch.equal(values[k], ref_values[k]), f"suite value {k}: {values[k]} vs {ref_values[k]}"
-    for key in ("acc", "f1", "auroc"):
+    for key in ("acc", "f1", "auroc", "prec", "cm"):
         member = suite[key]
         member.sync()
         saved.update({f"suite.{key}.{k}": v for k, v in _np_tree(member).items()})
@@ -418,6 +422,8 @@ def test_two_process_replica_sync(tmp_path):
         "suite.acc": _jax_fold(JC.MulticlassAccuracy, *mc_parts, num_classes=C, average="micro"),
         "suite.f1": _jax_fold(JC.MulticlassF1Score, *mc_parts, num_classes=C, average="macro"),
         "suite.auroc": _jax_fold(JC.MulticlassAUROC, *mc_parts, num_classes=C, thresholds=16),
+        "suite.prec": _jax_fold(JC.MulticlassPrecision, *mc_parts, num_classes=C, average="macro"),
+        "suite.cm": _jax_fold(JC.MulticlassConfusionMatrix, *mc_parts, num_classes=C),
     }
     for rank in range(2):
         saved = dict(np.load(tmp_path / f"full_rank{rank}.npz"))

@@ -1,24 +1,28 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
-"""Classification module metrics of the port: binary, multiclass and multilabel; binned and exact curves."""
+"""Classification module metrics of the port: binary, multiclass and multilabel; binned and exact curves,
+the stat-scores families and the confusion-matrix families."""
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
     BinaryAccuracy,
     MulticlassAccuracy,
     MultilabelAccuracy,
 )
-from torchmetrics_tpu_torch.classification.auroc import (
-    AUROC,
-    BinaryAUROC,
-    MulticlassAUROC,
-    MultilabelAUROC,
-)
+from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
 from torchmetrics_tpu_torch.classification.average_precision import (
     AveragePrecision,
     BinaryAveragePrecision,
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
+from torchmetrics_tpu_torch.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    ConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
+from torchmetrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -29,17 +33,50 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from torchmetrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
+from torchmetrics_tpu_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
+from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
+)
+from torchmetrics_tpu_torch.classification.precision_recall import (
+    BinaryNegativePredictiveValue,
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassNegativePredictiveValue,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelNegativePredictiveValue,
+    MultilabelPrecision,
+    MultilabelRecall,
+    NegativePredictiveValue,
+    Precision,
+    Recall,
+)
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
-from torchmetrics_tpu_torch.classification.roc import (
-    BinaryROC,
-    MulticlassROC,
-    MultilabelROC,
-    ROC,
+from torchmetrics_tpu_torch.classification.roc import BinaryROC, MulticlassROC, MultilabelROC, ROC
+from torchmetrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
 )
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
@@ -55,30 +92,68 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCohenKappa",
+    "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryHammingDistance",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
+    "BinaryNegativePredictiveValue",
+    "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
+    "BinaryRecall",
+    "BinarySpecificity",
     "BinaryStatScores",
+    "CohenKappa",
+    "ConfusionMatrix",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCohenKappa",
+    "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassHammingDistance",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
+    "MulticlassNegativePredictiveValue",
+    "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
+    "MulticlassRecall",
+    "MulticlassSpecificity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelHammingDistance",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
+    "MultilabelNegativePredictiveValue",
+    "MultilabelPrecision",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRecall",
+    "MultilabelSpecificity",
     "MultilabelStatScores",
+    "NegativePredictiveValue",
+    "Precision",
     "PrecisionRecallCurve",
     "ROC",
+    "Recall",
+    "Specificity",
     "StatScores",
 ]

@@ -1,0 +1,96 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""Cohen's kappa module metrics (counterpart of ``torchmetrics_tpu/classification/cohen_kappa.py``);
+they ride the confusion-matrix state."""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
+from torchmetrics_tpu_torch.functional.classification.cohen_kappa import (
+    _binary_cohen_kappa_arg_validation,
+    _cohen_kappa_reduce,
+    _multiclass_cohen_kappa_arg_validation,
+)
+from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.enums import ClassificationTaskNoMultilabel
+
+Tensor = torch.Tensor
+
+
+class BinaryCohenKappa(BinaryConfusionMatrix):
+    """Binary Cohen's kappa."""
+
+    higher_is_better = True
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        ignore_index: Optional[int] = None,
+        weights: Optional[str] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(threshold, ignore_index, normalize=None, validate_args=False, **kwargs)
+        if validate_args:
+            _binary_cohen_kappa_arg_validation(threshold, ignore_index, weights)
+        self.weights = weights
+        self.validate_args = validate_args
+
+    def compute(self) -> Tensor:
+        """Compute kappa from the confusion matrix."""
+        return _cohen_kappa_reduce(self.confmat, self.weights)
+
+
+class MulticlassCohenKappa(MulticlassConfusionMatrix):
+    """Multiclass Cohen's kappa."""
+
+    higher_is_better = True
+
+    def __init__(
+        self,
+        num_classes: int,
+        ignore_index: Optional[int] = None,
+        weights: Optional[str] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(num_classes, ignore_index, normalize=None, validate_args=False, **kwargs)
+        if validate_args:
+            _multiclass_cohen_kappa_arg_validation(num_classes, ignore_index, weights)
+        self.weights = weights
+        self.validate_args = validate_args
+
+    def compute(self) -> Tensor:
+        """Compute kappa from the confusion matrix."""
+        return _cohen_kappa_reduce(self.confmat, self.weights)
+
+
+class CohenKappa(_ClassificationTaskWrapper):
+    """Task-dispatching Cohen's kappa (binary and multiclass)."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        weights: Optional[str] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        task = ClassificationTaskNoMultilabel.from_str(task)
+        kwargs.update({"weights": weights, "ignore_index": ignore_index, "validate_args": validate_args})
+        if task == ClassificationTaskNoMultilabel.BINARY:
+            return BinaryCohenKappa(threshold, **kwargs)
+        if task == ClassificationTaskNoMultilabel.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            return MulticlassCohenKappa(num_classes, **kwargs)
+        raise ValueError(f"Not handled value: {task}")
+
+
+__all__ = ["BinaryCohenKappa", "MulticlassCohenKappa", "CohenKappa"]

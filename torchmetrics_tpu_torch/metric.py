@@ -256,9 +256,11 @@ class Metric:
     def _scratch(self) -> Iterator[None]:
         """Run updates on this metric for their resulting state tree only: on
         exit the states, the update count, the cached value and the
-        mesh-replicated flag are restored as they were."""
+        mesh-replicated flag are restored as they were. Inside, the flag is
+        clear, so these updates are not refused as local ones."""
         saved = self._copy_state_dict()
         count, computed, replicated = self._update_count, self._computed, self._mesh_replicated
+        self._mesh_replicated = False
         try:
             yield
         finally:
@@ -274,7 +276,14 @@ class Metric:
         merge it with the declared reductions, ``"mean"`` states weighted by
         the running update count. The states then cover every rank of the
         mesh, so ``compute()`` does not sync them again (until ``reset()``).
+        Raises :class:`TorchMetricsUserError`, before touching the state, when
+        plain updates of this rank alone are already in it and sync would run.
         """
+        if prev_count > 0 and not self._mesh_replicated and self._sync_would_run():
+            raise TorchMetricsUserError(
+                f"{type(self).__name__}: a sharded update cannot fold into a state that holds this rank's own"
+                " plain updates: those would never be synced. Call reset() first to clear the state."
+            )
         if prev_count == 0:
             self.load_state_tree(part)
         else:
@@ -283,10 +292,26 @@ class Metric:
             self.load_state_tree(tree_merge(self._reductions, self.state_tree(), part, weight_a=prev_count, weight_b=1))
         self._mesh_replicated = True
 
+    def _sync_would_run(self) -> bool:
+        """Whether ``compute()`` would sync: a process group of more than one rank is up."""
+        return bool(self.distributed_available_fn())
+
+    def _refuse_local_update(self) -> None:
+        """Refuse a plain (rank-local) update into a state a sharded fold made
+        the same on every rank, where sync would otherwise run: ``sync()``
+        skips such a state, so the ranks would report different values."""
+        if self._mesh_replicated and self._sync_would_run():
+            raise TorchMetricsUserError(
+                f"{type(self).__name__}: a plain update() or forward() after a sharded update (or a mesh plan's"
+                " fold_back) would fold this rank's batch alone into a state every rank shares, and compute()"
+                " would not sync it. Call reset() first to clear the state."
+            )
+
     # ---------------------------------------------------------------- update
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            self._refuse_local_update()
             self._computed = None
             # transactional: an exception mid-update rolls the count AND the
             # states back together. Tensors are replaced, never mutated, so a
@@ -361,6 +386,7 @@ class Metric:
         the ranks with ``dist_sync_on_step=True``)."""
         if self._is_synced:
             raise TorchMetricsUserError("The Metric shouldn't be synced when performing ``forward``")
+        self._refuse_local_update()
         if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             return self._forward_full_state_update(*args, **kwargs)
         return self._forward_reduce_state_update(*args, **kwargs)

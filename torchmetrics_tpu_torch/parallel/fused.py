@@ -96,6 +96,7 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
     infer_cat_layout,
 )
 from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics, mesh_reduce_tree, tree_merge
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 __all__ = ["FusedCollectionPlan", "fusion_ineligibility", "fusion_report"]
 
@@ -395,6 +396,15 @@ class FusedCollectionPlan:
         self._infos = [_MemberInfo(cg[0], members[cg[0]], cat_capacity, example_batch) for cg in groups]
         self._mesh = mesh
         self._axis = axis_name
+        for key, metric in members.items():
+            # a carry seeded from a state of the other sync regime would mix
+            # rank-local and mesh-replicated updates, which sync cannot tell apart
+            if metric._update_count > 0 and metric._mesh_replicated != (mesh is not None) and metric._sync_would_run():
+                held = "the whole mesh's (a sharded fold)" if metric._mesh_replicated else "this rank's alone (plain updates)"
+                raise TorchMetricsUserError(
+                    f"cannot fuse {key!r} ({type(metric).__name__}) {'over a mesh' if mesh is not None else 'without a mesh'}:"
+                    f" its state holds {held}, and compute() could not sync the mix. Call reset() first to clear the state."
+                )
         if mesh is not None:
             # the sharded carry folds fresh events with tree_merge: a None or
             # callable reduction on an ARRAY state stacks (its shape grows

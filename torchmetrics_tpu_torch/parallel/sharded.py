@@ -33,8 +33,9 @@ custom fn       fn on the stacked gather
   with :func:`tree_merge`'s count-weighted rule; the first event loads it.
   The metric's states then cover every rank's shard, so its ``compute()``
   does not sync them again until ``reset()`` (the JAX regime needs no
-  ``sync()`` either: its mesh lives in one process). Mixing plain local
-  updates into a sharded-updated metric is not supported.
+  ``sync()`` either: its mesh lives in one process). Where sync would run
+  (more than one rank), mixing plain local updates with sharded ones is
+  refused in either order until ``reset()``: ``TorchMetricsUserError``.
 
 The gathers go through
 :func:`~torchmetrics_tpu_torch.utilities.distributed.gather_all_tensors`,
@@ -246,10 +247,9 @@ def sharded_update(metric: Any, mesh: Any, *args: Any, axis_name: str = "data") 
     splits it over the mesh's devices).
     """
     merged = make_sharded_update(metric, mesh, axis_name=axis_name)(*args)
-    prev_count = metric._update_count
+    metric._fold_sharded_state({n: merged[n] for n in metric._defaults}, metric._update_count)
     metric._computed = None
     metric._update_count += 1
-    metric._fold_sharded_state({n: merged[n] for n in metric._defaults}, prev_count)
 
 
 class ShardedMetric:

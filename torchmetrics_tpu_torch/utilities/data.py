@@ -3,7 +3,8 @@
 """Tensor manipulation helpers (counterpart of ``torchmetrics_tpu/utilities/data.py``).
 
 The JAX package counts with ``jnp.bincount``; :func:`_bincount` here keeps
-exactly its semantics (see there), which differ from ``torch.bincount``.
+exactly its semantics (see there), which differ from ``torch.bincount``,
+and unlike ``torch.bincount`` it can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -88,16 +89,22 @@ def _squeeze_if_scalar(data: Any) -> Any:
 
 
 def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
-    """``jnp.bincount(x, length=minlength)`` as int32, the plain version.
+    """``jnp.bincount(x, length=minlength)`` as int32.
 
     ``jnp.bincount`` is ``zeros(length).at[clip(x, 0)].add(1, mode="drop")``:
     a negative value counts in bin 0 and a value ``>= minlength`` is dropped.
-    ``torch.bincount`` instead raises on negatives and grows its output past
-    ``minlength``, so values are clipped here and the dropped ones counted in
-    one extra bin that is sliced away.
+    Here values are clipped to ``[0, minlength]`` and int32 ones are added
+    into ``minlength + 1`` bins, the last of which takes the dropped values
+    and is sliced away. The output's size is fixed by ``minlength`` alone, so
+    nothing is read back to the host and a CUDA graph can capture the count
+    (``torch.bincount`` on CUDA reads its input's max on the host to size its
+    output). Integer adds commute, so the counts do not depend on the order
+    in which the device adds them.
     """
-    x = x.reshape(-1).to(torch.int64).clamp(min=0, max=minlength)
-    return torch.bincount(x, minlength=minlength + 1)[:minlength].to(torch.int32)
+    x = x.reshape(-1).clamp(min=0, max=minlength)
+    counts = torch.zeros(minlength + 1, dtype=torch.int32, device=x.device)
+    counts.index_add_(0, x, torch.ones((), dtype=torch.int32, device=x.device).expand(x.numel()))
+    return counts[:minlength]
 
 
 def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:

@@ -45,6 +45,28 @@ class ClassificationTask(EnumStr):
     MULTILABEL = "multilabel"
 
 
+class ClassificationTaskNoBinary(EnumStr):
+    """Dispatch key of the families without a binary task (exact match)."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """Dispatch key of the families without a multilabel task (Cohen's kappa)."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
+
+
 def _task_call(
     task: str, num_classes: Optional[int], num_labels: Optional[int], binary: Callable, multiclass: Callable, multilabel: Callable
 ):
