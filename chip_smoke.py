@@ -53,7 +53,25 @@ result) if it fails:
    confusion matrix on the hard rows equal to the CPU's; the eager and fused
    steady passes profiled; the confusion-matrix update alone timed beside
    its bound and ``torch.bincount`` on the same indices.
-9. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+9. points: ``MulticlassAUROC(thresholds=128)`` beside the four fixed-point
+   classes (``Multiclass{RecallAtFixedPrecision, PrecisionAtFixedRecall,
+   SensitivityAtSpecificity, SpecificityAtSensitivity}``, ``min_*=0.5``,
+   ``thresholds=128``) over the slice's stream: one compute group, K1 once
+   per batch eager and once per replay fused; the state bitwise equal to the
+   fold through K1's plain version; every per-class value and threshold
+   bitwise equal to the port's CPU compute of the same state and to a numpy
+   float64 selection within POINT_ATOL (thresholds equal); the steady eager
+   and fused passes profiled; the exact mode of two of the classes within
+   POINT_EXACT_ATOL of the CPU.
+10. scores: ``MulticlassCalibrationError`` (15 bins, l1 and l2),
+   ``MulticlassHingeLoss`` (both modes) and ``Dice(average="macro")`` over the
+   slice's stream; the three multilabel ranking metrics over the multilabel
+   stream; ``BinaryFairness`` and ``BinaryGroupStatRates`` over 8 binary
+   batches with 8 seeded groups; each collection eager and fused (states
+   bitwise equal); the count states bitwise equal to numpy folds, values
+   within SCORE_ATOL of numpy float64; the calibration and ranking updates
+   timed beside their bound.
+11. fused: the slice's suite through ``suite.fused()``, one CUDA graph
    replay per batch: final states bitwise equal to the plain fold and values
    to the unfused ``compute()``; the wrappers' counters moved by the
    warm-up's launch and the capture's recorded one alone; K1 and K2 once per
@@ -65,7 +83,7 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-10. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+12. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -86,8 +104,8 @@ The last lines of standard output are a ``[kernels]`` line per kernel (and
 one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
-multilabel phases' device times, the families phase's passes and confusion-matrix update, the fused
-phase's passes and the dist phase's time, ``nvidia-smi``'s
+multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
+and scores phases' passes and update times, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -244,16 +262,16 @@ def _device_ms(fn, arg_sets, reps=PROFILE_REPS):
     return per_call_us / 1e3, found
 
 
-def _measure(versions):
+def _measure(versions, profile_reps=PROFILE_REPS, timing_reps=TIMING_REPS):
     """``versions``: ``(label, fn, arg_sets)``. Each one's device time (profiler)
     and stream time (events), taken in turns, forward then backward; the
     smaller of each one's two readings."""
     out = {label: {"device_ms": [], "stream_ms": []} for label, _, _ in versions}
     for seq in (versions, versions[::-1]):
         for label, fn, arg_sets in seq:
-            device_ms, found = _device_ms(fn, arg_sets)
+            device_ms, found = _device_ms(fn, arg_sets, profile_reps)
             out[label]["device_ms"].append(device_ms)
-            out[label]["stream_ms"].append(_stream_ms(fn, arg_sets))
+            out[label]["stream_ms"].append(_stream_ms(fn, arg_sets, timing_reps))
             out[label]["found"] = found
     for label, rec in out.items():
         rec["device_ms"], rec["stream_ms"] = min(rec["device_ms"]), min(rec["stream_ms"])
@@ -547,20 +565,31 @@ def _watched_launches(found):
     return {what: sum(n for key, (_, n) in found.items() if re.search(pat, key)) for what, pat in WATCHED_LAUNCHES.items()}
 
 
+def _plain_curve_state(batches, device):
+    """The multiclass PR-curve state (T=THRESHOLDS) of the stream, folded through K1's plain version on the card."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import binned_curve_state_plain
+    from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
+
+    thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
+    confmat = torch.zeros((THRESHOLDS, NUM_CLASSES, 2, 2), dtype=torch.int32, device=device)
+    for logits, labels in batches:
+        confmat += binned_curve_state_plain(torch.softmax(logits, dim=1), thr, labels, True)
+    return confmat
+
+
 def _expected_states_plain(batches, device):
     """The suite's final states from the same stream folded through the plain
     versions of the kernels (and the plain micro path), on the card."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import binned_curve_state_plain, stat_counts_plain
-    from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
+    from torchmetrics_tpu_torch.ops import stat_counts_plain
 
     c = NUM_CLASSES
-    thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
     zeros = lambda shape: torch.zeros(shape, dtype=torch.int32, device=device)  # noqa: E731
     acc = {k: zeros(()) for k in ("tp", "fp", "tn", "fn")}
     f1 = {k: zeros((c,)) for k in ("tp", "fp", "tn", "fn")}
-    confmat = zeros((THRESHOLDS, c, 2, 2))
     for logits, labels in batches:
         pred = torch.argmax(logits, dim=1)
         hit = (pred == labels).sum(dtype=torch.int32)
@@ -571,8 +600,7 @@ def _expected_states_plain(batches, device):
         acc["tn"] += c * BATCH - (hit + 2 * miss)
         for name, counts in zip(("tp", "fp", "tn", "fn"), stat_counts_plain(logits, labels, c)):
             f1[name] += counts
-        confmat += binned_curve_state_plain(torch.softmax(logits, dim=1), thr, labels, True)
-    return {"acc": acc, "f1": f1, "auroc": {"confmat": confmat}}
+    return {"acc": acc, "f1": f1, "auroc": {"confmat": _plain_curve_state(batches, device)}}
 
 
 def _numpy_reference_values(batches):
@@ -1236,6 +1264,560 @@ def phase_families(device, batches, kernels):
     }
 
 
+# ---------------------------------------------------------------------- points
+
+# the fixed-point curve families, each beside the binned AUROC on one grid:
+# one compute group on the PR-curve state, K1 once per batch
+POINT_CLASSES = {
+    "rfp": ("MulticlassRecallAtFixedPrecision", "min_precision"),
+    "pfr": ("MulticlassPrecisionAtFixedRecall", "min_recall"),
+    "sas": ("MulticlassSensitivityAtSpecificity", "min_specificity"),
+    "spas": ("MulticlassSpecificityAtSensitivity", "min_sensitivity"),
+}
+POINT_MIN = 0.5
+# chosen values against a numpy float64 selection: one float32 division of
+# counts (or 1 minus one) per value; the chosen thresholds must be equal
+POINT_ATOL = 1e-6
+# the exact mode on the card against the same state computed on the CPU, for
+# every POINT_EXACT_STRIDE-th class (the CPU's curves of all 64 took most of the phase)
+POINT_EXACT_ATOL = 1e-6
+POINT_EXACT_STRIDE = 4
+
+
+def _points_suite(tm, thresholds=THRESHOLDS, keys=tuple(POINT_CLASSES), auroc=True, device="cuda"):
+    kw = {"num_classes": NUM_CLASSES, "thresholds": thresholds, "validate_args": False, "device": device}
+    members = {"auroc": tm.MulticlassAUROC(average="macro", **kw)} if auroc else {}
+    for key in keys:
+        name, arg = POINT_CLASSES[key]
+        members[key] = getattr(tm.classification, name)(**{arg: POINT_MIN}, **kw)
+    return tm.MetricCollection(members, compute_groups=True)
+
+
+def _numpy_point_reference(confmat, thresholds):
+    """Per class ``(value, threshold)`` of each fixed-point family from the int32
+    ``(T, C, 2, 2)`` state brought to the host: the rates in float64 and the
+    selection rules written anew in numpy (the highest primary value, then the
+    highest constraint, then the highest threshold for the PR-curve families;
+    the first best in descending-threshold order for the ROC ones)."""
+    import numpy as np
+
+    s = confmat.cpu().numpy().astype(np.int64)  # [t, c, target, pred]
+    thr = thresholds.cpu().numpy().astype(np.float64)
+    tp, fp, fn, tn = s[..., 1, 1], s[..., 0, 1], s[..., 1, 0], s[..., 0, 0]
+
+    def ratio(num, den):
+        return np.where(den > 0, num / np.where(den > 0, den, 1), 0.0)
+
+    precision, recall, fpr = ratio(tp, tp + fp), ratio(tp, tp + fn), ratio(fp, fp + tn)
+    spec = 1.0 - fpr[::-1]
+    cases = {
+        "rfp": (recall, precision, thr, True),
+        "pfr": (precision, recall, thr, True),
+        "sas": (recall[::-1], spec, thr[::-1], False),
+        "spas": (spec, recall[::-1], thr[::-1], False),
+    }
+    out = {}
+    for key, (primary, constraint, grid, lex) in cases.items():
+        vals, picks = np.zeros(primary.shape[1]), np.zeros(primary.shape[1])
+        for c in range(primary.shape[1]):
+            p, k = primary[:, c], constraint[:, c]
+            ok = np.flatnonzero(k >= POINT_MIN)
+            if not len(ok):
+                vals[c], picks[c] = 0.0, 1e6
+                continue
+            if lex:
+                best = ok[p[ok] == p[ok].max()]
+                best = best[k[best] == k[best].max()]
+                i = best[grid[best] == grid[best].max()][0]
+                vals[c], picks[c] = p[i], (grid[i] if p[i] != 0 else 1e6)
+            else:
+                i = ok[np.argmax(p[ok])]
+                vals[c], picks[c] = p[i], grid[i]
+        out[key] = (vals, picks)
+    return out
+
+
+def _require_pairs_bitwise(got, want, what):
+    import torch
+
+    for k in want:
+        for part, g, w in zip(("value", "threshold"), got[k], want[k]):
+            g, w = g.cpu(), w.cpu()
+            _require(g.dtype == w.dtype == torch.float32 and g.shape == w.shape, f"{what}: {k} {part} {g.dtype}{tuple(g.shape)}")
+            _require(torch.equal(g.view(torch.int32), w.view(torch.int32)), f"{what}: {k} {part} {g.tolist()} vs {w.tolist()}")
+
+
+def phase_points(device, batches, kernels, slice_run):
+    """``MulticlassAUROC(thresholds=128)`` and the four fixed-point classes
+    (``min_*=0.5``) over the slice's stream: one compute group, K1 once per
+    batch eager and fused; the final state bitwise equal to the fold through
+    K1's plain version; each per-class value and threshold bitwise equal to the
+    port's CPU compute of the same state, and to a numpy float64 selection
+    within POINT_ATOL (thresholds equal); the steady eager and fused passes
+    profiled; the exact mode of two of the classes within POINT_EXACT_ATOL of
+    the CPU."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    keys = sorted(["auroc", *POINT_CLASSES])
+    suite = _points_suite(tm)
+    suite.update(*batches[0])  # two updates form the compute group; then its leader alone updates
+    suite.update(*batches[1])
+    suite.reset()
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    for logits, labels in batches:
+        suite.update(logits, labels)
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    _require(launches["binned_curve_state"] == NUM_BATCHES, f"points: K1 launched {launches['binned_curve_state']} times, expected {NUM_BATCHES}")
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    _require(groups == [keys], f"points: compute groups {groups}, expected one of {keys}")
+    confmat = _plain_curve_state(batches, device)
+    expected = {"auroc": {"confmat": confmat}}
+    _require_states_bitwise(suite, expected, "points")
+
+    t0 = time.perf_counter()
+    values = suite.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    _require(torch.equal(values["auroc"], slice_run["values"]["auroc"]), "points: the AUROC differs from the slice phase's on the same state")
+    points = {k: values[k] for k in POINT_CLASSES}
+    cpu = {}
+    for key in POINT_CLASSES:
+        name, arg = POINT_CLASSES[key]
+        metric = getattr(tm.classification, name)(NUM_CLASSES, **{arg: POINT_MIN}, thresholds=THRESHOLDS, device="cpu")
+        metric.load_state_tree({"confmat": suite[key].confmat.cpu(), "_update_count": NUM_BATCHES})
+        cpu[key] = metric.compute()
+    _require_pairs_bitwise(points, cpu, "points: card vs the CPU compute of the same state")
+    ref = _numpy_point_reference(confmat, suite["auroc"].thresholds)
+    errs = {}
+    for key, (want_vals, want_thr) in ref.items():
+        got_vals, got_thr = (x.cpu().double().numpy() for x in points[key])
+        errs[key] = float(abs(got_vals - want_vals).max())
+        _require(errs[key] <= POINT_ATOL, f"points: {key} values vs numpy float64: max |diff| {errs[key]}")
+        _require((got_thr == want_thr).all(), f"points: {key} thresholds differ from numpy's at classes {list((got_thr != want_thr).nonzero()[0])}")
+
+    def compute_once():
+        for metric in suite.values(copy_state=False):
+            metric._computed = None
+        suite.compute()
+
+    found, compute_us, _ = _profile(compute_once, 3)
+    compute_kernels = sum(n for _, n in found.values()) / 3
+    eager = _steady_and_profile("points", suite.update, batches, reset=suite.reset)
+
+    fused_suite = _points_suite(tm)
+    plan = _fresh_plan(fused_suite, batches)
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    capture_s = _timed(lambda: [plan.update(*b) for b in batches])
+    counted = kernels["binned_curve_state"].launches
+    _require(counted == 2, f"points fused: K1's wrapper counted {counted} launches, expected 1 warm-up + 1 captured")
+    _require(len(plan._captured) == 1, f"points fused: {len(plan._captured)} graphs captured for one batch shape")
+    plan.fold_back()
+    _require_states_bitwise(fused_suite, expected, "points fused")
+    fused_values = fused_suite.compute()
+    _require_pairs_bitwise({k: fused_values[k] for k in POINT_CLASSES}, points, "points fused vs eager")
+    fused = _steady_and_profile("points fused", plan.update, batches)
+    found_f, traces = fused["found"], 1
+    while True:
+        k1 = sum(n for key, (_, n) in found_f.items() if "binned_curve_state_kernel" in key)
+        if k1 == NUM_BATCHES or traces == 3:  # the trace may drop launches: up to three traced passes
+            break
+        found_f, _, _ = _profile(lambda: [plan.update(*b) for b in batches], 1)
+        traces += 1
+    _require(k1 == NUM_BATCHES, f"points fused: the trace of a steady pass shows K1 {k1} times, expected {NUM_BATCHES}")
+    fused_passes = _require_plan_passes(plan, fused_suite, expected, "points fused steady passes")
+
+    binned_s = time.perf_counter() - t_phase
+    # the exact mode (thresholds=None) of two of the classes: one compute group on the cat states
+    t_exact = time.perf_counter()
+    exact = _points_suite(tm, thresholds=None, keys=("rfp", "spas"), auroc=False)
+    for logits, labels in batches:
+        exact.update(logits, labels)
+    exact_groups = sorted(sorted(g) for g in exact.compute_groups.values())
+    _require(exact_groups == [["rfp", "spas"]], f"points exact: compute groups {exact_groups}")
+    exact_values = exact.compute()
+    torch.cuda.synchronize()
+    exact_card_s = time.perf_counter() - t_exact
+    # the CPU computes every fourth class: the same one-vs-rest curves, from
+    # the same rows (a label outside the kept classes is negative for each)
+    leader = exact["rfp"]
+    kept = torch.arange(0, NUM_CLASSES, POINT_EXACT_STRIDE)
+    labels = torch.cat(leader.target).cpu()
+    remap = torch.full((NUM_CLASSES,), len(kept), dtype=labels.dtype)
+    remap[kept] = torch.arange(len(kept), dtype=labels.dtype)
+    state = {"preds": [torch.cat(leader.preds).cpu()[:, kept]], "target": [remap[labels]], "_update_count": NUM_BATCHES}
+    t_cpu = time.perf_counter()
+    exact_errs = {}
+    for key in ("rfp", "spas"):
+        name, arg = POINT_CLASSES[key]
+        metric = getattr(tm.classification, name)(len(kept), **{arg: POINT_MIN}, validate_args=False, device="cpu")
+        metric.load_state_tree(state)
+        want = metric.compute()
+        exact_errs[key] = max(float((g.cpu()[kept] - w).abs().max()) for g, w in zip(exact_values[key], want))
+        _require(exact_errs[key] <= POINT_EXACT_ATOL, f"points exact: {key} card vs CPU max |diff| {exact_errs[key]}")
+    exact_cpu_s = time.perf_counter() - t_cpu
+    del exact, leader, state
+
+    seconds = time.perf_counter() - t_phase
+    summary = {k: (float(v[0].mean()), int((v[1] == 1e6).sum())) for k, v in points.items()}
+    print(
+        f"[points] launches over {NUM_BATCHES} batches {launches}; compute group {groups}; confmat bitwise equal to the"
+        f" fold through K1's plain version; per-class values and thresholds bitwise equal to the CPU compute of the same"
+        f" state; max |card - numpy float64| {errs} (budget {POINT_ATOL}), thresholds equal; mean value and sentinel"
+        f" classes per family {summary}; AUROC equal to the slice phase's"
+    )
+    print(
+        f"[points] compute (AUROC + 4 selections over {NUM_CLASSES} classes): first {compute_s * 1e3:.3f} ms wall, device"
+        f" {compute_us / 3:.1f} us in {compute_kernels:.0f} device kernels"
+    )
+    for tag, run in (("eager", eager), ("fused", fused)):
+        print(
+            f"[points] {tag} steady pass {run['median_s'] * 1e3:.3f} ms median, device {run['busy_us']:.1f} us in"
+            f" {run['device_launches']} device kernels, busy share {run['busy_share']:.3f}; device us by kernel:"
+            f" {'; '.join(f'{name} {t:.1f}/{n}' for name, t, n in run['top'])}"
+        )
+    print(
+        f"[points] fused: K1 {k1} per pass in the trace; first fused pass (warm-up, capture, {NUM_BATCHES} replays)"
+        f" {capture_s:.4f} s; states bitwise after {fused_passes} passes; values bitwise equal to the eager compute"
+    )
+    print(
+        f"[points] exact mode (thresholds=None) of RecallAtFixedPrecision and SpecificityAtSensitivity: one compute group,"
+        f" updates and compute on the card {exact_card_s:.3f} s; max |card - CPU| over every {POINT_EXACT_STRIDE}th class"
+        f" {exact_errs} (budget {POINT_EXACT_ATOL}; the CPU's compute {exact_cpu_s:.1f} s)"
+    )
+    print(f"[points] phase {seconds:.1f} s, of it the binned checks, profiles and fused plan {binned_s:.1f} s")
+    return {"seconds": seconds, "launches": launches, "eager": eager, "fused": fused, "compute_us": compute_us / 3,
+            "compute_kernels": compute_kernels, "k1_fused": k1}
+
+
+# ---------------------------------------------------------------------- scores
+
+SCORE_BINS = 15
+FAIR_GROUPS = 8
+# values against numpy float64 on the same probabilities: float32 sums over
+# 524,288 rows (ECE divides two of them per bin; hinge, Dice and the ranking
+# metrics are means); the fairness values are one division of counts
+SCORE_ATOL = {"ece": 1e-4, "hinge": 1e-5, "dice": 1e-5, "ranking": 1e-5, "fair": 1e-6}
+# the label-ranking AP update takes milliseconds: fewer calls per reading than the kernels' timing
+SCORE_PROFILE_REPS, SCORE_TIMING_REPS = 10, 40
+
+
+def _scores_suite(tm):
+    cls, kw = tm.classification, {"validate_args": False, "device": "cuda"}
+    return tm.MetricCollection(
+        {
+            "ece_l1": cls.MulticlassCalibrationError(NUM_CLASSES, n_bins=SCORE_BINS, norm="l1", **kw),
+            "ece_l2": cls.MulticlassCalibrationError(NUM_CLASSES, n_bins=SCORE_BINS, norm="l2", **kw),
+            "hinge_cs": cls.MulticlassHingeLoss(NUM_CLASSES, **kw),
+            "hinge_ova": cls.MulticlassHingeLoss(NUM_CLASSES, multiclass_mode="one-vs-all", **kw),
+            "dice": cls.Dice(num_classes=NUM_CLASSES, average="macro", device="cuda"),
+        },
+        compute_groups=True,
+    )
+
+
+def _ranking_suite(tm):
+    cls, kw = tm.classification, {"ignore_index": -1, "validate_args": False, "device": "cuda"}
+    return tm.MetricCollection(
+        {
+            "coverage": cls.MultilabelCoverageError(NUM_CLASSES, **kw),
+            "rank_ap": cls.MultilabelRankingAveragePrecision(NUM_CLASSES, **kw),
+            "rank_loss": cls.MultilabelRankingLoss(NUM_CLASSES, **kw),
+        },
+        compute_groups=True,
+    )
+
+
+def _fairness_suite(tm):
+    cls, kw = tm.classification, {"validate_args": False, "device": "cuda"}
+    return tm.MetricCollection(
+        {"fair": cls.BinaryFairness(FAIR_GROUPS, **kw), "rates": cls.BinaryGroupStatRates(FAIR_GROUPS, **kw)}, compute_groups=True
+    )
+
+
+def _fairness_batches(device):
+    """NUM_BATCHES binary (logits, targets, groups) batches of BATCH rows, made on the card from SEED + 5."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    batches = []
+    for _ in range(NUM_BATCHES):
+        logits = torch.randn((BATCH,), generator=gen, device=device, dtype=torch.float32)
+        target = torch.randint(0, 2, (BATCH,), generator=gen, device=device, dtype=torch.int32)
+        groups = torch.randint(0, FAIR_GROUPS, (BATCH,), generator=gen, device=device, dtype=torch.int32)
+        batches.append((logits, target, groups))
+    return batches
+
+
+def _numpy_scores_reference(batches):
+    """Calibration (15 bins), hinge (both modes) and Dice (macro) of the stream
+    in numpy from the card's softmax brought to the host: the counts exactly
+    (bins by the JAX grid's float32 edges), the values in float64."""
+    import numpy as np
+    import torch
+
+    c = NUM_CLASSES
+    edges = np.append(np.arange(SCORE_BINS, dtype=np.float32) * (np.float32(1) / np.float32(SCORE_BINS)), np.float32(1))
+    count, conf_sum, acc_sum = np.zeros(SCORE_BINS, np.int64), np.zeros(SCORE_BINS), np.zeros(SCORE_BINS)
+    hinge_cs, hinge_ova, rows = 0.0, np.zeros(c), 0
+    tp, pred_n, label_n = np.zeros(c, np.int64), np.zeros(c, np.int64), np.zeros(c, np.int64)
+    for logits, labels in batches:
+        p = torch.softmax(logits, dim=1).cpu().numpy()
+        y = labels.cpu().numpy().astype(np.int64)
+        conf, pred = p.max(1), p.argmax(1)
+        idx = np.clip(np.searchsorted(edges, conf, side="right") - 1, 0, SCORE_BINS - 1)
+        count += np.bincount(idx, minlength=SCORE_BINS)
+        conf_sum += np.bincount(idx, weights=conf.astype(np.float64), minlength=SCORE_BINS)
+        acc_sum += np.bincount(idx, weights=(pred == y).astype(np.float64), minlength=SCORE_BINS)
+        p64 = p.astype(np.float64)
+        true = p64[np.arange(len(y)), y]
+        other = np.where(np.eye(c, dtype=bool)[y], -np.inf, p64).max(1)
+        hinge_cs += np.clip(1 - (true - other), 0, None).sum()
+        hinge_ova += np.clip(1 - np.where(np.eye(c, dtype=bool)[y], p64, -p64), 0, None).sum(0)
+        rows += len(y)
+        tp += np.bincount(y[pred == y], minlength=c)
+        pred_n += np.bincount(pred, minlength=c)
+        label_n += np.bincount(y, minlength=c)
+    prop = count / count.sum()
+    gap = np.where(count > 0, acc_sum / np.maximum(count, 1) - conf_sum / np.maximum(count, 1), 0.0)
+    fp, fn = pred_n - tp, label_n - tp
+    support = (tp + fp + fn) > 0
+    dice = np.where(support, 2 * tp / np.maximum(2 * tp + fp + fn, 1), 0.0)[support].mean()
+    values = {
+        "ece_l1": float(np.sum(np.abs(gap) * prop)),
+        "ece_l2": float(np.sqrt(np.sum(gap**2 * prop))),
+        "hinge_cs": hinge_cs / rows,
+        "hinge_ova": hinge_ova / rows,
+        "dice": float(dice),
+    }
+    counts = {"bin_count": count, "total": rows, "tp": tp, "fp": fp, "fn": fn}
+    return counts, values
+
+
+def _numpy_ranking_reference(ml_batches):
+    """Coverage error, label-ranking AP and ranking loss of the multilabel stream
+    (ignored entries irrelevant) in numpy from the card's sigmoid brought to the
+    host: coverage's state folded as the port folds it (exact per-batch integer
+    sums added in float32), AP and the loss in float64 from ranks by a stable sort."""
+    import numpy as np
+    import torch
+
+    measure = np.float32(0)
+    ap_sum = loss_sum = 0.0
+    rows = 0
+    for logits, target in ml_batches:
+        p = torch.sigmoid(logits).cpu().numpy()
+        rel = target.cpu().numpy() == 1
+        n, c = p.shape
+        offset = np.where(rel, 0.0, abs(float(p.min())) + 10).astype(np.float32)
+        cover = (p >= (p + offset).min(1, keepdims=True)).sum(1)
+        measure = np.float32(measure + np.float32(cover.sum()))
+        # ranks within each row from one stable ascending argsort: a tie group
+        # starts where the sorted value changes; the inverse permutation puts
+        # each label's rank back in its column
+        order = np.argsort(p, axis=1, kind="stable")
+        ranked, rel_sorted = np.take_along_axis(p, order, 1), np.take_along_axis(rel, order, 1)
+        pos = np.broadcast_to(np.arange(c), (n, c))
+        first = np.maximum.accumulate(np.where(np.r_["1", np.ones((n, 1), bool), ranked[:, 1:] != ranked[:, :-1]], pos, 0), axis=1)
+        rel_before = np.c_[np.zeros((n, 1), np.int64), np.cumsum(rel_sorted, axis=1)]  # relevant labels before each position
+        n_rel = rel.sum(1)
+        inverse = np.empty_like(order)
+        np.put_along_axis(inverse, order, pos, axis=1)
+        rank_all = np.take_along_axis(c - first, inverse, 1)  # #{k: p_k >= p_j}
+        rank_rel = np.take_along_axis(n_rel[:, None] - np.take_along_axis(rel_before, first, 1), inverse, 1)
+        per_row = np.where(rel, rank_rel / rank_all, 0.0).sum(1) / np.maximum(n_rel, 1)
+        scored = (n_rel > 0) & (n_rel < c)
+        ap_sum += np.where(scored, per_row, 1.0).sum()
+        loss = (((c - inverse) * rel).sum(1) - 0.5 * n_rel * (n_rel + 1)) / np.maximum(n_rel * (c - n_rel), 1)
+        loss_sum += np.where(scored, loss, 0.0).sum()
+        rows += n
+    values = {"coverage": float(measure) / rows, "rank_ap": ap_sum / rows, "rank_loss": loss_sum / rows}
+    return {"measure": measure, "total": rows}, values
+
+
+def _numpy_fairness_reference(fair_batches):
+    """Per-group tp/fp/tn/fn of the binary stream (sigmoid > 0.5 from the card's
+    sigmoid brought to the host), and the rates and ratios in float64."""
+    import numpy as np
+    import torch
+
+    g = FAIR_GROUPS
+    counts = np.zeros((g, 4), np.int64)  # tp, fp, tn, fn
+    for logits, target, groups in fair_batches:
+        pred = torch.sigmoid(logits).cpu().numpy() > 0.5
+        y = target.cpu().numpy() == 1
+        cell = np.where(pred & y, 0, np.where(pred & ~y, 1, np.where(~pred & ~y, 2, 3)))
+        counts += np.bincount(groups.cpu().numpy().astype(np.int64) * 4 + cell, minlength=g * 4).reshape(g, 4)
+    tp, fp, tn, fn = (counts[:, i].astype(np.float64) for i in range(4))
+    pos_rate, tpr = (tp + fp) / (tp + fp + tn + fn), tp / (tp + fn)
+    values = {f"group_{i}": counts[i] / max(counts[i].sum(), 1) for i in range(g)}
+    for prefix, rates in (("DP", pos_rate), ("EO", tpr)):
+        lo, hi = int(np.argmin(rates)), int(np.argmax(rates))
+        values[f"{prefix}_{lo}_{hi}"] = rates[lo] / rates[hi]
+    return {"tp": tp, "fp": fp, "tn": tn, "fn": fn}, values
+
+
+def _require_suite_states_bitwise(got, want, what):
+    """Every state of every member of ``got`` equal to ``want``'s, bit for bit."""
+    import torch
+
+    for key in want.keys(keep_base=True):
+        a, b = got[key].state_tree(), want[key].state_tree()
+        for name, w in b.items():
+            g = a[name]
+            same = g.dtype == w.dtype and g.shape == w.shape and torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))
+            _require(same, f"{what}: state {key}.{name} differs")
+
+
+def _require_close(got, want, atol, what):
+    import numpy as np
+
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(g - w).max())
+    _require(bool(np.isfinite(g).all()) and err <= atol, f"{what}: {g} vs numpy float64 {w} (max |diff| {err}, budget {atol})")
+    return err
+
+
+def _eager_and_fused(make, stream, what):
+    """``make()``'s collection over ``stream`` eagerly (after two updates form
+    its compute groups) and through ``suite.fused()``: the fused states bitwise
+    equal to the eager ones. Returns the eager collection, its values and the
+    fused plan's first pass time."""
+    import torch
+
+    eager = make()
+    eager.update(*stream[0])
+    eager.update(*stream[1])
+    eager.reset()
+    for batch in stream:
+        eager.update(*batch)
+    values = eager.compute()
+    fused_suite = make()
+    plan = _fresh_plan(fused_suite, stream)
+    first_s = _timed(lambda: [plan.update(*b) for b in stream])
+    _require(len(plan._captured) == 1, f"{what} fused: {len(plan._captured)} graphs captured for one batch shape")
+    plan.fold_back()
+    torch.cuda.synchronize()
+    _require_suite_states_bitwise(fused_suite, eager, f"{what}: fused vs eager")
+    return eager, values, first_s
+
+
+def phase_scores(device, batches, ml_batches, kernels):
+    """Calibration error (15 bins, l1 and l2), hinge (Crammer-Singer and
+    one-vs-all) and Dice (macro) over the slice's stream; the three ranking
+    metrics over the multilabel stream; ``BinaryFairness`` and
+    ``BinaryGroupStatRates`` over 8 binary batches with 8 seeded groups. Each
+    collection eager and through ``suite.fused()`` (states bitwise equal); the
+    count states bitwise equal to a numpy fold; values within SCORE_ATOL of
+    numpy float64; the calibration and ranking updates timed beside their bound."""
+    import numpy as np
+    import torch
+
+    import importlib
+
+    import torchmetrics_tpu_torch as tm
+
+    # by module path: the package also exports functions of these names
+    ce = importlib.import_module("torchmetrics_tpu_torch.functional.classification.calibration_error")
+    ranking = importlib.import_module("torchmetrics_tpu_torch.functional.classification.ranking")
+
+    t_phase = time.perf_counter()
+    fair_batches = _fairness_batches(device)
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    scores, score_vals, scores_fused_s = _eager_and_fused(lambda: _scores_suite(tm), batches, "scores")
+    ranks, rank_vals, ranks_fused_s = _eager_and_fused(lambda: _ranking_suite(tm), ml_batches, "ranking")
+    fair, fair_vals, fair_fused_s = _eager_and_fused(lambda: _fairness_suite(tm), fair_batches, "fairness")
+    card_s = time.perf_counter() - t_phase
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    groups = {tag: sorted(sorted(g) for g in col.compute_groups.values()) for tag, col in (("scores", scores), ("ranking", ranks), ("fairness", fair))}
+    _require(groups["scores"] == [["dice"], ["ece_l1", "ece_l2"], ["hinge_cs"], ["hinge_ova"]], f"scores: compute groups {groups['scores']}")
+    _require(groups["fairness"] == [["fair", "rates"]], f"fairness: compute groups {groups['fairness']}")
+
+    def require_count(col, key, name, want, what):
+        """A count state equal to the numpy fold's, dtype included."""
+        got, want = getattr(col[key], name).cpu().numpy(), np.asarray(want)
+        _require(got.dtype == want.dtype and np.array_equal(got, want), f"{what}: {key}.{name} {got} vs the numpy fold's {want}")
+
+    counts, ref = _numpy_scores_reference(batches)
+    require_count(scores, "ece_l1", "bin_count", counts["bin_count"].astype(np.float32), "scores")
+    for key in ("hinge_cs", "hinge_ova"):
+        require_count(scores, key, "total", np.int32(counts["total"]), "scores")
+    for name in ("tp", "fp", "fn"):
+        require_count(scores, "dice", name, counts[name].astype(np.float32), "scores")
+    errs = {}
+    for key, want in ref.items():
+        atol = SCORE_ATOL["ece" if key.startswith("ece") else key.split("_")[0]]
+        errs[key] = _require_close(score_vals[key].cpu().numpy(), want, atol, f"scores: {key}")
+
+    rank_counts, rank_ref = _numpy_ranking_reference(ml_batches)
+    require_count(ranks, "coverage", "measure", rank_counts["measure"], "ranking")
+    for key in ("coverage", "rank_ap", "rank_loss"):
+        require_count(ranks, key, "total", np.float32(rank_counts["total"]), "ranking")
+        errs[key] = _require_close(rank_vals[key].cpu().numpy(), rank_ref[key], SCORE_ATOL["ranking"], f"ranking: {key}")
+
+    fair_counts, fair_ref = _numpy_fairness_reference(fair_batches)
+    numpy_s = time.perf_counter() - t_phase - card_s
+    for name, want in fair_counts.items():
+        require_count(fair, "fair", name, want.astype(np.float32), "fairness")
+    _require(sorted(fair_vals) == sorted(fair_ref), f"fairness: keys {sorted(fair_vals)} vs numpy {sorted(fair_ref)}")
+    errs["fair"] = max(_require_close(fair_vals[k].cpu().numpy(), fair_ref[k], SCORE_ATOL["fair"], f"fairness: {k}") for k in fair_ref)
+
+    # the calibration and ranking updates alone, as the modules run them, beside their bound
+    def calibration_update(logits, labels):
+        return ce._binning_update(*ce._multiclass_calibration_error_update(*ce._multiclass_calibration_error_format(logits, labels)), SCORE_BINS)
+
+    def ranking_update(fn):
+        return lambda logits, target: fn(*ranking._multilabel_ranking_format(logits, target, -1))
+
+    paths = {
+        "calibration": (calibration_update, batches, BATCH * NUM_CLASSES * 4 + BATCH * 4 + 3 * SCORE_BINS * 4, BATCH * NUM_CLASSES * 4),
+        "coverage": (ranking_update(ranking._multilabel_coverage_error_update), ml_batches, BATCH * NUM_CLASSES * 8 + 8, BATCH * NUM_CLASSES * 4),
+        "ranking_ap": (ranking_update(ranking._multilabel_ranking_average_precision_update), ml_batches, BATCH * NUM_CLASSES * 8 + 8,
+                       2 * BATCH * NUM_CLASSES * NUM_CLASSES),
+        "ranking_loss": (ranking_update(ranking._multilabel_ranking_loss_update), ml_batches, BATCH * NUM_CLASSES * 8 + 8,
+                         BATCH * NUM_CLASSES * 14),
+    }
+    t_timing = time.perf_counter()
+    times = _measure([(name, fn, stream) for name, (fn, stream, _, _) in paths.items()], SCORE_PROFILE_REPS, SCORE_TIMING_REPS)
+    timing_s = time.perf_counter() - t_timing
+    timed = {}
+    for name, (_, _, n_bytes, n_ops) in paths.items():
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        per_call = sum(n for _, n in times[name]["found"].values()) / SCORE_PROFILE_REPS
+        timed[name] = {"ms": times[name]["device_ms"], "stream_ms": times[name]["stream_ms"], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "bytes": n_bytes, "kernels": per_call}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    print(
+        f"[scores] hand-kernel launches {launches} (none of these families runs one); compute groups {groups}; fused"
+        f" states bitwise equal to the eager ones for the three collections (first fused pass {scores_fused_s:.4f} /"
+        f" {ranks_fused_s:.4f} / {fair_fused_s:.4f} s); bin_count, hinge totals, Dice tp/fp/fn, ranking totals and"
+        f" coverage's measure and fairness tp/fp/tn/fn bitwise equal to the numpy folds"
+    )
+    vals = {k: (float(v) if v.numel() == 1 else f"mean {float(v.mean()):.6f}") for k, v in {**score_vals, **rank_vals}.items()}
+    print(f"[scores] values {vals}; fairness {({k: float(v) for k, v in fair_vals.items() if not k.startswith('group_')})}")
+    print(f"[scores] max |card - numpy float64| {errs} (budgets {SCORE_ATOL})")
+    for name, t in timed.items():
+        top = sorted(times[name]["found"].items(), key=lambda kv: -kv[1][0])[:4]
+        print(
+            f"[scores] {name} update per batch: device {t['ms']:.5f} ms in {t['kernels']:.1f} device kernels, stream"
+            f" {t['stream_ms']:.5f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}, {t['bytes']} B); most device time:"
+            f" {'; '.join(f'{_short_kernel_name(key)} {us / SCORE_PROFILE_REPS:.1f} us' for key, (us, _) in top)}"
+        )
+    print(
+        f"[scores] phase {seconds:.1f} s: the collections eager and fused {card_s:.1f} s, the numpy references and"
+        f" checks {numpy_s:.1f} s, the update timings {timing_s:.1f} s"
+    )
+    return {"seconds": seconds, "timed": timed, "errs": errs}
+
+
 # ---------------------------------------------------------------------- fused
 
 
@@ -1734,6 +2316,8 @@ def main() -> int:
     exact = phase_exact(device, batches, KERNELS)
     ml_run = phase_multilabel(device, ml_batches, KERNELS)
     fam = phase_families(device, batches, KERNELS)
+    points = phase_points(device, batches, KERNELS, run)
+    scores = phase_scores(device, batches, ml_batches, KERNELS)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
@@ -1761,7 +2345,11 @@ def main() -> int:
         f" {exact['peak_mib']:.1f} MiB; multilabel steady pass {ml_run['busy_us']:.1f} us device, busy share"
         f" {ml_run['busy_share']:.3f}; families phase {fam['seconds']:.1f} s, eager pass {fam['eager']['median_s'] * 1e3:.3f} ms, fused"
         f" {fam['fused']['median_s'] * 1e3:.3f} ms, confmat update {fam['update_ms']:.5f} ms device (bound"
-        f" {fam['bound_ms']:.5f}, torch.bincount {fam['bincount_ms']:.5f}); fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
+        f" {fam['bound_ms']:.5f}, torch.bincount {fam['bincount_ms']:.5f}); points phase {points['seconds']:.1f} s, K1"
+        f" {points['launches']['binned_curve_state']} eager / {points['k1_fused']} fused per pass, eager pass"
+        f" {points['eager']['median_s'] * 1e3:.3f} ms, fused {points['fused']['median_s'] * 1e3:.3f} ms, compute"
+        f" {points['compute_us']:.1f} us device; scores phase {scores['seconds']:.1f} s, update ms (bound):"
+        f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in scores['timed'].items())}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"

@@ -406,6 +406,127 @@ def test_device_feed_stages_pinned_numpy_on_the_card(card):
         assert bool((x == i).all()) and bool((y == i).all())
 
 
+# ------------------------------------ the rest of classification on the card
+
+
+def _probability_batches(card, kind, n_batches=3, n=65536, c=64):
+    """Seeded probabilities made on the CPU (so the card and the CPU bin the
+    same values) with labels, or {0, 1} targets with some -1."""
+    gen = torch.Generator().manual_seed(59)
+    out = []
+    for _ in range(n_batches):
+        if kind == "multiclass":
+            preds = torch.softmax(torch.randn((n, c), generator=gen), dim=1)
+            target = torch.randint(0, c, (n,), generator=gen, dtype=torch.int32)
+        else:
+            preds = torch.rand((n, c), generator=gen)
+            target = torch.randint(-1, 2, (n, c), generator=gen, dtype=torch.int32)
+        out.append((preds, target))
+    return out
+
+
+@pytest.mark.parametrize("thresholds", [128, None], ids=["binned", "exact"])
+@pytest.mark.parametrize("kind", ["multiclass", "multilabel"])
+def test_fixed_point_families_on_the_card_equal_cpu(card, kind, thresholds):
+    """The four fixed-point classes on the card: the curve state equals the
+    CPU's bitwise, and so does every per-class value and threshold (the
+    selection is compares, masks, maxima and a first-maximum argmax)."""
+    prefix, size = ("Multiclass", {"num_classes": 64}) if kind == "multiclass" else ("Multilabel", {"num_labels": 64})
+    families = {
+        "RecallAtFixedPrecision": "min_precision",
+        "PrecisionAtFixedRecall": "min_recall",
+        "SensitivityAtSpecificity": "min_specificity",
+        "SpecificityAtSensitivity": "min_sensitivity",
+    }
+    ignore = {} if kind == "multiclass" else {"ignore_index": -1}
+    for name, arg in families.items():
+        make = getattr(T.classification, f"{prefix}{name}")
+        on_card = make(**size, **{arg: 0.05}, thresholds=thresholds, validate_args=False, device=card, **ignore)
+        on_cpu = make(**size, **{arg: 0.05}, thresholds=thresholds, validate_args=False, device="cpu", **ignore)
+        for preds, target in _probability_batches(card, kind, n_batches=2):
+            on_card.update(preds.to(card), target.to(card))
+            on_cpu.update(preds, target)
+        if thresholds is not None:
+            assert torch.equal(on_card.confmat.cpu(), on_cpu.confmat)
+        for got, want in zip(on_card.compute(), on_cpu.compute()):
+            assert got.device.type == "cuda" and torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), name
+
+
+def _scores_collections(device):
+    kw = {"validate_args": False, "device": device}
+    cls = T.classification
+    return {
+        "multiclass": T.MetricCollection({
+            "ece": cls.MulticlassCalibrationError(64, n_bins=15, **kw),
+            "hinge": cls.MulticlassHingeLoss(64, multiclass_mode="one-vs-all", **kw),
+            "dice": cls.Dice(num_classes=64, average="none", device=device),
+        }),
+        "multilabel": T.MetricCollection({
+            "coverage": cls.MultilabelCoverageError(64, ignore_index=-1, **kw),
+            "rank_ap": cls.MultilabelRankingAveragePrecision(64, ignore_index=-1, **kw),
+            "rank_loss": cls.MultilabelRankingLoss(64, ignore_index=-1, **kw),
+        }),
+    }
+
+
+def test_scores_families_on_the_card_equal_cpu(card):
+    """Calibration, hinge, Dice and the ranking metrics at 65536 x 64 on the
+    card: the count states equal the CPU's bitwise, the float sums and the
+    values within 1e-5 (float32 sums in another order)."""
+    on_card, on_cpu = _scores_collections(card), _scores_collections("cpu")
+    for kind in ("multiclass", "multilabel"):
+        for preds, target in _probability_batches(card, kind):
+            on_card[kind].update(preds.to(card), target.to(card))
+            on_cpu[kind].update(preds, target)
+        for key in on_cpu[kind].keys(keep_base=True):
+            for name, want in on_cpu[kind][key].state_tree().items():
+                got = getattr(on_card[kind][key], name).cpu()
+                assert got.dtype == want.dtype and got.shape == want.shape, f"{key}.{name}"
+                if name in ("bin_count", "total", "tp", "fp", "fn") or key == "coverage":
+                    assert torch.equal(got, want), f"{key}.{name}"
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        got, want = on_card[kind].compute(), on_cpu[kind].compute()
+        for key in want:
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-6)
+
+
+def test_scores_and_fairness_fused_graphs_equal_eager(card):
+    """The calibration, hinge, Dice, ranking and fairness updates capture (no
+    host read with ``validate_args=False``; fairness takes three batch
+    arguments); the replays' states equal the eager fold's bitwise."""
+    gen = torch.Generator(device=card).manual_seed(61)
+    fair = lambda: T.MetricCollection({  # noqa: E731
+        "fair": T.classification.BinaryFairness(8, validate_args=False, device=card),
+        "rates": T.classification.BinaryGroupStatRates(8, validate_args=False, device=card),
+    })
+    fair_batches = [
+        (torch.randn(65536, generator=gen, device=card), torch.randint(0, 2, (65536,), generator=gen, device=card),
+         torch.randint(0, 8, (65536,), generator=gen, device=card))
+        for _ in range(4)
+    ]
+    cases = [
+        (lambda: _scores_collections(card)["multiclass"], [tuple(x.to(card) for x in b) for b in _probability_batches(card, "multiclass", 4)]),
+        (lambda: _scores_collections(card)["multilabel"], [tuple(x.to(card) for x in b) for b in _probability_batches(card, "multilabel", 4)]),
+        (fair, fair_batches),
+    ]
+    for make, batches in cases:
+        ref, fus = make(), make()
+        for b in batches:
+            ref.update(*b)
+        fus.update(*batches[0])
+        fus.update(*batches[1])
+        plan = fus.fused()
+        for b in batches[2:]:
+            plan.update(*b)
+        assert len(plan._captured) == 1
+        plan.fold_back()
+        for key in ref.keys(keep_base=True):
+            for name, want in ref[key].state_tree().items():
+                got = getattr(fus[key], name)
+                assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)), f"{key}.{name}"
+
+
 # ------------------------------------------------- two ranks on one card
 
 

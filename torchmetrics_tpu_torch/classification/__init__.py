@@ -1,7 +1,8 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
 """Classification module metrics of the port: binary, multiclass and multilabel; binned and exact curves,
-the stat-scores families and the confusion-matrix families."""
+the stat-scores and confusion-matrix families, the fixed-point curve families, calibration error, hinge,
+Dice, multilabel ranking and group fairness."""
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
     BinaryAccuracy,
@@ -15,6 +16,11 @@ from torchmetrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from torchmetrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
 from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -22,6 +28,7 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.classification.dice import Dice
 from torchmetrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
@@ -33,12 +40,14 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from torchmetrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
 from torchmetrics_tpu_torch.classification.hamming import (
     BinaryHammingDistance,
     HammingDistance,
     MulticlassHammingDistance,
     MultilabelHammingDistance,
 )
+from torchmetrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
 from torchmetrics_tpu_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
@@ -50,6 +59,12 @@ from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
     MatthewsCorrCoef,
     MulticlassMatthewsCorrCoef,
     MultilabelMatthewsCorrCoef,
+)
+from torchmetrics_tpu_torch.classification.precision_fixed_recall import (
+    BinaryPrecisionAtFixedRecall,
+    MulticlassPrecisionAtFixedRecall,
+    MultilabelPrecisionAtFixedRecall,
+    PrecisionAtFixedRecall,
 )
 from torchmetrics_tpu_torch.classification.precision_recall import (
     BinaryNegativePredictiveValue,
@@ -71,12 +86,35 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from torchmetrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
+from torchmetrics_tpu_torch.classification.recall_fixed_precision import (
+    BinaryRecallAtFixedPrecision,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelRecallAtFixedPrecision,
+    RecallAtFixedPrecision,
+)
 from torchmetrics_tpu_torch.classification.roc import BinaryROC, MulticlassROC, MultilabelROC, ROC
+from torchmetrics_tpu_torch.classification.sensitivity_specificity import (
+    BinarySensitivityAtSpecificity,
+    MulticlassSensitivityAtSpecificity,
+    MultilabelSensitivityAtSpecificity,
+    SensitivityAtSpecificity,
+)
 from torchmetrics_tpu_torch.classification.specificity import (
     BinarySpecificity,
     MulticlassSpecificity,
     MultilabelSpecificity,
     Specificity,
+)
+from torchmetrics_tpu_torch.classification.specificity_sensitivity import (
+    BinarySpecificityAtSensitivity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSpecificityAtSensitivity,
+    SpecificityAtSensitivity,
 )
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
@@ -92,50 +130,68 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCalibrationError",
     "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
     "BinaryHammingDistance",
+    "BinaryHingeLoss",
     "BinaryJaccardIndex",
     "BinaryMatthewsCorrCoef",
     "BinaryNegativePredictiveValue",
     "BinaryPrecision",
+    "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryRecall",
+    "BinaryRecallAtFixedPrecision",
+    "BinarySensitivityAtSpecificity",
     "BinarySpecificity",
+    "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
     "ExactMatch",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
     "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
     "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
     "MulticlassJaccardIndex",
     "MulticlassMatthewsCorrCoef",
     "MulticlassNegativePredictiveValue",
     "MulticlassPrecision",
+    "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
     "MulticlassRecall",
+    "MulticlassRecallAtFixedPrecision",
+    "MulticlassSensitivityAtSpecificity",
     "MulticlassSpecificity",
+    "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
     "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
@@ -144,16 +200,26 @@ __all__ = [
     "MultilabelMatthewsCorrCoef",
     "MultilabelNegativePredictiveValue",
     "MultilabelPrecision",
+    "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
+    "MultilabelRecallAtFixedPrecision",
+    "MultilabelSensitivityAtSpecificity",
     "MultilabelSpecificity",
+    "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
     "NegativePredictiveValue",
     "Precision",
+    "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "ROC",
     "Recall",
+    "RecallAtFixedPrecision",
+    "SensitivityAtSpecificity",
     "Specificity",
+    "SpecificityAtSensitivity",
     "StatScores",
 ]

@@ -1,0 +1,149 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""PrecisionAtFixedRecall module metrics (counterpart of
+``torchmetrics_tpu/classification/precision_fixed_recall.py``). They inherit the
+precision-recall curve's state machines, binned (kernel K1's int32 state)
+or exact; only ``compute`` differs."""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import ThresholdsArg
+from torchmetrics_tpu_torch.functional.classification.precision_fixed_recall import _precision_at_recall
+from torchmetrics_tpu_torch.functional.classification.recall_fixed_precision import (
+    _binary_recall_at_fixed_precision_arg_validation,
+    _binary_recall_at_fixed_precision_compute,
+    _multiclass_recall_at_fixed_precision_arg_compute,
+    _multiclass_recall_at_fixed_precision_arg_validation,
+    _multilabel_recall_at_fixed_precision_arg_compute,
+    _multilabel_recall_at_fixed_precision_arg_validation,
+)
+from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.enums import _literal_task_call
+
+Tensor = torch.Tensor
+
+
+class BinaryPrecisionAtFixedRecall(BinaryPrecisionRecallCurve):
+    """Binary max precision at min recall."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def __init__(
+        self,
+        min_recall: float,
+        thresholds: ThresholdsArg = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs)
+        if validate_args:
+            _binary_recall_at_fixed_precision_arg_validation(min_recall, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_recall = min_recall
+
+    def compute(self) -> Tuple[Tensor, Tensor]:  # type: ignore[override]
+        """(best value, its threshold)."""
+        return _binary_recall_at_fixed_precision_compute(
+            self._curve_state(), self.thresholds, self.min_recall, reduce_fn=_precision_at_recall
+        )
+
+
+class MulticlassPrecisionAtFixedRecall(MulticlassPrecisionRecallCurve):
+    """Multiclass max precision at min recall, per class."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def __init__(
+        self,
+        num_classes: int,
+        min_recall: float,
+        thresholds: ThresholdsArg = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_classes=num_classes, thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs
+        )
+        if validate_args:
+            _multiclass_recall_at_fixed_precision_arg_validation(num_classes, min_recall, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_recall = min_recall
+
+    def compute(self) -> Tuple[Tensor, Tensor]:  # type: ignore[override]
+        """Per-class (best value, its threshold)."""
+        return _multiclass_recall_at_fixed_precision_arg_compute(
+            self._curve_state(), self.num_classes, self.thresholds, self.min_recall, reduce_fn=_precision_at_recall
+        )
+
+
+class MultilabelPrecisionAtFixedRecall(MultilabelPrecisionRecallCurve):
+    """Multilabel max precision at min recall, per label."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        min_recall: float,
+        thresholds: ThresholdsArg = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_labels=num_labels, thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs
+        )
+        if validate_args:
+            _multilabel_recall_at_fixed_precision_arg_validation(num_labels, min_recall, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_recall = min_recall
+
+    def compute(self) -> Tuple[Tensor, Tensor]:  # type: ignore[override]
+        """Per-label (best value, its threshold)."""
+        return _multilabel_recall_at_fixed_precision_arg_compute(
+            self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_recall, reduce_fn=_precision_at_recall
+        )
+
+
+class PrecisionAtFixedRecall(_ClassificationTaskWrapper):
+    """Task-dispatching PrecisionAtFixedRecall."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        min_recall: float,
+        thresholds: ThresholdsArg = None,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        return _literal_task_call(
+            task,
+            num_classes,
+            num_labels,
+            lambda: BinaryPrecisionAtFixedRecall(min_recall, thresholds, ignore_index, validate_args, **kwargs),
+            lambda: MulticlassPrecisionAtFixedRecall(num_classes, min_recall, thresholds, ignore_index, validate_args, **kwargs),
+            lambda: MultilabelPrecisionAtFixedRecall(num_labels, min_recall, thresholds, ignore_index, validate_args, **kwargs),
+        )
+
+
+__all__ = ["BinaryPrecisionAtFixedRecall", "MulticlassPrecisionAtFixedRecall", "MultilabelPrecisionAtFixedRecall", "PrecisionAtFixedRecall"]

@@ -20,6 +20,8 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_format,
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
+    _clf_curve_padded_rows,
+    _grid_hints,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
@@ -28,8 +30,6 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multilabel_precision_recall_curve_format,
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
-    _clf_curve_padded_rows,
-    _uniform_grid,
 )
 from torchmetrics_tpu_torch.functional.classification.roc import (
     _binary_roc_compute,
@@ -162,8 +162,7 @@ def binary_auroc(
     if validate_args:
         _binary_auroc_arg_validation(max_fpr, thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
     if thresholds is None and max_fpr is None:
         return _binary_auroc_exact_device(preds, target)
@@ -227,8 +226,7 @@ def multiclass_auroc(
     if validate_args:
         _multiclass_auroc_arg_validation(num_classes, average, thresholds, ignore_index)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds, ignore_index)
     state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ascending=ascending, affine=affine)
     return _multiclass_auroc_compute(state, num_classes, average, thresholds)
@@ -284,8 +282,7 @@ def multilabel_auroc(
     if validate_args:
         _multilabel_auroc_arg_validation(num_labels, average, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds, ignore_index)
     state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ascending, affine)
     return _multilabel_auroc_compute(state, num_labels, average, thresholds, ignore_index)

@@ -28,6 +28,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
     _clf_curve_padded_rows,
+    _grid_hints,
     _multiclass_precision_recall_curve_compute,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
@@ -36,7 +37,6 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multilabel_precision_recall_curve_format,
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
-    _uniform_grid,
 )
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
 from torchmetrics_tpu_torch.utilities.data import _float32_inputs, _to_tensors
@@ -103,8 +103,7 @@ def binary_average_precision(
     if validate_args:
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
     state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_average_precision_compute(state, thresholds)
@@ -144,8 +143,7 @@ def multiclass_average_precision(
     if validate_args:
         _multiclass_average_precision_arg_validation(num_classes, average, thresholds, ignore_index)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multiclass_precision_recall_curve_format(preds, target, num_classes, thresholds, ignore_index)
     state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thresholds, ascending=ascending, affine=affine)
     return _multiclass_average_precision_compute(state, num_classes, average, thresholds)
@@ -186,8 +184,7 @@ def multilabel_average_precision(
     if validate_args:
         _multilabel_auroc_arg_validation(num_labels, average, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds, ignore_index)
     state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ascending, affine)
     return _multilabel_average_precision_compute(state, num_labels, average, thresholds, ignore_index)

@@ -121,6 +121,13 @@ def _uniform_grid(thresholds: ThresholdsArg) -> Affine:
     return float(thr[0]), (thr.shape[0] - 1) / float(thr[-1] - thr[0])
 
 
+def _grid_hints(thresholds: ThresholdsArg) -> Tuple[bool, Affine]:
+    """Whether the grid is known to ascend (an integer builds the linspace
+    grid) and K1's O(1) bin index for it: see ``_uniform_grid``."""
+    ascending = isinstance(thresholds, int)
+    return ascending, _uniform_grid(thresholds) if ascending else None
+
+
 def _binned_curve_state(
     preds: Tensor,
     target: Tensor,
@@ -377,8 +384,7 @@ def binary_precision_recall_curve(
     if validate_args:
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
     state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_precision_recall_curve_compute(state, thresholds)
@@ -513,8 +519,7 @@ def multiclass_precision_recall_curve(
     if validate_args:
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index, average
     )
@@ -605,8 +610,7 @@ def multilabel_precision_recall_curve(
     if validate_args:
         _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds, ignore_index)
     state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ascending, affine)
     return _multilabel_precision_recall_curve_compute(state, num_labels, thresholds, ignore_index)

@@ -16,6 +16,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
     _exact_stream,
+    _grid_hints,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
@@ -25,7 +26,6 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
     _per_column_curves,
-    _uniform_grid,
 )
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, interp
 from torchmetrics_tpu_torch.utilities.data import _float32_inputs, _to_tensors
@@ -96,8 +96,7 @@ def binary_roc(
     if validate_args:
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
     state = _binary_precision_recall_curve_update(preds, target, thresholds, ascending, affine)
     return _binary_roc_compute(state, thresholds)
@@ -149,8 +148,7 @@ def multiclass_roc(
     if validate_args:
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index, average
     )
@@ -184,8 +182,7 @@ def multilabel_roc(
     if validate_args:
         _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
         _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
-    ascending = isinstance(thresholds, int)  # the linspace grid
-    affine = _uniform_grid(thresholds) if ascending else None
+    ascending, affine = _grid_hints(thresholds)
     preds, target, thresholds = _multilabel_precision_recall_curve_format(preds, target, num_labels, thresholds, ignore_index)
     state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds, ascending, affine)
     return _multilabel_roc_compute(state, num_labels, thresholds, ignore_index)

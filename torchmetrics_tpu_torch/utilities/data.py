@@ -62,6 +62,19 @@ def _flatten_dict(x: Dict) -> Tuple[Dict, bool]:
     return new_dict, duplicates
 
 
+def to_onehot(label_tensor: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Integer labels ``(N, ...)`` to an int32 one-hot ``(N, C, ...)``, class dim at 1.
+
+    ``jax.nn.one_hot``'s semantics: a label that is negative or ``>= C``
+    gives a row of zeros (``torch.nn.functional.one_hot`` raises on those).
+    The JAX package keeps 64-bit types off, so its one-hot is int32 whatever
+    the labels' dtype.
+    """
+    classes = torch.arange(num_classes, device=label_tensor.device)
+    onehot = (label_tensor.unsqueeze(-1) == classes).to(torch.int32)
+    return torch.movedim(onehot, -1, 1)
+
+
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
     """Int32 mask of the top-k entries along ``dim``.
 

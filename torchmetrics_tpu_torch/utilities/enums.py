@@ -84,3 +84,29 @@ def _task_call(
             raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
         return multilabel()
     raise ValueError(f"Not handled value: {task}")
+
+
+def _literal_task_call(
+    task: str,
+    num_classes: Optional[int],
+    num_labels: Optional[int],
+    binary: Callable,
+    multiclass: Callable,
+    multilabel: Optional[Callable] = None,
+):
+    """The dispatch of the families whose JAX dispatchers compare ``task`` as a
+    literal string (the fixed-point curve families, calibration error, hinge):
+    the same checks in the same order, with their messages. Without
+    ``multilabel`` the family has no multilabel task."""
+    if task == "binary":
+        return binary()
+    if task == "multiclass":
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+        return multiclass()
+    if multilabel is not None and task == "multilabel":
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel()
+    tasks = "'binary', 'multiclass' or 'multilabel'" if multilabel is not None else "'binary', 'multiclass'"
+    raise ValueError(f"Expected argument `task` to be one of {tasks} but got {task}")
