@@ -71,7 +71,23 @@ result) if it fails:
    bitwise equal); the count states bitwise equal to numpy folds, values
    within SCORE_ATOL of numpy float64; the calibration and ranking updates
    timed beside their bound.
-11. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+11. regression: the regression and aggregation slice at full width (8
+   batches of 65536 samples made on the card): the single-output family
+   (MSE, MAE, MSLE, MAPE, SMAPE, WMAPE, Minkowski, log-cosh, Tweedie, RSE,
+   R², explained variance, Pearson, concordance, CSI), Spearman over all
+   524,288 rows, the (65536, 8) multi-output MSE, raw R² and Pearson,
+   cosine similarity over (65536, 64) rows and KL divergence over their
+   softmaxes, the aggregators over the per-sample squared error (NaNs in one
+   batch; ``"ignore"`` and float imputations), the weighted means and
+   ``RunningMean(window=4)``; Kendall tau-b with its test over the first
+   batch (the int32 census) and a float32 census of two batches within 2^-20
+   of its int64 recount. Each collection eager and fused (states bitwise
+   equal), counts bitwise equal to numpy folds, values within
+   REGRESSION_ATOL/RTOL of numpy/scipy float64, the port's CPU compute of
+   each card state within REGRESSION_CPU_RTOL of the card's; the steady eager
+   and fused passes profiled, each plain update and compute timed beside its
+   bound. No hand kernel runs here.
+12. fused: the slice's suite through ``suite.fused()``, one CUDA graph
    replay per batch: final states bitwise equal to the plain fold and values
    to the unfused ``compute()``; the wrappers' counters moved by the
    warm-up's launch and the capture's recorded one alone; K1 and K2 once per
@@ -83,7 +99,7 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-12. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+13. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -105,7 +121,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1664,13 +1680,16 @@ def _numpy_fairness_reference(fair_batches):
 
 
 def _require_suite_states_bitwise(got, want, what):
-    """Every state of every member of ``got`` equal to ``want``'s, bit for bit."""
+    """Every state of every member of ``got`` equal to ``want``'s, bit for bit
+    (list states concatenated)."""
     import torch
 
     for key in want.keys(keep_base=True):
         a, b = got[key].state_tree(), want[key].state_tree()
         for name, w in b.items():
             g = a[name]
+            if isinstance(w, list):
+                g, w = torch.cat([torch.atleast_1d(v) for v in g]), torch.cat([torch.atleast_1d(v) for v in w])
             same = g.dtype == w.dtype and g.shape == w.shape and torch.equal(g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8))
             _require(same, f"{what}: state {key}.{name} differs")
 
@@ -1684,11 +1703,11 @@ def _require_close(got, want, atol, what):
     return err
 
 
-def _eager_and_fused(make, stream, what):
+def _eager_and_fused(make, stream, what, **options):
     """``make()``'s collection over ``stream`` eagerly (after two updates form
-    its compute groups) and through ``suite.fused()``: the fused states bitwise
-    equal to the eager ones. Returns the eager collection, its values and the
-    fused plan's first pass time."""
+    its compute groups) and through ``suite.fused(**options)``: the fused
+    states bitwise equal to the eager ones. Returns the eager collection, its
+    values and the fused plan's first pass time."""
     import torch
 
     eager = make()
@@ -1699,7 +1718,7 @@ def _eager_and_fused(make, stream, what):
         eager.update(*batch)
     values = eager.compute()
     fused_suite = make()
-    plan = _fresh_plan(fused_suite, stream)
+    plan = _fresh_plan(fused_suite, stream, **options)
     first_s = _timed(lambda: [plan.update(*b) for b in stream])
     _require(len(plan._captured) == 1, f"{what} fused: {len(plan._captured)} graphs captured for one batch shape")
     plan.fold_back()
@@ -1816,6 +1835,374 @@ def phase_scores(device, batches, ml_batches, kernels):
         f" checks {numpy_s:.1f} s, the update timings {timing_s:.1f} s"
     )
     return {"seconds": seconds, "timed": timed, "errs": errs}
+
+
+# ----------------------------------------------------------------- regression
+
+REG_OUTPUTS = 8
+REG_ROWS_WIDTH = NUM_CLASSES
+MINKOWSKI_P = 3
+TWEEDIE_POWER = 1.5
+CSI_THRESHOLD = 0.5
+RUNNING_WINDOW = 4
+NAN_BATCH, NAN_STRIDE = 3, 997  # the aggregators' batch 3 holds a NaN every 997th sample
+MIN_FILL, SUM_FILL, MEAN_FILL = 1e3, 0.5, 0.25  # the float imputations
+# values against numpy/scipy float64 on the same host copies: float32 sums
+# over 524,288 rows (R², RSE and explained variance subtract the squared
+# mean from the mean square); the count states are held bitwise instead
+REGRESSION_ATOL, REGRESSION_RTOL = 1e-4, 1e-4
+# the port's CPU compute of the card's state against the card's, relative to
+# max(|value|, 1): the same ops on the same state, ulps of the final
+# sqrt/log/pow apart, and the cat states' sums added in another order
+REGRESSION_CPU_RTOL = 1e-5
+KENDALL_FLOAT_REL = 2.0**-20
+REG_PROFILE_REPS, REG_TIMING_REPS = 10, 40
+# the census takes tens of milliseconds per call: few calls per reading
+CENSUS_PROFILE_REPS, CENSUS_TIMING_REPS = 2, 3
+
+
+def _regression_streams(device, batches):
+    """The slice's regression streams, made on the card from SEED + 8: the
+    single-output (preds, target) in (0.05, 3.05) and its positive multiplicative
+    noise, the (65536, 8) multi-output pair, and the rows (the slice's logits
+    against a second seeded (65536, 64) tensor); the aggregators' per-sample
+    squared error (NaNs in batch NAN_BATCH) and seeded weights in [0, 1)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 8)
+    single, multi, rows, agg, weighted = [], [], [], [], []
+    for i in range(NUM_BATCHES):
+        preds = torch.rand(BATCH, generator=gen, device=device) * 3 + 0.05
+        target = preds * torch.exp(0.25 * torch.randn(BATCH, generator=gen, device=device))
+        single.append((preds, target))
+        mp = torch.randn((BATCH, REG_OUTPUTS), generator=gen, device=device)
+        multi.append((mp, mp * torch.linspace(-1, 1, REG_OUTPUTS, device=device) + torch.randn((BATCH, REG_OUTPUTS), generator=gen, device=device)))
+        rows.append((batches[i][0], torch.randn((BATCH, REG_ROWS_WIDTH), generator=gen, device=device)))
+        sq = (preds - target) ** 2
+        if i == NAN_BATCH:
+            sq[::NAN_STRIDE] = float("nan")
+        agg.append((sq,))
+        weighted.append((sq, torch.rand(BATCH, generator=gen, device=device)))
+    return single, multi, rows, agg, weighted
+
+
+def _regression_single(tm):
+    kw = {"device": "cuda"}
+    return tm.MetricCollection({
+        "mse": tm.MeanSquaredError(**kw), "mae": tm.MeanAbsoluteError(**kw), "msle": tm.MeanSquaredLogError(**kw),
+        "mape": tm.MeanAbsolutePercentageError(**kw), "smape": tm.SymmetricMeanAbsolutePercentageError(**kw),
+        "wmape": tm.WeightedMeanAbsolutePercentageError(**kw), "minkowski": tm.MinkowskiDistance(p=MINKOWSKI_P, **kw),
+        "log_cosh": tm.LogCoshError(**kw), "tweedie": tm.TweedieDevianceScore(power=TWEEDIE_POWER, **kw),
+        "rse": tm.RelativeSquaredError(**kw), "r2": tm.R2Score(**kw), "ev": tm.ExplainedVariance(**kw),
+        "pearson": tm.PearsonCorrCoef(**kw), "ccc": tm.ConcordanceCorrCoef(**kw),
+        "csi": tm.CriticalSuccessIndex(CSI_THRESHOLD, **kw),
+    })
+
+
+def _regression_collections(tm):
+    """``(tag, make, stream key, fused options)`` of every collection of the
+    phase. The aggregators' collections form no compute groups: two
+    aggregators of one class but other NaN strategies hold equal states until
+    the first NaN, and a group would fold them as one."""
+    cap = NUM_BATCHES * BATCH
+    kw = {"device": "cuda"}
+    return [
+        ("single", lambda: _regression_single(tm), "single", {}),
+        ("spearman", lambda: tm.MetricCollection({"spearman": tm.SpearmanCorrCoef(**kw)}), "single", {"cat_capacity": cap}),
+        ("multi", lambda: tm.MetricCollection({
+            "mse": tm.MeanSquaredError(num_outputs=REG_OUTPUTS, **kw),
+            "r2": tm.R2Score(num_outputs=REG_OUTPUTS, multioutput="raw_values", **kw),
+            "pearson": tm.PearsonCorrCoef(num_outputs=REG_OUTPUTS, **kw),
+        }), "multi", {}),
+        ("cosine", lambda: tm.MetricCollection({"cosine": tm.CosineSimilarity(**kw)}), "rows", {"cat_capacity": cap}),
+        ("kl", lambda: tm.MetricCollection({"kl": tm.KLDivergence(**kw)}), "softmax", {}),
+        ("aggregators", lambda: tm.MetricCollection({
+            "sum": tm.SumMetric(nan_strategy="ignore", **kw), "max": tm.MaxMetric(nan_strategy="ignore", **kw),
+            "cat": tm.CatMetric(nan_strategy="ignore", **kw), "min_fill": tm.MinMetric(nan_strategy=MIN_FILL, **kw),
+            "sum_fill": tm.SumMetric(nan_strategy=SUM_FILL, **kw),
+        }, compute_groups=False), "agg", {"cat_capacity": cap}),
+        ("weighted", lambda: tm.MetricCollection({
+            "mean": tm.MeanMetric(nan_strategy="ignore", **kw), "mean_fill": tm.MeanMetric(nan_strategy=MEAN_FILL, **kw),
+        }, compute_groups=False), "weighted", {}),
+    ]
+
+
+def _numpy_regression_reference(single, multi, rows_kl, agg, weighted):
+    """Every value of the phase in float64 from host copies of the card's
+    inputs, and the count states exactly."""
+    import numpy as np
+    from scipy.stats import spearmanr
+
+    p = np.concatenate([b[0].cpu().numpy() for b in single]).astype(np.float64)
+    t = np.concatenate([b[1].cpu().numpy() for b in single]).astype(np.float64)
+    n = p.size
+    d = p - t
+    tss = ((t - t.mean()) ** 2).sum()
+    k = TWEEDIE_POWER
+    dev = 2 * (np.maximum(t, 0) ** (2 - k) / ((1 - k) * (2 - k)) - t * p ** (1 - k) / (1 - k) + p ** (2 - k) / (2 - k))
+    pb, tb = p >= CSI_THRESHOLD, t >= CSI_THRESHOLD
+    hits, misses, alarms = int((pb & tb).sum()), int((~pb & tb).sum()), int((pb & ~tb).sum())
+    cov = ((p - p.mean()) * (t - t.mean())).sum() / (n - 1)
+    vx, vy = p.var(ddof=1), t.var(ddof=1)
+    values = {
+        "single": {
+            "mse": (d**2).mean(), "mae": np.abs(d).mean(), "msle": ((np.log1p(p) - np.log1p(t)) ** 2).mean(),
+            "mape": (np.abs(d) / np.maximum(np.abs(t), 1.17e-6)).mean(),
+            "smape": (2 * np.abs(d) / np.maximum(np.abs(t) + np.abs(p), 1.17e-6)).mean(),
+            "wmape": np.abs(d).sum() / np.abs(t).sum(), "minkowski": (np.abs(d) ** MINKOWSKI_P).sum() ** (1 / MINKOWSKI_P),
+            "log_cosh": np.log(np.cosh(d)).mean(), "tweedie": dev.mean(), "rse": (d**2).sum() / tss,
+            "r2": 1 - (d**2).sum() / tss, "ev": 1 - np.var(t - p) / np.var(t), "pearson": cov / np.sqrt(vx * vy),
+            "ccc": 2 * cov / (vx + vy + (p.mean() - t.mean()) ** 2), "csi": hits / (hits + misses + alarms),
+        },
+        "spearman": {"spearman": spearmanr(p, t).statistic},
+    }
+    mp = np.concatenate([b[0].cpu().numpy() for b in multi]).astype(np.float64)
+    mt = np.concatenate([b[1].cpu().numpy() for b in multi]).astype(np.float64)
+    mres = ((mt - mp) ** 2).sum(0)
+    values["multi"] = {
+        "mse": (mres / mp.shape[0]), "r2": 1 - mres / ((mt - mt.mean(0)) ** 2).sum(0),
+        "pearson": np.array([np.corrcoef(mp[:, j], mt[:, j])[0, 1] for j in range(REG_OUTPUTS)]),
+    }
+    cos_sum = kl_sum = 0.0
+    for x, y, px, qy in rows_kl:
+        x64, y64 = x.cpu().numpy().astype(np.float64), y.cpu().numpy().astype(np.float64)
+        cos_sum += ((x64 * y64).sum(1) / (np.linalg.norm(x64, axis=1) * np.linalg.norm(y64, axis=1))).sum()
+        p64, q64 = px.cpu().numpy().astype(np.float64), qy.cpu().numpy().astype(np.float64)
+        kl_sum += (p64 * np.log(p64 / q64)).sum()
+    values["cosine"] = {"cosine": cos_sum}
+    values["kl"] = {"kl": kl_sum / n}
+    sq = np.concatenate([b[0].cpu().numpy() for b in agg])  # float32, NaNs in batch NAN_BATCH
+    w = np.concatenate([b[1].cpu().numpy() for b in weighted]).astype(np.float64)
+    nan = np.isnan(sq)
+    ignored = np.where(nan, np.float32(0), sq)  # "ignore" zeroes the value (and its weight)
+    values["aggregators"] = {
+        "sum": ignored.astype(np.float64).sum(), "max": float(ignored.max()), "cat": ignored,
+        "min_fill": float(np.where(nan, np.float32(MIN_FILL), sq).min()),
+        "sum_fill": np.where(nan, SUM_FILL, sq.astype(np.float64)).sum(),
+    }
+    wi = np.where(nan, 0.0, w)
+    values["weighted"] = {
+        "mean": (ignored * wi).sum() / wi.sum(),
+        "mean_fill": (np.where(nan, MEAN_FILL, sq.astype(np.float64)) * w).sum() / w.sum(),
+    }
+    last = slice((NUM_BATCHES - RUNNING_WINDOW) * BATCH, None)
+    values["running"] = ignored[last].astype(np.float64).sum() / (~nan[last]).sum()
+    counts = {"single.csi": (hits, misses, alarms), "rows": n}
+    return values, counts
+
+
+def _regression_timed_paths(single, rows_kl, cosine_state, spearman_state, kendall_rows):
+    """``name -> (fn, arg sets, bytes, operations)`` of each plain update or
+    compute timed per call, as the modules run them."""
+    import importlib
+
+    import torch
+
+    fr = "torchmetrics_tpu_torch.functional.regression."
+    mse = importlib.import_module(fr + "mse")
+    pearson = importlib.import_module(fr + "pearson")
+    kl = importlib.import_module(fr + "kl_divergence")
+    cos = importlib.import_module(fr + "cosine_similarity")
+    spear = importlib.import_module(fr + "spearman")
+    kendall = importlib.import_module(fr + "kendall")
+
+    zeros = tuple(torch.zeros(1, device=single[0][0].device) for _ in range(6))
+    pairs = BATCH * (BATCH - 1) // 2
+    n_all = NUM_BATCHES * BATCH
+    return {
+        "mse_update": (lambda p, t: mse._mean_squared_error_update(p, t, 1), single, 2 * BATCH * 4 + 4, 3 * BATCH),
+        "pearson_update": (lambda p, t: pearson._pearson_corrcoef_update(p, t, *zeros, 1), single, 2 * BATCH * 4 + 12 * 4,
+                           14 * BATCH),
+        "kl_update": (lambda x, y, p, q: kl._kld_update(p, q, False), rows_kl, 2 * BATCH * REG_ROWS_WIDTH * 4 + BATCH * 4,
+                      8 * BATCH * REG_ROWS_WIDTH),
+        "cosine_compute": (lambda p, t: cos._cosine_similarity_compute(p, t, "sum"), [cosine_state],
+                           2 * n_all * REG_ROWS_WIDTH * 4 + 4, 6 * n_all * REG_ROWS_WIDTH),
+        "spearman_compute": (spear._spearman_corrcoef_compute, [spearman_state], 2 * n_all * 4 + 4,
+                             2 * 2 * n_all * math.ceil(math.log2(n_all))),
+        "kendall_census": (kendall._pair_census, [kendall_rows], 2 * BATCH * 4 + 8, 6 * pairs),
+    }
+
+
+def phase_regression(device, batches, kernels):
+    """The regression and aggregation slice at full width: 8 batches of 65536
+    samples made on the card (``_regression_streams``). Collections: the
+    single-output family (MSE, MAE, MSLE, MAPE, SMAPE, WMAPE, Minkowski p=3,
+    log-cosh, Tweedie 1.5, RSE, R², explained variance, Pearson, concordance,
+    CSI at 0.5), Spearman over all 524,288 rows, the (65536, 8) multi-output
+    MSE, raw R² and Pearson, cosine similarity and KL divergence over the
+    (65536, 64) rows (the slice's logits against a second seeded tensor; their
+    softmaxes for KL), the aggregators over the per-sample squared error
+    (sum, max and cat with ``"ignore"``, which zeroes a NaN value as the JAX
+    package does; min and sum with a float imputation) and the weighted means;
+    ``RunningMean(window=4)`` eagerly; ``KendallRankCorrCoef(variant="b",
+    t_test=True)`` over the first batch only (65,536 rows, 2.1e9 pairs, the
+    int32 census: a cut, since an eager census over all 524,288 rows would
+    write 512 blocks of 2.1 GB each), and one census over two batches (131,072
+    rows, the float32 accumulator) within 2^-20 relative of the same blocks
+    counted in int64 on the card. Each collection eager and through
+    ``suite.fused()``, float states bitwise equal; the count states bitwise
+    equal to numpy folds; values within REGRESSION_ATOL/RTOL of numpy float64
+    (Spearman against ``scipy.stats.spearmanr``, Kendall against
+    ``scipy.stats.kendalltau``); the port's CPU compute of each card state
+    within REGRESSION_CPU_RTOL of the card's. The single-output family's
+    steady eager and fused passes profiled; each plain update and compute
+    timed beside its bound. No hand kernel runs here."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from scipy.stats import kendalltau
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    single, multi, rows, agg, weighted = _regression_streams(device, batches)
+    rows_kl = [(x, y, torch.softmax(x, dim=1), torch.softmax(y, dim=1)) for x, y in rows]
+    streams = {"single": single, "multi": multi, "rows": rows, "softmax": [(px, qy) for _, _, px, qy in rows_kl], "agg": agg,
+               "weighted": weighted}
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    runs = {}
+    for tag, make, key, options in _regression_collections(tm):
+        stream = streams[key]
+        if options:
+            options = dict(options, example_batch=stream[0])
+        runs[tag] = _eager_and_fused(make, stream, f"regression {tag}", **options)
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    _require(not any(launches.values()), f"regression: a hand kernel launched ({launches}); none is on this path")
+    running = tm.RunningMean(window=RUNNING_WINDOW, nan_strategy="ignore", device="cuda")
+    for (sq,) in agg:
+        running.update(sq)
+    running_value = running.compute()
+    kendall = tm.KendallRankCorrCoef(variant="b", t_test=True, device="cuda")
+    kendall.update(*single[0])
+    tau, p_value = kendall.compute()
+    census_mod = importlib.import_module("torchmetrics_tpu_torch.functional.regression.kendall")
+    x2, y2 = torch.cat([single[0][0], single[1][0]]), torch.cat([single[0][1], single[1][1]])
+    con, dis = census_mod._pair_census(x2, y2)
+    exact = census_mod._census_counts(x2, y2).sum(0).tolist()
+    _require(con.dtype == torch.float32, f"regression: the census of {x2.shape[0]} rows accumulated in {con.dtype}, not float32")
+    float_rel = [abs(float(g) - w) / w for g, w in zip((con, dis), exact)]
+    _require(max(float_rel) <= KENDALL_FLOAT_REL, f"regression: float32 census {float(con)}/{float(dis)} vs int64 {exact}")
+    card_s = time.perf_counter() - t_phase
+
+    values = {tag: runs[tag][1] for tag in runs}
+    ref, counts = _numpy_regression_reference(single, multi, rows_kl, agg, weighted)
+    errs = {}
+    for tag, want_values in ref.items():
+        if tag == "running":
+            continue
+        for key, want in want_values.items():
+            got = values[tag][key].cpu().numpy()
+            if key == "cat":
+                _require(got.dtype == np.float32 and np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+                         "regression: CatMetric's rows differ from the host copy")
+                continue
+            atol = REGRESSION_ATOL + REGRESSION_RTOL * float(np.max(np.abs(want)))
+            errs[f"{tag}.{key}"] = _require_close(got, want, atol, f"regression {tag}: {key}")
+    errs["running"] = _require_close(running_value.cpu().numpy(), ref["running"], REGRESSION_ATOL, "regression: RunningMean")
+    single_col = runs["single"][0]
+    hits, misses, alarms = counts["single.csi"]
+    for name, want in (("hits", hits), ("misses", misses), ("false_alarms", alarms)):
+        got = getattr(single_col["csi"], name).cpu().numpy()
+        _require(got.dtype == np.int32 and int(got) == want, f"regression: CSI {name} {got} vs the numpy fold's {want}")
+    for key in ("mse", "mae", "msle", "log_cosh", "rse", "r2"):
+        got = single_col[key].total.cpu().numpy()
+        _require(got.dtype == np.int32 and int(got) == counts["rows"], f"regression: {key}.total {got} vs {counts['rows']}")
+    got = single_col["tweedie"].num_observations.cpu().numpy()
+    _require(got.dtype == np.int32 and int(got) == counts["rows"], f"regression: tweedie count {got}")
+    for key in ("mse", "r2"):
+        got = runs["multi"][0][key].total.cpu().numpy()
+        _require(got.dtype == np.int32 and int(got) == counts["rows"], f"regression: multi {key}.total {got}")
+    got = runs["kl"][0]["kl"].total.cpu().numpy()
+    _require(got.dtype == np.int32 and int(got) == counts["rows"], f"regression: kl.total {got}")
+
+    a = np.concatenate([b[0].cpu().numpy() for b in single[:1]]), np.concatenate([b[1].cpu().numpy() for b in single[:1]])
+    ref_tau = kendalltau(a[0], a[1], variant="b")
+    errs["kendall.tau"] = _require_close(tau.cpu().numpy(), ref_tau.statistic, 1e-5, "regression: Kendall tau-b")
+    errs["kendall.p"] = _require_close(p_value.cpu().numpy(), ref_tau.pvalue, 1e-6, "regression: Kendall p-value")
+    numpy_s = time.perf_counter() - t_phase - card_s
+
+    # the port's CPU compute of every card state
+    cpu_errs = {}
+    for tag, make, _, _ in _regression_collections(tm):
+        col = runs[tag][0]
+        for key in col.keys(keep_base=True):
+            card_metric = dict.__getitem__(col, key)
+            cpu_metric = card_metric.clone().to("cpu")
+            cpu_metric._computed = None
+            got, want = cpu_metric.compute(), card_metric.compute()
+            g, w = np.asarray(got, np.float64), want.cpu().numpy().astype(np.float64)
+            err = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1.0))) if w.size else 0.0
+            _require(g.shape == w.shape and err <= REGRESSION_CPU_RTOL, f"regression: CPU compute of {tag}.{key} {g} vs the card's {w}")
+            cpu_errs[f"{tag}.{key}"] = err
+    cpu_kendall = kendall.clone().to("cpu")
+    cpu_kendall._computed = None
+    ctau, cp = cpu_kendall.compute()
+    _require(abs(float(ctau) - float(tau)) <= 1e-6 * abs(float(tau)) and abs(float(cp) - float(p_value)) <= 1e-7,
+             f"regression: Kendall on the CPU {float(ctau)}, {float(cp)} vs the card's {float(tau)}, {float(p_value)}")
+    cpu_s = time.perf_counter() - t_phase - card_s - numpy_s
+
+    # steady passes of the single-output family, eager and fused
+    eager_suite = _regression_single(tm)
+    eager_suite.update(*single[0])
+    eager_suite.update(*single[1])
+    eager = _steady_and_profile("regression eager", eager_suite.update, single, reset=eager_suite.reset)
+    fused_suite = _regression_single(tm)
+    plan = _fresh_plan(fused_suite, single)
+    for b in single:
+        plan.update(*b)
+    fused = _steady_and_profile("regression fused", plan.update, single)
+
+    spearman_metric = runs["spearman"][0]["spearman"]
+    cosine_metric = runs["cosine"][0]["cosine"]
+    spearman_state = (torch.cat(spearman_metric.preds), torch.cat(spearman_metric.target))
+    cosine_state = (torch.cat(cosine_metric.preds), torch.cat(cosine_metric.target))
+    paths = _regression_timed_paths(single, rows_kl, cosine_state, spearman_state, single[0])
+    t_timing = time.perf_counter()
+    reps = {name: (CENSUS_PROFILE_REPS, CENSUS_TIMING_REPS) if name == "kendall_census" else (REG_PROFILE_REPS, REG_TIMING_REPS)
+            for name in paths}
+    times = {}
+    for profile_reps, timing_reps in sorted(set(reps.values())):
+        versions = [(name, fn, stream) for name, (fn, stream, _, _) in paths.items() if reps[name] == (profile_reps, timing_reps)]
+        times.update(_measure(versions, profile_reps, timing_reps))
+    timing_s = time.perf_counter() - t_timing
+    timed = {}
+    for name, (_, _, n_bytes, n_ops) in paths.items():
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        per_call = sum(n for _, n in times[name]["found"].values()) / reps[name][0]
+        timed[name] = {"ms": times[name]["device_ms"], "stream_ms": times[name]["stream_ms"], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "bytes": n_bytes, "kernels": per_call}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    groups = {tag: sorted(sorted(g) for g in runs[tag][0].compute_groups.values()) for tag in runs}
+    print(
+        f"[regression] hand-kernel launches {launches} (none of these families runs one); compute groups {groups};"
+        f" fused states bitwise equal to the eager ones for the {len(runs)} collections (first fused passes"
+        f" {', '.join(f'{tag} {r[2]:.4f}' for tag, r in runs.items())} s); totals, CSI hits/misses/false alarms,"
+        f" the cat rows bitwise equal to the numpy folds"
+    )
+    vals = {f"{tag}.{k}": (float(v) if v.numel() == 1 else f"mean {float(v.float().mean()):.6f}") for tag in values for k, v in values[tag].items()}
+    print(f"[regression] values {vals}; RunningMean({RUNNING_WINDOW}) {float(running_value):.6f}; Kendall tau-b {float(tau):.6f}, p {float(p_value):.3e}")
+    print(f"[regression] max |card - numpy/scipy float64| {errs} (budget {REGRESSION_ATOL} + {REGRESSION_RTOL} x |value|)")
+    print(f"[regression] max relative |CPU compute - card compute| {max(cpu_errs.values()):.3e} over {len(cpu_errs)} metrics (budget {REGRESSION_CPU_RTOL})")
+    print(
+        f"[regression] float32 census of {x2.shape[0]} rows: {float(con):.0f} concordant, {float(dis):.0f} discordant;"
+        f" int64 recount {exact}; relative {max(float_rel):.3e} (budget 2^-20)"
+    )
+    for name, t in timed.items():
+        top = sorted(times[name]["found"].items(), key=lambda kv: -kv[1][0])[:4]
+        print(
+            f"[regression] {name} per call: device {t['ms']:.5f} ms in {t['kernels']:.1f} device kernels, stream"
+            f" {t['stream_ms']:.5f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}, {t['bytes']} B); most device time:"
+            f" {'; '.join(f'{_short_kernel_name(key)} {us / reps[name][0]:.1f} us' for key, (us, _) in top)}"
+        )
+    print(
+        f"[regression] phase {seconds:.1f} s: the collections eager and fused and the censuses {card_s:.1f} s, the"
+        f" numpy/scipy references {numpy_s:.1f} s, the CPU computes {cpu_s:.1f} s, the update timings {timing_s:.1f} s"
+    )
+    return {"seconds": seconds, "timed": timed, "eager": eager, "fused": fused, "errs": errs}
 
 
 # ---------------------------------------------------------------------- fused
@@ -2318,6 +2705,7 @@ def main() -> int:
     fam = phase_families(device, batches, KERNELS)
     points = phase_points(device, batches, KERNELS, run)
     scores = phase_scores(device, batches, ml_batches, KERNELS)
+    regression = phase_regression(device, batches, KERNELS)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
@@ -2349,7 +2737,10 @@ def main() -> int:
         f" {points['launches']['binned_curve_state']} eager / {points['k1_fused']} fused per pass, eager pass"
         f" {points['eager']['median_s'] * 1e3:.3f} ms, fused {points['fused']['median_s'] * 1e3:.3f} ms, compute"
         f" {points['compute_us']:.1f} us device; scores phase {scores['seconds']:.1f} s, update ms (bound):"
-        f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in scores['timed'].items())}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
+        f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in scores['timed'].items())}; regression phase"
+        f" {regression['seconds']:.1f} s, eager pass {regression['eager']['median_s'] * 1e3:.3f} ms, fused"
+        f" {regression['fused']['median_s'] * 1e3:.3f} ms, ms per call (bound):"
+        f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in regression['timed'].items())}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"

@@ -15,7 +15,9 @@ captured CUDA graphs must give the eager path's states and values bitwise,
 capture a second graph for a new batch shape, and raise (never run eagerly)
 where a capture fails; DeviceFeed stages pinned numpy batches on the card.
 The confusion-matrix families count on the card what the CPU counts, out-of-range
-labels included, and capture in a fused plan.
+labels included, and capture in a fused plan. The regression and aggregation
+collection captures and equals its eager fold bitwise; Kendall's float32
+census on the card stays within 2^-20 of its exact int64 recount.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -525,6 +527,93 @@ def test_scores_and_fairness_fused_graphs_equal_eager(card):
             for name, want in ref[key].state_tree().items():
                 got = getattr(fus[key], name)
                 assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)), f"{key}.{name}"
+
+
+# ---------------------------------------------- regression and aggregation
+
+
+@pytest.fixture
+def gpu():
+    """A card, for paths that build no hand kernel (no nvcc needed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the path under test runs on the card")
+    return torch.device("cuda")
+
+
+def _regression_collection(card):
+    kw = {"device": card}
+    return T.MetricCollection({
+        "mse": T.MeanSquaredError(**kw), "mae": T.MeanAbsoluteError(**kw), "msle": T.MeanSquaredLogError(**kw),
+        "mape": T.MeanAbsolutePercentageError(**kw), "smape": T.SymmetricMeanAbsolutePercentageError(**kw),
+        "wmape": T.WeightedMeanAbsolutePercentageError(**kw), "mink": T.MinkowskiDistance(p=3, **kw),
+        "logcosh": T.LogCoshError(**kw), "tweedie": T.TweedieDevianceScore(power=1.5, **kw),
+        "rse": T.RelativeSquaredError(**kw), "r2": T.R2Score(**kw), "ev": T.ExplainedVariance(**kw),
+        "pearson": T.PearsonCorrCoef(**kw), "ccc": T.ConcordanceCorrCoef(**kw), "csi": T.CriticalSuccessIndex(0.5, **kw),
+    })
+
+
+def _aggregator_collection(card):
+    kw = {"device": card}
+    return T.MetricCollection({
+        "sum": T.SumMetric(nan_strategy="ignore", **kw), "max": T.MaxMetric(nan_strategy="ignore", **kw),
+        "min": T.MinMetric(nan_strategy=0.0, **kw), "mean": T.MeanMetric(nan_strategy=0.5, **kw),
+    }, compute_groups=False)
+
+
+def test_regression_fused_graph_equals_eager(gpu):
+    """The regression and aggregation updates capture as one CUDA graph each
+    (the tweedie domain check and the NaN probe skip under capture); the
+    replays' states equal the eager fold's bitwise."""
+    gen = torch.Generator(device=gpu).manual_seed(71)
+    regression, aggregation = [], []
+    for _ in range(4):
+        preds = torch.rand(65536, generator=gen, device=gpu) * 3 + 0.05
+        target = preds + torch.rand(65536, generator=gen, device=gpu) * 0.5
+        regression.append((preds, target))
+        values = (preds - target) ** 2
+        values[::101] = float("nan")
+        aggregation.append((values,))
+    for make, batches in ((_regression_collection, regression), (_aggregator_collection, aggregation)):
+        ref, fus = make(gpu), make(gpu)
+        for b in batches:
+            ref.update(*b)
+        fus.update(*batches[0])
+        fus.update(*batches[1])
+        fus.reset()
+        plan = fus.fused()
+        for b in batches:
+            plan.update(*b)
+        assert len(plan._captured) == 1
+        plan.fold_back()
+        for key in ref.keys(keep_base=True):
+            for name, want in ref[key].state_tree().items():
+                got = getattr(fus[key], name)
+                assert got.dtype == want.dtype and torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)), f"{key}.{name}"
+
+
+def test_python_scalar_to_mean_metric_lands_on_the_card(gpu):
+    metric = T.MeanMetric()
+    metric.update(2.5)
+    metric.update(np.float32(1.5), weight=3)
+    assert metric.mean_value.device.type == "cuda" and metric.weight.device.type == "cuda"
+    assert float(metric.compute()) == (2.5 + 4.5) / 4
+
+
+def test_kendall_float32_census_on_the_card_within_2e_20_of_int64(gpu):
+    """Past 65536 rows the census accumulates in float32: within 2^-20
+    relative of the same blocks' exact int64 counts, and equal to the CPU's
+    census bitwise (the block counts are exact on both)."""
+    kendall = importlib.import_module("torchmetrics_tpu_torch.functional.regression.kendall")
+    gen = torch.Generator(device=gpu).manual_seed(5)
+    x = torch.randn(70000, generator=gen, device=gpu)
+    y = x + torch.randn(70000, generator=gen, device=gpu)
+    con, dis = kendall._pair_census(x, y)
+    assert con.dtype == torch.float32 and con.device.type == "cuda"
+    exact = kendall._census_counts(x, y).sum(0)
+    for got, want in zip((con, dis), exact.tolist()):
+        assert abs(float(got) - want) <= 2**-20 * want, (float(got), want)
+    cpu = kendall._pair_census(x.cpu(), y.cpu())
+    assert torch.equal(con.cpu(), cpu[0]) and torch.equal(dis.cpu(), cpu[1])
 
 
 # ------------------------------------------------- two ranks on one card

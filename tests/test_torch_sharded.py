@@ -11,7 +11,8 @@ rows of every batch, drives the port's sharded paths, checks what it can on
 its own (values bitwise equal to the port's single-process fold, each
 reduction kind of ``mesh_reduce_tree`` against its definition, the
 rank-ordered gather of CatBuffers; rank-local and sharded updates refused
-in either order until ``reset()``) and saves its states (``.npz``). The
+in either order until ``reset()``; two sharded folds of Pearson, whose
+``None`` states stack per fold, and MSE) and saves its states (``.npz``). The
 parent holds them against JAX's ``sharded_update`` and ``fused(mesh=...)``
 over the whole batches: integer states, CatBuffers and the exact group's cat
 states bitwise; the suite's values within the budgets of
@@ -183,6 +184,39 @@ def _check_mixing_is_refused(T, mesh, local) -> None:
     print(f"rank {torch.distributed.get_rank()}: mixing refused in both orders, accepted after reset()", flush=True)
 
 
+def _regression_batches():
+    rng = np.random.default_rng(13)
+    out = []
+    for _ in range(2):
+        preds = rng.standard_normal((N, 2)).astype(np.float32)
+        out.append((preds, (preds + rng.standard_normal((N, 2))).astype(np.float32)))
+    return out
+
+
+def _regression_members(pkg, **kw):
+    return {"pearson": pkg.PearsonCorrCoef(num_outputs=2, **kw), "mse": pkg.MeanSquaredError(num_outputs=2, **kw)}
+
+
+def _check_regression_folds(T, mesh, rank: int, saved: dict) -> None:
+    """Two ``sharded_update`` folds of each rank's half: Pearson's states grow
+    to (folds, ranks, outputs) and merge over both shard axes at compute."""
+    from torchmetrics_tpu_torch.parallel import sharded_update
+
+    members = _regression_members(T, device="cpu")
+    ref = _regression_members(T, device="cpu", distributed_available_fn=lambda: False)
+    shard = slice(rank * HALF, (rank + 1) * HALF)
+    for preds, target in _regression_batches():
+        for key, m in members.items():
+            sharded_update(m, mesh, torch.from_numpy(preds[shard]), torch.from_numpy(target[shard]))
+            ref[key].update(torch.from_numpy(preds), torch.from_numpy(target))
+    assert members["pearson"].mean_x.shape == (2, 2, 2), members["pearson"].mean_x.shape
+    for key, m in members.items():
+        got, want = m.compute(), ref[key].compute()
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"sharded {key}: {got} vs the one-process fold {want}"
+        saved[f"regression.{key}.value"] = got.numpy()
+    _save_members(saved, "regression", members)
+
+
 def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -272,6 +306,9 @@ def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
 
     # 4) rank-local and sharded updates do not mix while sync would run
     _check_mixing_is_refused(T, mesh, local)
+
+    # 5) two sharded folds of Pearson (None states: stacked per fold) and MSE
+    _check_regression_folds(T, mesh, rank, saved)
 
     np.savez(out_dir / f"sharded_rank{rank}.npz", **saved)
     dist.barrier()
@@ -385,6 +422,31 @@ def test_fused_mesh_catbuffers_match_jax(worker_states, jax_batches):
                 jbuf = plan.state["members"][key][name]
                 for part, want in zip(jbuf._fields, jbuf):
                     _assert_bitwise(saved[f"fused_exact.{key}.{name}.{part}"], np.asarray(want), f"{key}.{name}.{part}")
+
+
+def test_sharded_regression_folds_match_jax(worker_states):
+    """Two folds of Pearson and MSE on both ranks == JAX's ``sharded_update``
+    over the whole batches on a 2-device mesh: counts bitwise, float states
+    (the per-device partial sums) within rtol 1e-6, the values within 1e-5."""
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu as J
+    from torchmetrics_tpu.parallel import sharded_update
+
+    members = _regression_members(J)
+    for preds, target in _regression_batches():
+        for m in members.values():
+            sharded_update(m, _jax_mesh(), jnp.asarray(preds), jnp.asarray(target))
+    for saved in worker_states:
+        for key, metric in members.items():
+            for name, value in metric.state_tree().items():
+                got, want = saved[f"regression.{key}.{name}"], _flat(value)
+                if name in ("n_total", "total"):
+                    _assert_bitwise(got, want, f"{key}.{name}")
+                else:
+                    assert got.shape == want.shape and got.dtype == want.dtype, (key, name, got.shape, want.shape)
+                    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=f"{key}.{name}")
+            np.testing.assert_allclose(saved[f"regression.{key}.value"], np.asarray(metric.compute()), rtol=1e-5, err_msg=key)
 
 
 def test_cat_buffer_all_gather_matches_jax(worker_states):

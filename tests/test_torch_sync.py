@@ -9,7 +9,9 @@ Two kinds of test:
   file run as a script is the worker (``python tests/test_torch_sync.py
   <rank> <world> <addr> <scenario> <out_dir>``); it imports no JAX. The
   ``full`` and ``faults`` scenarios are the gloo twins of
-  ``tests/unittests/_helpers/mp_sync_worker.py``'s. Each rank folds its
+  ``tests/unittests/_helpers/mp_sync_worker.py``'s; the ``regression``
+  scenario syncs Pearson's stacked ``None`` states (uneven batch counts),
+  ``MaxMetric``/``MinMetric`` and ``CatMetric``. Each rank folds its
   share of one seeded stream and saves its synced states (``.npz``); the
   parent test holds them against the JAX package's single-process fold of
   the whole stream, one update per rank's share in rank order. Integer
@@ -276,6 +278,68 @@ def _scenario_full(rank: int, world: int, out_dir: Path) -> None:
     print(f"rank {rank}: all multi-process sync checks passed", flush=True)
 
 
+def _regression_stream():
+    """Seeded regression rows both ranks hold: preds and target (N_TOTAL, 2)
+    float32 and a value vector for the aggregators."""
+    rng = np.random.RandomState(7)
+    preds = rng.randn(N_TOTAL, 2).astype(np.float32)
+    target = (preds * np.array([1.0, -0.5], np.float32) + rng.randn(N_TOTAL, 2)).astype(np.float32)
+    values = (rng.randn(N_TOTAL) * 3).astype(np.float32)
+    return preds, target, values
+
+
+def _regression_chunks(rank: int) -> list:
+    """This rank's row indices in batches: rank 0 folds three, rank 1 one."""
+    mine = _local(rank)
+    return np.array_split(np.arange(mine.start, mine.stop), 3 if rank == 0 else 1)
+
+
+def _scenario_regression(rank: int, world: int, out_dir: Path) -> None:
+    import torch.distributed as dist
+
+    import torchmetrics_tpu_torch as T
+
+    preds, target, values = _regression_stream()
+    t = torch.from_numpy
+    saved = {}
+    off = {"distributed_available_fn": lambda: False}
+
+    # 1) Pearson's None states: compute() gathers them stacked (ranks, outputs)
+    # and merges the shards; uneven batch counts on the two ranks
+    for tag, kw, cols in (("pearson", {}, 0), ("pearson2", {"num_outputs": 2}, slice(None))):
+        metric = T.PearsonCorrCoef(device="cpu", **kw)
+        ref = T.PearsonCorrCoef(device="cpu", **kw, **off)
+        for idx in _regression_chunks(rank):
+            metric.update(t(preds[idx][:, cols]), t(target[idx][:, cols]))
+        for r in range(world):
+            for idx in _regression_chunks(r):
+                ref.update(t(preds[idx][:, cols]), t(target[idx][:, cols]))
+        got, want = metric.compute(), ref.compute()
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"{tag} sync: {got} vs the one-process fold {want}"
+        metric.sync()
+        assert metric.mean_x.shape == (world, metric.num_outputs), metric.mean_x.shape
+        saved.update({f"{tag}.{k}": v for k, v in _np_tree(metric).items()})
+        saved[f"{tag}.value"] = got.numpy()
+        metric.unsync()
+        assert metric.mean_x.shape == (metric.num_outputs,), "unsync did not restore the local statistics"
+
+    # 2) "max"/"min" states and the "cat" state of uneven rows
+    for name in ("MaxMetric", "MinMetric", "CatMetric"):
+        metric, ref = getattr(T, name)(device="cpu"), getattr(T, name)(device="cpu", **off)
+        for idx in _regression_chunks(rank):
+            metric.update(t(values[idx]))
+        ref.update(t(values))
+        got = metric.compute()
+        assert torch.equal(got, ref.compute()), f"{name} sync: {got} vs {ref.compute()}"
+        metric.sync()
+        saved.update({f"{name}.{k}": v for k, v in _np_tree(metric).items()})
+        metric.unsync()
+
+    np.savez(out_dir / f"regression_rank{rank}.npz", **saved)
+    dist.barrier()
+    print(f"rank {rank}: all regression sync checks passed", flush=True)
+
+
 def _scenario_faults(rank: int, world: int, out_dir: Path) -> None:
     import torchmetrics_tpu_torch as T
     from torchmetrics_tpu_torch.robustness import SyncConfig, faults
@@ -374,7 +438,7 @@ def _worker_main(argv) -> None:
     rank, world, addr, scenario, out_dir = int(argv[1]), int(argv[2]), argv[3], argv[4], Path(argv[5])
     dist.init_process_group("gloo", init_method=addr, world_size=world, rank=rank)
     try:
-        {"full": _scenario_full, "faults": _scenario_faults}[scenario](rank, world, out_dir)
+        {"full": _scenario_full, "faults": _scenario_faults, "regression": _scenario_regression}[scenario](rank, world, out_dir)
     finally:
         dist.destroy_process_group()
 
@@ -449,6 +513,53 @@ def test_two_process_replica_sync(tmp_path):
         # "mean" syncs as the mean of the two ranks' states: (a + b) / 2, bitwise
         want_avg = ((vec[0, 2:6] * np.float32(1.5)) + (vec[1, 2:6] * np.float32(1.5))) / np.float32(2)
         np.testing.assert_array_equal(saved["moments.avg"].view(np.int32), want_avg.astype(np.float32).view(np.int32))
+
+
+def test_two_process_regression_sync(tmp_path):
+    """Pearson's ``None`` states arrive stacked from both ranks (3 batches
+    against 1) and equal JAX's per-rank statistics (counts bitwise, sums
+    within rtol 1e-6); the merged value is JAX's compute of the same stacked
+    states within 1e-5. Max, min and the concatenated values equal JAX's
+    fold of the whole stream bitwise."""
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu as J
+
+    results = run_workers(Path(__file__), "regression", tmp_path, timeout=120)
+    for rank, (rc, out) in enumerate(results):
+        assert rc == 0, f"rank {rank} failed:\n{out}"
+        assert f"rank {rank}: all regression sync checks passed" in out, out
+    preds, target, values = _regression_stream()
+    for tag, kw, cols in (("pearson", {}, 0), ("pearson2", {"num_outputs": 2}, slice(None))):
+        per_rank = []
+        for r in range(2):
+            jm = J.PearsonCorrCoef(**kw)
+            for idx in _regression_chunks(r):
+                jm.update(jnp.asarray(preds[idx][:, cols]), jnp.asarray(target[idx][:, cols]))
+            per_rank.append(jm.state_tree())
+        stacked = {k: jnp.stack([tree[k] for tree in per_rank]) for k in per_rank[0]}
+        jsynced = J.PearsonCorrCoef(**kw)
+        jsynced.load_state_tree({**stacked, "_update_count": 2})
+        want_value = np.asarray(jsynced.compute())
+        for rank in range(2):
+            saved = dict(np.load(tmp_path / f"regression_rank{rank}.npz"))
+            for key, want in stacked.items():
+                got, want = saved[f"{tag}.{key}"], np.asarray(want)
+                assert got.dtype == want.dtype and got.shape == want.shape, (tag, key, got.shape, want.shape)
+                if key == "n_total":
+                    np.testing.assert_array_equal(_bytes(got), _bytes(want), err_msg=f"{tag}.{key}")
+                else:
+                    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=f"{tag}.{key}")
+            np.testing.assert_allclose(saved[f"{tag}.value"], want_value, rtol=1e-5, err_msg=f"{tag} value")
+    for name, state in (("MaxMetric", "max_value"), ("MinMetric", "min_value"), ("CatMetric", "value")):
+        jm = getattr(J, name)()
+        jm.update(jnp.asarray(values))
+        want = np.asarray(jm.compute())
+        for rank in range(2):
+            saved = dict(np.load(tmp_path / f"regression_rank{rank}.npz"))
+            got = saved[f"{name}.{state}"]
+            assert got.dtype == want.dtype and got.shape == want.shape, (name, got.shape, want.shape)
+            np.testing.assert_array_equal(_bytes(got), _bytes(want), err_msg=name)
 
 
 def _jax_moments():

@@ -1,0 +1,32 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""Mean absolute percentage error (counterpart of ``torchmetrics_tpu/functional/regression/mape.py``)."""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+from torchmetrics_tpu_torch.functional.regression.utils import _float32_pair
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape
+
+Tensor = torch.Tensor
+
+
+def _mean_absolute_percentage_error_update(preds: Tensor, target: Tensor, epsilon: float = 1.17e-06) -> Tuple[Tensor, int]:
+    """Sum of ``|error| / max(|target|, epsilon)`` (0-d) and the number of elements."""
+    _check_same_shape(preds, target)
+    abs_per_error = torch.abs(preds - target) / torch.clamp(torch.abs(target), min=epsilon)
+    return torch.sum(abs_per_error), target.numel()
+
+
+def _mean_absolute_percentage_error_compute(sum_abs_per_error: Tensor, num_obs: Union[int, Tensor]) -> Tensor:
+    """MAPE."""
+    return sum_abs_per_error / num_obs
+
+
+def mean_absolute_percentage_error(preds: Tensor, target: Tensor) -> Tensor:
+    """Compute mean absolute percentage error."""
+    preds, target = _float32_pair(preds, target)
+    sum_abs_per_error, num_obs = _mean_absolute_percentage_error_update(preds, target)
+    return _mean_absolute_percentage_error_compute(sum_abs_per_error, num_obs)

@@ -96,6 +96,7 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
     infer_cat_layout,
 )
 from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics, mesh_reduce_tree, tree_merge
+from torchmetrics_tpu_torch.utilities.checks import _fused_step
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 __all__ = ["FusedCollectionPlan", "fusion_ineligibility", "fusion_report"]
@@ -239,7 +240,9 @@ def _member_update(info: _MemberInfo, mstate: Dict[str, Any], batch: Tuple[torch
     """One leader's update run AGAINST the carried state: the carry is
     installed, the metric's own (wrapped) ``update`` runs, and the new state
     tree is returned; the metric is restored after. List ("cat") states are
-    installed empty, so the tree holds what this batch appends."""
+    installed empty, so the tree holds what this batch appends. The update
+    runs under :func:`~torchmetrics_tpu_torch.utilities.checks._fused_step`,
+    so value-dependent shapes stay out of the step on every device."""
     metric = info.metric
     with metric._scratch():
         install = {k: v for k, v in mstate.items() if k not in info.list_keys and k != "_update_count"}
@@ -247,7 +250,8 @@ def _member_update(info: _MemberInfo, mstate: Dict[str, Any], batch: Tuple[torch
             install[k] = []
         metric._install_state_tree(install)
         metric._computed = None
-        metric.update(*batch)
+        with _fused_step():
+            metric.update(*batch)
         return metric.state_tree()
 
 

@@ -1,0 +1,45 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""WeightedMeanAbsolutePercentageError (counterpart of ``torchmetrics_tpu/regression/wmape.py``).
+
+States: ``sum_abs_error`` and ``sum_scale``, both float32 0-d.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from torchmetrics_tpu_torch.functional.regression.utils import _jnp_dtype
+from torchmetrics_tpu_torch.functional.regression.wmape import (
+    _weighted_mean_absolute_percentage_error_compute,
+    _weighted_mean_absolute_percentage_error_update,
+)
+from torchmetrics_tpu_torch.metric import Metric
+
+Tensor = torch.Tensor
+
+
+class WeightedMeanAbsolutePercentageError(Metric):
+    """Weighted mean absolute percentage error."""
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound = 0.0
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.add_state("sum_abs_error", default=0.0, dist_reduce_fx="sum")
+        self.add_state("sum_scale", default=0.0, dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Fold a batch into the state."""
+        preds, target = self._inputs(preds, target)
+        sum_abs_error, sum_scale = _weighted_mean_absolute_percentage_error_update(_jnp_dtype(preds), _jnp_dtype(target))
+        self.sum_abs_error = self.sum_abs_error + sum_abs_error
+        self.sum_scale = self.sum_scale + sum_scale
+
+    def compute(self) -> Tensor:
+        """WMAPE."""
+        return _weighted_mean_absolute_percentage_error_compute(self.sum_abs_error, self.sum_scale)

@@ -8,12 +8,21 @@ runs them only outside ``jit``: eagerly always, and never while a CUDA graph
 is being captured (the fused plan's step), where a host read would end the
 capture. Pass ``validate_args=False`` to keep an eager CUDA update free of
 host syncs too.
+
+A step whose result would depend on values through its shapes (the
+aggregators' NaN dropping) asks :func:`_in_fused_step` as well: a fused
+plan's step keeps every shape fixed on every device, as JAX's ``jit`` does,
+while its raise-only value checks still run eagerly on the CPU.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import threading
+from contextlib import contextmanager
+from typing import Any, Iterator, Optional
 
 import torch
+
+_FUSED_STEP = threading.local()
 
 
 def _is_concrete(x: Any) -> bool:
@@ -21,6 +30,23 @@ def _is_concrete(x: Any) -> bool:
     CUDA tensor while the current stream is capturing a CUDA graph, the
     counterpart of a tracer under ``jit``."""
     return not (isinstance(x, torch.Tensor) and x.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
+@contextmanager
+def _fused_step() -> Iterator[None]:
+    """Mark this thread as running a member's update inside a fused plan's step."""
+    depth = getattr(_FUSED_STEP, "depth", 0)
+    _FUSED_STEP.depth = depth + 1
+    try:
+        yield
+    finally:
+        _FUSED_STEP.depth = depth
+
+
+def _in_fused_step() -> bool:
+    """True while a fused plan's step runs a member's update (captured on the
+    card, eager on the CPU): its shapes may not depend on values."""
+    return getattr(_FUSED_STEP, "depth", 0) > 0
 
 
 def _check_binary_target(target: torch.Tensor, ignore_index: Optional[int] = None) -> None:

@@ -14,6 +14,11 @@ def _dim_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
     return x.sum(dim=axis, dtype=x.dtype) if x.ndim > 0 else x
 
 
+def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x * log(y)`` that is 0 wherever ``x == 0``, ``y`` NaN included, as the JAX package's is."""
+    return torch.where(x == 0, torch.zeros_like(x), x * torch.log(y))
+
+
 def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 0.0) -> torch.Tensor:
     """Division with a defined value where ``denom == 0``; integer inputs become float32."""
     num = num if num.is_floating_point() else num.to(torch.float32)
