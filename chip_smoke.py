@@ -87,7 +87,22 @@ result) if it fails:
    each card state within REGRESSION_CPU_RTOL of the card's; the steady eager
    and fused passes profiled, each plain update and compute timed beside its
    bound. No hand kernel runs here.
-12. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+12. wrappers: the wrappers and metric arithmetic over the slice's stream
+   (regression wrappers over (65536, 8) batches made on the card):
+   ``ClasswiseWrapper(MulticlassF1Score(average=None))`` (K2 8), ``MinMaxMetric
+   (MulticlassAUROC(thresholds=128))`` computed after every batch (K1 8),
+   ``BootStrapper(MulticlassF1Score, 10 copies)`` poisson and multinomial
+   (K2 80 each, also counted from the profiler; each copy's states bitwise
+   equal to a bare metric fed the same seeded indices; mean/std/quantiles
+   within 1e-6 relative of numpy float64), ``(F1 + accuracy) / 2`` and
+   ``1 - AUROC`` bitwise equal to the bare arithmetic, ``MultitaskWrapper`` and
+   ``MetricTracker`` over the suite (states bitwise, ``best_metric`` equal to
+   numpy's argmax/argmin), ``MultioutputWrapper(R2Score, 8, remove_nans=True)``
+   within 1e-6 of a float64 numpy fold, and a collection of two
+   ``MinMaxMetric`` over different bases forming no compute group; each
+   wrapper's eager pass timed beside its bare metric's, and a bootstrap
+   copy's index upload, gather and update.
+13. fused: the slice's suite through ``suite.fused()``, one CUDA graph
    replay per batch: final states bitwise equal to the plain fold and values
    to the unfused ``compute()``; the wrappers' counters moved by the
    warm-up's launch and the capture's recorded one alone; K1 and K2 once per
@@ -99,7 +114,7 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-13. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+14. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -108,9 +123,12 @@ result) if it fails:
    values equal bitwise to phase 6's; unsync restores the local rows);
    ``ShardedMetric`` and ``suite.fused(mesh=...)`` with half the rows of
    every batch on each rank (states bitwise equal to the single-process
-   fold; K1 and K2 once per batch in a profiler trace of the plan); a
-   corrupt payload from rank 1 failing the object gather on both ranks,
-   then healing. A rank that fails or outlives DIST_TIMEOUT_S fails the
+   fold; K1 and K2 once per batch in a profiler trace of the plan);
+   ``sharded_update`` of ``MinMaxMetric(MulticlassAUROC)`` and of
+   ``Running(MeanSquaredError(), window=3)`` over 4 events equal to the
+   replica regime (int32 bitwise, float within 1e-6), ``BootStrapper``
+   refused with the JAX package's reason; a corrupt payload from rank 1
+   failing the object gather on both ranks, then healing. A rank that fails or outlives DIST_TIMEOUT_S fails the
    script. The times it prints are gloo's through the host on one card.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
@@ -121,7 +139,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2205,6 +2223,406 @@ def phase_regression(device, batches, kernels):
     return {"seconds": seconds, "timed": timed, "eager": eager, "fused": fused, "errs": errs}
 
 
+# ------------------------------------------------------------------- wrappers
+
+WRAPPER_BOOTSTRAPS = 10
+WRAPPER_QUANTILES = (0.05, 0.95)
+WRAPPER_RTOL = 1e-6  # bootstrap mean/std/quantile against numpy float64 over the copies' values
+MULTIOUTPUT_ATOL = 1e-6  # R² per output against a float64 numpy fold
+WRAPPER_REPS = 5  # timed passes per wrapper and per bare metric (median)
+TRACKER_STEPS = ((0, 3), (3, 5), (5, NUM_BATCHES))  # the batches of each MetricTracker increment
+COPY_PROFILE_REPS, COPY_TIMING_REPS = 20, 50
+
+
+def _draw_indices(rng, size, strategy):
+    """A bootstrap copy's row indices, drawn as the JAX package draws them (an independent copy of the rule)."""
+    import numpy as np
+
+    if strategy == "poisson":
+        return np.repeat(np.arange(size), rng.poisson(1, size=size))
+    return rng.integers(0, size, size=size)
+
+
+def _wrapper_streams(device):
+    """The regression stream of the wrappers phase, made on the card from SEED + 9:
+    NUM_BATCHES (preds, target) pairs of BATCH x REG_OUTPUTS float32, and one
+    such pair with NaNs in some rows of two outputs (``MultioutputWrapper``)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 9)
+    reg = []
+    for _ in range(NUM_BATCHES):
+        p = torch.randn((BATCH, REG_OUTPUTS), generator=gen, device=device)
+        reg.append((p, 0.8 * p + torch.randn((BATCH, REG_OUTPUTS), generator=gen, device=device)))
+    p, t = (x.clone() for x in reg[0])
+    p[::97, 3] = float("nan")
+    t[5::89, 6] = float("nan")
+    return reg, (p, t)
+
+
+def _counts(kernels):
+    import torch
+
+    torch.cuda.synchronize()
+    return {name: w.launches for name, w in kernels.items()}
+
+
+def _zero(kernels):
+    for w in kernels.values():
+        w.launches = 0
+
+
+def _traced_at_least(fn, kernels, want, tries=3):
+    """Each hand kernel's launches in a profiler trace of ``fn()``; fails unless
+    they reach ``want``. A trace that lost launches (torch.profiler on an H100
+    was seen to drop some events of a long trace) is taken again, up to ``tries``."""
+    best = {}
+    for _ in range(tries):
+        got = _kernel_launches_traced(fn, kernels)
+        best = {name: max(best.get(name, 0), n) for name, n in got.items()}
+        if all(best[name] >= n for name, n in want.items()):
+            return best
+    raise SmokeFailure(f"wrappers: hand-kernel launches in {tries} profiler traces {best}, expected at least {want}")
+
+
+def _wrapper_pass(update, batches, reset):
+    """Median wall time of WRAPPER_REPS passes of ``update`` over ``batches``
+    (``reset`` before each), and one pass's device time, device kernels and
+    hand-kernel launches from the profiler."""
+    def one_pass():
+        reset()
+        for batch in batches:
+            update(*batch)
+
+    wall = statistics.median(_timed(one_pass) for _ in range(WRAPPER_REPS))
+    found, busy_us, _ = _profile(one_pass, 1)
+    hand = {name: sum(n for key, (_, n) in found.items() if f"{name}_kernel" in key) for name in ("binned_curve_state", "stat_counts")}
+    return {"wall_ms": wall * 1e3, "device_ms": busy_us / 1e3, "kernels": sum(n for _, n in found.values()),
+            "busy_share": busy_us / (wall * 1e6), "hand": hand}
+
+
+def _require_metric_states_bitwise(got, want, what):
+    import torch
+
+    for name in want._defaults:
+        g, w = getattr(got, name), getattr(want, name)
+        if g.dtype == torch.int32:
+            _assert_bitwise(g, w, f"{what}.{name}")
+        else:
+            _require(torch.equal(g, w), f"{what}.{name}: {g} vs {w}")
+
+
+def phase_wrappers(device, batches, kernels, smi):
+    """The wrappers, metric arithmetic and compute-group repair at the main
+    path's width (the slice's 8 batches of 65536 x 64 logits; regression
+    wrappers on (65536, 8) float32 batches made on the card from SEED + 9).
+    Each wrapper's launch counts are zeroed just before its stream and read
+    just after; each check is exact unless it states a budget:
+
+    - ``ClasswiseWrapper(MulticlassF1Score(64, average=None))``: K2 8 per
+      pass; its dict equals the bare metric's vector element for element;
+    - ``MinMaxMetric(MulticlassAUROC(64, thresholds=128))`` computed after
+      every batch: K1 8; raw/min/max equal the bare metric's per-prefix
+      values and their running min and max;
+    - ``BootStrapper(MulticlassF1Score(64, "macro"), 10 copies, seed)``,
+      poisson and multinomial: K2 80 per pass (also counted from the
+      profiler); each copy's int32 states equal a bare metric fed
+      ``batch[idx]``, ``idx`` drawn from an identical
+      ``np.random.default_rng(SEED)``; mean/std/quantiles within
+      WRAPPER_RTOL relative of numpy float64 over the copies' values;
+    - ``(MulticlassF1Score + MulticlassAccuracy(macro)) / 2`` and
+      ``1 - MulticlassAUROC``: equal the same arithmetic on the bare values;
+    - ``MultitaskWrapper({"cls": headline suite, "reg": MeanSquaredError()})``
+      and ``MetricTracker(headline suite)`` over 3 increments: states equal
+      the bare suite's; ``best_metric`` equals numpy's argmax/argmin over
+      ``compute_all()``;
+    - ``MultioutputWrapper(R2Score(), 8, remove_nans=True)`` on a batch with
+      NaN rows: within MULTIOUTPUT_ATOL of a float64 numpy fold;
+    - a collection of ``MinMaxMetric(MulticlassAccuracy)`` and
+      ``MinMaxMetric(MulticlassF1Score)``: no compute group forms, and each
+      value equals the wrapper's alone.
+
+    Then each wrapper's eager pass beside its bare metric's (device ms, wall
+    ms, device kernels, busy share), and a bootstrap copy's cost (index
+    upload, gather, update), each beside the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    c = NUM_CLASSES
+    kw = {"device": "cuda"}
+    reg, (nan_p, nan_t) = _wrapper_streams(device)
+    launches, traced = {}, {}
+
+    def f1(average="macro"):
+        return tm.MulticlassF1Score(num_classes=c, average=average, **kw)
+
+    def auroc():
+        return tm.MulticlassAUROC(num_classes=c, thresholds=THRESHOLDS, **kw)
+
+    # ClasswiseWrapper
+    classwise = tm.ClasswiseWrapper(f1(None))
+    _zero(kernels)
+    for b in batches:
+        classwise.update(*b)
+    launches["classwise"] = _counts(kernels)
+    _require(launches["classwise"] == {"binned_curve_state": 0, "stat_counts": NUM_BATCHES}, f"wrappers: classwise launches {launches['classwise']}")
+    bare = f1(None)
+    for b in batches:
+        bare.update(*b)
+    vec, labelled = bare.compute(), classwise.compute()
+    _require(list(labelled) == [f"multiclassf1score_{i}" for i in range(c)], f"wrappers: classwise keys {list(labelled)[:3]}...")
+    _require(all(torch.equal(labelled[f"multiclassf1score_{i}"], vec[i]) for i in range(c)), "wrappers: classwise values differ from the bare vector")
+
+    # MinMaxMetric, computed after every batch
+    minmax = tm.MinMaxMetric(auroc())
+    _zero(kernels)
+    outs = []
+    for b in batches:
+        minmax.update(*b)
+        outs.append(minmax.compute())
+    launches["minmax"] = _counts(kernels)
+    _require(launches["minmax"] == {"binned_curve_state": NUM_BATCHES, "stat_counts": 0}, f"wrappers: minmax launches {launches['minmax']}")
+    traced_minmax = tm.MinMaxMetric(auroc())
+    traced["minmax"] = _traced_at_least(lambda: [(traced_minmax.update(*b), traced_minmax.compute()) for b in batches],
+                                             kernels, {"binned_curve_state": NUM_BATCHES})
+    bare, prefix = auroc(), []
+    for b, out in zip(batches, outs):
+        bare.update(*b)
+        prefix.append(bare.compute())
+        seen = torch.stack(prefix)
+        _require(torch.equal(out["raw"], prefix[-1]) and torch.equal(out["max"], seen.max()) and torch.equal(out["min"], seen.min()),
+                 f"wrappers: minmax after {len(prefix)} batches {out} vs the bare prefix values {seen.tolist()}")
+
+    # BootStrapper, both sampling strategies
+    boot_errs = {}
+    quantiles = torch.tensor(WRAPPER_QUANTILES, device=device)
+    for strategy in ("poisson", "multinomial"):
+        boot = tm.BootStrapper(f1(), num_bootstraps=WRAPPER_BOOTSTRAPS, seed=SEED, sampling_strategy=strategy, quantile=quantiles)
+        _zero(kernels)
+        for b in batches:
+            boot.update(*b)
+        launches[f"bootstrap_{strategy}"] = got = _counts(kernels)
+        _require(got == {"binned_curve_state": 0, "stat_counts": NUM_BATCHES * WRAPPER_BOOTSTRAPS}, f"wrappers: bootstrap {strategy} launches {got}")
+        rng = np.random.default_rng(SEED)
+        copies = [f1() for _ in range(WRAPPER_BOOTSTRAPS)]
+        for logits, labels in batches:
+            for copy in copies:
+                idx = torch.from_numpy(_draw_indices(rng, BATCH, strategy)).to(device)
+                copy.update(logits[idx], labels[idx])
+        for i, (mine, ref) in enumerate(zip(boot.metrics, copies)):
+            _require_metric_states_bitwise(mine, ref, f"wrappers: bootstrap {strategy} copy {i}")
+        out = boot.compute()
+        vals = np.array([float(m.compute()) for m in boot.metrics], np.float64)
+        want = {"mean": vals.mean(), "std": vals.std(ddof=1), "quantile": np.quantile(vals, WRAPPER_QUANTILES)}
+        for key, w in want.items():
+            g = out[key].double().cpu().numpy()
+            err = float(np.max(np.abs(g - w) / np.abs(w)))
+            _require(err <= WRAPPER_RTOL, f"wrappers: bootstrap {strategy} {key} {g} vs numpy float64 {w} (relative {err:.3e})")
+            boot_errs[f"{strategy}.{key}"] = err
+        traced_boot = tm.BootStrapper(f1(), num_bootstraps=WRAPPER_BOOTSTRAPS, seed=SEED, sampling_strategy=strategy)
+        traced[strategy] = _traced_at_least(lambda: [traced_boot.update(*b) for b in batches], kernels,
+                                                 {"stat_counts": NUM_BATCHES * WRAPPER_BOOTSTRAPS})
+
+    # metric arithmetic
+    fa, aa = f1(), tm.MulticlassAccuracy(num_classes=c, average="macro", **kw)
+    composed = (fa + aa) / 2
+    complement = 1 - auroc()
+    _zero(kernels)
+    for b in batches:
+        composed.update(*b)
+    launches["composed"] = _counts(kernels)
+    _zero(kernels)
+    for b in batches:
+        complement.update(*b)
+    launches["complement"] = _counts(kernels)
+    _require(launches["composed"]["stat_counts"] == 2 * NUM_BATCHES and launches["complement"]["binned_curve_state"] == NUM_BATCHES,
+             f"wrappers: arithmetic launches {launches['composed']} / {launches['complement']}")
+    bf, ba, bu = f1(), tm.MulticlassAccuracy(num_classes=c, average="macro", **kw), auroc()
+    for b in batches:
+        for m in (bf, ba, bu):
+            m.update(*b)
+    composed_value, complement_value = composed.compute(), complement.compute()
+    _require(torch.equal(composed_value, (bf.compute() + ba.compute()) / 2), f"wrappers: (F1 + accuracy) / 2 = {composed_value}")
+    _require(torch.equal(complement_value, 1 - bu.compute()), f"wrappers: 1 - AUROC = {complement_value}")
+
+    # MultitaskWrapper and MetricTracker over the headline suite
+    multitask = tm.MultitaskWrapper({"cls": _headline_suite(tm), "reg": tm.MeanSquaredError(**kw)})
+    _zero(kernels)
+    for (logits, labels), (rp, rt) in zip(batches, reg):
+        multitask.update({"cls": logits, "reg": rp}, {"cls": labels, "reg": rt})
+    launches["multitask"] = _counts(kernels)
+    _require(launches["multitask"] == {"binned_curve_state": NUM_BATCHES, "stat_counts": NUM_BATCHES}, f"wrappers: multitask launches {launches['multitask']}")
+    bare_suite, bare_mse = _headline_suite(tm), tm.MeanSquaredError(**kw)
+    for b, r in zip(batches, reg):
+        bare_suite.update(*b)
+        bare_mse.update(*r)
+    for key in ("acc", "f1", "auroc"):
+        _require_metric_states_bitwise(multitask.task_metrics["cls"][key], bare_suite[key], f"wrappers: multitask cls.{key}")
+    _require_metric_states_bitwise(multitask.task_metrics["reg"], bare_mse, "wrappers: multitask reg")
+    task_values = multitask.compute()
+    _require(torch.equal(task_values["reg"], bare_mse.compute()), "wrappers: multitask reg value")
+
+    maximize = [True, False, True]  # acc, auroc, f1 (the collection's sorted keys): argmax, argmin, argmax
+    tracker = tm.MetricTracker(_headline_suite(tm), maximize=maximize)
+    _zero(kernels)
+    for lo, hi in TRACKER_STEPS:
+        tracker.increment()
+        for b in batches[lo:hi]:
+            tracker.update(*b)
+    launches["tracker"] = _counts(kernels)
+    _require(launches["tracker"] == {"binned_curve_state": NUM_BATCHES, "stat_counts": NUM_BATCHES}, f"wrappers: tracker launches {launches['tracker']}")
+    last = _headline_suite(tm)
+    for b in batches[TRACKER_STEPS[-1][0]:]:
+        last.update(*b)
+    for key in ("acc", "f1", "auroc"):
+        _require_metric_states_bitwise(tracker._metrics[-1][key], last[key], f"wrappers: tracker last step {key}")
+    history = {k: v.cpu().numpy() for k, v in tracker.compute_all().items()}
+    best, step = tracker.best_metric(return_step=True)
+    for (key, arr), up in zip(history.items(), maximize):
+        want_step = int(np.argmax(arr)) if up else int(np.argmin(arr))
+        _require(step[key] == want_step and best[key] == float(arr[want_step]), f"wrappers: tracker best {key} {best[key]}@{step[key]} vs numpy {arr}")
+
+    # MultioutputWrapper dropping NaN rows
+    multi = tm.MultioutputWrapper(tm.R2Score(**kw), num_outputs=REG_OUTPUTS, remove_nans=True)
+    multi.update(nan_p, nan_t)
+    r2 = multi.compute().double().cpu().numpy()
+    hp, ht = nan_p.double().cpu().numpy(), nan_t.double().cpu().numpy()
+    want_r2 = []
+    for i in range(REG_OUTPUTS):
+        keep = ~(np.isnan(hp[:, i]) | np.isnan(ht[:, i]))
+        p_i, t_i = hp[keep, i], ht[keep, i]
+        want_r2.append(1 - ((t_i - p_i) ** 2).sum() / ((t_i - t_i.mean()) ** 2).sum())
+    multi_err = float(np.max(np.abs(r2 - np.array(want_r2))))
+    _require(multi_err <= MULTIOUTPUT_ATOL, f"wrappers: multioutput R² {r2} vs numpy float64 {want_r2} (max {multi_err:.3e})")
+
+    # the compute-group repair: two MinMaxMetric over different bases
+    def pair():
+        return {"acc": tm.MinMaxMetric(tm.MulticlassAccuracy(num_classes=c, average="micro", **kw)), "f1": tm.MinMaxMetric(f1())}
+
+    col, alone = tm.MetricCollection(pair()), pair()
+    for b in batches:
+        col.update(*b)
+        for m in alone.values():
+            m.update(*b)
+    groups = col.compute_groups
+    _require(groups == {0: ["acc"], 1: ["f1"]}, f"wrappers: the MinMax collection formed compute groups {groups}")
+    col_values = col.compute()
+    for key, m in alone.items():
+        for part, v in m.compute().items():
+            _require(torch.equal(col_values[f"{key}_{part}"], v), f"wrappers: collection {key}_{part} differs from the wrapper alone")
+    card_s = time.perf_counter() - t_phase
+
+    # eager passes, each wrapper beside its bare metric
+    def with_compute(m):
+        def update(*b):
+            m.update(*b)
+            m.compute()
+        return update
+
+    timed_pairs = []
+    cw, cb = tm.ClasswiseWrapper(f1(None)), f1(None)
+    timed_pairs.append(("ClasswiseWrapper(F1 per class)", cw.update, cw.reset, cb.update, cb.reset, batches))
+    mm, mb = tm.MinMaxMetric(auroc()), auroc()
+    timed_pairs.append(("MinMaxMetric(AUROC), compute per batch", with_compute(mm), mm.reset, with_compute(mb), mb.reset, batches))
+    for strategy in ("poisson", "multinomial"):
+        bw, bb = tm.BootStrapper(f1(), num_bootstraps=WRAPPER_BOOTSTRAPS, seed=SEED, sampling_strategy=strategy), f1()
+        timed_pairs.append((f"BootStrapper({WRAPPER_BOOTSTRAPS}, {strategy})", bw.update, bw.reset, bb.update, bb.reset, batches))
+    cf, ca = f1(), tm.MulticlassAccuracy(num_classes=c, average="macro", **kw)
+    comp = (cf + ca) / 2
+    bf2, ba2 = f1(), tm.MulticlassAccuracy(num_classes=c, average="macro", **kw)
+
+    def bare_two(*b):
+        bf2.update(*b)
+        ba2.update(*b)
+
+    def reset_two():
+        bf2.reset()
+        ba2.reset()
+
+    timed_pairs.append(("(F1 + accuracy) / 2", comp.update, comp.reset, bare_two, reset_two, batches))
+    comp_auroc, bare_auroc = 1 - auroc(), auroc()
+    timed_pairs.append(("1 - AUROC", comp_auroc.update, comp_auroc.reset, bare_auroc.update, bare_auroc.reset, batches))
+    tracked, tracked_bare = tm.MetricTracker(_headline_suite(tm)), _headline_suite(tm)
+    tracked.increment()
+    for _ in range(2):  # let the suites' compute groups settle before timing
+        tracked.update(*batches[0])
+        tracked_bare.update(*batches[0])
+    timed_pairs.append(("MetricTracker(suite), one step", tracked.update, tracked.reset, tracked_bare.update, tracked_bare.reset, batches))
+    mtw, mts, mtr = (tm.MultitaskWrapper({"cls": _headline_suite(tm), "reg": tm.MeanSquaredError(**kw)}), _headline_suite(tm),
+                     tm.MeanSquaredError(**kw))
+    task_stream = [(lg, lb, rp, rt) for (lg, lb), (rp, rt) in zip(batches, reg)]
+
+    def multitask_update(lg, lb, rp, rt):
+        mtw.update({"cls": lg, "reg": rp}, {"cls": lb, "reg": rt})
+
+    def bare_task(lg, lb, rp, rt):
+        mts.update(lg, lb)
+        mtr.update(rp, rt)
+
+    def reset_task():
+        mts.reset()
+        mtr.reset()
+
+    for _ in range(2):  # let the suites' compute groups settle before timing
+        multitask_update(*task_stream[0])
+        bare_task(*task_stream[0])
+    timed_pairs.append(("MultitaskWrapper(suite, MSE)", multitask_update, mtw.reset, bare_task, reset_task, task_stream))
+    mow, mob = tm.MultioutputWrapper(tm.R2Score(**kw), num_outputs=REG_OUTPUTS, remove_nans=True), tm.R2Score(
+        num_outputs=REG_OUTPUTS, multioutput="raw_values", **kw)
+    timed_pairs.append(("MultioutputWrapper(R², 8, remove_nans)", mow.update, mow.reset, mob.update, mob.reset, reg))
+    timings = []
+    for tag, w_update, w_reset, b_update, b_reset, stream in timed_pairs:
+        timings.append((tag, _wrapper_pass(w_update, stream, w_reset), _wrapper_pass(b_update, stream, b_reset)))
+
+    # a bootstrap copy's cost: index upload, gather, update (one batch of the stream)
+    logits, labels = batches[0]
+    idx_host = _draw_indices(np.random.default_rng(SEED), BATCH, "poisson")
+    idx = torch.from_numpy(idx_host).to(device)
+    copy = f1()
+    gathered = (logits.index_select(0, idx), labels.index_select(0, idx))
+    copy_costs = _measure([
+        ("index upload", lambda: torch.from_numpy(idx_host).to(device), [()]),
+        ("gather", lambda: (logits.index_select(0, idx), labels.index_select(0, idx)), [()]),
+        ("update", lambda: copy.update(*gathered), [()]),
+    ], COPY_PROFILE_REPS, COPY_TIMING_REPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+
+    print(f"[wrappers] hand-kernel launches per wrapper stream (counts zeroed before, read after): {launches}")
+    print(
+        f"[wrappers] hand-kernel launches in a profiler trace of a pass: MinMax {traced['minmax']} (K1 at least"
+        f" {NUM_BATCHES}); BootStrapper poisson {traced['poisson']}, multinomial {traced['multinomial']} (K2 at least"
+        f" {NUM_BATCHES * WRAPPER_BOOTSTRAPS})"
+    )
+    print(
+        f"[wrappers] classwise dict == bare vector; minmax raw/min/max == the bare per-prefix values; bootstrap copies'"
+        f" int32 states == bare metrics fed batch[idx]; mean/std/quantile relative to numpy float64 {boot_errs} (budget"
+        f" {WRAPPER_RTOL}); (F1 + acc) / 2 = {float(composed_value):.6f} and 1 - AUROC = {float(complement_value):.6f} bitwise"
+        f" equal to the bare arithmetic; multitask and tracker states == the bare suite's, tracker best {best} at {step};"
+        f" multioutput R² max |card - numpy float64| {multi_err:.3e} (budget {MULTIOUTPUT_ATOL}); MinMax collection groups"
+        f" {groups}, values == each wrapper alone"
+    )
+    for tag, w, b in timings:
+        print(
+            f"[wrappers] {tag}: eager pass of {NUM_BATCHES} batches device {w['device_ms']:.3f} ms, wall {w['wall_ms']:.3f} ms,"
+            f" {w['kernels']} device kernels, busy share {w['busy_share']:.3f}, hand kernels {w['hand']}; bare metric device"
+            f" {b['device_ms']:.3f} ms, wall {b['wall_ms']:.3f} ms, {b['kernels']} kernels, busy share {b['busy_share']:.3f},"
+            f" hand kernels {b['hand']} (median of {WRAPPER_REPS}); {smi}"
+        )
+    print(
+        f"[wrappers] one bootstrap copy per batch of {BATCH} rows ({idx.numel()} drawn): "
+        + "; ".join(f"{k} device {v['device_ms']:.5f} ms, stream {v['stream_ms']:.5f} ms" for k, v in copy_costs.items())
+        + f"; {smi}"
+    )
+    print(f"[wrappers] phase {seconds:.1f} s (the checks {card_s:.1f} s)")
+    return {"seconds": seconds, "launches": launches, "traced": traced,
+            "timings": {tag: (w, b) for tag, w, b in timings}, "copy": copy_costs}
+
+
 # ---------------------------------------------------------------------- fused
 
 
@@ -2592,6 +3010,9 @@ def _dist_checks(rank, world, out_dir):
     n = applied // NUM_BATCHES
     _require_states_bitwise(fused_suite, {k: {s: n * v for s, v in st.items()} for k, st in expected.items()}, f"rank {rank}: sharded plan, {n} passes")
 
+    # 5) wrappers under sharded_update against the replica regime, DIST_WRAPPER_EVENTS events of half batches
+    out.update(_dist_wrapper_checks(rank, world, mesh, local, device))
+
     # 4) fault drill: a corrupt payload from rank 1 fails the object gather on both ranks, then heals
     faults.install_from_env("corrupt:gather_bytes.payload:rank=1:count=1")
     try:
@@ -2602,6 +3023,96 @@ def _dist_checks(rank, world, out_dir):
         out["drill_error"] = str(err)
     faults.clear()
     _require(gather_all_objects(("drill", rank)) == [("drill", r) for r in range(world)], f"rank {rank}: the healed gather")
+    return out
+
+
+DIST_WRAPPER_EVENTS = 4
+DIST_WRAPPER_RTOL = 1e-6
+# the JAX package's reason (torchmetrics_tpu/wrappers/bootstrapping.py), which the port must give word for word
+JAX_BOOTSTRAP_REASON = (
+    "BootStrapper resamples with a host RNG per update; a traced sharded step "
+    "would freeze the resample indices at trace time. Shard the wrapped metric "
+    "instead, or run BootStrapper in the replica regime."
+)
+
+
+def _dist_wrapper_checks(rank, world, mesh, local, device):
+    """``sharded_update`` of ``MinMaxMetric(MulticlassAUROC(64, thresholds=128))``
+    (computed after every event) and of ``Running(MeanSquaredError(), window=3)``
+    over DIST_WRAPPER_EVENTS events, each rank holding half the rows of every
+    batch, against the replica regime (plain updates of the same halves, synced
+    at compute): int32 states bitwise, float states and values within
+    DIST_WRAPPER_RTOL; ``BootStrapper`` refused with the JAX package's reason.
+    One sharded event of each wrapper and one replica update are timed."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.ops import KERNELS
+    from torchmetrics_tpu_torch.parallel import sharded_update
+
+    rows = BATCH // world
+    events = local[:DIST_WRAPPER_EVENTS]
+    reg_events = [tuple(x[rank * rows : (rank + 1) * rows, 0] for x in r) for r in _wrapper_streams(device)[0][:DIST_WRAPPER_EVENTS]]
+    out = {}
+
+    def minmax():
+        return tm.MinMaxMetric(tm.MulticlassAUROC(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=device))
+
+    def running():
+        return tm.Running(tm.MeanSquaredError(device=device), window=3)
+
+    def close(got, want, what):
+        if want.dtype == torch.int32:
+            _assert_bitwise(got, want, what)
+            return 0.0
+        err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max()) if want.numel() else 0.0
+        _require(got.shape == want.shape and err <= DIST_WRAPPER_RTOL, f"{what}: {got} vs {want} (relative {err:.3e})")
+        return err
+
+    errs = {}
+    sharded_mm, replica_mm = minmax(), minmax()
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+    for i, ev in enumerate(events):
+        sharded_update(sharded_mm, mesh, *ev)
+        got = sharded_mm.compute()
+        replica_mm.update(*ev)
+        want = replica_mm.compute()  # the child syncs at its compute()
+        for k in want:
+            errs[f"minmax.{i}.{k}"] = close(got[k], want[k], f"rank {rank}: sharded MinMax event {i} {k}")
+    out["sharded_minmax_launches"] = {name: w.launches for name, w in KERNELS.items()}
+    child = replica_mm._base_metric
+    child.sync()
+    for name in child._defaults:
+        close(getattr(sharded_mm._base_metric, name), getattr(child, name), f"rank {rank}: sharded MinMax child {name}")
+    child.unsync()
+    for name in ("min_val", "max_val"):
+        errs[f"minmax.{name}"] = close(getattr(sharded_mm, name), getattr(replica_mm, name), f"rank {rank}: sharded MinMax {name}")
+
+    sharded_run, replica_run = running(), running()
+    for ev in reg_events:
+        sharded_update(sharded_run, mesh, *ev)
+        replica_run.update(*ev)
+    errs["running.value"] = close(sharded_run.compute(), replica_run.compute(), f"rank {rank}: sharded Running value")
+    replica_run.sync()
+    for name in replica_run._defaults:
+        errs[f"running.{name}"] = close(getattr(sharded_run, name), getattr(replica_run, name), f"rank {rank}: sharded Running {name}")
+    replica_run.unsync()
+    _require(sharded_run._num_vals_seen == DIST_WRAPPER_EVENTS, f"rank {rank}: sharded Running saw {sharded_run._num_vals_seen} events")
+    out["sharded_wrapper_errs"] = max(errs.values())
+
+    boot = tm.BootStrapper(tm.MulticlassF1Score(num_classes=NUM_CLASSES, device=device), num_bootstraps=2)
+    try:
+        sharded_update(boot, mesh, *events[0])
+        raise SmokeFailure(f"rank {rank}: sharded_update took a BootStrapper")
+    except ValueError as err:
+        _require(str(err) == f"BootStrapper does not support sharded_update: {JAX_BOOTSTRAP_REASON}", f"rank {rank}: refusal {err}")
+        out["bootstrap_refusal"] = str(err)
+
+    timed_mm, timed_run, timed_replica = minmax(), running(), minmax()
+    out["sharded_minmax_event_ms"] = _median_timed(lambda: sharded_update(timed_mm, mesh, *events[0])) * 1e3
+    out["sharded_running_event_ms"] = _median_timed(lambda: sharded_update(timed_run, mesh, *reg_events[0])) * 1e3
+    out["replica_minmax_update_ms"] = _median_timed(lambda: timed_replica.update(*events[0])) * 1e3
     return out
 
 
@@ -2667,6 +3178,15 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
             f" fused pass {fused_run['median_s'] * 1e3:.3f} ms; K1/K2 per pass in the trace {r['sharded_plan_launches_per_pass']};"
             f" {smi}; {note}"
         )
+    for r in ranks:
+        print(
+            f"[dist] rank {r['rank']}: wrappers under sharded_update, {DIST_WRAPPER_EVENTS} events: MinMaxMetric(AUROC) and"
+            f" Running(MSE, 3) equal the replica regime (int32 bitwise, float relative {r['sharded_wrapper_errs']:.3e}, budget"
+            f" {DIST_WRAPPER_RTOL}); K1/K2 over the sharded and replica MinMax events {r['sharded_minmax_launches']}; one sharded event"
+            f" MinMax {r['sharded_minmax_event_ms']:.3f} ms, Running {r['sharded_running_event_ms']:.3f} ms, a replica MinMax"
+            f" update {r['replica_minmax_update_ms']:.3f} ms (median of {DIST_REPS}); {smi}; {note}"
+        )
+    print(f"[dist] BootStrapper refused: {r0['bootstrap_refusal']!r}")
     print(f"[dist] fault drill: {r0['drill_error']!r} on both ranks; the next gather healed")
     return {"seconds": seconds, "ranks": ranks}
 
@@ -2706,6 +3226,7 @@ def main() -> int:
     points = phase_points(device, batches, KERNELS, run)
     scores = phase_scores(device, batches, ml_batches, KERNELS)
     regression = phase_regression(device, batches, KERNELS)
+    wrappers = phase_wrappers(device, batches, KERNELS, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
@@ -2740,7 +3261,8 @@ def main() -> int:
         f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in scores['timed'].items())}; regression phase"
         f" {regression['seconds']:.1f} s, eager pass {regression['eager']['median_s'] * 1e3:.3f} ms, fused"
         f" {regression['fused']['median_s'] * 1e3:.3f} ms, ms per call (bound):"
-        f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in regression['timed'].items())}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
+        f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in regression['timed'].items())}; wrappers phase"
+        f" {wrappers['seconds']:.1f} s, K1/K2 per wrapper stream {wrappers['launches']}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"

@@ -297,7 +297,20 @@ def test_fusion_report_matches_jax_running_refused():
 
 
 def test_sharded_update_refuses_running_until_wrappers_are_ported():
-    from torchmetrics_tpu_torch.parallel.sharded import _check_shardable
+    """Wrappers are ported to the sharded plane: it takes ``RunningMean`` (its
+    state walk reaches the wrapped ``MeanMetric``), and refuses only what the
+    JAX package refuses (``BootStrapper``, with JAX's reason)."""
+    from torchmetrics_tpu.parallel.sharded import make_sharded_update as jax_make_sharded_update
+    from torchmetrics_tpu_torch.parallel.sharded import deep_reductions, make_sharded_update
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        _check_shardable(T.RunningMean(window=2, device="cpu"))
+    running = T.RunningMean(window=2, device="cpu")
+    make_sharded_update(running, None)
+    assert deep_reductions(running) == {k: v for k, v in J.RunningMean(window=2)._reductions.items()} | {
+        f"base_metric:{k}": v for k, v in running.base_metric._reductions.items()
+    }
+    boot = T.wrappers.BootStrapper(T.MeanMetric(device="cpu"), num_bootstraps=2)
+    with pytest.raises(ValueError) as got:
+        make_sharded_update(boot, None)
+    with pytest.raises(ValueError) as want:
+        jax_make_sharded_update(J.wrappers.BootStrapper(J.MeanMetric(), num_bootstraps=2), None)
+    assert str(got.value) == str(want.value)

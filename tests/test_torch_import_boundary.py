@@ -91,3 +91,14 @@ def _imports(path: Path):
 def test_source_imports_no_jax(path):
     bad = [name for name in _imports(path) if _is_forbidden(name)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_chip_smoke_and_the_port_import_no_matplotlib_at_top_level():
+    """The card's machine has no matplotlib: ``chip_smoke.py`` never imports
+    it, and the port imports it only inside a plot call."""
+    assert not [n for n in _imports(ROOT / "chip_smoke.py") if n.split(".")[0] == "matplotlib"]
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names]
+        top += [node.module for node in tree.body if isinstance(node, ast.ImportFrom) and node.module]
+        assert not [n for n in top if n.split(".")[0] == "matplotlib"], path

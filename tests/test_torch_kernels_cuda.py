@@ -18,6 +18,10 @@ The confusion-matrix families count on the card what the CPU counts, out-of-rang
 labels included, and capture in a fused plan. The regression and aggregation
 collection captures and equals its eager fold bitwise; Kendall's float32
 census on the card stays within 2^-20 of its exact int64 recount.
+Wrappers (MinMax, Classwise, BootStrapper, Multioutput, Multitask, the
+tracker) and metric arithmetic on the card compute what they compute on the
+CPU, with K1 and K2 launching under them; a card metric plots what a CPU
+one plots (matplotlib, where installed).
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -614,6 +618,92 @@ def test_kendall_float32_census_on_the_card_within_2e_20_of_int64(gpu):
         assert abs(float(got) - want) <= 2**-20 * want, (float(got), want)
     cpu = kendall._pair_census(x.cpu(), y.cpu())
     assert torch.equal(con.cpu(), cpu[0]) and torch.equal(dis.cpu(), cpu[1])
+
+
+# ------------------------------------------- wrappers, arithmetic, plotting
+
+
+def _wrapper_set(device):
+    kw = {"device": device}
+    return {
+        "minmax": T.MinMaxMetric(T.MulticlassAUROC(num_classes=64, thresholds=128, **kw)),
+        "classwise": T.ClasswiseWrapper(T.MulticlassF1Score(num_classes=64, average=None, **kw)),
+        "bootstrap": T.BootStrapper(T.MulticlassF1Score(num_classes=64, **kw), num_bootstraps=4, seed=3, quantile=0.5),
+        "composed": (T.MulticlassF1Score(num_classes=64, **kw) + T.MulticlassAccuracy(num_classes=64, **kw)) / 2,
+        "complement": 1 - T.MulticlassAUROC(num_classes=64, thresholds=128, **kw),
+    }
+
+
+def _value_leaves(value):
+    return value.items() if isinstance(value, dict) else [("value", value)]
+
+
+def test_wrappers_and_arithmetic_on_the_card_equal_cpu(card):
+    """Each wrapper and composition on the card (K1 and K2 under them)
+    computes what the same objects compute on the CPU: the wrapped int32
+    states bitwise, the values within 1e-6."""
+    batches = _probability_batches(card, "multiclass", n=8192)
+    on_card, on_cpu = _wrapper_set(card), _wrapper_set("cpu")
+    before = {name: fn.launches for name, fn in (("k1", binned_curve_state), ("k2", stat_counts))}
+    for b in batches:
+        for key in on_card:
+            on_card[key].update(*(x.to(card) for x in b))
+            on_cpu[key].update(*b)
+    assert binned_curve_state.launches - before["k1"] == 2 * len(batches)  # MinMax's AUROC and the complement's
+    assert stat_counts.launches - before["k2"] == (1 + 4 + 2) * len(batches)
+    for key in on_card:
+        got, want = on_card[key].compute(), on_cpu[key].compute()
+        for (k, g), (_, w) in zip(_value_leaves(got), _value_leaves(want)):
+            assert g.device.type == "cuda", (key, k)
+            assert torch.allclose(g.cpu(), w, rtol=1e-6, atol=1e-6), (key, k, g, w)
+    for tm, cm in zip(on_card["bootstrap"].metrics, on_cpu["bootstrap"].metrics):
+        for name in cm._defaults:
+            assert torch.equal(getattr(tm, name).cpu(), getattr(cm, name)), name
+    assert on_card["complement"].metric_a.device.type == "cuda"
+
+
+def test_multioutput_multitask_tracker_on_the_card_equal_cpu(gpu):
+    rng = np.random.default_rng(12)
+    preds = rng.standard_normal((4096, 8)).astype(np.float32)
+    target = (preds + rng.standard_normal((4096, 8))).astype(np.float32)
+    preds[rng.integers(0, 4096, 50), rng.integers(0, 8, 50)] = np.nan
+    results = {}
+    for device in (gpu, torch.device("cpu")):
+        p, t = torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device)
+        multi = T.MultioutputWrapper(T.R2Score(device=device), num_outputs=8)
+        multi.update(p, t)
+        task = T.MultitaskWrapper({"a": T.MeanSquaredError(device=device), "b": T.MeanAbsoluteError(device=device)})
+        tracker = T.MetricTracker(T.MeanSquaredError(device=device), maximize=False)
+        for step in range(3):
+            tracker.increment()
+            tracker.update(torch.nan_to_num(p[:, step]), t[:, step])
+        task.update({"a": torch.nan_to_num(p[:, 0]), "b": torch.nan_to_num(p[:, 1])}, {"a": t[:, 0], "b": t[:, 1]})
+        results[device.type] = (multi.compute().cpu(), {k: v.cpu() for k, v in task.compute().items()}, tracker.best_metric(True))
+    got, want = results["cuda"], results["cpu"]
+    assert torch.allclose(got[0], want[0], rtol=1e-5), (got[0], want[0])
+    assert all(torch.allclose(got[1][k], want[1][k], rtol=1e-6) for k in want[1])
+    assert got[2][1] == want[2][1] and abs(got[2][0] - want[2][0]) <= 1e-6 * abs(want[2][0])
+
+
+def test_plot_of_a_card_metric_equals_cpu(gpu):
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    drawn = {}
+    for device in (gpu, torch.device("cpu")):
+        metric = T.MulticlassROC(num_classes=4, thresholds=11, device=device)
+        g = torch.Generator().manual_seed(1)
+        metric.update(torch.rand(512, 4, generator=g).to(device), torch.randint(0, 4, (512,), generator=g).to(device))
+        _, ax = metric.plot()
+        cm = T.MulticlassConfusionMatrix(num_classes=4, device=device)
+        cm.update(torch.randint(0, 4, (512,), generator=g).to(device), torch.randint(0, 4, (512,), generator=g).to(device))
+        _, cax = cm.plot()
+        drawn[device.type] = ([line.get_xydata() for line in ax.lines], np.asarray(cax.images[0].get_array()),
+                              [t.get_text() for t in cax.texts])
+    plt.close("all")
+    assert all(np.array_equal(a, b) for a, b in zip(drawn["cuda"][0], drawn["cpu"][0]))
+    assert np.array_equal(drawn["cuda"][1], drawn["cpu"][1]) and drawn["cuda"][2] == drawn["cpu"][2]
 
 
 # ------------------------------------------------- two ranks on one card

@@ -12,7 +12,10 @@ its own (values bitwise equal to the port's single-process fold, each
 reduction kind of ``mesh_reduce_tree`` against its definition, the
 rank-ordered gather of CatBuffers; rank-local and sharded updates refused
 in either order until ``reset()``; two sharded folds of Pearson, whose
-``None`` states stack per fold, and MSE) and saves its states (``.npz``). The
+``None`` states stack per fold, and MSE; four sharded events of
+``MinMaxMetric``, ``ClasswiseWrapper``, ``MultioutputWrapper`` and
+``Running``, and the refusals of ``BootStrapper`` and
+``MultioutputWrapper(remove_nans=True)``) and saves its states (``.npz``). The
 parent holds them against JAX's ``sharded_update`` and ``fused(mesh=...)``
 over the whole batches: integer states, CatBuffers and the exact group's cat
 states bitwise; the suite's values within the budgets of
@@ -217,6 +220,91 @@ def _check_regression_folds(T, mesh, rank: int, saved: dict) -> None:
     _save_members(saved, "regression", members)
 
 
+def _wrapper_reg_batches():
+    rng = np.random.default_rng(17)
+    out = []
+    for _ in range(NB):
+        preds = rng.standard_normal((N, 2)).astype(np.float32)
+        out.append((preds, (preds + rng.standard_normal((N, 2))).astype(np.float32)))
+    return out
+
+
+def _wrappers(pkg, **kw):
+    """The wrapper metrics the sharded plane takes, each with its stream's key:
+    ``cls`` (the headline batches) or ``reg`` (``_wrapper_reg_batches``)."""
+    cls = pkg.classification if hasattr(pkg, "classification") else pkg
+    return {
+        "minmax": (pkg.MinMaxMetric(cls.MulticlassAUROC(num_classes=C, thresholds=THR, **kw)), "cls"),
+        "classwise": (pkg.ClasswiseWrapper(cls.MulticlassF1Score(num_classes=C, average=None, **kw)), "cls"),
+        "multioutput": (pkg.MultioutputWrapper(pkg.MeanSquaredError(**kw), num_outputs=2, remove_nans=False), "reg"),
+        "running": (pkg.Running(pkg.MeanSquaredError(**kw), window=3), "reg1"),
+    }
+
+
+def _reg_event(batch, key):
+    """A wrapper's inputs from a regression batch: both columns, or the first (``reg1``)."""
+    return batch if key == "reg" else tuple(x[:, 0] for x in batch)
+
+
+def _check_wrappers(T, mesh, rank: int, saved: dict) -> None:
+    """Four sharded events of each wrapper (each rank holds half the rows of
+    every batch), computed after every event; the deep state trees and the
+    values are saved for the parent's comparison with JAX. ``BootStrapper``
+    and ``MultioutputWrapper(remove_nans=True)`` are refused with JAX's reasons."""
+    from torchmetrics_tpu_torch.parallel import ShardedMetric, sharded_update
+    from torchmetrics_tpu_torch.parallel.sharded import deep_state_tree
+
+    shard = slice(rank * HALF, (rank + 1) * HALF)
+    streams = {"cls": _batches(), "reg": _wrapper_reg_batches()}
+    for tag, (metric, key) in _wrappers(T, device="cpu").items():
+        stream = streams["cls" if key == "cls" else "reg"]
+        for i, batch in enumerate(stream):
+            local = tuple(torch.from_numpy(x[shard]) for x in (batch if key == "cls" else _reg_event(batch, key)))
+            sharded_update(metric, mesh, *local)
+            value = metric.compute()
+            for k, v in (value.items() if isinstance(value, dict) else [("value", value)]):
+                saved[f"wrap.{tag}.{i}.{k}"] = v.numpy()
+        for name, value in deep_state_tree(metric).items():
+            saved[f"wrap.{tag}.state.{name}"] = value.numpy()
+        assert metric._mesh_replicated, tag
+
+    # a plain update after a sharded fold is refused, children included
+    minmax = _wrappers(T, device="cpu")["minmax"][0]
+    first = tuple(torch.from_numpy(x[shard]) for x in _batches()[0])
+    sharded_update(minmax, mesh, *first)
+    _refused(minmax.update, *first)
+    reg_first = tuple(torch.from_numpy(x[shard, 0]) for x in _wrapper_reg_batches()[0])
+    running = _wrappers(T, device="cpu")["running"][0]
+    running.update(*reg_first)
+    _refused(sharded_update, running, mesh, *reg_first)  # a window holding plain updates takes no sharded event
+    running.reset()
+    sharded_update(running, mesh, *reg_first)
+    _refused(running.update, *reg_first)  # nor a window holding sharded events a plain update
+
+    # ShardedMetric.forward of a wrapper: the batch value over both ranks' shards; the children keep the totals
+    fwd = ShardedMetric(T.MinMaxMetric(T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu")), mesh)
+    one = T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu", distributed_available_fn=lambda: False)
+    total = T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu", distributed_available_fn=lambda: False)
+    for b in _batches()[:3]:
+        one.reset()
+        one.update(*(torch.from_numpy(x) for x in b))
+        total.update(*(torch.from_numpy(x) for x in b))
+        got = fwd(*(torch.from_numpy(x[shard]) for x in b))
+        assert torch.equal(got["raw"], one.compute()), ("ShardedMetric.forward of MinMaxMetric", got, one.compute())
+    assert torch.equal(fwd._metric._base_metric.tp, total.tp), "forward's detour lost the child's totals"
+
+    for refused in (T.BootStrapper(T.MulticlassAccuracy(num_classes=C, device="cpu"), num_bootstraps=2),
+                    T.MultioutputWrapper(T.MeanSquaredError(device="cpu"), num_outputs=2)):
+        try:
+            sharded_update(refused, mesh, *first)
+        except ValueError as err:
+            assert str(err).endswith(refused._sharded_update_unsupported), err
+            saved[f"refusal.{type(refused).__name__}"] = np.array(str(err))
+        else:
+            raise AssertionError(f"{type(refused).__name__} was not refused")
+    print(f"rank {rank}: sharded wrapper checks passed", flush=True)
+
+
 def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -310,6 +398,9 @@ def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
     # 5) two sharded folds of Pearson (None states: stacked per fold) and MSE
     _check_regression_folds(T, mesh, rank, saved)
 
+    # 6) wrapper metrics: the deep walk, one window slot per event for Running
+    _check_wrappers(T, mesh, rank, saved)
+
     np.savez(out_dir / f"sharded_rank{rank}.npz", **saved)
     dist.barrier()
     print(f"rank {rank}: all sharded checks passed", flush=True)
@@ -356,6 +447,7 @@ def worker_states(tmp_path_factory):
         assert rc == 0, f"rank {rank} failed:\n{out}"
         assert f"rank {rank}: all sharded checks passed" in out, out
         assert f"rank {rank}: mixing refused in both orders" in out, out
+        assert f"rank {rank}: sharded wrapper checks passed" in out, out
     return [dict(np.load(out_dir / f"sharded_rank{rank}.npz")) for rank in range(2)]
 
 
@@ -447,6 +539,56 @@ def test_sharded_regression_folds_match_jax(worker_states):
                     assert got.shape == want.shape and got.dtype == want.dtype, (key, name, got.shape, want.shape)
                     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=f"{key}.{name}")
             np.testing.assert_allclose(saved[f"regression.{key}.value"], np.asarray(metric.compute()), rtol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("tag", ["minmax", "classwise", "multioutput", "running"])
+def test_sharded_wrappers_match_jax(worker_states, tag):
+    """Four ``sharded_update`` events of a wrapper on both ranks == JAX's
+    ``sharded_update`` over the whole batches on a 2-device mesh: the deep
+    state tree (the wrapper's and its children's states; ``Running``'s
+    window, one slot rotated per event) with int32 states bitwise and float
+    states within rtol 1e-6, and the value after every event within rtol 1e-6."""
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu as J
+    from torchmetrics_tpu.parallel import sharded_update
+    from torchmetrics_tpu.parallel.sharded import deep_state_tree
+
+    metric, key = _wrappers(J)[tag]
+    stream = _batches() if key == "cls" else [_reg_event(b, key) for b in _wrapper_reg_batches()]
+    values = []
+    for batch in stream:
+        sharded_update(metric, _jax_mesh(), *(jnp.asarray(x) for x in batch))
+        value = metric.compute()
+        values.append(dict(value) if isinstance(value, dict) else {"value": value})
+    tree = deep_state_tree(metric)
+    for saved in worker_states:
+        state_keys = sorted(k.split(".state.", 1)[1] for k in saved if k.startswith(f"wrap.{tag}.state."))
+        assert state_keys == sorted(tree), (state_keys, sorted(tree))
+        for name, value in tree.items():
+            got, want = saved[f"wrap.{tag}.state.{name}"], np.asarray(value)
+            if np.issubdtype(want.dtype, np.integer):
+                _assert_bitwise(got, want, f"{tag}.{name}")
+            else:
+                assert got.dtype == want.dtype and got.shape == want.shape, (tag, name)
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=f"{tag}.{name}")
+        for i, want_values in enumerate(values):
+            for k, want in want_values.items():
+                np.testing.assert_allclose(saved[f"wrap.{tag}.{i}.{k}"], np.asarray(want), rtol=1e-6, atol=1e-7, err_msg=f"{tag} {i} {k}")
+
+
+def test_sharded_wrapper_refusals_match_jax(worker_states):
+    """``BootStrapper`` and ``MultioutputWrapper(remove_nans=True)`` are refused with JAX's messages."""
+    import torchmetrics_tpu as J
+    from torchmetrics_tpu.parallel import sharded_update
+
+    for refused in (J.BootStrapper(J.MulticlassAccuracy(num_classes=C), num_bootstraps=2) if hasattr(J, "MulticlassAccuracy")
+                    else J.BootStrapper(J.classification.MulticlassAccuracy(num_classes=C), num_bootstraps=2),
+                    J.MultioutputWrapper(J.MeanSquaredError(), num_outputs=2)):
+        with pytest.raises(ValueError) as err:
+            sharded_update(refused, _jax_mesh(), *(np.asarray(x) for x in _batches()[0]))
+        for saved in worker_states:
+            assert str(saved[f"refusal.{type(refused).__name__}"]) == str(err.value)
 
 
 def test_cat_buffer_all_gather_matches_jax(worker_states):

@@ -11,7 +11,10 @@ Two kinds of test:
   ``full`` and ``faults`` scenarios are the gloo twins of
   ``tests/unittests/_helpers/mp_sync_worker.py``'s; the ``regression``
   scenario syncs Pearson's stacked ``None`` states (uneven batch counts),
-  ``MaxMetric``/``MinMetric`` and ``CatMetric``. Each rank folds its
+  ``MaxMetric``/``MinMetric`` and ``CatMetric``; the ``wrappers`` scenario
+  syncs wrapped metrics (``MinMaxMetric``, ``ClasswiseWrapper``, an
+  arithmetic composition, ``MultioutputWrapper``, ``BootStrapper``'s copies)
+  through their children's compute(). Each rank folds its
   share of one seeded stream and saves its synced states (``.npz``); the
   parent test holds them against the JAX package's single-process fold of
   the whole stream, one update per rank's share in rank order. Integer
@@ -340,6 +343,69 @@ def _scenario_regression(rank: int, world: int, out_dir: Path) -> None:
     print(f"rank {rank}: all regression sync checks passed", flush=True)
 
 
+def _scenario_wrappers(rank: int, world: int, out_dir: Path) -> None:
+    """Wrappers in the replica regime: each rank folds its share, the
+    wrapped metrics sync at compute(); values equal the port's one-process fold."""
+    import torch.distributed as dist
+
+    import torchmetrics_tpu_torch as T
+
+    preds, target, probs, labels, vec = _stream()
+    reg_preds, reg_target, _ = _regression_stream()
+    mine = _local(rank)
+    t = torch.from_numpy
+    saved = {}
+    off = {"distributed_available_fn": lambda: False}
+    mc = (t(probs[mine]), t(labels[mine].astype(np.int32)))
+    mc_all = (t(probs), t(labels.astype(np.int32)))
+
+    def acc(**kw):
+        return T.MulticlassAccuracy(num_classes=C, average="micro", device="cpu", **kw)
+
+    def f1(**kw):
+        return T.MulticlassF1Score(num_classes=C, average=None, device="cpu", **kw)
+
+    pairs = {
+        "minmax": (T.MinMaxMetric(acc()), T.MinMaxMetric(acc(**off))),
+        "classwise": (T.ClasswiseWrapper(f1()), T.ClasswiseWrapper(f1(**off))),
+        "composed": ((acc() + T.MulticlassF1Score(num_classes=C, device="cpu")) / 2,
+                     (acc(**off) + T.MulticlassF1Score(num_classes=C, device="cpu", **off)) / 2),
+    }
+    for tag, (metric, ref) in pairs.items():
+        metric.update(*mc)
+        ref.update(*mc_all)
+        got, want = metric.compute(), ref.compute()
+        for k, w in (want.items() if isinstance(want, dict) else [("value", want)]):
+            g = got[k] if isinstance(got, dict) else got
+            assert torch.equal(g, w), f"{tag} sync {k}: {g} vs the one-process fold {w}"
+            saved[f"{tag}.value.{k}"] = g.numpy()
+    child = pairs["minmax"][0]._base_metric
+    child.sync()
+    saved.update({f"minmax.child.{k}": v for k, v in _np_tree(child).items()})
+    child.unsync()
+
+    multi = T.MultioutputWrapper(T.MeanSquaredError(device="cpu"), num_outputs=2)
+    multi.update(t(reg_preds[mine]), t(reg_target[mine]))
+    ref = T.MultioutputWrapper(T.MeanSquaredError(device="cpu", **off), num_outputs=2)
+    ref.update(t(reg_preds), t(reg_target))
+    got = multi.compute()
+    assert torch.allclose(got, ref.compute(), rtol=1e-6), f"multioutput sync {got} vs {ref.compute()}"
+    saved["multioutput.value"] = got.numpy()
+
+    # BootStrapper: each rank resamples its own share with its own seed; copy i syncs to the sum over the ranks
+    boot = T.BootStrapper(acc(), num_bootstraps=3, seed=5 + rank, raw=True)
+    boot.update(*mc)
+    saved["bootstrap.raw"] = boot.compute()["raw"].numpy()
+    for i, copy in enumerate(boot.metrics):
+        copy.sync()
+        saved.update({f"bootstrap.{i}.{k}": v for k, v in _np_tree(copy).items()})
+        copy.unsync()
+
+    np.savez(out_dir / f"wrappers_rank{rank}.npz", **saved)
+    dist.barrier()
+    print(f"rank {rank}: all wrapper sync checks passed", flush=True)
+
+
 def _scenario_faults(rank: int, world: int, out_dir: Path) -> None:
     import torchmetrics_tpu_torch as T
     from torchmetrics_tpu_torch.robustness import SyncConfig, faults
@@ -438,7 +504,9 @@ def _worker_main(argv) -> None:
     rank, world, addr, scenario, out_dir = int(argv[1]), int(argv[2]), argv[3], argv[4], Path(argv[5])
     dist.init_process_group("gloo", init_method=addr, world_size=world, rank=rank)
     try:
-        {"full": _scenario_full, "faults": _scenario_faults, "regression": _scenario_regression}[scenario](rank, world, out_dir)
+        {"full": _scenario_full, "faults": _scenario_faults, "regression": _scenario_regression, "wrappers": _scenario_wrappers}[
+            scenario
+        ](rank, world, out_dir)
     finally:
         dist.destroy_process_group()
 
@@ -560,6 +628,55 @@ def test_two_process_regression_sync(tmp_path):
             got = saved[f"{name}.{state}"]
             assert got.dtype == want.dtype and got.shape == want.shape, (name, got.shape, want.shape)
             np.testing.assert_array_equal(_bytes(got), _bytes(want), err_msg=name)
+
+
+def test_two_process_wrapper_sync(tmp_path):
+    """Wrappers sync through their children at compute(): the values of
+    ``MinMaxMetric``, ``ClasswiseWrapper``, an arithmetic composition and
+    ``MultioutputWrapper`` and the synced child states equal the JAX
+    package's fold of the whole stream (states bitwise, values within the
+    budget of ``tests/test_torch_wrappers.py``); each ``BootStrapper`` copy
+    syncs to the sum of the two ranks' copies, each drawn by JAX's sampler
+    with the rank's seed."""
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu as J
+
+    results = run_workers(Path(__file__), "wrappers", tmp_path, timeout=120)
+    for rank, (rc, out) in enumerate(results):
+        assert rc == 0, f"rank {rank} failed:\n{out}"
+        assert f"rank {rank}: all wrapper sync checks passed" in out, out
+    _, _, probs, labels, _ = _stream()
+    reg_preds, reg_target, _ = _regression_stream()
+    shares = [slice(0, SPLIT), slice(SPLIT, N_TOTAL)]
+    parts = [(jnp.asarray(probs[s]), jnp.asarray(labels[s].astype(np.int32))) for s in shares]
+    JC = J.classification
+    off = {"distributed_available_fn": lambda: False}
+    minmax = J.MinMaxMetric(_jax_fold(JC.MulticlassAccuracy, *parts, num_classes=C, average="micro"))
+    classwise = J.ClasswiseWrapper(_jax_fold(JC.MulticlassF1Score, *parts, num_classes=C, average=None))
+    composed = (_jax_fold(JC.MulticlassAccuracy, *parts, num_classes=C, average="micro")
+                + _jax_fold(JC.MulticlassF1Score, *parts, num_classes=C)) / 2
+    multi = J.MultioutputWrapper(J.MeanSquaredError(**off), num_outputs=2)
+    multi.update(jnp.asarray(reg_preds), jnp.asarray(reg_target))
+    boots = []
+    for r, part in enumerate(parts):
+        boot = J.BootStrapper(JC.MulticlassAccuracy(num_classes=C, average="micro", **off), num_bootstraps=3, seed=5 + r)
+        boot.update(*part)
+        boots.append(boot)
+    for rank in range(2):
+        saved = dict(np.load(tmp_path / f"wrappers_rank{rank}.npz"))
+        _assert_tree_bitwise(saved, "minmax.child", minmax._base_metric)
+        for tag, metric in (("minmax", minmax), ("classwise", classwise), ("composed", composed)):
+            value = metric.compute()
+            for k, want in (value.items() if isinstance(value, dict) else [("value", value)]):
+                np.testing.assert_allclose(saved[f"{tag}.value.{k}"], np.asarray(want), rtol=1e-6, err_msg=f"{tag} {k}")
+        np.testing.assert_allclose(saved["multioutput.value"], np.asarray(multi.compute()), rtol=1e-6)
+        for i in range(3):
+            for key in boots[0].metrics[i]._defaults:
+                want = np.asarray(getattr(boots[0].metrics[i], key)) + np.asarray(getattr(boots[1].metrics[i], key))
+                got = saved[f"bootstrap.{i}.{key}"]
+                assert got.dtype == want.dtype, (i, key)
+                np.testing.assert_array_equal(_bytes(got), _bytes(want), err_msg=f"bootstrap copy {i} {key}")
 
 
 def _jax_moments():

@@ -22,6 +22,8 @@ def make_stat_scores_family(
     name: str,
     reduce: Callable,
     higher_is_better: bool = True,
+    plot_lower_bound: float = 0.0,
+    plot_upper_bound: float = 1.0,
 ) -> tuple:
     """Build ``(Binary<Name>, Multiclass<Name>, Multilabel<Name>, <Name>)`` module classes."""
 
@@ -79,6 +81,8 @@ def make_stat_scores_family(
         klass.__module__ = caller_module
         klass.__doc__ = f"{prefix} {name} module metric."
         klass.higher_is_better = higher_is_better
+        klass.plot_lower_bound = plot_lower_bound
+        klass.plot_upper_bound = plot_upper_bound
     _Wrapper.__name__ = _Wrapper.__qualname__ = name
     _Wrapper.__module__ = caller_module
     _Wrapper.__doc__ = f"Task-dispatching {name}."

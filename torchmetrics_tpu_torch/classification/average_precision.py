@@ -34,11 +34,16 @@ class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def compute(self) -> Tensor:
         """Compute average precision."""
         return _binary_average_precision_compute(self._curve_state(), self.thresholds)
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
 
 
 class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
@@ -46,6 +51,9 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(
@@ -67,12 +75,18 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
         """Compute average precision."""
         return _multiclass_average_precision_compute(self._curve_state(), self.num_classes, self.average, self.thresholds)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
     """Multilabel average precision."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     full_state_update = False
 
     def __init__(
@@ -95,6 +109,9 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
         return _multilabel_average_precision_compute(
             self._curve_state(), self.num_labels, self.average, self.thresholds, self.ignore_index
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
 
 
 class AveragePrecision(_ClassificationTaskWrapper):

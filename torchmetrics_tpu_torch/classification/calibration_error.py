@@ -62,6 +62,8 @@ class _BinnedCalibrationError(Metric):
 
 class BinaryCalibrationError(_BinnedCalibrationError):
     """Binary expected calibration error."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -87,6 +89,9 @@ class BinaryCalibrationError(_BinnedCalibrationError):
 
 class MulticlassCalibrationError(_BinnedCalibrationError):
     """Multiclass expected calibration error of the top-1 confidence."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     def __init__(
         self,

@@ -25,6 +25,8 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
     """Binary Cohen's kappa."""
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -49,6 +51,8 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
     """Multiclass Cohen's kappa."""
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -73,6 +73,12 @@ class BinaryConfusionMatrix(Metric):
         """Compute the confusion matrix."""
         return _binary_confusion_matrix_compute(self.confmat, self.normalize)
 
+    def plot(self, val: Optional[Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
+
 
 class MulticlassConfusionMatrix(Metric):
     """C x C confusion matrix: rows are true classes, columns predicted ones."""
@@ -109,6 +115,12 @@ class MulticlassConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         """Compute the confusion matrix."""
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
+
+    def plot(self, val: Optional[Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
 
 
 class MultilabelConfusionMatrix(Metric):

@@ -33,6 +33,8 @@ class Dice(Metric):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(

@@ -63,6 +63,8 @@ class _AbstractExactMatch(Metric):
 
 class MulticlassExactMatch(_AbstractExactMatch):
     """Multiclass exact match: a sample counts when all its entries match."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -92,6 +94,8 @@ class MulticlassExactMatch(_AbstractExactMatch):
 
 class MultilabelExactMatch(_AbstractExactMatch):
     """Multilabel exact match: a sample counts when all its labels match."""
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

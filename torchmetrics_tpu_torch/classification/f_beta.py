@@ -22,6 +22,8 @@ class BinaryFBetaScore(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(
@@ -50,6 +52,9 @@ class MulticlassFBetaScore(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(
@@ -86,6 +91,9 @@ class MultilabelFBetaScore(MultilabelStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     full_state_update = False
 
     def __init__(

@@ -34,6 +34,7 @@ class BinaryHingeLoss(Metric):
 
     is_differentiable = True
     higher_is_better = False
+    plot_lower_bound = 0.0
     full_state_update = False
 
     def __init__(
@@ -72,6 +73,8 @@ class MulticlassHingeLoss(Metric):
 
     is_differentiable = True
     higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(

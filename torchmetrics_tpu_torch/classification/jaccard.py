@@ -31,6 +31,8 @@ class BinaryJaccardIndex(BinaryConfusionMatrix):
     """Binary intersection over union."""
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -52,6 +54,9 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
     """Multiclass intersection over union."""
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
 
     def __init__(
         self,
@@ -77,6 +82,9 @@ class MultilabelJaccardIndex(MultilabelConfusionMatrix):
     """Multilabel intersection over union."""
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
 
     def __init__(
         self,

@@ -26,6 +26,8 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
     """Binary MCC."""
 
     higher_is_better = True
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self, threshold: float = 0.5, ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any
@@ -41,6 +43,8 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     """Multiclass MCC."""
 
     higher_is_better = True
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self, num_classes: int, ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any
@@ -56,6 +60,8 @@ class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
     """Multilabel MCC."""
 
     higher_is_better = True
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -37,6 +37,8 @@ class BinaryPrecisionAtFixedRecall(BinaryPrecisionRecallCurve):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(
@@ -59,12 +61,18 @@ class BinaryPrecisionAtFixedRecall(BinaryPrecisionRecallCurve):
             self._curve_state(), self.thresholds, self.min_recall, reduce_fn=_precision_at_recall
         )
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MulticlassPrecisionAtFixedRecall(MulticlassPrecisionRecallCurve):
     """Multiclass max precision at min recall, per class."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(
@@ -90,12 +98,18 @@ class MulticlassPrecisionAtFixedRecall(MulticlassPrecisionRecallCurve):
             self._curve_state(), self.num_classes, self.thresholds, self.min_recall, reduce_fn=_precision_at_recall
         )
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MultilabelPrecisionAtFixedRecall(MultilabelPrecisionRecallCurve):
     """Multilabel max precision at min recall, per label."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     full_state_update = False
 
     def __init__(
@@ -120,6 +134,9 @@ class MultilabelPrecisionAtFixedRecall(MultilabelPrecisionRecallCurve):
         return _multilabel_recall_at_fixed_precision_arg_compute(
             self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_recall, reduce_fn=_precision_at_recall
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
 
 
 class PrecisionAtFixedRecall(_ClassificationTaskWrapper):

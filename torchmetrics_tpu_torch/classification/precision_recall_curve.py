@@ -130,6 +130,12 @@ class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
         """Compute the final curve."""
         return _binary_precision_recall_curve_compute(self._curve_state(), self.thresholds)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("Recall", "Precision"))
+
 
 class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
     """Multiclass precision-recall curves."""
@@ -171,6 +177,12 @@ class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
         """Compute the final per-class curves."""
         return _multiclass_precision_recall_curve_compute(self._curve_state(), self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("Recall", "Precision"))
+
 
 class MultilabelPrecisionRecallCurve(_AbstractCurveMetric):
     """Multilabel precision-recall curves; the binned state comes from K1's matrix mode."""
@@ -207,6 +219,12 @@ class MultilabelPrecisionRecallCurve(_AbstractCurveMetric):
     def compute(self):
         """Compute the final per-label curves."""
         return _multilabel_precision_recall_curve_compute(self._curve_state(), self.num_labels, self.thresholds, self.ignore_index)
+
+    def plot(self, curve: Optional[Tuple] = None, score: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("Recall", "Precision"))
 
 
 class PrecisionRecallCurve(_ClassificationTaskWrapper):

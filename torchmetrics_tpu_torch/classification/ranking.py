@@ -66,6 +66,7 @@ class MultilabelCoverageError(_MultilabelRankingMetric):
     """Multilabel coverage error."""
 
     higher_is_better = False
+    plot_lower_bound = 0.0
     _update_fn = staticmethod(_multilabel_coverage_error_update)
 
 
@@ -73,6 +74,8 @@ class MultilabelRankingAveragePrecision(_MultilabelRankingMetric):
     """Multilabel label-ranking average precision."""
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     _update_fn = staticmethod(_multilabel_ranking_average_precision_update)
 
 
@@ -80,6 +83,7 @@ class MultilabelRankingLoss(_MultilabelRankingMetric):
     """Multilabel ranking loss."""
 
     higher_is_better = False
+    plot_lower_bound = 0.0
     _update_fn = staticmethod(_multilabel_ranking_loss_update)
 
 

@@ -36,6 +36,8 @@ class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(
@@ -56,12 +58,18 @@ class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
         """(best value, its threshold)."""
         return _binary_recall_at_fixed_precision_compute(self._curve_state(), self.thresholds, self.min_precision)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
     """Multiclass max recall at min precision, per class."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(
@@ -87,12 +95,18 @@ class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
             self._curve_state(), self.num_classes, self.thresholds, self.min_precision
         )
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MultilabelRecallAtFixedPrecision(MultilabelPrecisionRecallCurve):
     """Multilabel max recall at min precision, per label."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     full_state_update = False
 
     def __init__(
@@ -117,6 +131,9 @@ class MultilabelRecallAtFixedPrecision(MultilabelPrecisionRecallCurve):
         return _multilabel_recall_at_fixed_precision_arg_compute(
             self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_precision
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
 
 
 class RecallAtFixedPrecision(_ClassificationTaskWrapper):

@@ -33,6 +33,12 @@ class BinaryROC(BinaryPrecisionRecallCurve):
         """Compute fpr/tpr/thresholds."""
         return _binary_roc_compute(self._curve_state(), self.thresholds)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("False positive rate", "True positive rate"))
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """Multiclass ROC curves (``average="micro"`` or ``"macro"`` merges them)."""
@@ -41,6 +47,12 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
         """Compute per-class fpr/tpr/thresholds."""
         return _multiclass_roc_compute(self._curve_state(), self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("False positive rate", "True positive rate"))
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """Multilabel ROC curves."""
@@ -48,6 +60,12 @@ class MultilabelROC(MultilabelPrecisionRecallCurve):
     def compute(self):
         """Compute per-label fpr/tpr/thresholds."""
         return _multilabel_roc_compute(self._curve_state(), self.num_labels, self.thresholds, self.ignore_index)
+
+    def plot(self, curve: Optional[Tuple] = None, score: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("False positive rate", "True positive rate"))
 
 
 class ROC(_ClassificationTaskWrapper):

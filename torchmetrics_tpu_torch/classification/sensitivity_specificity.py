@@ -36,6 +36,8 @@ class BinarySensitivityAtSpecificity(BinaryPrecisionRecallCurve):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(
@@ -56,12 +58,18 @@ class BinarySensitivityAtSpecificity(BinaryPrecisionRecallCurve):
         """(best value, its threshold)."""
         return _binary_sensitivity_at_specificity_compute(self._curve_state(), self.thresholds, self.min_specificity)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MulticlassSensitivityAtSpecificity(MulticlassPrecisionRecallCurve):
     """Multiclass max sensitivity at min specificity, per class."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(
@@ -87,12 +95,18 @@ class MulticlassSensitivityAtSpecificity(MulticlassPrecisionRecallCurve):
             self._curve_state(), self.num_classes, self.thresholds, self.min_specificity
         )
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MultilabelSensitivityAtSpecificity(MultilabelPrecisionRecallCurve):
     """Multilabel max sensitivity at min specificity, per label."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     full_state_update = False
 
     def __init__(
@@ -117,6 +131,9 @@ class MultilabelSensitivityAtSpecificity(MultilabelPrecisionRecallCurve):
         return _multilabel_sensitivity_at_specificity_compute(
             self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_specificity
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
 
 
 class SensitivityAtSpecificity(_ClassificationTaskWrapper):

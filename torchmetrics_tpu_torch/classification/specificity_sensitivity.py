@@ -38,6 +38,8 @@ class BinarySpecificityAtSensitivity(BinaryPrecisionRecallCurve):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(
@@ -58,12 +60,18 @@ class BinarySpecificityAtSensitivity(BinaryPrecisionRecallCurve):
         """(best value, its threshold)."""
         return _binary_specificity_at_sensitivity_compute(self._curve_state(), self.thresholds, self.min_sensitivity)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MulticlassSpecificityAtSensitivity(MulticlassPrecisionRecallCurve):
     """Multiclass max specificity at min sensitivity, per class."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Class'
     full_state_update = False
 
     def __init__(
@@ -89,12 +97,18 @@ class MulticlassSpecificityAtSensitivity(MulticlassPrecisionRecallCurve):
             self._curve_state(), self.num_classes, self.thresholds, self.min_sensitivity
         )
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
+
 
 class MultilabelSpecificityAtSensitivity(MultilabelPrecisionRecallCurve):
     """Multilabel max specificity at min sensitivity, per label."""
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = 'Label'
     full_state_update = False
 
     def __init__(
@@ -119,6 +133,9 @@ class MultilabelSpecificityAtSensitivity(MultilabelPrecisionRecallCurve):
         return _multilabel_specificity_at_sensitivity_compute(
             self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_sensitivity
         )
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        return self._plot(val, ax)
 
 
 class SpecificityAtSensitivity(_ClassificationTaskWrapper):

@@ -8,9 +8,11 @@ the group leader updates, and the leader's state is copied into the members
 right before they are computed or inspected. Groups are found by
 observation, as in the JAX package: candidates are bucketed by their state
 specs (names, kinds, shapes, dtypes, reductions), compared by value, and
-merged only when the partitions seen at two separate updates agree.
+merged only when the partitions seen at two separate updates agree. A
+metric that wraps other metrics never joins a group: its own states (a
+``MinMaxMetric``'s bounds) say nothing about its children's.
 
-Not ported yet: ``sliced`` and ``plot``.
+Not ported yet: ``sliced`` (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -229,8 +231,19 @@ class MetricCollection(dict):
 
     @staticmethod
     def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
-        """True when two metrics have identical state values."""
+        """True when two metrics have identical state values.
+
+        False for a metric that wraps others: two ``MinMaxMetric`` over
+        different bases hold equal bounds until their first compute, and a
+        group would then feed the batches to the leader's base alone (the
+        JAX package's ``collections.py:300-328`` does so; the reference's
+        wrappers hold no states of their own, so they never group).
+        """
+        from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics
+
         if not metric1._defaults or not metric2._defaults:
+            return False
+        if len(_walk_metrics(metric1)) > 1 or len(_walk_metrics(metric2)) > 1:
             return False
         if metric1._defaults.keys() != metric2._defaults.keys():
             return False
@@ -391,3 +404,18 @@ class MetricCollection(dict):
     def compute_groups(self) -> Dict[int, List[str]]:
         """Current compute-group assignment."""
         return self._groups
+
+    def plot(self, val: Optional[Any] = None, ax: Optional[Any] = None, together: bool = False) -> Any:
+        """Plot every metric of the collection, one figure each, or all values together."""
+        from torchmetrics_tpu_torch.utilities.plot import _get_plt, plot_single_or_multi_val
+
+        _get_plt()
+        if together:
+            val = val or self.compute()
+            return [plot_single_or_multi_val(val, ax=ax)]
+        vals = val or self.compute()
+        figaxs = []
+        for k, m in self.items(copy_state=True):
+            f, a = m.plot(vals[k] if isinstance(vals, dict) else None)
+            figaxs.append((f, a))
+        return figaxs

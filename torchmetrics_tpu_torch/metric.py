@@ -22,9 +22,12 @@ reduced with its ``dist_reduce_fx``, under the retries, rollback and
 and the local states come back after the value is computed. ``sync``,
 ``unsync``, ``sync_context`` and ``dist_sync_on_step`` work as there.
 
+Metrics compose with Python's operators (``0.5 * (f1 + acc)``) into a
+:class:`CompositionalMetric`, and plot with ``metric.plot()`` (matplotlib,
+where installed).
+
 Not ported yet (later slices, see ROADMAP.md): sketch ``"merge"`` states,
-tracing hooks, StateGuard, the sliced plane, plotting and arithmetic
-composition.
+tracing hooks, StateGuard and the sliced plane.
 """
 from __future__ import annotations
 
@@ -99,6 +102,23 @@ class Metric:
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+
+    #: host-side (non-tensor) attributes the sharded regime snapshots and
+    #: restores around its scratch update (``Running._num_vals_seen``)
+    _host_counters: Tuple[str, ...] = ()
+
+    #: an explanatory string on metrics whose ``update`` cannot run under
+    #: ``parallel.sharded_update`` (per-update host randomness); the sharded
+    #: regime raises it
+    _sharded_update_unsupported: Optional[str] = None
+
+    #: False on wrappers that consume their children's state at every update
+    #: and reset them (``Running``): the sharded fold leaves those children alone
+    _sharded_fold_children: bool = True
+
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", "cuda"), type(self).__name__)
@@ -279,11 +299,7 @@ class Metric:
         Raises :class:`TorchMetricsUserError`, before touching the state, when
         plain updates of this rank alone are already in it and sync would run.
         """
-        if prev_count > 0 and not self._mesh_replicated and self._sync_would_run():
-            raise TorchMetricsUserError(
-                f"{type(self).__name__}: a sharded update cannot fold into a state that holds this rank's own"
-                " plain updates: those would never be synced. Call reset() first to clear the state."
-            )
+        self._refuse_sharded_fold(prev_count)
         if prev_count == 0:
             self.load_state_tree(part)
         else:
@@ -291,6 +307,16 @@ class Metric:
 
             self.load_state_tree(tree_merge(self._reductions, self.state_tree(), part, weight_a=prev_count, weight_b=1))
         self._mesh_replicated = True
+
+    def _refuse_sharded_fold(self, prev_count: int) -> None:
+        """Refuse a sharded fold into a state that already holds ``prev_count``
+        plain updates of this rank alone, where sync would run (a metric with
+        no states of its own, a ``ClasswiseWrapper``, has nothing to refuse)."""
+        if self._defaults and prev_count > 0 and not self._mesh_replicated and self._sync_would_run():
+            raise TorchMetricsUserError(
+                f"{type(self).__name__}: a sharded update cannot fold into a state that holds this rank's own"
+                " plain updates: those would never be synced. Call reset() first to clear the state."
+            )
 
     def _sync_would_run(self) -> bool:
         """Whether ``compute()`` would sync: a process group of more than one rank is up."""
@@ -697,8 +723,146 @@ class Metric:
         exists_var_keyword = any(v.kind == inspect.Parameter.VAR_KEYWORD for v in _sign_params.values())
         return kwargs if exists_var_keyword else filtered_kwargs
 
+    def __hash__(self) -> int:
+        """Class name plus the bytes of every state: one host copy per state."""
+        hash_vals: List[Any] = [self.__class__.__name__]
+        for key in self._defaults:
+            val = getattr(self, key)
+            if isinstance(val, list):
+                hash_vals.extend(v.detach().cpu().numpy().tobytes() for v in val)
+            else:
+                hash_vals.append(val.detach().cpu().numpy().tobytes())
+        return hash(tuple(hash_vals))
+
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    # --------------------------------------------------------------- plotting
+    def plot(self, *args: Any, **kwargs: Any) -> Any:
+        """Plot a single or multiple values of the metric (matplotlib)."""
+        return self._plot(*args, **kwargs)
+
+    def _plot(self, val: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utilities.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=self.__class__.__name__,
+        )
+
+    # --------------------------------------------------- composition operators
+    # ``__eq__`` and the comparisons return a CompositionalMetric, which is
+    # truthy: code of the port compares metrics by ``is`` and ``id()``, never
+    # by ``==``, ``in``, ``.index`` or ``.remove``.
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":  # abs, as the JAX package (and the reference) define it
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.logical_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    """``-abs(x)``: the JAX package's (and the reference's) ``__neg__``."""
+    return -torch.abs(x)
 
 
 class _SyncContext:
@@ -717,3 +881,166 @@ class _SyncContext:
 
     def __exit__(self, *exc: Any) -> None:
         self.metric.unsync(should_unsync=self.should_unsync and self.metric._is_synced)
+
+
+# JAX without 64-bit mode: numpy's 64-bit scalars and arrays become 32-bit arrays
+_JAX_CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32, torch.complex128: torch.complex64}
+
+
+def _operand(value: Any, device: torch.device) -> Tuple[Any, bool]:
+    """A non-metric operand of a :class:`CompositionalMetric` as a tensor on
+    ``device``, with whether it is weakly typed.
+
+    The dtypes are ``jnp.asarray``'s: a Python ``int`` is int32 and a
+    ``float`` float32, both weak (they take the other operand's dtype of
+    their kind, as ``2 * x`` keeps a float16 ``x`` float16); ``bool``, numpy
+    values and tensors are strong, numpy's 64-bit ones 32-bit.
+    """
+    if value is None:
+        return None, False
+    if isinstance(value, torch.Tensor):
+        return value.to(device), False
+    if isinstance(value, bool):
+        return torch.tensor(value, device=device), False
+    if isinstance(value, int):
+        return torch.tensor(value, dtype=torch.int32, device=device), True
+    if isinstance(value, float):
+        return torch.tensor(value, dtype=torch.float32, device=device), True
+    tensor = torch.as_tensor(np.array(value, copy=True))
+    return tensor.to(device, _JAX_CANONICAL.get(tensor.dtype, tensor.dtype)), False
+
+
+def _apply_op(op: Callable, a: Any, b: Any, weak: Tuple[bool, bool], device: torch.device) -> Any:
+    """``op(a)`` or ``op(a, b)`` with JAX's result dtype.
+
+    A weak operand takes the other's dtype when that is of its kind or
+    higher (int < float < complex); then both operands go to their common
+    dtype by the dtype lattice alone, as ``jnp`` promotes them. Torch would
+    let a 0-d tensor lose to a dimensioned one of the same kind.
+    """
+    if b is None:
+        return op(a)
+    ta, wa = (a, weak[0]) if isinstance(a, torch.Tensor) else _operand(a, device)
+    tb, wb = (b, weak[1]) if isinstance(b, torch.Tensor) else _operand(b, device)
+    if wa != wb:
+        weak_t, strong_t = (ta, tb) if wa else (tb, ta)
+        if _kind(strong_t.dtype) >= _kind(weak_t.dtype):
+            weak_t = weak_t.to(strong_t.dtype)
+        ta, tb = (weak_t, strong_t) if wa else (strong_t, weak_t)
+    common = torch.promote_types(ta.dtype, tb.dtype)
+    return op(ta.to(common), tb.to(common))
+
+
+def _kind(dtype: torch.dtype) -> int:
+    if dtype.is_complex:
+        return 3
+    if dtype.is_floating_point:
+        return 2
+    return 0 if dtype == torch.bool else 1
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:<current>`` name one device."""
+
+    def index(d: torch.device) -> Optional[int]:
+        return d.index if d.index is not None or d.type != "cuda" else torch.cuda.current_device()
+
+    return a.type == b.type and index(a) == index(b)
+
+
+def _child_device(owner: str, devices: List[torch.device], device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device of a metric built on children that live on ``devices``:
+    theirs. Children on two devices raise, and so does an explicit ``device``
+    that differs from theirs."""
+    distinct: List[torch.device] = []
+    for d in devices:
+        if not any(_same_device(d, seen) for seen in distinct):
+            distinct.append(d)
+    if len(distinct) > 1:
+        raise ValueError(f"{owner}: its metrics live on different devices {[str(d) for d in distinct]}")
+    if device is not None:
+        device = resolve_device(device, owner)
+        if distinct and not _same_device(device, distinct[0]):
+            raise ValueError(f"{owner} was given device={device}, but its metrics live on {distinct[0]}")
+        return device
+    return distinct[0] if distinct else resolve_device("cuda", owner)
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic composition of metrics (``metric_a <op> metric_b``).
+
+    An operand that is not a metric becomes a tensor on the metric operand's
+    device (see :func:`_operand` for its dtype). The operands' own updates,
+    syncs and resets run through this metric; its value is ``op`` over theirs.
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, torch.Tensor, None],
+        metric_b: Union[Metric, float, int, torch.Tensor, None],
+    ) -> None:
+        devices = [m.device for m in (metric_a, metric_b) if isinstance(m, Metric)]
+        super().__init__(device=_child_device(type(self).__name__, devices))
+        self.op = operator
+        weak = []
+        for name, operand in (("metric_a", metric_a), ("metric_b", metric_b)):
+            if not isinstance(operand, Metric):
+                operand, is_weak = _operand(operand, self._device)
+                weak.append(is_weak)
+            else:
+                weak.append(False)
+            setattr(self, name, operand)
+        self._weak = tuple(weak)
+
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
+        # no syncing here: the operands sync themselves at their compute()
+        pass
+
+    def _value(self, val_a: Any, val_b: Any) -> Any:
+        return _apply_op(self.op, val_a, val_b, self._weak, self._device)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        return self._value(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        a, b = self.metric_a, self.metric_b
+        val_a = a(*args, **a._filter_kwargs(**kwargs)) if isinstance(a, Metric) else a
+        val_b = b(*args, **b._filter_kwargs(**kwargs)) if isinstance(b, Metric) else b
+        if val_a is None:
+            self._computed = None
+            return None
+        if val_b is None and isinstance(self.metric_b, Metric):
+            self._computed = None
+            return None
+        self._computed = self._value(val_a, val_b)
+        return self._computed
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+        self._update_count = 0
+        self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        name = self.op.__name__ if hasattr(self.op, "__name__") else "op"
+        return self.__class__.__name__ + f"(\n  {name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def __hash__(self) -> int:
+        return object.__hash__(self)

@@ -41,9 +41,20 @@ The gathers go through
 :func:`~torchmetrics_tpu_torch.utilities.distributed.gather_all_tensors`,
 so ranks whose shards differ in length still merge in rank order.
 
-Not ported yet (ROADMAP): wrapper metrics (their children's states, A7),
-sketch ``"merge"`` states (A9), and the compiled-step cache
-(``plan_cache_lookup``/``make_jit_update``): PyTorch runs the step eagerly.
+Wrapper metrics (``MinMaxMetric``, ``ClasswiseWrapper``,
+``MultioutputWrapper(remove_nans=False)``, ``Running``, ...) shard too, as in
+the JAX package: the scratch update walks every metric reachable from the
+one given (``_walk_metrics``), the merged tree carries the children's states
+under ``path:name`` keys (the root's keep their plain names), and each
+metric of the walk folds its part (``Running`` rotates one window slot; its
+base, scratch by design, is not folded). Metrics whose update cannot run
+this way (``BootStrapper``'s per-update host resampling,
+``MultioutputWrapper(remove_nans=True)``) declare
+``_sharded_update_unsupported`` and are refused with the JAX package's reason.
+
+Not ported yet (ROADMAP): sketch ``"merge"`` states (A9), and the
+compiled-step cache (``plan_cache_lookup``/``make_jit_update``): PyTorch runs
+the step eagerly.
 """
 from __future__ import annotations
 
@@ -55,7 +66,16 @@ import torch.distributed as dist
 from torchmetrics_tpu_torch.parallel.cat_buffer import CatBuffer, cat_buffer_merge
 from torchmetrics_tpu_torch.utilities.distributed import all_reduce_, gather_all_tensors, world_size
 
-__all__ = ["ShardedMetric", "make_sharded_update", "mesh_reduce_tree", "metric_merge", "sharded_update", "tree_merge"]
+__all__ = [
+    "ShardedMetric",
+    "deep_reductions",
+    "deep_state_tree",
+    "make_sharded_update",
+    "mesh_reduce_tree",
+    "metric_merge",
+    "sharded_update",
+    "tree_merge",
+]
 
 
 # ------------------------------------------------------------------ pure merge
@@ -194,41 +214,85 @@ def _walk_metrics(metric: Any) -> List[Tuple[str, Any]]:
     return out
 
 
-def _batch_update_state(metric: Any, args: Tuple, kwargs: Dict[str, Any]) -> Dict[str, Any]:
-    """Run ``metric.update`` on a fresh state and return the resulting tree;
-    the metric's own state, count and cached value are restored after."""
-    with metric._scratch():
-        metric.reset()
+def _fold_targets(metric: Any) -> List[Tuple[str, Any]]:
+    """The ``_walk_metrics`` entries whose states the sharded fold merges: all
+    but the descendants of a wrapper with ``_sharded_fold_children = False``
+    (``Running``, whose child is scratch that its update resets)."""
+    walk = _walk_metrics(metric)
+    no_fold = [f"{path}/" if path else "" for path, m in walk if not m._sharded_fold_children]
+
+    def skipped(path: str) -> bool:
+        return any(path != prefix.rstrip("/") and path.startswith(prefix) for prefix in no_fold)
+
+    return [(path, m) for path, m in walk if not skipped(path)]
+
+
+def _deep_key(path: str, name: str) -> str:
+    """Flat key of a state: ``name`` on the root, ``path:name`` on a child."""
+    return f"{path}:{name}" if path else name
+
+
+def deep_reductions(metric: Any) -> Dict[str, Any]:
+    """``dist_reduce_fx`` of every state of the metric and of its children."""
+    return {_deep_key(p, n): r for p, m in _walk_metrics(metric) for n, r in m._reductions.items()}
+
+
+def deep_state_tree(metric: Any) -> Dict[str, Any]:
+    """``state_tree`` of the metric and of its children, under flat keys."""
+    return {_deep_key(p, n): v for p, m in _walk_metrics(metric) for n, v in m.state_tree().items()}
+
+
+def _deep_snapshot(metric: Any) -> list:
+    return [
+        (m, m._copy_state_dict(), m._update_count, m._computed, m._mesh_replicated,
+         {a: getattr(m, a) for a in m._host_counters})
+        for _, m in _walk_metrics(metric)
+    ]
+
+
+def _deep_restore(snapshot: list) -> None:
+    for m, state, count, computed, replicated, counters in snapshot:
+        m._install_state_tree(state)  # self-snapshot: trusted
+        m._update_count, m._computed, m._mesh_replicated = count, computed, replicated
+        for attr, val in counters.items():
+            setattr(m, attr, val)
+
+
+def _deep_batch_update_state(metric: Any, args: Tuple, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """Run ``metric.update`` from a fresh state of the metric and of every
+    child, and return the deep state tree; every metric of the walk (states,
+    counts, cached values, flags and host counters) is restored after. The
+    scratch update is not refused as a rank-local one."""
+    snapshot = _deep_snapshot(metric)
+    try:
+        for _, m in _walk_metrics(metric):  # a wrapper's reset may not reach every child
+            m.reset()
         metric.update(*args, **kwargs)
-        return metric.state_tree()
-
-
-def _check_shardable(metric: Any) -> None:
-    reason = getattr(metric, "_sharded_update_unsupported", None)
-    if reason:
-        raise ValueError(f"{type(metric).__name__} does not support sharded_update: {reason}")
-    children = [path for path, _ in _walk_metrics(metric)[1:]]
-    if children:
-        raise NotImplementedError(
-            f"{type(metric).__name__} wraps child metrics at {children}: sharded_update of wrapper metrics"
-            " is not ported yet (ROADMAP A7)"
-        )
+        return deep_state_tree(metric)
+    finally:
+        _deep_restore(snapshot)
 
 
 def make_sharded_update(metric: Any, mesh: Any, axis_name: str = "data") -> Callable[..., Dict[str, Any]]:
     """Build ``(local_batch...) -> merged state tree``.
 
     The returned function runs ``metric``'s update on this rank's shard from
-    a fresh state and reduces the partial states over ``mesh``'s dim
-    ``axis_name`` (:func:`mesh_reduce_tree`): the result, the same on every
-    rank, is the state one update over the whole batch would produce, ready
-    for :meth:`Metric.load_state_tree` or :func:`tree_merge`.
+    a fresh state (of the metric and of every child it wraps) and reduces the
+    partial states over ``mesh``'s dim ``axis_name`` (:func:`mesh_reduce_tree`):
+    the result, the same on every rank, is the state one update over the
+    whole batch would produce, under :func:`_deep_key` keys (a metric without
+    children: its plain state names), ready for :meth:`Metric.load_state_tree`
+    or :func:`tree_merge`.
     """
-    _check_shardable(metric)
-    reductions = dict(metric._reductions)
+    for path, m in _walk_metrics(metric):
+        reason = m._sharded_update_unsupported
+        if reason:
+            where = f" (at {path!r})" if path else ""
+            raise ValueError(f"{type(m).__name__} does not support sharded_update{where}: {reason}")
+    reductions = deep_reductions(metric)
 
     def sharded(*args: Any) -> Dict[str, Any]:
-        partial = _batch_update_state(metric, args, {})
+        partial = _deep_batch_update_state(metric, args, {})
         return mesh_reduce_tree(reductions, partial, axis_name, mesh=mesh)
 
     return sharded
@@ -242,14 +306,18 @@ def sharded_update(metric: Any, mesh: Any, *args: Any, axis_name: str = "data") 
         mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
         sharded_update(acc, mesh, local_preds, local_target)
 
-    Afterwards every rank's metric holds the state of an update over the
-    whole batch (the JAX call takes the whole batch in one process and
-    splits it over the mesh's devices).
+    Afterwards every rank's metric (and every child it wraps) holds the state
+    of an update over the whole batch (the JAX call takes the whole batch in
+    one process and splits it over the mesh's devices).
     """
     merged = make_sharded_update(metric, mesh, axis_name=axis_name)(*args)
-    metric._fold_sharded_state({n: merged[n] for n in metric._defaults}, metric._update_count)
-    metric._computed = None
-    metric._update_count += 1
+    targets = _fold_targets(metric)
+    for _, m in targets:  # every refusal before any state moves
+        m._refuse_sharded_fold(m._update_count)
+    for path, m in targets:
+        m._fold_sharded_state({n: merged[_deep_key(path, n)] for n in m._defaults}, m._update_count)
+        m._computed = None
+        m._update_count += 1
 
 
 class ShardedMetric:
@@ -273,14 +341,13 @@ class ShardedMetric:
         metric = self._metric
         if prev_count > 0:
             # the batch value needs a fresh state: run the sharded step once
-            # more on a reset metric, compute, then restore
-            saved = metric._copy_state_dict()
-            count = metric._update_count
-            metric.reset()
+            # more on a reset metric (and reset children), compute, then restore
+            snapshot = _deep_snapshot(metric)
+            for _, m in _walk_metrics(metric):
+                m.reset()
             sharded_update(metric, self._mesh, *args, axis_name=self._axis_name)
             batch_val = metric.compute()
-            metric._install_state_tree(saved)  # self-snapshot: trusted
-            metric._update_count = count
+            _deep_restore(snapshot)
             metric._computed = None
             return batch_val
         val = metric.compute()
