@@ -114,7 +114,25 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-14. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+14. durable: the headline suite through ``StreamingEvaluator`` +
+   ``CheckpointStore(keep_last=2)`` (``snapshot_every_n=2``,
+   ``watchdog_timeout_s=60``: every update on the watchdog's worker thread,
+   the fused plan built and captured there), unfused and ``fused=True``:
+   uninterrupted, then killed by ``runner.preempt`` after batch 5 and resumed
+   in a freshly built suite; final int32 states bitwise equal to the plain
+   fold and values to the slice phase's (and numpy's within its budget); K1
+   and K2 5 + 4 launches unfused, and fused each plan's warm-up and captured
+   launch (2 + 2) beside 2 warm-ups + 9 replays in a profiler trace; a torn
+   save (no warning, falls back to step 2) and bitrot (one
+   ``CheckpointStoreWarning`` naming step 4), both resumed bitwise equal; the
+   card's final snapshot restored into a ``device="cpu"`` suite (states
+   bitwise, values within 1e-6); the fused drive's steady pass with
+   ``snapshot_every_n`` None, 8 and 1 in turns and the busy share at 1; the
+   parts of one snapshot (fold-back, device-to-host copy, pickle, CRC32,
+   atomic write with fsync) for the suite and for the exact group over
+   524,288 rows (272.6 MB), with ``latest()`` + restore and its peak device
+   memory. Works in a temporary directory it removes.
+15. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -128,7 +146,10 @@ result) if it fails:
    ``Running(MeanSquaredError(), window=3)`` over 4 events equal to the
    replica regime (int32 bitwise, float within 1e-6), ``BootStrapper``
    refused with the JAX package's reason; a corrupt payload from rank 1
-   failing the object gather on both ranks, then healing. A rank that fails or outlives DIST_TIMEOUT_S fails the
+   failing the object gather on both ranks, then healing; the durable
+   kill-and-resume of both regimes (replica: a store per rank,
+   ``write_rank=None``; sharded fused over the mesh: rank 0 alone writes, no
+   second sync), each resume timed. A rank that fails or outlives DIST_TIMEOUT_S fails the
    script. The times it prints are gloo's through the host on one card.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
@@ -139,7 +160,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the fused phase's passes and the dist phase's time, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the fused phase's passes, the durable phase's passes and snapshot sizes and the dist phase's time, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -654,13 +675,13 @@ def _numpy_reference_values(batches):
     return tp.sum() / cm.sum(), f1[present].mean()
 
 
-def _headline_suite(tm, validate_args=False):
+def _headline_suite(tm, validate_args=False, device="cuda"):
     return tm.MetricCollection(
         {
-            "acc": tm.MulticlassAccuracy(num_classes=NUM_CLASSES, average="micro", validate_args=validate_args, device="cuda"),
-            "f1": tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", validate_args=validate_args, device="cuda"),
+            "acc": tm.MulticlassAccuracy(num_classes=NUM_CLASSES, average="micro", validate_args=validate_args, device=device),
+            "f1": tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", validate_args=validate_args, device=device),
             "auroc": tm.MulticlassAUROC(
-                num_classes=NUM_CLASSES, average="macro", thresholds=THRESHOLDS, validate_args=validate_args, device="cuda"
+                num_classes=NUM_CLASSES, average="macro", thresholds=THRESHOLDS, validate_args=validate_args, device=device
             ),
         },
         compute_groups=True,
@@ -2836,6 +2857,318 @@ def phase_fused(device, batches, kernels, slice_run, exact_run):
     }
 
 
+# -------------------------------------------------------------------- durable
+
+DURABLE_EVERY_N = 2
+DURABLE_KILL_AFTER = 4  # the fault skips four hits: the run dies after batch 5, before any snapshot of it
+DURABLE_WATCHDOG_S = 60.0
+DURABLE_REPS = 3
+DURABLE_CPU_ATOL = 1e-6  # the CPU compute of a card snapshot against the card's compute
+
+
+def _durable_evaluator(tm, directory, every_n=DURABLE_EVERY_N, watchdog_s=DURABLE_WATCHDOG_S, **kw):
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator
+
+    return StreamingEvaluator(
+        _headline_suite(tm),
+        store=CheckpointStore(directory, keep_last=2),
+        snapshot_every_n=every_n,
+        watchdog_timeout_s=watchdog_s,
+        **kw,
+    )
+
+
+def _kill(ev, batches, *extra):
+    """Drive ``ev`` under the preemption after batch DURABLE_KILL_AFTER + 1 (and
+    ``extra`` faults); it must die. Returns the exception's class name."""
+    from torchmetrics_tpu_torch.robustness import faults
+
+    with faults.inject(faults.Fault("preempt", "runner.preempt", after=DURABLE_KILL_AFTER, count=1), *extra):
+        try:
+            ev.run(batches)
+        except (faults.SimulatedPreemption, faults.FaultInjected) as err:
+            return type(err).__name__
+    raise SmokeFailure("durable: the run outlived its injected preemption")
+
+
+def _snapshot_parts(ev, directory, reps=DURABLE_REPS):
+    """Median wall ms of each part of one snapshot of ``ev``'s state (fold-back
+    where a fused plan is live, device-to-host copy into the checkpoint dict,
+    pickle, CRC32, atomic write with fsync), over ``reps``; and the bytes."""
+    import pickle
+
+    import torch
+
+    from torchmetrics_tpu_torch.robustness import store_format as fmt
+
+    parts = {"fold_back": [], "d2h": [], "pickle": [], "crc": [], "write": []}
+    for i in range(reps):
+        t0 = time.perf_counter()
+        if ev._fused_plan is not None:
+            ev._fused_plan.fold_back()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        payload = {"payload_version": 1, "cursor": ev.cursor, "kind": ev._kind(), "checkpoint": ev._checkpoint()}
+        t2 = time.perf_counter()
+        data = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+        t3 = time.perf_counter()
+        fmt.payload_crc(data)
+        t4 = time.perf_counter()
+        path = os.path.join(directory, f"parts-{i}.ckpt")
+        fmt.atomic_write(path, data)
+        t5 = time.perf_counter()
+        for key, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3), (t3, t4), (t4, t5))):
+            parts[key].append((b - a) * 1e3)
+        n_bytes = len(data)
+        os.unlink(path)
+        del payload, data
+    return {k: statistics.median(v) for k, v in parts.items()}, n_bytes
+
+
+def phase_durable(device, batches, kernels, slice_run, exact_run, smi):
+    """The headline suite through ``StreamingEvaluator`` + ``CheckpointStore``
+    at full width: uninterrupted, killed and resumed, unfused and fused (the
+    plan built and captured on the watchdog's worker thread); torn-write and
+    bitrot drills; a card snapshot restored on the CPU; the fused drive's pass
+    against ``snapshot_every_n``; the parts of one snapshot of the suite and of
+    the exact group (272.6 MB). Works in a temporary directory it removes."""
+    import gc
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator, faults
+    from torchmetrics_tpu_torch.robustness import store_format as fmt
+    from torchmetrics_tpu_torch.utilities.exceptions import CheckpointStoreWarning
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        expected = _expected_states_plain(batches, device)
+        want_acc, want_f1 = _numpy_reference_values(batches)
+        out = {}
+
+        def check(ev, values, what):
+            _require(ev.cursor == NUM_BATCHES, f"durable {what}: cursor {ev.cursor}")
+            _require_states_bitwise(ev.metric, expected, f"durable {what}")
+            _require_values_bitwise(values, slice_run["values"], f"durable {what}")
+            _require(abs(float(values["acc"]) - want_acc) <= 1e-6 and abs(float(values["f1"]) - want_f1) <= 1e-5,
+                     f"durable {what}: values {values} vs numpy {want_acc}, {want_f1}")
+
+        # 1) uninterrupted runs, then kill-and-resume in a freshly built suite: unfused and fused
+        for fused in (False, True):
+            tag = "fused" if fused else "unfused"
+            _zero(kernels)
+            ev = _durable_evaluator(tm, os.path.join(root, f"{tag}-whole"), fused=fused)
+            t0 = time.perf_counter()
+            values = ev.run(batches)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            check(ev, values, f"{tag} uninterrupted run")
+            whole = _counts(kernels)
+            want_whole = 2 if fused else NUM_BATCHES  # fused: the warm-up's launch and the capture's recorded one
+            _require(all(n == want_whole for n in whole.values()), f"durable {tag} run: wrapper counts {whole}")
+
+            def kill_and_resume(directory):
+                _zero(kernels)
+                killed = _durable_evaluator(tm, directory, fused=fused)
+                _require(_kill(killed, batches) == "SimulatedPreemption", f"durable {tag}: not preempted")
+                _require(killed.store.steps() == [2, 4], f"durable {tag}: snapshots {killed.store.steps()} at the kill")
+                before = _counts(kernels)
+                replays_before = killed._fused_plan.updates_applied if fused else None
+                _zero(kernels)
+                resumed = _durable_evaluator(tm, directory, fused=fused)
+                t0 = time.perf_counter()
+                values = resumed.resume(batches)
+                torch.cuda.synchronize()
+                resume_s = time.perf_counter() - t0
+                after = _counts(kernels)
+                replays_after = resumed._fused_plan.updates_applied if fused else None
+                return resumed, values, before, after, replays_before, replays_after, resume_s
+
+            if not fused:
+                resumed, values, before, after, _, _, resume_s = kill_and_resume(os.path.join(root, tag))
+                check(resumed, values, f"{tag} kill and resume")
+                total = {k: before[k] + after[k] for k in before}
+                _require(all(n == NUM_BATCHES + 1 for n in total.values()),
+                         f"durable {tag}: K1/K2 {before} before the kill + {after} after the resume, expected 5 + 4 each")
+                out[tag] = {"before": before, "after": after, "resume_s": resume_s, "whole_s": whole_s}
+                continue
+            # fused: replays do not pass the wrappers; the profiler counts every device launch of the kernels
+            from torch.profiler import ProfilerActivity, profile
+
+            for attempt in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    resumed, values, before, after, rep_b, rep_a, resume_s = kill_and_resume(os.path.join(root, f"{tag}{attempt}"))
+                    torch.cuda.synchronize()
+                traced = {n: sum(e.count for e in prof.key_averages() if f"{n}_kernel" in e.key) for n in kernels}
+                # torch.profiler on an H100 was seen to drop launches from a trace
+                if all(n == 2 + NUM_BATCHES + 1 for n in traced.values()):
+                    break
+            check(resumed, values, f"{tag} kill and resume")
+            _require(all(before[k] == after[k] == 2 for k in before), f"durable fused: wrapper counts {before} / {after}")
+            _require((rep_b, rep_a) == (DURABLE_KILL_AFTER + 1, NUM_BATCHES - DURABLE_KILL_AFTER),
+                     f"durable fused: the plans applied {rep_b} and {rep_a} batches")
+            _require(all(n == 2 + NUM_BATCHES + 1 for n in traced.values()),
+                     f"durable fused: device launches of the kernels over kill and resume {traced}, expected 2 warm-ups + 9 replays")
+            out[tag] = {"before": before, "after": after, "replays": (rep_b, rep_a), "traced": traced,
+                        "attempts": attempt + 1, "resume_s": resume_s, "whole_s": whole_s}
+
+        # 2) drills on the card's store: a torn save, then bitrot at rest
+        directory = os.path.join(root, "torn")
+        died = _kill(_durable_evaluator(tm, directory), batches, faults.Fault("fail", "store.write.torn", after=1, count=1))
+        store = CheckpointStore(directory)
+        torn = {"died": died, "steps": store.steps(), "debris": fmt.temp_files(directory)}
+        _require(died == "FaultInjected" and torn["steps"] == [2] and torn["debris"], f"durable torn drill: {torn}")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            resumed = _durable_evaluator(tm, directory)
+            check(resumed, resumed.resume(batches), "torn drill")
+        _require(not [w for w in caught if issubclass(w.category, CheckpointStoreWarning)], "durable torn drill: a clean manifest warned")
+        directory = os.path.join(root, "bitrot")
+        _kill(_durable_evaluator(tm, directory), batches, faults.Fault("corrupt", "store.payload", after=1, arg=64))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            resumed = _durable_evaluator(tm, directory)
+            check(resumed, resumed.resume(batches), "bitrot drill")
+        skipped = [str(w.message) for w in caught if issubclass(w.category, CheckpointStoreWarning)]
+        _require(len(skipped) == 1 and "step 4" in skipped[0] and "CRC32" in skipped[0], f"durable bitrot drill: warnings {skipped}")
+        out["bitrot_warning"] = skipped[0]
+
+        # 3) the card's final snapshot restored into a device="cpu" suite
+        cpu_suite = _headline_suite(tm, device="cpu")
+        cursor = StreamingEvaluator(cpu_suite, store=CheckpointStore(os.path.join(root, "unfused"))).serve_open()
+        _require(cursor == NUM_BATCHES, f"durable cpu restore: cursor {cursor}")
+        for key, states in expected.items():
+            for name, want in states.items():
+                got = getattr(cpu_suite[key], name)
+                _require(got.device.type == "cpu", f"durable cpu restore: {key}.{name} on {got.device}")
+                _assert_bitwise(got.to(device), want, f"durable cpu restore: {key}.{name}")
+        cpu_values = cpu_suite.compute()
+        out["cpu_err"] = max(_require_close(cpu_values[k].numpy(), slice_run["values"][k].cpu().numpy(), DURABLE_CPU_ATOL,
+                                            f"durable cpu restore: {k}") for k in cpu_values)
+
+        # 4) the fused drive's steady pass against snapshot_every_n, in turns (serve_step: one plan per
+        # evaluator), and without the watchdog's thread per batch
+        cadences = {"none": (None, DURABLE_WATCHDOG_S), "every_8": (NUM_BATCHES, DURABLE_WATCHDOG_S),
+                    "every_1": (1, DURABLE_WATCHDOG_S), "none_no_watchdog": (None, None)}
+        evs = {}
+        for label, (every_n, watchdog_s) in cadences.items():
+            evs[label] = _durable_evaluator(tm, os.path.join(root, f"cadence-{label}"), every_n=every_n, watchdog_s=watchdog_s,
+                                            fused=True)
+            evs[label].serve_open()
+            for batch in batches:  # the first pass builds and captures the plan
+                evs[label].serve_step(batch)
+        turns = {label: [] for label in cadences}
+        for _ in range(DURABLE_REPS):
+            for label, ev in evs.items():
+                turns[label].append(_timed(lambda: [ev.serve_step(b) for b in batches]) * 1e3)
+        found, busy_us, wall_us = _profile(lambda: [evs["every_1"].serve_step(b) for b in batches], 1)
+        out["every_1_busy"] = (busy_us, wall_us)
+        out["cadence_ms"] = {label: statistics.median(t) for label, t in turns.items()}
+        out["cadence_turns"] = turns
+        suite_parts, suite_bytes = _snapshot_parts(evs["every_8"], root)
+        out["suite_parts"], out["suite_bytes"] = suite_parts, suite_bytes
+        for label, ev in evs.items():
+            passes = 1 + DURABLE_REPS + (2 if label == "every_1" else 0)  # _profile runs the pass twice
+            ev.serve_close()
+            _require(ev.cursor == passes * NUM_BATCHES, f"durable cadence {label}: cursor {ev.cursor}")
+            _require_states_bitwise(ev.metric, {k: {n: passes * v for n, v in st.items()} for k, st in expected.items()},
+                                    f"durable cadence {label}, {passes} passes")
+
+        # 5) the exact group: one snapshot of 2 x 524,288 x 64 float32 preds + int32 targets, latest() and restore
+        def exact_group():
+            return tm.MetricCollection(
+                {
+                    "auroc": tm.MulticlassAUROC(num_classes=NUM_CLASSES, validate_args=False, device=device),
+                    "ap": tm.MulticlassAveragePrecision(num_classes=NUM_CLASSES, validate_args=False, device=device),
+                },
+                compute_groups=True,
+            )
+
+        directory = os.path.join(root, "exact")
+        ev = StreamingEvaluator(exact_group(), store=CheckpointStore(directory, keep_last=1), watchdog_timeout_s=DURABLE_WATCHDOG_S)
+        t0 = time.perf_counter()
+        exact_values = ev.run(batches)
+        torch.cuda.synchronize()
+        exact_run_s = time.perf_counter() - t0
+        _require_values_bitwise(exact_values, exact_run["values"], "durable exact group")
+        exact_parts, exact_bytes = _snapshot_parts(ev, root)
+        state_bytes = 2 * NUM_BATCHES * BATCH * (NUM_CLASSES * 4 + 4)
+        _require(exact_bytes >= state_bytes, f"durable exact snapshot {exact_bytes} B < its states' {state_bytes} B")
+        del ev
+        gc.collect()  # a metric's wrapped update refers to the metric: the run's states go with the cycle collector
+        fresh = exact_group()
+        restorer = StreamingEvaluator(fresh, store=CheckpointStore(directory, keep_last=1))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cursor = restorer._restore_latest()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        _require(cursor == NUM_BATCHES, f"durable exact restore: cursor {cursor}")
+        _require_values_bitwise(fresh.compute(), exact_run["values"], "durable exact group restored")
+        out.update(exact_parts=exact_parts, exact_bytes=exact_bytes, exact_state_bytes=state_bytes, exact_run_s=exact_run_s,
+                   exact_restore_s=restore_s, exact_peak_mib=(peak - base) / 2**20, exact_held_mib=(held - base) / 2**20,
+                   exact_base_mib=base / 2**20)
+        del fresh, restorer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+
+    un, fu = out["unfused"], out["fused"]
+    print(
+        f"[durable] StreamingEvaluator(CheckpointStore(keep_last=2), snapshot_every_n={DURABLE_EVERY_N},"
+        f" watchdog_timeout_s={DURABLE_WATCHDOG_S:g}) over the headline suite, {NUM_BATCHES}x{BATCH}x{NUM_CLASSES}:"
+        f" uninterrupted unfused {un['whole_s']:.3f} s, fused {fu['whole_s']:.3f} s; final int32 states bitwise equal to the"
+        f" plain fold and values to the slice phase's compute()"
+    )
+    print(
+        f"[durable] killed after batch {DURABLE_KILL_AFTER + 1} (snapshots 2 and 4 on disk), resumed in a fresh suite, bitwise equal:"
+        f" unfused K1/K2 {un['before']} before the kill + {un['after']} after = {NUM_BATCHES + 1} each (batch 5 replayed),"
+        f" resume {un['resume_s']:.3f} s; fused: wrapper counts {fu['before']} before and {fu['after']} after (each plan's"
+        f" warm-up launch and captured one), the plans replayed {fu['replays'][0]} + {fu['replays'][1]} batches, device"
+        f" launches in the trace {fu['traced']} (2 warm-ups + 9 replays; {fu['attempts']} trace(s)), resume {fu['resume_s']:.3f} s"
+    )
+    print(
+        f"[durable] torn save at step 4: the run died ({torn['died']}), manifest steps {torn['steps']}, debris"
+        f" {torn['debris']}, resume from step 2 without a warning, bitwise equal; bitrot at step 4: {out['bitrot_warning']!r},"
+        f" resume from step 2, bitwise equal; the card's step-{NUM_BATCHES} snapshot restored into a device='cpu' suite:"
+        f" states bitwise equal, compute() within {out['cpu_err']:.2e} of the card's (budget {DURABLE_CPU_ATOL})"
+    )
+    cad = out["cadence_ms"]
+    busy_us, wall_us = out["every_1_busy"]
+    print(
+        f"[durable] fused drive, a steady pass of {NUM_BATCHES} serve_step() (watchdog thread per batch), median of"
+        f" {DURABLE_REPS} in turns: snapshot_every_n=None {cad['none']:.3f} ms, 8 {cad['every_8']:.3f} ms, 1"
+        f" {cad['every_1']:.3f} ms, None without the watchdog {cad['none_no_watchdog']:.3f} ms (passes"
+        f" {out['cadence_turns']}); every 1: device busy {busy_us:.1f} us of the profiled"
+        f" {wall_us:.1f} us = busy share {busy_us / wall_us:.4f}; {smi}"
+    )
+    sp, ep = out["suite_parts"], out["exact_parts"]
+    print(
+        f"[durable] one snapshot of the suite, {out['suite_bytes']} B pickled: fold_back {sp['fold_back']:.3f} ms,"
+        f" device-to-host copy {sp['d2h']:.3f} ms, pickle {sp['pickle']:.3f} ms, CRC32 {sp['crc']:.3f} ms,"
+        f" atomic_write + fsync {sp['write']:.3f} ms (medians of {DURABLE_REPS}); numpy {np.__version__}; {smi}"
+    )
+    print(
+        f"[durable] the exact group (MulticlassAUROC + MulticlassAveragePrecision, {NUM_BATCHES * BATCH} rows, each member"
+        f" its own copy): run with its final snapshot {out['exact_run_s']:.3f} s; one snapshot {out['exact_bytes']} B"
+        f" ({out['exact_state_bytes']} B of states): device-to-host copy {ep['d2h']:.3f} ms, pickle {ep['pickle']:.3f} ms,"
+        f" CRC32 {ep['crc']:.3f} ms, atomic_write + fsync {ep['write']:.3f} ms; latest() + validate + restore on the card"
+        f" {out['exact_restore_s'] * 1e3:.3f} ms, peak device memory {out['exact_peak_mib']:.1f} MiB above the"
+        f" {out['exact_base_mib']:.1f} MiB held before, {out['exact_held_mib']:.1f} MiB held after; values bitwise equal to the exact phase's; numpy {np.__version__}; {smi}"
+    )
+    print(f"[durable] phase {out['seconds']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------------- dist
 
 DIST_WORLD = 2
@@ -3013,6 +3346,9 @@ def _dist_checks(rank, world, out_dir):
     # 5) wrappers under sharded_update against the replica regime, DIST_WRAPPER_EVENTS events of half batches
     out.update(_dist_wrapper_checks(rank, world, mesh, local, device))
 
+    # 6) durable kill and resume: the replica regime (a store per rank) and the sharded fused one (rank 0 writes)
+    out.update(_dist_durable_checks(rank, world, mesh, mine, local, out_dir, want, expected))
+
     # 4) fault drill: a corrupt payload from rank 1 fails the object gather on both ranks, then heals
     faults.install_from_env("corrupt:gather_bytes.payload:rank=1:count=1")
     try:
@@ -3023,6 +3359,78 @@ def _dist_checks(rank, world, out_dir):
         out["drill_error"] = str(err)
     faults.clear()
     _require(gather_all_objects(("drill", rank)) == [("drill", r) for r in range(world)], f"rank {rank}: the healed gather")
+    return out
+
+
+def _dist_durable_checks(rank, world, mesh, mine, local, out_dir, want, expected):
+    """Kill-and-resume of the headline suite through ``StreamingEvaluator`` in
+    both regimes: replica (``mine``, each rank's 4 whole batches, plain
+    updates, a store directory per rank with ``write_rank=None``; killed after
+    batch 3) and sharded fused (``local``, half the rows of all 8 batches,
+    ``fused_options={"mesh": mesh}``, one store rank 0 alone writes; killed
+    after batch 5). The resumed value must equal the slice phase's bitwise;
+    the replica resume syncs at compute() and each rank writes only into its
+    own directory; the sharded resume holds the plain fold's states on every
+    rank, does not sync again, and rank 1 writes no file."""
+    import torch
+    import torch.distributed as dist
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator, faults
+    from torchmetrics_tpu_torch.robustness import store_format as fmt
+
+    regimes = {
+        "replica": (mine, os.path.join(out_dir, f"durable_replica_rank{rank}"), None, {}, len(mine) // 2),
+        "sharded": (local, os.path.join(out_dir, "durable_sharded"), 0, {"fused": True, "fused_options": {"mesh": mesh}}, DURABLE_KILL_AFTER),
+    }
+    out = {}
+    written, syncs = [], []
+    atomic_write, sync_dist = fmt.atomic_write, tm.Metric._sync_dist
+
+    def recording_write(path, data):
+        written.append(path)
+        atomic_write(path, data)
+
+    def counting_sync(self, *args, **kwargs):
+        syncs.append(type(self).__name__)
+        return sync_dist(self, *args, **kwargs)
+
+    fmt.atomic_write, tm.Metric._sync_dist = recording_write, counting_sync
+    try:
+        for regime, (stream, directory, write_rank, kw, kill_after) in regimes.items():
+            def evaluator():
+                store = CheckpointStore(directory, keep_last=2, write_rank=write_rank)
+                return StreamingEvaluator(_headline_suite(tm), store=store, snapshot_every_n=DURABLE_EVERY_N, **kw)
+
+            written.clear()
+            with faults.inject(faults.Fault("preempt", "runner.preempt", after=kill_after, count=1)):
+                try:
+                    evaluator().run(stream)
+                    raise SmokeFailure(f"rank {rank}: the durable {regime} run outlived its preemption")
+                except faults.SimulatedPreemption:
+                    pass
+            dist.barrier()  # rank 0's snapshots are on disk before any rank reads them
+            syncs.clear()
+            resumed = evaluator()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values = resumed.resume(stream)
+            torch.cuda.synchronize()
+            out[f"durable_{regime}_resume_ms"] = (time.perf_counter() - t0) * 1e3
+            _require(resumed.cursor == len(stream), f"rank {rank}: durable {regime} cursor {resumed.cursor}")
+            _require_values_bitwise(values, want["slice_values"], f"rank {rank}: durable {regime} values")
+            if regime == "replica":
+                _require(bool(syncs), f"rank {rank}: the durable replica compute() did not sync")
+                _require(written and all(os.path.dirname(p) == directory for p in written),
+                         f"rank {rank}: durable replica writes {written}")
+            else:
+                _require(not syncs, f"rank {rank}: the durable sharded resume synced again {syncs}")
+                _require_states_bitwise(resumed.metric, expected, f"rank {rank}: durable sharded")
+                _require(bool(written) == (rank == 0), f"rank {rank}: durable sharded writes {written}")
+            out[f"durable_{regime}_files"] = len(written)
+            out[f"durable_{regime}_restored_from"] = (len(stream), kill_after)
+    finally:
+        fmt.atomic_write, tm.Metric._sync_dist = atomic_write, sync_dist
     return out
 
 
@@ -3121,6 +3529,7 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
     the headline suite, the exact group's uneven cat gather, the sharded
     update and sharded fused plan, and a corrupt-payload drill. A rank that
     fails or outlives DIST_TIMEOUT_S fails the phase; its processes are killed."""
+    import shutil
     import socket
     import tempfile
 
@@ -3155,6 +3564,7 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
     for rank in range(DIST_WORLD):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
             ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
     r0 = ranks[0]
     note = "gloo stages CUDA tensors through the host: these times describe gloo on one card, not NCCL"
     print(f"[dist] {DIST_WORLD} gloo ranks on cuda:0, all checks passed on both in {seconds:.1f} s (spawn included)")
@@ -3185,6 +3595,14 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
             f" {DIST_WRAPPER_RTOL}); K1/K2 over the sharded and replica MinMax events {r['sharded_minmax_launches']}; one sharded event"
             f" MinMax {r['sharded_minmax_event_ms']:.3f} ms, Running {r['sharded_running_event_ms']:.3f} ms, a replica MinMax"
             f" update {r['replica_minmax_update_ms']:.3f} ms (median of {DIST_REPS}); {smi}; {note}"
+        )
+    for r in ranks:
+        print(
+            f"[dist] rank {r['rank']}: durable kill and resume, values bitwise equal to the slice phase's: replica regime"
+            f" (4 local batches, killed after batch 3, a store per rank, {r['durable_replica_files']} files written, compute()"
+            f" syncs) resume {r['durable_replica_resume_ms']:.3f} ms; sharded fused regime (8 half batches, killed after"
+            f" batch {DURABLE_KILL_AFTER + 1}, rank 0 writes: {r['durable_sharded_files']} files from this rank, no second"
+            f" sync, states bitwise equal to the plain fold) resume {r['durable_sharded_resume_ms']:.3f} ms; {smi}; {note}"
         )
     print(f"[dist] BootStrapper refused: {r0['bootstrap_refusal']!r}")
     print(f"[dist] fault drill: {r0['drill_error']!r} on both ranks; the next gather healed")
@@ -3228,6 +3646,7 @@ def main() -> int:
     regression = phase_regression(device, batches, KERNELS)
     wrappers = phase_wrappers(device, batches, KERNELS, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
+    durable = phase_durable(device, batches, KERNELS, run, exact, smi)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -3266,7 +3685,9 @@ def main() -> int:
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"
-        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); dist phase"
+        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); durable phase"
+        f" {durable['seconds']:.1f} s, fused pass by snapshot_every_n {durable['cadence_ms']}, suite snapshot"
+        f" {durable['suite_bytes']} B, exact snapshot {durable['exact_bytes']} B; dist phase"
         f" {dist_run['seconds']:.1f} s, sharded fused pass {dist_run['ranks'][0]['sharded_pass_ms']:.3f} ms (gloo on one card);"
         f" total {time.perf_counter() - t_start:.1f} s"
     )

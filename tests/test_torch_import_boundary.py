@@ -102,3 +102,95 @@ def test_chip_smoke_and_the_port_import_no_matplotlib_at_top_level():
         top = [a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names]
         top += [node.module for node in tree.body if isinstance(node, ast.ImportFrom) and node.module]
         assert not [n for n in top if n.split(".")[0] == "matplotlib"], path
+
+
+# ------------------------------------------------- robustness: exports, store format
+
+#: StateGuard's names (ROADMAP A11): the one part of JAX's robustness exports the port lacks
+STATEGUARD_NAMES = {
+    "ArgSpec",
+    "DomainContract",
+    "GUARD_POLICIES",
+    "GUARD_STATES",
+    "GuardVerdict",
+    "check_batch",
+    "enable_guard",
+    "guard_counters",
+    "guard_ineligibility",
+    "guarded_policy",
+    "state_finiteness",
+}
+
+
+def test_robustness_exports_equal_jax_but_stateguard():
+    import torchmetrics_tpu.robustness as JR
+    import torchmetrics_tpu_torch.robustness as TR
+
+    assert STATEGUARD_NAMES <= set(JR.__all__)
+    assert sorted(TR.__all__) == sorted(set(JR.__all__) - STATEGUARD_NAMES)
+    for name in TR.__all__:
+        assert hasattr(TR, name), name
+    assert TR.validate_state_tree is not None  # importable, as in JAX, though not in __all__
+
+
+def test_store_format_copy_imports_only_the_standard_library():
+    path = PORT / "robustness" / "store_format.py"
+    names = {name.split(".")[0] for name in _imports(path)}
+    assert names <= {"__future__", "json", "os", "tempfile", "zlib", "typing"}, names
+
+
+def _public(module):
+    return sorted(n for n in vars(module) if not n.startswith("_"))
+
+
+def test_store_format_copy_behaves_as_jax_on_one_store(tmp_path):
+    """The same saves give the same snapshot and manifest bytes through
+    either package's ``CheckpointStore``; on one damaged store both
+    ``verify_store`` reports are equal, and so are ``prune_entries``'s."""
+    import numpy as np
+
+    import torchmetrics_tpu.robustness.store_format as jfmt
+    import torchmetrics_tpu_torch.robustness.store_format as tfmt
+    from torchmetrics_tpu.robustness import CheckpointStore as JStore
+    from torchmetrics_tpu_torch.robustness import CheckpointStore as TStore
+
+    assert _public(tfmt) == _public(jfmt)
+    for name in ("MANIFEST_NAME", "SNAPSHOT_PREFIX", "SNAPSHOT_SUFFIX", "STORE_FORMAT_VERSION", "_MANIFEST_KEYS", "_ENTRY_KEYS"):
+        assert getattr(tfmt, name) == getattr(jfmt, name), name
+    assert tfmt.snapshot_filename(42) == jfmt.snapshot_filename(42)
+    assert tfmt.payload_crc(b"abc") == jfmt.payload_crc(b"abc")
+    assert tfmt.empty_manifest("f") == jfmt.empty_manifest("f")
+
+    dirs = {}
+    for tag, store_cls in (("jax", JStore), ("port", TStore)):
+        store = store_cls(str(tmp_path / tag), keep_last=3, fingerprint="0123456789abcdef")
+        for step in (2, 4, 6, 8):
+            store.save({"cursor": step, "blob": np.arange(step, dtype=np.int32)}, step=step)
+        dirs[tag] = Path(store.directory)
+    assert sorted(os.listdir(dirs["jax"])) == sorted(os.listdir(dirs["port"]))
+    for name in os.listdir(dirs["jax"]):
+        assert (dirs["jax"] / name).read_bytes() == (dirs["port"] / name).read_bytes(), name
+
+    # damage one store three ways, then both modules report alike
+    damaged = dirs["port"]
+    (damaged / tfmt.snapshot_filename(8)).write_bytes(b"rot")
+    (damaged / tfmt.snapshot_filename(6)).unlink()
+    (damaged / (tfmt.snapshot_filename(10) + ".tmp-torn")).write_bytes(b"x")
+    report = tfmt.verify_store(str(damaged))
+    assert report == jfmt.verify_store(str(damaged))
+    assert not report["ok"] and len(report["problems"]) == 2 and report["torn_temp_files"]
+    manifest = tfmt.read_manifest(str(damaged))
+    assert manifest == jfmt.read_manifest(str(damaged))
+    (damaged / "manifest.json").write_text("{")
+    bad_t, bad_j = tfmt.verify_store(str(damaged)), jfmt.verify_store(str(damaged))
+    assert bad_t == bad_j and not bad_t["manifest_ok"]
+
+    import shutil
+
+    kept = {}
+    for tag, mod in (("jax", jfmt), ("port", tfmt)):
+        directory = str(tmp_path / f"prune_{tag}")
+        shutil.copytree(dirs["jax"], directory)
+        kept[tag] = mod.prune_entries(directory, mod.read_manifest(directory), 1)
+        assert sorted(os.listdir(directory)) == [tfmt.MANIFEST_NAME, tfmt.snapshot_filename(8)]
+    assert kept["jax"] == kept["port"]

@@ -26,6 +26,9 @@ Metrics compose with Python's operators (``0.5 * (f1 + acc)``) into a
 :class:`CompositionalMetric`, and plot with ``metric.plot()`` (matplotlib,
 where installed).
 
+States checkpoint with :meth:`Metric.save_checkpoint` /
+:meth:`Metric.load_checkpoint`, in the JAX package's format.
+
 Not ported yet (later slices, see ROADMAP.md): sketch ``"merge"`` states,
 tracing hooks, StateGuard and the sliced plane.
 """
@@ -657,6 +660,30 @@ class Metric:
         return deepcopy(self)
 
     # -------------------------------------------------------------- serialization
+    def save_checkpoint(self) -> Dict[str, Any]:
+        """Snapshot the metric (wrapper children included) as one plain dict of
+        host numpy arrays plus spec fingerprint, format version and update
+        count, the layout the JAX package writes: it pickles without torch
+        and loads in either package. See
+        :mod:`torchmetrics_tpu_torch.robustness.checkpoint`."""
+        from torchmetrics_tpu_torch.robustness.checkpoint import save_checkpoint
+
+        return save_checkpoint(self)
+
+    def load_checkpoint(self, checkpoint: Dict[str, Any], strict: bool = True) -> None:
+        """Validate a :meth:`save_checkpoint` dict (of either package) end-to-end,
+        then install it on the metric's device.
+
+        A truncated/corrupted payload or a schema mismatch (e.g. different
+        ``num_classes``) raises
+        :class:`~torchmetrics_tpu_torch.utilities.exceptions.StateRestoreError`
+        naming the offending state, and the live metric keeps its previous
+        state — never a half-restored metric.
+        """
+        from torchmetrics_tpu_torch.robustness.checkpoint import load_checkpoint
+
+        load_checkpoint(self, checkpoint, strict=strict)
+
     def state_dict(self, destination: Optional[Dict] = None, prefix: str = "", keep_vars: bool = False) -> Dict[str, Any]:
         """State-dict of persistent states as host numpy arrays (copies)."""
         destination = {} if destination is None else destination

@@ -14,10 +14,11 @@ deterministically. A fault's ``rank`` is ``torch.distributed.get_rank()``.
 
 In this package ``sync.attempt``, ``sync.state_gather``, ``sync.state_apply``,
 ``gather_arrays.pre``, ``gather_bytes.pre``, ``gather_bytes.payload``,
-``update.preempt`` and ``feed.stage`` fire. The other points of the table
-(sketch sync, the durable store and runner, the serve plane) are registered
-so that one ``TM_TPU_FAULTS`` schedule serves both packages; they fire once
-those modules are ported.
+``update.preempt``, ``feed.stage`` and the durable store's and runner's
+``runner.preempt``, ``store.write.torn``, ``store.write.enospc`` and
+``store.payload`` fire. The other points of the table (sketch sync, the
+serve plane) are registered so that one ``TM_TPU_FAULTS`` schedule serves
+both packages; they fire once those modules are ported.
 
 Injection points
 ----------------

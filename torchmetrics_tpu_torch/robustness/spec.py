@@ -125,20 +125,25 @@ def validate_state_tree(metric: Any, tree: Dict[str, Any], strict: bool = True) 
             continue
         default = defaults[name]
         token = _reduction_token(metric._reductions.get(name))
+        if isinstance(value, dict):
+            # the JAX package writes a sketch state as {"__sketch__": class, "leaves": {...}}
+            raise StateRestoreError(
+                f"state {name!r} of {cls}: got a {'sketch payload' if '__sketch__' in value else 'dict'};"
+                " mergeable sketch states are not ported yet (ROADMAP A9)"
+            )
         if isinstance(default, list):
             if not isinstance(value, (list, tuple)):
                 raise StateRestoreError(
                     f"state {name!r} of {cls}: expected a list ('{token}') state, got {type(value).__name__}"
                 )
-            out[name] = [_owned_tensor(v, metric.device) for v in value]
+            out[name] = [_owned_tensor(_numeric(v, name, cls), metric.device) for v in value]
             continue
         if isinstance(value, (list, tuple)):
             raise StateRestoreError(
                 f"state {name!r} of {cls}: expected an array (shape {tuple(default.shape)},"
                 f" dtype {_dtype_name(default.dtype)}), got a {type(value).__name__} of {len(value)} element(s)"
             )
-        if not isinstance(value, torch.Tensor) and not hasattr(value, "dtype"):
-            value = np.asarray(value)
+        value = _numeric(value, name, cls)
         got_shape = tuple(int(d) for d in value.shape)
         want_shape = tuple(int(d) for d in default.shape)
         if not _shape_compatible(got_shape, want_shape, token in _ELEMENTWISE_REDUCTIONS):
@@ -162,6 +167,17 @@ def validate_state_tree(metric: Any, tree: Dict[str, Any], strict: bool = True) 
             tensor = tensor.to(default.dtype)
         out[name] = tensor
     return out
+
+
+def _numeric(value: Any, name: str, cls: str) -> Any:
+    """``value`` as a tensor or a numeric numpy array; anything else (an
+    object array, a string) is a corrupted leaf."""
+    if isinstance(value, torch.Tensor):
+        return value
+    value = value if isinstance(value, np.ndarray) else np.asarray(value)
+    if value.dtype.kind not in "biufc":
+        raise StateRestoreError(f"state {name!r} of {cls}: expected a numeric array, got dtype {value.dtype}")
+    return value
 
 
 def _owned_tensor(value: Any, device: torch.device) -> torch.Tensor:

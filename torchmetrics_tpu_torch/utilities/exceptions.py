@@ -37,3 +37,22 @@ class SyncError(TorchMetricsUserError):
 class SyncWarning(TorchMetricsUserWarning):
     """Warning raised when a sync failure degrades to local-only state
     (``SyncConfig(on_error="local")``)."""
+
+
+class StallError(TorchMetricsUserError):
+    """A watchdogged evaluation step exceeded its wall-clock deadline.
+
+    Raised by :class:`~torchmetrics_tpu_torch.robustness.StreamingEvaluator` when a
+    metric ``update`` or final ``compute``/sync outlives
+    ``watchdog_timeout_s`` (lost host, wedged collective, deadlocked input
+    pipeline). With ``on_stall="snapshot_then_raise"`` the last-good state is
+    persisted to the checkpoint store first, so a supervisor can kill the
+    process and resume without losing completed batches.
+    """
+
+
+class CheckpointStoreWarning(TorchMetricsUserWarning):
+    """Warning raised when ``CheckpointStore.latest()`` skips a torn, corrupt
+    or otherwise invalid snapshot and falls back to an older valid one. The
+    message names the snapshot step and what was wrong with it — recovery
+    proceeds, but the operator should know batches may be replayed."""
