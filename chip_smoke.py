@@ -102,7 +102,28 @@ result) if it fails:
    ``MinMaxMetric`` over different bases forming no compute group; each
    wrapper's eager pass timed beside its bare metric's, and a bootstrap
    copy's index upload, gather and update.
-13. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+13. sketch: the sketch plane at full width over NUM_BATCHES batches made on
+   the card (``_sketch_streams``): ``Quantile(q=[0.5, 0.99])`` and
+   ``Median()`` at the default geometry (2048, 18), ``SpearmanCorrCoef(
+   num_bins=64)``, ``DriftScore(bins=64)`` against a pinned 65536-sample
+   reference on a stream whose second half is shifted, ``Cardinality()``
+   (precision 12) and ``HeavyHitters()`` (4 x 1024, k = 32) over Zipf-like
+   int32 tags on 1e6 keys, a ``MomentsSketch`` over (65536, 64) rows and a
+   4096-slot reservoir. The eager pass is the main path: K3 (``cm_track``)
+   counted from 0, once per batch. Every state equal to the same stream
+   through the port on the CPU (integer leaves bitwise, KLL items as floats:
+   a radix sort may order -0 and +0 apart; the moments within 1e-5); the
+   quantiles inside ``kll_error_bound`` of numpy's order statistics, HLL
+   within 3 x 1.04/sqrt(m) of the true distinct count, Count-Min point
+   queries at or above the true counts, the drift scores within 1e-5 of
+   numpy float64. ``make_jit_update`` over the Quantile stream, captured
+   once and replayed, equal to the eager Quantile; the value and tag members
+   through ``suite.fused()`` equal to eager, the fused pass's busy share; K3
+   bitwise against its plain loop at 65536 tags and timed; device ms per
+   update of the KLL update, the captured step, HLL, the Count-Min grid, the
+   Count-Min update with K3 and the drift histogram; ``set_dtype(float64)``
+   on a card Quantile.
+14. fused: the slice's suite through ``suite.fused()``, one CUDA graph
    replay per batch: final states bitwise equal to the plain fold and values
    to the unfused ``compute()``; the wrappers' counters moved by the
    warm-up's launch and the capture's recorded one alone; K1 and K2 once per
@@ -114,7 +135,7 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-14. durable: the headline suite through ``StreamingEvaluator`` +
+15. durable: the headline suite through ``StreamingEvaluator`` +
    ``CheckpointStore(keep_last=2)`` (``snapshot_every_n=2``,
    ``watchdog_timeout_s=60``: every update on the watchdog's worker thread,
    the fused plan built and captured there), unfused and ``fused=True``:
@@ -131,8 +152,11 @@ result) if it fails:
    parts of one snapshot (fold-back, device-to-host copy, pickle, CRC32,
    atomic write with fsync) for the suite and for the exact group over
    524,288 rows (272.6 MB), with ``latest()`` + restore and its peak device
-   memory. Works in a temporary directory it removes.
-15. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+   memory. The sketch regime: a Quantile killed after batch 5 and resumed
+   bitwise equal to the uninterrupted run; card checkpoints of a Quantile and
+   of a reservoir restored into ``device="cpu"`` metrics (the reservoir's next
+   draw equal). Works in a temporary directory it removes.
+16. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -149,7 +173,9 @@ result) if it fails:
    failing the object gather on both ranks, then healing; the durable
    kill-and-resume of both regimes (replica: a store per rank,
    ``write_rank=None``; sharded fused over the mesh: rank 0 alone writes, no
-   second sync), each resume timed. A rank that fails or outlives DIST_TIMEOUT_S fails the
+   second sync), each resume timed; a Quantile, a DriftScore and a
+   HeavyHitters merge-synced (each rank folds half of the sketch batches)
+   equal to the one-rank merge of both halves. A rank that fails or outlives DIST_TIMEOUT_S fails the
    script. The times it prints are gloo's through the host on one card.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
@@ -160,8 +186,8 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the fused phase's passes, the durable phase's passes and snapshot sizes and the dist phase's time, ``nvidia-smi``'s
-line, the ``kernels`` JSON object (K1 and K2) and ``{"ok": true, "device": {...}}``.
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes and the dist phase's time, ``nvidia-smi``'s
+line, the ``kernels`` JSON object (K1, K2 and K3) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -189,6 +215,17 @@ STEADY_PASSES = 9
 # kernels' compares and integer adds are counted against
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+
+
+#: the hand kernels of the classification paths (phases 4-12 and 14-16);
+#: the sketch phase's main path runs K3 alone
+CLASSIFICATION_KERNELS = ("binned_curve_state", "stat_counts")
+
+
+def _classification_kernels():
+    from torchmetrics_tpu_torch.ops import KERNELS
+
+    return {name: KERNELS[name] for name in CLASSIFICATION_KERNELS}
 
 
 class SmokeFailure(RuntimeError):
@@ -3118,6 +3155,7 @@ def phase_durable(device, batches, kernels, slice_run, exact_run, smi):
                    exact_restore_s=restore_s, exact_peak_mib=(peak - base) / 2**20, exact_held_mib=(held - base) / 2**20,
                    exact_base_mib=base / 2**20)
         del fresh, restorer
+        out["sketch"] = _durable_sketch(device, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
@@ -3165,8 +3203,59 @@ def phase_durable(device, batches, kernels, slice_run, exact_run, smi):
         f" {out['exact_restore_s'] * 1e3:.3f} ms, peak device memory {out['exact_peak_mib']:.1f} MiB above the"
         f" {out['exact_base_mib']:.1f} MiB held before, {out['exact_held_mib']:.1f} MiB held after; values bitwise equal to the exact phase's; numpy {np.__version__}; {smi}"
     )
+    print(
+        f"[durable] sketch regime: a Quantile over {NUM_BATCHES} x {BATCH} values killed after batch {DURABLE_KILL_AFTER + 1}"
+        f" ({out['sketch']['died']}) and resumed in {out['sketch']['resume_s']:.3f} s, bitwise equal to the uninterrupted run;"
+        f" card checkpoints of the Quantile and of a {SKETCH_RESERVOIR}-slot reservoir restored into device='cpu' metrics"
+        f" bitwise, the restored reservoir's next draw equal to the card's"
+    )
     print(f"[durable] phase {out['seconds']:.1f} s")
     return out
+
+
+def _durable_sketch(device, root):
+    """The sketch regime through ``StreamingEvaluator``: a ``Quantile`` over the
+    sketch phase's values, killed after batch DURABLE_KILL_AFTER + 1 and resumed
+    in a fresh metric, bitwise equal to the uninterrupted run; card checkpoints
+    of a ``Quantile`` and of a reservoir restored into ``device="cpu"``
+    metrics, the reservoir then drawing the card's tags."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator
+
+    streams, _ = _sketch_streams(device)
+    batches = [(v,) for v in streams["values"]]
+
+    def make(dev=device):
+        return tm.Quantile(q=list(SKETCH_QS), device=dev)
+
+    whole = make()
+    for b in batches:
+        whole.update(*b)
+    directory = os.path.join(root, "sketch")
+    died = _kill(StreamingEvaluator(make(), store=CheckpointStore(directory, keep_last=2), snapshot_every_n=DURABLE_EVERY_N), batches)
+    resumed = StreamingEvaluator(make(), store=CheckpointStore(directory, keep_last=2), snapshot_every_n=DURABLE_EVERY_N)
+    t0 = time.perf_counter()
+    values = resumed.resume(batches)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    _require(resumed.cursor == NUM_BATCHES, f"durable sketch: cursor {resumed.cursor}")
+    _sketch_states_equal(resumed.metric, whole, "durable sketch resumed vs uninterrupted", bitwise=True)
+    _require(torch.equal(values, whole.compute()), "durable sketch: the resumed value")
+    sample = _sketch_holders()[1]
+    res, res_cpu = sample(device=device), sample(device="cpu")
+    for v in streams["values"][:4]:
+        res.update(v)
+    cpu_q = make("cpu")
+    for src, dst in ((whole, cpu_q), (res, res_cpu)):
+        dst.load_checkpoint(src.save_checkpoint())
+        _sketch_states_equal(dst, src, f"durable sketch: {type(src).__name__} from the card on the CPU", bitwise=True)
+    _require(torch.equal(cpu_q.compute(), whole.compute().cpu()), "durable sketch: the CPU Quantile's value")
+    res.update(streams["values"][4])
+    res_cpu.update(streams["values"][4].cpu())
+    _sketch_states_equal(res_cpu, res, "durable sketch: the restored reservoir's next draw", bitwise=True)
+    return {"died": died, "resume_s": resume_s}
 
 
 # ----------------------------------------------------------------------- dist
@@ -3217,11 +3306,12 @@ def _dist_checks(rank, world, out_dir):
     import torchmetrics_tpu_torch as tm
     from torchmetrics_tpu_torch.functional.classification.auroc import _multiclass_auroc_compute
     from torchmetrics_tpu_torch.functional.classification.average_precision import _multiclass_average_precision_compute
-    from torchmetrics_tpu_torch.ops import KERNELS
     from torchmetrics_tpu_torch.parallel import ShardedMetric
     from torchmetrics_tpu_torch.robustness import faults
     from torchmetrics_tpu_torch.utilities.distributed import _all_gather, all_reduce_, gather_all_objects
     from torchmetrics_tpu_torch.utilities.exceptions import SyncError
+
+    KERNELS = _classification_kernels()
 
     device = torch.device("cuda", 0)
     want = torch.load(os.path.join(out_dir, "expected.pt"))
@@ -3349,6 +3439,9 @@ def _dist_checks(rank, world, out_dir):
     # 6) durable kill and resume: the replica regime (a store per rank) and the sharded fused one (rank 0 writes)
     out.update(_dist_durable_checks(rank, world, mesh, mine, local, out_dir, want, expected))
 
+    # 7) sketch states merge-synced across the ranks
+    out.update(_dist_sketch_checks(rank, world, device))
+
     # 4) fault drill: a corrupt payload from rank 1 fails the object gather on both ranks, then heals
     faults.install_from_env("corrupt:gather_bytes.payload:rank=1:count=1")
     try:
@@ -3359,6 +3452,50 @@ def _dist_checks(rank, world, out_dir):
         out["drill_error"] = str(err)
     faults.clear()
     _require(gather_all_objects(("drill", rank)) == [("drill", r) for r in range(world)], f"rank {rank}: the healed gather")
+    return out
+
+
+def _dist_sketch_checks(rank, world, device):
+    """Two ranks merge-sync a ``Quantile``, a ``DriftScore`` and a
+    ``HeavyHitters`` (its ``uint32`` keys travel as int32 bits), each rank
+    folding its half of the sketch phase's batches: the synced state equals
+    the one-rank merge of both halves (the reduction in rank order), and
+    unsync restores the local state."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import drift
+    from torchmetrics_tpu_torch import sketch as sk
+
+    streams, reference = _sketch_streams(device)
+    half = NUM_BATCHES // world
+    makers = {
+        "quantile": (lambda **kw: tm.Quantile(q=list(SKETCH_QS), **kw), "values"),
+        "drift": (lambda **kw: drift.DriftScore(reference, bins=SKETCH_BINS, **kw), "drift"),
+        "heavy": (lambda **kw: drift.HeavyHitters(**kw), "tags"),
+    }
+    out = {}
+    for name, (make, key) in makers.items():
+        synced = make(device=device)
+        for i in range(rank * half, (rank + 1) * half):
+            synced.update(streams[key][i])
+        parts = []
+        for r in range(world):
+            part = make(device=device, distributed_available_fn=lambda: False)
+            for i in range(r * half, (r + 1) * half):
+                part.update(streams[key][i])
+            parts.append(part)
+        state = next(iter(synced._defaults))
+        local_count = int(getattr(synced, state).count)
+        want = sk.reduce_merge_states([getattr(p, state) for p in parts])
+        sync_s = _timed(synced.sync)
+        got = getattr(synced, state)
+        for field, a, b in zip(got._fields, got, want):
+            same = torch.equal(a, b) if a.dtype.is_floating_point else torch.equal(a.to(torch.int64), b.to(torch.int64))
+            _require(same, f"rank {rank}: synced {name} {field} differs from the one-rank merge")
+        synced.unsync()
+        _require(int(getattr(synced, state).count) == local_count, f"rank {rank}: unsync of {name}")
+        out[f"sketch_{name}_sync_ms"] = sync_s * 1e3
     return out
 
 
@@ -3455,8 +3592,9 @@ def _dist_wrapper_checks(rank, world, mesh, local, device):
     import torch
 
     import torchmetrics_tpu_torch as tm
-    from torchmetrics_tpu_torch.ops import KERNELS
     from torchmetrics_tpu_torch.parallel import sharded_update
+
+    KERNELS = _classification_kernels()
 
     rows = BATCH // world
     events = local[:DIST_WRAPPER_EVENTS]
@@ -3604,9 +3742,383 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
             f" batch {DURABLE_KILL_AFTER + 1}, rank 0 writes: {r['durable_sharded_files']} files from this rank, no second"
             f" sync, states bitwise equal to the plain fold) resume {r['durable_sharded_resume_ms']:.3f} ms; {smi}; {note}"
         )
+    for r in ranks:
+        print(
+            f"[dist] rank {r['rank']}: sketch merge sync ({NUM_BATCHES // DIST_WORLD} local batches of {BATCH}), equal to the"
+            f" one-rank merge of both halves: Quantile {r['sketch_quantile_sync_ms']:.3f} ms, DriftScore"
+            f" {r['sketch_drift_sync_ms']:.3f} ms, HeavyHitters (uint32 keys as int32) {r['sketch_heavy_sync_ms']:.3f} ms; {smi}; {note}"
+        )
     print(f"[dist] BootStrapper refused: {r0['bootstrap_refusal']!r}")
     print(f"[dist] fault drill: {r0['drill_error']!r} on both ranks; the next gather healed")
     return {"seconds": seconds, "ranks": ranks}
+
+
+# --------------------------------------------------------------------- sketch
+
+SKETCH_QS = (0.5, 0.99)
+SKETCH_BINS = 64  # DriftScore's and bounded Spearman's bins
+SKETCH_KEYS = 10**6  # the Zipf-like tags' key space
+SKETCH_RESERVOIR = 4096
+SKETCH_DRIFT_ATOL = 1e-5  # the card's drift scores against a float64 numpy reference
+SKETCH_MOMENTS_RTOL = 1e-5  # the card's row moments against the CPU's (sums in another order)
+SKETCH_REPS = 10  # profiled calls per timed sketch update
+
+
+def _sketch_streams(device):
+    """The sketch phase's stream, made on the card from SEED + 40: NUM_BATCHES
+    batches of BATCH float32 values (Quantile, Median, the reservoir), value
+    pairs with a correlated second column (bounded Spearman), drift values in
+    [0, 1) whose second half is shifted up by 0.2, Zipf-like int32 tags over
+    SKETCH_KEYS keys (density 1/k: ``floor(exp(u * ln 1e6)) - 1``), and
+    (BATCH, NUM_CLASSES) rows (the moments); and the pinned BATCH-sample drift reference."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 40)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+
+    values = [randn(BATCH) for _ in range(NUM_BATCHES)]
+    pairs = [(x, 0.6 * x + 0.8 * randn(BATCH)) for x in values]
+    drift = [rand(BATCH) * (0.8 if i >= NUM_BATCHES // 2 else 1.0) + (0.2 if i >= NUM_BATCHES // 2 else 0.0) for i in range(NUM_BATCHES)]
+    tags = [(torch.floor(torch.exp(rand(BATCH) * math.log(SKETCH_KEYS))) - 1).clamp(0, SKETCH_KEYS - 1).to(torch.int32)
+            for _ in range(NUM_BATCHES)]
+    rows = [randn(BATCH, NUM_CLASSES) for _ in range(NUM_BATCHES)]
+    reference = rand(BATCH)
+    return {"values": values, "pairs": pairs, "drift": drift, "tags": tags, "rows": rows}, reference
+
+
+def _sketch_holders():
+    """Metrics over a bare sketch state: (BATCH, NUM_CLASSES) row moments and a SKETCH_RESERVOIR-slot sample."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import sketch as sk
+
+    class RowMoments(tm.Metric):
+        full_state_update = False
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("moments", sk.moments_init((NUM_CLASSES,), device="cpu"), dist_reduce_fx="merge")
+
+        def update(self, rows):
+            self.moments = sk.moments_update(self.moments, rows)
+
+        def compute(self):
+            return sk.moments_variance(self.moments)
+
+    class Sample(tm.Metric):
+        full_state_update = False
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("res", sk.reservoir_init(SKETCH_RESERVOIR, seed=SEED, device="cpu"), dist_reduce_fx="merge")
+
+        def update(self, x):
+            self.res = sk.reservoir_update(self.res, x)
+
+        def compute(self):
+            return self.res.values
+
+    return RowMoments, Sample
+
+
+def _sketch_metrics(device, reference, holders):
+    """``{name: (metric, stream key)}``: every sketch metric of the phase, on ``device``."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import drift
+
+    row_moments, sample = holders
+    return {
+        "quantile": (tm.Quantile(q=list(SKETCH_QS), device=device), "values"),
+        "median": (tm.Median(device=device), "values"),
+        "spearman": (tm.SpearmanCorrCoef(num_bins=SKETCH_BINS, device=device), "pairs"),
+        "drift": (drift.DriftScore(reference.to(device), bins=SKETCH_BINS, device=device), "drift"),
+        "cardinality": (drift.Cardinality(device=device), "tags"),
+        "heavy": (drift.HeavyHitters(device=device), "tags"),
+        "moments": (row_moments(device=device), "rows"),
+        "reservoir": (sample(device=device), "values"),
+    }
+
+
+def _sketch_update(metric, arg):
+    if isinstance(arg, tuple):
+        metric.update(*arg)
+    else:
+        metric.update(arg)
+
+
+def _sketch_states_equal(got, want, what, moments_rtol=None, bitwise=False):
+    """Every state of ``got`` equals ``want``'s: integer leaves bitwise, float
+    leaves as floats (a radix sort may order -0 and +0 apart) or, with
+    ``bitwise``, bit for bit; the row moments' floats within ``moments_rtol``
+    where given."""
+    import torch
+
+    for name in want._defaults:
+        g, w = getattr(got, name), getattr(want, name)
+        pairs = zip(w._fields, g, w) if hasattr(w, "_fields") else [("", g, w)]
+        for field, a, b in pairs:
+            a, b = a.detach().cpu(), b.detach().cpu()
+            _require(a.dtype == b.dtype and a.shape == b.shape, f"{what}: {name}.{field} {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+            if moments_rtol is not None and a.dtype.is_floating_point:
+                _require(torch.allclose(a, b, rtol=moments_rtol, atol=moments_rtol), f"{what}: {name}.{field} beyond rtol {moments_rtol}")
+            elif a.dtype.is_floating_point:
+                same = a.numpy().tobytes() == b.numpy().tobytes() if bitwise else torch.equal(a, b)
+                _require(same, f"{what}: {name}.{field} differs")
+            else:
+                _require(torch.equal(a.to(torch.int64), b.to(torch.int64)), f"{what}: {name}.{field} differs")
+
+
+def _numpy_drift_scores(edges, reference, live, eps=1e-6):
+    """PSI, KL and KS in float64 of two samples binned on ``edges`` (the low and high tallies as edge cells)."""
+    import numpy as np
+
+    def cells(x):
+        idx = np.clip(np.searchsorted(edges, x, side="right") - 1, 0, edges.size - 2)
+        inside = (x >= edges[0]) & (x <= edges[-1])
+        counts = np.bincount(idx[inside], minlength=edges.size - 1)
+        return np.concatenate([[np.sum(x < edges[0])], counts, [np.sum(x > edges[-1])]]).astype(np.float64) / x.size
+
+    p, q = cells(live), cells(reference)
+    pf, qf = np.maximum(p, eps), np.maximum(q, eps)
+    pf, qf = pf / pf.sum(), qf / qf.sum()
+    psi = float(np.sum((pf - qf) * np.log(pf / qf)))
+    return psi, psi / 2, float(np.max(np.abs(np.cumsum(p) - np.cumsum(q))))
+
+
+def check_cm_track(device, streams):
+    """K3 against ``cm_track_plain`` on the card at the main path's shape: the
+    tags of one 65536-tag batch, their estimates against the grid after it,
+    the table left by the batch before; bitwise. Then timed beside its plain
+    loop (host clock, the loop runs on the host) and its bound."""
+    import torch
+
+    from torchmetrics_tpu_torch import sketch as sk
+    from torchmetrics_tpu_torch.ops import cm_track, cm_track_plain
+    from torchmetrics_tpu_torch.sketch.countmin import _int32_bits, _point
+    from torchmetrics_tpu_torch.sketch.hll import _as_tags
+
+    arg_sets = []
+    state = sk.cm_init(device=device)
+    for i, batch in enumerate(streams["tags"][:4]):
+        tags = _as_tags(batch)
+        grid = sk.cm_update(state, batch).counts
+        arg_sets.append((_int32_bits(tags), _point(grid, tags), state.hh_keys, state.hh_counts))
+        state = sk.cm_update(state, batch)
+    max_err = 0
+    for args in arg_sets[:2]:
+        got, want = cm_track(*args), cm_track_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _require(g.dtype == w.dtype and torch.equal(g.to(torch.int64), w.to(torch.int64)), "cm_track: the kernel differs from its plain loop")
+        max_err = max(max_err, int((got[1] - want[1]).abs().max()))
+    print(f"[kernels] cm_track: bitwise equal to its plain loop at n={BATCH} tags, k=32, from an empty and from a filled table")
+    times = _measure([("kernel", cm_track, arg_sets), ("read_floor", _read_floor, [(a[0],) for a in arg_sets])],
+                     profile_reps=SKETCH_REPS, timing_reps=SKETCH_REPS)
+    plain_s = [_timed(lambda args=args: cm_track_plain(*args)) for args in arg_sets[:2]]
+    k = int(arg_sets[0][2].numel())
+    n_bytes = BATCH * 8 + k * 8 * 2  # the tags and estimates read once, the table read and written
+    bound_ms, bound_by = _bound(n_bytes, BATCH * k * 3)  # per tag and slot: the key compare, the live test, the minimum
+    return {
+        "name": "cm_track",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/cm_track.cu",
+        "replaces": "torchmetrics_tpu/sketch/countmin.py:118",
+        "max_abs_err": max_err,
+        "ms": times["kernel"]["device_ms"],
+        "plain_ms": min(plain_s) * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "stream_ms": {k_: v["stream_ms"] for k_, v in times.items()},
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "cm_track"),
+        "bytes": n_bytes,
+        "read_floor_ms": times["read_floor"]["device_ms"],
+    }
+
+
+def phase_sketch(device, kernels, smi):
+    """The sketch plane at full width (see the module docstring, phase 13):
+    eager (the main path: K3 counted), against the CPU and numpy; the captured
+    one-metric step; the fused plan; K3 against its plain loop; set_dtype."""
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import sketch as sk
+    from torchmetrics_tpu_torch.parallel import fold_jit_state, make_jit_update
+    from torchmetrics_tpu_torch.sketch.countmin import _columns
+    from torchmetrics_tpu_torch.sketch.hll import _as_tags
+
+    t_phase = time.perf_counter()
+    streams, reference = _sketch_streams(device)
+    holders = _sketch_holders()
+    out = {}
+
+    # 1) eager, the main path: every metric's update over the 8 batches; K3's count from 0
+    card = _sketch_metrics(device, reference, holders)
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    for i in range(NUM_BATCHES):
+        for metric, key in card.values():
+            _sketch_update(metric, streams[key][i])
+    torch.cuda.synchronize()
+    out["eager_s"] = time.perf_counter() - t0
+    out["launches"] = {name: w.launches for name, w in kernels.items()}
+    _require(out["launches"]["cm_track"] == NUM_BATCHES, f"sketch: K3 launched {out['launches']['cm_track']} times on the main path, expected {NUM_BATCHES}")
+
+    # the same stream through the port on the CPU
+    host = {key: [tuple(t.cpu() for t in b) if isinstance(b, tuple) else b.cpu() for b in s] for key, s in streams.items()}
+    cpu = _sketch_metrics("cpu", reference.cpu(), holders)
+    t0 = time.perf_counter()
+    for i in range(NUM_BATCHES):
+        for metric, key in cpu.values():
+            _sketch_update(metric, host[key][i])
+    out["cpu_s"] = time.perf_counter() - t0
+    for name, (metric, _) in card.items():
+        _sketch_states_equal(metric, cpu[name][0], f"sketch {name}, card vs CPU", SKETCH_MOMENTS_RTOL if name == "moments" else None)
+    for name in ("quantile", "median"):
+        _require(torch.equal(card[name][0].compute().cpu(), cpu[name][0].compute()), f"sketch {name}: quantiles differ from the CPU's")
+
+    # against numpy: the quantiles inside the rank bound, HLL inside 3 sigma, Count-Min above the truth, drift to 1e-5
+    values = np.concatenate([v.cpu().numpy() for v in streams["values"]])
+    values.sort()
+    n = values.size
+    q = card["quantile"][0]
+    bound = float(q.error_bound())
+    est = q.compute().cpu().numpy()
+    rank_err = [abs(float(np.searchsorted(values, e, side="right")) - qq * n) for qq, e in zip(SKETCH_QS, est)]
+    _require(all(r <= bound + 1 for r in rank_err), f"sketch quantile: rank errors {rank_err} beyond the bound {bound}")
+    tags = np.concatenate([t.cpu().numpy() for t in streams["tags"]])
+    distinct = int(np.unique(tags).size)
+    card_est = float(card["cardinality"][0].compute())
+    hll_rel = abs(card_est - distinct) / distinct
+    _require(hll_rel <= 3 * 1.04 / math.sqrt(4096), f"sketch cardinality {card_est} vs {distinct} distinct: {hll_rel:.4f}")
+    truth = np.bincount(tags, minlength=SKETCH_KEYS)
+    probe = np.concatenate([np.argsort(-truth)[:100], np.random.default_rng(SEED).integers(0, SKETCH_KEYS, 100)]).astype(np.int32)
+    point = card["heavy"][0].count_of(torch.from_numpy(probe).to(device)).cpu().numpy()
+    _require(bool((point >= truth[probe]).all()), "sketch heavy hitters: a point query below the true count")
+    keys, counts = card["heavy"][0].compute()
+    top_true = set(np.argsort(-truth)[:5].tolist())
+    found_top = len(top_true & set(keys.cpu().to(torch.int64).numpy()[:32].tolist()))
+    drift_metric = card["drift"][0]
+    want = _numpy_drift_scores(drift_metric.reference.edges.cpu().numpy().astype(np.float64),
+                               reference.cpu().numpy(), np.concatenate([d.cpu().numpy() for d in streams["drift"]]))
+    got = [float(v) for v in drift_metric.compute()]
+    drift_err = max(abs(g - w) for g, w in zip(got, want))
+    _require(drift_err <= SKETCH_DRIFT_ATOL, f"sketch drift scores {got} vs numpy {want}")
+    out.update(rank_err=rank_err, bound=bound, hll_rel=hll_rel, distinct=distinct, found_top=found_top, drift=got, drift_err=drift_err,
+               spearman=float(card["spearman"][0].compute()), state_bytes=sk.kll_state_bytes(q.sketch))
+    print(
+        f"[sketch] eager, {NUM_BATCHES} x {BATCH}: every state equal to the port's on the CPU (integer leaves bitwise, KLL items"
+        f" as floats, moments within {SKETCH_MOMENTS_RTOL}); K3 launches on the main path {out['launches']['cm_track']};"
+        f" quantiles {est.tolist()} rank errors {rank_err} <= bound {bound:.0f}; HLL {card_est:.1f} vs {distinct} distinct"
+        f" (relative {hll_rel:.4f}); Count-Min point queries >= the truth on 200 keys, {found_top} of the 5 hottest keys in"
+        f" the table; drift psi/kl/ks {got} within {drift_err:.2e} of numpy float64; bounded Spearman {out['spearman']:.5f};"
+        f" eager pass {out['eager_s']:.3f} s on the card, {out['cpu_s']:.3f} s on the CPU; kll_state_bytes {out['state_bytes']}"
+    )
+
+    out["k3_row"] = dict(check_cm_track(device, streams), launches=out["launches"]["cm_track"])
+
+    # 2) A5b: the captured one-metric step over the Quantile stream equals the eager Quantile
+    step_metric = tm.Quantile(q=list(SKETCH_QS), device=device)
+    step, state = make_jit_update(step_metric, donate=True)
+    for v in streams["values"]:
+        state = step(state, v)
+    _require(len(step._captured) == 1, f"sketch: the step captured {len(step._captured)} graphs")
+    fold_jit_state(step_metric, state)
+    _sketch_states_equal(step_metric, card["quantile"][0], "sketch captured step vs eager")
+    _require(step_metric._update_count == NUM_BATCHES, "sketch: the step's update count")
+
+    # 3) the fused plan: the value-stream members and the tag members, one graph replay per batch each
+    fused_members = {"values": ("quantile", "median", "reservoir"), "drift": ("drift",), "tags": ("cardinality", "heavy")}
+    fused = _sketch_metrics(device, reference, holders)
+    plans = {}
+    for key, names in fused_members.items():
+        col = tm.MetricCollection({name: fused[name][0] for name in names}, compute_groups=False)
+        plans[key] = col.fused()
+    for i in range(NUM_BATCHES):
+        for key, plan in plans.items():
+            plan.update(streams[key][i])
+    for plan in plans.values():
+        plan.fold_back()
+    for names in fused_members.values():
+        for name in names:
+            _sketch_states_equal(fused[name][0], card[name][0], f"sketch fused {name} vs eager")
+
+    def fused_pass():
+        for i in range(NUM_BATCHES):
+            for key, plan in plans.items():
+                plan.update(streams[key][i])
+
+    found, busy_us, wall_us = _profile(fused_pass, 1)
+    out.update(fused_busy_share=busy_us / wall_us, fused_busy_us=busy_us, fused_wall_us=wall_us)
+
+    # 4) device ms per update, each on its own state
+    hll = sk.hll_init(device=device)
+    live = sk.hist_init(SKETCH_BINS, 0.0, 1.0, device=device)
+    cm = sk.cm_init(device=device)
+    timing_q = tm.Quantile(q=list(SKETCH_QS), device=device)
+    step_q = tm.Quantile(q=list(SKETCH_QS), device=device)
+    tstep, tstate = make_jit_update(step_q, donate=True)
+    for v in streams["values"][:2]:
+        tstate = tstep(tstate, v)
+    ones = torch.ones((), dtype=torch.int32, device=device)
+
+    def grid(counts, t):
+        tags64 = _as_tags(t)
+        cols = _columns(tags64, 4, 1024)
+        flat = (cols + 1024 * torch.arange(4, device=device)[:, None]).reshape(-1)
+        return counts.reshape(-1).index_add(0, flat, ones.expand(flat.numel()))
+
+    def state_bytes(state):
+        return sum(leaf.numel() * leaf.element_size() for leaf in state)
+
+    # bytes each update must move: its batch read once, its state read and written once
+    batch_bytes = BATCH * 4
+    timed = {}
+    for label, fn, args, n_bytes in [
+        ("KLL update (Quantile.update)", timing_q.update, [(v,) for v in streams["values"]], batch_bytes + 2 * state_bytes(timing_q.sketch)),
+        ("captured step (make_jit_update)", lambda v: tstep(tstate, v), [(v,) for v in streams["values"]],
+         batch_bytes + 2 * state_bytes(step_q.sketch)),
+        ("HLL update", lambda t: sk.hll_update(hll, t), [(t,) for t in streams["tags"]], batch_bytes + 2 * state_bytes(hll)),
+        ("Count-Min grid", lambda t: grid(cm.counts, t), [(t,) for t in streams["tags"]], batch_bytes + 2 * cm.counts.numel() * 4),
+        ("Count-Min update with K3", lambda t: sk.cm_update(cm, t), [(t,) for t in streams["tags"]], batch_bytes + 2 * state_bytes(cm)),
+        ("drift update (histogram)", lambda x: sk.hist_update(live, x), [(x,) for x in streams["drift"]], batch_bytes + 2 * state_bytes(live)),
+    ]:
+        ms, found = _device_ms(fn, args, SKETCH_REPS)
+        bound_ms, bound_by = _bound(n_bytes, 0)
+        timed[label] = {"ms": ms, "launches": sum(max(1, round(c / SKETCH_REPS)) for _, c in found.values() if c),
+                        "bytes": n_bytes, "bound_ms": bound_ms}
+    out["timed"] = timed
+
+    # 5) set_dtype(torch.float64) on a card Quantile
+    q64 = tm.Quantile(q=list(SKETCH_QS), device=device)
+    q64.update(streams["values"][0])
+    q64.set_dtype(torch.float64)
+    q64.update(streams["values"][1].double())
+    _require(q64.sketch.items.dtype == torch.float64 and q64.sketch.count.dtype == torch.int32 and int(q64.sketch.count) == 2 * BATCH,
+             "sketch: set_dtype(float64) on the card")
+    _require(bool(torch.isfinite(q64.compute()).all()) and q64.compute().dtype == torch.float64, "sketch: the float64 Quantile's value")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(
+        f"[sketch] captured make_jit_update over the Quantile stream: one graph, states equal to the eager Quantile's;"
+        f" fused plans (values: quantile, median, reservoir; drift; tags: cardinality, heavy hitters) equal to eager,"
+        f" busy share of a fused pass {out['fused_busy_share']:.4f} ({busy_us:.1f} us of {wall_us:.1f} us);"
+        f" set_dtype(float64) on the card updates and computes in float64"
+    )
+    print(
+        "[sketch] device ms per update at 65536 values (kernel launches per call; bytes; byte bound ms): "
+        + "; ".join(f"{k} {v['ms']:.5f} ({v['launches']}; {v['bytes']} B; {v['bound_ms']:.5f})" for k, v in timed.items())
+        + f"; phase {out['seconds']:.1f} s; {smi}"
+    )
+    return out
 
 
 # ----------------------------------------------------------------------- main
@@ -3636,6 +4148,8 @@ def main() -> int:
     ml_batches = _multilabel_batches(device)
     rows = [check_binned_curve_state(device, batches), check_stat_counts(device, batches)]
     matrix_row = check_binned_curve_matrix_mode(device, ml_batches)
+    sketch_kernels = {"cm_track": KERNELS["cm_track"]}
+    KERNELS = _classification_kernels()
     entry_diffs = phase_entry(KERNELS)
     run = phase_slice(device, batches, KERNELS)
     exact = phase_exact(device, batches, KERNELS)
@@ -3645,6 +4159,7 @@ def main() -> int:
     scores = phase_scores(device, batches, ml_batches, KERNELS)
     regression = phase_regression(device, batches, KERNELS)
     wrappers = phase_wrappers(device, batches, KERNELS, smi)
+    sketch = phase_sketch(device, sketch_kernels, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     durable = phase_durable(device, batches, KERNELS, run, exact, smi)
     dist_run = phase_dist(run, exact, fused, smi)
@@ -3652,6 +4167,7 @@ def main() -> int:
         row["launches"] = run["launches"][row["name"]]
     matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", library_ms=None,
                       launches=ml_run["launches"]["binned_curve_state"])
+    rows.append(sketch["k3_row"])
     for row in rows + [matrix_row]:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
@@ -3681,7 +4197,9 @@ def main() -> int:
         f" {regression['seconds']:.1f} s, eager pass {regression['eager']['median_s'] * 1e3:.3f} ms, fused"
         f" {regression['fused']['median_s'] * 1e3:.3f} ms, ms per call (bound):"
         f" {', '.join(f'{k} {t['ms']:.5f} ({t['bound_ms']:.5f})' for k, t in regression['timed'].items())}; wrappers phase"
-        f" {wrappers['seconds']:.1f} s, K1/K2 per wrapper stream {wrappers['launches']}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
+        f" {wrappers['seconds']:.1f} s, K1/K2 per wrapper stream {wrappers['launches']}; sketch phase {sketch['seconds']:.1f} s,"
+        f" K3 {sketch['k3_row']['ms']:.5f} ms per 65536 tags (bound {sketch['k3_row']['bound_ms']:.5f}), fused busy share"
+        f" {sketch['fused_busy_share']:.4f}; fused steady pass {fused['median_s'] * 1e3:.3f} ms (unfused {run['median_s'] * 1e3:.3f};"
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"

@@ -145,11 +145,25 @@ def test_inputs_of_every_kind_land_on_the_metric_device():
 
 
 def test_quantile_and_median_are_refused_naming_a9():
-    for name in ("Quantile", "Median"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            getattr(TA, name)
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            getattr(T, name)
+    """(Once a refusal; now the parity of the same scope.) ``Quantile`` and
+    ``Median`` are exported where JAX exports them and equal JAX's on the same
+    stream: the KLL state leaf for leaf bitwise, the quantiles and the error
+    bound bitwise, through ``update`` and ``forward``."""
+    rng = np.random.default_rng(147)
+    for name, kw in (("Quantile", {"q": [0.1, 0.5, 0.9], "capacity": 128, "levels": 14}), ("Median", {"capacity": 256})):
+        assert getattr(TA, name) is getattr(T, name)
+        jm, tm = getattr(J, name)(**kw), getattr(T, name)(device="cpu", **kw)
+        for i in range(4):
+            x = (rng.standard_normal(700 + i) * 3).astype(np.float32)
+            if i % 2:
+                _same(tm(torch.from_numpy(x)), jm(jnp.asarray(x)), True, f"{name} forward {i}")
+            else:
+                tm.update(torch.from_numpy(x))
+                jm.update(jnp.asarray(x))
+        for field, got, want in zip(jm.sketch._fields, tm.sketch, jm.sketch):
+            _same(got, want, True, f"{name} {field}")
+        _same(tm.compute(), jm.compute(), True, f"{name} value")
+        _same(tm.error_bound(), jm.error_bound(), True, f"{name} bound")
     with pytest.raises(AttributeError):
         TA.NotAMetric  # noqa: B018 - other names are plain attribute errors
 
@@ -158,7 +172,7 @@ def test_exports_equal_jax_but_quantile_and_median():
     agg = set(JA.__dict__.get("__all__", [])) or {
         n for n in J.__all__ if getattr(getattr(J, n), "__module__", "") == "torchmetrics_tpu.aggregation"
     }
-    assert sorted(TA.__all__) == sorted(agg - {"Quantile", "Median"})
+    assert sorted(TA.__all__) == sorted(agg)
     for name in TA.__all__:
         assert getattr(T, name) is getattr(TA, name) and name in T.__all__ and name in J.__all__
 

@@ -19,9 +19,10 @@ no ``Metric`` in either package: its steps checkpoint) and the headline
 ``MetricCollection`` through the runner's per-member dict.
 
 Also the port's counterparts of ``tests/unittests/bases/test_checkpointing.py``
-(the sketch cases wait for ROADMAP A9), and the port's own rules: a load
-installs tensors of their own on the metric's device, and clears the
-mesh-replicated flag.
+(the sketch cases included: a sketch state's payload reads across the
+packages leaf for leaf, bitwise), and the port's own rules: a load installs
+tensors of their own on the metric's device, and clears the mesh-replicated
+flag.
 """
 import io
 import pickle
@@ -36,6 +37,7 @@ import torchmetrics_tpu_torch as T
 from torchmetrics_tpu.parallel.sharded import _walk_metrics as j_walk
 from torchmetrics_tpu.robustness import StreamingEvaluator as JEval
 from torchmetrics_tpu.robustness import checkpoint_fingerprint as j_fingerprint
+from torchmetrics_tpu.utilities.exceptions import StateRestoreError as JStateRestoreError
 from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics as t_walk
 from torchmetrics_tpu_torch.robustness import StreamingEvaluator as TEval
 from torchmetrics_tpu_torch.robustness import checkpoint_fingerprint as t_fingerprint
@@ -414,8 +416,8 @@ def test_checkpoint_num_classes_mismatch_raises():
 
 
 def test_a_jax_sketch_entry_is_refused():
-    """Sketch states wait for ROADMAP A9: a JAX sketch payload does not
-    validate against a port metric of the same name's array state."""
+    """A sketch payload fits only a sketch state: one written into the place
+    of an array state does not validate, and nothing is restored."""
     src = J.MeanMetric()
     src.update(jnp.asarray([1.0, 2.0]))
     ck = src.save_checkpoint()
@@ -424,6 +426,169 @@ def test_a_jax_sketch_entry_is_refused():
     with pytest.raises(StateRestoreError):
         dst.load_checkpoint(ck)
     assert dst._update_count == 0
+
+
+def _sketch_leaves_equal(got, want):
+    for field, a, b in zip(type(want)._fields, got, want):
+        a = np.atleast_1d(a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a))
+        b = np.atleast_1d(b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b))
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a.view(np.uint8), b.view(np.uint8)), field
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_checkpoint_roundtrip_sketch_state_metric(writer):
+    """A Quantile's KLL state round-trips through either package's pickled
+    checkpoint into the port: the payload holds plain numpy leaves, the
+    restored sketch is bitwise the writer's, and resumed accumulation stays
+    in lockstep; the port's checkpoint restores into a JAX metric too."""
+    rng = np.random.RandomState(3)
+    data = rng.randn(4000).astype(np.float32)
+    kw = {"q": [0.25, 0.75], "capacity": 256, "levels": 14}
+    src = T.Quantile(device="cpu", **kw) if writer == "torch" else J.Quantile(**kw)
+    for chunk in np.split(data, 4):
+        src.update(_conv(T if writer == "torch" else J, chunk))
+    ckpt = pickle.loads(pickle.dumps(src.save_checkpoint()))
+    payload = ckpt["metrics"][""]["state"]["sketch"]
+    assert payload["__sketch__"] == "KLLSketch"
+    assert all(isinstance(leaf, np.ndarray) for leaf in payload["leaves"].values())
+    dst = T.Quantile(device="cpu", **kw)
+    dst.load_checkpoint(ckpt)
+    assert dst._update_count == src._update_count
+    _sketch_leaves_equal(dst.sketch, src.sketch)
+    np.testing.assert_array_equal(dst.compute().numpy(), np.asarray(src.compute()))
+    extra = rng.randn(512).astype(np.float32)
+    src.update(_conv(T if writer == "torch" else J, extra))
+    dst.update(torch.from_numpy(extra))
+    _sketch_leaves_equal(dst.sketch, src.sketch)
+    back = J.Quantile(**kw)
+    back.load_checkpoint(pickle.loads(pickle.dumps(dst.save_checkpoint())))
+    _sketch_leaves_equal(dst.sketch, back.sketch)
+
+
+def test_checkpoint_roundtrip_bounded_spearman():
+    rng = np.random.RandomState(4)
+    x = rng.randn(2000).astype(np.float32)
+    y = (0.5 * x + rng.randn(2000) * 0.5).astype(np.float32)
+    src, jsrc = T.SpearmanCorrCoef(num_bins=32, device="cpu"), J.SpearmanCorrCoef(num_bins=32)
+    src.update(torch.from_numpy(x), torch.from_numpy(y))
+    jsrc.update(jnp.asarray(x), jnp.asarray(y))
+    for ck in (src.save_checkpoint(), jsrc.save_checkpoint()):
+        dst = T.SpearmanCorrCoef(num_bins=32, device="cpu")
+        dst.load_checkpoint(pickle.loads(pickle.dumps(ck)))
+        np.testing.assert_allclose(float(dst.compute()), float(src.compute()), rtol=1e-6)
+        np.testing.assert_array_equal(dst.joint.numpy(), src.joint.numpy())
+        _sketch_leaves_equal(dst.preds_sketch, jsrc.preds_sketch)
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_checkpoint_corrupted_sketch_leaf_raises(writer):
+    """A reshaped, re-typed or missing sketch leaf, or a wrong class name,
+    raises StateRestoreError naming the state (and the leaf), in the port as
+    in JAX, and never half-restores."""
+    src = T.Quantile(q=0.5, capacity=256, levels=14, device="cpu") if writer == "torch" else J.Quantile(q=0.5, capacity=256, levels=14)
+    src.update(_conv(T if writer == "torch" else J, np.random.RandomState(5).randn(1000).astype(np.float32)))
+    ckpt = src.save_checkpoint()
+    dst = T.Quantile(q=0.5, capacity=256, levels=14, device="cpu")
+    jdst = J.Quantile(q=0.5, capacity=256, levels=14)
+
+    def mangled(fn):
+        bad = pickle.loads(pickle.dumps(ckpt))
+        fn(bad["metrics"][""]["state"]["sketch"])
+        return bad
+
+    cases = [
+        (lambda p: p["leaves"].__setitem__("items", np.zeros((3, 3), np.float32)), "'sketch'.*'items'"),
+        (lambda p: p["leaves"].__setitem__("sizes", p["leaves"]["sizes"].astype(np.float64)), "'sketch'.*'sizes'"),
+        (lambda p: p["leaves"].__delitem__("count"), "'sketch'"),
+        (lambda p: p.__setitem__("__sketch__", "NotASketch"), "'sketch'"),
+    ]
+    for fn, match in cases:
+        bad = mangled(fn)
+        with pytest.raises(JStateRestoreError) as want:
+            jdst.load_checkpoint(bad)
+        with pytest.raises(StateRestoreError, match=match) as got:
+            dst.load_checkpoint(bad)
+        assert str(got.value) == str(want.value)
+    assert dst._update_count == 0 and int(dst.sketch.count) == 0
+    dst.load_checkpoint(ckpt)
+    assert float(dst.compute()) == float(src.compute())
+
+
+def test_checkpoint_sketch_capacity_mismatch_raises():
+    src = T.Quantile(q=0.5, capacity=512, levels=14, device="cpu")
+    src.update(torch.from_numpy(np.random.RandomState(6).randn(1000).astype(np.float32)))
+    ckpt = src.save_checkpoint()
+    dst = T.Quantile(q=0.5, capacity=1024, levels=14, device="cpu")
+    jdst = J.Quantile(q=0.5, capacity=1024, levels=14)
+    with pytest.raises(JStateRestoreError) as want:
+        jdst.load_checkpoint(ckpt)
+    with pytest.raises(StateRestoreError, match="capacity/levels mismatch") as got:
+        dst.load_checkpoint(ckpt)
+    assert str(got.value) == str(want.value)
+    assert dst._update_count == 0 and int(dst.sketch.count) == 0
+
+
+@pytest.mark.parametrize("kind", ["histogram", "hll", "countmin", "moments", "reservoir"])
+def test_every_sketch_kind_reads_across_both_ways(kind):
+    """The histogram, HyperLogLog, Count-Min, moments and reservoir states
+    read across the packages' checkpoints leaf for leaf; a reservoir resumed
+    in the other package draws the same tags."""
+    from torchmetrics_tpu import sketch as jsk
+    from torchmetrics_tpu_torch import sketch as tsk
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(600).astype(np.float32)
+    y = rng.standard_normal(500).astype(np.float32)
+    inits = {
+        "histogram": (lambda d: tsk.hist_init(16, -2.0, 2.0, device=d), lambda: jsk.hist_init(16, -2.0, 2.0), "hist_update"),
+        "hll": (lambda d: tsk.hll_init(8, device=d), lambda: jsk.hll_init(8), "hll_update"),
+        "countmin": (lambda d: tsk.cm_init(4, 64, k=8, device=d), lambda: jsk.cm_init(4, 64, k=8), "cm_update"),
+        "moments": (lambda d: tsk.moments_init((), device=d), lambda: jsk.moments_init(()), "moments_update"),
+        "reservoir": (lambda d: tsk.reservoir_init(32, seed=5, rank=2, device=d), lambda: jsk.reservoir_init(32, seed=5, rank=2), "reservoir_update"),
+    }
+    tinit, jinit, update = inits[kind]
+
+    class _TState(T.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("s", tinit("cpu"), dist_reduce_fx="merge")
+
+        def update(self, v):
+            self.s = getattr(tsk, update)(self.s, v)
+
+        def compute(self):
+            return self.s.count
+
+    class _JState(J.Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("s", jinit(), dist_reduce_fx="merge")
+
+        def update(self, v):
+            self.s = getattr(jsk, update)(self.s, v)
+
+        def compute(self):
+            return self.s.count
+
+    _TState.__name__ = _JState.__name__ = "SketchHolder"
+    tm, jm = _TState(device="cpu"), _JState()
+    tm.update(torch.from_numpy(x))
+    jm.update(jnp.asarray(x))
+    if kind != "moments":  # the batch moments add in another order than XLA's
+        _sketch_leaves_equal(tm.s, jm.s)
+    assert tm.state_spec()["fingerprint"] == jm.state_spec()["fingerprint"]
+    t_from_j, j_from_t = _TState(device="cpu"), _JState()
+    t_from_j.load_checkpoint(pickle.loads(pickle.dumps(jm.save_checkpoint())))
+    j_from_t.load_checkpoint(pickle.loads(pickle.dumps(tm.save_checkpoint())))
+    _sketch_leaves_equal(t_from_j.s, jm.s)
+    _sketch_leaves_equal(j_from_t.s, tm.s)
+    t_from_j.update(torch.from_numpy(y))
+    jm.update(jnp.asarray(y))
+    if kind == "moments":  # the batch moments add in another order than XLA's
+        for a, b in zip(t_from_j.s, jm.s):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+    else:
+        _sketch_leaves_equal(t_from_j.s, jm.s)
 
 
 # ------------------------------------------------------------- the port's rules

@@ -237,13 +237,31 @@ def test_module_update_with_bad_target_leaves_state_untouched():
 
 
 def test_add_state_refuses_merge_and_bad_reductions():
+    """``"merge"`` without a sketch default and a sketch under another
+    reduction raise JAX's two ``ValueError``s, message for message; a bad
+    reduction name raises JAX's list of the valid ones."""
+    import torchmetrics_tpu as JT
+    from torchmetrics_tpu import sketch as jsk
+    from torchmetrics_tpu_torch import sketch as tsk
+
     m = _TwoStates(device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        m.add_state("sketch", torch.zeros(3), dist_reduce_fx="merge")
-    with pytest.raises(ValueError, match="dist_reduce_fx"):
-        m.add_state("bad", torch.zeros(3), dist_reduce_fx="median")
+    jm = JT.MeanMetric()
+    for name, t_default, j_default, red in [
+        ("sketch", torch.zeros(3), jnp.zeros(3), "merge"),
+        ("sketch2", tsk.kll_init(32, 4, device="cpu"), jsk.kll_init(32, 4), "sum"),
+        ("bad", torch.zeros(3), jnp.zeros(3), "median"),
+    ]:
+        with pytest.raises(ValueError) as want:
+            jm.add_state(name, j_default, dist_reduce_fx=red)
+        with pytest.raises(ValueError) as got:
+            m.add_state(name, t_default, dist_reduce_fx=red)
+        # the same text but the packages' names for a tensor and for the state
+        want_text = str(want.value).replace("ArrayImpl", "Tensor").replace("pytree", "state")
+        assert str(got.value).replace("torchmetrics_tpu_torch", "torchmetrics_tpu") == want_text, name
     for red in ("sum", "mean", "cat", "min", "max", None, lambda x: x.sum(0)):
         m.add_state(f"s_{id(red)}", torch.zeros(2), dist_reduce_fx=red)
+    m.add_state("q", tsk.kll_init(32, 4, device="cpu"), dist_reduce_fx="merge")
+    assert m._reductions["q"] == "merge" and m.q.items.shape == (4, 32)
 
 
 def test_reduce_states_per_reduction():

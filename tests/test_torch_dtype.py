@@ -1,0 +1,170 @@
+# Copyright The TorchMetrics-TPU contributors.
+# Licensed under the Apache License, Version 2.0.
+"""``Metric.set_dtype`` and its family (``type``, ``float``, ``double``,
+``half``, the ``dtype`` property, ``cpu()``), ``MetricCollection.set_dtype``,
+and low-precision inputs, on the CPU: the counterparts of
+``tests/unittests/bases/test_metric.py::test_set_dtype`` and of the rows of
+``tests/unittests/bases/test_dtype_properties.py::_DTYPE_SUITE`` outside the
+domains not ported yet (image, audio).
+
+set_dtype casts floating states and their defaults, sketch states leaf by
+leaf; integer and boolean states keep their dtype, as in the JAX package.
+The JAX package without 64-bit types keeps ``double()`` at float32; the port
+has float64, so that case is held to the rule, not to JAX. Low-precision
+inputs: every floating accumulator keeps its default dtype, and the value
+lands within the JAX row's relative tolerance of the float32 run, in both
+packages.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchmetrics_tpu as J
+import torchmetrics_tpu.classification as JC
+import torchmetrics_tpu_torch as T
+import torchmetrics_tpu_torch.classification as TC
+from torchmetrics_tpu.metric import Metric as JMetric
+from torchmetrics_tpu_torch.metric import Metric
+
+CPU = "cpu"
+_RNG = np.random.RandomState(55)
+N, BATCHES = 32, 3
+
+
+class _Sum(Metric):
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("x", torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("n", torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
+
+    def update(self, v):
+        self.x = self.x + v
+        self.n = self.n + 1
+
+    def compute(self):
+        return self.x
+
+
+class _JSum(JMetric):
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("x", jnp.asarray(0.0), dist_reduce_fx="sum")
+        self.add_state("n", jnp.asarray(0, jnp.int32), dist_reduce_fx="sum")
+
+    def update(self, v):
+        self.x = self.x + v
+        self.n = self.n + 1
+
+    def compute(self):
+        return self.x
+
+
+@pytest.mark.parametrize("tdt,jdt", [(torch.bfloat16, jnp.bfloat16), (torch.float16, jnp.float16)], ids=["bf16", "f16"])
+def test_set_dtype(tdt, jdt):
+    m, jm = _Sum(device=CPU), _JSum()
+    m.update(torch.tensor(1.0))
+    jm.update(1.0)
+    assert m.set_dtype(tdt) is m
+    jm.set_dtype(jdt)
+    assert m.x.dtype == tdt and str(m.x.dtype).removeprefix("torch.") == str(jm.x.dtype)
+    assert m._defaults["x"].dtype == tdt and m.n.dtype == torch.int32 == m._defaults["n"].dtype
+    assert m.dtype == tdt
+    m.reset()
+    assert m.x.dtype == tdt
+
+
+def test_dtype_family_and_cpu():
+    m = _Sum(device=CPU)
+    assert m.dtype == torch.float32
+    assert m.double().x.dtype == torch.float64 and m.n.dtype == torch.int32
+    assert m.half().x.dtype == torch.float16
+    assert m.float().x.dtype == torch.float32
+    assert m.type(torch.bfloat16).x.dtype == torch.bfloat16
+    assert m.cpu() is m and m.device.type == "cpu" and m.x.device.type == "cpu"
+
+
+def test_set_dtype_casts_sketch_leaves_one_by_one():
+    """A Quantile's KLL items, min and max become float64; its sizes,
+    compactions, count and overflow keep int32 and bool; default and live
+    state alike, and the metric keeps working."""
+    m = T.Quantile(q=[0.25, 0.75], capacity=64, levels=10, device=CPU)
+    m.update(torch.randn(500))
+    m.set_dtype(torch.float64)
+    for state in (m.sketch, m._defaults["sketch"]):
+        assert state.items.dtype == state.minimum.dtype == state.maximum.dtype == torch.float64
+        assert state.sizes.dtype == state.compactions.dtype == state.count.dtype == torch.int32
+        assert state.overflow.dtype == torch.bool
+    m.update(torch.randn(300, dtype=torch.float64))
+    assert int(m.sketch.count) == 800 and m.compute().dtype == torch.float64
+    m.reset()
+    assert m.sketch.items.dtype == torch.float64
+
+
+def test_collection_set_dtype():
+    col = T.MetricCollection({"sum": T.SumMetric(device=CPU), "mean": T.MeanMetric(device=CPU)})
+    jcol = J.MetricCollection({"sum": J.SumMetric(), "mean": J.MeanMetric()})
+    assert col.set_dtype(torch.float16) is col
+    jcol.set_dtype(jnp.float16)
+    for name in ("sum", "mean"):
+        for key in col[name]._defaults:
+            assert str(getattr(col[name], key).dtype).removeprefix("torch.") == str(getattr(jcol[name], key).dtype)
+
+
+# ---------------------------------------------------- low-precision inputs
+
+
+def _prob_batches():
+    return [(_RNG.rand(N).astype(np.float32), _RNG.randint(0, 2, N)) for _ in range(BATCHES)]
+
+
+def _logit_batches(c=5):
+    return [(_RNG.randn(N, c).astype(np.float32), _RNG.randint(0, c, N)) for _ in range(BATCHES)]
+
+
+def _reg_batches():
+    return [(_RNG.randn(N).astype(np.float32), _RNG.randn(N).astype(np.float32)) for _ in range(BATCHES)]
+
+
+# (id, port class, JAX class, args, batches, relative tolerance): the JAX rows
+_DTYPE_SUITE = [
+    ("binary_accuracy", TC.BinaryAccuracy, JC.BinaryAccuracy, {}, _prob_batches(), 5e-2),
+    ("multiclass_accuracy", TC.MulticlassAccuracy, JC.MulticlassAccuracy, {"num_classes": 5}, _logit_batches(), 2e-2),
+    ("multiclass_confmat_f1", TC.MulticlassF1Score, JC.MulticlassF1Score, {"num_classes": 5}, _logit_batches(), 2e-2),
+    ("multiclass_confmat", TC.MulticlassConfusionMatrix, JC.MulticlassConfusionMatrix, {"num_classes": 5}, _logit_batches(), 2e-2),
+    ("binary_auroc_binned", TC.BinaryAUROC, JC.BinaryAUROC, {"thresholds": 11}, _prob_batches(), 5e-2),
+    ("mse", T.MeanSquaredError, J.MeanSquaredError, {}, _reg_batches(), 3e-2),
+    ("mae", T.MeanAbsoluteError, J.MeanAbsoluteError, {}, _reg_batches(), 2e-2),
+    ("pearson", T.PearsonCorrCoef, J.PearsonCorrCoef, {}, _reg_batches(), 5e-2),
+    ("explained_variance", T.ExplainedVariance, J.ExplainedVariance, {}, _reg_batches(), 8e-2),
+    ("cosine_similarity", T.CosineSimilarity, J.CosineSimilarity, {"reduction": "mean"},
+     [(_RNG.randn(8, 6).astype(np.float32), _RNG.randn(8, 6).astype(np.float32)) for _ in range(BATCHES)], 3e-2),
+    ("mean_metric", T.MeanMetric, J.MeanMetric, {}, [(_RNG.randn(N).astype(np.float32),) for _ in range(BATCHES)], 2e-2),
+    ("sum_metric", T.SumMetric, J.SumMetric, {}, [(_RNG.randn(N).astype(np.float32),) for _ in range(BATCHES)], 2e-2),
+]
+
+
+def _value(x):
+    return np.asarray(x.detach().to(torch.float32).numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32), np.float64)
+
+
+@pytest.mark.parametrize("name,tcls,jcls,args,batches,tol", _DTYPE_SUITE, ids=[c[0] for c in _DTYPE_SUITE])
+@pytest.mark.parametrize("tdt,jdt", [(torch.bfloat16, jnp.bfloat16), (torch.float16, jnp.float16)], ids=["bf16", "f16"])
+def test_dtype_robustness(name, tcls, jcls, args, batches, tol, tdt, jdt):
+    base, low = tcls(device=CPU, **args), tcls(device=CPU, **args)
+    jlow = jcls(**args)
+    for batch in batches:
+        base.update(*[torch.from_numpy(a) for a in batch])
+        low.update(*[torch.from_numpy(a).to(tdt) if a.dtype.kind == "f" else torch.from_numpy(a) for a in batch])
+        jlow.update(*[jnp.asarray(a).astype(jdt) if a.dtype.kind == "f" else jnp.asarray(a) for a in batch])
+    for key, default in low._defaults.items():
+        value = getattr(low, key)
+        if isinstance(value, list):
+            continue
+        if value.dtype.is_floating_point:
+            assert value.dtype == default.dtype, f"{name}.{key}: accumulator dtype degraded to {value.dtype}"
+        assert str(value.dtype).removeprefix("torch.") == str(jnp.asarray(getattr(jlow, key)).dtype), (name, key)
+    ref, got, jgot = _value(base.compute()), _value(low.compute()), _value(jlow.compute())
+    scale = max(1.0, float(np.max(np.abs(ref))))
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * scale, err_msg=name)
+    np.testing.assert_allclose(got, jgot, rtol=tol, atol=tol * scale, err_msg=f"{name} against JAX")

@@ -3,8 +3,8 @@
 """The port's ``StreamingEvaluator`` on the CPU, against the JAX package's.
 
 The counterparts of ``tests/unittests/bases/test_durability.py``:
-kill-and-resume parity for the elementwise and cat regimes (the sketch
-regime waits for ROADMAP A9), a kill between snapshots, empty and dirty
+kill-and-resume parity for the elementwise, cat and sketch regimes (the
+sketch states leaf for leaf bitwise), a kill between snapshots, empty and dirty
 stores, a short stream, torn writes and bitrot mid-run, the collection's
 kill and resume, its never-half-applied restore and member drift, both
 ``on_stall`` policies, the time policy, a custom ``update_fn`` over
@@ -62,6 +62,11 @@ def _bin_batches(seed=1, n=N_BATCHES, size=32):
     return [(rng.rand(size).astype(np.float32), rng.randint(0, 2, size).astype(np.int32)) for _ in range(n)]
 
 
+def _sketch_batches(seed=2, n=N_BATCHES, size=2048):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(size).astype(np.float32),) for _ in range(n)]
+
+
 def _t(batches):
     return [tuple(torch.from_numpy(x) for x in b) for b in batches]
 
@@ -74,10 +79,11 @@ def _kw(pkg):
     return {} if pkg is J else {"device": "cpu"}
 
 
-#: (label, metric factory(pkg), batch stream factory) for the two ported state regimes
+#: (label, metric factory(pkg), batch stream factory) for the three state regimes
 REGIMES = [
     ("elementwise", lambda p: p.classification.MulticlassAccuracy(num_classes=5, **_kw(p)), _cls_batches),
     ("cat", lambda p: p.classification.BinaryAveragePrecision(**_kw(p)), _bin_batches),
+    ("sketch", lambda p: p.Quantile(q=[0.25, 0.75], capacity=256, levels=14, **_kw(p)), _sketch_batches),
 ]
 
 
@@ -106,6 +112,12 @@ def _assert_state_parity(got, want, label):
     assert set(got_tree) == set(want_tree), label
     assert int(got_tree.pop("_update_count")) == int(want_tree.pop("_update_count")), label
     for key, want_val in want_tree.items():
+        if hasattr(want_val, "_fields"):  # a sketch state: leaf by leaf
+            for field, g, w in zip(type(want_val)._fields, got_tree[key], want_val):
+                g, w = np.atleast_1d(_np(g)), np.atleast_1d(_np(w))
+                assert g.dtype == w.dtype and g.shape == w.shape, (label, key, field)
+                np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8), err_msg=f"{label}:{key}.{field}")
+            continue
         g, w = _leaf(got_tree[key]), _leaf(want_val)
         assert (g is None) == (w is None), f"{label}:{key}"
         if w is None:
@@ -561,6 +573,7 @@ def _jax_kill_at(ev, batches, kill_after):
 
 TARGETS = [
     ("accuracy", lambda p: p.classification.MulticlassAccuracy(num_classes=5, **_kw(p)), _cls_batches),
+    ("quantile", REGIMES[2][1], _sketch_batches),
     ("suite", _headline, _prob_batches),
 ]
 

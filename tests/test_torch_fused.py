@@ -6,8 +6,10 @@ The same seeded numpy batches go through ``torchmetrics_tpu`` (its fused
 plan, a jitted step on JAX's CPU backend) and ``torchmetrics_tpu_torch``
 (``device="cpu"``: the same step run eagerly). Mirrors
 ``tests/unittests/bases/test_fused.py`` case by case where the JAX case needs
-nothing the port has left for later (the sharded plan, sketch states, the
-durable runner, telemetry and the step cache are not ported).
+nothing the port has left for later (telemetry and the step cache); the
+sharded plan's cases are in ``tests/test_torch_sharded.py`` and, for sketch
+members (``test_fused_sharded_sketch_parity``), in
+``tests/test_torch_sketch_ranks.py``.
 
 Budgets: integer states are bitwise; CatBuffer ``data``/``count``/
 ``overflowed`` are bitwise on probability inputs; values from probabilities
@@ -264,6 +266,103 @@ def test_fused_bare_metric_and_new_batch_shape():
         plan.update(*b)  # numpy batches
     plan.fold_back()
     assert torch.equal(ref.compute(), fus.compute()) and fus._update_count == 3
+
+
+def _sketch_suite(pkg):
+    """A collection of sketch ("merge") members: Quantile, DriftScore,
+    Cardinality and HeavyHitters."""
+    kw = {} if pkg is J else {"device": "cpu"}
+    drift = pkg.drift
+    ref = np.linspace(-2.0, 2.0, 200, dtype=np.float32)
+    return pkg.MetricCollection({
+        "q": pkg.Quantile(q=[0.1, 0.9], capacity=64, levels=12, **kw),
+        "drift": drift.DriftScore(ref if pkg is J else torch.from_numpy(ref), bins=16, lo=-2.0, hi=2.0, **kw),
+        "card": drift.Cardinality(precision=6, **kw),
+        "hh": drift.HeavyHitters(depth=2, width=64, k=4, **kw),
+    }, compute_groups=False)
+
+
+@pytest.mark.parametrize("mode", ["update", "scan"])
+def test_fused_sketch_members_equal_unfused_and_jax(mode):
+    """Sketch members ride the fused carry leaf by leaf: fused == unfused
+    bitwise in the port, and the fused carry equals JAX's fused plan's."""
+    import torchmetrics_tpu.drift  # noqa: F401 - J.drift
+    import torchmetrics_tpu_torch.drift  # noqa: F401 - T.drift
+
+    rng = np.random.default_rng(31)
+    batches = [(rng.standard_normal(40).astype(np.float32),) for _ in range(5)]
+    members = ("q", "drift", "card", "hh")
+    ref, fus, jfus = _sketch_suite(T), _sketch_suite(T), _sketch_suite(J)
+    for name in members:
+        for b in batches:
+            dict.__getitem__(ref, name).update(torch.from_numpy(b[0]))
+    plan, jplan = fus.fused(), jfus.fused()
+    if mode == "update":
+        for b in batches:
+            plan.update(torch.from_numpy(b[0]))
+            jplan.update(jnp.asarray(b[0]))
+    else:
+        plan.run_scan([(torch.from_numpy(b[0]),) for b in batches])
+        jplan.run_scan([(jnp.asarray(b[0]),) for b in batches])
+    for name in members:
+        carried, jcarried = plan.state["members"][name], jplan.state["members"][name]
+        for state, value in carried.items():
+            if state == "_update_count":
+                assert int(value) == int(jcarried[state]) == 5
+                continue
+            for field, got, want in zip(value._fields, value, jcarried[state]):
+                got, want = np.atleast_1d(got.numpy()), np.atleast_1d(np.asarray(want))
+                assert got.dtype == want.dtype and np.array_equal(got.view(np.uint8), want.view(np.uint8)), (name, state, field)
+    plan.fold_back()
+    for name in members:
+        t_ref, t_fus = dict.__getitem__(ref, name), dict.__getitem__(fus, name)
+        for state in t_ref._defaults:
+            for got, want in zip(getattr(t_fus, state), getattr(t_ref, state)):
+                assert torch.equal(got, want), (name, state)
+        assert t_fus._update_count == 5
+
+
+@pytest.fixture
+def single_rank_mesh():
+    """A one-rank gloo group (an in-process store, no port) and its DeviceMesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fused_sharded_sketch_parity(single_rank_mesh):
+    """Sketch ("merge") members of the sharded fused plan == ``sharded_update``
+    bitwise, the first event loaded rather than merged into the empty
+    default; both == JAX's ``FusedCollectionPlan(mesh=...)`` on a one-device
+    mesh. Two ranks: ``tests/test_torch_sketch_ranks.py``."""
+    import jax
+    from jax.sharding import Mesh
+
+    from torchmetrics_tpu.parallel import FusedCollectionPlan as JPlan
+    from torchmetrics_tpu_torch.parallel import sharded_update
+
+    rng = np.random.default_rng(33)
+    batches = [(rng.standard_normal(256).astype(np.float32),) for _ in range(4)]
+    ref = T.Quantile(q=[0.25, 0.75], capacity=64, levels=10, device="cpu")
+    fus = T.Quantile(q=[0.25, 0.75], capacity=64, levels=10, device="cpu")
+    jfus = J.Quantile(q=[0.25, 0.75], capacity=64, levels=10)
+    plan = T.MetricCollection({"q": fus}).fused(mesh=single_rank_mesh)
+    jplan = JPlan(jfus, mesh=Mesh(np.array(jax.devices()[:1]), ("data",)))
+    for (x,) in batches:
+        sharded_update(ref, single_rank_mesh, torch.from_numpy(x))
+        plan.update(torch.from_numpy(x))
+        jplan.update(jnp.asarray(x))
+    plan.fold_back()
+    jplan.fold_back()
+    for field, got, want, jax_leaf in zip(ref.sketch._fields, fus.sketch, ref.sketch, jfus.sketch):
+        assert torch.equal(got, want), field
+        assert np.array_equal(np.atleast_1d(got.numpy()), np.atleast_1d(np.asarray(jax_leaf))), field
+    assert torch.equal(fus.compute(), ref.compute()) and fus._update_count == 4
 
 
 # ------------------------------------------------------- donation & buffers

@@ -194,3 +194,33 @@ def test_store_format_copy_behaves_as_jax_on_one_store(tmp_path):
         kept[tag] = mod.prune_entries(directory, mod.read_manifest(directory), 1)
         assert sorted(os.listdir(directory)) == [tfmt.MANIFEST_NAME, tfmt.snapshot_filename(8)]
     assert kept["jax"] == kept["port"]
+
+
+@pytest.mark.parametrize("rel", ["sketch", "drift", "ops/cm_track.py"])
+def test_sketch_drift_and_k3_import_no_jax(rel):
+    """The sketch and drift subpackages and K3's wrapper name no JAX module
+    and nothing of ``torchmetrics_tpu`` (the AST scan, file by file)."""
+    path = PORT / rel
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files
+    for f in files:
+        bad = [name for name in _imports(f) if _is_forbidden(name)]
+        assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
+
+
+#: names of the JAX package's ``__all__`` whose wait is documented: the
+#: sliced and windowed planes (ROADMAP A10)
+_WAITING = {
+    "parallel": {"SliceTable", "SlicedPlan", "WindowRing", "slice_key_reason", "slice_table_size_reason", "sliced_ineligibility"},
+}
+
+
+@pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel"])
+def test_subpackage_exports_equal_jax(sub):
+    import importlib
+
+    jmod = importlib.import_module(f"torchmetrics_tpu.{sub}")
+    tmod = importlib.import_module(f"torchmetrics_tpu_torch.{sub}")
+    assert sorted(tmod.__all__) == sorted(set(jmod.__all__) - _WAITING.get(sub, set()))
+    for name in tmod.__all__:
+        assert hasattr(tmod, name), name

@@ -22,6 +22,9 @@ Wrappers (MinMax, Classwise, BootStrapper, Multioutput, Multitask, the
 tracker) and metric arithmetic on the card compute what they compute on the
 CPU, with K1 and K2 launching under them; a card metric plots what a CPU
 one plots (matplotlib, where installed).
+The sketch plane on the card equals it on the CPU; K3 (the Count-Min
+table's scan) equals its loop bitwise, and the one-metric step of
+``make_jit_update`` captures and equals eager updates.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -764,6 +767,93 @@ def test_two_ranks_share_the_card_through_gloo(card, tmp_path):
     for rank, (rc, out) in enumerate(run_workers(Path(__file__), "cuda", tmp_path, timeout=300)):
         assert rc == 0, f"rank {rank} failed:\n{out}"
         assert f"rank {rank}: card sync checks passed" in out, out
+
+
+@pytest.mark.parametrize("n", [1, 33, 5000])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 1024])
+def test_cm_track_matches_plain(card, k, n):
+    """K3 against the scan as a loop, bitwise, on Zipf-like tags (hot keys
+    that get tracked, a long tail that competes for the minimum slot), from a
+    table that already holds some keys; the launch counter moves."""
+    from torchmetrics_tpu_torch.ops import cm_track, cm_track_plain
+
+    rng = np.random.default_rng(k * 7 + n)
+    tags = torch.from_numpy((rng.zipf(1.3, n) % 5000).astype(np.int32) - 2500)
+    ests = torch.from_numpy(rng.integers(0, 60, n).astype(np.int32))
+    keys = torch.from_numpy(rng.integers(0, 2**32, k, dtype=np.int64)).to(torch.uint32)
+    counts = torch.from_numpy(rng.integers(0, 3, k).astype(np.int32))
+    want = cm_track_plain(tags, ests, keys, counts)
+    before = cm_track.launches
+    got = cm_track(tags.to(card), ests.to(card), keys.to(card), counts.to(card))
+    torch.cuda.synchronize()
+    assert cm_track.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu().to(torch.int64), w.to(torch.int64))
+
+
+def test_sketch_plane_on_the_card_equals_cpu(card):
+    """Every sketch updated and merged on the card equals the same on the
+    CPU: integer leaves, the histogram, HLL, Count-Min (K3 inside) and the
+    reservoir bitwise; KLL items as floats (a radix sort may order -0 and +0
+    apart); quantiles bitwise; the moments within rtol 1e-5 (sums in another order)."""
+    from torchmetrics_tpu_torch import sketch as sk
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(20000).astype(np.float32)
+    x[::97] = 0.0
+    x[1::97] = -0.0
+    tags = (rng.zipf(1.3, 20000) % 100000).astype(np.int32)
+    cases = [
+        (lambda d: sk.kll_init(256, 14, device=d), sk.kll_update, sk.kll_merge, x),
+        (lambda d: sk.hist_init(64, -3.0, 3.0, device=d), sk.hist_update, sk.hist_merge, x),
+        (lambda d: sk.hll_init(12, device=d), sk.hll_update, sk.hll_merge, tags),
+        (lambda d: sk.cm_init(4, 1024, 32, device=d), sk.cm_update, sk.cm_merge, tags),
+        (lambda d: sk.reservoir_init(512, seed=3, rank=1, device=d), sk.reservoir_update, sk.reservoir_merge, x),
+        (lambda d: sk.moments_init((), device=d), sk.moments_update, sk.moments_merge, x),
+    ]
+    for init, update, merge, data in cases:
+        halves = np.split(data, 2)
+        out = {}
+        for dev in ("cpu", card):
+            a = update(init(dev), torch.from_numpy(halves[0]).to(dev))
+            b = update(init(dev), torch.from_numpy(halves[1]).to(dev))
+            out[str(dev)] = merge(a, b)
+        cpu, gpu = out["cpu"], out[str(card)]
+        for field, c, g in zip(cpu._fields, cpu, gpu):
+            g = g.cpu()
+            assert g.dtype == c.dtype and g.shape == c.shape, (type(cpu).__name__, field)
+            if type(cpu).__name__ == "MomentsSketch" and c.dtype.is_floating_point:
+                assert torch.allclose(g, c, rtol=1e-5, atol=1e-6), field
+            elif c.dtype.is_floating_point:
+                assert torch.equal(g, c), (type(cpu).__name__, field)  # float equality: -0 == +0
+            else:
+                assert torch.equal(g.to(torch.int64), c.to(torch.int64)), (type(cpu).__name__, field)
+        if type(cpu).__name__ == "KLLSketch":
+            qs = torch.tensor([0.01, 0.5, 0.99])
+            assert torch.equal(sk.kll_quantile(gpu, qs.to(card)).cpu(), sk.kll_quantile(cpu, qs))
+
+
+def test_jit_update_step_captures_and_equals_eager(card):
+    """make_jit_update on the card: the first call runs eagerly, the second
+    captures a CUDA graph and later calls replay it; the folded state equals
+    eager updates bitwise, and a donated carry is updated in place."""
+    from torchmetrics_tpu_torch.parallel import fold_jit_state, make_jit_update
+
+    rng = np.random.default_rng(6)
+    batches = [torch.from_numpy(rng.standard_normal(4096).astype(np.float32)).to(card) for _ in range(6)]
+    eager = T.Quantile(q=[0.5, 0.99], device=card)
+    for b in batches:
+        eager.update(b)
+    for donate in (False, True):
+        metric = T.Quantile(q=[0.5, 0.99], device=card)
+        step, state = make_jit_update(metric, donate=donate)
+        for b in batches:
+            state = step(state, b)
+        assert len(step._captured) == 1
+        fold_jit_state(metric, state)
+        for got, want in zip(metric.sketch, eager.sketch):
+            assert torch.equal(got, want)
+        assert metric._update_count == 6 and torch.equal(metric.compute(), eager.compute())
 
 
 # last in the file: it makes one capture fail on purpose

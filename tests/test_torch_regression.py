@@ -611,8 +611,52 @@ def test_module_shape_errors_match_jax():
 
 
 def test_spearman_bounded_mode_is_refused_naming_a9():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TR.SpearmanCorrCoef(num_bins=64, device="cpu")
+    """(Once a refusal; now the parity of the same scope.) Bounded Spearman
+    (``num_bins=``) equals JAX's on the same stream: both KLL sketches and
+    the float32 joint grid bitwise (a scatter-add of 1.0, exact below 2**24
+    per cell), rho within ``rtol=1e-5`` (its sums add in another order);
+    ``num_outputs > 1`` raises JAX's error."""
+    rng = np.random.default_rng(613)
+    jm, tm = JR.SpearmanCorrCoef(num_bins=32), TR.SpearmanCorrCoef(num_bins=32, device="cpu")
+    for i in range(3):
+        x = rng.standard_normal(900).astype(np.float32)
+        y = (0.6 * x + rng.standard_normal(900)).astype(np.float32)
+        jm.update(jnp.asarray(x), jnp.asarray(y))
+        tm.update(torch.from_numpy(x), torch.from_numpy(y))
+    for state in ("preds_sketch", "target_sketch"):
+        for got, want in zip(getattr(tm, state), getattr(jm, state)):
+            assert np.array_equal(_np(got), _np(want)) and _np(got).dtype == _np(want).dtype, state
+    assert np.array_equal(_np(tm.joint), _np(jm.joint)) and tm.joint.dtype == torch.float32
+    _close(tm.compute(), jm.compute(), rtol=1e-5, atol=0.0, what="rho")
+    assert _raised(JR.SpearmanCorrCoef, num_outputs=3, num_bins=32) == _raised(
+        TR.SpearmanCorrCoef, num_outputs=3, num_bins=32, device="cpu"
+    )
+
+
+@pytest.mark.parametrize("kind", ["functional", "module"])
+def test_csi_keeps_the_only_dim_as_jax_does(kind):
+    """``keep_sequence_dim`` naming the input's only dim reduces nothing, as
+    ``jnp.sum(axis=())`` does: per-position counts, and the CSI per position."""
+    if kind == "functional":
+        preds = np.asarray([0.1, 0.5, 0.9, 0.4], np.float32)
+        target = np.asarray([0.6, 0.5, 0.2, 0.1], np.float32)
+        want = JF.critical_success_index(jnp.asarray(preds), jnp.asarray(target), 0.3, keep_sequence_dim=0)
+        got = TF.critical_success_index(torch.from_numpy(preds), torch.from_numpy(target), 0.3, keep_sequence_dim=0)
+        assert np.array_equal(_np(got), np.asarray([0.0, 1.0, 0.0, 0.0], np.float32))
+        _close(got, want, rtol=0.0, atol=0.0)
+        return
+    rng = np.random.default_rng(3)
+    jm, tm = JR.CriticalSuccessIndex(0.5, keep_sequence_dim=0), TR.CriticalSuccessIndex(0.5, keep_sequence_dim=0, device="cpu")
+    for _ in range(3):
+        preds, target = rng.random(50).astype(np.float32), rng.random(50).astype(np.float32)
+        jm.update(jnp.asarray(preds), jnp.asarray(target))
+        tm.update(torch.from_numpy(preds), torch.from_numpy(target))
+    for name in ("hits_list", "misses_list", "false_alarms_list"):
+        for got, want in zip(getattr(tm, name), getattr(jm, name)):
+            assert _np(got).dtype == _np(want).dtype == np.int32 and np.array_equal(_np(got), _np(want)), name
+    got, want = tm.compute(), jm.compute()
+    assert tuple(got.shape) == (150,)
+    _close(got, want, rtol=0.0, atol=0.0)
 
 
 def test_exports_equal_jax():

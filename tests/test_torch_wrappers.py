@@ -537,10 +537,8 @@ def test_wrappers_never_join_a_compute_group():
 
 # ----------------------------------------------------------------- exports
 
-# the JAX package's top-level names whose domains are not ported yet (ROADMAP A9, A14)
+# the JAX package's top-level names whose domains are not ported yet (ROADMAP A14)
 NOT_PORTED = {
-    # aggregation's sketch-backed metrics (A9)
-    "Median", "Quantile",
     # audio
     "ComplexScaleInvariantSignalNoiseRatio", "DeepNoiseSuppressionMeanOpinionScore", "PerceptualEvaluationSpeechQuality",
     "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",

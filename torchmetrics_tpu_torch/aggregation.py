@@ -3,7 +3,8 @@
 """Aggregation metrics (counterpart of ``torchmetrics_tpu/aggregation.py``):
 ``BaseAggregator`` with its NaN strategies, ``MaxMetric``, ``MinMetric``,
 ``SumMetric``, ``CatMetric``, the weighted ``MeanMetric`` and the windowed
-``RunningMean``/``RunningSum``.
+``RunningMean``/``RunningSum``, and the streaming ``Quantile``/``Median``
+over a KLL sketch (a ``dist_reduce_fx="merge"`` state).
 
 Values of any kind (Python scalars, numpy arrays, tensors) become float32
 tensors on the metric's device. The ``"ignore"`` and float-imputation
@@ -13,33 +14,21 @@ the NaN entries with boolean indexing. Inside a fused plan's step (captured
 on the card, eager on the CPU) the probe is skipped and NaNs pass unmasked,
 as under the JAX package's ``jit``: dropping them would make the value's
 shape depend on its data.
-
-``Quantile`` and ``Median`` keep a KLL sketch synced by ``"merge"``, which
-is not ported yet (ROADMAP A9): importing either name raises, naming it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.sketch.quantile import kll_error_bound, kll_geometry, kll_init, kll_levels_for, kll_quantile, kll_update
 from torchmetrics_tpu_torch.utilities.checks import _in_fused_step, _is_concrete
 from torchmetrics_tpu_torch.utilities.data import _to_tensor, dim_zero_cat
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 from torchmetrics_tpu_torch.wrappers.running import Running
 
 Tensor = torch.Tensor
-
-_NOT_PORTED = ("Quantile", "Median")
-
-
-def __getattr__(name: str) -> Any:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} keeps a KLL sketch synced by dist_reduce_fx='merge', which is not ported yet (ROADMAP A9)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class BaseAggregator(Metric):
@@ -187,6 +176,92 @@ class MeanMetric(BaseAggregator):
         return self.mean_value / self.weight
 
 
+class Quantile(BaseAggregator):
+    """Streaming quantile(s) in bounded memory via a KLL sketch.
+
+    The ``dist_reduce_fx="merge"`` counterpart of ``CatMetric`` plus a
+    quantile: the state is a fixed-shape
+    :class:`~torchmetrics_tpu_torch.sketch.KLLSketch` (it rides the fused
+    plan and the captured step, syncs by pairwise merge and checkpoints like
+    any state), and every query's rank error is bounded by ``eps * n``; the
+    live bound for the current stream is :meth:`error_bound`.
+
+    Args:
+        q: quantile (or sequence of quantiles) in ``[0, 1]`` to report.
+        eps: target worst-case rank-error fraction; the sketch geometry is
+            sized from it (ignored when ``capacity`` is given).
+        max_n: stream length the ``eps`` sizing must hold for.
+        capacity/levels: explicit sketch geometry.
+        nan_strategy: as every aggregator (``"error"|"warn"|"ignore"|float``);
+            ``"ignore"`` drops NaNs on the host, so it cannot run inside a
+            fused plan's or a captured step.
+    """
+
+    full_state_update = False
+
+    def __init__(
+        self,
+        q: Union[float, Sequence[float]] = 0.5,
+        eps: float = 0.01,
+        max_n: float = 1e8,
+        capacity: Optional[int] = None,
+        levels: Optional[int] = None,
+        nan_strategy: Union[str, float] = "warn",
+        **kwargs: Any,
+    ) -> None:
+        q_arr = torch.as_tensor(q, dtype=torch.float32)
+        if bool(torch.any((q_arr < 0) | (q_arr > 1))):
+            raise ValueError(f"Expected quantile(s) `q` in [0, 1], but got {q}")
+        if capacity is None:
+            capacity, sized_levels = kll_geometry(eps, max_n)
+            levels = sized_levels if levels is None else levels
+        elif levels is None:
+            # levels come from the GIVEN capacity: a smaller buffer needs MORE
+            # levels to absorb max_n before the overflow latch voids the bound
+            levels = kll_levels_for(capacity, max_n)
+        # built on the CPU; add_state copies the default to the metric's device
+        default = kll_init(capacity=capacity, levels=levels, device="cpu")
+        super().__init__("merge", default, nan_strategy, state_name="sketch", **kwargs)
+        self.q = q_arr.to(self._device)
+        self.eps = eps
+
+    def update(self, value: Union[float, Tensor]) -> None:
+        if self.nan_strategy == "ignore":
+            # a sketch point has no weight channel to zero: dropping NaNs makes
+            # the batch's size depend on its values, which only an eager update can do
+            value = _to_tensor(value, self._device).to(torch.float32).reshape(-1)
+            if _in_fused_step() or not _is_concrete(value):
+                raise ValueError(
+                    "Quantile(nan_strategy='ignore') cannot run inside a traced update (dropping"
+                    " NaNs is data-dependent-shape); use a float imputation strategy or pre-filter"
+                )
+            value = value[~torch.isnan(value)]
+        else:
+            value, _ = self._cast_and_nan_check_input(value)
+        if value.numel():
+            self.sketch = kll_update(self.sketch, value)
+
+    def compute(self) -> Tensor:
+        """The ``q``-quantile(s) of everything streamed so far."""
+        return kll_quantile(self.sketch, self.q)
+
+    def error_bound(self) -> Tensor:
+        """Hard deterministic bound on the rank error of :meth:`compute`
+        (``sum_l compactions[l] * 2**l``; divide by ``n`` for the fraction)."""
+        return kll_error_bound(self.sketch)
+
+    def _apply(self, fn: Callable[[Tensor], Tensor]) -> None:
+        super()._apply(fn)
+        self.q = self.q.to(self._device)
+
+
+class Median(Quantile):
+    """Streaming median in bounded memory: ``Quantile(q=0.5)``."""
+
+    def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        super().__init__(q=0.5, nan_strategy=nan_strategy, **kwargs)
+
+
 class RunningMean(Running):
     """Mean over the last ``window`` updates."""
 
@@ -201,4 +276,14 @@ class RunningSum(Running):
         super().__init__(base_metric=SumMetric(nan_strategy=nan_strategy, **kwargs), window=window)
 
 
-__all__ = ["CatMetric", "MaxMetric", "MeanMetric", "MinMetric", "RunningMean", "RunningSum", "SumMetric"]
+__all__ = [
+    "CatMetric",
+    "MaxMetric",
+    "MeanMetric",
+    "Median",
+    "MinMetric",
+    "Quantile",
+    "RunningMean",
+    "RunningSum",
+    "SumMetric",
+]

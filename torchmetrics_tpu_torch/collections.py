@@ -395,6 +395,12 @@ class MetricCollection(dict):
         for k, m in self._base_metrics.items():
             m.load_state_dict(state_dict, strict=strict, prefix=f"{k}.")
 
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        """Cast every member's floating states to ``dst_type`` (``Metric.set_dtype``)."""
+        for m in self._base_metrics.values():
+            m.set_dtype(dst_type)
+        return self
+
     def to(self, device) -> "MetricCollection":
         for m in self._base_metrics.values():
             m.to(device)

@@ -18,8 +18,13 @@ Tensor = torch.Tensor
 
 
 def _count(mask: Tensor, sum_dims: Optional[Tuple[int, ...]]) -> Tensor:
+    """``jnp.sum(mask, axis=sum_dims)`` as int32. An empty ``sum_dims`` (the
+    kept dim is the only one) reduces nothing, as ``jnp.sum(axis=())`` does;
+    ``torch.sum(dim=())`` would reduce every dim."""
     if sum_dims is None:
         return mask.sum(dtype=torch.int32)
+    if not sum_dims:
+        return mask.to(torch.int32)
     return mask.sum(dim=sum_dims, dtype=torch.int32)
 
 

@@ -29,8 +29,14 @@ where installed).
 States checkpoint with :meth:`Metric.save_checkpoint` /
 :meth:`Metric.load_checkpoint`, in the JAX package's format.
 
-Not ported yet (later slices, see ROADMAP.md): sketch ``"merge"`` states,
-tracing hooks, StateGuard and the sliced plane.
+A state may also be a mergeable sketch (``dist_reduce_fx="merge"``, a
+registered :mod:`~torchmetrics_tpu_torch.sketch` state: a NamedTuple of
+tensors, replaced whole by every update like any tensor state): it syncs by
+a leaf-by-leaf gather and a pairwise merge, and checkpoints as the JAX
+package's ``{"__sketch__": class, "leaves": {...}}`` payload.
+
+Not ported yet (later slices, see ROADMAP.md): tracing hooks, StateGuard and
+the sliced plane.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import torch
 from torchmetrics_tpu_torch._reduction_names import VALID_REDUCTION_NAMES
 from torchmetrics_tpu_torch.robustness import faults
 from torchmetrics_tpu_torch.robustness.sync_config import DEFAULT_SYNC_CONFIG, SyncConfig
+from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, map_leaves, merge_states, reduce_merge_states
 from torchmetrics_tpu_torch.utilities.data import (
     _flatten,
     _squeeze_if_scalar,
@@ -70,8 +77,10 @@ _REDUCTION_MAP: Dict[str, Callable] = {
     "cat": dim_zero_cat,
     "min": dim_zero_min,
     "max": dim_zero_max,
+    # sketch states: a per-rank sequence reduces by pairwise merge
+    "merge": reduce_merge_states,
 }
-assert set(_REDUCTION_MAP) | {"merge"} == set(VALID_REDUCTION_NAMES)
+assert set(_REDUCTION_MAP) == set(VALID_REDUCTION_NAMES)
 
 
 def _as_state_tensor(value: Any, device: torch.device) -> torch.Tensor:
@@ -150,6 +159,7 @@ class Metric:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
 
+        self._dtype = torch.float32
         self._defaults: Dict[str, Union[torch.Tensor, List]] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Union[str, Callable, None]] = {}
@@ -190,19 +200,30 @@ class Metric:
     ) -> None:
         """Register a metric state.
 
-        ``default`` is a tensor (a fixed-shape accumulator) or an empty list
-        (an append/``cat`` state). ``dist_reduce_fx`` is one of ``"sum"``,
-        ``"mean"``, ``"cat"``, ``"min"``, ``"max"``, a callable, or ``None``;
-        ``"merge"`` (sketch states) is not ported yet.
+        ``default`` is a tensor (a fixed-shape accumulator), an empty list
+        (an append/``cat`` state) or, with ``dist_reduce_fx="merge"``, a
+        registered mergeable sketch state (:mod:`torchmetrics_tpu_torch.sketch`).
+        ``dist_reduce_fx`` is one of ``"sum"``, ``"mean"``, ``"cat"``,
+        ``"min"``, ``"max"``, ``"merge"``, a callable, or ``None``.
         """
         if dist_reduce_fx == "merge":
-            raise NotImplementedError(
-                f"state {name!r}: dist_reduce_fx='merge' (mergeable sketch states) is not ported yet (ROADMAP A9)"
+            if not is_sketch_state(default):
+                raise ValueError(
+                    f"dist_reduce_fx='merge' requires the default of state {name!r} to be a registered"
+                    " mergeable sketch state (see torchmetrics_tpu_torch.sketch.register_sketch_state),"
+                    f" got {type(default).__name__}"
+                )
+        elif is_sketch_state(default):
+            raise ValueError(
+                f"state {name!r} holds a {type(default).__name__} sketch state — it must be registered"
+                " with dist_reduce_fx='merge' (any other reduction would mangle the state)"
             )
         if dist_reduce_fx is not None and not (dist_reduce_fx in _REDUCTION_MAP or callable(dist_reduce_fx)):
             valid = ", ".join(repr(name_) for name_ in _REDUCTION_MAP)
             raise ValueError(f"`dist_reduce_fx` must be callable or one of [{valid}, None]")
-        if isinstance(default, list):
+        if is_sketch_state(default):
+            default = map_leaves(lambda leaf: leaf.detach().to(self._device, copy=True), default)
+        elif isinstance(default, list):
             if default:
                 raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
         else:
@@ -353,7 +374,7 @@ class Metric:
             except Exception:
                 self._update_count -= 1
                 for attr, prior in prior_state.items():
-                    if isinstance(prior, tuple):
+                    if isinstance(self._defaults[attr], list):  # a (list, length) pair; a sketch state is a tuple too
                         lst, length = prior
                         del lst[length:]
                         setattr(self, attr, lst)
@@ -484,6 +505,8 @@ class Metric:
                 reduced = torch.maximum(global_state, local_state)
             elif reduce_fn == "min":
                 reduced = torch.minimum(global_state, local_state)
+            elif reduce_fn == "merge":
+                reduced = merge_states(global_state, local_state)
             elif reduce_fn == "cat":
                 if isinstance(global_state, list):
                     reduced = global_state + local_state
@@ -515,7 +538,12 @@ class Metric:
         for attr, value in input_dict.items():
             if faults._ACTIVE:  # mid-sync fault point: earlier states are already gathered
                 faults.fire("sync.state_gather")
-            if isinstance(value, list):
+            if self._reductions[attr] == "merge":
+                # a sketch state gathers leaf by leaf (each leaf a fixed-shape
+                # tensor), then regroups into one state per rank
+                gathered_leaves = [dist_sync_fn(leaf, group=group) for leaf in value]
+                output_dict[attr] = [type(value)(*per_rank) for per_rank in zip(*gathered_leaves)]
+            elif isinstance(value, list):
                 output_dict[attr] = [dist_sync_fn(v, group=group) for v in value]
             else:
                 output_dict[attr] = dist_sync_fn(value, group=group)
@@ -524,6 +552,15 @@ class Metric:
             if faults._ACTIVE:  # mid-apply fault point: earlier states are already overwritten
                 faults.fire("sync.state_apply")
             gathered = output_dict[attr]
+            if reduction_fn == "merge":
+                if faults._ACTIVE:  # deterministic corrupt-payload drill (lockstep on all ranks)
+                    idx = faults.corrupt_index("sync.sketch_state", len(gathered))
+                    if idx is not None:
+                        gathered = list(gathered)
+                        gathered[idx] = _structurally_corrupt_state(gathered[idx])
+                self._validate_merge_gather(attr, input_dict[attr], gathered)
+                setattr(self, attr, reduce_merge_states(gathered))
+                continue
             if isinstance(gathered, list) and len(gathered) == 0:
                 setattr(self, attr, [])
                 continue
@@ -537,6 +574,30 @@ class Metric:
                 raise TypeError("reduction_fn must be callable or None")
             reduced = reduction_fn(gathered) if reduction_fn is not None else gathered
             setattr(self, attr, reduced)
+
+    def _validate_merge_gather(self, attr: str, template: Any, gathered: List[Any]) -> None:
+        """Check every rank's gathered sketch state against the local one
+        before merging: a corrupt payload (wrong class, missing leaf,
+        reshaped or re-typed leaf) raises :class:`SyncError` naming the state
+        and the rank instead of failing inside the merge, or merging garbage."""
+        for rank, state in enumerate(gathered):
+            if type(state) is not type(template):
+                raise SyncError(
+                    f"merge-state gather: state {attr!r} from rank {rank} has class"
+                    f" {type(state).__name__}, expected {type(template).__name__} — corrupt payload"
+                )
+            if len(state) != len(template):
+                raise SyncError(
+                    f"merge-state gather: state {attr!r} from rank {rank} has {len(state)} leaves,"
+                    f" expected {len(template)} — corrupt payload"
+                )
+            for got, want in zip(state, template):
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise SyncError(
+                        f"merge-state gather: state {attr!r} from rank {rank} has a leaf of"
+                        f" shape {tuple(got.shape)}/{got.dtype}, expected {tuple(want.shape)}/{want.dtype} —"
+                        " corrupt payload"
+                    )
 
     def _sync_dist_bounded(self, dist_sync_fn: Callable, process_group: Optional[Any], timeout_s: Optional[float]) -> None:
         """Run ``_sync_dist``, optionally under a wall-clock budget.
@@ -693,6 +754,8 @@ class Metric:
             current_val = getattr(self, key)
             if isinstance(current_val, list):
                 destination[prefix + key] = [v.detach().cpu().numpy().copy() for v in current_val]
+            elif is_sketch_state(current_val):
+                destination[prefix + key] = map_leaves(lambda v: v.detach().cpu().numpy().copy(), current_val)
             else:
                 destination[prefix + key] = current_val.detach().cpu().numpy().copy()
         return destination
@@ -707,6 +770,8 @@ class Metric:
                 value = state_dict[name]
                 if isinstance(value, list):
                     setattr(self, key, [_owned_tensor(v, self._device) for v in value])
+                elif is_sketch_state(value):
+                    setattr(self, key, map_leaves(lambda v: _owned_tensor(v, self._device), value))
                 else:
                     setattr(self, key, _owned_tensor(value, self._device))
             elif strict and self._persistent[key]:
@@ -724,18 +789,58 @@ class Metric:
         """The device the metric's states live on."""
         return self._device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The floating dtype of the metric's states (float32 until :meth:`set_dtype`)."""
+        return self._dtype
+
     def to(self, device: Union[str, torch.device]) -> "Metric":
         """Move every state (and its default) to ``device``."""
         self._device = resolve_device(device, type(self).__name__)
+        self._apply(lambda x: x.to(self._device))
+        self._computed = None
+        return self
+
+    def cpu(self) -> "Metric":
+        """Move every state (and its default) to the CPU."""
+        return self.to("cpu")
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the floating states and their defaults (sketch leaves one by
+        one) to ``dst_type``; integer and boolean states keep their dtype.
+        Arbitrary casting is only available through this method."""
+        self._dtype = dst_type
+        self._apply(lambda x: x.to(dst_type) if x.dtype.is_floating_point else x)
+        return self
+
+    def type(self, dst_type: torch.dtype) -> "Metric":
+        return self.set_dtype(dst_type)
+
+    def float(self) -> "Metric":
+        return self.set_dtype(torch.float32)
+
+    def double(self) -> "Metric":
+        return self.set_dtype(torch.float64)
+
+    def half(self) -> "Metric":
+        return self.set_dtype(torch.float16)
+
+    def _apply(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """``fn`` on every state tensor and on every default (list states
+        element by element, sketch states leaf by leaf)."""
         for attr, default in self._defaults.items():
             current = getattr(self, attr)
             if isinstance(current, list):
-                setattr(self, attr, [c.to(self._device) for c in current])
+                setattr(self, attr, [fn(c) for c in current])
+            elif is_sketch_state(current):
+                setattr(self, attr, map_leaves(fn, current))
             else:
-                self._defaults[attr] = default.to(self._device)
-                setattr(self, attr, current.to(self._device))
+                setattr(self, attr, fn(current))
+            if is_sketch_state(default):
+                self._defaults[attr] = map_leaves(fn, default)
+            elif not isinstance(default, list):
+                self._defaults[attr] = fn(default)
         self._computed = None
-        return self
 
     # ------------------------------------------------------------------- misc
     def _inputs(self, preds: Any, target: Any) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -757,6 +862,8 @@ class Metric:
             val = getattr(self, key)
             if isinstance(val, list):
                 hash_vals.extend(v.detach().cpu().numpy().tobytes() for v in val)
+            elif is_sketch_state(val):
+                hash_vals.extend(leaf.detach().cpu().numpy().tobytes() for leaf in val)
             else:
                 hash_vals.append(val.detach().cpu().numpy().tobytes())
         return hash(tuple(hash_vals))
@@ -885,6 +992,13 @@ class Metric:
 
     def __getitem__(self, idx: Any) -> "CompositionalMetric":
         return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _structurally_corrupt_state(state: Any) -> Any:
+    """The mutation of the ``sync.sketch_state`` fault point (drills only):
+    the first leaf gets a trailing extra axis, so the gather's check trips."""
+    first = state[0]
+    return type(state)(torch.zeros(tuple(first.shape) + (2,), dtype=first.dtype, device=first.device), *state[1:])
 
 
 def _neg(x: torch.Tensor) -> torch.Tensor:

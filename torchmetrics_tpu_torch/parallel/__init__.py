@@ -10,8 +10,9 @@
 - :mod:`~torchmetrics_tpu_torch.parallel.feed`: the double-buffered
   host→device batch feed;
 - :mod:`~torchmetrics_tpu_torch.parallel.sharded`: sharded updates over a
-  ``torch.distributed`` device mesh (``sharded_update``, ``ShardedMetric``)
-  and the partial-state merges under them.
+  ``torch.distributed`` device mesh (``sharded_update``, ``ShardedMetric``),
+  the partial-state merges under them, and the one-metric captured step
+  (``make_jit_update``, ``fold_jit_state``).
 
 Not ported yet (ROADMAP): the sliced and windowed planes (A10).
 """
@@ -27,6 +28,10 @@ from torchmetrics_tpu_torch.parallel.feed import DeviceFeed
 from torchmetrics_tpu_torch.parallel.fused import FusedCollectionPlan, fusion_ineligibility, fusion_report
 from torchmetrics_tpu_torch.parallel.sharded import (
     ShardedMetric,
+    deep_reductions,
+    deep_state_tree,
+    fold_jit_state,
+    make_jit_update,
     make_sharded_update,
     mesh_reduce_tree,
     metric_merge,
@@ -44,8 +49,12 @@ __all__ = [
     "cat_buffer_init",
     "cat_buffer_merge",
     "cat_buffer_values",
+    "deep_reductions",
+    "deep_state_tree",
+    "fold_jit_state",
     "fusion_ineligibility",
     "fusion_report",
+    "make_jit_update",
     "make_sharded_update",
     "mesh_reduce_tree",
     "metric_merge",

@@ -72,10 +72,19 @@ batches one by one (the collectives sit between the graphs). An array state
 whose reduction is ``None`` or a callable is refused, naming the member, as
 in JAX: its stacking fold would grow the carry every step.
 
+Sketch (``"merge"``) members ride the carry leaf by leaf: the local step
+writes each new leaf back in place, and the sharded fold merges the reduced
+sketch into the carry (the first event loads it, as ``sharded_update``
+does: a merge into an empty default is not the identity bit for bit).
+
+The capture machinery (the side stream, the warm-up against a scratch copy
+of the carry, the graph pool) is :class:`_GraphCapture`, which the
+one-metric step of ``parallel.sharded.make_jit_update``
+(:class:`JitUpdateStep`) shares.
+
 Not ported yet (ROADMAP): obs spans, device telemetry and cost attribution
-(A12); sketch ``"merge"`` members (A9, refused by ``Metric.add_state``); the
-cross-plan compiled-step cache; capturing NCCL collectives in the sharded
-step's graph.
+(A12); the cross-plan compiled-step cache; capturing NCCL collectives in the
+sharded step's graph.
 """
 from __future__ import annotations
 
@@ -96,6 +105,7 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
     infer_cat_layout,
 )
 from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics, mesh_reduce_tree, tree_merge
+from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, map_leaves
 from torchmetrics_tpu_torch.utilities.checks import _fused_step
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
@@ -171,28 +181,47 @@ def _resolve_members(target: Any, propagate_state: bool = True) -> Tuple[Dict[st
 
 
 def _copy_tree(tree: Any) -> Any:
-    """Deep copy of a state carry (CatBuffers with their spare row)."""
+    """Deep copy of a state carry (CatBuffers with their spare row, sketch
+    states leaf by leaf)."""
     if isinstance(tree, CatBuffer):
         return _copy(tree)
     if isinstance(tree, dict):
         return {k: _copy_tree(v) for k, v in tree.items()}
+    if is_sketch_state(tree):
+        return map_leaves(torch.clone, tree)
     return tree.clone()
 
 
 def _clone_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """Static copies of a reduced partial tree (CatBuffers with their spare row)."""
-    return {k: _copy(v) if isinstance(v, CatBuffer) else v.clone() for k, v in tree.items()}
+    """Static copies of a reduced partial tree."""
+    return {k: _copy_tree(v) for k, v in tree.items()}
+
+
+def _copy_leaves_(dst: Any, src: Any) -> None:
+    """Copy a tensor, a CatBuffer or a sketch state into ``dst`` in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for d, s_ in zip(dst, src):
+        d.copy_(s_)
 
 
 def _copy_into(static: Dict[str, Any], tree: Dict[str, Any]) -> None:
     """Copy a reduced partial tree into the static buffers of the fold graph."""
     for k, v in tree.items():
-        dst = static[k]
-        if isinstance(v, CatBuffer):
-            for d, src in zip(dst, v):
-                d.copy_(src)
-        else:
-            dst.copy_(v)
+        _copy_leaves_(static[k], v)
+
+
+def _check_kept(key: str, name: str, carried: Any, value: Any, when: str) -> None:
+    """Raise unless ``value`` has the shape and dtype of ``carried`` (leaf by
+    leaf for a sketch state): a carry keeps both."""
+    pairs = zip(carried, value) if is_sketch_state(carried) else [(carried, value)]
+    for c, v in pairs:
+        if v.shape != c.shape or v.dtype != c.dtype:
+            raise ValueError(
+                f"member {key!r}: state {name!r} changed from {tuple(c.shape)} {c.dtype}"
+                f" to {tuple(v.shape)} {v.dtype} {when}; a fused carry keeps its shape and dtype"
+            )
 
 
 def _fresh_buffers(info: "_MemberInfo", tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -204,6 +233,8 @@ def _fresh_buffers(info: "_MemberInfo", tree: Dict[str, Any], device: torch.devi
             elem, dtype = info.layout[name]
             rows = sum(torch.atleast_1d(v).shape[0] for v in value)
             out[name] = cat_buffer_init(rows, elem, dtype, device)
+        elif is_sketch_state(value):
+            out[name] = map_leaves(torch.empty_like, value)
         else:
             out[name] = torch.empty_like(value)
     return out
@@ -263,12 +294,8 @@ def _write_back(info: _MemberInfo, mstate: Dict[str, Any], tree: Dict[str, Any])
             if value:
                 _append_(carried, _concat_rows(value).to(carried.data.dtype))
         elif value is not carried:
-            if value.shape != carried.shape or value.dtype != carried.dtype:
-                raise ValueError(
-                    f"member {info.key!r}: state {name!r} changed from {tuple(carried.shape)} {carried.dtype}"
-                    f" to {tuple(value.shape)} {value.dtype} in an update; a fused carry keeps its shape and dtype"
-                )
-            carried.copy_(value)
+            _check_kept(info.key, name, carried, value, "in an update")
+            _copy_leaves_(carried, value)
     mstate["_update_count"].add_(1)
 
 
@@ -300,13 +327,9 @@ def _write_fresh(info: _MemberInfo, fresh: Dict[str, Any], tree: Dict[str, Any])
             buf.overflowed.zero_()
             if value:
                 _append_(buf, _concat_rows(value).to(buf.data.dtype))
-        elif value.shape != buf.shape or value.dtype != buf.dtype:
-            raise ValueError(
-                f"member {info.key!r}: state {name!r} changed from {tuple(buf.shape)} {buf.dtype}"
-                f" to {tuple(value.shape)} {value.dtype} between updates; a fused carry keeps its shape and dtype"
-            )
         else:
-            buf.copy_(value)
+            _check_kept(info.key, name, buf, value, "between updates")
+            _copy_leaves_(buf, value)
 
 
 def _fold_reduced(info: _MemberInfo, mstate: Dict[str, Any], reduced: Dict[str, Any]) -> None:
@@ -324,17 +347,70 @@ def _fold_reduced(info: _MemberInfo, mstate: Dict[str, Any], reduced: Dict[str, 
         weight_a=prev,
         weight_b=1,
     )
+    first = prev == 0
     for k in arrays:
-        mstate[k].copy_(torch.where(prev == 0, reduced[k], merged[k]))
+        if is_sketch_state(mstate[k]):
+            _copy_leaves_(mstate[k], [torch.where(first, r, m) for r, m in zip(reduced[k], merged[k])])
+        else:
+            mstate[k].copy_(torch.where(first, reduced[k], merged[k]))
     for k in info.list_keys:
         _merge_(mstate[k], reduced[k])
     mstate["_update_count"].add_(1)
 
 
+# ------------------------------------------------------------- capture parts
+
+
+class _GraphCapture:
+    """What capturing a step as a CUDA graph needs: a side stream for the
+    warm-ups and captures, a graph pool shared by every graph of the owner,
+    and a capture that raises (naming where it failed, see
+    :meth:`_capture_site`) instead of running the step eagerly."""
+
+    _device: torch.device
+    _pool: Any = None
+    _side: Any = None  # the side stream of warm-ups and captures
+
+    def _warm(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` once on the side stream (a warm-up: it builds the hand
+        kernels and fills their launch caches), ordered after and before the
+        current stream's work; returns what ``fn`` returns."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self._device)
+        current = torch.cuda.current_stream(self._device)
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            out = fn()
+        current.wait_stream(self._side)
+        return out
+
+    def _record(self, fn: Callable[[], None]) -> Any:
+        """``fn`` captured as a CUDA graph on the side stream (after its warm-up)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: a DeviceFeed thread may pin and copy meanwhile
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._side, capture_error_mode="thread_local"):
+                fn()
+        except Exception as err:
+            cause = err.__context__ if err.__context__ is not None else err
+            raise RuntimeError(
+                f"capturing {self._capture_site()} as a CUDA graph failed: {cause}."
+                " The step is not run eagerly instead; a host read of a device value inside update"
+                " (a value check without _is_concrete, .item(), a numpy upload) cannot be captured"
+            ) from err
+        return graph
+
+    def _capture_site(self) -> str:
+        """What was being captured, for the error of a failed capture."""
+        raise NotImplementedError
+
+
 # ------------------------------------------------------------------- the plan
 
 
-class FusedCollectionPlan:
+class FusedCollectionPlan(_GraphCapture):
     """A whole collection's update as one in-place step: one CUDA graph
     replay per batch on the card, the same step eagerly on the CPU.
 
@@ -425,8 +501,6 @@ class FusedCollectionPlan:
         self._carry = self._initial_state()
         self._captured: Dict[Any, _Captured] = {}
         self._sharded: Dict[Any, _ShardedStep] = {}
-        self._pool: Any = None
-        self._side: Any = None  # the side stream of warm-ups and captures
         self._in_member: Optional[str] = None  # the leader whose update the step is running
 
     def _initial_state(self) -> Dict[str, Any]:
@@ -445,7 +519,7 @@ class FusedCollectionPlan:
                 else:
                     # copies decouple the carry, written in place from here
                     # on, from the live metric (or a checkpoint in flight)
-                    slice_[name] = value.clone()
+                    slice_[name] = _copy_tree(value)
             slice_["_update_count"] = torch.tensor(metric._update_count, dtype=torch.int32, device=self._device)
             members[info.key] = slice_
         return {"members": members, "_update_count": torch.zeros((), dtype=torch.int32, device=self._device)}
@@ -569,40 +643,16 @@ class FusedCollectionPlan:
         self._warm(lambda: body(_copy_tree(self._carry), inputs))
         return _Captured(self._record(lambda: body(self._carry, inputs)), inputs)
 
-    def _warm(self, fn: Callable[[], Any]) -> Any:
-        """Run ``fn`` once on the side stream (a warm-up: it builds the hand
-        kernels and fills their launch caches), ordered after and before the
-        current stream's work; returns what ``fn`` returns."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self._device)
-        current = torch.cuda.current_stream(self._device)
-        self._side.wait_stream(current)
-        with torch.cuda.stream(self._side):
-            out = fn()
-        current.wait_stream(self._side)
-        return out
-
     def _record(self, fn: Callable[[], None]) -> Any:
-        """``fn`` captured as a CUDA graph on the side stream (after its warm-up)."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
         try:
-            # thread_local: a DeviceFeed thread may pin and copy meanwhile
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._side, capture_error_mode="thread_local"):
-                fn()
-        except Exception as err:
-            where = self._in_member
-            call = f"member {where!r} ({type(self.members[where]).__name__}.update)" if where else "the carry's write-back"
-            cause = err.__context__ if err.__context__ is not None else err
-            raise RuntimeError(
-                f"capturing the fused step of {self._target_cls} as a CUDA graph failed in {call}: {cause}."
-                " The plan does not run the step eagerly instead; a host read of a device value inside update"
-                " (a value check without _is_concrete, .item(), a numpy upload) cannot be captured"
-            ) from err
+            return super()._record(fn)
         finally:
             self._in_member = None
-        return graph
+
+    def _capture_site(self) -> str:
+        where = self._in_member
+        call = f"member {where!r} ({type(self.members[where]).__name__}.update)" if where else "the carry's write-back"
+        return f"the fused step of {self._target_cls} in {call}"
 
     # ------------------------------------------------------------------ drive
     @property
@@ -704,3 +754,82 @@ class FusedCollectionPlan:
             # members hold (or will lazily receive) leader state: the same
             # post-update invariant MetricCollection.update leaves behind
             self._collection._state_is_copy = False
+
+
+# ------------------------------------------------------- the one-metric step
+
+
+class JitUpdateStep(_GraphCapture):
+    """``step(state, *batch) -> state`` of ``parallel.sharded.make_jit_update``.
+
+    One batch: the metric's update from a fresh state, merged into ``state``
+    with :func:`~torchmetrics_tpu_torch.parallel.sharded.tree_merge`
+    (``"mean"`` states weighted by the carried ``"_update_count"``), list
+    states appended to their CatBuffers. The step keeps a carry of its own;
+    a ``state`` that is not that carry is copied into it first. On the card
+    the first call of an input signature runs eagerly; the second captures
+    the step as a CUDA graph (after a warm-up against a scratch copy of the
+    carry) and every later one replays it. On the CPU every call runs eagerly.
+
+    ``donate=False`` returns a copy of the carry, which later calls leave
+    unchanged. ``donate=True`` returns the carry itself and a later call
+    given that dict updates it in place: the caller's old dict then aliases
+    the new state (XLA would instead invalidate the donated buffers).
+    """
+
+    def __init__(self, metric: Any, list_keys: List[str], donate: bool) -> None:
+        self.metric = metric
+        self.list_keys = list_keys
+        self._device = metric.device
+        self._donate = donate
+        self._reductions = {k: r for k, r in metric._reductions.items() if k not in list_keys}
+        self._carry: Optional[Dict[str, Any]] = None
+        self._seen: set = set()
+        self._captured: Dict[Any, _Captured] = {}
+
+    def _body(self, carry: Dict[str, Any], batch: Tuple[torch.Tensor, ...]) -> None:
+        metric = self.metric
+        with metric._scratch():
+            metric.reset()
+            with _fused_step():
+                metric.update(*batch)
+            fresh = metric.state_tree()
+        for k in self.list_keys:
+            if fresh[k]:
+                _append_(carry[k], _concat_rows(fresh[k]).to(carry[k].data.dtype))
+        count = carry["_update_count"]
+        arrays = {k: carry[k] for k in self._reductions}
+        merged = tree_merge(self._reductions, arrays, {k: fresh[k] for k in arrays}, weight_a=count, weight_b=1)
+        for k, value in merged.items():
+            _check_kept(type(metric).__name__, k, carry[k], value, "in an update")
+            _copy_leaves_(carry[k], value)
+        count.add_(1)
+
+    def _capture_site(self) -> str:
+        return f"the update step of {type(self.metric).__name__} (make_jit_update)"
+
+    def __call__(self, state: Dict[str, Any], *batch: Any) -> Dict[str, Any]:
+        if "_telemetry" in state:
+            raise NotImplementedError("make_jit_update's device telemetry ('_telemetry') waits for ROADMAP A12")
+        batch = tuple(_as_input(b).to(self._device) for b in batch)
+        if self._carry is None:
+            self._carry = _copy_tree(state)
+        elif state is not self._carry:
+            for k, v in state.items():
+                _copy_leaves_(self._carry[k], v)
+        carry = self._carry
+        key = tuple((tuple(b.shape), b.dtype) for b in batch)
+        if self._device.type != "cuda" or key not in self._seen:
+            self._seen.add(key)
+            self._body(carry, batch)
+        else:
+            captured = self._captured.get(key)
+            if captured is None:
+                inputs = tuple(b.clone() for b in batch)
+                self._warm(lambda: self._body(_copy_tree(carry), inputs))
+                captured = self._captured[key] = _Captured(self._record(lambda: self._body(carry, inputs)), inputs)
+            else:
+                for dst, src in zip(captured.inputs, batch):
+                    dst.copy_(src)
+            captured.graph.replay()
+        return carry if self._donate else _copy_tree(carry)

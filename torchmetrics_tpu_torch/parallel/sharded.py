@@ -24,6 +24,8 @@ dist_reduce_fx  collective over the mesh dim's group
 ``"mean"``      ``all_reduce(SUM)``, then divide by the ranks
 ``"max"``       ``all_reduce(MAX)``
 ``"min"``       ``all_reduce(MIN)``
+``"merge"``     gather of every sketch leaf, then a left fold of
+                the ranks' states in rank order (pairwise merge)
 ``"cat"``       rank-ordered gather + flatten
 ``None``        rank-ordered gather, stacked (list states: flattened)
 custom fn       fn on the stacked gather
@@ -52,9 +54,12 @@ this way (``BootStrapper``'s per-update host resampling,
 ``MultioutputWrapper(remove_nans=True)``) declare
 ``_sharded_update_unsupported`` and are refused with the JAX package's reason.
 
-Not ported yet (ROADMAP): sketch ``"merge"`` states (A9), and the
-compiled-step cache (``plan_cache_lookup``/``make_jit_update``): PyTorch runs
-the step eagerly.
+:func:`make_jit_update` builds the one-metric step ``step(state, *batch)``
+over a state dict, captured once as a CUDA graph on the card and run eagerly
+on the CPU; :func:`fold_jit_state` loads its final state back.
+
+Not ported yet (ROADMAP): the compiled-step cache (``plan_cache_lookup``)
+and the step's device telemetry (A12).
 """
 from __future__ import annotations
 
@@ -63,13 +68,22 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from torchmetrics_tpu_torch.parallel.cat_buffer import CatBuffer, cat_buffer_merge
+from torchmetrics_tpu_torch.parallel.cat_buffer import (
+    CatBuffer,
+    cat_buffer_init,
+    cat_buffer_merge,
+    cat_buffer_values,
+    infer_cat_layout,
+)
+from torchmetrics_tpu_torch.sketch.registry import merge_states, reduce_merge_states
 from torchmetrics_tpu_torch.utilities.distributed import all_reduce_, gather_all_tensors, world_size
 
 __all__ = [
     "ShardedMetric",
     "deep_reductions",
     "deep_state_tree",
+    "fold_jit_state",
+    "make_jit_update",
     "make_sharded_update",
     "mesh_reduce_tree",
     "metric_merge",
@@ -98,6 +112,10 @@ def metric_merge(
         return torch.maximum(a, b)
     if reduction == "min":
         return torch.minimum(a, b)
+    if reduction == "merge":
+        # sketch states carry their own exact pairwise merge; the weights do
+        # not apply (the sketch tracks its own counts)
+        return merge_states(a, b)
     if reduction == "cat":
         if isinstance(a, CatBuffer):
             return cat_buffer_merge(a, b)
@@ -159,6 +177,10 @@ def mesh_reduce_tree(
             out[key] = [torch.cat([torch.atleast_1d(g) for g in gather(v)]) for v in value]
         elif reduction in _ELEMENTWISE_OPS:
             buckets.setdefault((_ELEMENTWISE_OPS[reduction], value.dtype), []).append(key)
+        elif reduction == "merge":
+            # every leaf gathers in rank order; the ranks' states fold left
+            per_leaf = [gather(leaf) for leaf in value]
+            out[key] = reduce_merge_states([type(value)(*leaves) for leaves in zip(*per_leaf)])
         elif reduction == "cat":
             out[key] = torch.cat([torch.atleast_1d(g) for g in gather(value)])
         elif reduction is None:
@@ -173,6 +195,82 @@ def mesh_reduce_tree(
             part = part.view(state[key].shape)
             out[key] = part / n if reductions[key] == "mean" else part
     return {key: out[key] for key in state}
+
+
+# --------------------------------------------------------------- the jit step
+
+
+def make_jit_update(
+    metric: Any,
+    cat_capacity: Optional[int] = None,
+    example_batch: Optional[Tuple[Any, ...]] = None,
+    donate: bool = False,
+) -> Tuple[Callable[..., Dict[str, Any]], Dict[str, Any]]:
+    """Build ``(step, init_state)``: ``step(state, *batch) -> state`` folds one
+    batch into a state dict (see :class:`~torchmetrics_tpu_torch.parallel.fused.JitUpdateStep`).
+
+    The state dict holds the metric's states (sketch states as they are)
+    and the update count under the reserved key ``"_update_count"``, so
+    ``"mean"`` states merge as a correctly weighted running average. On the
+    card the step is captured once per input signature as a CUDA graph and
+    replayed (its first call runs eagerly); on the CPU it runs eagerly.
+
+    List ("cat") states need a fixed capacity: pass ``cat_capacity`` (max
+    TOTAL rows) and an ``example_batch`` (one update on it, from a reset
+    state that is restored after, gives each state's row shape) and they
+    become :class:`~torchmetrics_tpu_torch.parallel.cat_buffer.CatBuffer`
+    states. Fold the final state back with :func:`fold_jit_state`, which
+    raises if a buffer overflowed.
+
+    ``donate=True``: the step updates the carry it returned in place, so the
+    caller's old dict aliases the new state afterwards (XLA would invalidate
+    the donated buffers instead); the default returns a new dict per call
+    and leaves the one passed in unchanged. Device telemetry in the step
+    (``"_telemetry"``) waits for ROADMAP A12.
+    """
+    from torchmetrics_tpu_torch.parallel.fused import JitUpdateStep
+
+    walk = _walk_metrics(metric)
+    for path, m in walk:
+        reason = m._sharded_update_unsupported
+        if reason:
+            where = f" (at {path!r})" if path else ""
+            raise ValueError(f"{type(m).__name__} does not support a traced update step{where}: {reason}")
+    if len(walk) > 1:
+        raise ValueError(
+            f"{type(metric).__name__} wraps child metrics; make_jit_update's state pytree covers only the"
+            " root registry, so the children would mistrace. Use sharded_update/make_sharded_update"
+            " (deep state walk) for wrapper metrics."
+        )
+    list_state_keys = [k for k, v in metric._defaults.items() if isinstance(v, list)]
+    if list_state_keys and cat_capacity is None:
+        raise ValueError(
+            f"Metric {type(metric).__name__} has list ('cat') states {list_state_keys}; jitted"
+            " accumulation needs a fixed capacity — pass cat_capacity (max total rows) and an"
+            " example_batch."
+        )
+    init_state: Dict[str, Any] = {k: v for k, v in metric._defaults.items() if k not in list_state_keys}
+    if list_state_keys:
+        if example_batch is None:
+            raise ValueError("cat_capacity requires example_batch to infer per-state row shapes")
+        layout = infer_cat_layout(metric, tuple(example_batch))
+        for k in list_state_keys:
+            elem, dtype = layout[k]
+            init_state[k] = cat_buffer_init(cat_capacity, elem, dtype, metric.device)
+    init_state["_update_count"] = torch.zeros((), dtype=torch.int32, device=metric.device)
+    return JitUpdateStep(metric, list_state_keys, donate), init_state
+
+
+def fold_jit_state(metric: Any, state: Dict[str, Any]) -> None:
+    """Load a :func:`make_jit_update` state back into the metric: CatBuffers
+    become the metric's list states (raising if one overflowed), and the
+    update count is restored. The metric gets copies of the state's tensors."""
+    if "_telemetry" in state:
+        raise NotImplementedError("make_jit_update's device telemetry ('_telemetry') waits for ROADMAP A12")
+    tree = {k: [cat_buffer_values(v)] if isinstance(v, CatBuffer) else v for k, v in state.items()}
+    tree["_update_count"] = int(tree["_update_count"])
+    metric.load_state_tree(tree)
+    metric._computed = None
 
 
 # ------------------------------------------------------------- sharded update

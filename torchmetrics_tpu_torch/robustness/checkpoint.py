@@ -21,9 +21,9 @@ metric's device, never views of the payload's numpy buffers. The format
 does not carry the mesh-replicated flag of a sharded fold: a loaded state
 is rank-local (``StreamingEvaluator`` re-marks a restored mesh drive).
 
-Mergeable sketch states (the JAX package's ``{"__sketch__": ...}`` entries)
-wait for ROADMAP A9: no state of the port is a sketch yet, as ``add_state``
-refuses ``"merge"``, so such an entry fails validation here.
+A mergeable sketch state is written as the JAX package writes it, a
+``{"__sketch__": class_name, "leaves": {field: ndarray}}`` dict, and such an
+entry from either package restores leaf by leaf (``robustness/spec.py``).
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from torchmetrics_tpu_torch.robustness.spec import spec_fingerprint, validate_state_tree
+from torchmetrics_tpu_torch.robustness.spec import SKETCH_PAYLOAD_KEY, spec_fingerprint, validate_state_tree
+from torchmetrics_tpu_torch.sketch.registry import is_sketch_state
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
 
 #: host-counter value types a checkpoint may carry. Counters holding runtime
@@ -73,9 +74,16 @@ def _host_copy(value: torch.Tensor) -> np.ndarray:
 
 
 def _serialize_state(value: Any) -> Any:
-    """One state as plain host data: list states -> list of ndarrays, arrays -> ndarray."""
+    """One state as plain host data: list states -> list of ndarrays, sketch
+    states -> a marked ``{"__sketch__": class, "leaves": {...}}`` dict,
+    arrays -> ndarray."""
     if isinstance(value, list):
         return [_host_copy(x) for x in value]
+    if is_sketch_state(value):
+        return {
+            SKETCH_PAYLOAD_KEY: type(value).__name__,
+            "leaves": {field: _host_copy(leaf) for field, leaf in zip(type(value)._fields, value)},
+        }
     return _host_copy(value)
 
 

@@ -6,8 +6,10 @@
 The fingerprint is the same SHA-256 over the same canonical JSON as the JAX
 package's, with dtypes written as numpy names (``"int32"``, never
 ``"torch.int32"``), so a state tree written by one package validates in the
-other. Mergeable sketch states (``dist_reduce_fx="merge"``) are not ported
-yet and are refused.
+other. A mergeable sketch state (``dist_reduce_fx="merge"``) pins its class
+and every leaf's field, dtype and shape, exactly as the JAX package's spec
+does, and restores from the ``{"__sketch__": class, "leaves": {...}}``
+payload either package writes.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, sketch_state_class
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
 
 #: reductions that preserve the accumulator shape; their states must match
@@ -29,9 +32,9 @@ _ELEMENTWISE_REDUCTIONS = ("sum", "mean", "min", "max")
 class StateSpec(NamedTuple):
     """Declared contract of one metric state."""
 
-    kind: str  # "array" | "list"
-    dtype: Optional[str]  # numpy dtype name; None for list states
-    shape: Optional[Tuple]  # None for list states
+    kind: str  # "array" | "list" | "merge" (mergeable sketch state)
+    dtype: Optional[str]  # numpy dtype name; None for list states; the sketch CLASS NAME for merge states
+    shape: Optional[Tuple]  # None for list states; per-leaf (field, dtype, shape) for merge states
     reduction: str  # reduction name, "none", or the callable's qualname
 
 
@@ -55,12 +58,16 @@ def build_state_specs(metric: Any) -> Dict[str, StateSpec]:
     specs: Dict[str, StateSpec] = {}
     for name, default in metric._defaults.items():
         token = _reduction_token(metric._reductions.get(name))
-        if token == "merge":
-            raise NotImplementedError(
-                f"state {name!r}: mergeable sketch states are not ported yet (ROADMAP A9)"
-            )
         if isinstance(default, list):
             specs[name] = StateSpec("list", None, None, token)
+        elif is_sketch_state(default):
+            # fixed-shape state: the spec pins the class and EVERY leaf's dtype
+            # and shape, so a capacity/levels mismatch is a spec mismatch
+            leaves = tuple(
+                (field, _dtype_name(leaf.dtype), tuple(int(d) for d in leaf.shape))
+                for field, leaf in zip(type(default)._fields, default)
+            )
+            specs[name] = StateSpec("merge", type(default).__name__, leaves, token)
         else:
             specs[name] = StateSpec("array", _dtype_name(default.dtype), tuple(int(d) for d in default.shape), token)
     return specs
@@ -98,6 +105,69 @@ def _dtype_safe_widening(got: str, want: str) -> bool:
         return False
 
 
+#: the marker of a serialized sketch state: checkpoints store one as a plain
+#: ``{"__sketch__": class_name, "leaves": {field: ndarray}}`` dict
+SKETCH_PAYLOAD_KEY = "__sketch__"
+
+
+def _validate_sketch_state(cls: str, name: str, default: Any, value: Any, strict: bool) -> Any:
+    """Validate (and, for a serialized payload, rebuild) one sketch state
+    against its default: class, field set, and every leaf's shape and dtype
+    must match exactly (non-strict: safe dtype widenings). Returns the state
+    with every leaf a tensor of its own on the default's device."""
+    want_cls = type(default)
+    fields = want_cls._fields
+    if isinstance(value, dict):
+        if value.get(SKETCH_PAYLOAD_KEY) != want_cls.__name__:
+            raise StateRestoreError(
+                f"state {name!r} of {cls}: expected a serialized {want_cls.__name__} sketch payload,"
+                f" got {value.get(SKETCH_PAYLOAD_KEY)!r} — was this checkpoint written by a"
+                " differently-configured metric?"
+            )
+        leaves_in = value.get("leaves")
+        if not isinstance(leaves_in, dict) or sorted(leaves_in) != sorted(fields):
+            got = sorted(leaves_in) if isinstance(leaves_in, dict) else type(leaves_in).__name__
+            raise StateRestoreError(
+                f"state {name!r} of {cls}: sketch payload leaves {got} do not match the declared"
+                f" fields {sorted(fields)} — truncated or corrupted payload?"
+            )
+        try:
+            sketch_state_class(want_cls.__name__)
+        except KeyError as err:
+            raise StateRestoreError(f"state {name!r} of {cls}: {err}") from None
+        value = [leaves_in[field] for field in fields]
+    elif type(value) is not want_cls:
+        raise StateRestoreError(f"state {name!r} of {cls}: expected a {want_cls.__name__} sketch state, got {type(value).__name__}")
+    checked = []
+    for field, want_leaf, got_leaf in zip(fields, default, value):
+        got_leaf = _numeric(got_leaf, name, cls)
+        got_shape = tuple(int(d) for d in got_leaf.shape)
+        want_shape = tuple(int(d) for d in want_leaf.shape)
+        if got_shape != want_shape:
+            raise StateRestoreError(
+                f"state {name!r} of {cls}: sketch leaf {field!r} has shape {got_shape}, expected"
+                f" {want_shape} — sketch states are fixed-shape (capacity/levels mismatch?)"
+            )
+        tensor = _owned_tensor(got_leaf, want_leaf.device)
+        got_dtype, want_dtype = _dtype_name(got_leaf.dtype), _dtype_name(want_leaf.dtype)
+        if got_dtype != want_dtype:
+            if strict:
+                raise StateRestoreError(
+                    f"state {name!r} of {cls}: sketch leaf {field!r} has dtype {got_dtype},"
+                    f" expected {want_dtype} (strict restore; pass strict=False to allow"
+                    " safe widenings)"
+                )
+            if not _dtype_safe_widening(got_dtype, want_dtype):
+                raise StateRestoreError(
+                    f"state {name!r} of {cls}: cannot coerce sketch leaf {field!r} dtype"
+                    f" {got_dtype} to {want_dtype} — only safe widenings are allowed"
+                    " in non-strict restore"
+                )
+            tensor = tensor.to(want_leaf.dtype)
+        checked.append(tensor)
+    return want_cls(*checked)
+
+
 def validate_state_tree(metric: Any, tree: Dict[str, Any], strict: bool = True) -> Dict[str, Any]:
     """Validate ``tree`` (tensors or numpy arrays) against ``metric``'s registry.
 
@@ -125,11 +195,14 @@ def validate_state_tree(metric: Any, tree: Dict[str, Any], strict: bool = True) 
             continue
         default = defaults[name]
         token = _reduction_token(metric._reductions.get(name))
+        if is_sketch_state(default):
+            out[name] = _validate_sketch_state(cls, name, default, value, strict)
+            continue
         if isinstance(value, dict):
-            # the JAX package writes a sketch state as {"__sketch__": class, "leaves": {...}}
+            # a sketch payload ({"__sketch__": class, "leaves": {...}}) fits only a sketch state
             raise StateRestoreError(
-                f"state {name!r} of {cls}: got a {'sketch payload' if '__sketch__' in value else 'dict'};"
-                " mergeable sketch states are not ported yet (ROADMAP A9)"
+                f"state {name!r} of {cls}: got a {'sketch payload' if SKETCH_PAYLOAD_KEY in value else 'dict'}"
+                f" for a{' list' if isinstance(default, list) else 'n array'} state"
             )
         if isinstance(default, list):
             if not isinstance(value, (list, tuple)):

@@ -69,3 +69,60 @@ def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
             f" but got {tuple(preds.shape)} and {tuple(target.shape)}."
         )
 
+
+
+def is_overridden(method_name: str, instance: object, parent: type) -> bool:
+    """True when ``instance``'s class overrides ``parent.method_name``."""
+    instance_attr = getattr(type(instance), method_name, None)
+    parent_attr = getattr(parent, method_name, None)
+    if instance_attr is None or parent_attr is None:
+        return False
+    return instance_attr is not parent_attr
+
+
+def _allclose_recursive(res1: Any, res2: Any, atol: float = 1e-6) -> bool:
+    if isinstance(res1, (list, tuple)):
+        return all(_allclose_recursive(r1, r2, atol) for r1, r2 in zip(res1, res2))
+    if isinstance(res1, dict):
+        return all(_allclose_recursive(res1[k], res2[k], atol) for k in res1)
+    return bool(torch.allclose(torch.as_tensor(res1), torch.as_tensor(res2).to(torch.as_tensor(res1).device), atol=atol))
+
+
+def check_forward_full_state_property(
+    metric_class: Any,
+    init_args: Optional[dict] = None,
+    input_args: Optional[dict] = None,
+    num_update_to_compare: Any = (10, 100, 1000),
+    reps: int = 5,
+) -> None:
+    """Compare ``forward`` with ``full_state_update=True`` and ``False`` on
+    ``metric_class``: raise if the values differ, else print the time of each
+    over ``num_update_to_compare`` calls (synchronized on the card)."""
+    import time
+
+    init_args = init_args or {}
+    input_args = input_args or {}
+
+    class FullState(metric_class):  # type: ignore[misc, valid-type]
+        full_state_update = True
+
+    class PartState(metric_class):  # type: ignore[misc, valid-type]
+        full_state_update = False
+
+    fs, ps = FullState(**init_args), PartState(**init_args)
+    res1 = fs(**input_args)
+    res2 = ps(**input_args)
+    if not _allclose_recursive(res1, res2):
+        raise RuntimeError(
+            "The metric does not give the same result with `full_state_update=False`; it must keep the default."
+        )
+    for metric, name in [(fs, "full"), (ps, "partial")]:
+        for num in num_update_to_compare:
+            metric.reset()
+            start = time.perf_counter()
+            for _ in range(num):
+                metric(**input_args)
+            metric.compute()
+            if metric.device.type == "cuda":
+                torch.cuda.synchronize(metric.device)
+            print(f"{name} state `forward` x{num}: {time.perf_counter() - start:.4f}s")

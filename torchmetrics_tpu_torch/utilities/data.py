@@ -90,12 +90,19 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
     return mask.scatter(dim, idx, 1)
 
 
+def to_categorical(x: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
+    """Probabilities to class indices by argmax along ``argmax_dim``."""
+    return torch.argmax(x, dim=argmax_dim)
+
+
 def _squeeze_if_scalar(data: Any) -> Any:
     """Squeeze every one-element tensor in a (nested) result to 0-d."""
     if isinstance(data, torch.Tensor):
         return data.squeeze() if data.numel() == 1 else data
     if isinstance(data, dict):
         return {k: _squeeze_if_scalar(v) for k, v in data.items()}
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # a NamedTuple (DriftScores)
+        return type(data)(*[_squeeze_if_scalar(v) for v in data])
     if isinstance(data, (list, tuple)):
         return type(data)(_squeeze_if_scalar(v) for v in data)
     return data

@@ -85,12 +85,22 @@ def _collective(op: str, fn: Callable[[], Any], tensor: torch.Tensor, group: Opt
         ) from err
 
 
+#: dtypes no backend's collective takes, sent as the same bits in a dtype
+#: of the same width: gloo (and NCCL through torch) has no uint32 collective
+_WIRE_DTYPES = {torch.uint32: torch.int32}
+
+
 def _all_gather(tensor: torch.Tensor, group: Optional[Any]) -> List[torch.Tensor]:
     """``dist.all_gather`` of equal-shaped tensors, rank-ordered (a 0-d
-    tensor travels as one element)."""
+    tensor travels as one element; a ``uint32`` one as its int32 bits)."""
     flat = tensor.reshape(1) if tensor.ndim == 0 else tensor.contiguous()
+    wire = _WIRE_DTYPES.get(flat.dtype)
+    if wire is not None:
+        flat = flat.view(wire)
     out = [torch.empty_like(flat) for _ in range(world_size(group))]
     _collective("all_gather", lambda: dist.all_gather(out, flat, group=group), flat, group)
+    if wire is not None:
+        out = [t.view(tensor.dtype) for t in out]
     return [t.reshape(()) for t in out] if tensor.ndim == 0 else out
 
 
@@ -103,7 +113,7 @@ def all_reduce_(tensor: torch.Tensor, op: Any, group: Optional[Any] = None) -> t
 #: dtype codes of the gather header (the position in this tuple)
 _DTYPES = (
     torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int32, torch.int64,
-    torch.int16, torch.int8, torch.uint8, torch.bool, torch.complex64, torch.complex128,
+    torch.int16, torch.int8, torch.uint8, torch.bool, torch.complex64, torch.complex128, torch.uint32,
 )
 
 

@@ -7,6 +7,7 @@ else 0.
 """
 from __future__ import annotations
 
+import logging
 import warnings
 from functools import wraps
 from typing import Any, Callable
@@ -37,3 +38,23 @@ def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
     kwargs.setdefault("stacklevel", 5)
     warnings.warn(message, *args, **kwargs)
 
+
+
+@rank_zero_only
+def rank_zero_print(*args: Any, **kwargs: Any) -> None:
+    print(*args, **kwargs)
+
+
+_log = logging.getLogger("torchmetrics_tpu")
+
+
+@rank_zero_only
+def rank_zero_debug(*args: Any, **kwargs: Any) -> None:
+    """Log at debug level on rank 0 only."""
+    _log.debug(*args, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_info(*args: Any, **kwargs: Any) -> None:
+    """Log at info level on rank 0 only."""
+    _log.info(*args, **kwargs)
