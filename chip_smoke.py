@@ -123,7 +123,27 @@ result) if it fails:
    update of the KLL update, the captured step, HLL, the Count-Min grid, the
    Count-Min update with K3 and the drift histogram; ``set_dtype(float64)``
    on a card Quantile.
-14. fused: the slice's suite through ``suite.fused()``, one CUDA graph
+14. sliced: the sliced and windowed planes at the JAX benchmark's widths,
+   each stream made on the card from a seed over NUM_BATCHES batches:
+   ``sliced_fanout`` (``MulticlassAccuracy(8)`` over 1024 cells, 8192 rows a
+   batch, keys uniform over 1024 cohorts; ``run_scan``, K4 and K2s),
+   ``drift_cohorts`` (``DriftScore(bins=32)`` against 65536 reference values,
+   1024 cells, 8192 values a batch; ``run_scan``, K4) and ``sliced_suite``
+   (the headline suite, 65536 x 64, T = 128, keys over 200 cohorts into 256
+   cells; one captured step per batch, K4, K2s and K1s). The three kernels'
+   counts from 0 over those runs (the main path); 32 fan-out and drift
+   cohorts and 12 suite cohorts bitwise equal to independent metrics fed
+   their rows, the fan-out's states over all cells to one metric over every
+   row, the drift scores of ``compute_all`` within 1e-6 of each cohort's own;
+   K4, K2s and K1s bitwise against their plain versions at the main path's
+   shapes and timed; the captured passes timed (samples/s, the naive loop of
+   1024 metric instances over one batch beside it, scored windows/s) and the
+   suite's pass profiled (busy share, top device ops); JAX's small test suite
+   (accuracy, a histogram sketch, exact AUROC with ``cat_capacity``) on the
+   card equal to the CPU's bitwise; a ``WindowRing(slots=4, every_n=2)`` over
+   the headline suite, ``query(last=k)`` equal to a recompute over those
+   windows' batches, and a tumbling ring equal to ``Running(window=4)``.
+15. fused: the slice's suite through ``suite.fused()``, one CUDA graph
    replay per batch: final states bitwise equal to the plain fold and values
    to the unfused ``compute()``; the wrappers' counters moved by the
    warm-up's launch and the capture's recorded one alone; K1 and K2 once per
@@ -135,7 +155,7 @@ result) if it fails:
    batches, the states after each timed pass held the same way; a
    ``validate_args=True`` suite captured; the exact group fused with
    CatBuffers of 8 x 65536 rows, its values equal bitwise to phase 6's.
-15. durable: the headline suite through ``StreamingEvaluator`` +
+16. durable: the headline suite through ``StreamingEvaluator`` +
    ``CheckpointStore(keep_last=2)`` (``snapshot_every_n=2``,
    ``watchdog_timeout_s=60``: every update on the watchdog's worker thread,
    the fused plan built and captured there), unfused and ``fused=True``:
@@ -155,8 +175,11 @@ result) if it fails:
    memory. The sketch regime: a Quantile killed after batch 5 and resumed
    bitwise equal to the uninterrupted run; card checkpoints of a Quantile and
    of a reservoir restored into ``device="cpu"`` metrics (the reservoir's next
-   draw equal). Works in a temporary directory it removes.
-16. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
+   draw equal). The windowed regime (the suite with a ``WindowRing``) and
+   the sliced regime (the fan-out ``SlicedPlan`` target) killed after batch
+   5 and resumed, bitwise equal to their uninterrupted runs. Works in a
+   temporary directory it removes.
+17. dist: two ranks spawned with ``torch.multiprocessing`` (``_dist_rank``),
    one gloo group on ``cuda:0``: the collectives the port asks of gloo on
    CUDA tensors; replica sync of the suite (rank 0 folds batches 0-3, rank
    1 batches 4-7; K1 and K2 once per local batch; the synced int32 states
@@ -175,7 +198,8 @@ result) if it fails:
    ``write_rank=None``; sharded fused over the mesh: rank 0 alone writes, no
    second sync), each resume timed; a Quantile, a DriftScore and a
    HeavyHitters merge-synced (each rank folds half of the sketch batches)
-   equal to the one-rank merge of both halves. A rank that fails or outlives DIST_TIMEOUT_S fails the
+   equal to the one-rank merge of both halves; the sliced mesh plan (half of
+   every fan-out batch on each rank) bitwise equal to the local plan. A rank that fails or outlives DIST_TIMEOUT_S fails the
    script. The times it prints are gloo's through the host on one card.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
@@ -187,7 +211,8 @@ busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
 and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes and the dist phase's time, ``nvidia-smi``'s
-line, the ``kernels`` JSON object (K1, K2 and K3) and ``{"ok": true, "device": {...}}``.
+line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s and K4) and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -217,7 +242,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 
 
-#: the hand kernels of the classification paths (phases 4-12 and 14-16);
+#: the hand kernels of the classification paths (phases 4-12 and 15-17);
 #: the sketch phase's main path runs K3 alone
 CLASSIFICATION_KERNELS = ("binned_curve_state", "stat_counts")
 
@@ -2361,14 +2386,16 @@ def _wrapper_pass(update, batches, reset):
 
 
 def _require_metric_states_bitwise(got, want, what):
+    """Every state of ``got`` bitwise ``want``'s (a sketch state leaf by leaf)."""
     import torch
 
     for name in want._defaults:
         g, w = getattr(got, name), getattr(want, name)
-        if g.dtype == torch.int32:
-            _assert_bitwise(g, w, f"{what}.{name}")
-        else:
-            _require(torch.equal(g, w), f"{what}.{name}: {g} vs {w}")
+        for a, b in zip(g, w) if isinstance(w, tuple) else [(g, w)]:
+            if b.dtype == torch.int32:
+                _assert_bitwise(a, b, f"{what}.{name}")
+            else:
+                _require(a.dtype == b.dtype and torch.equal(a, b), f"{what}.{name}: {a} vs {b}")
 
 
 def phase_wrappers(device, batches, kernels, smi):
@@ -3156,6 +3183,7 @@ def phase_durable(device, batches, kernels, slice_run, exact_run, smi):
                    exact_base_mib=base / 2**20)
         del fresh, restorer
         out["sketch"] = _durable_sketch(device, root)
+        out["a10"] = _durable_a10(device, root, batches)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
@@ -3209,7 +3237,68 @@ def phase_durable(device, batches, kernels, slice_run, exact_run, smi):
         f" card checkpoints of the Quantile and of a {SKETCH_RESERVOIR}-slot reservoir restored into device='cpu' metrics"
         f" bitwise, the restored reservoir's next draw equal to the card's"
     )
+    a10 = out["a10"]
+    print(
+        f"[durable] windowed regime: the headline suite with WindowRing(slots={WINDOW_SLOTS}, every_n={WINDOW_EVERY_N}) killed after batch"
+        f" {DURABLE_KILL_AFTER + 1} ({a10['windowed_died']}) and resumed in {a10['windowed_resume_s']:.3f} s, the ring's payload and"
+        f" query(last=1, 2, {WINDOW_SLOTS}) bitwise equal to the uninterrupted run; sliced regime: the fan-out SlicedPlan target"
+        f" ({FANOUT_CELLS} cells, kind 'sliced') killed after batch {DURABLE_KILL_AFTER + 1} ({a10['sliced_died']}) and resumed in"
+        f" {a10['sliced_resume_s']:.3f} s, its whole carry (table included) and compute_all bitwise equal to the uninterrupted run"
+    )
     print(f"[durable] phase {out['seconds']:.1f} s")
+    return out
+
+
+def _durable_a10(device, root, batches):
+    """The windowed and sliced regimes through ``StreamingEvaluator``: the
+    headline suite with a ``WindowRing`` and the fan-out ``SlicedPlan`` target,
+    each killed after batch DURABLE_KILL_AFTER + 1 and resumed in a fresh
+    object graph, bitwise equal to the uninterrupted run (the ring's payload
+    and queries; the plan's whole carry and ``compute_all``)."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.parallel import WindowRing
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator
+
+    out = {}
+
+    def windowed():
+        suite = _headline_suite(tm, device=device)
+        return suite, WindowRing(suite, slots=WINDOW_SLOTS, every_n=WINDOW_EVERY_N)
+
+    ref_suite, ref_ring = windowed()
+    StreamingEvaluator(ref_suite, window_ring=ref_ring).run(batches)
+    directory = os.path.join(root, "windowed")
+    suite, ring = windowed()
+    out["windowed_died"] = _kill(
+        StreamingEvaluator(suite, store=CheckpointStore(directory, keep_last=2), snapshot_every_n=DURABLE_EVERY_N, window_ring=ring), batches
+    )
+    suite, ring = windowed()
+    ev = StreamingEvaluator(suite, store=CheckpointStore(directory, keep_last=2), snapshot_every_n=DURABLE_EVERY_N, window_ring=ring)
+    out["windowed_resume_s"] = _timed(lambda: ev.resume(batches))
+    _require(ev.cursor == NUM_BATCHES and len(ring) == len(ref_ring) == WINDOW_SLOTS, f"durable windowed: cursor {ev.cursor}, {len(ring)} windows")
+    _require_payloads_bitwise(ring.payload(), ref_ring.payload(), "durable windowed: the resumed ring")
+    for k in (1, 2, WINDOW_SLOTS):
+        _require_values_bitwise(ring.query(last=k), ref_ring.query(last=k), f"durable windowed: query(last={k})")
+
+    keys, preds, target = _fanout_stream(device)
+    fan_batches = [(keys[i], preds[i], target[i]) for i in range(NUM_BATCHES)]
+
+    def plan():
+        return tm.MulticlassAccuracy(num_classes=FANOUT_CLASSES, validate_args=False, device=device).sliced(num_cells=FANOUT_CELLS)
+
+    ref_plan = plan()
+    want = StreamingEvaluator(ref_plan).run(fan_batches)
+    directory = os.path.join(root, "sliced")
+    out["sliced_died"] = _kill(StreamingEvaluator(plan(), store=CheckpointStore(directory, keep_last=2), snapshot_every_n=DURABLE_EVERY_N), fan_batches)
+    resumed = plan()
+    ev = StreamingEvaluator(resumed, store=CheckpointStore(directory, keep_last=2), snapshot_every_n=DURABLE_EVERY_N)
+    box = {}
+    out["sliced_resume_s"] = _timed(lambda: box.update(got=ev.resume(fan_batches)))
+    _require(ev.cursor == NUM_BATCHES and ev._kind() == "sliced", f"durable sliced: cursor {ev.cursor}")
+    _require_payloads_bitwise(resumed.save_checkpoint(), ref_plan.save_checkpoint(), "durable sliced: the resumed carry")
+    _require(torch.equal(box["got"]["MulticlassAccuracy"], want["MulticlassAccuracy"]), "durable sliced: compute_all")
     return out
 
 
@@ -3439,6 +3528,9 @@ def _dist_checks(rank, world, out_dir):
     # 6) durable kill and resume: the replica regime (a store per rank) and the sharded fused one (rank 0 writes)
     out.update(_dist_durable_checks(rank, world, mesh, mine, local, out_dir, want, expected))
 
+    # 8) the sliced mesh plan (two graphs around the collectives) against the local plan
+    out.update(_dist_sliced_checks(rank, world, device, mesh))
+
     # 7) sketch states merge-synced across the ranks
     out.update(_dist_sketch_checks(rank, world, device))
 
@@ -3453,6 +3545,50 @@ def _dist_checks(rank, world, out_dir):
     faults.clear()
     _require(gather_all_objects(("drill", rank)) == [("drill", r) for r in range(world)], f"rank {rank}: the healed gather")
     return out
+
+
+def _dist_sliced_checks(rank, world, device, mesh):
+    """The sliced mesh plan on two ranks: each passes its half of every
+    fan-out batch (keys and rows; accuracy through K2s, exact AUROC's cat
+    rows gathered), against the local plan over the whole batches, bitwise;
+    both plans' passes timed."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.parallel import SlicedPlan
+
+    keys, logits, target = _fanout_stream(device)
+    preds = torch.softmax(logits, -1)  # probabilities: the exact member's rows are the inputs themselves
+    half = FANOUT_BATCH // world
+    mine = slice(rank * half, (rank + 1) * half)
+    cap = 4 * NUM_BATCHES * FANOUT_BATCH // FANOUT_CELLS  # four times a cell's mean rows
+
+    def suite():
+        kw = dict(validate_args=False, device=device)
+        return tm.MetricCollection(
+            {"acc": tm.MulticlassAccuracy(num_classes=FANOUT_CLASSES, **kw),
+             "exact": tm.MulticlassAUROC(num_classes=FANOUT_CLASSES, thresholds=None, **kw)},
+            compute_groups=False,
+        )
+
+    p_mesh = SlicedPlan(suite(), num_cells=FANOUT_CELLS, mesh=mesh, cat_capacity=cap, example_batch=(preds[0, mine], target[0, mine]))
+    p_local = SlicedPlan(suite(), num_cells=FANOUT_CELLS, cat_capacity=cap, example_batch=(preds[0], target[0]))
+    for i in range(NUM_BATCHES):
+        p_mesh.update(keys[i, mine], preds[i, mine], target[i, mine])
+        p_local.update(keys[i], preds[i], target[i])
+    _require_payloads_bitwise(p_mesh.save_checkpoint(), p_local.save_checkpoint(), f"rank {rank}: the sliced mesh plan vs the local plan")
+    _require(len(p_mesh._sharded) == 1 and all(s.fold_graph is not None for s in p_mesh._sharded.values()),
+             f"rank {rank}: the sliced mesh plan captured its two graphs")
+
+    def mesh_pass():
+        for i in range(NUM_BATCHES):
+            p_mesh.update(keys[i, mine], preds[i, mine], target[i, mine])
+
+    def local_pass():
+        for i in range(NUM_BATCHES):
+            p_local.update(keys[i], preds[i], target[i])
+
+    return {"sliced_mesh_pass_ms": _median_timed(mesh_pass) * 1e3, "sliced_local_pass_ms": _median_timed(local_pass) * 1e3}
 
 
 def _dist_sketch_checks(rank, world, device):
@@ -3747,6 +3883,12 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
             f"[dist] rank {r['rank']}: sketch merge sync ({NUM_BATCHES // DIST_WORLD} local batches of {BATCH}), equal to the"
             f" one-rank merge of both halves: Quantile {r['sketch_quantile_sync_ms']:.3f} ms, DriftScore"
             f" {r['sketch_drift_sync_ms']:.3f} ms, HeavyHitters (uint32 keys as int32) {r['sketch_heavy_sync_ms']:.3f} ms; {smi}; {note}"
+        )
+    for r in ranks:
+        print(
+            f"[dist] rank {r['rank']}: the sliced mesh plan ({FANOUT_CELLS} cells, half of each of {NUM_BATCHES} x {FANOUT_BATCH} rows,"
+            f" accuracy and exact AUROC) bitwise equal to the local plan over the whole batches; a pass {r['sliced_mesh_pass_ms']:.3f} ms"
+            f" against the local plan's {r['sliced_local_pass_ms']:.3f} ms (medians of {DIST_REPS}); {smi}; {note}"
         )
     print(f"[dist] BootStrapper refused: {r0['bootstrap_refusal']!r}")
     print(f"[dist] fault drill: {r0['drill_error']!r} on both ranks; the next gather healed")
@@ -4121,6 +4263,489 @@ def phase_sketch(device, kernels, smi):
     return out
 
 
+# --------------------------------------------------------------------- sliced
+
+#: the hand kernels of the sliced plane (phase 14); its geometries run them beside no other
+SLICED_KERNELS = ("slice_assign", "stat_counts_segmented", "binned_curve_state_segmented")
+FANOUT_CELLS = 1024  # bench_workloads.py SLICED_CELLS
+FANOUT_BATCH = 8192  # bench_workloads.py SLICED_BATCH
+FANOUT_CLASSES = 8  # bench_workloads.py SLICED_CLASSES
+DRIFT_CELLS = 1024  # bench_workloads.py DRIFT_CELLS
+DRIFT_BATCH = 8192  # bench_workloads.py DRIFT_BATCH
+DRIFT_BINS = 32  # bench_workloads.py DRIFT_BINS
+DRIFT_REFERENCE = 65536
+SUITE_COHORTS = 200
+SUITE_CELLS = 256
+SLICED_SAMPLE = 32  # cohorts held against independent metrics (fanout, drift)
+SUITE_SAMPLE = 12  # cohorts of the flagship suite held against independent suites
+SLICED_REPS = 3
+SLICED_DRIFT_ATOL = 1e-6  # compute_all's scores against each cohort's own DriftScore (vmapped sums)
+WINDOW_SLOTS, WINDOW_EVERY_N = 4, 2
+
+
+def _sliced_kernels():
+    from torchmetrics_tpu_torch.ops import KERNELS
+
+    return {name: KERNELS[name] for name in SLICED_KERNELS}
+
+
+def _fanout_stream(device):
+    """bench_workloads.py's sliced_fanout stream, made on the card from a seed: NUM_BATCHES
+    batches of FANOUT_BATCH rows, keys uniform over FANOUT_CELLS cohorts, 8-class logits."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 20)
+    keys = torch.randint(0, FANOUT_CELLS, (NUM_BATCHES, FANOUT_BATCH), generator=gen, device=device, dtype=torch.int32)
+    preds = torch.randn((NUM_BATCHES, FANOUT_BATCH, FANOUT_CLASSES), generator=gen, device=device)
+    target = torch.randint(0, FANOUT_CLASSES, (NUM_BATCHES, FANOUT_BATCH), generator=gen, device=device, dtype=torch.int32)
+    return keys, preds, target
+
+
+def _drift_stream(device):
+    """bench_workloads.py's drift_cohort_windows stream: values N(0.5, 0.1) over DRIFT_CELLS
+    cohorts, and a DRIFT_REFERENCE-value reference from numpy's seed 0, as the JAX leg draws it."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 21)
+    keys = torch.randint(0, DRIFT_CELLS, (NUM_BATCHES, DRIFT_BATCH), generator=gen, device=device, dtype=torch.int32)
+    vals = 0.5 + 0.1 * torch.randn((NUM_BATCHES, DRIFT_BATCH), generator=gen, device=device)
+    reference = torch.from_numpy(np.random.RandomState(0).normal(0.5, 0.1, DRIFT_REFERENCE).astype(np.float32)).to(device)
+    return keys, vals, reference
+
+
+def _suite_keys(device):
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 22)
+    return torch.randint(0, SUITE_COHORTS, (NUM_BATCHES, BATCH), generator=gen, device=device, dtype=torch.int32)
+
+
+def _cohort_refs(cohorts, factory, keys, *streams):
+    """One independent metric per cohort, fed that cohort's rows of every batch
+    that has any (a cell counts the batches that reach it)."""
+    refs = {}
+    for k in cohorts:
+        metric = factory()
+        for i in range(keys.shape[0]):
+            sel = keys[i] == k
+            if bool(sel.any()):
+                metric.update(*(s[i][sel] for s in streams))
+        refs[k] = metric
+    return refs
+
+
+def _require_cell_bitwise(got, want, what):
+    """An exported cell against an independent metric: the update count (the
+    batches that reached the cell) and every state, bitwise."""
+    _require(got._update_count == want._update_count, f"{what}: update count {got._update_count} vs {want._update_count}")
+    _require_metric_states_bitwise(got, want, what)
+
+
+def _flat_payload(tree, prefix=""):
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flat_payload(value, f"{prefix}{key}."))
+        elif isinstance(value, list):
+            for i, v in enumerate(value):
+                out.update(_flat_payload(v, f"{prefix}{key}[{i}].") if isinstance(v, dict) else {f"{prefix}{key}[{i}]": v})
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def _require_payloads_bitwise(got, want, what):
+    import numpy as np
+
+    g, w = _flat_payload(got), _flat_payload(want)
+    _require(sorted(g) == sorted(w), f"{what}: payload keys differ")
+    for key in w:
+        a, b = np.asarray(g[key]), np.asarray(w[key])
+        _require(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), f"{what}: {key} differs")
+
+
+def check_slice_assign(device, suite_keys, fanout_keys):
+    """K4 against ``slice_assign_plain`` (JAX's while_loop as a host loop) on
+    the card at the main path's shapes: the suite's 65536 keys over 200
+    cohorts into 256 cells and the fan-out's 8192 keys into 1024 cells, each
+    from an empty table (insertion rounds) and again on the filled one
+    (lookups); table and cells bitwise. Timed in steady state (every cohort
+    resident) beside the plain version and the bound."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import slice_assign, slice_assign_plain
+
+    def table(n):
+        return (torch.zeros((n, 1), dtype=torch.int32, device=device), torch.zeros(n, dtype=torch.bool, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+
+    for what, n, kmats in (("suite", SUITE_CELLS, suite_keys[:2]), ("fan-out", FANOUT_CELLS, fanout_keys[:2])):
+        mine, plain = table(n), table(n)
+        for i, k in enumerate(kmats):
+            got = slice_assign(*mine, k[:, None].contiguous())
+            want = slice_assign_plain(*plain, k[:, None].contiguous())
+            torch.cuda.synchronize()
+            _require(torch.equal(got, want), f"slice_assign, {what} batch {i}: cells differ from the plain version")
+            for a, b in zip(mine, plain):
+                _require(torch.equal(a, b), f"slice_assign, {what} batch {i}: the table differs from the plain version")
+    print(f"[kernels] slice_assign: bitwise equal to its plain version (table and cells) at {BATCH} keys into {SUITE_CELLS}"
+          f" cells and {FANOUT_BATCH} into {FANOUT_CELLS}, from an empty and from a filled table")
+    steady = table(SUITE_CELLS)
+    slice_assign(*steady, suite_keys[0][:, None].contiguous())
+    arg_sets = [(*steady, k[:, None].contiguous()) for k in suite_keys]
+    times = _measure([("kernel", slice_assign, arg_sets), ("plain", slice_assign_plain, arg_sets[:2]),
+                      ("read_floor", _read_floor, [(k,) for k in suite_keys])], profile_reps=SKETCH_REPS, timing_reps=SKETCH_REPS)
+    n_bytes = BATCH * 4 * 2 + SUITE_CELLS * 5 + 4  # keys read, cells written, the table read once
+    bound_ms, bound_by = _bound(n_bytes, BATCH * 40)  # the hash's multiplies, shifts and xors and a compare a key
+    return {
+        "name": "slice_assign",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/slice_assign.cu",
+        "replaces": "torchmetrics_tpu/parallel/sliced.py:210",
+        "max_abs_err": 0.0,
+        "ms": times["kernel"]["device_ms"],
+        "plain_ms": times["plain"]["device_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "slice_lookup"),
+        "bytes": n_bytes,
+        "read_floor_ms": times["read_floor"]["device_ms"],
+    }
+
+
+def check_stat_counts_segmented(device, batches, cells_list, fanout):
+    """K2s against ``stat_counts_segmented_plain`` on the card: the suite's
+    65536 x 64 logits into 256 cells and the fan-out's 8192 x 8 into 1024,
+    spilled (-1) rows beside; bitwise. Timed at the suite's shape."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import stat_counts_segmented, stat_counts_segmented_plain
+
+    arg_sets = [(logits, labels, cells, SUITE_CELLS, NUM_CLASSES) for (logits, labels), cells in zip(batches, cells_list)]
+    max_err = _assert_bitwise(stat_counts_segmented(*arg_sets[0]), stat_counts_segmented_plain(*arg_sets[0]), "stat_counts_segmented, suite shape")
+    keys, preds, target = fanout
+    spilled = torch.where(keys[0] % 97 == 0, -1, keys[0])  # a few rows dropped, as spilled rows are
+    for ignore in (None, 3):
+        _assert_bitwise(stat_counts_segmented(preds[0], target[0], spilled, FANOUT_CELLS, FANOUT_CLASSES, ignore),
+                        stat_counts_segmented_plain(preds[0], target[0], spilled, FANOUT_CELLS, FANOUT_CLASSES, ignore),
+                        f"stat_counts_segmented, fan-out shape, ignore_index={ignore}")
+    print(f"[kernels] stat_counts_segmented: bitwise equal to its plain version at {BATCH}x{NUM_CLASSES} into {SUITE_CELLS} cells"
+          f" and {FANOUT_BATCH}x{FANOUT_CLASSES} into {FANOUT_CELLS} with dropped rows and an ignore_index")
+    times = _measure([("kernel", stat_counts_segmented, arg_sets), ("plain", stat_counts_segmented_plain, arg_sets),
+                      ("read_floor", _read_floor, [(a[0],) for a in arg_sets])])
+    n_bytes = BATCH * NUM_CLASSES * 4 + BATCH * 4 * 2 + SUITE_CELLS * 4 * NUM_CLASSES * 4
+    bound_ms, bound_by = _bound(n_bytes, BATCH * NUM_CLASSES)  # one compare per score
+    return {
+        "name": "stat_counts_segmented",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/stat_counts.cu",
+        "replaces": "torchmetrics_tpu/parallel/sliced.py:280",
+        "max_abs_err": max_err,
+        "ms": times["kernel"]["device_ms"],
+        "plain_ms": times["plain"]["device_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "stat_counts_segmented"),
+        "bytes": n_bytes,
+        "read_floor_ms": times["read_floor"]["device_ms"],
+    }
+
+
+def check_binned_curve_segmented(device, batches, cells_list):
+    """K1s against ``binned_curve_state_segmented_plain`` on the card at the
+    suite's shape (65536 x 64 softmax probabilities, T = 128, into 256
+    cells), labels mode and matrix mode (one-hot targets, -1 entries);
+    bitwise. Timed in labels mode."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import binned_curve_state_segmented, binned_curve_state_segmented_plain
+    from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
+
+    thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
+    arg_sets = [(torch.softmax(logits, 1), thr, labels, True, cells, SUITE_CELLS) for (logits, labels), cells in zip(batches, cells_list)]
+    max_err = _assert_bitwise(binned_curve_state_segmented(*arg_sets[0]), binned_curve_state_segmented_plain(*arg_sets[0]),
+                              "binned_curve_state_segmented, labels mode, suite shape")
+    p, _, labels, _, cells, _ = arg_sets[1]
+    onehot = torch.nn.functional.one_hot(labels.long(), NUM_CLASSES).to(torch.int32)
+    onehot[::13] = -1
+    _assert_bitwise(binned_curve_state_segmented(p, thr, onehot, False, cells, SUITE_CELLS),
+                    binned_curve_state_segmented_plain(p, thr, onehot, False, cells, SUITE_CELLS),
+                    "binned_curve_state_segmented, matrix mode, suite shape")
+    print(f"[kernels] binned_curve_state_segmented: bitwise equal to its plain version at {BATCH}x{NUM_CLASSES} T={THRESHOLDS}"
+          f" into {SUITE_CELLS} cells, labels and matrix mode")
+    times = _measure([("kernel", binned_curve_state_segmented, arg_sets), ("plain", binned_curve_state_segmented_plain, arg_sets[:2]),
+                      ("read_floor", _read_floor, [(a[0],) for a in arg_sets])], profile_reps=SKETCH_REPS, timing_reps=SKETCH_REPS * 4)
+    n_bytes = BATCH * NUM_CLASSES * 4 + BATCH * 4 * 2 + THRESHOLDS * 4 + SUITE_CELLS * THRESHOLDS * NUM_CLASSES * 4 * 4
+    bound_ms, bound_by = _bound(n_bytes, BATCH * NUM_CLASSES * 8)  # the bin's binary search
+    return {
+        "name": "binned_curve_state_segmented",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/binned_curve_state.cu",
+        "replaces": "torchmetrics_tpu/parallel/sliced.py:280",
+        "max_abs_err": max_err,
+        "ms": times["kernel"]["device_ms"],
+        "plain_ms": times["plain"]["device_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "binned_curve_segmented"),
+        "bytes": n_bytes,
+        "read_floor_ms": times["read_floor"]["device_ms"],
+    }
+
+
+def _small_sketch_suite(tm, device):
+    """JAX's test_sliced.py suite at its size: MulticlassAccuracy, a histogram
+    sketch of each row's top probability, exact MulticlassAUROC (cat rows)."""
+    import torch
+
+    from torchmetrics_tpu_torch.sketch import hist_init, hist_update
+
+    class _ScoreHistogram(tm.Metric):
+        full_state_update = False
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("hist", hist_init(bins=8, lo=0.0, hi=1.0, device=self.device), dist_reduce_fx="merge")
+
+        def update(self, preds, target):
+            self.hist = hist_update(self.hist, preds.max(-1).values)
+
+        def compute(self):
+            return self.hist.counts.to(torch.float32) / torch.clamp(self.hist.count, min=1)
+
+    kw = dict(validate_args=False, device=device)
+    return tm.MetricCollection(
+        {"acc": tm.MulticlassAccuracy(num_classes=5, **kw), "hist": _ScoreHistogram(device=device),
+         "auroc_exact": tm.MulticlassAUROC(num_classes=5, thresholds=None, **kw)},
+        compute_groups=False,
+    )
+
+
+def phase_sliced(device, batches, smi):
+    """The sliced and windowed planes (see the module docstring, phase 14)."""
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import drift as tdrift
+    from torchmetrics_tpu_torch.parallel import SlicedPlan, WindowRing
+    from torchmetrics_tpu_torch.wrappers import Running
+
+    t_phase = time.perf_counter()
+    kernels = _sliced_kernels()
+    out = {}
+    fan_keys, fan_preds, fan_target = _fanout_stream(device)
+    drift_keys, drift_vals, reference = _drift_stream(device)
+    suite_keys = _suite_keys(device)
+
+    # 1) the main path: the three geometries through their plans, the counts from 0
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    fan_plan = tm.MulticlassAccuracy(num_classes=FANOUT_CLASSES, validate_args=False, device=device).sliced(num_cells=FANOUT_CELLS)
+    drift_plan = tdrift.DriftScore(reference=reference, bins=DRIFT_BINS, lo=0.0, hi=1.0, device=device).sliced(num_cells=DRIFT_CELLS)
+    suite_plan = _headline_suite(tm, device=device).sliced(num_cells=SUITE_CELLS)
+    t0 = time.perf_counter()
+    fan_plan.run_scan(fan_keys, (fan_preds, fan_target))
+    drift_plan.run_scan(drift_keys, (drift_vals,))
+    for i, (logits, labels) in enumerate(batches):
+        suite_plan.update(suite_keys[i], logits, labels)
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    out["launches"] = {name: w.launches for name, w in kernels.items()}
+    for name, count in out["launches"].items():
+        _require(count > 0, f"sliced: kernel {name} launched {count} times on the main path")
+    _require(len(suite_plan._captured) == 1 and len(fan_plan._captured) == 1 and len(drift_plan._captured) == 1,
+             "sliced: each plan captures one graph for its one input signature")
+
+    # 2) every checked cell equals an independent metric fed that cohort's rows
+    rng = np.random.default_rng(SEED)
+    _require(fan_plan.spills == 0 and fan_plan.updates_applied == NUM_BATCHES, "sliced fan-out: spills or update count")
+    sample = [int(k) for k in rng.choice(FANOUT_CELLS, SLICED_SAMPLE, replace=False)]
+    refs = _cohort_refs(sample, lambda: tm.MulticlassAccuracy(num_classes=FANOUT_CLASSES, validate_args=False, device=device),
+                        fan_keys, fan_preds, fan_target)
+    for k, ref in refs.items():
+        _require_cell_bitwise(fan_plan.export_cell(k), ref, f"sliced fan-out cohort {k}")
+    whole = tm.MulticlassAccuracy(num_classes=FANOUT_CLASSES, validate_args=False, device=device)
+    for i in range(NUM_BATCHES):
+        whole.update(fan_preds[i], fan_target[i])
+    carry = fan_plan.state["members"]["MulticlassAccuracy"]
+    for name in ("tp", "fp", "tn", "fn"):
+        _require(torch.equal(carry[name].sum(0, dtype=torch.int32), getattr(whole, name)), f"sliced fan-out: {name} over all cells")
+    out["fanout_occupancy"] = fan_plan.occupancy
+
+    dsample = [int(k) for k in rng.choice(DRIFT_CELLS, SLICED_SAMPLE, replace=False)]
+    drefs = _cohort_refs(dsample, lambda: tdrift.DriftScore(reference=reference, bins=DRIFT_BINS, lo=0.0, hi=1.0, device=device),
+                         drift_keys, drift_vals)
+    scores = drift_plan.compute_all()["DriftScore"]
+    drift_err = 0.0
+    for k, ref in drefs.items():
+        _require_cell_bitwise(drift_plan.export_cell(k), ref, f"sliced drift cohort {k}")
+        cell = drift_plan.lookup(k)
+        for name, want in zip(scores._fields, ref.compute()):
+            drift_err = max(drift_err, abs(float(getattr(scores, name)[cell]) - float(want)))
+    _require(drift_err <= SLICED_DRIFT_ATOL, f"sliced drift: compute_all {drift_err:.3e} from per-cohort compute")
+    out["drift_err"] = drift_err
+
+    ssample = sorted(int(k) for k in rng.choice(SUITE_COHORTS, SUITE_SAMPLE, replace=False))
+    srefs = _cohort_refs(ssample, lambda: _headline_suite(tm, device=device), suite_keys, [b[0] for b in batches], [b[1] for b in batches])
+    for k, ref in srefs.items():
+        exported = suite_plan.export_cell(k)
+        for key in ("acc", "f1", "auroc"):
+            _require_cell_bitwise(dict.__getitem__(exported, key), dict.__getitem__(ref, key), f"sliced suite cohort {k} {key}")
+    _require(suite_plan.spills == 0 and abs(suite_plan.occupancy - SUITE_COHORTS / SUITE_CELLS) < 1e-9, "sliced suite: table")
+    out["suite_carry_bytes"] = sum(suite_plan.state_byte_sizes().values())
+    print(
+        f"[sliced] main path: sliced_fanout (MulticlassAccuracy({FANOUT_CLASSES}), {FANOUT_CELLS} cells, {NUM_BATCHES} x {FANOUT_BATCH}"
+        f" rows, run_scan), drift_cohorts (DriftScore({DRIFT_BINS} bins) vs {DRIFT_REFERENCE} reference values, {DRIFT_CELLS} cells,"
+        f" {NUM_BATCHES} x {DRIFT_BATCH}, run_scan) and sliced_suite (the headline suite, {SUITE_COHORTS} cohorts into"
+        f" {SUITE_CELLS} cells, {NUM_BATCHES} x {BATCH} x {NUM_CLASSES}, update per batch), first pass with captures"
+        f" {out['first_s']:.3f} s; launches {out['launches']} (each plan's warm-up and captured launch); fan-out occupancy"
+        f" {out['fanout_occupancy']:.4f}; {SLICED_SAMPLE} fan-out and drift cohorts and {SUITE_SAMPLE} suite cohorts bitwise equal"
+        f" to independent metrics, the fan-out's states over all cells to one metric over every row; drift compute_all within"
+        f" {drift_err:.2e} of per-cohort compute; the suite's carry {out['suite_carry_bytes']} B"
+    )
+
+    # 3) the kernels against their plain versions, and timed
+    cells_list = []
+    table = (torch.zeros((SUITE_CELLS, 1), dtype=torch.int32, device=device), torch.zeros(SUITE_CELLS, dtype=torch.bool, device=device),
+             torch.zeros((), dtype=torch.int32, device=device))
+    from torchmetrics_tpu_torch.ops import slice_assign
+
+    for k in suite_keys:
+        cells_list.append(slice_assign(*table, k[:, None].contiguous()))
+    out["rows"] = [
+        dict(check_binned_curve_segmented(device, batches, cells_list), launches=out["launches"]["binned_curve_state_segmented"]),
+        dict(check_stat_counts_segmented(device, batches, cells_list, (fan_keys, fan_preds, fan_target)),
+             launches=out["launches"]["stat_counts_segmented"]),
+        dict(check_slice_assign(device, suite_keys, fan_keys), launches=out["launches"]["slice_assign"]),
+    ]
+
+    # 4) timed: the captured passes, the naive fan-out loop, the drift scorer
+    fan_runs = [_timed(lambda: fan_plan.run_scan(fan_keys, (fan_preds, fan_target))) for _ in range(SLICED_REPS)]
+    out["fanout_sps"] = NUM_BATCHES * FANOUT_BATCH / statistics.median(fan_runs)
+    naive = {c: tm.MulticlassAccuracy(num_classes=FANOUT_CLASSES, validate_args=False, device=device) for c in range(FANOUT_CELLS)}
+    keys_h = fan_keys[0].cpu().numpy()
+
+    def drive_naive():
+        order = np.argsort(keys_h, kind="stable")
+        sorted_k = keys_h[order]
+        starts = np.flatnonzero(np.r_[True, sorted_k[1:] != sorted_k[:-1]])
+        bounds = np.r_[starts, len(sorted_k)]
+        index = torch.from_numpy(order).to(device)
+        for j, s in enumerate(starts):
+            sel = index[s : bounds[j + 1]]
+            naive[int(sorted_k[s])].update(fan_preds[0][sel], fan_target[0][sel])
+
+    drive_naive()  # warm: every member at its real sub-batch shape
+    for m in naive.values():
+        m.reset()
+    out["naive_sps"] = FANOUT_BATCH / _timed(drive_naive)
+    out["fanout_ratio"] = out["fanout_sps"] / out["naive_sps"]
+    drift_runs = [_timed(lambda: drift_plan.run_scan(drift_keys, (drift_vals,))) for _ in range(SLICED_REPS)]
+    out["drift_ingest_sps"] = NUM_BATCHES * DRIFT_BATCH / statistics.median(drift_runs)
+    drift_plan.compute_all()
+    score_runs = [_timed(drift_plan.compute_all) for _ in range(SLICED_REPS)]
+    out["drift_windows_per_s"] = DRIFT_CELLS / statistics.median(score_runs)
+
+    def suite_pass():
+        for i, (logits, labels) in enumerate(batches):
+            suite_plan.update(suite_keys[i], logits, labels)
+
+    suite_runs = [_timed(suite_pass) for _ in range(SLICED_REPS)]
+    out["suite_pass_ms"] = statistics.median(suite_runs) * 1e3
+    for attempt in range(1, 4):  # torch.profiler on an H100 was seen to drop events of a trace: take it again
+        found, busy_us, wall_us = _profile(suite_pass, 1)
+        per_pass = {name: sum(n for key, (_, n) in found.items() if f"{kernel}_kernel" in key)
+                    for name, kernel in (("slice_assign", "slice_lookup"), ("stat_counts_segmented", "stat_counts_segmented"),
+                                         ("binned_curve_state_segmented", "binned_curve_segmented"))}
+        if all(n == NUM_BATCHES for n in per_pass.values()):
+            break
+    out.update(suite_busy_us=busy_us, suite_wall_us=wall_us, suite_per_pass=per_pass, suite_traces=attempt)
+    top = sorted(found.items(), key=lambda kv: -kv[1][0])[:8]
+    out["suite_top"] = [(_short_kernel_name(key), t, n) for key, (t, n) in top]
+    print(
+        f"[sliced] sliced_fanout: captured run_scan of {NUM_BATCHES} x {FANOUT_BATCH} rows {statistics.median(fan_runs) * 1e3:.3f} ms ="
+        f" {out['fanout_sps']:.1f} samples/s (median of {SLICED_REPS}); the naive loop of {FANOUT_CELLS} metric instances over one"
+        f" batch (host group-by + one update per cohort) {out['naive_sps']:.1f} samples/s; ratio {out['fanout_ratio']:.1f}; {smi}"
+    )
+    print(
+        f"[sliced] drift_cohorts: ingest (captured run_scan) {out['drift_ingest_sps']:.1f} samples/s, scored windows"
+        f" (compute_all over {DRIFT_CELLS} cells) {out['drift_windows_per_s']:.1f} windows/s (medians of {SLICED_REPS}); {smi}"
+    )
+    print(
+        f"[sliced] sliced_suite: a pass of {NUM_BATCHES} replays {out['suite_pass_ms']:.3f} ms ="
+        f" {NUM_BATCHES * BATCH / out['suite_pass_ms'] * 1e3:.1f} samples/s (median of {SLICED_REPS}); profiled pass: device busy"
+        f" {busy_us:.1f} us of {wall_us:.1f} us = busy share {busy_us / wall_us:.4f} ({attempt} trace(s)); hand-kernel launches"
+        f" per pass in the trace {per_pass}; top device ops:"
+        f" {'; '.join(f'{name} {t:.1f} us/{n}' for name, t, n in out['suite_top'])}; {smi}"
+    )
+
+    # 5) JAX's small suite (accuracy, a histogram sketch, exact AUROC's cat rows) on the card and on the CPU
+    srng = np.random.default_rng(SEED + 23)
+    small = []
+    for _ in range(4):
+        x = srng.standard_normal((48, 5))
+        e = np.exp(x - x.max(-1, keepdims=True))
+        small.append((torch.from_numpy(srng.integers(0, 7, 48).astype(np.int32)), torch.from_numpy((e / e.sum(-1, keepdims=True)).astype(np.float32)),
+                      torch.from_numpy(srng.integers(0, 5, 48).astype(np.int32))))
+    payloads = []
+    for dev in (device, torch.device("cpu")):
+        plan = SlicedPlan(_small_sketch_suite(tm, dev), num_cells=32, cat_capacity=4 * 48 + 8, example_batch=tuple(t.to(dev) for t in small[0][1:]))
+        for b in small[:2]:
+            plan.update(*(t.to(dev) for t in b))
+        plan.run_scan([b[0].to(dev) for b in small[2:]], [tuple(t.to(dev) for t in b[1:]) for b in small[2:]])
+        payloads.append(plan.save_checkpoint())
+    _require_payloads_bitwise(payloads[0], payloads[1], "sliced small sketch suite, card vs CPU")
+    print("[sliced] JAX's test suite at its size (48-row batches, 32 cells, 7 cohorts: accuracy, a histogram sketch, exact AUROC"
+          " with cat_capacity), update and run_scan: the card's carry bitwise equal to the CPU's")
+
+    # 6) windowed: a ring over the headline suite, and a tumbling ring against Running
+    suite = _headline_suite(tm, device=device)
+    ring = WindowRing(suite, slots=WINDOW_SLOTS, every_n=WINDOW_EVERY_N)
+    for i, batch in enumerate(batches):
+        suite.update(*batch)
+        ring.observe(i + 1)
+    for k in (1, 2, WINDOW_SLOTS):
+        ref = _headline_suite(tm, device=device)
+        for batch in batches[NUM_BATCHES - WINDOW_EVERY_N * k :]:
+            ref.update(*batch)
+        _require_values_bitwise(ring.query(last=k), ref.compute(), f"windowed query(last={k})")
+    t0 = time.perf_counter()
+    ring.query(last=WINDOW_SLOTS)
+    torch.cuda.synchronize()
+    out["query_ms"] = (time.perf_counter() - t0) * 1e3
+    base = tm.SumMetric(device=device)
+    tumbling = WindowRing(base, slots=4, every_n=1)
+    running = Running(tm.SumMetric(device=device), window=4)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 24)
+    for i in range(9):
+        x = torch.randint(-50, 50, (BATCH,), generator=gen, device=device).to(torch.float32)
+        base.update(x)
+        tumbling.observe(i + 1)
+        running.update(x)
+        if i + 1 >= 4:
+            _require(torch.equal(tumbling.query(last=4), running.compute()), f"windowed: tumbling ring vs Running at {i}")
+    print(
+        f"[sliced] windowed: WindowRing(slots={WINDOW_SLOTS}, every_n={WINDOW_EVERY_N}) over the headline suite, query(last=1, 2, 4)"
+        f" bitwise equal to the suite recomputed over those windows' batches; query(last={WINDOW_SLOTS}) {out['query_ms']:.3f} ms;"
+        f" a tumbling ring of 4 equal to Running(SumMetric, window=4) over 9 updates of {BATCH} values"
+    )
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[sliced] phase {out['seconds']:.1f} s; {smi}")
+    return out
+
+
 # ----------------------------------------------------------------------- main
 
 
@@ -4160,15 +4785,19 @@ def main() -> int:
     regression = phase_regression(device, batches, KERNELS)
     wrappers = phase_wrappers(device, batches, KERNELS, smi)
     sketch = phase_sketch(device, sketch_kernels, smi)
+    sliced = phase_sliced(device, batches, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     durable = phase_durable(device, batches, KERNELS, run, exact, smi)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
-    matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", library_ms=None,
+    matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", route="cuda",
+                      source="torchmetrics_tpu_torch/csrc/binned_curve_state.cu", replaces=rows[0]["replaces"], library_ms=None,
                       launches=ml_run["launches"]["binned_curve_state"])
+    rows.insert(1, matrix_row)
     rows.append(sketch["k3_row"])
-    for row in rows + [matrix_row]:
+    rows.extend(sliced["rows"])
+    for row in rows:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
             f"[kernels] {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
@@ -4207,7 +4836,10 @@ def main() -> int:
         f" {durable['seconds']:.1f} s, fused pass by snapshot_every_n {durable['cadence_ms']}, suite snapshot"
         f" {durable['suite_bytes']} B, exact snapshot {durable['exact_bytes']} B; dist phase"
         f" {dist_run['seconds']:.1f} s, sharded fused pass {dist_run['ranks'][0]['sharded_pass_ms']:.3f} ms (gloo on one card);"
-        f" total {time.perf_counter() - t_start:.1f} s"
+        f" sliced phase {sliced['seconds']:.1f} s, fan-out {sliced['fanout_sps']:.1f} samples/s ({sliced['fanout_ratio']:.1f} x the naive"
+        f" loop), drift ingest {sliced['drift_ingest_sps']:.1f} samples/s and {sliced['drift_windows_per_s']:.1f} windows/s, suite pass"
+        f" {sliced['suite_pass_ms']:.3f} ms (busy share {sliced['suite_busy_us'] / sliced['suite_wall_us']:.4f}); sliced mesh pass"
+        f" {dist_run['ranks'][0]['sliced_mesh_pass_ms']:.3f} ms (gloo on one card); total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

@@ -12,8 +12,8 @@ association torch's sequential ``cumsum`` does not reproduce, and near 1.0
 one ulp (1.19e-7) exceeds 1e-7; HyperLogLog's cardinality within
 ``rtol=1e-6``.
 
-``test_sliced_plan_scores_cohorts_in_one_dispatch`` has no counterpart: the
-sliced plane waits for ROADMAP A10.
+``test_sliced_plan_scores_cohorts_in_one_dispatch``'s counterpart is in
+``tests/test_torch_sliced.py`` beside the rest of the sliced plane.
 """
 import pickle
 

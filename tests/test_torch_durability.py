@@ -15,7 +15,8 @@ states concatenated bitwise (after a fused drive a cat state is one
 concatenated array, so the list's length is not part of the result),
 values within rtol 1e-6, atol 1e-7. Also: the serve cycle
 (``serve_open``/``step``/``skip``/``close``), ``fused=True`` equal to the
-unfused drive (the plan runs eagerly on the CPU), the A10 refusals, and
+unfused drive (the plan runs eagerly on the CPU), the refused combinations of
+``window_ring`` and a ``SlicedPlan`` target, and
 stores crossing packages through the two runners — a run killed in one
 package resumes in the other and ends equal to the other package's
 uninterrupted run; the mixed store passes both packages' ``verify_store``
@@ -373,15 +374,25 @@ def test_invalid_configuration_rejected(tmp_path):
 
 
 def test_window_ring_and_sliced_plan_wait_for_a10():
+    """A10 is ported: the runner refuses the combinations JAX's refuses, with
+    JAX's messages (the drives themselves: tests/test_torch_windowing.py and
+    tests/test_torch_sliced.py)."""
+    from torchmetrics_tpu.robustness import StreamingEvaluator as JEvaluator
+    from torchmetrics_tpu_torch.parallel import WindowRing
+
     metric = T.MulticlassAccuracy(num_classes=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        StreamingEvaluator(metric, window_ring=object())
-
-    class SlicedPlan:  # stands in for the JAX package's plan, which the port lacks
-        pass
-
-    with pytest.raises(NotImplementedError, match="A10"):
-        StreamingEvaluator(SlicedPlan())
+    jmetric = J.classification.MulticlassAccuracy(num_classes=5)
+    for evaluator, target in ((StreamingEvaluator, metric), (JEvaluator, jmetric)):
+        with pytest.raises(ValueError, match="window_ring must be a WindowRing, got object"):
+            evaluator(target, window_ring=object())
+    with pytest.raises(ValueError, match="SAME metric"):
+        StreamingEvaluator(metric, window_ring=WindowRing(T.MulticlassAccuracy(num_classes=5, device="cpu"), slots=2))
+    with pytest.raises(ValueError, match="cannot combine with fused=True"):
+        StreamingEvaluator(metric, window_ring=WindowRing(metric, slots=2), fused=True)
+    plan = T.MulticlassAccuracy(num_classes=5, device="cpu").sliced(num_cells=4)
+    for kwargs in ({"fused": True}, {"update_fn": lambda m, b: None}, {"window_ring": WindowRing(metric, slots=2)}):
+        with pytest.raises(ValueError, match="owns its own dispatch and state layout"):
+            StreamingEvaluator(plan, **kwargs)
 
 
 def test_a_windowed_jax_snapshot_is_refused(tmp_path):

@@ -208,11 +208,8 @@ def test_sketch_drift_and_k3_import_no_jax(rel):
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
-#: names of the JAX package's ``__all__`` whose wait is documented: the
-#: sliced and windowed planes (ROADMAP A10)
-_WAITING = {
-    "parallel": {"SliceTable", "SlicedPlan", "WindowRing", "slice_key_reason", "slice_table_size_reason", "sliced_ineligibility"},
-}
+#: names of the JAX package's ``__all__`` whose wait is documented (none left)
+_WAITING: dict = {}
 
 
 @pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel"])

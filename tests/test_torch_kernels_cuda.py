@@ -24,7 +24,10 @@ CPU, with K1 and K2 launching under them; a card metric plots what a CPU
 one plots (matplotlib, where installed).
 The sketch plane on the card equals it on the CPU; K3 (the Count-Min
 table's scan) equals its loop bitwise, and the one-metric step of
-``make_jit_update`` captures and equals eager updates.
+``make_jit_update`` captures and equals eager updates. K4 (the slice
+table), K2s and K1s (the segmented stat counts and binned curve state) equal
+their plain versions bitwise, and a sliced plan captured on the card equals
+the same plan on the CPU.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -879,6 +882,154 @@ def test_count_captures_where_torch_bincount_cannot(card):
         with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
             torch.bincount(idx, minlength=4096)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------- the sliced plane
+
+
+# 24 cells: claims in shared memory; 13000: in global scratch; more cohorts
+# than cells spill
+@pytest.mark.parametrize(("num_cells", "key_width", "cohorts"), [(24, 1, 7), (24, 2, 60), (13000, 1, 9000), (5, 3, 4)])
+def test_slice_assign_matches_plain(card, num_cells, key_width, cohorts):
+    """K4 against its plain version (JAX's while_loop as a host loop):
+    table and cells bitwise, batch after batch, spills included."""
+    from torchmetrics_tpu_torch.ops import slice_assign, slice_assign_plain
+
+    rng = np.random.default_rng(43)
+    tables = [
+        (torch.zeros((num_cells, key_width), dtype=torch.int32, device=dev), torch.zeros(num_cells, dtype=torch.bool, device=dev),
+         torch.zeros((), dtype=torch.int32, device=dev))
+        for dev in (card, torch.device("cpu"))
+    ]
+    for batch in (4096, 1, 20000):
+        kmat = torch.from_numpy(rng.integers(-cohorts, cohorts, (batch, key_width)).astype(np.int32))
+        before = slice_assign.launches
+        got = slice_assign(*tables[0], kmat.to(card))
+        want = slice_assign_plain(*tables[1], kmat)
+        torch.cuda.synchronize()
+        assert slice_assign.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        for a, b in zip(tables[0], tables[1]):
+            assert torch.equal(a.cpu(), b)
+    before = slice_assign.launches
+    assert slice_assign(*tables[0], torch.zeros((0, key_width), dtype=torch.int32, device=card)).shape == (0,)
+    assert slice_assign.launches == before
+
+
+@pytest.mark.parametrize("ignore_index", [None, 3, -7])
+@pytest.mark.parametrize(("mode", "num_classes"), [("float4", 64), ("scalar", 7), ("int32", 64), ("int64", 5)])
+def test_stat_counts_segmented_matches_plain(card, mode, num_classes, ignore_index):
+    """K2s against its plain version, cells of -1 dropped, out-of-range and
+    ignored labels, bitwise."""
+    from torchmetrics_tpu_torch.ops import stat_counts_segmented, stat_counts_segmented_plain
+
+    rng = np.random.default_rng(44)
+    n, num_cells = 30001, 257
+    if mode in ("float4", "scalar"):
+        preds = torch.from_numpy(rng.standard_normal((n, num_classes)).astype(np.float32))
+    else:
+        preds = torch.from_numpy(rng.integers(-2, num_classes + 2, n).astype(np.int32 if mode == "int32" else np.int64))
+    target = torch.from_numpy(rng.integers(-3, num_classes + 3, n).astype(np.int64))
+    target[::11] = 3
+    cells = torch.from_numpy(rng.integers(-1, num_cells, n).astype(np.int32))
+    before = stat_counts_segmented.launches
+    got = stat_counts_segmented(preds.to(card), target.to(card), cells.to(card), num_cells, num_classes, ignore_index)
+    want = stat_counts_segmented_plain(preds, target, cells, num_cells, num_classes, ignore_index)
+    torch.cuda.synchronize()
+    assert stat_counts_segmented.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("len_t", [5, 128, 13000])
+@pytest.mark.parametrize("labels", [True, False], ids=["labels", "matrix"])
+def test_binned_curve_state_segmented_matches_plain(card, labels, len_t):
+    """K1s against its plain version: NaN/inf probabilities, masked targets,
+    cells of -1 dropped; thresholds in shared and in global memory; bitwise."""
+    from torchmetrics_tpu_torch.ops import binned_curve_state_segmented, binned_curve_state_segmented_plain
+
+    rng = np.random.default_rng(45)
+    n, k, num_cells = 3001, 7, 33
+    p = rng.random((n, k)).astype(np.float32)
+    p.reshape(-1)[:5] = [np.nan, np.inf, -np.inf, -0.5, 1.5]
+    thr = _linspace_like_jax(0.0, 1.0, len_t, device=card)
+    target = rng.integers(-1, k + 1, n if labels else (n, k)).astype(np.int32)
+    cells = rng.integers(-1, num_cells, n).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (p, target, cells)]
+    before = binned_curve_state_segmented.launches
+    got = binned_curve_state_segmented(args[0].to(card), thr, args[1].to(card), labels, args[2].to(card), num_cells)
+    want = binned_curve_state_segmented_plain(args[0], thr.cpu(), args[1], labels, args[2], num_cells)
+    torch.cuda.synchronize()
+    assert binned_curve_state_segmented.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sliced_plan_on_the_card_equals_cpu(card):
+    """A sliced suite on the card (K4, K2s and K1s in its captured step; a
+    histogram sketch; exact AUROC's cat rows) equals the same plan on the
+    CPU bitwise, through update and run_scan; a window ring over the card
+    suite answers what the CPU ring answers."""
+    from torchmetrics_tpu_torch import drift
+    from torchmetrics_tpu_torch.ops import binned_curve_state_segmented, slice_assign, stat_counts_segmented
+    from torchmetrics_tpu_torch.parallel import SlicedPlan, WindowRing
+
+    rng = np.random.default_rng(46)
+    c, b = 8, 2048
+
+    def suite(device):
+        kw = dict(validate_args=False, device=device)
+        return T.MetricCollection(
+            {
+                "acc": T.MulticlassAccuracy(num_classes=c, average="micro", **kw),
+                "f1": T.MulticlassF1Score(num_classes=c, average="macro", **kw),
+                "auroc": T.MulticlassAUROC(num_classes=c, thresholds=32, **kw),
+                "exact": T.MulticlassAUROC(num_classes=c, thresholds=None, **kw),
+                "drift": drift.DriftScore(reference=torch.rand(4096, generator=torch.Generator().manual_seed(0)), bins=16, device=device),
+            },
+            compute_groups=False,
+        )
+
+    def probs():  # probabilities: the update's softmax is the identity on the card and on the CPU
+        x = rng.standard_normal((b, c))
+        e = np.exp(x - x.max(-1, keepdims=True))
+        return torch.from_numpy((e / e.sum(-1, keepdims=True)).astype(np.float32))
+
+    batches = [(torch.from_numpy(rng.integers(0, 40, b).astype(np.int32)), probs(), torch.from_numpy(rng.integers(0, c, b).astype(np.int32)))
+               for _ in range(4)]
+    drift_batches = [torch.from_numpy(rng.random(b).astype(np.float32)) for _ in range(4)]
+    plans = {}
+    counts = {}
+    for device in (card, torch.device("cpu")):
+        members = suite(device)
+        drift_metric = dict.__getitem__(members, "drift")
+        del members["drift"]
+        plan = SlicedPlan(members, num_cells=64, cat_capacity=4 * b, example_batch=tuple(x.to(device) for x in batches[0][1:]))
+        drift_plan = drift_metric.sliced(num_cells=64)
+        for w in (slice_assign, stat_counts_segmented, binned_curve_state_segmented):
+            w.launches = 0
+        for (keys, preds, target), values in zip(batches[:2], drift_batches[:2]):
+            plan.update(keys.to(device), preds.to(device), target.to(device))
+            drift_plan.update(keys.to(device), values.to(device))
+        plan.run_scan([x[0].to(device) for x in batches[2:]], [tuple(t.to(device) for t in x[1:]) for x in batches[2:]])
+        drift_plan.run_scan([x[0].to(device) for x in batches[2:]], [(v.to(device),) for v in drift_batches[2:]])
+        counts[device.type] = {w.__name__: w.launches for w in (slice_assign, stat_counts_segmented, binned_curve_state_segmented)}
+        plans[device.type] = (plan, drift_plan)
+    assert all(v > 0 for v in counts["cuda"].values()), counts
+    for got, want in zip(plans["cuda"], plans["cpu"]):
+        a, b_ = got.save_checkpoint(), want.save_checkpoint()
+        flat = lambda t, pre="": {k2: v2 for k, v in t.items() for k2, v2 in (flat(v, f"{pre}{k}.").items() if isinstance(v, dict) else [(f"{pre}{k}", v)])}  # noqa: E731
+        fa, fb = flat(a), flat(b_)
+        assert set(fa) == set(fb)
+        for key in fb:
+            assert np.array_equal(np.asarray(fa[key]), np.asarray(fb[key])), key
+    ring_card_metric = T.MulticlassAccuracy(num_classes=c, device=card)
+    ring_cpu_metric = T.MulticlassAccuracy(num_classes=c, device="cpu")
+    rings = [WindowRing(ring_card_metric, slots=2, every_n=2), WindowRing(ring_cpu_metric, slots=2, every_n=2)]
+    for i, (_, preds, target) in enumerate(batches):
+        ring_card_metric.update(preds.to(card), target.to(card))
+        ring_cpu_metric.update(preds, target)
+        for r in rings:
+            r.observe(i + 1)
+    assert torch.equal(rings[0].query(last=2).cpu(), rings[1].query(last=2))
 
 
 if __name__ == "__main__":

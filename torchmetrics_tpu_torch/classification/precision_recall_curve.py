@@ -17,7 +17,7 @@ the ``state_spec`` fingerprints of the two packages match:
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -26,6 +26,7 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     CurveState,
     ThresholdsArg,
     _adjust_threshold_arg,
+    _binned_curve_state,
     _binary_precision_recall_curve_arg_validation,
     _binary_precision_recall_curve_compute,
     _binary_precision_recall_curve_format,
@@ -91,6 +92,19 @@ class _AbstractCurveMetric(Metric):
             return dim_zero_cat(self.preds), dim_zero_cat(self.target)
         return self.confmat
 
+    def _sliced_confmat(
+        self, preds: Tensor, target: Tensor, labels: bool, cells: Tensor, num_cells: int, rows: int
+    ) -> Dict[str, Tensor]:
+        """The sliced plan's kernel route: the binned state of each cohort cell,
+        ``(num_cells, *confmat)``, from K1s over formatted inputs whose
+        ``rows`` batch rows each span ``len(preds) // rows`` entries."""
+        per_row = preds.shape[0] // rows if rows else 0
+        cells = cells[:, None].expand(rows, per_row).reshape(-1)  # each row's cell, for each of its entries
+        state = _binned_curve_state(
+            preds, target, self.thresholds, labels=labels, ascending=self._thresholds_ascend, cells=cells, num_cells=num_cells
+        )
+        return {"confmat": state.reshape((num_cells, *self.confmat.shape))}
+
     def to(self, device) -> "_AbstractCurveMetric":
         super().to(device)
         if self.thresholds is not None:
@@ -125,6 +139,21 @@ class BinaryPrecisionRecallCurve(_AbstractCurveMetric):
             preds, target, self.thresholds, self._thresholds_ascend, self._thresholds_affine
         )
         self._update_curve_state(state)
+
+    def _sliced_fresh_states(self, cells: Tensor, num_cells: int, *batch: Any) -> Optional[Dict[str, Tensor]]:
+        """The binned state per cohort cell from K1s (matrix mode), ``None``
+        in the exact mode; equal bit for bit to the per-row updates (each
+        row's sigmoid decided on its own) summed over each cell."""
+        if self.thresholds is None or type(self).update is not BinaryPrecisionRecallCurve.update or len(batch) != 2:
+            return None
+        preds, target = self._inputs(*batch)
+        if preds.ndim == 0:
+            return None
+        if self.validate_args:
+            _binary_precision_recall_curve_tensor_validation(preds, target, self.ignore_index)
+        rows = preds.shape[0]
+        preds, target, _ = _binary_precision_recall_curve_format(preds, target, self.thresholds, self.ignore_index, rows=rows)
+        return self._sliced_confmat(preds, target, False, cells, num_cells, rows)
 
     def compute(self) -> Tuple[Tensor, Tensor, Tensor]:
         """Compute the final curve."""
@@ -173,6 +202,22 @@ class MulticlassPrecisionRecallCurve(_AbstractCurveMetric):
         )
         self._update_curve_state(state)
 
+    def _sliced_fresh_states(self, cells: Tensor, num_cells: int, *batch: Any) -> Optional[Dict[str, Tensor]]:
+        """The binned state per cohort cell from K1s (labels mode; matrix
+        mode for ``average="micro"``), ``None`` in the exact mode; equal bit
+        for bit to the per-row updates (each row's softmax decided on its
+        own) summed over each cell."""
+        if self.thresholds is None or type(self).update is not MulticlassPrecisionRecallCurve.update or len(batch) != 2:
+            return None
+        preds, target = self._inputs(*batch)
+        if self.validate_args:
+            _multiclass_precision_recall_curve_tensor_validation(preds, target, self.num_classes, self.ignore_index)
+        rows = preds.shape[0]
+        preds, target, _ = _multiclass_precision_recall_curve_format(
+            preds, target, self.num_classes, self.thresholds, self.ignore_index, self.average, rows=rows
+        )
+        return self._sliced_confmat(preds, target, self.average != "micro", cells, num_cells, rows)
+
     def compute(self):
         """Compute the final per-class curves."""
         return _multiclass_precision_recall_curve_compute(self._curve_state(), self.num_classes, self.thresholds, self.average)
@@ -215,6 +260,21 @@ class MultilabelPrecisionRecallCurve(_AbstractCurveMetric):
             preds, target, self.num_labels, self.thresholds, self._thresholds_ascend, self._thresholds_affine
         )
         self._update_curve_state(state)
+
+    def _sliced_fresh_states(self, cells: Tensor, num_cells: int, *batch: Any) -> Optional[Dict[str, Tensor]]:
+        """The binned state per cohort cell from K1s (matrix mode), ``None``
+        in the exact mode; equal bit for bit to the per-row updates (each
+        row's sigmoid decided on its own) summed over each cell."""
+        if self.thresholds is None or type(self).update is not MultilabelPrecisionRecallCurve.update or len(batch) != 2:
+            return None
+        preds, target = self._inputs(*batch)
+        if self.validate_args:
+            _multilabel_precision_recall_curve_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        rows = preds.shape[0]
+        preds, target, _ = _multilabel_precision_recall_curve_format(
+            preds, target, self.num_labels, self.thresholds, self.ignore_index, rows=rows
+        )
+        return self._sliced_confmat(preds, target, False, cells, num_cells, rows)
 
     def compute(self):
         """Compute the final per-label curves."""

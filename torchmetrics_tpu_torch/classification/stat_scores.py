@@ -8,7 +8,7 @@ States are int32 tp/fp/tn/fn counters with ``dist_reduce_fx="sum"``
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -31,6 +31,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multilabel_stat_scores_update,
 )
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.ops.stat_counts import stat_counts_segmented
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
@@ -157,6 +158,29 @@ class MulticlassStatScores(_AbstractStatScores):
         """Compute the final statistics."""
         tp, fp, tn, fn = self._final_state()
         return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
+
+    def _sliced_fresh_states(self, cells: Tensor, num_cells: int, *batch: Any) -> Optional[Dict[str, Tensor]]:
+        """The sliced plan's kernel route: this batch's tp/fp/tn/fn per cohort
+        cell, ``(num_cells, *state)``, from K2s (``ops.stat_counts_segmented``),
+        where the update takes K2's bincount branch; ``None`` otherwise (the
+        plan then runs the update per row under ``vmap``). Equal bit for bit
+        to the per-row updates summed over each cell."""
+        if type(self).update is not MulticlassStatScores.update or len(batch) != 2:
+            return None
+        if self.top_k != 1 or self.multidim_average != "global" or self.average == "micro":
+            return None
+        preds, target = self._inputs(*batch)
+        if self.validate_args:
+            _multiclass_stat_scores_tensor_validation(preds, target, self.num_classes, self.multidim_average, self.ignore_index)
+        rows = preds.shape[0]
+        preds, target = _multiclass_stat_scores_format(preds, target, self.top_k, self.average, self.multidim_average)
+        if preds.ndim != target.ndim + 1:
+            preds, target = preds.reshape(-1), target.reshape(-1)
+        per_row = target.numel() // rows if rows else 0
+        cells = cells[:, None].expand(rows, per_row).reshape(-1)  # each row's cell, for each of its entries
+        counts = stat_counts_segmented(preds, target, cells, num_cells, self.num_classes, self.ignore_index)
+        shape = (num_cells, *self.tp.shape)
+        return {name: counts[:, i].reshape(shape) for i, name in enumerate(("tp", "fp", "tn", "fn"))}
 
 
 class MultilabelStatScores(_AbstractStatScores):

@@ -12,7 +12,8 @@ merged only when the partitions seen at two separate updates agree. A
 metric that wraps other metrics never joins a group: its own states (a
 ``MinMaxMetric``'s bounds) say nothing about its children's.
 
-Not ported yet: ``sliced`` (ROADMAP A10).
+``MetricCollection.sliced`` fans the whole collection out over cohort cells
+(:class:`~torchmetrics_tpu_torch.parallel.sliced.SlicedPlan`).
 """
 from __future__ import annotations
 
@@ -350,6 +351,22 @@ class MetricCollection(dict):
             mesh=mesh,
             axis_name=axis_name,
         )
+
+    def sliced(self, *, num_cells: int, **kwargs: Any) -> Any:
+        """Fan the whole collection out over cohort cells: ONE step per batch
+        updates every member for every cohort (compute-group leaders run;
+        members ride the group assignment, as with :meth:`fused`). Let the
+        compute groups form first (two eager updates), then ``reset()`` — the
+        collection must be a pristine per-cell TEMPLATE when the plan builds.
+        See :class:`~torchmetrics_tpu_torch.parallel.sliced.SlicedPlan`::
+
+            plan = suite.sliced(num_cells=1024)
+            plan.update(cohort_ids, preds, target)
+            per_cohort = plan.results()    # {(cohort,): {member: value}}
+        """
+        from torchmetrics_tpu_torch.parallel.sliced import SlicedPlan
+
+        return SlicedPlan(self, num_cells=num_cells, **kwargs)
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         """Deep copy with optional new prefix/postfix."""

@@ -70,6 +70,21 @@
 // Launches on the caller's stream, allocates nothing (the caller zeroes the
 // scratch: the global histogram and one ticket per column tile) and returns
 // the launch's error.
+//
+// binned_curve_state_segmented (K1s), the sliced plan's mode: the same state
+// per cohort cell, (num_cells, T, K, 2, 2) int32, each row's entries
+// counted into the cell that slice_assign gave it (cells (N,) int32; a row
+// with cell -1 is dropped), in both target modes. Replaces JAX's per-row
+// vmap of _binned_curve_state followed by segment_sum over the cells
+// (torchmetrics_tpu/parallel/sliced.py ::_row_states and ::_segment_reduce),
+// whose (N, T, K, 2, 2) row states the card never holds. Bound: bytes, p
+// and the labels read once and the (num_cells, T, K, 2, 2) state written
+// once. Design: one thread per entry (neighbouring threads on neighbouring
+// columns of a row), the bin by a binary search over the thresholds in
+// shared memory, one global atomic into a zeroed (num_cells, T+1, K, 2)
+// histogram (a cell's histogram is too large to keep per block); a second
+// launch takes each (cell, column, y) prefix over the bins and writes
+// below / total - below.
 #include <math_constants.h>
 
 #include <algorithm>
@@ -329,6 +344,75 @@ cudaError_t dispatch_mode(const float* p, const float* thr, const void* target, 
                  : dispatch_smem<VEC, false, false>(p, thr, target, target64, s, scratch, state, stream);
 }
 
+// ------------------------------------------------------------ segmented mode
+
+constexpr int kSegThreads = 256;
+
+template <bool LABELS, bool THR_SMEM, typename Tgt>
+__global__ void __launch_bounds__(kSegThreads) binned_curve_segmented_kernel(
+    const float* __restrict__ p, const float* __restrict__ thr_global, const Tgt* __restrict__ target,
+    const int* __restrict__ cells, long long n, int K, int T, int* __restrict__ hist) {
+  extern __shared__ float s_thr_seg[];
+  const float* thr = THR_SMEM ? s_thr_seg : thr_global;
+  if (THR_SMEM) {
+    for (int i = threadIdx.x; i < T; i += blockDim.x) s_thr_seg[i] = thr_global[i];
+    __syncthreads();
+  }
+  const long long entries = n * K;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < entries; e += stride) {
+    const long long row = e / K;
+    const int col = static_cast<int>(e - row * K);
+    const int cell = cells[row];
+    if (cell < 0) continue;  // a spilled row
+    const int t = static_cast<int>(target[LABELS ? row : e]);
+    if (t < 0) continue;  // a masked entry
+    const int y = LABELS ? ((t < K - 1 ? t : K - 1) == col) : (t < 1 ? t : 1);
+    const int b = bin_of<false, false>(p[e], thr, T, 0.f, 0.f);
+    atomicAdd(&hist[((static_cast<long long>(cell) * (T + 1) + b) * K + col) * 2 + y], 1);
+  }
+}
+
+// state[cell, t, k, y] = (sum of bins 0..t, total - that sum)
+__global__ void __launch_bounds__(kSegThreads) binned_curve_prefix_kernel(const int* __restrict__ hist, int num_cells,
+                                                                         int K, int T, int* __restrict__ state) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(num_cells) * K * 2) return;
+  const long long cell = i / (2LL * K);
+  const int ky = static_cast<int>(i - cell * 2 * K);  // k * 2 + y
+  const int* h = hist + cell * (T + 1) * K * 2 + ky;
+  int total = 0;
+  for (int b = 0; b <= T; ++b) total += h[static_cast<long long>(b) * K * 2];
+  int below = 0;
+  int2* out = reinterpret_cast<int2*>(state + cell * T * K * 4) + ky;
+  for (int t = 0; t < T; ++t) {
+    below += h[static_cast<long long>(t) * K * 2];
+    out[static_cast<long long>(t) * K * 2] = make_int2(below, total - below);
+  }
+}
+
+template <bool LABELS, typename Tgt>
+cudaError_t launch_segmented(const float* p, const float* thr, const Tgt* target, const int* cells, long long n, int K,
+                             int T, int num_cells, int* hist, int* state, cudaStream_t stream) {
+  const bool thr_smem = static_cast<size_t>(T) * sizeof(float) <= kDefaultSmem;
+  auto kernel = thr_smem ? binned_curve_segmented_kernel<LABELS, true, Tgt> : binned_curve_segmented_kernel<LABELS, false, Tgt>;
+  static LaunchCache cache[kMaxDevices] = {};
+  int sms = 0;
+  cudaError_t err = hist_launch::prepare(kernel, 0, cache, &sms);
+  if (err != cudaSuccess) return err;
+  const long long entries = n * K;
+  const long long blocks = std::max(1LL, std::min(8LL * sms, (entries + kSegThreads - 1) / kSegThreads));
+  const size_t smem = thr_smem ? static_cast<size_t>(T) * sizeof(float) : 0;
+  if (entries > 0) {
+    kernel<<<static_cast<unsigned>(blocks), kSegThreads, smem, stream>>>(p, thr, target, cells, n, K, T, hist);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const long long lanes = static_cast<long long>(num_cells) * K * 2;
+  binned_curve_prefix_kernel<<<static_cast<unsigned>((lanes + kSegThreads - 1) / kSegThreads), kSegThreads, 0, stream>>>(
+      hist, num_cells, K, T, state);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // p: (n, k) float32 contiguous; thr: (t,) float32 ascending; target: int32
@@ -351,4 +435,27 @@ extern "C" int binned_curve_state(const void* p, const void* thr, const void* ta
   if (vec4 && ltw >= 2)
     return dispatch_mode<4>(p_, thr_, target, target64, labels, uniform, s, scratch_, state_, stream_);
   return dispatch_mode<1>(p_, thr_, target, target64, labels, uniform, s, scratch_, state_, stream_);
+}
+
+// p, thr, target and labels as binned_curve_state takes them; cells: (n,)
+// int32, each row's cohort cell or -1 (dropped); hist: (num_cells, t + 1,
+// k, 2) int32, zeroed; state: (num_cells, t, k, 2, 2) int32.
+extern "C" int binned_curve_state_segmented(const void* p, const void* thr, const void* target, int target64,
+                                            int labels, const void* cells, long long n, int k, int t, int num_cells,
+                                            void* hist, void* state, void* stream) {
+  if (k == 0 || t == 0 || num_cells == 0) return 0;
+  const auto* p_ = static_cast<const float*>(p);
+  const auto* thr_ = static_cast<const float*>(thr);
+  const auto* cells_ = static_cast<const int*>(cells);
+  auto* hist_ = static_cast<int*>(hist);
+  auto* state_ = static_cast<int*>(state);
+  auto stream_ = static_cast<cudaStream_t>(stream);
+  if (target64) {
+    const auto* tg = static_cast<const long long*>(target);
+    return labels ? launch_segmented<true>(p_, thr_, tg, cells_, n, k, t, num_cells, hist_, state_, stream_)
+                  : launch_segmented<false>(p_, thr_, tg, cells_, n, k, t, num_cells, hist_, state_, stream_);
+  }
+  const auto* tg = static_cast<const int*>(target);
+  return labels ? launch_segmented<true>(p_, thr_, tg, cells_, n, k, t, num_cells, hist_, state_, stream_)
+                : launch_segmented<false>(p_, thr_, tg, cells_, n, k, t, num_cells, hist_, state_, stream_);
 }

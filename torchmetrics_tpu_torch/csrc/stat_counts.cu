@@ -46,6 +46,20 @@
 // The labels mode runs the same kernel with one lane per row. Launches on
 // the caller's stream, allocates nothing (the caller zeroes the output) and
 // returns the launch's error.
+//
+// stat_counts_segmented (K2s), the sliced plan's mode: the same counts per
+// cohort cell, (num_cells, 4, C) int32, each row's partials added into the
+// cell that slice_assign gave it (cells (N,) int32; a row with cell -1 is
+// dropped). Replaces JAX's per-row vmap of the bincount branch followed by
+// segment_sum over the cells (torchmetrics_tpu/parallel/sliced.py
+// ::_row_states and ::_segment_reduce): the counts are linear in the rows,
+// so each row adds to its cell directly and no (N, 4, C) row state exists.
+// Bound: bytes, the scores and labels read once and the (num_cells, 4, C)
+// output written once. Design: the row loop and the argmax of stat_counts
+// (a lane group per row, shuffles), then global atomics into the row's cell
+// (the cells are too many for a block-private copy), and the row's +1 to
+// its cell's total in a (num_cells,) scratch; a second launch adds each
+// cell's total to its tn row. Wrapping int32 adds, as JAX's sums.
 #include <math_constants.h>
 
 #include <algorithm>
@@ -228,6 +242,142 @@ cudaError_t dispatch_preds(const void* preds, int preds_mode, const Tgt* target,
   }
 }
 
+// ------------------------------------------------------------ segmented mode
+
+struct SegShape {
+  long long n;  // rows
+  int C;        // classes
+  int llpr;     // log2 of the lanes per row (scores mode)
+  int ignore_index;
+  int num_cells;
+};
+
+template <bool SCORES, int VEC, bool IGNORE, typename Pred, typename Tgt>
+__global__ void __launch_bounds__(kThreads) stat_counts_segmented_kernel(
+    const float* __restrict__ scores, const Pred* __restrict__ labels, const Tgt* __restrict__ target,
+    const int* __restrict__ cells, SegShape s, int* __restrict__ totals, int* __restrict__ out) {
+  const int C = s.C;
+  const int lg = SCORES ? s.llpr : 0;
+  const int L = 1 << lg;
+  const int sub = threadIdx.x & (L - 1);
+  const long long groups = (static_cast<long long>(gridDim.x) * blockDim.x) >> lg;
+  const int n_vec = SCORES ? (VEC == 4 ? C >> 2 : C) : 0;
+  // the loop's trip count is the block's, so the shuffles see the whole warp
+  for (long long base = (static_cast<long long>(blockIdx.x) * blockDim.x) >> lg; base < s.n; base += groups) {
+    const long long row = base + (threadIdx.x >> lg);
+    const bool live = row < s.n;
+    int pred = 0;
+    if (SCORES) {
+      float best = -CUDART_INF_F;
+      int arg = 0x7fffffff;  // loses every tie: a row of -inf gives index 0
+      if (live) {
+        const float* src = scores + row * C;
+        for (int v = sub; v < n_vec; v += L) {
+          if (VEC == 4) {
+            const float4 x = __ldcs(reinterpret_cast<const float4*>(src) + v);
+            const int i = v << 2;
+            if (beats(x.x, i, best, arg)) { best = x.x; arg = i; }
+            if (beats(x.y, i + 1, best, arg)) { best = x.y; arg = i + 1; }
+            if (beats(x.z, i + 2, best, arg)) { best = x.z; arg = i + 2; }
+            if (beats(x.w, i + 3, best, arg)) { best = x.w; arg = i + 3; }
+          } else {
+            const float x = __ldcs(src + v);
+            if (beats(x, v, best, arg)) { best = x; arg = v; }
+          }
+        }
+      }
+      for (int off = 1; off < L; off <<= 1) {
+        const float w = __shfl_xor_sync(0xffffffffu, best, off);
+        const int j = __shfl_xor_sync(0xffffffffu, arg, off);
+        if (beats(w, j, best, arg)) { best = w; arg = j; }
+      }
+      pred = arg;
+    } else if (live) {
+      pred = static_cast<int>(labels[row]);
+    }
+    if (!live || sub != 0) continue;
+    const int cell = cells[row];
+    if (cell < 0) continue;  // a spilled row
+    const int t = static_cast<int>(target[row]);
+    if (IGNORE) {
+      if (t == s.ignore_index) continue;
+      pred = pred < 0 ? 0 : (pred > C - 1 ? C - 1 : pred);
+    }
+    int b = static_cast<int>(static_cast<unsigned>(t) * static_cast<unsigned>(C) + static_cast<unsigned>(pred));
+    if (b < 0) b = 0;
+    if (b >= C * C) continue;
+    const int i = b / C, j = b - (b / C) * C;
+    int* part = out + static_cast<long long>(cell) * 4 * C;
+    atomicAdd(&totals[cell], 1);
+    if (i == j) {
+      atomicAdd(&part[i], 1);
+      atomicAdd(&part[2 * C + i], -1);
+    } else {
+      atomicAdd(&part[C + j], 1);
+      atomicAdd(&part[3 * C + i], 1);
+      atomicAdd(&part[2 * C + i], -1);
+      atomicAdd(&part[2 * C + j], -1);
+    }
+  }
+}
+
+// tn[cell, c] += the cell's total, which every tn of the cell gets
+__global__ void __launch_bounds__(kThreads) add_cell_totals_kernel(const int* __restrict__ totals, int num_cells, int C,
+                                                                   int* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(num_cells) * C) return;
+  const long long cell = i / C;
+  const int total = totals[cell];
+  if (total == 0) return;
+  int* tn = out + cell * 4 * C + 2 * C + (i - cell * C);
+  *tn = static_cast<int>(static_cast<unsigned>(*tn) + static_cast<unsigned>(total));
+}
+
+template <bool SCORES, int VEC, bool IGNORE, typename Pred, typename Tgt>
+cudaError_t launch_segmented(const float* scores, const Pred* labels, const Tgt* target, const int* cells, SegShape s,
+                             int* totals, int* out, cudaStream_t stream) {
+  auto kernel = stat_counts_segmented_kernel<SCORES, VEC, IGNORE, Pred, Tgt>;
+  static LaunchCache cache[kMaxDevices] = {};
+  int sms = 0;
+  cudaError_t err = hist_launch::prepare(kernel, 0, cache, &sms);
+  if (err != cudaSuccess) return err;
+  const long long rows_per_step = kThreads >> (SCORES ? s.llpr : 0);
+  const long long steps = (s.n + rows_per_step - 1) / rows_per_step;
+  const long long blocks = std::max(1LL, std::min(4LL * sms, steps));
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(scores, labels, target, cells, s, totals, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long elems = static_cast<long long>(s.num_cells) * s.C;
+  add_cell_totals_kernel<<<static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      totals, s.num_cells, s.C, out);
+  return cudaGetLastError();
+}
+
+template <bool SCORES, int VEC, typename Pred, typename Tgt>
+cudaError_t dispatch_segmented(const float* scores, const Pred* labels, const Tgt* target, const int* cells,
+                               int has_ignore, SegShape s, int* totals, int* out, cudaStream_t stream) {
+  if (has_ignore) return launch_segmented<SCORES, VEC, true>(scores, labels, target, cells, s, totals, out, stream);
+  return launch_segmented<SCORES, VEC, false>(scores, labels, target, cells, s, totals, out, stream);
+}
+
+template <typename Tgt>
+cudaError_t dispatch_segmented_preds(const void* preds, int preds_mode, const Tgt* target, const int* cells,
+                                     int has_ignore, SegShape s, int* totals, int* out, cudaStream_t stream) {
+  switch (preds_mode) {
+    case 0:
+      return dispatch_segmented<true, 4, int>(static_cast<const float*>(preds), nullptr, target, cells, has_ignore, s,
+                                              totals, out, stream);
+    case 1:
+      return dispatch_segmented<true, 1, int>(static_cast<const float*>(preds), nullptr, target, cells, has_ignore, s,
+                                              totals, out, stream);
+    case 2:
+      return dispatch_segmented<false, 1>(nullptr, static_cast<const int*>(preds), target, cells, has_ignore, s, totals,
+                                          out, stream);
+    default:
+      return dispatch_segmented<false, 1>(nullptr, static_cast<const long long*>(preds), target, cells, has_ignore, s,
+                                          totals, out, stream);
+  }
+}
+
 }  // namespace
 
 // preds: (n, c) float32 scores, contiguous (preds_mode 0: rows may be read as
@@ -242,4 +392,23 @@ extern "C" int stat_counts(const void* preds, int preds_mode, const void* target
   auto stream_ = static_cast<cudaStream_t>(stream);
   if (target64) return dispatch_preds(preds, preds_mode, static_cast<const long long*>(target), has_ignore, s, out_, stream_);
   return dispatch_preds(preds, preds_mode, static_cast<const int*>(target), has_ignore, s, out_, stream_);
+}
+
+// stat_counts's arguments, and cells: (n,) int32, each row's cohort cell or
+// -1 (dropped); totals: (num_cells,) int32, zeroed; out: (num_cells, 4, c)
+// int32, zeroed.
+extern "C" int stat_counts_segmented(const void* preds, int preds_mode, const void* target, int target64,
+                                     const void* cells, long long n, int c, int num_cells, int llpr, int has_ignore,
+                                     int ignore_index, void* totals, void* out, void* stream) {
+  if (n == 0 || num_cells == 0) return 0;
+  SegShape s{n, c, llpr, ignore_index, num_cells};
+  const auto* cells_ = static_cast<const int*>(cells);
+  auto* totals_ = static_cast<int*>(totals);
+  auto* out_ = static_cast<int*>(out);
+  auto stream_ = static_cast<cudaStream_t>(stream);
+  if (target64)
+    return dispatch_segmented_preds(preds, preds_mode, static_cast<const long long*>(target), cells_, has_ignore, s,
+                                    totals_, out_, stream_);
+  return dispatch_segmented_preds(preds, preds_mode, static_cast<const int*>(target), cells_, has_ignore, s, totals_,
+                                  out_, stream_);
 }

@@ -13,8 +13,9 @@ an eager update refreshes a cached float dict that :meth:`serve_gauges`
 returns without touching the device. Updates inside a fused plan's step or
 a CUDA graph capture skip the cache (the JAX package skips it under trace);
 the scores stay available through ``compute``. The serve daemon that
-publishes the gauges waits for ROADMAP A13, and the sliced cohort plan for
-A10.
+publishes the gauges waits for ROADMAP A13. Sliced over cohort cells
+(``DriftScore(...).sliced(num_cells=...)``), the live histograms fold by
+segment and ``compute_all`` scores every cohort at once.
 """
 from __future__ import annotations
 

@@ -26,7 +26,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from torchmetrics_tpu_torch.ops import binned_curve_state
+from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_segmented
 from torchmetrics_tpu_torch.utilities.checks import _check_binary_target, _check_same_shape, _is_concrete
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax, _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import _float32_inputs, _to_tensor, _to_tensors
@@ -135,6 +135,8 @@ def _binned_curve_state(
     labels: bool = False,
     ascending: bool = False,
     affine: Affine = None,
+    cells: Optional[Tensor] = None,
+    num_cells: int = 0,
 ) -> Tensor:
     """The ``(T, ..., 2, 2)`` int32 binned confusion state from flat probabilities.
 
@@ -155,6 +157,10 @@ def _binned_curve_state(
     order after; each count depends only on its own threshold's value, so
     the result is the same for any order. ``affine`` (from
     :func:`_uniform_grid`, for an ascending grid) lets the kernel bin in O(1).
+
+    ``cells`` (the sliced plan's K1s route): the ``(num_cells, T, ..., 2, 2)``
+    state of each cohort cell, ``cells`` giving the cell of each row of
+    ``preds`` (``-1``: dropped).
     """
     len_t = thresholds.shape[0]
     inner = tuple(preds.shape[1:])
@@ -165,6 +171,11 @@ def _binned_curve_state(
     if not ascending:
         thr, order = torch.sort(thr, stable=True)
         affine = None
+    if cells is not None:
+        state = binned_curve_state_segmented(p, thr, tgt, labels, cells, num_cells)  # (cells, T, K, 2, 2)
+        if order is not None:
+            state = torch.empty_like(state).index_copy_(1, order, state)
+        return state.reshape((num_cells, len_t) + inner + (2, 2))
     state = binned_curve_state(p, thr, tgt, labels, affine)  # (T, K, 2, 2): [t, k, target, pred]
     if order is not None:
         state = torch.empty_like(state).index_copy_(0, order, state)
@@ -313,9 +324,11 @@ def _binary_precision_recall_curve_format(
     target: Tensor,
     thresholds: ThresholdsArg = None,
     ignore_index: Optional[int] = None,
+    rows: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """Flatten + sigmoid; ignored targets become -1."""
-    preds = normalize_logits_if_needed(_float32_inputs(preds).reshape(-1), "sigmoid")
+    """Flatten + sigmoid; ignored targets become -1. ``rows``: the sigmoid is
+    decided per batch row (see ``normalize_logits_if_needed``)."""
+    preds = normalize_logits_if_needed(_float32_inputs(preds).reshape(-1), "sigmoid", rows)
     target = target.reshape(-1).to(torch.int32)
     if ignore_index is not None:
         target = torch.where(target == ignore_index, torch.full_like(target, -1), target)
@@ -443,11 +456,13 @@ def _multiclass_precision_recall_curve_format(
     thresholds: ThresholdsArg = None,
     ignore_index: Optional[int] = None,
     average: Optional[str] = None,
+    rows: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """To ``(M, C)`` probs + ``(M,)`` int32 target with ignored = -1."""
+    """To ``(M, C)`` probs + ``(M,)`` int32 target with ignored = -1. ``rows``:
+    the softmax is decided per batch row (see ``normalize_logits_if_needed``)."""
     preds = torch.movedim(_float32_inputs(preds), 1, -1).reshape(-1, num_classes)
     target = target.reshape(-1).to(torch.int32)
-    preds = normalize_logits_if_needed(preds, "softmax")
+    preds = normalize_logits_if_needed(preds, "softmax", rows)
     if ignore_index is not None:
         target = torch.where(target == ignore_index, torch.full_like(target, -1), target)
     if average == "micro":
@@ -558,11 +573,14 @@ def _multilabel_precision_recall_curve_format(
     num_labels: int,
     thresholds: ThresholdsArg = None,
     ignore_index: Optional[int] = None,
+    rows: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """To ``(M, L)`` probs + ``(M, L)`` int32 targets with ignored = -1."""
+    """To ``(M, L)`` probs + ``(M, L)`` int32 targets with ignored = -1.
+    ``rows``: the sigmoid is decided per batch row (see
+    ``normalize_logits_if_needed``)."""
     preds = torch.movedim(_float32_inputs(preds), 1, -1).reshape(-1, num_labels)
     target = torch.movedim(target, 1, -1).reshape(-1, num_labels).to(torch.int32)
-    preds = normalize_logits_if_needed(preds, "sigmoid")
+    preds = normalize_logits_if_needed(preds, "sigmoid", rows)
     if ignore_index is not None:
         target = torch.where(target == ignore_index, torch.full_like(target, -1), target)
     return preds, target, _adjust_threshold_arg(thresholds, preds.device)

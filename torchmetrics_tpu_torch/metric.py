@@ -35,8 +35,10 @@ tensors, replaced whole by every update like any tensor state): it syncs by
 a leaf-by-leaf gather and a pairwise merge, and checkpoints as the JAX
 package's ``{"__sketch__": class, "leaves": {...}}`` payload.
 
-Not ported yet (later slices, see ROADMAP.md): tracing hooks, StateGuard and
-the sliced plane.
+:meth:`Metric.sliced` fans a metric out over cohort cells
+(:class:`~torchmetrics_tpu_torch.parallel.sliced.SlicedPlan`).
+
+Not ported yet (later slices, see ROADMAP.md): tracing hooks and StateGuard.
 """
 from __future__ import annotations
 
@@ -872,6 +874,25 @@ class Metric:
         return f"{self.__class__.__name__}()"
 
     # --------------------------------------------------------------- plotting
+    def sliced(self, *, num_cells: int, **kwargs: Any) -> Any:
+        """Fan this metric out over up to ``num_cells`` cohort cells — one
+        step per batch updates EVERY cohort's copy of the state (hashed slice
+        table + a leading ``[num_cells]`` state axis; see
+        :class:`~torchmetrics_tpu_torch.parallel.sliced.SlicedPlan`)::
+
+            plan = acc.sliced(num_cells=1024)
+            plan.update(cohort_ids, preds, target)   # one step, all cohorts
+            per_cohort = plan.results()
+
+        The metric is the pristine per-cell TEMPLATE (``reset()`` first);
+        ``kwargs`` pass through to ``SlicedPlan`` (``cat_capacity``,
+        ``example_batch``, ``donate``, ``mesh``, ``axis_name``,
+        ``key_width``, ``example_keys``).
+        """
+        from torchmetrics_tpu_torch.parallel.sliced import SlicedPlan
+
+        return SlicedPlan(self, num_cells=num_cells, **kwargs)
+
     def plot(self, *args: Any, **kwargs: Any) -> Any:
         """Plot a single or multiple values of the metric (matplotlib)."""
         return self._plot(*args, **kwargs)

@@ -3,30 +3,58 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 - :func:`binned_curve_state` (K1, ``csrc/binned_curve_state.cu``): the binned
-  multi-threshold confusion state of the precision-recall curve family.
+  multi-threshold confusion state of the precision-recall curve family;
+  :func:`binned_curve_state_segmented` (K1s) the same per cohort cell.
 - :func:`stat_counts` (K2, ``csrc/stat_counts.cu``): the argmax, the
-  confusion counts and the tp/fp/tn/fn of the multiclass stat-scores family.
+  confusion counts and the tp/fp/tn/fn of the multiclass stat-scores family;
+  :func:`stat_counts_segmented` (K2s) the same per cohort cell.
 - :func:`cm_track` (K3, ``csrc/cm_track.cu``): the Count-Min sketch's
   heavy-hitter table after a batch of tags, a dependent scan over the tags.
+- :func:`slice_assign` (K4, ``csrc/slice_assign.cu``): the sliced plan's
+  slice table, a batch of cohort keys placed in it.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute. A
 CUDA graph that holds a launch replays it without the wrapper, so a count
 moves when a capture records the launch and never at a replay; a profiler
 trace counts the replays' launches.
 """
-from torchmetrics_tpu_torch.ops.binned_curve_state import binned_curve_state, binned_curve_state_plain
+from torchmetrics_tpu_torch.ops.binned_curve_state import (
+    binned_curve_state,
+    binned_curve_state_plain,
+    binned_curve_state_segmented,
+    binned_curve_state_segmented_plain,
+)
 from torchmetrics_tpu_torch.ops.cm_track import cm_track, cm_track_plain
-from torchmetrics_tpu_torch.ops.stat_counts import stat_counts, stat_counts_plain
+from torchmetrics_tpu_torch.ops.slice_assign import slice_assign, slice_assign_plain
+from torchmetrics_tpu_torch.ops.stat_counts import (
+    stat_counts,
+    stat_counts_plain,
+    stat_counts_segmented,
+    stat_counts_segmented_plain,
+)
 
 #: every kernel wrapper of the port, by kernel name
-KERNELS = {"binned_curve_state": binned_curve_state, "stat_counts": stat_counts, "cm_track": cm_track}
+KERNELS = {
+    "binned_curve_state": binned_curve_state,
+    "stat_counts": stat_counts,
+    "cm_track": cm_track,
+    "binned_curve_state_segmented": binned_curve_state_segmented,
+    "stat_counts_segmented": stat_counts_segmented,
+    "slice_assign": slice_assign,
+}
 
 __all__ = [
     "KERNELS",
     "binned_curve_state",
     "binned_curve_state_plain",
+    "binned_curve_state_segmented",
+    "binned_curve_state_segmented_plain",
     "cm_track",
     "cm_track_plain",
+    "slice_assign",
+    "slice_assign_plain",
     "stat_counts",
     "stat_counts_plain",
+    "stat_counts_segmented",
+    "stat_counts_segmented_plain",
 ]

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "_build"
@@ -93,13 +93,14 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def function(name: str, argtypes: list) -> Any:
-    """The C entry point ``name`` of library ``name``, its ``argtypes`` and
-    ``restype`` declared (ctypes would otherwise cut pointers to 32 bits).
-    Looked up once and kept: every launch goes through here."""
+def function(name: str, argtypes: list, library: Optional[str] = None) -> Any:
+    """The C entry point ``name`` of library ``library`` (``name`` by
+    default), its ``argtypes`` and ``restype`` declared (ctypes would
+    otherwise cut pointers to 32 bits). Looked up once and kept: every
+    launch goes through here."""
     fn = _functions.get(name)
     if fn is None:
-        fn = getattr(load(name), name)
+        fn = getattr(load(library or name), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _functions[name] = fn

@@ -8,6 +8,11 @@ Counterpart of ``_binned_curve_state`` with ``_threshold_bins`` in
 The kernel is ``csrc/binned_curve_state.cu``; its source note gives the
 bound and the design. On a CPU tensor :func:`binned_curve_state` computes
 the plain version; on a CUDA tensor it launches the kernel or raises.
+
+K1s, :func:`binned_curve_state_segmented`, is the sliced plan's mode of the
+same kernel source: the state of each cohort cell at once, each row's
+entries counted into the cell ``slice_assign`` gave it (counterpart of
+JAX's per-row ``vmap`` of the update, segment-summed over the cells).
 """
 from __future__ import annotations
 
@@ -150,3 +155,117 @@ def binned_curve_state(
 
 binned_curve_state.launches = 0  # launches of the CUDA kernel (the plain version is not counted)
 binned_curve_state.matrix_launches = 0  # of them, launches in matrix mode (an (N, K) target: binary, micro, multilabel)
+
+
+_SEGMENTED_ARGTYPES = [
+    ctypes.c_void_p,  # p
+    ctypes.c_void_p,  # thresholds
+    ctypes.c_void_p,  # target
+    ctypes.c_int,  # target64
+    ctypes.c_int,  # labels
+    ctypes.c_void_p,  # cells
+    ctypes.c_longlong,  # n
+    ctypes.c_int,  # k
+    ctypes.c_int,  # t
+    ctypes.c_int,  # num_cells
+    ctypes.c_void_p,  # hist (scratch)
+    ctypes.c_void_p,  # state
+    ctypes.c_void_p,  # stream
+]
+
+
+def _check_cells(cells: torch.Tensor, n: int, who: str) -> None:
+    if cells.dtype != torch.int32 or tuple(cells.shape) != (n,):
+        raise ValueError(f"{who}: expected ({n},) int32 cells, got {tuple(cells.shape)} {cells.dtype}")
+
+
+def binned_curve_state_segmented_plain(
+    p: torch.Tensor, thresholds: torch.Tensor, target: torch.Tensor, labels: bool, cells: torch.Tensor, num_cells: int
+) -> torch.Tensor:
+    """The (num_cells, T, K, 2, 2) int32 state; see :func:`binned_curve_state_segmented`.
+
+    :func:`binned_curve_state_plain`'s bucketize formulation with the cell in
+    the index: one ``(cell, bin, column, y)`` histogram (entries of cell
+    ``-1`` and masked entries sent to a trash bin), then the prefix sum over
+    the bins of each cell.
+    """
+    _check_args(p, thresholds, target, labels)
+    n, k = p.shape
+    _check_cells(cells, n, "binned_curve_state_segmented")
+    len_t = thresholds.shape[0]
+    bins = torch.searchsorted(thresholds[~torch.isnan(thresholds)], p.contiguous(), right=True)
+    bins = torch.where(torch.isnan(p), torch.zeros_like(bins), bins)
+    cols = torch.arange(k, device=p.device)
+    t = target.to(torch.int32).to(torch.int64)
+    if labels:
+        valid = (t >= 0)[:, None].expand(n, k)
+        y = (t.clamp(0, k - 1)[:, None] == cols[None, :]).to(torch.int64)
+    else:
+        valid = t >= 0
+        y = t.clamp(0, 1)
+    cell = cells.to(torch.int64)[:, None].expand(n, k)
+    trash = num_cells * (len_t + 1) * k * 2
+    flat = ((cell * (len_t + 1) + bins) * k + cols[None, :]) * 2 + y
+    flat = torch.where(valid & (cell >= 0), flat, trash)
+    hist = torch.zeros(trash + 1, dtype=torch.int32, device=p.device)
+    hist = hist.index_add(0, flat.reshape(-1), torch.ones((), dtype=torch.int32, device=p.device).expand(flat.numel()))
+    cum = hist[:trash].reshape(num_cells, len_t + 1, k, 2).cumsum(1, dtype=torch.int32)
+    below = cum[:, :len_t]
+    return torch.stack([below, cum[:, len_t:] - below], dim=-1)  # [cell, t, k, target, pred]
+
+
+def binned_curve_state_segmented(
+    p: torch.Tensor, thresholds: torch.Tensor, target: torch.Tensor, labels: bool, cells: torch.Tensor, num_cells: int
+) -> torch.Tensor:
+    """(num_cells, T, K, 2, 2) int32 state of each cohort cell.
+
+    ``p``, ``thresholds``, ``target`` and ``labels`` as
+    :func:`binned_curve_state` takes them; ``cells`` is (N,) int32, the cell
+    of each row of ``p``, ``-1`` for a row that is dropped (it spilled from
+    the slice table). Cell ``c``'s state is :func:`binned_curve_state` of the
+    rows whose cell is ``c``, bit for bit.
+
+    CUDA tensors go through the hand kernel (K1s); CPU tensors through
+    :func:`binned_curve_state_segmented_plain`.
+    """
+    tensors = (p, thresholds, target, cells)
+    if all(t.device.type == "cpu" for t in tensors):
+        return binned_curve_state_segmented_plain(p, thresholds, target, labels, cells, num_cells)
+    if p.device.type != "cuda" or any(t.device != p.device for t in tensors):
+        raise ValueError(f"binned_curve_state_segmented: tensors on {[str(t.device) for t in tensors]}; expected one CUDA device")
+    _check_args(p, thresholds, target, labels)
+    n, k = p.shape
+    _check_cells(cells, n, "binned_curve_state_segmented")
+    len_t = thresholds.shape[0]
+    if num_cells * (len_t + 1) * k * 2 >= 2**31:
+        raise ValueError(f"binned_curve_state_segmented: {num_cells} cells of ({len_t + 1}, {k}, 2) bins do not fit int32 indexing")
+    if n == 0 or k == 0 or len_t == 0 or num_cells == 0:  # nothing to count: no launch, and none is counted
+        return torch.zeros((num_cells, len_t, k, 2, 2), dtype=torch.int32, device=p.device)
+    state = torch.empty((num_cells, len_t, k, 2, 2), dtype=torch.int32, device=p.device)  # the prefix launch writes all of it
+    p, thresholds, target, cells = p.contiguous(), thresholds.contiguous(), target.contiguous(), cells.contiguous()
+    hist = torch.zeros((num_cells, len_t + 1, k, 2), dtype=torch.int32, device=p.device)
+    fn = _build.function("binned_curve_state_segmented", _SEGMENTED_ARGTYPES, library="binned_curve_state")
+    with torch.cuda.device(p.device):
+        status = fn(
+            p.data_ptr(),
+            thresholds.data_ptr(),
+            target.data_ptr(),
+            int(target.dtype == torch.int64),
+            int(labels),
+            cells.data_ptr(),
+            n,
+            k,
+            len_t,
+            num_cells,
+            hist.data_ptr(),
+            state.data_ptr(),
+            torch.cuda.current_stream(p.device).cuda_stream,
+        )
+    _build.check(status, "binned_curve_state_segmented")
+    binned_curve_state_segmented.launches += 1
+    binned_curve_state_segmented.matrix_launches += int(not labels)
+    return state
+
+
+binned_curve_state_segmented.launches = 0  # launches of the CUDA kernel (the plain version is not counted)
+binned_curve_state_segmented.matrix_launches = 0  # of them, launches in matrix mode

@@ -12,9 +12,12 @@
 - :mod:`~torchmetrics_tpu_torch.parallel.sharded`: sharded updates over a
   ``torch.distributed`` device mesh (``sharded_update``, ``ShardedMetric``),
   the partial-state merges under them, and the one-metric captured step
-  (``make_jit_update``, ``fold_jit_state``).
-
-Not ported yet (ROADMAP): the sliced and windowed planes (A10).
+  (``make_jit_update``, ``fold_jit_state``);
+- :mod:`~torchmetrics_tpu_torch.parallel.sliced`: the sliced plane, one step
+  per batch for thousands of cohort cells (``SlicedPlan``,
+  ``Metric.sliced``, ``MetricCollection.sliced``);
+- :mod:`~torchmetrics_tpu_torch.parallel.windowing`: tumbling and sliding
+  windows as a ring of mergeable state snapshots (``WindowRing``).
 """
 from torchmetrics_tpu_torch.parallel.cat_buffer import (
     CatBuffer,
@@ -38,12 +41,23 @@ from torchmetrics_tpu_torch.parallel.sharded import (
     sharded_update,
     tree_merge,
 )
+from torchmetrics_tpu_torch.parallel.sliced import (
+    SlicedPlan,
+    SliceTable,
+    slice_key_reason,
+    slice_table_size_reason,
+    sliced_ineligibility,
+)
+from torchmetrics_tpu_torch.parallel.windowing import WindowRing
 
 __all__ = [
     "CatBuffer",
     "DeviceFeed",
     "FusedCollectionPlan",
     "ShardedMetric",
+    "SliceTable",
+    "SlicedPlan",
+    "WindowRing",
     "cat_buffer_all_gather",
     "cat_buffer_append",
     "cat_buffer_init",
@@ -59,5 +73,8 @@ __all__ = [
     "mesh_reduce_tree",
     "metric_merge",
     "sharded_update",
+    "slice_key_reason",
+    "slice_table_size_reason",
+    "sliced_ineligibility",
     "tree_merge",
 ]

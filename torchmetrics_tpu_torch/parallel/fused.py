@@ -88,6 +88,7 @@ sharded step's graph.
 """
 from __future__ import annotations
 
+import gc
 import inspect
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
@@ -249,6 +250,19 @@ def _as_input(x: Any) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
+def _stage(batches: Any, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """A sequence of batch tuples stacked into chunk tensors on ``device`` (one
+    copy per input), or an already stacked tuple moved there."""
+    if isinstance(batches, tuple):
+        stacked = [_as_input(b) for b in batches]
+    else:
+        seq = [b if isinstance(b, tuple) else (b,) for b in batches]
+        if not seq:
+            raise ValueError("run_scan needs at least one batch")
+        stacked = [torch.stack([_as_input(b[i]) for b in seq]) for i in range(len(seq[0]))]
+    return tuple(s.to(device) for s in stacked)
+
+
 class _MemberInfo:
     """Static per-leader build record."""
 
@@ -385,10 +399,18 @@ class _GraphCapture:
         return out
 
     def _record(self, fn: Callable[[], None]) -> Any:
-        """``fn`` captured as a CUDA graph on the side stream (after its warm-up)."""
+        """``fn`` captured as a CUDA graph on the side stream (after its warm-up).
+
+        The cycle collector runs first and is held off during the capture:
+        unreachable objects that own CUDA graphs (a plan dropped with a
+        reference cycle) would otherwise be finalized inside the capture, and
+        destroying a graph there ends the capture with an error."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: a DeviceFeed thread may pin and copy meanwhile
             with torch.cuda.graph(graph, pool=self._pool, stream=self._side, capture_error_mode="thread_local"):
@@ -400,11 +422,45 @@ class _GraphCapture:
                 " The step is not run eagerly instead; a host read of a device value inside update"
                 " (a value check without _is_concrete, .item(), a numpy upload) cannot be captured"
             ) from err
+        finally:
+            if collecting:
+                gc.enable()
         return graph
 
     def _capture_site(self) -> str:
         """What was being captured, for the error of a failed capture."""
         raise NotImplementedError
+
+    # the owner's carry, written in place by every step, and a scratch copy
+    # of it for a warm-up
+    _carry: Dict[str, Any]
+    _captured: Dict[Any, _Captured]
+
+    def _scratch_carry(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def _run(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> None:
+        """Run ``body(carry, batch)``: eagerly on the CPU; on the card as a
+        replay of the graph captured for this body and input signature."""
+        if self._device.type != "cuda":
+            body(self._carry, batch)
+            return
+        key = (body.__name__, tuple((tuple(b.shape), b.dtype) for b in batch))
+        captured = self._captured.get(key)
+        if captured is None:
+            captured = self._captured[key] = self._capture(body, batch)
+        for dst, src in zip(captured.inputs, batch):
+            dst.copy_(src)
+        captured.graph.replay()
+
+    def _capture(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> _Captured:
+        """Capture ``body`` on static copies of ``batch``'s buffers, after one
+        warm-up run against a scratch copy of the carry."""
+        inputs = tuple(torch.empty(b.shape, dtype=b.dtype, device=self._device) for b in batch)
+        for dst, src in zip(inputs, batch):
+            dst.copy_(src)
+        self._warm(lambda: body(self._scratch_carry(), inputs))
+        return _Captured(self._record(lambda: body(self._carry, inputs)), inputs)
 
 
 # ------------------------------------------------------------------- the plan
@@ -620,28 +676,8 @@ class FusedCollectionPlan(_GraphCapture):
         fold_graph.replay()
         return _ShardedStep(inputs, fresh, reduced, fresh_graph, fold_graph)
 
-    def _run(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> None:
-        """Run ``body(carry, batch)``: eagerly on the CPU; on the card as a
-        replay of the graph captured for this body and input signature."""
-        if self._device.type != "cuda":
-            body(self._carry, batch)
-            return
-        key = (body.__name__, tuple((tuple(b.shape), b.dtype) for b in batch))
-        captured = self._captured.get(key)
-        if captured is None:
-            captured = self._captured[key] = self._capture(body, batch)
-        for dst, src in zip(captured.inputs, batch):
-            dst.copy_(src)
-        captured.graph.replay()
-
-    def _capture(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> _Captured:
-        """Capture ``body`` on static copies of ``batch``'s buffers, after one
-        warm-up run against a scratch copy of the carry."""
-        inputs = tuple(torch.empty(b.shape, dtype=b.dtype, device=self._device) for b in batch)
-        for dst, src in zip(inputs, batch):
-            dst.copy_(src)
-        self._warm(lambda: body(_copy_tree(self._carry), inputs))
-        return _Captured(self._record(lambda: body(self._carry, inputs)), inputs)
+    def _scratch_carry(self) -> Dict[str, Any]:
+        return _copy_tree(self._carry)
 
     def _record(self, fn: Callable[[], None]) -> Any:
         try:
@@ -705,14 +741,7 @@ class FusedCollectionPlan(_GraphCapture):
     def stage(self, batches: Any) -> Tuple[torch.Tensor, ...]:
         """Stack a sequence of batch tuples into chunk tensors on the plan's
         device (one copy per input), or take an already stacked tuple there."""
-        if isinstance(batches, tuple):
-            stacked = [_as_input(b) for b in batches]
-        else:
-            seq = [b if isinstance(b, tuple) else (b,) for b in batches]
-            if not seq:
-                raise ValueError("run_scan needs at least one batch")
-            stacked = [torch.stack([_as_input(b[i]) for b in seq]) for i in range(len(seq[0]))]
-        return tuple(s.to(self._device) for s in stacked)
+        return _stage(batches, self._device)
 
     # -------------------------------------------------------------- fold-back
     def fold_back(self) -> None:

@@ -45,9 +45,8 @@ mesh-replicated before its plan is built, as the snapshot's states already
 covered every rank. In the replica regime every rank's state differs: give
 each rank its own store directory and ``write_rank=None``.
 
-Not ported yet (ROADMAP): ``window_ring=`` and a ``SlicedPlan`` target (A10)
-raise ``NotImplementedError``; the trace spans, counters and live probes
-(A12) are left out.
+Not ported yet (ROADMAP A12): the trace spans, counters and live probes
+(the window ring's and the sliced plan's probes among them).
 """
 from __future__ import annotations
 
@@ -112,7 +111,23 @@ class StreamingEvaluator:
         fused_options: kwargs for the plan build (``cat_capacity``,
             ``example_batch``, ``donate``, ``mesh``, ``axis_name``);
             ``example_batch`` defaults to the first batch.
-        window_ring: not ported yet (ROADMAP A10); anything but ``None`` raises.
+        window_ring: a :class:`~torchmetrics_tpu_torch.parallel.windowing.WindowRing`
+            wrapping the SAME ``metric``: after every applied batch the ring
+            observes the cursor and closes the open window when its
+            ``every_n``/``every_s`` trigger fires; the ring's closed windows
+            ride every snapshot payload (kill-and-resume restores them with
+            the open state). Mutually exclusive with ``fused=True``: a
+            rotation resets the metric mid-stream, which the fused plan's
+            carry cannot observe.
+
+    ``metric`` may also be a
+    :class:`~torchmetrics_tpu_torch.parallel.sliced.SlicedPlan`: the
+    evaluator then drives ``plan.update(*batch)`` per batch (batches are
+    ``(keys, *arrays)`` tuples), snapshots the plan's whole carry (slice
+    table included) through the store under ``kind="sliced"``, and the final
+    result is ``plan.compute_all()``. Mutually exclusive with
+    ``fused``/``update_fn``/``window_ring`` — the plan owns its own dispatch
+    and state layout.
 
     One evaluator instance drives one pass: :meth:`run` starts from batch 0
     (and demands a fresh store), :meth:`resume` restores the newest valid
@@ -148,10 +163,28 @@ class StreamingEvaluator:
             raise ValueError(f"store must be a CheckpointStore, got {type(store).__name__}")
         if fused and update_fn is not None:
             raise ValueError("fused=True drives the FusedCollectionPlan itself; it cannot combine with update_fn")
-        if type(metric).__name__ == "SlicedPlan":
-            raise NotImplementedError("a SlicedPlan target is not ported yet (ROADMAP A10)")
+        self._is_plan = False
+        if type(metric).__name__ == "SlicedPlan":  # cheap gate before the parallel import
+            from torchmetrics_tpu_torch.parallel.sliced import SlicedPlan
+
+            self._is_plan = isinstance(metric, SlicedPlan)
+        if self._is_plan and (fused or update_fn is not None or window_ring is not None):
+            raise ValueError(
+                "a SlicedPlan target owns its own dispatch and state layout; it cannot"
+                " combine with fused/update_fn/window_ring"
+            )
         if window_ring is not None:
-            raise NotImplementedError("window_ring (the windowed plane) is not ported yet (ROADMAP A10)")
+            from torchmetrics_tpu_torch.parallel.windowing import WindowRing
+
+            if not isinstance(window_ring, WindowRing):
+                raise ValueError(f"window_ring must be a WindowRing, got {type(window_ring).__name__}")
+            if window_ring.target is not metric:
+                raise ValueError("window_ring must wrap the SAME metric object this evaluator drives")
+            if fused:
+                raise ValueError(
+                    "window_ring cannot combine with fused=True: a window rotation resets the"
+                    " metric mid-stream, which the fused plane's donated carry cannot observe"
+                )
         self.metric = metric
         self.store = store
         self.snapshot_every_n = snapshot_every_n
@@ -159,6 +192,7 @@ class StreamingEvaluator:
         self.update_fn = update_fn or _default_update
         self.fused = bool(fused)
         self.fused_options = dict(fused_options or {})
+        self.window_ring = window_ring
         #: the live FusedCollectionPlan while a fused drive is in flight
         self._fused_plan: Optional[Any] = None
         self.watchdog_timeout_s = watchdog_timeout_s
@@ -186,25 +220,35 @@ class StreamingEvaluator:
 
     # ----------------------------------------------------------- checkpoints
     def _is_collection(self) -> bool:
+        if self._is_plan:
+            return False
         from torchmetrics_tpu_torch.collections import MetricCollection
 
         return isinstance(self.metric, MetricCollection)
 
     def _kind(self) -> str:
+        if self._is_plan:
+            return "sliced"
         return "collection" if self._is_collection() else "metric"
 
     def _members(self) -> List[Tuple[str, Any]]:
-        """``(name, metric)`` of every top-level metric the evaluator drives."""
+        """``(name, metric)`` of every top-level metric the evaluator drives
+        (a plan's template members)."""
+        if self._is_plan:
+            return sorted(self.metric.members.items())
         if self._is_collection():
             return self.metric.items(keep_base=True, copy_state=False)
         return [("", self.metric)]
 
     def _fingerprint(self) -> str:
         """Registry fingerprint of the wrapped target: the metric's deep
-        checkpoint fingerprint, or a digest over every member's for a
-        collection (the JAX package's digest, so stores cross over)."""
+        checkpoint fingerprint, a digest over every member's for a
+        collection, or the plan's stable fingerprint for a ``SlicedPlan``
+        target (the JAX package's, so stores cross over)."""
         from torchmetrics_tpu_torch.robustness.checkpoint import checkpoint_fingerprint
 
+        if self._is_plan:
+            return self.metric.stable_fingerprint()
         if self._is_collection():
             import hashlib
             import json
@@ -214,6 +258,8 @@ class StreamingEvaluator:
         return checkpoint_fingerprint(self.metric)
 
     def _checkpoint(self) -> Dict[str, Any]:
+        if self._is_plan:
+            return self.metric.save_checkpoint()  # the whole carry, table included
         if self._is_collection():
             # copy_state=True materializes per-member states out of compute-
             # group aliasing, so each member checkpoints its own (equal) state
@@ -221,6 +267,9 @@ class StreamingEvaluator:
         return self.metric.save_checkpoint()
 
     def _restore_checkpoint(self, checkpoint: Dict[str, Any]) -> None:
+        if self._is_plan:
+            self.metric.load_checkpoint(checkpoint)  # validate-ALL-then-apply
+            return
         if not self._is_collection():
             self.metric.load_checkpoint(checkpoint)  # validate-ALL-then-apply
             return
@@ -265,12 +314,17 @@ class StreamingEvaluator:
             # back into the member metrics first, so every snapshot (periodic,
             # stall capture, final) serializes exactly the applied batches
             self._fused_plan.fold_back()
-        return {
+        payload = {
             "payload_version": RUNNER_PAYLOAD_VERSION,
             "cursor": self.cursor,
             "kind": self._kind(),
             "checkpoint": self._checkpoint(),
         }
+        if self.window_ring is not None:
+            # the closed windows travel WITH the open state + cursor: a
+            # resumed run's ring is exactly the killed run's at that snapshot
+            payload["window"] = self.window_ring.payload()
+        return payload
 
     def _validate_payload(self, payload: Dict[str, Any]) -> None:
         """``CheckpointStore.latest`` hook: raise ``StateRestoreError`` for a
@@ -296,13 +350,28 @@ class StreamingEvaluator:
                 f"runner snapshot was written for a {payload.get('kind')!r} target, this"
                 f" evaluator wraps a {kind!r}"
             )
-        if "window" in payload:
+        ring_parts = None
+        if self.window_ring is None and "window" in payload:
             raise StateRestoreError(
-                "runner snapshot carries a window-ring payload, and window rings are not ported yet"
-                " (ROADMAP A10) — resuming would silently DROP the closed windows (and the next"
-                " snapshot would erase them from the store); point at an un-windowed store"
+                "runner snapshot carries a window-ring payload but this evaluator has no"
+                " window_ring attached — resuming would silently DROP the closed windows"
+                " (and the next snapshot would erase them from the store); attach the ring"
+                " or point at an un-windowed store"
             )
+        if self.window_ring is not None:
+            if "window" not in payload:
+                raise StateRestoreError(
+                    "runner snapshot carries no window-ring payload but this evaluator has a"
+                    " window_ring attached — the snapshot came from an un-windowed run"
+                )
+            # validate WITHOUT applying: if the metric checkpoint below is
+            # rejected, the live ring must not be left holding this
+            # snapshot's closed windows (validate-ALL-then-apply holds
+            # across BOTH restores)
+            ring_parts = self.window_ring.validated_parts(payload["window"])
         self._restore_checkpoint(payload["checkpoint"])
+        if ring_parts is not None:
+            self.window_ring.apply_parts(ring_parts)
 
     def _restore_latest(self) -> int:
         """Restore the newest valid snapshot (if any) and return its cursor (0 without one)."""
@@ -444,6 +513,9 @@ class StreamingEvaluator:
         drives build the plan lazily at the first batch, so ``resume()``
         restores state first and the plan's carry seeds from the restored
         members."""
+        if self._is_plan:
+            plan = self.metric
+            return lambda batch: plan.update(*batch) if isinstance(batch, tuple) else plan.update(batch)
         if not self.fused:
             update_fn, metric = self.update_fn, self.metric
             return lambda batch: update_fn(metric, batch)
@@ -486,6 +558,10 @@ class StreamingEvaluator:
             self._last_good_payload = self._payload()
         self._bounded(self._apply_batch, "update", batch)
         self.cursor += 1
+        if self.window_ring is not None:
+            # rotation happens AFTER the batch fully applied and BEFORE
+            # its snapshot, so every snapshot's ring is cursor-consistent
+            self.window_ring.observe(self.cursor)
         if faults._ACTIVE:  # preemption drill: die after batch k, before its snapshot
             faults.fire("runner.preempt")
         self._maybe_snapshot()
@@ -502,7 +578,8 @@ class StreamingEvaluator:
             self._last_good_payload = self._payload()
         # ... then compute (which may sync across the process group) under the
         # same watchdog deadline
-        return self._bounded(self.metric.compute, "compute")
+        compute = self.metric.compute_all if self._is_plan else self.metric.compute
+        return self._bounded(compute, "compute")
 
     def _drive(self, batches: Iterable[Any], skip: int) -> Any:
         self._begin_drive(skip)
@@ -545,13 +622,16 @@ class StreamingEvaluator:
     def serve_skip(self) -> None:
         """Advance the cursor past ONE batch WITHOUT applying it — the serve
         plane's poison-batch escape hatch. The skipped seq still moves the
-        durable watermark (the cadence snapshot runs as if the batch had been
-        applied), so a restore after the skip does not ask the client to
-        replay the quarantined batch."""
+        durable watermark (window rotation + cadence snapshot run as if the
+        batch had been applied), so a restore after the skip does not ask the
+        client to replay the quarantined batch."""
         self.cursor += 1
+        if self.window_ring is not None:
+            self.window_ring.observe(self.cursor)
         self._maybe_snapshot()
 
     def serve_close(self) -> Any:
-        """Final snapshot + compute; returns ``metric.compute()``, the same
-        contract as :meth:`run`."""
+        """Final snapshot + compute; returns :meth:`~SlicedPlan.compute_all`
+        for plan targets, ``metric.compute()`` otherwise — the same contract
+        as :meth:`run`."""
         return self._finish_drive()

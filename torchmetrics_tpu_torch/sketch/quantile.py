@@ -29,7 +29,7 @@ argsort is not) and cumulative weights are int32, as JAX keeps them.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple, Union
+from typing import List, NamedTuple, Tuple, Union
 
 import torch
 
@@ -126,13 +126,19 @@ def kll_init(
 
 def _sketch_of_batch(x: Tensor, levels: int, capacity: int, dtype: torch.dtype) -> KLLSketch:
     """A throwaway sketch of one batch. The compaction cascade depends on the
-    batch's size alone, so it unrolls on the host: nothing is read back."""
+    batch's size alone, so it unrolls on the host: nothing is read back. The
+    level rows are assembled out of place, so the update also runs under
+    ``torch.func.vmap`` (the sliced plan's per-row update)."""
     x = x.reshape(-1).to(dtype)
     n_in = int(x.numel())
     empty = _empty(levels, capacity, dtype, x.device)
     if n_in == 0:
         return empty
-    items, sizes, compactions = empty.items.clone(), empty.sizes.clone(), empty.compactions.clone()
+    rows, sizes, compactions = [], [0] * levels, [0] * levels
+
+    def row(values: Tensor) -> Tensor:
+        return torch.cat([values, empty.items[0, values.shape[0] :]])
+
     cur = torch.sort(x, stable=True).values
     level = 0
     while cur.numel() > capacity:
@@ -143,18 +149,31 @@ def _sketch_of_batch(x: Tensor, levels: int, capacity: int, dtype: torch.dtype) 
             )
         n = int(cur.numel())
         if n % 2 == 1:  # the leftover stays at this level, weight preserved
-            items[level, 0] = cur[n - 1]
+            rows.append(row(cur[n - 1 :]))
             sizes[level] = 1
+        else:
+            rows.append(empty.items[level])
         compactions[level] += 1
         cur = cur[1 : n - (n % 2) : 2]  # odd positions of the paired prefix
         level += 1
-    m = int(cur.numel())
-    items[level, :m] = cur
-    sizes[level] += m
+    rows.append(row(cur))
+    sizes[level] += int(cur.numel())
+    rows.extend(empty.items[level + 1 :])
+    # the per-level ints come from device ops, not a host-to-device copy (a
+    # CUDA graph capture of the update may hold this)
+    index = torch.arange(levels, dtype=torch.int32, device=x.device)
+
+    def ints(values: List[int]) -> Tensor:
+        out = empty.sizes
+        for i, v in enumerate(values):
+            if v:
+                out = torch.where(index == i, v, out)
+        return out
+
     return KLLSketch(
-        items=items,
-        sizes=sizes,
-        compactions=compactions,
+        items=torch.stack(rows),
+        sizes=ints(sizes),
+        compactions=ints(compactions),
         count=torch.full((), n_in, dtype=torch.int32, device=x.device),
         minimum=torch.min(x),
         maximum=torch.max(x),

@@ -26,10 +26,15 @@ _FUSED_STEP = threading.local()
 
 
 def _is_concrete(x: Any) -> bool:
-    """True when ``x``'s values can be read on the host now: false only for a
-    CUDA tensor while the current stream is capturing a CUDA graph, the
-    counterpart of a tracer under ``jit``."""
-    return not (isinstance(x, torch.Tensor) and x.is_cuda and torch.cuda.is_current_stream_capturing())
+    """True when ``x``'s values can be read on the host now: false for a CUDA
+    tensor while the current stream is capturing a CUDA graph, and for any
+    tensor under a ``torch.func`` transform (the sliced plan's per-row
+    ``vmap``), the counterparts of a tracer under ``jit`` and ``vmap``."""
+    if not isinstance(x, torch.Tensor):
+        return True
+    if torch._C._functorch.maybe_current_level() is not None:
+        return False
+    return not (x.is_cuda and torch.cuda.is_current_stream_capturing())
 
 
 @contextmanager

@@ -111,19 +111,26 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-def normalize_logits_if_needed(tensor: torch.Tensor, normalization: str = "sigmoid") -> torch.Tensor:
+def normalize_logits_if_needed(tensor: torch.Tensor, normalization: str = "sigmoid", rows: Optional[int] = None) -> torch.Tensor:
     """Apply sigmoid/softmax only when some value lies outside [0, 1].
 
     The test is over the whole tensor, as in the JAX package, and both
     branches are computed and one selected with ``torch.where``: the choice
     never reads a value back to the host, so an update on the card does not
-    sync here.
+    sync here. With ``rows``, the tensor holds ``rows`` equal runs of
+    values, one per batch row, and each run is tested on its own: JAX's
+    per-row ``vmap`` of an update in a sliced plan decides per row.
     """
     if tensor.numel() == 0:
         return tensor
     if normalization not in ("sigmoid", "softmax"):
         return tensor
-    in_range = (tensor.min() >= 0) & (tensor.max() <= 1)
+    if rows is not None:
+        runs = tensor.reshape(rows, -1)
+        ok = (runs.amin(1) >= 0) & (runs.amax(1) <= 1)
+        in_range = ok[:, None].expand(runs.shape).reshape(tensor.shape)
+    else:
+        in_range = (tensor.min() >= 0) & (tensor.max() <= 1)
     normalized = torch.sigmoid(tensor) if normalization == "sigmoid" else torch.softmax(tensor, dim=1)
     return torch.where(in_range, tensor, normalized)
 

@@ -119,11 +119,17 @@ def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
     nothing is read back to the host and a CUDA graph can capture the count
     (``torch.bincount`` on CUDA reads its input's max on the host to size its
     output). Integer adds commute, so the counts do not depend on the order
-    in which the device adds them.
+    in which the device adds them. Under ``torch.func.vmap`` (the sliced
+    plan's per-row update) the add is an out-of-place ``scatter_add``, which
+    ``vmap`` batches; its ``index_add`` rule would loop over the rows.
     """
     x = x.reshape(-1).clamp(min=0, max=minlength)
     counts = torch.zeros(minlength + 1, dtype=torch.int32, device=x.device)
-    counts.index_add_(0, x, torch.ones((), dtype=torch.int32, device=x.device).expand(x.numel()))
+    ones = torch.ones((), dtype=torch.int32, device=x.device).expand(x.numel())
+    if torch._C._functorch.maybe_current_level() is None:
+        counts.index_add_(0, x, ones)
+    else:
+        counts = counts.scatter_add(0, x.to(torch.int64), ones)
     return counts[:minlength]
 
 

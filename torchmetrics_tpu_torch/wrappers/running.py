@@ -11,8 +11,10 @@ with its declared reductions and computes there.
 The slot pointer is a host counter (``_host_counters``), so the fused plan
 refuses a ``Running`` member with the JAX package's reason. Under
 ``sharded_update`` one event fills one window slot with the mesh-reduced
-state (``_fold_sharded_state``), as in the JAX package. The windowed
-evaluation plane is not ported yet (ROADMAP A10).
+state (``_fold_sharded_state``), as in the JAX package. At serving scale
+:class:`~torchmetrics_tpu_torch.parallel.windowing.WindowRing` supersedes
+it: a tumbling ring with ``every_n=1`` equals ``Running(window=N)`` on the
+overlap.
 """
 from __future__ import annotations
 
