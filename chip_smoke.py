@@ -201,6 +201,35 @@ result) if it fails:
    equal to the one-rank merge of both halves; the sliced mesh plan (half of
    every fan-out batch on each rank) bitwise equal to the local plan. A rank that fails or outlives DIST_TIMEOUT_S fails the
    script. The times it prints are gloo's through the host on one card.
+18. guard (runs after sliced): the StateGuard over the flagship suite
+   (micro accuracy, macro F1, binned macro AUROC guarded with the multiclass
+   ``contract=``) on copies of the slice's batches with invalid rows
+   injected on the card from a seed (batches 1, 3 and 7: about 1% rows with
+   a NaN score, 0.2% with a +Inf, 0.5% labelled 64 or -1; batch 5 wholly
+   invalid). The mask policy's eager pass is the main path: K2s and K1s
+   counted from 0. Under mask, reject and propagate, through eager,
+   ``suite.fused()``, ``make_jit_update`` (a step per member) and the
+   suite's ``SlicedPlan`` (200 cohorts into 256 cells): integer states
+   bitwise equal to the unguarded suite over the host-filtered rows (mask),
+   over the clean batches (reject) and over the raw rows (propagate); the
+   counters equal numpy's row counts; the sliced cells sum to the per-row
+   fold and its counters. ``MeanSquaredError``'s ``guard_poisoned`` under
+   propagate latches at the first NaN batch, not before, and a
+   ``StreamingEvaluator`` gated on it writes no cadence snapshot after it.
+   K2s and K1s at the guard's one-cell shape bitwise against their plain
+   versions and timed; ``DomainContract.row_invalid`` (plain PyTorch) timed
+   against its byte bound; each policy's eager and fused pass against the
+   unguarded pass, in turns, and the fused passes' device kernels.
+19. obs (runs after guard): the eager, fused and sliced passes of the
+   headline suite with tracing off and on, in turns (ms, samples/s, spans
+   per pass); a JSON-lines trace written and read back with the port's
+   ``obs.read_jsonl``/``summarize``; device telemetry on the captured
+   ``make_jit_update`` step over the guard's stream, the drained NaN and Inf
+   gauges equal to numpy's counts and the step timed with telemetry off and
+   on; the capture record (``obs.xla_records``) of a fused plan built under
+   tracing; the live publisher (50 Hz status files, ``/metrics`` on
+   localhost) over a durable run, its OpenMetrics text parsed and the
+   runner's progress and throughput gauges in it.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -211,7 +240,8 @@ busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
 and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes and the dist phase's time, ``nvidia-smi``'s
-line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s and K4) and
+line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, and K2s and K1s at the
+StateGuard's one-cell shape) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -4749,6 +4779,487 @@ def phase_sliced(device, batches, smi):
 # ----------------------------------------------------------------------- main
 
 
+# --------------------------------------------------------------- guard (A11)
+
+GUARD_POLICIES = ("mask", "reject", "propagate")
+GUARD_DIRTY = (1, 3, 5, 7)  # batches that carry invalid rows; batch 5 is wholly invalid
+GUARD_WHOLLY_INVALID = 5
+GUARD_NAN_SHARE = 0.01  # rows with one NaN score
+GUARD_INF_SHARE = 0.002  # rows with one +Inf score
+GUARD_LABEL_SHARE = 0.005  # rows labelled NUM_CLASSES or -1 (half each)
+GUARD_REPS = 5
+
+
+def _guard_batches(device, batches):
+    """Copies of the main path's batches with invalid rows injected on the card
+    from a seed (see GUARD_*), and numpy's per-batch row masks of them."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 30)
+    out, masks = [], []
+    for i, (logits, labels) in enumerate(batches):
+        logits, labels = logits.clone(), labels.clone()
+        if i in GUARD_DIRTY:
+            rows = lambda share: torch.rand(BATCH, generator=gen, device=device) < share  # noqa: E731
+            col = torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen, device=device)
+            nan_rows, inf_rows, bad = rows(GUARD_NAN_SHARE), rows(GUARD_INF_SHARE), rows(GUARD_LABEL_SHARE)
+            idx = torch.arange(BATCH, device=device)
+            logits[idx[nan_rows], col[nan_rows]] = float("nan")
+            logits[idx[inf_rows], (col[inf_rows] + 1) % NUM_CLASSES] = float("inf")
+            high = torch.rand(BATCH, generator=gen, device=device) < 0.5
+            labels = torch.where(bad, torch.where(high, NUM_CLASSES, -1), labels).to(labels.dtype)
+            if i == GUARD_WHOLLY_INVALID:
+                labels = torch.full_like(labels, NUM_CLASSES)
+        out.append((logits, labels))
+        lg, lb = logits.cpu().numpy(), labels.cpu().numpy()
+        nan, inf, dom = np.isnan(lg).any(1), np.isinf(lg).any(1), (lb < 0) | (lb >= NUM_CLASSES)
+        masks.append({"nan": nan, "inf": inf, "domain": dom, "invalid": nan | inf | dom})
+    return out, masks
+
+
+def _guarded_suite(tm, policy, device):
+    """The flagship suite, each member guarded; the binned AUROC declares no
+    contract (as in JAX) and takes the multiclass one with ``contract=``."""
+    from torchmetrics_tpu_torch.robustness import enable_guard
+
+    contract = tm.MulticlassStatScores(num_classes=NUM_CLASSES, device=device).domain_contract()
+    return tm.MetricCollection(
+        {
+            "acc": enable_guard(tm.MulticlassAccuracy(num_classes=NUM_CLASSES, average="micro", device=device), policy),
+            "f1": enable_guard(tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", device=device), policy),
+            "auroc": enable_guard(
+                tm.MulticlassAUROC(num_classes=NUM_CLASSES, average="macro", thresholds=THRESHOLDS, device=device),
+                policy, contract=contract,
+            ),
+        },
+        compute_groups=False,
+    )
+
+
+def _plain_states_of(suite):
+    """Every member's non-guard states (references)."""
+    return {key: {n: getattr(m, n) for n in m._defaults if not n.startswith("guard_")} for key, m in suite.items(keep_base=True, copy_state=False)}
+
+
+def _require_suite_plain_equal(suite, want, what):
+    for key, states in want.items():
+        for name, value in states.items():
+            _assert_bitwise(getattr(suite[key], name), value, f"{what}: {key}.{name}")
+
+
+def _guard_counters_of(suite):
+    from torchmetrics_tpu_torch.robustness import guard_counters
+
+    return {key: guard_counters(m) for key, m in suite.items(keep_base=True, copy_state=False)}
+
+
+def _numpy_guard_counters(masks, policy, batches_seen=None):
+    """What the counters must read after the stream, from numpy's row masks."""
+    seen = masks if batches_seen is None else [masks[i] for i in batches_seen]
+    total = lambda key: int(sum(int(m[key].sum()) for m in seen))  # noqa: E731
+    return {
+        "nan_rows": total("nan"),
+        "inf_rows": total("inf"),
+        "domain_rows": total("domain"),
+        "masked_rows": total("invalid") if policy == "mask" else 0,
+        "rejected_batches": sum(int(m["invalid"].any()) for m in seen) if policy == "reject" else 0,
+        "poisoned": 0,  # integer states only: the probe has no float leaf to trip on
+    }
+
+
+def check_guard_segmented(device, guard_batches, masks):
+    """K2s and K1s at the StateGuard's mask shape (``num_cells=1``, invalid
+    rows as cell -1) on the card against their plain versions, bitwise, and
+    timed beside them (the main path's dirty batches)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import (
+        binned_curve_state_segmented,
+        binned_curve_state_segmented_plain,
+        stat_counts_segmented,
+        stat_counts_segmented_plain,
+    )
+    from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
+
+    cells = [torch.from_numpy(m["invalid"]).to(device).to(torch.int32).neg() for m in masks]  # 0 valid, -1 invalid
+    k2 = [(logits, labels, c, 1, NUM_CLASSES) for (logits, labels), c in zip(guard_batches, cells)]
+    thr = _linspace_like_jax(0.0, 1.0, THRESHOLDS, device=device)
+    k1 = [(torch.softmax(logits, 1), thr, labels, True, c, 1) for (logits, labels), c in zip(guard_batches, cells)]
+    rows = []
+    for name, kernel, plain, arg_sets, tag, n_bytes, n_ops in (
+        ("stat_counts_segmented", stat_counts_segmented, stat_counts_segmented_plain, k2, "stat_counts_segmented",
+         BATCH * NUM_CLASSES * 4 + BATCH * 4 * 2 + 4 * NUM_CLASSES * 4, BATCH * NUM_CLASSES),
+        ("binned_curve_state_segmented", binned_curve_state_segmented, binned_curve_state_segmented_plain, k1, "binned_curve_segmented",
+         BATCH * NUM_CLASSES * 4 + BATCH * 4 * 2 + THRESHOLDS * 4 + THRESHOLDS * NUM_CLASSES * 4 * 4, BATCH * NUM_CLASSES * 8),
+    ):
+        max_err = 0.0
+        for i in GUARD_DIRTY:
+            max_err = max(max_err, _assert_bitwise(kernel(*arg_sets[i]), plain(*arg_sets[i]), f"{name}, one cell, batch {i}"))
+        times = _measure([("kernel", kernel, arg_sets), ("plain", plain, arg_sets[:2]), ("read_floor", _read_floor, [(a[0],) for a in arg_sets])],
+                         profile_reps=SKETCH_REPS, timing_reps=SKETCH_REPS * 4)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        rows.append({
+            "name": f"{name}, one cell (StateGuard mask)",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/" + ("stat_counts.cu" if name.startswith("stat") else "binned_curve_state.cu"),
+            "replaces": "torchmetrics_tpu/robustness/guard.py:310",
+            "max_abs_err": max_err,
+            "ms": times["kernel"]["device_ms"],
+            "plain_ms": times["plain"]["device_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
+            "kernel_only_us": _kernel_only_us(times["kernel"]["found"], tag),
+            "bytes": n_bytes,
+            "read_floor_ms": times["read_floor"]["device_ms"],
+        })
+    print(f"[kernels] K2s and K1s at the StateGuard's mask shape (num_cells=1, invalid rows as cell -1, {len(GUARD_DIRTY)} dirty"
+          f" batches of {BATCH}x{NUM_CLASSES}): bitwise equal to their plain versions")
+    return rows
+
+
+def phase_guard(device, batches, smi):
+    """StateGuard (ROADMAP A11) on the card: see the module docstring, phase 18."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.ops import KERNELS
+    from torchmetrics_tpu_torch.parallel import fold_jit_state, make_jit_update
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator, enable_guard, guard_counters
+
+    t_phase = time.perf_counter()
+    out = {}
+    gb, masks = _guard_batches(device, batches)
+    invalid_total = int(sum(int(m["invalid"].sum()) for m in masks))
+    _require(bool(masks[GUARD_WHOLLY_INVALID]["invalid"].all()) and invalid_total > len(GUARD_DIRTY) * BATCH * 0.01,
+             "guard: the injected stream")
+    kernels = {name: KERNELS[name] for name in ("stat_counts_segmented", "binned_curve_state_segmented")}
+
+    # 1) the main path: the guarded suite, mask, eager; K2s and K1s counted from 0
+    suite = _guarded_suite(tm, "mask", device)
+    _zero(kernels)
+    for batch in gb:
+        suite.update(*batch)
+    out["launches"] = _counts(kernels)
+    for name, count in out["launches"].items():
+        _require(count > 0, f"guard: kernel {name} launched {count} times on the guarded main path")
+
+    # the references: the unguarded suite over the host-filtered rows, over the clean batches, over the raw rows
+    def unguarded(select):
+        ref = _headline_suite(tm, device=device)
+        for i, (logits, labels) in enumerate(gb):
+            keep = select(i)
+            if keep is None:
+                continue
+            if keep is True:
+                ref.update(logits, labels)
+            elif bool(keep.any()):
+                ref.update(logits[keep], labels[keep])
+        return _plain_states_of(ref)
+
+    valid_t = [torch.from_numpy(~m["invalid"]).to(device) for m in masks]
+    want = {
+        "mask": unguarded(lambda i: valid_t[i]),
+        "reject": unguarded(lambda i: True if not masks[i]["invalid"].any() else None),
+        "propagate": unguarded(lambda i: True),
+    }
+    clean = [i for i, m in enumerate(masks) if not m["invalid"].any()]
+    _require_suite_plain_equal(suite, want["mask"], "guard mask eager")
+    for key, got in _guard_counters_of(suite).items():
+        _require(got == _numpy_guard_counters(masks, "mask"), f"guard mask eager: {key} counters {got}")
+
+    # 2) every policy through eager, suite.fused(), make_jit_update (one step per member) and the sliced plan
+    suite_keys = _suite_keys(device)
+    paths = {}
+    for policy in GUARD_POLICIES:
+        counters_want = _numpy_guard_counters(masks, policy)
+        eager = suite if policy == "mask" else _guarded_suite(tm, policy, device)
+        if policy != "mask":
+            for batch in gb:
+                eager.update(*batch)
+        fused_suite = _guarded_suite(tm, policy, device)
+        plan = fused_suite.fused()
+        for batch in gb:
+            plan.update(*batch)
+        plan.fold_back()
+        jit_suite = _guarded_suite(tm, policy, device)
+        for key, member in jit_suite.items(keep_base=True, copy_state=False):
+            step, state = make_jit_update(member)
+            for batch in gb:
+                state = step(state, *batch)
+            fold_jit_state(member, state)
+        for tag, s in (("eager", eager), ("fused", fused_suite), ("jit", jit_suite)):
+            _require_suite_plain_equal(s, want[policy], f"guard {policy} {tag}")
+            for key, got in _guard_counters_of(s).items():
+                _require(got == counters_want, f"guard {policy} {tag}: {key} counters {got} vs numpy {counters_want}")
+        sliced = _guarded_suite(tm, policy, device).sliced(num_cells=SUITE_CELLS)
+        for i, batch in enumerate(gb):
+            sliced.update(suite_keys[i], *batch)
+        # per row: the invalid rows of a cohort drop out of its cell under mask
+        # and reject alike, and each row's verdict is counted in its cell
+        row_want = want["propagate" if policy == "propagate" else "mask"]
+        for key in ("acc", "f1", "auroc"):
+            carry = sliced.state["members"][key]
+            for name, value in row_want[key].items():
+                _assert_bitwise(carry[name].sum(0, dtype=torch.int32), value, f"guard {policy} sliced: {key}.{name} over all cells")
+            per_row = dict(_numpy_guard_counters(masks, "mask"))
+            per_row["masked_rows"] = per_row["masked_rows"] if policy == "mask" else 0
+            per_row["rejected_batches"] = invalid_total if policy == "reject" else 0
+            got = {n[len("guard_"):]: int(carry[n].sum()) for n in carry if n.startswith("guard_") and n != "guard_poisoned"}
+            _require(got == {k: v for k, v in per_row.items() if k != "poisoned"}, f"guard {policy} sliced: {key} counters {got}")
+        _require(sliced.spills == 0, f"guard {policy} sliced: spills")
+        paths[policy] = {"eager": eager, "fused": plan, "sliced": sliced}
+    print(
+        f"[guard] the flagship suite guarded (acc micro, F1 macro, binned AUROC macro with contract=) over {NUM_BATCHES} x {BATCH} x"
+        f" {NUM_CLASSES}, batches {GUARD_DIRTY} dirty ({invalid_total} invalid rows; batch {GUARD_WHOLLY_INVALID} wholly invalid):"
+        f" K2s/K1s launches on the mask main path {out['launches']}; mask, reject and propagate through eager, suite.fused(),"
+        f" make_jit_update and a SlicedPlan ({SUITE_COHORTS} cohorts into {SUITE_CELLS} cells): integer states bitwise equal to the"
+        f" unguarded suite over the host-filtered rows (mask), the clean batches {clean} (reject), the raw rows (propagate);"
+        f" counters equal numpy's; the sliced cells sum to the per-row fold"
+    )
+
+    # 3) propagate: MeanSquaredError's poison latch trips at the first NaN batch, not before
+    first_nan = next(i for i, m in enumerate(masks) if m["nan"].any())
+    mse = enable_guard(tm.MeanSquaredError(device=device), "propagate")
+    latches = []
+    for logits, labels in gb:
+        mse.update(logits.max(1).values, labels.to(torch.float32))
+        latches.append(guard_counters(mse)["poisoned"])
+    _require(latches == [0] * first_nan + [1] * (NUM_BATCHES - first_nan), f"guard propagate: MSE poison latch by batch {latches}")
+
+    # 4) the runner: a snapshot gate on guard_poisoned vetoes every cadence snapshot after the poison
+    with tempfile.TemporaryDirectory() as tmp:
+        gated = enable_guard(tm.MeanSquaredError(device=device), "propagate")
+        store = CheckpointStore(os.path.join(tmp, "store"))
+        ev = StreamingEvaluator(gated, store=store, snapshot_every_n=1)
+        ev.snapshot_gate = lambda: guard_counters(gated)["poisoned"] == 0
+        ev.serve_open()
+        for logits, labels in gb:
+            ev.serve_step((logits.max(1).values, labels.to(torch.float32)))
+        cadence = [int(e["step"]) for e in store._manifest()["snapshots"]]
+        ev.serve_close()
+        final = [int(e["step"]) for e in store._manifest()["snapshots"]]
+    _require(cadence == list(range(1, first_nan + 1)), f"guard runner: cadence snapshots {cadence}, poison at batch {first_nan + 1}")
+    _require(final[-1] == NUM_BATCHES, f"guard runner: the explicit final snapshot {final}")
+    print(f"[guard] propagate: MSE's guard_poisoned by batch {latches} (first NaN in batch {first_nan}); a StreamingEvaluator"
+          f" gated on it wrote cadence snapshots {cadence} only, then the explicit final one at {final[-1]}")
+
+    # 5) kernels at the guard's shape, and the contract's per-row checks against their byte bound
+    out["rows"] = check_guard_segmented(device, gb, masks)
+    for row in out["rows"]:
+        row["launches"] = out["launches"][row["name"].split(",")[0]]
+    contract = suite["f1"]._guard_contract
+    arg_sets = [(logits, labels.to(torch.int64)) for logits, labels in gb]
+    row_ms, found = _device_ms(contract.row_invalid, arg_sets)
+    out["row_invalid_ms"] = row_ms
+    out["row_invalid_launches"] = sum(n for _, n in found.values()) / PROFILE_REPS
+    out["row_invalid_bound_ms"] = _bound(BATCH * NUM_CLASSES * 4 + BATCH * 8, BATCH * NUM_CLASSES * 2)[0]
+
+    # 6) each policy's pass against the unguarded pass, eager and fused, in turns
+    plain_suite = _headline_suite(tm, device=device)
+    plain_plan = _fresh_plan(plain_suite, gb)
+    passes = {"unguarded": (plain_suite, plain_plan)}
+    for policy in GUARD_POLICIES:
+        passes[policy] = (paths[policy]["eager"], paths[policy]["fused"])
+
+    def one_pass(update):
+        return lambda: [update(*b) for b in gb]
+
+    timings = {label: {"eager": [], "fused": []} for label in passes}
+    for order in (list(passes), list(passes)[::-1]) * ((GUARD_REPS + 1) // 2):
+        for label in order:
+            eager, plan = passes[label]
+            timings[label]["eager"].append(_timed(one_pass(eager.update)))
+            timings[label]["fused"].append(_timed(one_pass(plan.update)))
+    out["pass_ms"] = {label: {k: statistics.median(v) * 1e3 for k, v in t.items()} for label, t in timings.items()}
+    out["pass_launches"], out["pass_top"] = {}, {}
+    for label, (eager, plan) in passes.items():
+        found, busy_us, _ = _profile(one_pass(plan.update), 1)
+        out["pass_launches"][label] = (sum(n for _, n in found.values()), busy_us)
+        top = sorted(found.items(), key=lambda kv: -kv[1][0])[:6]
+        out["pass_top"][label] = [(_short_kernel_name(key), t, n) for key, (t, n) in top]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(
+        f"[guard] pass of {NUM_BATCHES} batches, ms (median of {len(timings['mask']['eager'])}, in turns), eager / fused:"
+        f" {'; '.join(f'{k} {v['eager']:.3f} / {v['fused']:.3f}' for k, v in out['pass_ms'].items())}; fused pass device kernels"
+        f" and busy us: {'; '.join(f'{k} {n} / {b:.1f}' for k, (n, b) in out['pass_launches'].items())};"
+        f" DomainContract.row_invalid {row_ms * 1e3:.2f} us device per batch ({out['row_invalid_launches']:.0f} launches,"
+        f" plain PyTorch) against its byte bound {out['row_invalid_bound_ms'] * 1e3:.2f} us; phase {out['seconds']:.1f} s; {smi}"
+    )
+    for label in GUARD_POLICIES:
+        print(f"[guard] {label} fused pass, top device ops: {'; '.join(f'{k} {t:.1f} us/{n}' for k, t, n in out['pass_top'][label])}")
+    return out
+
+
+# ----------------------------------------------------------------- obs (A12)
+
+OBS_REPS = 5
+
+
+def phase_obs(device, batches, smi):
+    """The observability plane (ROADMAP A12) on the card: see the module docstring, phase 19."""
+    import json as _json
+    import re
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.obs import device as obs_device
+    from torchmetrics_tpu_torch.obs import live
+    from torchmetrics_tpu_torch.parallel import fold_jit_state, make_jit_update
+    from torchmetrics_tpu_torch.robustness import CheckpointStore, StreamingEvaluator
+
+    t_phase = time.perf_counter()
+    out = {}
+    obs.clear()
+
+    # 1) the fused pass and the sliced suite's pass, tracing off and on, in turns
+    eager_suite = _headline_suite(tm, device=device)
+    eager_suite.update(*batches[0])
+    eager_suite.update(*batches[1])
+    plan = _fresh_plan(_headline_suite(tm, device=device), batches)
+    sliced = _headline_suite(tm, device=device).sliced(num_cells=SUITE_CELLS)
+    keys = _suite_keys(device)
+    drives = {
+        "eager": lambda: [eager_suite.update(*b) for b in batches],
+        "fused": lambda: [plan.update(*b) for b in batches],
+        "sliced": lambda: [sliced.update(keys[i], *b) for i, b in enumerate(batches)],
+    }
+    for drive in drives.values():
+        drive()  # captures and warms every path before any timing
+    timings = {(d, t): [] for d in drives for t in ("off", "on")}
+    spans = {}
+    for order in (("off", "on"), ("on", "off")) * ((OBS_REPS + 1) // 2):
+        for traced in order:
+            for name, drive in drives.items():
+                if traced == "on":
+                    with obs.tracing():
+                        timings[(name, "on")].append(_timed(drive))
+                        spans[name] = len(obs.get_trace())
+                else:
+                    timings[(name, "off")].append(_timed(drive))
+    out["pass_ms"] = {k: statistics.median(v) * 1e3 for k, v in timings.items()}
+    out["spans"] = spans
+    samples = NUM_BATCHES * BATCH
+    print(
+        "[obs] passes of the headline suite, tracing off / on (ms, samples/s, spans recorded per pass; medians of"
+        f" {len(timings[('fused', 'on')])}, in turns): "
+        + "; ".join(
+            f"{d} {out['pass_ms'][(d, 'off')]:.3f} / {out['pass_ms'][(d, 'on')]:.3f} ms, {samples / out['pass_ms'][(d, 'off')] * 1e3:.1f} /"
+            f" {samples / out['pass_ms'][(d, 'on')] * 1e3:.1f} samples/s, {spans[d]} spans"
+            for d in drives
+        )
+        + f"; {smi}"
+    )
+
+    # 2) a trace written as JSON lines and read back with the port's own reader
+    with tempfile.TemporaryDirectory() as tmp:
+        with obs.tracing():
+            eager_suite.update(*batches[0])
+            eager_suite.compute()
+            recorded = obs.get_trace()
+            path = os.path.join(tmp, "smoke.trace.jsonl")
+            obs.write_jsonl(path, rank=0)
+        events, counters, gauges, meta = obs.read_jsonl(path)
+        summary = obs.summarize(events, counters, gauges, dropped=meta.get("dropped", 0))
+    _require(events == recorded and meta.get("rank") == 0, "obs: the JSONL trace reads back as recorded")
+    _require("MulticlassAccuracy" in summary and "collection.compute" in {e["name"] for e in events}, "obs: the summary")
+    print(f"[obs] JSONL trace of one update + compute: {len(events)} events written and read back equal; summary"
+          f" {len(summary.splitlines())} lines")
+
+    # 3) device telemetry on the captured make_jit_update step: the drained NaN/Inf gauges equal numpy's counts
+    gb, _ = _guard_batches(device, batches)
+    n_nan = int(sum(int(torch.isnan(l).sum()) for l, _ in gb))
+    n_inf = int(sum(int(torch.isinf(l).sum()) for l, _ in gb))
+    step_ms = {}
+    metrics = {}
+    for tag in ("off", "on"):
+        metric = tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", validate_args=False, device=device)
+        if tag == "on":
+            with obs_device.device_telemetry():
+                step, state = make_jit_update(metric, donate=True)
+        else:
+            step, state = make_jit_update(metric, donate=True)
+        for batch in gb:
+            state = step(state, *batch)  # the first call runs eagerly, the second captures
+        _require(len(step._captured) == 1, f"obs: the jit step ({tag}) captured one graph")
+        fold_jit_state(metric, state)
+        metrics[tag] = (metric, step, state)
+    for tag in ("off", "on", "off", "on"):
+        metric, step, state = metrics[tag]
+        step_ms.setdefault(tag, []).append(_timed(lambda: [step(state, *b) for b in gb]) / NUM_BATCHES * 1e3)
+    out["step_ms"] = {k: min(v) for k, v in step_ms.items()}
+    obs.clear()
+    metric_on = tm.MulticlassF1Score(num_classes=NUM_CLASSES, average="macro", validate_args=False, device=device)
+    with obs_device.device_telemetry():
+        step, state = make_jit_update(metric_on)
+    for batch in gb:
+        state = step(state, *batch)
+    fold_jit_state(metric_on, state)
+    metric_on.compute()
+    g = obs.snapshot()["gauges"]
+    _require(g["device.MulticlassF1Score.nan_count"] == n_nan and g["device.MulticlassF1Score.inf_count"] == n_inf
+             and g["device.MulticlassF1Score.updates"] == NUM_BATCHES,
+             f"obs telemetry: drained NaN {g.get('device.MulticlassF1Score.nan_count')} / Inf"
+             f" {g.get('device.MulticlassF1Score.inf_count')} vs numpy {n_nan} / {n_inf}")
+    _require(torch.equal(metrics["on"][0].tp, metrics["off"][0].tp), "obs telemetry: states with telemetry on equal off")
+    print(f"[obs] device telemetry on the captured make_jit_update step (F1 macro over the guard's stream): drained NaN"
+          f" {n_nan} and Inf {n_inf} elements equal numpy's; step {out['step_ms']['off']:.4f} ms off, {out['step_ms']['on']:.4f} ms on"
+          f" (per batch, replays); {smi}")
+
+    # 4) the capture records of a fused plan built under tracing
+    with obs.tracing():
+        traced_plan = _fresh_plan(_headline_suite(tm, device=device), batches)
+        traced_plan.update(*batches[0])
+        torch.cuda.synchronize()
+        records = obs.xla_records()
+        rows = obs.compile_rows(obs.get_trace())
+    _require(len(records) == 1 and records[0]["kind"] == "fused" and records[0]["flops"] is None, f"obs: capture records {records}")
+    _require(rows and rows[0]["first_step_ms"] is not None, "obs: the first_step span joins the record")
+    out["capture"] = records[0]
+    print(f"[obs] fused plan capture record: warm-up (lower) {records[0]['lower_ms']:.2f} ms, capture (compile)"
+          f" {records[0]['compile_ms']:.2f} ms, first replay {rows[0]['first_step_ms']:.3f} ms (host wall clock)")
+
+    # 5) the live publisher sampled at a short interval over a durable run, its OpenMetrics text parsed
+    with tempfile.TemporaryDirectory() as tmp:
+        with live.publishing(http="127.0.0.1:0", directory=os.path.join(tmp, "status"), cadence_s=0.02, rank=0) as pub:
+            host, port = pub.http_address()
+            ev = StreamingEvaluator(_headline_suite(tm, device=device), store=CheckpointStore(os.path.join(tmp, "s")), snapshot_every_n=2)
+            ev.run(batches)
+            body = urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=10).read().decode()
+            ticks = pub.seq
+        status = live.read_status_dir(os.path.join(tmp, "status"))
+    _require(live.publisher() is None, "obs: the live publisher stopped")
+    samples_om = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)", line)
+            _require(m is not None, f"obs: an OpenMetrics line does not parse: {line!r}")
+            samples_om[m.group(1)] = float(m.group(3))
+    _require(body.endswith("# EOF\n"), "obs: the exposition ends with # EOF")
+    _require(samples_om.get("tm_tpu_runner_progress_batches_total") == NUM_BATCHES
+             and samples_om.get("tm_tpu_runner_cursor") == NUM_BATCHES
+             and samples_om.get("tm_tpu_runner_throughput_samples_per_s", 0) > 0, f"obs live: runner gauges {samples_om}")
+    out["live_sps"] = samples_om["tm_tpu_runner_throughput_samples_per_s"]
+    out["seconds"] = time.perf_counter() - t_phase
+    obs.clear()
+    print(f"[obs] live publisher (50 Hz status files, /metrics on localhost) over the durable run: {len(samples_om)} samples,"
+          f" runner.progress.batches {samples_om['tm_tpu_runner_progress_batches_total']:.0f}, throughput"
+          f" {out['live_sps']:.1f} samples/s (EWMA, host clock), {ticks} status ticks into {len(status)} file(s); phase"
+          f" {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4786,6 +5297,8 @@ def main() -> int:
     wrappers = phase_wrappers(device, batches, KERNELS, smi)
     sketch = phase_sketch(device, sketch_kernels, smi)
     sliced = phase_sliced(device, batches, smi)
+    guard = phase_guard(device, batches, smi)
+    obs_run = phase_obs(device, batches, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     durable = phase_durable(device, batches, KERNELS, run, exact, smi)
     dist_run = phase_dist(run, exact, fused, smi)
@@ -4797,6 +5310,7 @@ def main() -> int:
     rows.insert(1, matrix_row)
     rows.append(sketch["k3_row"])
     rows.extend(sliced["rows"])
+    rows.extend(guard["rows"])
     for row in rows:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
@@ -4839,7 +5353,12 @@ def main() -> int:
         f" sliced phase {sliced['seconds']:.1f} s, fan-out {sliced['fanout_sps']:.1f} samples/s ({sliced['fanout_ratio']:.1f} x the naive"
         f" loop), drift ingest {sliced['drift_ingest_sps']:.1f} samples/s and {sliced['drift_windows_per_s']:.1f} windows/s, suite pass"
         f" {sliced['suite_pass_ms']:.3f} ms (busy share {sliced['suite_busy_us'] / sliced['suite_wall_us']:.4f}); sliced mesh pass"
-        f" {dist_run['ranks'][0]['sliced_mesh_pass_ms']:.3f} ms (gloo on one card); total {time.perf_counter() - t_start:.1f} s"
+        f" {dist_run['ranks'][0]['sliced_mesh_pass_ms']:.3f} ms (gloo on one card); guard phase {guard['seconds']:.1f} s, fused pass"
+        f" ms unguarded/mask/reject/propagate {'/'.join(f'{v['fused']:.3f}' for v in guard['pass_ms'].values())}, row_invalid"
+        f" {guard['row_invalid_ms'] * 1e3:.2f} us (bound {guard['row_invalid_bound_ms'] * 1e3:.2f}); obs phase {obs_run['seconds']:.1f} s,"
+        f" fused pass {obs_run['pass_ms'][('fused', 'off')]:.3f} ms untraced / {obs_run['pass_ms'][('fused', 'on')]:.3f} traced, jit step"
+        f" {obs_run['step_ms']['off']:.4f} / {obs_run['step_ms']['on']:.4f} ms telemetry off / on;"
+        f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

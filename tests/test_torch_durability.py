@@ -22,8 +22,8 @@ package resumes in the other and ends equal to the other package's
 uninterrupted run; the mixed store passes both packages' ``verify_store``
 and ``tools/metricdoctor.py verify``.
 
-JAX's ``test_runner_obs_counters`` waits for ROADMAP A12 (the port has no
-trace spans or counters yet); the two-rank scenarios are in
+JAX's ``test_runner_obs_counters`` has its counterpart in
+``tests/test_torch_obs.py``; the two-rank scenarios are in
 ``tests/test_torch_durable_ranks.py``.
 """
 import subprocess

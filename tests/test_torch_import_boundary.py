@@ -106,7 +106,7 @@ def test_chip_smoke_and_the_port_import_no_matplotlib_at_top_level():
 
 # ------------------------------------------------- robustness: exports, store format
 
-#: StateGuard's names (ROADMAP A11): the one part of JAX's robustness exports the port lacks
+#: StateGuard's names (ROADMAP A11), among JAX's robustness exports since the port has the guard
 STATEGUARD_NAMES = {
     "ArgSpec",
     "DomainContract",
@@ -123,11 +123,12 @@ STATEGUARD_NAMES = {
 
 
 def test_robustness_exports_equal_jax_but_stateguard():
+    """The name is kept from when StateGuard was the gap: the exports are now equal."""
     import torchmetrics_tpu.robustness as JR
     import torchmetrics_tpu_torch.robustness as TR
 
-    assert STATEGUARD_NAMES <= set(JR.__all__)
-    assert sorted(TR.__all__) == sorted(set(JR.__all__) - STATEGUARD_NAMES)
+    assert STATEGUARD_NAMES <= set(TR.__all__)
+    assert sorted(TR.__all__) == sorted(JR.__all__)
     for name in TR.__all__:
         assert hasattr(TR, name), name
     assert TR.validate_state_tree is not None  # importable, as in JAX, though not in __all__
@@ -212,7 +213,7 @@ def test_sketch_drift_and_k3_import_no_jax(rel):
 _WAITING: dict = {}
 
 
-@pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel"])
+@pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel", "obs"])
 def test_subpackage_exports_equal_jax(sub):
     import importlib
 
@@ -221,3 +222,37 @@ def test_subpackage_exports_equal_jax(sub):
     assert sorted(tmod.__all__) == sorted(set(jmod.__all__) - _WAITING.get(sub, set()))
     for name in tmod.__all__:
         assert hasattr(tmod, name), name
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(p for p in (PORT / "obs").glob("*.py") if p.name != "device.py"),
+    ids=lambda p: p.name,
+)
+def test_obs_host_modules_import_neither_torch_nor_jax(path):
+    """The obs host modules stay loadable by path, as JAX's are by
+    ``tools/metricscope.py``: only the standard library, at any level (the
+    package-relative imports stay inside ``obs/``). ``device.py`` builds
+    torch programs and is not imported by ``obs/__init__.py``."""
+    names = {name.split(".")[0] for name in _imports(path)}
+    assert not names & {"torch", "jax", "jaxlib", "numpy", "torchmetrics_tpu", "torchmetrics_tpu_torch"}, names
+    if path.name == "__init__.py":
+        tree = ast.parse(path.read_text())
+        imported = {a.name for node in ast.walk(tree) if isinstance(node, ast.ImportFrom) for a in node.names}
+        assert "device" not in imported
+
+
+def test_obs_package_loads_by_path_without_torch():
+    """The port's obs package loaded by path, as metricscope loads JAX's, in a
+    fresh interpreter: no torch, no jax module gets imported."""
+    code = (
+        "import importlib.util, json, sys\n"
+        f"pkg = {str(PORT / 'obs')!r}\n"
+        "spec = importlib.util.spec_from_file_location('port_obs', pkg + '/__init__.py', submodule_search_locations=[pkg])\n"
+        "mod = importlib.util.module_from_spec(spec); sys.modules['port_obs'] = mod; spec.loader.exec_module(mod)\n"
+        "print(json.dumps([sorted(mod.__all__), sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120, check=True)
+    names, heavy = json.loads(out.stdout.strip().splitlines()[-1])
+    assert heavy == [] and "read_jsonl" in names

@@ -4,8 +4,9 @@
 the JAX package's, on the CPU (where the step runs eagerly; its CUDA-graph
 capture is held on the card by ``tests/test_torch_kernels_cuda.py`` and
 ``chip_smoke.py``): the counterparts of ``tests/unittests/bases/test_parallel.py``'s
-jitted-update tests, the donate half of its donate test (device telemetry,
-``"_telemetry"``, waits for ROADMAP A12), and the sketch state in the step.
+jitted-update tests, the donate half of its donate test, the step's device
+telemetry (``"_telemetry"``; the rest of it is held against JAX in
+``tests/test_torch_device_telemetry.py``), and the sketch state in the step.
 
 Budgets: the ``"mean"`` running average and float sums within ``rtol=1e-6``;
 the exact AUROC value within ``rtol=1e-6`` (as the JAX test holds it
@@ -98,12 +99,29 @@ def test_make_jit_update_donate_semantics():
 
 
 def test_make_jit_update_telemetry_waits_for_a12():
-    step, state = make_jit_update(_SumPairs(device=CPU))
-    state = dict(state, _telemetry=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="A12"):
-        step(state, torch.arange(4.0))
-    with pytest.raises(NotImplementedError, match="A12"):
-        fold_jit_state(_SumPairs(device=CPU), state)
+    """The name is kept from when the step refused telemetry: a step built
+    with telemetry on now carries it, and the states equal a step built off."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.obs import device
+
+    batches = [torch.tensor([1.0, float("nan"), 3.0, 4.0]), torch.tensor([float("inf"), 2.0, 0.5, -1.0])]
+    plain, traced = _SumPairs(device=CPU), _SumPairs(device=CPU)
+    step, state = make_jit_update(plain)
+    assert "_telemetry" not in state
+    with device.device_telemetry():
+        tstep, tstate = make_jit_update(traced)
+    assert "_telemetry" in tstate
+    for batch in batches:
+        state, tstate = step(state, batch), tstep(tstate, batch)
+    for k in state:
+        assert torch.equal(state[k], tstate[k]) or (torch.isnan(state[k]).all() and torch.isnan(tstate[k]).all())
+    fold_jit_state(traced, tstate)
+    assert traced._device_telemetry is not None
+    obs.counter_clear()
+    traced.compute()
+    gauges = obs.snapshot()["gauges"]
+    assert gauges["device._SumPairs.nan_count"] == 1 and gauges["device._SumPairs.inf_count"] == 1
+    assert gauges["device._SumPairs.updates"] == 2 and traced._device_telemetry is None
 
 
 def test_make_jit_update_cat_capacity_streaming_exact_auroc():

@@ -26,8 +26,9 @@ The sketch plane on the card equals it on the CPU; K3 (the Count-Min
 table's scan) equals its loop bitwise, and the one-metric step of
 ``make_jit_update`` captures and equals eager updates. K4 (the slice
 table), K2s and K1s (the segmented stat counts and binned curve state) equal
-their plain versions bitwise, and a sliced plan captured on the card equals
-the same plan on the CPU.
+their plain versions bitwise (also at the StateGuard's one-cell shape), and
+a sliced plan captured on the card equals the same plan on the CPU; so does
+the guarded flagship suite captured in a fused plan.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -961,6 +962,84 @@ def test_binned_curve_state_segmented_matches_plain(card, labels, len_t):
     torch.cuda.synchronize()
     assert binned_curve_state_segmented.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kernel", ["k2s", "k1s"])
+def test_guard_mask_one_cell_matches_plain(card, kernel):
+    """The StateGuard's mask shape: ``num_cells=1``, invalid rows as cell -1
+    (``where(invalid_row, -1, 0)``), at the flagship width; K2s and K1s
+    bitwise against their plain versions."""
+    from torchmetrics_tpu_torch.ops import (
+        binned_curve_state_segmented,
+        binned_curve_state_segmented_plain,
+        stat_counts_segmented,
+        stat_counts_segmented_plain,
+    )
+
+    rng = np.random.default_rng(47)
+    n, c = 65536, 64
+    preds = rng.standard_normal((n, c)).astype(np.float32)
+    target = rng.integers(0, c, n).astype(np.int64)
+    invalid = rng.random(n) < 0.015
+    cells = torch.from_numpy(np.where(invalid, -1, 0).astype(np.int32))
+    if kernel == "k2s":
+        args = (torch.from_numpy(preds), torch.from_numpy(target))
+        before = stat_counts_segmented.launches
+        got = stat_counts_segmented(args[0].to(card), args[1].to(card), cells.to(card), 1, c, None)
+        want = stat_counts_segmented_plain(*args, cells, 1, c, None)
+        launches = stat_counts_segmented.launches - before
+    else:
+        probs = torch.softmax(torch.from_numpy(preds), dim=1)
+        thr = _linspace_like_jax(0.0, 1.0, 128, device=card)
+        tgt = torch.from_numpy(target.astype(np.int32))
+        before = binned_curve_state_segmented.launches
+        got = binned_curve_state_segmented(probs.to(card), thr, tgt.to(card), True, cells.to(card), 1)
+        want = binned_curve_state_segmented_plain(probs, thr.cpu(), tgt, True, cells, 1)
+        launches = binned_curve_state_segmented.launches - before
+    torch.cuda.synchronize()
+    assert launches == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_guarded_suite_captures_and_equals_cpu(card):
+    """The guarded flagship suite (mask) on the card: the guard's K2s/K1s
+    route and the vmap route captured in a fused plan, equal to the same
+    guarded suite on the CPU; the counters bitwise."""
+    from torchmetrics_tpu_torch.robustness import enable_guard, guard_counters
+
+    rng = np.random.default_rng(48)
+    c, b = 8, 4096
+
+    def suite(device):
+        kw = dict(device=device)
+        members = {
+            "acc": enable_guard(T.MulticlassAccuracy(num_classes=c, average="micro", **kw), "mask"),
+            "f1": enable_guard(T.MulticlassF1Score(num_classes=c, average="macro", **kw), "mask"),
+            "auroc": enable_guard(
+                T.MulticlassAUROC(num_classes=c, thresholds=32, **kw), "mask",
+                contract=T.MulticlassStatScores(num_classes=c, **kw).domain_contract(),
+            ),
+        }
+        return T.MetricCollection(members, compute_groups=False)
+
+    batches = []
+    for i in range(3):
+        preds = rng.standard_normal((b, c)).astype(np.float32)
+        target = rng.integers(0, c, b).astype(np.int64)
+        preds[rng.random(b) < 0.01, 0] = np.nan
+        target[rng.random(b) < 0.005] = c
+        batches.append((torch.from_numpy(preds), torch.from_numpy(target)))
+    cpu, gpu = suite("cpu"), suite(card)
+    plan = gpu.fused()
+    for p, t in batches:
+        cpu.update(p, t)
+        plan.update(p.to(card), t.to(card))
+    plan.fold_back()
+    for key in ("acc", "f1", "auroc"):
+        for name in cpu[key]._defaults:
+            assert torch.equal(getattr(gpu[key], name).cpu(), getattr(cpu[key], name)), (key, name)
+        assert guard_counters(gpu[key]) == guard_counters(cpu[key])
+    assert guard_counters(cpu["f1"])["masked_rows"] > 0
 
 
 def test_sliced_plan_on_the_card_equals_cpu(card):

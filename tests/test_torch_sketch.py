@@ -540,8 +540,21 @@ def test_add_state_merge_contract_errors():
         assert str(got.value).replace("torchmetrics_tpu_torch", "torchmetrics_tpu") == want_text
 
 
-# test_obs_counters_cover_host_merges: the sketch obs counters and the merge
-# span wait for ROADMAP A12 (the port has no tracing plane yet).
+def test_obs_counters_cover_host_merges():
+    """JAX's ``test_obs_counters_cover_host_merges``: host-side merges are
+    observable: the sync-path reduction bumps ``sketch.merge`` under tracing
+    and records the ``sketch.merge_reduce`` span."""
+    from torchmetrics_tpu_torch import obs
+
+    a = tsk.kll_update(tsk.kll_init(64, 8, device=CPU), torch.arange(32, dtype=torch.float32))
+    b = tsk.kll_update(tsk.kll_init(64, 8, device=CPU), torch.arange(32, dtype=torch.float32))
+    obs.clear()
+    reduce_merge_states([a, b])  # tracing off: nothing counted
+    assert obs.counter_get("sketch.merge") == 0
+    with obs.tracing():
+        reduce_merge_states([a, b, a])
+        assert obs.counter_get("sketch.merge") == 2 and obs.counter_get("sketch.merge.KLLSketch") == 2
+        assert [e["name"] for e in obs.get_trace()] == ["sketch.merge_reduce"]
 
 
 # -------------------------------------------------------- bounded Spearman

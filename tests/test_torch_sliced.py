@@ -16,12 +16,10 @@ feed logits, whose per-row softmax/sigmoid decision is JAX's. The kernel
 routes run here through K1s' and K2s' plain versions (the card's kernels
 are held against them in ``tests/test_torch_kernels_cuda.py``).
 
-JAX's ``test_sliced_step_rides_cache`` (the compiled-step cache) and the
-obs tests (``test_sliced_gauges_and_attribution_row`` and the watch column
-of ``test_sliced_live_probe_and_watch_occupancy_column``) have no
-counterpart until the step cache and ROADMAP A12; ``publish_gauges`` is
-held to its refusal instead. The sharded variant is in
-``tests/test_torch_sliced_ranks.py``.
+JAX's ``test_sliced_step_rides_cache`` (the compiled-step cache) has no
+counterpart until the step cache; ``publish_gauges``' gauges are held
+against JAX's here and its attribution row in ``tests/test_torch_obs.py``.
+The sharded variant is in ``tests/test_torch_sliced_ranks.py``.
 """
 import os
 
@@ -709,8 +707,20 @@ def test_sliced_live_probe_and_gauges_wait_for_a12():
     # the build identity: JAX's parts (process-local object ids among them), so it moves with the geometry
     assert plan._fingerprint() == plan._fingerprint() != SlicedPlan(_suite(T), num_cells=16, cat_capacity=64,
                                                                     example_batch=_t(batches[0][1:]))._fingerprint()
-    with pytest.raises(NotImplementedError, match="A12"):
-        plan.publish_gauges()
+    # the name is kept from when publish_gauges refused: off, it publishes
+    # nothing; under tracing its slice.table.* gauges equal JAX's
+    from torchmetrics_tpu import obs as jobs
+    from torchmetrics_tpu_torch import obs as tobs
+
+    tobs.counter_clear()
+    plan.publish_gauges()
+    assert tobs.snapshot()["gauges"] == {}
+    gauges = {}
+    for pkg, p in ((jobs, jp), (tobs, plan)):
+        with pkg.tracing():
+            p.publish_gauges()
+            gauges[pkg] = {k: v for k, v in pkg.snapshot()["gauges"].items() if k.startswith("slice.table")}
+    assert gauges[tobs] == gauges[jobs] and gauges[tobs]["slice.table.cells"] == 8
 
 
 # -------------------------------------------------------- the runner drive

@@ -8,8 +8,8 @@ manifest damage, fingerprint drift and the validation ladder all recover to
 the newest VALID snapshot or raise a named error, never a half-restore),
 and stores crossing packages: a store either package's ``CheckpointStore``
 wrote is read by the other's and passes ``tools/metricdoctor.py verify``
-(run in a subprocess, not edited). The trace counters and the snapshot-bytes
-gauge of JAX's ``test_snapshot_bytes_gauge_and_counters`` wait for ROADMAP A12.
+(run in a subprocess, not edited). JAX's ``test_snapshot_bytes_gauge_and_counters``
+has its counterpart in ``tests/test_torch_obs.py``.
 """
 import json
 import os

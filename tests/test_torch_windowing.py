@@ -13,8 +13,9 @@ batches feed probabilities, so the update's softmax is the identity on both
 packages and cat rows compare bitwise. Ring payloads read across the
 packages both ways, alone and inside ``StreamingEvaluator`` snapshots.
 
-JAX's ``test_window_gauges_and_probe`` keeps its probe half here; the
-``window.*`` gauges and rotation counter wait for ROADMAP A12.
+JAX's ``test_window_gauges_and_probe`` is split here: the probe in
+``test_window_probe``, the gauges and the rotation counter in
+``test_window_gauges``.
 """
 import os
 
@@ -464,6 +465,29 @@ def test_window_payload_cache_tracks_rotations():
     ring2 = WindowRing(_acc(T), slots=3, every_n=1)
     ring2.restore(p3)
     assert len(ring2) == 2
+
+
+def test_window_gauges():
+    """The ``window.<Class>.*`` gauges and the rotation counter: none with
+    obs off, JAX's names and values under tracing."""
+    from torchmetrics_tpu_torch import obs
+
+    batches = _batches(2, seed=9)
+    acc = _acc(T)
+    ring = WindowRing(acc, slots=2, every_n=1)
+    obs.clear()
+    acc.update(*_t(batches[0]))
+    ring.observe(1)  # obs off: no gauges
+    assert obs.snapshot() == {"counters": {}, "gauges": {}}
+    with obs.tracing():
+        acc.update(*_t(batches[1]))
+        ring.observe(2)
+        snap = obs.snapshot()
+    obs.clear()
+    assert snap["gauges"]["window.MulticlassAccuracy.slots_live"] == 2
+    assert snap["gauges"]["window.MulticlassAccuracy.age_s"] == 0.0
+    assert snap["gauges"]["window.MulticlassAccuracy.closed_batches"] == 1
+    assert snap["counters"] == {"window.MulticlassAccuracy.rotations": 1}
 
 
 def test_window_probe():

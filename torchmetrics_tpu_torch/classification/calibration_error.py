@@ -29,6 +29,7 @@ from torchmetrics_tpu_torch.functional.classification.calibration_error import (
     _multiclass_calibration_error_update,
 )
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.robustness.guard import ArgSpec, DomainContract
 from torchmetrics_tpu_torch.utilities.enums import _literal_task_call
 
 Tensor = torch.Tensor
@@ -78,6 +79,15 @@ class BinaryCalibrationError(_BinnedCalibrationError):
             _binary_calibration_error_arg_validation(n_bins, norm, ignore_index)
         self._create_bins(n_bins, norm, ignore_index, validate_args)
 
+    def domain_contract(self) -> DomainContract:
+        return DomainContract(
+            args=(
+                ArgSpec(name="preds", finite=True, lo=0.0, hi=1.0, values=(0, 1)),
+                ArgSpec(name="target", finite=True, values=(0, 1), ignore_index=self.ignore_index),
+            ),
+            family="binary_calibration_error",
+        )
+
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Fold the batch's per-bin confidence and accuracy sums."""
         preds, target = self._inputs(preds, target)
@@ -107,6 +117,15 @@ class MulticlassCalibrationError(_BinnedCalibrationError):
             _multiclass_calibration_error_arg_validation(num_classes, n_bins, norm, ignore_index)
         self.num_classes = num_classes
         self._create_bins(n_bins, norm, ignore_index, validate_args)
+
+    def domain_contract(self) -> DomainContract:
+        return DomainContract(
+            args=(
+                ArgSpec(name="preds", finite=True),
+                ArgSpec(name="target", finite=True, num_classes=self.num_classes, ignore_index=self.ignore_index),
+            ),
+            family="multiclass_calibration_error",
+        )
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Fold the batch's per-bin top-1 confidence and accuracy sums."""

@@ -32,6 +32,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.ops.stat_counts import stat_counts_segmented
+from torchmetrics_tpu_torch.robustness.guard import ArgSpec, DomainContract
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.enums import ClassificationTask
 
@@ -98,6 +99,17 @@ class BinaryStatScores(_AbstractStatScores):
         self.zero_division = zero_division
         self._create_state(size=1, multidim_average=multidim_average)
 
+    def domain_contract(self) -> DomainContract:
+        # preds: probabilities or hard labels (the guarded serve path feeds
+        # normalized probs; logit users stay on `propagate`); target: {0, 1}
+        return DomainContract(
+            args=(
+                ArgSpec(name="preds", finite=True, lo=0.0, hi=1.0, values=(0, 1)),
+                ArgSpec(name="target", finite=True, values=(0, 1), ignore_index=self.ignore_index),
+            ),
+            family="binary_stat_scores",
+        )
+
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update state with predictions and targets."""
         preds, target = self._inputs(preds, target)
@@ -142,6 +154,17 @@ class MulticlassStatScores(_AbstractStatScores):
         self.validate_args = validate_args
         self.zero_division = zero_division
         self._create_state(size=1 if (average == "micro" and top_k == 1) else num_classes, multidim_average=multidim_average)
+
+    def domain_contract(self) -> DomainContract:
+        # preds: finite scores/logits (N, C) or int labels < num_classes;
+        # target: labels < num_classes (ignore_index exempt)
+        return DomainContract(
+            args=(
+                ArgSpec(name="preds", finite=True, num_classes=self.num_classes),
+                ArgSpec(name="target", finite=True, num_classes=self.num_classes, ignore_index=self.ignore_index),
+            ),
+            family="multiclass_stat_scores",
+        )
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update state with predictions and targets."""
@@ -212,6 +235,15 @@ class MultilabelStatScores(_AbstractStatScores):
         self.validate_args = validate_args
         self.zero_division = zero_division
         self._create_state(size=num_labels, multidim_average=multidim_average)
+
+    def domain_contract(self) -> DomainContract:
+        return DomainContract(
+            args=(
+                ArgSpec(name="preds", finite=True, lo=0.0, hi=1.0, values=(0, 1)),
+                ArgSpec(name="target", finite=True, values=(0, 1), ignore_index=self.ignore_index),
+            ),
+            family="multilabel_stat_scores",
+        )
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update state with predictions and targets."""

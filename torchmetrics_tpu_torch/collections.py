@@ -21,6 +21,11 @@ from copy import deepcopy
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.obs import attribution as _obs_attr
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import device as _obs_device
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.utilities.data import _flatten_dict, allclose
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -169,7 +174,17 @@ class MetricCollection(dict):
         if self._enable_compute_groups and self._groups_checked:
             for cg in self._groups.values():
                 m0 = dict.__getitem__(self, cg[0])
-                m0.update(*args, **m0._filter_kwargs(**kwargs))
+                if _obs_trace.ENABLED:
+                    # one span per compute group: the leader does the work, the
+                    # `shares_with` tag names the members riding on it
+                    with _obs_trace.span(
+                        "collection.group_update", metric=type(m0).__name__, leader=cg[0], shares_with=",".join(cg[1:])
+                    ):
+                        m0.update(*args, **m0._filter_kwargs(**kwargs))
+                    if len(cg) > 1:
+                        _obs_counters.inc("collection.update.dedup_skipped", len(cg) - 1)
+                else:
+                    m0.update(*args, **m0._filter_kwargs(**kwargs))
                 for k in cg[1:]:
                     m = dict.__getitem__(self, k)
                     m._update_count = m0._update_count
@@ -283,7 +298,29 @@ class MetricCollection(dict):
 
     def compute(self) -> Dict[str, Any]:
         """Compute every metric and flatten the results."""
+        if _obs_trace.ENABLED:
+            # each member compute hits its own attribution boundary; defer
+            # the per-member costs.json rewrites and emit ONE ledger at the
+            # end, with every member's row (and instance name) in place
+            with _obs_trace.span("collection.compute", metric=type(self).__name__, size=len(self)), _obs_attr.defer_emission():
+                result = self._compute()
+            _obs_attr.maybe_emit()
+            return result
+        return self._compute()
+
+    def _compute(self) -> Dict[str, Any]:
         self._compute_groups_create_state_ref()
+        # the collection's compute is a device-telemetry boundary: drain every
+        # member's pending telemetry up front, so the device.* gauges are
+        # complete even if a later member's compute raises
+        for m in self._base_metrics.values():
+            if m._device_telemetry is not None:
+                _obs_device.drain_metric(m)
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            # cost-ledger rows join on the metric CLASS (the span tag); the
+            # member names ride along
+            for k, m in self._base_metrics.items():
+                _obs_attr.note_instance(type(m).__name__, k)
         result = {k: m.compute() for k, m in self._base_metrics.items()}
         _, duplicates = _flatten_dict(result)
         flattened_results = {}

@@ -38,7 +38,16 @@ package's ``{"__sketch__": class, "leaves": {...}}`` payload.
 :meth:`Metric.sliced` fans a metric out over cohort cells
 (:class:`~torchmetrics_tpu_torch.parallel.sliced.SlicedPlan`).
 
-Not ported yet (later slices, see ROADMAP.md): tracing hooks and StateGuard.
+A metric with a :meth:`Metric.domain_contract` can be guarded
+(:func:`~torchmetrics_tpu_torch.robustness.guard.enable_guard`): the guarded
+update runs inside the transactional wrapper, so its counters roll back with
+the states, and pickling and deep copies install it again.
+
+Tracing (:mod:`~torchmetrics_tpu_torch.obs`): ``update``, ``compute``,
+``forward``, ``sync`` and ``reset`` record the JAX package's spans and
+counters when ``obs.trace.ENABLED`` is set, and cost attribution and device
+telemetry meet the host at ``compute()``/``sync()``. With tracing and the
+live plane off, each hook is one flag check.
 """
 from __future__ import annotations
 
@@ -54,6 +63,11 @@ import numpy as np
 import torch
 
 from torchmetrics_tpu_torch._reduction_names import VALID_REDUCTION_NAMES
+from torchmetrics_tpu_torch.obs import attribution as _obs_attr
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import device as _obs_device
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.robustness import faults
 from torchmetrics_tpu_torch.robustness.sync_config import DEFAULT_SYNC_CONFIG, SyncConfig
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, map_leaves, merge_states, reduce_merge_states
@@ -171,6 +185,11 @@ class Metric:
         self._to_sync = self.sync_on_compute
         self._should_unsync = True
 
+        # pending device telemetry (obs/device.py): accumulated on the device
+        # by the captured update paths, read into device.* gauges only at
+        # compute()/sync() boundaries, never per batch
+        self._device_telemetry: Optional[Any] = None
+
         # sync bookkeeping: the pre-sync local state while synced
         self._is_synced = False
         self._cache: Optional[Dict[str, Any]] = None
@@ -181,8 +200,27 @@ class Metric:
 
     # ------------------------------------------------------------------ wrap
     def _rewrap(self) -> None:
-        self.update: Callable[..., None] = self._wrap_update(self.__class__.update.__get__(self))  # type: ignore[method-assign]
+        if getattr(self, "_guard_policy", None) is not None:
+            # StateGuard-enabled metric (robustness/guard.py): the guarded
+            # closure replaces the raw update INSIDE the transactional wrapper,
+            # so pickle/__setstate__ round-trips install the guard again
+            from torchmetrics_tpu_torch.robustness.guard import _guard_wrap_update
+
+            self.update: Callable[..., None] = self._wrap_update(_guard_wrap_update(self))  # type: ignore[method-assign]
+        else:
+            self.update = self._wrap_update(self.__class__.update.__get__(self))  # type: ignore[method-assign]
         self.compute: Callable[..., Any] = self._wrap_compute(self.__class__.compute.__get__(self))  # type: ignore[method-assign]
+
+    def domain_contract(self) -> Optional[Any]:
+        """Input-domain contract for the StateGuard plane, or ``None``.
+
+        Families whose ``update`` consumes float predictions override this to
+        return a :class:`~torchmetrics_tpu_torch.robustness.guard.DomainContract`
+        describing per-argument validity (finite, probs in [0, 1], labels <
+        num_classes), run inside the update step by
+        :func:`~torchmetrics_tpu_torch.robustness.guard.enable_guard`.
+        """
+        return None
 
     def __getstate__(self) -> Dict[str, Any]:
         """Drop the wrapped closures for pickling and deep copies."""
@@ -306,12 +344,14 @@ class Metric:
         clear, so these updates are not refused as local ones."""
         saved = self._copy_state_dict()
         count, computed, replicated = self._update_count, self._computed, self._mesh_replicated
+        telemetry = self._device_telemetry  # a reset() inside must not drop pending telemetry
         self._mesh_replicated = False
         try:
             yield
         finally:
             self._install_state_tree(saved)  # self-snapshot: trusted
             self._update_count, self._computed, self._mesh_replicated = count, computed, replicated
+            self._device_telemetry = telemetry
 
     def _fold_sharded_state(self, part: Dict[str, Any], prev_count: int) -> None:
         """Fold one merged sharded-update event (``parallel.sharded_update``)
@@ -372,7 +412,13 @@ class Metric:
             prior_state = {attr: (v, len(v)) if isinstance(v, list) else v for attr, v in self.state_tree().items()}
             self._update_count += 1
             try:
-                update(*args, **kwargs)
+                # disabled-tracing path: one module-level flag check; the span
+                # (and its tag dict) is only allocated inside the branch
+                if _obs_trace.ENABLED:
+                    with _obs_trace.span("metric.update", metric=type(self).__name__, n=self._update_count):
+                        update(*args, **kwargs)
+                else:
+                    update(*args, **kwargs)
             except Exception:
                 self._update_count -= 1
                 for attr, prior in prior_state.items():
@@ -405,6 +451,17 @@ class Metric:
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if self._device_telemetry is not None:
+                # compute() is THE host boundary: pending device telemetry
+                # becomes device.* gauges here (also on a cache-served
+                # compute: the gauges must not go stale)
+                _obs_device.drain_metric(self)
+            if (_obs_trace.ENABLED or _obs_live.ENABLED) and self._should_unsync:
+                # the same boundary for cost attribution: the state-bytes
+                # gauge and the ledger row. TOP-LEVEL computes only: forward's
+                # per-batch detours (_should_unsync=False) run this wrapper on
+                # a temporarily reset single-batch state
+                _obs_attr.metric_boundary(self)
             if self._update_count == 0:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update`` method"
@@ -412,15 +469,29 @@ class Metric:
                     UserWarning,
                 )
             if self._computed is not None:
-                return self._computed
-            with self.sync_context(
-                dist_sync_fn=self.dist_sync_fn,
-                should_sync=self._to_sync,
-                should_unsync=self._should_unsync,
-            ):
-                value = _squeeze_if_scalar(compute(*args, **kwargs))
+                value = self._computed
+            elif _obs_trace.ENABLED:
+                with _obs_trace.span("metric.compute", metric=type(self).__name__, n=self._update_count), self.sync_context(
+                    dist_sync_fn=self.dist_sync_fn,
+                    should_sync=self._to_sync,
+                    should_unsync=self._should_unsync,
+                ):
+                    value = _squeeze_if_scalar(compute(*args, **kwargs))
+            else:
+                with self.sync_context(
+                    dist_sync_fn=self.dist_sync_fn,
+                    should_sync=self._to_sync,
+                    should_unsync=self._should_unsync,
+                ):
+                    value = _squeeze_if_scalar(compute(*args, **kwargs))
             if self.compute_with_cache:
                 self._computed = value
+            if _obs_trace.ENABLED and self._should_unsync:
+                # costs.json only from a TOP-LEVEL compute, and only now: the
+                # metric.compute/metric.sync spans just closed, so the ledger
+                # includes this compute's own cost (collection members are
+                # deferred and emitted once by the collection)
+                _obs_attr.maybe_emit()
             return value
 
         return wrapped_func
@@ -439,7 +510,13 @@ class Metric:
         if self._is_synced:
             raise TorchMetricsUserError("The Metric shouldn't be synced when performing ``forward``")
         self._refuse_local_update()
-        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+        full = self.full_state_update or self.full_state_update is None or self.dist_sync_on_step
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("metric.forward", metric=type(self).__name__, full_state=bool(full)):
+                if full:
+                    return self._forward_full_state_update(*args, **kwargs)
+                return self._forward_reduce_state_update(*args, **kwargs)
+        if full:
             return self._forward_full_state_update(*args, **kwargs)
         return self._forward_reduce_state_update(*args, **kwargs)
 
@@ -448,6 +525,7 @@ class Metric:
         value on a fresh state and restore the global one."""
         self.update(*args, **kwargs)
         _update_count = self._update_count
+        _device_telemetry = self._device_telemetry  # reset() inside the detour must not drop it
         self._to_sync = self.dist_sync_on_step
         _temp_compute_with_cache = self.compute_with_cache
         self.compute_with_cache = False
@@ -460,6 +538,7 @@ class Metric:
 
         self._install_state_tree(cache)
         self._update_count = _update_count
+        self._device_telemetry = _device_telemetry
         self._should_unsync = True
         self._to_sync = self.sync_on_compute
         self.compute_with_cache = _temp_compute_with_cache
@@ -472,6 +551,7 @@ class Metric:
         merge the previous global state in."""
         global_state = self._copy_state_dict()
         _update_count = self._update_count
+        _device_telemetry = self._device_telemetry  # reset() below must not drop pending telemetry
         self.reset()
 
         self._to_sync = self.dist_sync_on_step
@@ -485,6 +565,7 @@ class Metric:
 
         self._reduce_states(global_state)
 
+        self._device_telemetry = _device_telemetry
         self._should_unsync = True
         self._to_sync = self.sync_on_compute
         self.compute_with_cache = _temp_compute_with_cache
@@ -535,6 +616,10 @@ class Metric:
                 # a rank with no data contributes an empty tensor
                 input_dict[attr] = [torch.zeros((0,), dtype=torch.float32, device=self._device)]
 
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            # the payload this rank contributes to the gather (nbytes is
+            # tensor metadata: no device read happens here)
+            _obs_attr.publish_sync_bytes(self, input_dict)
         output_dict: Dict[str, Any] = {}
         group = self.process_group if process_group is None else process_group
         for attr, value in input_dict.items():
@@ -647,6 +732,25 @@ class Metric:
         with ``on_error="local"``, keep the local-only state with a single
         :class:`SyncWarning` (rank zero only).
         """
+        if self._device_telemetry is not None:
+            # sync is the other host boundary for device telemetry
+            _obs_device.drain_metric(self)
+        if (_obs_trace.ENABLED or _obs_live.ENABLED) and should_sync and self._should_unsync:
+            # pre-sync state footprint: the bytes about to ride the gather
+            _obs_attr.metric_boundary(self)
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("metric.sync", metric=type(self).__name__, n=self._update_count):
+                return self._sync_impl(dist_sync_fn, process_group, should_sync, distributed_available, sync_config)
+        return self._sync_impl(dist_sync_fn, process_group, should_sync, distributed_available, sync_config)
+
+    def _sync_impl(
+        self,
+        dist_sync_fn: Optional[Callable],
+        process_group: Optional[Any],
+        should_sync: bool,
+        distributed_available: Optional[Callable],
+        sync_config: Optional[SyncConfig],
+    ) -> None:
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
         if distributed_available is None and self.distributed_available_fn is not None:
@@ -666,6 +770,11 @@ class Metric:
             try:
                 if faults._ACTIVE:
                     faults.fire("sync.attempt")
+                # the sync health counters also feed the live plane's
+                # liveness derivation (obs/live.py), so they count when
+                # EITHER recorder is on
+                if _obs_trace.ENABLED or _obs_live.ENABLED:
+                    _obs_counters.inc("metric.sync.attempt")
                 self._sync_dist_bounded(dist_sync_fn, group, cfg.timeout_s)
                 self._is_synced = True
                 return
@@ -674,16 +783,41 @@ class Metric:
                 # fresh list copies so a later attempt cannot alias the cache
                 self._install_state_tree({k: list(v) if isinstance(v, list) else v for k, v in self._cache.items()})
                 last_err = err
+                if _obs_trace.ENABLED or _obs_live.ENABLED:
+                    _obs_counters.inc("metric.sync.rollback")
+                if _obs_trace.ENABLED:
+                    _obs_trace.instant(
+                        "metric.sync.rollback",
+                        metric=type(self).__name__,
+                        attempt=attempt,
+                        error=type(err).__name__,
+                        reason=str(err)[:200],
+                    )
                 if attempt + 1 < cfg.attempts:
-                    time.sleep(cfg.backoff(attempt))
+                    backoff_s = cfg.backoff(attempt)
+                    if _obs_trace.ENABLED:
+                        _obs_trace.instant("metric.sync.retry", metric=type(self).__name__, attempt=attempt + 1, backoff_s=backoff_s)
+                    time.sleep(backoff_s)
         self._cache = None
         if cfg.on_error == "local":
+            if _obs_trace.ENABLED or _obs_live.ENABLED:
+                _obs_counters.inc("metric.sync.degrade")
+            if _obs_trace.ENABLED:
+                _obs_trace.instant(
+                    "metric.sync.degrade", metric=type(self).__name__, attempts=cfg.attempts, error=type(last_err).__name__
+                )
             rank_zero_warn(
                 f"{type(self).__name__}.sync() failed after {cfg.attempts} attempt(s) ({last_err}); falling back"
                 " to local-only state (SyncConfig.on_error='local') — reported values cover this process only.",
                 SyncWarning,
             )
             return
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_counters.inc("metric.sync.failure")
+        if _obs_trace.ENABLED:
+            _obs_trace.instant(
+                "metric.sync.failure", metric=type(self).__name__, attempts=cfg.attempts, error=type(last_err).__name__
+            )
         raise SyncError(f"{type(self).__name__}.sync() failed after {cfg.attempts} attempt(s): {last_err}") from last_err
 
     def unsync(self, should_unsync: bool = True) -> None:
@@ -712,8 +846,15 @@ class Metric:
     # ------------------------------------------------------------------ reset
     def reset(self) -> None:
         """Reset all states to their defaults."""
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("metric.reset", metric=type(self).__name__):
+                return self._reset_impl()
+        self._reset_impl()
+
+    def _reset_impl(self) -> None:
         self._update_count = 0
         self._computed = None
+        self._device_telemetry = None
         self._mesh_replicated = False
         for attr, default in self._defaults.items():
             setattr(self, attr, [] if isinstance(default, list) else default)

@@ -82,9 +82,17 @@ of the carry, the graph pool) is :class:`_GraphCapture`, which the
 one-metric step of ``parallel.sharded.make_jit_update``
 (:class:`JitUpdateStep`) shares.
 
-Not ported yet (ROADMAP): obs spans, device telemetry and cost attribution
-(A12); the cross-plan compiled-step cache; capturing NCCL collectives in the
-sharded step's graph.
+With device telemetry enabled at build (:mod:`torchmetrics_tpu_torch.obs.device`)
+the carry additionally holds ONE ``TelemetryState`` for the whole collection
+(members see the same batch, so per-member carries would be copies), written
+in place by the step like the states; ``fold_back`` accumulates it into
+every leader's pending slot. With tracing on, the build records the
+``fused.build`` span, and each capture the ``fused.update``/``fused.scan``
+``.lower``/``.compile``/``.first_step`` spans and records of
+:mod:`~torchmetrics_tpu_torch.obs.xla`, keyed by the plan's fingerprint.
+
+Not ported yet (ROADMAP): the cross-plan compiled-step cache; capturing NCCL
+collectives in the sharded step's graph.
 """
 from __future__ import annotations
 
@@ -95,6 +103,11 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tu
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch.obs import attribution as _obs_attr
+from torchmetrics_tpu_torch.obs import device as _obs_device
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
+from torchmetrics_tpu_torch.obs import xla as _obs_xla
 from torchmetrics_tpu_torch.parallel.cat_buffer import (
     CatBuffer,
     _append_,
@@ -105,7 +118,7 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
     cat_buffer_values,
     infer_cat_layout,
 )
-from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics, mesh_reduce_tree, tree_merge
+from torchmetrics_tpu_torch.parallel.sharded import _update_arity, _walk_metrics, mesh_reduce_tree, tree_merge
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, map_leaves
 from torchmetrics_tpu_torch.utilities.checks import _fused_step
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
@@ -183,34 +196,29 @@ def _resolve_members(target: Any, propagate_state: bool = True) -> Tuple[Dict[st
 
 def _copy_tree(tree: Any) -> Any:
     """Deep copy of a state carry (CatBuffers with their spare row, sketch
-    states leaf by leaf)."""
+    states and the telemetry state leaf by leaf)."""
     if isinstance(tree, CatBuffer):
         return _copy(tree)
     if isinstance(tree, dict):
         return {k: _copy_tree(v) for k, v in tree.items()}
     if is_sketch_state(tree):
         return map_leaves(torch.clone, tree)
+    if isinstance(tree, tuple):
+        return type(tree)(*[None if v is None else _copy_tree(v) for v in tree])
     return tree.clone()
 
 
-def _clone_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """Static copies of a reduced partial tree."""
-    return {k: _copy_tree(v) for k, v in tree.items()}
-
-
 def _copy_leaves_(dst: Any, src: Any) -> None:
-    """Copy a tensor, a CatBuffer or a sketch state into ``dst`` in place."""
+    """Copy a tensor, a CatBuffer, a sketch or telemetry state, or a dict of
+    them into ``dst`` in place."""
     if isinstance(dst, torch.Tensor):
         dst.copy_(src)
-        return
-    for d, s_ in zip(dst, src):
-        d.copy_(s_)
-
-
-def _copy_into(static: Dict[str, Any], tree: Dict[str, Any]) -> None:
-    """Copy a reduced partial tree into the static buffers of the fold graph."""
-    for k, v in tree.items():
-        _copy_leaves_(static[k], v)
+    elif isinstance(dst, dict):
+        for k, v in src.items():
+            _copy_leaves_(dst[k], v)
+    elif dst is not None:
+        for d, s_ in zip(dst, src):
+            _copy_leaves_(d, s_)
 
 
 def _check_kept(key: str, name: str, carried: Any, value: Any, when: str) -> None:
@@ -431,6 +439,21 @@ class _GraphCapture:
         """What was being captured, for the error of a failed capture."""
         raise NotImplementedError
 
+    #: the plan kind of the capture records ("fused", "sliced")
+    _obs_kind: str
+
+    def _obs_site(self, body: Callable) -> Dict[str, str]:
+        """``key``, ``metric``, ``kind`` and ``span_prefix`` of a capture's
+        obs record (:mod:`~torchmetrics_tpu_torch.obs.xla`), JAX's names for
+        a plan's step and its scan; asked for only while tracing is on."""
+        scan = getattr(body, "__name__", "") == "_chunk"
+        return {
+            "key": f"{self._fingerprint()}:scan" if scan else self._fingerprint(),
+            "metric": self._target_cls,
+            "kind": f"{self._obs_kind}_scan" if scan else self._obs_kind,
+            "span_prefix": f"{self._obs_kind}.scan" if scan else f"{self._obs_kind}.update",
+        }
+
     # the owner's carry, written in place by every step, and a scratch copy
     # of it for a warm-up
     _carry: Dict[str, Any]
@@ -449,18 +472,37 @@ class _GraphCapture:
         captured = self._captured.get(key)
         if captured is None:
             captured = self._captured[key] = self._capture(body, batch)
-        for dst, src in zip(captured.inputs, batch):
-            dst.copy_(src)
+            if _obs_trace.ENABLED:
+                site = self._obs_site(body)
+                with _obs_xla.first_step(site["key"], site["metric"], site["span_prefix"]):
+                    captured.graph.replay()
+                return
+        else:
+            for dst, src in zip(captured.inputs, batch):
+                dst.copy_(src)
         captured.graph.replay()
 
     def _capture(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> _Captured:
         """Capture ``body`` on static copies of ``batch``'s buffers, after one
-        warm-up run against a scratch copy of the carry."""
+        warm-up run against a scratch copy of the carry (both timed by
+        :func:`~torchmetrics_tpu_torch.obs.xla.timed_capture` under tracing)."""
         inputs = tuple(torch.empty(b.shape, dtype=b.dtype, device=self._device) for b in batch)
         for dst, src in zip(inputs, batch):
             dst.copy_(src)
-        self._warm(lambda: body(self._scratch_carry(), inputs))
-        return _Captured(self._record(lambda: body(self._carry, inputs)), inputs)
+        return self._capture_inputs(lambda carry: body(carry, inputs), inputs, body)
+
+    def _capture_inputs(self, step: Callable[[Dict[str, Any]], None], inputs: Tuple[torch.Tensor, ...], body: Callable) -> _Captured:
+        def warm() -> None:
+            self._warm(lambda: step(self._scratch_carry()))
+
+        def record() -> Any:
+            return self._record(lambda: step(self._carry))
+
+        if not _obs_trace.ENABLED:
+            warm()
+            return _Captured(record(), inputs)
+        graph, _ = _obs_xla.timed_capture(warm, record, **self._obs_site(body))
+        return _Captured(graph, inputs)
 
 
 # ------------------------------------------------------------------- the plan
@@ -500,6 +542,8 @@ class FusedCollectionPlan(_GraphCapture):
             batch, and every rank's carry holds the whole batch's totals
             (see the module docstring).
     """
+
+    _obs_kind = "fused"
 
     def __init__(
         self,
@@ -554,10 +598,49 @@ class FusedCollectionPlan(_GraphCapture):
                             " fold grows the state per step; fixed-shape carries need a named"
                             " reduction (sum/mean/max/min)"
                         )
-        self._carry = self._initial_state()
+        # device telemetry is a BUILD-time decision (obs/device.py)
+        self._telemetry_on, self._histogram = _obs_device.config_token()
+        self._arity = len(example_batch) if example_batch is not None else max(_update_arity(i.metric) for i in self._infos)
+        if _obs_trace.ENABLED:
+            with _obs_trace.span(
+                "fused.build", metric=self._target_cls, members=len(members), leaders=len(self._infos), sharded=mesh is not None
+            ):
+                self._carry = self._initial_state()
+        else:
+            self._carry = self._initial_state()
         self._captured: Dict[Any, _Captured] = {}
         self._sharded: Dict[Any, _ShardedStep] = {}
         self._in_member: Optional[str] = None  # the leader whose update the step is running
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            self._note_attribution()
+
+    def _fingerprint(self) -> str:
+        """Build identity: group structure, per-leader walk fingerprints, cat
+        config, donation, the mesh dim and the telemetry token: the key the
+        plan's capture records are filed under."""
+        from torchmetrics_tpu_torch.parallel.sharded import _fingerprint_digest, _walk_fingerprint
+
+        return _fingerprint_digest(
+            "fused",
+            self._target_cls,
+            tuple(
+                (info.key, type(info.metric).__name__, _walk_fingerprint(info.metric), tuple(info.list_keys))
+                for info in self._infos
+            ),
+            tuple(tuple(cg) for cg in self.groups),
+            self._cat_capacity,
+            self._donate,
+            self._axis if self._mesh is not None else None,
+            (self._telemetry_on, self._histogram),
+        )
+
+    def _note_attribution(self) -> None:
+        """Record the plan's join keys in the cost-attribution registry:
+        member names under the COLLECTION row (where the plan's capture
+        records land) and under each member's own class row."""
+        _obs_attr.note_instances(self._target_cls, list(self.members))
+        for key, metric in self.members.items():
+            _obs_attr.note_instance(type(metric).__name__, key)
 
     def _initial_state(self) -> Dict[str, Any]:
         members: Dict[str, Any] = {}
@@ -578,7 +661,10 @@ class FusedCollectionPlan(_GraphCapture):
                     slice_[name] = _copy_tree(value)
             slice_["_update_count"] = torch.tensor(metric._update_count, dtype=torch.int32, device=self._device)
             members[info.key] = slice_
-        return {"members": members, "_update_count": torch.zeros((), dtype=torch.int32, device=self._device)}
+        carry = {"members": members, "_update_count": torch.zeros((), dtype=torch.int32, device=self._device)}
+        if self._telemetry_on:
+            carry["_telemetry"] = _obs_device.telemetry_init(self._arity, self._histogram, self._device)
+        return carry
 
     # ------------------------------------------------------------------ step
     def _step(self, carry: Dict[str, Any], batch: Tuple[torch.Tensor, ...]) -> None:
@@ -592,6 +678,8 @@ class FusedCollectionPlan(_GraphCapture):
         self._in_member = None
         for info, tree in zip(self._infos, trees):
             _write_back(info, carry["members"][info.key], tree)
+        if self._telemetry_on:
+            _copy_leaves_(carry["_telemetry"], _obs_device.telemetry_update(carry["_telemetry"], batch))
         carry["_update_count"].add_(1)
 
     def _chunk(self, carry: Dict[str, Any], stacked: Tuple[torch.Tensor, ...]) -> None:
@@ -611,6 +699,14 @@ class FusedCollectionPlan(_GraphCapture):
     def _fresh_step(self, fresh: Dict[str, Dict[str, Any]], batch: Tuple[torch.Tensor, ...]) -> None:
         for info, tree in zip(self._infos, self._fresh_trees(batch)):
             _write_fresh(info, fresh[info.key], tree)
+        self._fresh_telemetry(fresh, batch)
+
+    def _fresh_telemetry(self, fresh: Dict[str, Any], batch: Tuple[torch.Tensor, ...]) -> None:
+        """This rank's telemetry of the batch, into the static ``"_telemetry"``
+        buffer (telemetry on): reduced over the mesh with the partials."""
+        if self._telemetry_on:
+            init = _obs_device.telemetry_init(self._arity, self._histogram, self._device)
+            _copy_leaves_(fresh["_telemetry"], _obs_device.telemetry_update(init, batch))
 
     def _reduce(self, fresh: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
         """The fresh partial states reduced over the mesh dim (collectives;
@@ -629,11 +725,15 @@ class FusedCollectionPlan(_GraphCapture):
         for info in self._infos:
             for k in info.list_keys:
                 out[info.key][k] = cat_buffer_all_gather(fresh[info.key][k], self._axis, mesh=self._mesh)
+        if self._telemetry_on:
+            out["_telemetry"] = _obs_device.telemetry_mesh_reduce(fresh["_telemetry"], self._axis, mesh=self._mesh)
         return out
 
     def _fold_step(self, carry: Dict[str, Any], reduced: Dict[str, Dict[str, Any]]) -> None:
         for info in self._infos:
             _fold_reduced(info, carry["members"][info.key], reduced[info.key])
+        if self._telemetry_on:
+            _copy_leaves_(carry["_telemetry"], _obs_device.telemetry_merge(carry["_telemetry"], reduced["_telemetry"]))
         carry["_update_count"].add_(1)
 
     def _run_sharded(self, batch: Tuple[torch.Tensor, ...]) -> None:
@@ -652,7 +752,7 @@ class FusedCollectionPlan(_GraphCapture):
             return
         step.fresh_graph.replay()
         for name, part in self._reduce(step.fresh).items():
-            _copy_into(step.reduced[name], part)
+            _copy_leaves_(step.reduced[name], part)
         step.fold_graph.replay()
 
     def _build_sharded(self, batch: Tuple[torch.Tensor, ...]) -> _ShardedStep:
@@ -663,14 +763,17 @@ class FusedCollectionPlan(_GraphCapture):
         inputs = tuple(b.to(self._device, copy=True) for b in batch)
         trees = self._warm(lambda: self._fresh_trees(inputs)) if cuda else self._fresh_trees(inputs)
         fresh = {info.key: _fresh_buffers(info, tree, self._device) for info, tree in zip(self._infos, trees)}
+        if self._telemetry_on:
+            fresh["_telemetry"] = _obs_device.telemetry_init(self._arity, self._histogram, self._device)
         if not cuda:
             for info, tree in zip(self._infos, trees):
                 _write_fresh(info, fresh[info.key], tree)
+            self._fresh_telemetry(fresh, inputs)
             self._fold_step(self._carry, self._reduce(fresh))
             return _ShardedStep(inputs, fresh, {}, None, None)
         fresh_graph = self._record(lambda: self._fresh_step(fresh, inputs))
         fresh_graph.replay()
-        reduced = {key: _clone_tree(part) for key, part in self._reduce(fresh).items()}
+        reduced = {key: _copy_tree(part) for key, part in self._reduce(fresh).items()}
         self._warm(lambda: self._fold_step(_copy_tree(self._carry), reduced))
         fold_graph = self._record(lambda: self._fold_step(self._carry, reduced))
         fold_graph.replay()
@@ -769,6 +872,14 @@ class FusedCollectionPlan(_GraphCapture):
             tree["_update_count"] = int(mstate["_update_count"])
             metric.load_state_tree(tree)  # installs copies
             metric._computed = None
+        telemetry = self._carry.get("_telemetry")
+        if telemetry is not None and int(self._carry["_update_count"]) > 0:
+            # one carry for the whole collection (members saw the same
+            # batches): every leader's pending slot accumulates a copy, and
+            # the carry restarts empty, in place
+            for info in self._infos:
+                _obs_device.accumulate(info.metric, _copy_tree(telemetry), self._histogram)
+            _copy_leaves_(telemetry, _obs_device.telemetry_init(self._arity, self._histogram, self._device))
         for cg in self.groups:
             leader = self.members[cg[0]]
             for key in cg[1:]:
@@ -783,6 +894,10 @@ class FusedCollectionPlan(_GraphCapture):
             # members hold (or will lazily receive) leader state: the same
             # post-update invariant MetricCollection.update leaves behind
             self._collection._state_is_copy = False
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            self._note_attribution()
+            for info in self._infos:
+                _obs_attr.metric_boundary(info.metric)
 
 
 # ------------------------------------------------------- the one-metric step
@@ -804,13 +919,19 @@ class JitUpdateStep(_GraphCapture):
     unchanged. ``donate=True`` returns the carry itself and a later call
     given that dict updates it in place: the caller's old dict then aliases
     the new state (XLA would instead invalidate the donated buffers).
+
+    ``telemetry`` (the build's :func:`~torchmetrics_tpu_torch.obs.device.config_token`):
+    with it on, the carry's ``"_telemetry"`` state folds each batch's inputs
+    in place, inside the graph.
     """
 
-    def __init__(self, metric: Any, list_keys: List[str], donate: bool) -> None:
+    def __init__(self, metric: Any, list_keys: List[str], donate: bool, telemetry: Tuple = (False, None)) -> None:
         self.metric = metric
         self.list_keys = list_keys
         self._device = metric.device
         self._donate = donate
+        self._telemetry_on = telemetry[0]
+        self._telemetry_token = telemetry
         self._reductions = {k: r for k, r in metric._reductions.items() if k not in list_keys}
         self._carry: Optional[Dict[str, Any]] = None
         self._seen: set = set()
@@ -832,14 +953,24 @@ class JitUpdateStep(_GraphCapture):
         for k, value in merged.items():
             _check_kept(type(metric).__name__, k, carry[k], value, "in an update")
             _copy_leaves_(carry[k], value)
+        if self._telemetry_on:
+            _copy_leaves_(carry["_telemetry"], _obs_device.telemetry_update(carry["_telemetry"], batch))
         count.add_(1)
 
     def _capture_site(self) -> str:
         return f"the update step of {type(self.metric).__name__} (make_jit_update)"
 
+    def _obs_site(self, body: Callable) -> Dict[str, str]:
+        from torchmetrics_tpu_torch.parallel.sharded import _fingerprint_digest, _walk_fingerprint
+
+        name = type(self.metric).__name__
+        key = _fingerprint_digest("jit_update", name, _walk_fingerprint(self.metric), self._telemetry_on, self._donate)
+        return {"key": key, "metric": name, "kind": "jit_update", "span_prefix": "parallel.jit_update"}
+
+    def _scratch_carry(self) -> Dict[str, Any]:
+        return _copy_tree(self._carry)
+
     def __call__(self, state: Dict[str, Any], *batch: Any) -> Dict[str, Any]:
-        if "_telemetry" in state:
-            raise NotImplementedError("make_jit_update's device telemetry ('_telemetry') waits for ROADMAP A12")
         batch = tuple(_as_input(b).to(self._device) for b in batch)
         if self._carry is None:
             self._carry = _copy_tree(state)
@@ -855,8 +986,12 @@ class JitUpdateStep(_GraphCapture):
             captured = self._captured.get(key)
             if captured is None:
                 inputs = tuple(b.clone() for b in batch)
-                self._warm(lambda: self._body(_copy_tree(carry), inputs))
-                captured = self._captured[key] = _Captured(self._record(lambda: self._body(carry, inputs)), inputs)
+                captured = self._captured[key] = self._capture_inputs(lambda c: self._body(c, inputs), inputs, self._body)
+                if _obs_trace.ENABLED:
+                    site = self._obs_site(self._body)
+                    with _obs_xla.first_step(site["key"], site["metric"], site["span_prefix"]):
+                        captured.graph.replay()
+                    return carry if self._donate else _copy_tree(carry)
             else:
                 for dst, src in zip(captured.inputs, batch):
                     dst.copy_(src)

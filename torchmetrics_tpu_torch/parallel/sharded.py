@@ -58,16 +58,26 @@ this way (``BootStrapper``'s per-update host resampling,
 over a state dict, captured once as a CUDA graph on the card and run eagerly
 on the CPU; :func:`fold_jit_state` loads its final state back.
 
-Not ported yet (ROADMAP): the compiled-step cache (``plan_cache_lookup``)
-and the step's device telemetry (A12).
+With device telemetry enabled when the step is built
+(:mod:`torchmetrics_tpu_torch.obs.device`), the step's state carries a
+``"_telemetry"`` health accumulator folded inside the graph, which
+:func:`fold_jit_state` hands to the metric; a sharded update reduces its
+ranks' telemetry over the mesh dim and accumulates it on the metric. Both
+drain into ``device.<Metric>.*`` gauges at ``compute()``/``sync()``.
+
+Not ported yet (ROADMAP): the compiled-step cache (``plan_cache_lookup``).
 """
 from __future__ import annotations
 
+import hashlib
+import inspect
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from torchmetrics_tpu_torch.obs import device as _obs_device
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.parallel.cat_buffer import (
     CatBuffer,
     cat_buffer_init,
@@ -225,9 +235,23 @@ def make_jit_update(
     ``donate=True``: the step updates the carry it returned in place, so the
     caller's old dict aliases the new state afterwards (XLA would invalidate
     the donated buffers instead); the default returns a new dict per call
-    and leaves the one passed in unchanged. Device telemetry in the step
-    (``"_telemetry"``) waits for ROADMAP A12.
+    and leaves the one passed in unchanged.
+
+    With device telemetry enabled now (at build), the state additionally
+    carries a fixed-shape ``"_telemetry"`` accumulator (per-input NaN/Inf
+    counts, min/max/absmax, an update counter), folded inside the step; the
+    flag is never read per call. :func:`fold_jit_state` hands it to the
+    metric's pending slot, which ``compute()`` drains into gauges.
     """
+    if _obs_trace.ENABLED:
+        with _obs_trace.span("parallel.jit_build", metric=type(metric).__name__):
+            return _make_jit_update(metric, cat_capacity, example_batch, donate)
+    return _make_jit_update(metric, cat_capacity, example_batch, donate)
+
+
+def _make_jit_update(
+    metric: Any, cat_capacity: Optional[int], example_batch: Optional[Tuple[Any, ...]], donate: bool
+) -> Tuple[Callable[..., Dict[str, Any]], Dict[str, Any]]:
     from torchmetrics_tpu_torch.parallel.fused import JitUpdateStep
 
     walk = _walk_metrics(metric)
@@ -258,19 +282,65 @@ def make_jit_update(
             elem, dtype = layout[k]
             init_state[k] = cat_buffer_init(cat_capacity, elem, dtype, metric.device)
     init_state["_update_count"] = torch.zeros((), dtype=torch.int32, device=metric.device)
-    return JitUpdateStep(metric, list_state_keys, donate), init_state
+    telemetry = _obs_device.config_token()
+    if telemetry[0]:
+        # the telemetry carry: decided at BUILD time, so a step built with
+        # telemetry off captures the never-instrumented graph
+        n_inputs = len(example_batch) if example_batch is not None else _update_arity(metric)
+        init_state["_telemetry"] = _obs_device.telemetry_init(n_inputs, telemetry[1], metric.device)
+    return JitUpdateStep(metric, list_state_keys, donate, telemetry), init_state
 
 
 def fold_jit_state(metric: Any, state: Dict[str, Any]) -> None:
     """Load a :func:`make_jit_update` state back into the metric: CatBuffers
     become the metric's list states (raising if one overflowed), and the
-    update count is restored. The metric gets copies of the state's tensors."""
-    if "_telemetry" in state:
-        raise NotImplementedError("make_jit_update's device telemetry ('_telemetry') waits for ROADMAP A12")
+    update count is restored. The metric gets copies of the state's tensors.
+    A ``"_telemetry"`` carry moves to the metric's pending telemetry
+    (drained into ``device.*`` gauges at ``compute()``/``sync()``)."""
+    state = dict(state)
+    telemetry = state.pop("_telemetry", None)
     tree = {k: [cat_buffer_values(v)] if isinstance(v, CatBuffer) else v for k, v in state.items()}
     tree["_update_count"] = int(tree["_update_count"])
     metric.load_state_tree(tree)
     metric._computed = None
+    if telemetry is not None:
+        from torchmetrics_tpu_torch.parallel.fused import _copy_tree
+
+        # a copy: a donated step would rewrite the carry in place
+        _obs_device.accumulate(metric, _copy_tree(telemetry), _obs_device.state_histogram_config(telemetry))
+
+
+# ------------------------------------------------------------ build identity
+
+
+def _fingerprint_digest(*parts: Any) -> str:
+    """Short stable digest of build-identity parts: the key capture records
+    are filed under (the JAX package's ``_fingerprint_digest``)."""
+    return hashlib.sha1(repr(parts).encode()).hexdigest()[:12]
+
+
+def _walk_fingerprint(metric: Any) -> Tuple:
+    """``(path, id(child), unsupported-reason, fold-children flag)`` per
+    metric of the walk: the structural part of a plan's build identity
+    (process-local, as JAX's: it holds object ids)."""
+    return tuple(
+        (path, id(m), getattr(m, "_sharded_update_unsupported", None), getattr(m, "_sharded_fold_children", True))
+        for path, m in _walk_metrics(metric)
+    )
+
+
+def _update_arity(metric: Any) -> int:
+    """Number of positional batch inputs ``metric.update`` declares: sizes
+    the per-input telemetry tensors when no ``example_batch`` is given. Calls
+    may pass fewer (optional args: extra slots stay zero) or more (``*args``
+    signatures: overflow inputs collapse into the last slot, so telemetry
+    TOTALS stay exact even when attribution cannot)."""
+    params = [
+        p
+        for name, p in inspect.signature(type(metric).update).parameters.items()
+        if name != "self" and p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+    ]
+    return max(1, len(params))
 
 
 # ------------------------------------------------------------- sharded update
@@ -343,15 +413,17 @@ def deep_state_tree(metric: Any) -> Dict[str, Any]:
 def _deep_snapshot(metric: Any) -> list:
     return [
         (m, m._copy_state_dict(), m._update_count, m._computed, m._mesh_replicated,
-         {a: getattr(m, a) for a in m._host_counters})
+         {a: getattr(m, a) for a in m._host_counters}, m._device_telemetry)
         for _, m in _walk_metrics(metric)
     ]
 
 
 def _deep_restore(snapshot: list) -> None:
-    for m, state, count, computed, replicated, counters in snapshot:
+    for m, state, count, computed, replicated, counters, telemetry in snapshot:
         m._install_state_tree(state)  # self-snapshot: trusted
         m._update_count, m._computed, m._mesh_replicated = count, computed, replicated
+        # pending device telemetry survives the scratch resets
+        m._device_telemetry = telemetry
         for attr, val in counters.items():
             setattr(m, attr, val)
 
@@ -388,10 +460,20 @@ def make_sharded_update(metric: Any, mesh: Any, axis_name: str = "data") -> Call
             where = f" (at {path!r})" if path else ""
             raise ValueError(f"{type(m).__name__} does not support sharded_update{where}: {reason}")
     reductions = deep_reductions(metric)
+    # device telemetry is a BUILD-time decision (obs/device.py)
+    telemetry_on, histogram = _obs_device.config_token()
 
     def sharded(*args: Any) -> Dict[str, Any]:
         partial = _deep_batch_update_state(metric, args, {})
-        return mesh_reduce_tree(reductions, partial, axis_name, mesh=mesh)
+        merged = mesh_reduce_tree(reductions, partial, axis_name, mesh=mesh)
+        if telemetry_on:
+            # the ranks' telemetry of their shards, reduced over the mesh dim
+            # with the states' collectives and accumulated on the metric (a
+            # device-side merge): the merged tree's contract is unchanged
+            init = _obs_device.telemetry_init(max(1, len(args)), histogram, metric.device)
+            local = _obs_device.telemetry_update(init, args)
+            _obs_device.accumulate(metric, _obs_device.telemetry_mesh_reduce(local, axis_name, mesh=mesh), histogram)
+        return merged
 
     return sharded
 
@@ -408,7 +490,13 @@ def sharded_update(metric: Any, mesh: Any, *args: Any, axis_name: str = "data") 
     of an update over the whole batch (the JAX call takes the whole batch in
     one process and splits it over the mesh's devices).
     """
-    merged = make_sharded_update(metric, mesh, axis_name=axis_name)(*args)
+    if _obs_trace.ENABLED:
+        with _obs_trace.span("sharded.jit_build", metric=type(metric).__name__, axis=axis_name):
+            step = make_sharded_update(metric, mesh, axis_name=axis_name)
+        with _obs_trace.span("sharded.update_step", metric=type(metric).__name__, cold=True):
+            merged = step(*args)
+    else:
+        merged = make_sharded_update(metric, mesh, axis_name=axis_name)(*args)
     targets = _fold_targets(metric)
     for _, m in targets:  # every refusal before any state moves
         m._refuse_sharded_fold(m._update_count)

@@ -79,12 +79,23 @@ Durability: :meth:`SlicedPlan.save_checkpoint` /
 included) in JAX's payload, so a plan saved by either package loads into the
 other.
 
-Not ported yet (ROADMAP): the obs spans and gauges (``publish_gauges``
-raises, A12) and the cross-plan compiled-step cache.
+Observability: with tracing on, the build records the ``sliced.build`` span
+and each capture the ``sliced.update``/``sliced.scan`` capture spans and
+records (:mod:`~torchmetrics_tpu_torch.obs.xla`); :meth:`SlicedPlan.publish_gauges`
+publishes the ``slice.table.*`` gauges and the plan's state-bytes row at
+host boundaries (checkpoints, runner snapshots), and
+:meth:`SlicedPlan.live_probe` feeds the live publisher.
+
+A guarded member (:func:`~torchmetrics_tpu_torch.robustness.guard.enable_guard`)
+folds each row as its guarded update of a one-row batch, as JAX's per-row
+``vmap`` does: its kernel route gets the invalid rows as cell ``-1`` (unless
+the policy is ``propagate``), the ``vmap`` route selects the defaults for
+them, and the ``guard_*`` partials are the segment sums of the row verdicts.
+
+Not ported yet (ROADMAP): the cross-plan compiled-step cache.
 """
 from __future__ import annotations
 
-import hashlib
 import math
 from copy import deepcopy
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -94,6 +105,10 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map
 
+from torchmetrics_tpu_torch.obs import attribution as _obs_attr
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.ops.slice_assign import hash_rows, slice_assign
 from torchmetrics_tpu_torch.parallel.cat_buffer import CatBuffer, cat_buffer_values
 from torchmetrics_tpu_torch.parallel.fused import (
@@ -105,7 +120,8 @@ from torchmetrics_tpu_torch.parallel.fused import (
     _stage,
     fusion_ineligibility,
 )
-from torchmetrics_tpu_torch.parallel.sharded import _axis_group, _walk_metrics
+from torchmetrics_tpu_torch.parallel.sharded import _axis_group, _fingerprint_digest, _walk_fingerprint
+from torchmetrics_tpu_torch.robustness import guard as _guard
 from torchmetrics_tpu_torch.sketch.hll import HLLSketch
 from torchmetrics_tpu_torch.sketch.histogram import HistogramSketch
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, map_leaves, merge_states, sketch_state_class
@@ -139,22 +155,6 @@ _SEGMENTED_SKETCHES: Dict[type, Dict[str, str]] = {
 }
 
 _REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
-
-
-def _fingerprint_digest(*parts: Any) -> str:
-    """Short stable digest of build-identity parts (the JAX package's
-    ``parallel/sharded.py::_fingerprint_digest``, copied)."""
-    return hashlib.sha1(repr(parts).encode()).hexdigest()[:12]
-
-
-def _walk_fingerprint(metric: Any) -> Tuple:
-    """``(path, id(child), unsupported-reason, fold-children flag)`` per
-    metric of the walk: the structural part of a plan's build identity
-    (process-local, as JAX's: it holds object ids)."""
-    return tuple(
-        (path, id(m), getattr(m, "_sharded_update_unsupported", None), getattr(m, "_sharded_fold_children", True))
-        for path, m in _walk_metrics(metric)
-    )
 
 
 # -------------------------------------------------------------- eligibility
@@ -270,23 +270,24 @@ def _within_cell_rank(cells: Tensor) -> Tensor:
 # ----------------------------------------------------------- per-row updates
 
 
-def _row_states(info: _MemberInfo, batch: Tuple[Tensor, ...]) -> Dict[str, Any]:
+def _row_states(metric: Any, batch: Tuple[Tensor, ...], update: Optional[Callable[..., None]] = None) -> Dict[str, Any]:
     """One fresh update per batch row under ``torch.func.vmap``: every leaf
     gains a leading ``[batch]`` axis (list states: each appended chunk gains
     it). The row is presented as a size-1 batch so the member's ``update``
-    sees its ordinary batched shapes."""
+    (or ``update``, given: the StateGuard's raw update) sees its ordinary
+    batched shapes."""
     lead = [a.shape[0] for a in batch if a.ndim >= 1]
     if not lead:
         raise ValueError("sliced update needs at least one batched (ndim >= 1) input")
     rows = lead[0]
     in_dims = tuple(0 if a.ndim >= 1 else None for a in batch)
     staged = tuple(a.reshape((rows, 1) + tuple(a.shape[1:])) if d == 0 else a for a, d in zip(batch, in_dims))
-    metric = info.metric
+    update = metric.update if update is None else update
 
     def one(*row: Tensor) -> Dict[str, Any]:
         with metric._scratch():
             metric.reset()
-            metric.update(*row)
+            update(*row)
             return metric.state_tree()
 
     return torch.func.vmap(one, in_dims=in_dims)(*staged)
@@ -442,6 +443,8 @@ class SlicedPlan(_GraphCapture):
             (each rank passes its local rows; see the module docstring).
     """
 
+    _obs_kind = "sliced"
+
     def __init__(
         self,
         target: Any,
@@ -507,11 +510,18 @@ class SlicedPlan(_GraphCapture):
         self._mesh = mesh
         self._axis = axis_name
         self._infos = [_MemberInfo(cg[0], members[cg[0]], cat_capacity, example_batch) for cg in groups]
-        # the obs span around the build ("sliced.build") waits for ROADMAP A12
-        self._carry = self._initial_state()
+        if _obs_trace.ENABLED:
+            with _obs_trace.span(
+                "sliced.build", metric=self._target_cls, cells=num_cells, leaders=len(self._infos), sharded=mesh is not None
+            ):
+                self._carry = self._initial_state()
+        else:
+            self._carry = self._initial_state()
         self._captured: Dict[Any, _Captured] = {}
         self._sharded: Dict[Any, _ShardedStep] = {}
         self._in_member: Optional[str] = None  # the leader whose update the step is running
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_attr.note_instances(type(self).__name__, list(self.members))
 
     # ------------------------------------------------------------------ build
     def _fingerprint(self) -> str:
@@ -591,11 +601,20 @@ class SlicedPlan(_GraphCapture):
         (the kernel route's own, or the ``vmap`` rows reduced into cells),
         the rows themselves for cat states and serially folded sketches."""
         num_cells, metric = self.num_cells, info.metric
-        hook = getattr(metric, "_sliced_fresh_states", None)
-        per_cell = hook(cells, num_cells, *batch) if hook is not None else None
-        if per_cell is not None:
-            return per_cell
-        rows = _row_states(info, batch)
+        if getattr(metric, "_guard_policy", None) is not None:
+            # a guarded member: each row is its guarded update of a one-row
+            # batch, as JAX's per-row vmap runs it (robustness/guard.py)
+            verdict = _guard.row_verdict(metric, batch)
+            per_cell = _guard._kernel_fresh(metric, _guard.kernel_cells(metric, cells, verdict), num_cells, batch)
+            if per_cell is not None:
+                return {**per_cell, **_guard.guard_cell_counters(metric, verdict, seg, num_cells)}
+            rows = _guard.guard_rows(metric, _row_states(metric, batch, update=_guard._raw_update(metric)), verdict)
+        else:
+            hook = getattr(metric, "_sliced_fresh_states", None)
+            per_cell = hook(cells, num_cells, *batch) if hook is not None else None
+            if per_cell is not None:
+                return per_cell
+            rows = _row_states(metric, batch)
         fresh: Dict[str, Any] = {}
         for name, default in metric._defaults.items():
             red = metric._reductions[name]
@@ -922,6 +941,7 @@ class SlicedPlan(_GraphCapture):
         """``{cohort key tuple: compute() value}`` over every resident cell
         (host loop — evaluation-end cost, not per-batch). The table is read
         back ONCE; per-cohort exports index straight into the carry."""
+        self.publish_gauges()
         return {key: self._export_cell_index(cell).compute() for key, cell in self.occupied_cells().items()}
 
     def compute_all(self) -> Dict[str, Any]:
@@ -990,7 +1010,7 @@ class SlicedPlan(_GraphCapture):
             encoded["_update_count"] = mstate["_update_count"].cpu().numpy().copy()
             members[info.key] = encoded
         table = state["table"]
-        return {
+        payload = {
             "sliced_format": SLICED_FORMAT_VERSION,
             "fingerprint": self.stable_fingerprint(),
             "num_cells": self.num_cells,
@@ -1003,6 +1023,9 @@ class SlicedPlan(_GraphCapture):
             },
             "members": members,
         }
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            self.publish_gauges()
+        return payload
 
     def load_checkpoint(self, payload: Dict[str, Any]) -> None:
         """Validate-ALL-then-apply restore of :meth:`save_checkpoint` (either
@@ -1100,9 +1123,30 @@ class SlicedPlan(_GraphCapture):
         return sizes
 
     def publish_gauges(self) -> None:
-        """The ``slice.table.*`` gauges and the cost-attribution row wait for
-        the port's obs plane (ROADMAP A12)."""
-        raise NotImplementedError("SlicedPlan.publish_gauges (the slice.table.* gauges) waits for ROADMAP A12")
+        """Publish ``slice.table.occupancy``/``.spills``/``.cells`` gauges
+        plus the per-table ``state_bytes`` attribution row. One flag check
+        when obs is off: call freely at host boundaries (results,
+        checkpoints, runner snapshots); never per batch (it reads the
+        table)."""
+        if not (_obs_trace.ENABLED or _obs_live.ENABLED):
+            return
+        _, occupied, spills = self._table_host()
+        occupancy = float(occupied.sum()) / self.num_cells
+        # the bare names feed the fleet dashboard column (last writer wins
+        # when a process drives several plans); the target-class-namespaced
+        # copies tell several tables apart
+        for prefix in ("slice.table", f"slice.table.{self._target_cls}"):
+            _obs_counters.set_gauge(f"{prefix}.occupancy", occupancy)
+            _obs_counters.set_gauge(f"{prefix}.cells", self.num_cells)
+            _obs_counters.set_gauge(f"{prefix}.spills", spills)
+        _obs_attr.note_instances(type(self).__name__, list(self.members))
+        leaves = {
+            f"{info.key}.{name}": tree_flatten(self._carry["members"][info.key][name])[0]
+            for info in self._infos
+            for name in info.metric._defaults
+        }
+        leaves["table"] = [self._carry["table"].keys, self._carry["table"].occupied]
+        _obs_attr.note_state_bytes(self, self.state_byte_sizes(), updates=self.updates_applied, leaves=leaves)
 
     def live_probe(self) -> Dict[str, float]:
         """Probe payload for a live publisher: table occupancy and spills, as

@@ -36,8 +36,9 @@ round-trip the ring as plain numpy dicts in the JAX package's layout
 (``WINDOW_PAYLOAD_VERSION``), so a ring saved by either package restores in
 the other; ``StreamingEvaluator`` embeds them in its snapshots.
 
-Not ported yet (ROADMAP A12): the ``window.<Class>.*`` gauges and rotation
-counter the JAX package publishes at every rotation.
+With tracing or the live plane on, every rotation counts
+``window.<Class>.rotations`` and publishes the ``window.<Class>.*`` gauges,
+under the JAX package's names.
 """
 from __future__ import annotations
 
@@ -45,6 +46,9 @@ import time
 from copy import deepcopy
 from typing import Any, Dict, List, Optional
 
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
 
 __all__ = ["WindowRing"]
@@ -173,7 +177,12 @@ class WindowRing:
         self._opened_t = time.monotonic()
         self._rotations += 1
         self._encoded_ring = None  # the closed set changed: re-encode lazily
-        # the window.<Class>.* gauges and rotation counter wait for ROADMAP A12
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            cls = type(self.target).__name__
+            _obs_counters.inc(f"window.{cls}.rotations")
+            _obs_counters.set_gauge(f"window.{cls}.slots_live", len(self._ring))
+            _obs_counters.set_gauge(f"window.{cls}.closed_batches", entry["batches"])
+            _obs_counters.set_gauge(f"window.{cls}.age_s", 0.0)
 
     # ------------------------------------------------------------------ query
     def _merge_trees(self, metric: Any, a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:

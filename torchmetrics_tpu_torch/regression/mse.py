@@ -15,6 +15,7 @@ import torch
 from torchmetrics_tpu_torch.functional.regression.mse import _mean_squared_error_compute, _mean_squared_error_update
 from torchmetrics_tpu_torch.functional.regression.utils import _jnp_dtype
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.robustness.guard import ArgSpec, DomainContract
 
 Tensor = torch.Tensor
 
@@ -37,6 +38,14 @@ class MeanSquaredError(Metric):
         self.num_outputs = num_outputs
         self.add_state("sum_squared_error", default=torch.zeros(num_outputs), dist_reduce_fx="sum")
         self.add_state("total", default=0, dist_reduce_fx="sum")
+
+    def domain_contract(self) -> DomainContract:
+        # a single NaN/Inf sample poisons the float error sum forever: the
+        # canonical StateGuard poison-probe target (robustness/guard.py)
+        return DomainContract(
+            args=(ArgSpec(name="preds", finite=True), ArgSpec(name="target", finite=True)),
+            family="mean_squared_error",
+        )
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Fold a batch of squared errors into the state."""

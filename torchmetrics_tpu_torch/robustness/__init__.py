@@ -27,7 +27,12 @@ And the durability layer on top:
   cursor, snapshot-every-N/T policies, ``resume()`` fast-forward, a stall
   watchdog and the fused drive.
 
-Not ported yet (ROADMAP): StateGuard (A11).
+And the input plane:
+
+- :mod:`~torchmetrics_tpu_torch.robustness.guard`: StateGuard, the domain
+  contracts run inside the update step under the ``mask``, ``reject`` and
+  ``propagate`` policies, with the verdict counters and the poison latch
+  as registered states.
 """
 from torchmetrics_tpu_torch.robustness import faults
 from torchmetrics_tpu_torch.robustness.checkpoint import (
@@ -36,6 +41,19 @@ from torchmetrics_tpu_torch.robustness.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from torchmetrics_tpu_torch.robustness.guard import (
+    GUARD_POLICIES,
+    GUARD_STATES,
+    ArgSpec,
+    DomainContract,
+    GuardVerdict,
+    check_batch,
+    enable_guard,
+    guard_counters,
+    guard_ineligibility,
+    guarded_policy,
+    state_finiteness,
+)
 from torchmetrics_tpu_torch.robustness.runner import StreamingEvaluator
 from torchmetrics_tpu_torch.robustness.spec import StateSpec, build_state_specs, spec_fingerprint, validate_state_tree
 from torchmetrics_tpu_torch.robustness.store import CheckpointStore
@@ -43,15 +61,26 @@ from torchmetrics_tpu_torch.robustness.sync_config import DEFAULT_SYNC_CONFIG, S
 
 __all__ = [
     "CHECKPOINT_FORMAT_VERSION",
+    "ArgSpec",
     "CheckpointStore",
     "DEFAULT_SYNC_CONFIG",
+    "DomainContract",
+    "GUARD_POLICIES",
+    "GUARD_STATES",
+    "GuardVerdict",
     "StateSpec",
     "StreamingEvaluator",
     "SyncConfig",
     "build_state_specs",
+    "check_batch",
     "checkpoint_fingerprint",
+    "enable_guard",
     "faults",
+    "guard_counters",
+    "guard_ineligibility",
+    "guarded_policy",
     "load_checkpoint",
     "save_checkpoint",
     "spec_fingerprint",
+    "state_finiteness",
 ]

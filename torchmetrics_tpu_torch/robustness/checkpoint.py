@@ -34,6 +34,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.robustness.spec import SKETCH_PAYLOAD_KEY, spec_fingerprint, validate_state_tree
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
@@ -89,6 +91,14 @@ def _serialize_state(value: Any) -> Any:
 
 def save_checkpoint(metric: Any) -> Dict[str, Any]:
     """Snapshot ``metric`` (deep: wrapper children included) as a plain dict."""
+    if _obs_trace.ENABLED:
+        with _obs_trace.span("checkpoint.save", metric=type(metric).__name__):
+            _obs_counters.inc("checkpoint.save")
+            return _save_checkpoint(metric)
+    return _save_checkpoint(metric)
+
+
+def _save_checkpoint(metric: Any) -> Dict[str, Any]:
     metrics: Dict[str, Any] = {}
     for path, m in _walk(metric):
         tree = m.state_tree(include_count=True)
@@ -120,6 +130,14 @@ def load_checkpoint(metric: Any, checkpoint: Dict[str, Any], strict: bool = True
     as a tensor of its own on the metric's device (an allocation failure
     therefore strikes before anything is installed); phase 2 only installs.
     """
+    if _obs_trace.ENABLED:
+        with _obs_trace.span("checkpoint.load", metric=type(metric).__name__, strict=strict):
+            _obs_counters.inc("checkpoint.load")
+            return _load_checkpoint(metric, checkpoint, strict=strict)
+    return _load_checkpoint(metric, checkpoint, strict=strict)
+
+
+def _load_checkpoint(metric: Any, checkpoint: Dict[str, Any], strict: bool = True) -> None:
     if not isinstance(checkpoint, dict):
         raise StateRestoreError(
             f"checkpoint for {type(metric).__name__} must be a dict, got {type(checkpoint).__name__} —"

@@ -45,17 +45,29 @@ mesh-replicated before its plan is built, as the snapshot's states already
 covered every rank. In the replica regime every rank's state differs: give
 each rank its own store directory and ``write_rank=None``.
 
-Not ported yet (ROADMAP A12): the trace spans, counters and live probes
-(the window ring's and the sliced plan's probes among them).
+Observability (:mod:`torchmetrics_tpu_torch.obs`): with tracing on, the
+drive records the ``runner.run``/``runner.resume`` spans; with tracing or
+the live plane on, it counts progress (``runner.progress.batches``/``.samples``),
+publishes the ``runner.cursor`` and ``runner.throughput.samples_per_s``
+gauges, the snapshot counters and ``runner.snapshot.bytes_last``, refreshes
+the cost-attribution rows at every snapshot, and registers its live probe
+(and the window ring's and the sliced plan's) while a drive is in flight.
+``TM_TPU_PUBLISH=<dir-or-host:port>`` starts the live publisher when an
+evaluator is built. Each hook is one flag check when both are off.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from torchmetrics_tpu_torch.obs import attribution as _obs_attr
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.robustness import faults
 from torchmetrics_tpu_torch.robustness.store import CheckpointStore
 from torchmetrics_tpu_torch.utilities.exceptions import StallError, StateRestoreError
@@ -212,6 +224,16 @@ class StreamingEvaluator:
         self._apply_batch: Optional[Callable[[Any], None]] = None
         self._snapshotting_stalls = False
         self._cuda_index: Optional[int] = None
+        # live-plane producer state (obs/live.py): deadline of the in-flight
+        # bounded step (the watchdog-margin probe reads it while the step
+        # runs), last persisted snapshot size, and the throughput EWMA
+        self._watchdog_deadline: Optional[float] = None
+        self._snapshot_bytes_last: Optional[int] = None
+        self._ewma_sps: Optional[float] = None
+        self._last_batch_t: Optional[float] = None
+        # honor TM_TPU_PUBLISH exactly once per process (no-op when unset):
+        # constructing an evaluator is the natural "a long run starts here"
+        _obs_live.maybe_enable_from_env()
         if store is not None and store.fingerprint is None:
             # pin the metric's registry fingerprint into the manifest so a
             # drifted metric definition is refused with a NAMED error at the
@@ -376,6 +398,11 @@ class StreamingEvaluator:
     def _restore_latest(self) -> int:
         """Restore the newest valid snapshot (if any) and return its cursor (0 without one)."""
         restored = self.store.latest(validate=self._validate_payload) if self.store is not None else None
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_counters.inc("runner.resume")
+        if _obs_trace.ENABLED:
+            cursor = 0 if restored is None else int(restored[1]["cursor"])
+            _obs_trace.instant("runner.resume", cursor=cursor, restored=restored is not None)
         if restored is None:
             return 0
         _step, payload = restored  # _validate_payload already installed the checkpoint
@@ -399,10 +426,36 @@ class StreamingEvaluator:
         last = self.store.last_step()
         if last is not None and self.cursor <= last:
             return None
-        if self.store.save(self._payload(), step=self.cursor) is None:
+        name = self.store.save(self._payload(), step=self.cursor)
+        if name is None:
             return None
         self._last_snapshot_t = time.monotonic()
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_counters.inc("runner.snapshot")
+            self._attribution_boundary()
+            try:
+                self._snapshot_bytes_last = os.path.getsize(os.path.join(self.store.directory, name))
+            except OSError:
+                self._snapshot_bytes_last = None
+            if self._snapshot_bytes_last is not None:
+                # "what would survive a kill" next to "where the run is"
+                _obs_counters.set_gauge("runner.snapshot.bytes_last", self._snapshot_bytes_last)
         return self.cursor
+
+    def _attribution_boundary(self) -> None:
+        """Refresh the per-metric ``metric.<Class>.state_bytes`` gauges (and
+        the cost-ledger registry) at a snapshot boundary, so the live plane
+        shows the state-memory footprint next to throughput. Callers guard
+        with the trace/live flags."""
+        if self._is_plan:
+            self.metric.publish_gauges()  # slice.table.* + the plan's state-bytes row
+            return
+        if self._is_collection():
+            for name, member in self.metric.items(keep_base=True, copy_state=False):
+                _obs_attr.note_instance(type(member).__name__, name)
+                _obs_attr.metric_boundary(member)
+        else:
+            _obs_attr.metric_boundary(self.metric)
 
     def _maybe_snapshot(self) -> None:
         if self.store is None:
@@ -450,9 +503,16 @@ class StreamingEvaluator:
                 box["err"] = err
 
         thread = threading.Thread(target=_worker, daemon=True, name=f"tm-torch-runner-{what}")
+        # published BEFORE the step starts so the live watchdog-margin probe
+        # decays across the whole deadline window; NOT cleared on a stall
+        self._watchdog_deadline = time.monotonic() + self.watchdog_timeout_s
         thread.start()
         thread.join(self.watchdog_timeout_s)
         if thread.is_alive():
+            if _obs_trace.ENABLED or _obs_live.ENABLED:
+                _obs_counters.inc("runner.watchdog_stall")
+            if _obs_trace.ENABLED:
+                _obs_trace.instant("runner.watchdog_stall", what=what, cursor=self.cursor)
             saved = None
             if self.on_stall == "snapshot_then_raise" and self.store is not None:
                 saved = self._stall_snapshot()
@@ -494,6 +554,9 @@ class StreamingEvaluator:
                 f"store {self.store.directory} already holds snapshots up to step"
                 f" {self.store.last_step()} — use resume() to continue, or a fresh directory"
             )
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("runner.run", metric=type(self.metric).__name__):
+                return self._drive(batches, skip=0)
         return self._drive(batches, skip=0)
 
     def resume(self, batches: Iterable[Any]) -> Any:
@@ -505,8 +568,78 @@ class StreamingEvaluator:
         relative to the stream, and the fast-forward is positional. On an
         empty (or entirely-invalid) store the evaluation starts from batch 0.
         """
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("runner.resume", metric=type(self.metric).__name__):
+                self.cursor = self._restore_latest()
+                return self._drive(batches, skip=self.cursor)
         self.cursor = self._restore_latest()
         return self._drive(batches, skip=self.cursor)
+
+    # ------------------------------------------------------------ live plane
+    def _live_probe(self) -> Dict[str, Any]:
+        """Sampled by the :mod:`~torchmetrics_tpu_torch.obs.live` publisher
+        thread (and every ``/metrics``/``/healthz`` request) while a drive is
+        in flight: the exactly-once cursor, snapshot freshness and size, and
+        the REAL-TIME watchdog margin (reads of immutable floats and ints)."""
+        now = time.monotonic()
+        gauges: Dict[str, Any] = {"runner.cursor": self.cursor}
+        if self._last_snapshot_t is not None:
+            gauges["runner.snapshot.age_s"] = now - self._last_snapshot_t
+        if self._snapshot_bytes_last is not None:
+            gauges["runner.snapshot.bytes_last"] = self._snapshot_bytes_last
+        if self.watchdog_timeout_s:
+            gauges["runner.watchdog.timeout_s"] = self.watchdog_timeout_s
+            deadline = self._watchdog_deadline
+            gauges["runner.watchdog.margin_s"] = self.watchdog_timeout_s if deadline is None else deadline - now
+        if self._ewma_sps is not None:
+            gauges["runner.throughput.samples_per_s"] = self._ewma_sps
+        return gauges
+
+    @staticmethod
+    def _batch_size(batch: Any) -> int:
+        """Best-effort samples-per-batch for the progress counters: leading
+        dim of the first tuple element (the preds), else ``len``, else 1."""
+        head = batch[0] if isinstance(batch, tuple) and batch else batch
+        try:
+            return int(head.shape[0])
+        except Exception:
+            try:
+                return len(head)
+            except Exception:
+                return 1
+
+    def _record_progress(self, batch: Any) -> None:
+        """Per-batch producer: progress counters and the EWMA throughput
+        gauge (host clock). Callers guard with the live/trace flags."""
+        n = self._batch_size(batch)
+        _obs_counters.inc("runner.progress.batches")
+        _obs_counters.inc("runner.progress.samples", n)
+        # also a registry gauge (not just the live probe) so the cursor rides
+        # every published payload, the final flush included
+        _obs_counters.set_gauge("runner.cursor", self.cursor)
+        now = time.monotonic()
+        if self._last_batch_t is not None and now > self._last_batch_t:
+            inst = n / (now - self._last_batch_t)
+            self._ewma_sps = inst if self._ewma_sps is None else 0.2 * inst + 0.8 * self._ewma_sps
+            _obs_counters.set_gauge("runner.throughput.samples_per_s", self._ewma_sps)
+        self._last_batch_t = now
+
+    def _register_probes(self, force: bool = False) -> None:
+        """Per-instance probe names: two evaluators driving concurrently in
+        one process must not clobber (or, on finish, unregister) each
+        other's probes. ``force`` registers even with the live plane off (a
+        service answers ``/healthz`` itself)."""
+        if not (force or _obs_live.ENABLED):
+            return
+        _obs_live.register_probe(f"runner-{id(self)}", self._live_probe)
+        if self.window_ring is not None:
+            _obs_live.register_probe(f"window-{id(self)}", self.window_ring.probe)
+        if self._is_plan:
+            _obs_live.register_probe(f"sliced-{id(self)}", self.metric.live_probe)
+
+    def _unregister_probes(self) -> None:
+        for prefix in ("runner", "window", "sliced"):
+            _obs_live.unregister_probe(f"{prefix}-{id(self)}")
 
     def _make_apply(self) -> Callable[[Any], None]:
         """The per-batch step, hoisted to ONE per-drive callable. Fused
@@ -558,6 +691,8 @@ class StreamingEvaluator:
             self._last_good_payload = self._payload()
         self._bounded(self._apply_batch, "update", batch)
         self.cursor += 1
+        if _obs_live.ENABLED or _obs_trace.ENABLED:
+            self._record_progress(batch)
         if self.window_ring is not None:
             # rotation happens AFTER the batch fully applied and BEFORE
             # its snapshot, so every snapshot's ring is cursor-consistent
@@ -579,9 +714,23 @@ class StreamingEvaluator:
         # ... then compute (which may sync across the process group) under the
         # same watchdog deadline
         compute = self.metric.compute_all if self._is_plan else self.metric.compute
-        return self._bounded(compute, "compute")
+        result = self._bounded(compute, "compute")
+        if _obs_trace.ENABLED:
+            # the evaluation is over: every plane is final; emit the cost
+            # ledger (covers custom update_fn targets too, newest write wins)
+            _obs_attr.maybe_emit()
+        return result
 
     def _drive(self, batches: Iterable[Any], skip: int) -> Any:
+        if _obs_live.ENABLED:
+            self._register_probes()
+            try:
+                return self._drive_impl(batches, skip)
+            finally:
+                self._unregister_probes()
+        return self._drive_impl(batches, skip)
+
+    def _drive_impl(self, batches: Iterable[Any], skip: int) -> Any:
         self._begin_drive(skip)
         stream = iter(batches)
         skipped = 0
@@ -612,6 +761,9 @@ class StreamingEvaluator:
         """
         start = self._restore_latest()
         self._begin_drive(start)
+        # forced: a service's /healthz reads these probes even when the live
+        # publisher is off
+        self._register_probes(force=True)
         return start
 
     def serve_step(self, batch: Any) -> None:
@@ -633,5 +785,8 @@ class StreamingEvaluator:
     def serve_close(self) -> Any:
         """Final snapshot + compute; returns :meth:`~SlicedPlan.compute_all`
         for plan targets, ``metric.compute()`` otherwise — the same contract
-        as :meth:`run`."""
-        return self._finish_drive()
+        as :meth:`run`. Releases the live probes."""
+        try:
+            return self._finish_drive()
+        finally:
+            self._unregister_probes()

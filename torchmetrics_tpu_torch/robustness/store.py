@@ -38,6 +38,9 @@ import pickle
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import live as _obs_live
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.robustness import faults
 from torchmetrics_tpu_torch.robustness import store_format as _fmt
 from torchmetrics_tpu_torch.utilities.exceptions import CheckpointStoreWarning, StateRestoreError
@@ -125,6 +128,12 @@ class CheckpointStore:
         """
         if not self.is_writer:
             return None
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("robustness.store.save", step=step):
+                return self._save(payload, step)
+        return self._save(payload, step)
+
+    def _save(self, payload: Dict[str, Any], step: int) -> str:
         step = int(step)
         manifest = self._manifest()
         last = manifest["snapshots"][-1]["step"] if manifest["snapshots"] else None
@@ -175,6 +184,11 @@ class CheckpointStore:
                 os.unlink(os.path.join(self.directory, entry["file"]))
             except OSError:
                 pass  # already gone — the manifest no longer references it
+        # the store health counters also feed the live plane (obs/live.py):
+        # they count when either recorder is on
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_counters.inc("robustness.store.save")
+            _obs_counters.set_gauge("robustness.store.snapshot_bytes", len(data))
         return name
 
     # ------------------------------------------------------------------ load
@@ -192,6 +206,14 @@ class CheckpointStore:
         half-restores: it returns the newest snapshot that is valid END TO
         END, or ``None`` when none is.
         """
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_counters.inc("robustness.store.load")
+        if _obs_trace.ENABLED:
+            with _obs_trace.span("robustness.store.load"):
+                return self._latest(validate)
+        return self._latest(validate)
+
+    def _latest(self, validate: Optional[Callable[[Dict[str, Any]], None]]) -> Optional[Tuple[int, Dict[str, Any]]]:
         manifest = self._manifest()
         for entry in reversed(manifest["snapshots"]):
             step = int(entry["step"])
@@ -221,11 +243,13 @@ class CheckpointStore:
         return None
 
     def _skip(self, step: int, why: str) -> None:
+        if _obs_trace.ENABLED or _obs_live.ENABLED:
+            _obs_counters.inc("robustness.store.recovery_skipped")
         warnings.warn(
             f"checkpoint store {self.directory}: skipping snapshot at step {step} — {why};"
             " falling back to the next-newest snapshot",
             CheckpointStoreWarning,
-            stacklevel=3,
+            stacklevel=4,
         )
 
     # ----------------------------------------------------------------- prune

@@ -20,6 +20,9 @@ from __future__ import annotations
 import functools
 from typing import Any, Callable, Dict, Sequence, Tuple, Type
 
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
+from torchmetrics_tpu_torch.obs import trace as _obs_trace
+
 _MERGE_FNS: Dict[Type, Callable[[Any, Any], Any]] = {}
 _BY_NAME: Dict[str, Type] = {}
 
@@ -51,16 +54,27 @@ def registered_sketch_classes() -> Tuple[Type, ...]:
     return tuple(_MERGE_FNS)
 
 
-# The JAX package counts host merges and spans the cross-rank reduction for
-# its tracing plane; those obs counters and the span wait for ROADMAP A12.
+def _is_traced(state: Any) -> bool:
+    """True inside a CUDA graph capture or a ``torch.func`` transform, where
+    a merge runs once for many replays (the counterpart of a jax tracer):
+    the host counters count only merges that run."""
+    from torchmetrics_tpu_torch.utilities.checks import _is_concrete
+
+    return not all(_is_concrete(leaf) for leaf in state)
+
+
 def merge_states(a: Any, b: Any) -> Any:
     """Pairwise-merge two sketch states of the same registered type
-    (shape-preserving; capturable in a CUDA graph)."""
+    (shape-preserving; capturable in a CUDA graph). Counts ``sketch.merge``
+    and ``sketch.merge.<Class>`` under tracing."""
     if type(a) is not type(b):
         raise TypeError(f"cannot merge sketch states of different types: {type(a).__name__} vs {type(b).__name__}")
     merge_fn = _MERGE_FNS.get(type(a))
     if merge_fn is None:
         raise TypeError(f"{type(a).__name__} is not a registered sketch state type")
+    if _obs_trace.ENABLED and not _is_traced(a):
+        _obs_counters.inc("sketch.merge")
+        _obs_counters.inc(f"sketch.merge.{type(a).__name__}")
     return merge_fn(a, b)
 
 
@@ -72,6 +86,9 @@ def reduce_merge_states(states: Sequence[Any]) -> Any:
         raise ValueError("reduce_merge_states: empty state sequence")
     if len(states) == 1:
         return states[0]
+    if _obs_trace.ENABLED and not _is_traced(states[0]):
+        with _obs_trace.span("sketch.merge_reduce", kind=type(states[0]).__name__, parts=len(states)):
+            return functools.reduce(merge_states, states)
     return functools.reduce(merge_states, states)
 
 
