@@ -230,6 +230,33 @@ result) if it fails:
    tracing; the live publisher (50 Hz status files, ``/metrics`` on
    localhost) over a durable run, its OpenMetrics text parsed and the
    runner's progress and throughput gauges in it.
+20. serve (runs after durable): the serve plane (``torchmetrics_tpu_torch.serve``)
+   on the card. (1) The flagship suite served by an in-process ``Stream``
+   (``fused=True``, ``use_feed=True``, ``snapshot_every_n=4``; its factory
+   is this script's ``serve_suite``) and offered the slice's 8 batches as
+   numpy arrays: states bitwise equal to the plain fold, values to the slice
+   phase's, K1 and K2 at least 8 launches each in a profiler trace (the
+   replays) and on the wrappers (warm-up and capture); samples/s of the
+   served run beside the fused plan's steady pass. (2) ``python -m
+   torchmetrics_tpu_torch.serve serve --device cuda`` in a subprocess: the
+   suite created over HTTP, 8 JSON batches of 4,096 x 64 replayed over the
+   unix socket, the daemon SIGKILLed after batch 5's ack, restarted over the
+   same base directory and replayed from its ``next_seq``; the drained
+   states (the ``/v1/state`` export) bitwise equal to an uninterrupted
+   in-process stream's, ``/healthz`` 200, SIGTERM drains; JSON decode ms a
+   batch, socket-ingest samples/s, restart-to-ready s. (3) Two in-process
+   leaf ``ServeDaemon`` instances with 4 of those batches each and a
+   ``FleetAggregator`` on the card pulling them over localhost: the fold's
+   integer states bitwise equal to one fold of all 8, values within
+   SERVE_FLEET_ATOL; the export's ms and bytes, the fold's ms. (4) A
+   ``heavy_hitters`` stream over the sketch phase's 8 x 65,536 Zipf-like
+   tags (K3 8 launches) and a ``sliced_accuracy(64 classes, 256 cells)``
+   stream over the slice's batches keyed over 200 cohorts (K4 and K2s at
+   least 8 each in a profiler trace): drained states bitwise equal to the
+   same metrics run directly. (5) ``guarded_binary_accuracy(policy="mask")``
+   over binary rows made from the guard phase's poisoned batches: the
+   counters equal numpy's, the states the unguarded metric's over the valid
+   rows. Works in a temporary directory it removes.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -239,7 +266,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes and the dist phase's time, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers and the dist phase's time, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, and K2s and K1s at the
 StateGuard's one-cell shape) and
 ``{"ok": true, "device": {...}}``.
@@ -5260,6 +5287,466 @@ def phase_obs(device, batches, smi):
     return out
 
 
+# ---------------------------------------------------------------------- serve
+
+SERVE_EVERY_N = 4  # the in-process suite stream's snapshot cadence
+SERVE_DAEMON_EVERY_N = 2  # the daemon's: a kill after batch 5 resumes from 4 or 6
+SERVE_JSON_ROWS = 4096  # rows of a JSON batch (65,536 x 64 floats would be ~80 MB of JSON a batch)
+SERVE_KILL_AFTER = 5  # the daemon is SIGKILLed once batch 5 is acked
+SERVE_WAIT_S = 120.0  # every wait on a stream, a daemon or a socket
+SERVE_CELLS = 256
+SERVE_FLEET_ATOL = 1e-6  # the fleet's values against the one-process fold's compute
+SERVE_FACTORIES = "torchmetrics_tpu_torch.serve.factories"
+
+
+def serve_suite(device="cuda"):
+    """The flagship suite as a stream target (``chip_smoke:serve_suite``):
+    the serve plane's built-in factories have none."""
+    import torchmetrics_tpu_torch as tm
+
+    return _headline_suite(tm, device=device)
+
+
+def _serve_stream(directory, device, **spec):
+    from torchmetrics_tpu_torch.serve import Stream, StreamSpec
+
+    stream = Stream(StreamSpec(**spec), directory, device=device)
+    stream.start(timeout_s=SERVE_WAIT_S)
+    return stream
+
+
+def _serve_drive(stream, host_batches):
+    """Offer every batch (numpy, in process: no JSON) from seq 0, then drain."""
+    for seq, batch in enumerate(host_batches):
+        reply = stream.offer(seq, batch, block=True, deadline_s=SERVE_WAIT_S)
+        _require(bool(reply.get("ok")), f"serve: offer {seq} to {stream.spec.name}: {reply}")
+    drained = stream.drain(timeout_s=SERVE_WAIT_S)
+    _require(bool(drained.get("ok")) and drained["cursor"] == len(host_batches), f"serve: drain of {stream.spec.name}: {drained}")
+    return drained
+
+
+def _suite_checkpoint(suite):
+    return {name: m.save_checkpoint() for name, m in suite.items(keep_base=True, copy_state=True)}
+
+
+def _json_batches(device):
+    """NUM_BATCHES wire batches of SERVE_JSON_ROWS x NUM_CLASSES float32 logits and
+    int labels made on the card from SEED + 50, as JSON lists."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 50)
+    out = []
+    for _ in range(NUM_BATCHES):
+        logits = torch.randn((SERVE_JSON_ROWS, NUM_CLASSES), generator=gen, device=device, dtype=torch.float32)
+        labels = torch.randint(0, NUM_CLASSES, (SERVE_JSON_ROWS,), generator=gen, device=device, dtype=torch.int32)
+        out.append([logits.tolist(), labels.tolist()])
+    return out
+
+
+def _readline_within(stream, seconds, what):
+    import select
+
+    ready, _, _ = select.select([stream], [], [], seconds)
+    _require(bool(ready), f"serve: no {what} within {seconds:.0f} s")
+    return stream.readline()
+
+
+def _http_json(address, method, path, body=None):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps({"v": 1, **body}).encode()
+    req = urllib.request.Request(f"http://{address[0]}:{address[1]}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as resp:
+            raw = resp.read()
+            return resp.status, json.loads(raw), len(raw)
+    except urllib.error.HTTPError as err:
+        raw = err.read()
+        return err.code, json.loads(raw), len(raw)
+
+
+class _ServeDaemonProcess:
+    """``python -m torchmetrics_tpu_torch.serve serve --device cuda`` over one
+    base directory; its ready line parsed; killed on exit whatever happens."""
+
+    def __init__(self, root, base_dir):
+        self.root, self.base_dir = root, base_dir
+        self.proc = None
+
+    def start(self):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (self.root, os.environ.get("PYTHONPATH", "")) if p))
+        self.log = open(os.path.join(self.base_dir + ".stderr"), "ab")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "torchmetrics_tpu_torch.serve", "serve", "--base-dir", self.base_dir, "--device", "cuda"],
+            stdout=subprocess.PIPE, stderr=self.log, text=True, cwd=self.root, env=env,
+        )
+        line = _readline_within(self.proc.stdout, SERVE_WAIT_S, "ready line from the daemon")
+        if not line:
+            self.log.flush()
+            with open(self.log.name, "rb") as fh:
+                tail = fh.read()[-2000:].decode(errors="replace")
+            raise SmokeFailure(f"serve: the daemon exited before its ready line; its stderr ends: {tail}")
+        info = json.loads(line)
+        _require(info.get("ok") is True and info.get("pid") == self.proc.pid, f"serve: ready line {info}")
+        self.ready_s = time.perf_counter() - t0
+        self.http, self.socket_path = tuple(info["http"]), info["socket"]
+        return self
+
+    def kill(self, sig):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(sig)
+            try:
+                self.proc.wait(timeout=SERVE_WAIT_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=SERVE_WAIT_S)
+        if self.proc is not None:
+            self.proc.stdout.close()
+            self.log.close()
+        return None if self.proc is None else self.proc.returncode
+
+
+class _SocketClient:
+    """Newline-JSON frames over the daemon's unix-socket ingest plane."""
+
+    def __init__(self, path):
+        import socket
+
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self.sock.settimeout(SERVE_WAIT_S)
+        self.sock.connect(path)
+        self.file = self.sock.makefile("rwb")
+
+    def frame(self, obj):
+        self.file.write(json.dumps({"v": 1, **obj}, separators=(",", ":")).encode() + b"\n")
+        self.file.flush()
+        line = self.file.readline()
+        _require(bool(line), "serve: the daemon closed the ingest socket")
+        return json.loads(line)
+
+    def close(self):
+        self.file.close()
+        self.sock.close()
+
+
+def phase_serve(device, batches, kernels, slice_run, smi):
+    """The serve plane (ROADMAP A13) on the card: see the module docstring, phase 20."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.drift import HeavyHitters
+    from torchmetrics_tpu_torch.ops import KERNELS
+    from torchmetrics_tpu_torch.robustness import guard_counters
+    from torchmetrics_tpu_torch.serve import FleetAggregator, ServeDaemon, decode_state
+    from torchmetrics_tpu_torch.serve.federation import _fold_metric
+    from torchmetrics_tpu_torch.serve.stream import decode_batch
+
+    t_phase = time.perf_counter()
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    out = {}
+    try:
+        # 1) the flagship suite through an in-process Stream at full width:
+        # fused, DeviceFeed, snapshot_every_n=4, numpy batches offered (no JSON)
+        host = [(logits.cpu().numpy(), labels.cpu().numpy()) for logits, labels in batches]
+        expected = _expected_states_plain(batches, device)
+        spec = dict(name="suite", target="chip_smoke:serve_suite", fused=True, use_feed=True, snapshot_every_n=SERVE_EVERY_N)
+        runs = []
+
+        def served():
+            stream = _serve_stream(os.path.join(work, f"suite{len(runs)}", "store"), device, **spec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drained = _serve_drive(stream, host)
+            torch.cuda.synchronize()
+            runs.append((stream, drained, time.perf_counter() - t0))
+
+        _zero(kernels)
+        traced = {}
+        for _ in range(3):  # a trace that lost launches is taken again
+            got = _kernel_launches_traced(served, kernels)
+            traced = {k: max(traced.get(k, 0), n) for k, n in got.items()}
+            if all(n >= NUM_BATCHES for n in traced.values()):
+                break
+        wrapped = _counts(kernels)
+        _require(all(n >= NUM_BATCHES for n in traced.values()),
+                 f"serve stream: K1/K2 launches in the profiler traces {traced}, expected at least {NUM_BATCHES} each")
+        _require(all(n > 0 for n in wrapped.values()), f"serve stream: wrapper counts {wrapped}")
+        served()  # one more run, untraced, for the time
+        stream, drained, served_s = runs[-1]
+        for s, d, _ in runs:
+            _require_states_bitwise(s.evaluator.metric, expected, "serve stream")
+            for key, want in slice_run["values"].items():
+                _require(d["results"][key] == float(want), f"serve stream: {key} {d['results'][key]!r} vs the slice's {float(want)!r}")
+        _require(stream.status()["restarts"] == 0 and stream.dropped == 0, f"serve stream: {stream.status()}")
+        # 1b) a crash loop: the worker dies three times (on batch 5, then twice
+        # on its replay of batch 4) and is rebuilt each time; the rebuilt
+        # evaluators must free the dead ones' states and graph pools
+        from torchmetrics_tpu_torch.robustness import faults
+
+        torch.cuda.synchronize()
+        base_alloc = torch.cuda.memory_allocated()
+        clean = _serve_stream(os.path.join(work, "clean", "store"), device, **spec)
+        _serve_drive(clean, host)
+        torch.cuda.synchronize()
+        clean_alloc = torch.cuda.memory_allocated() - base_alloc
+        crashy_spec = dict(spec, name="crashy", max_restarts=5, poison_threshold=5, backoff_base_s=0.01)
+        with faults.inject(faults.Fault("fail", "serve.worker.crash", after=5, count=3)):
+            crashy = _serve_stream(os.path.join(work, "crashy", "store"), device, **crashy_spec)
+            _serve_drive(crashy, host)
+        torch.cuda.synchronize()
+        crashy_alloc = torch.cuda.memory_allocated() - base_alloc - clean_alloc
+        status = crashy.status()
+        _require(status["restarts"] == 3 and status["circuit"] == "closed" and crashy.dropped == 0
+                 and status["deadletter_depth"] == 0, f"serve crash loop: {status}")
+        _require_states_bitwise(crashy.evaluator.metric, expected, "serve crash loop")
+        _require(crashy_alloc <= 2 * clean_alloc, f"serve crash loop: {crashy_alloc} B held after 3 rebuilds against"
+                                                  f" {clean_alloc} B for a stream that never crashed")
+        runs.extend([(clean, None, None), (crashy, None, None)])
+        print(f"[serve] crash loop: the suite stream's worker killed 3 times mid-stream and rebuilt (fused plan captured"
+              f" anew each time): states bitwise equal to the plain fold, device memory held after the drain"
+              f" {crashy_alloc / 2**20:.1f} MiB against {clean_alloc / 2**20:.1f} MiB for a stream that never crashed; {smi}")
+        out["crash_loop"] = {"clean_mib": clean_alloc / 2**20, "crashy_mib": crashy_alloc / 2**20}
+        suite = serve_suite(device)
+        plan = _fresh_plan(suite, batches)
+        for batch in batches:
+            plan.update(*batch)
+        fused_s = statistics.median(_timed(lambda: [plan.update(*b) for b in batches]) for _ in range(5))
+        samples = NUM_BATCHES * BATCH
+        out["stream"] = {"served_sps": samples / served_s, "served_s": served_s, "fused_sps": samples / fused_s,
+                         "traced": traced, "wrapped": wrapped}
+        print(f"[serve] stream: the suite served in process (fused, DeviceFeed, snapshot_every_n={SERVE_EVERY_N}, numpy"
+              f" offers): {samples / served_s:.1f} samples/s ({served_s * 1e3:.1f} ms from the first offer to the drained"
+              f" result, the plan's capture and the final snapshot included) vs the fused plan's steady pass over the same"
+              f" batches on the card {samples / fused_s:.1f} samples/s; K1/K2 in the profiler {traced}, wrapper counts"
+              f" {wrapped}; states bitwise equal to the plain fold; {smi}")
+
+        # 2) the daemon: a subprocess, the suite created over HTTP, JSON batches
+        # through the socket, SIGKILL after batch 5's ack, restart, replay, drain
+        wire_batches = _json_batches(device)
+        frames = [json.dumps(b) for b in wire_batches]
+        decode_ms = statistics.median(_timed(lambda f=f: decode_batch(json.loads(f))) * 1e3 for f in frames)
+        dspec = {"name": "suite", "target": "chip_smoke:serve_suite", "fused": True,
+                 "snapshot_every_n": SERVE_DAEMON_EVERY_N}
+        ref_stream = _serve_stream(os.path.join(work, "ref", "store"), device, **dspec)
+        for seq, batch in enumerate(wire_batches):
+            _require(bool(ref_stream.offer(seq, batch, block=True, deadline_s=SERVE_WAIT_S).get("ok")), "serve daemon: reference offer")
+        ref_drained = ref_stream.drain(timeout_s=SERVE_WAIT_S)
+        _require(bool(ref_drained.get("ok")), f"serve daemon: reference drain {ref_drained}")
+        ref_state = decode_state(json.loads(json.dumps(ref_stream.export(timeout_s=SERVE_WAIT_S)["state"])))
+        base = os.path.join(work, "daemon")
+        daemon = _ServeDaemonProcess(root_dir, base).start()
+        client = None
+        try:
+            first_ready_s = daemon.ready_s
+            code, reply, _ = _http_json(daemon.http, "POST", "/v1/streams", dspec)
+            _require(code == 200 and reply.get("ok") and reply["next_seq"] == 0, f"serve daemon: create {code} {reply}")
+            client = _SocketClient(daemon.socket_path)
+            t0 = time.perf_counter()
+            for seq in range(SERVE_KILL_AFTER + 1):
+                ack = client.frame({"op": "ingest", "stream": "suite", "seq": seq, "batch": wire_batches[seq],
+                                    "deadline_s": SERVE_WAIT_S})
+                _require(bool(ack.get("ok")) and ack["next_seq"] == seq + 1, f"serve daemon: ack of {seq}: {ack}")
+            ingest_s = time.perf_counter() - t0
+            client.close()
+            client = None
+            rc = daemon.kill(signal.SIGKILL)
+            _require(rc == -signal.SIGKILL, f"serve daemon: SIGKILL left return code {rc}")
+            daemon = _ServeDaemonProcess(root_dir, base).start()
+            restart_s = daemon.ready_s
+            code, status, _ = _http_json(daemon.http, "GET", "/v1/streams/suite")
+            _require(code == 200 and status.get("ok"), f"serve daemon: status after the restart {code} {status}")
+            resumed_at = int(status["next_seq"])
+            _require(0 <= resumed_at <= SERVE_KILL_AFTER + 1 and resumed_at % SERVE_DAEMON_EVERY_N == 0,
+                     f"serve daemon: resumed at {resumed_at}")
+            client = _SocketClient(daemon.socket_path)
+            for seq in range(resumed_at, NUM_BATCHES):
+                ack = client.frame({"op": "ingest", "stream": "suite", "seq": seq, "batch": wire_batches[seq],
+                                    "deadline_s": SERVE_WAIT_S})
+                _require(bool(ack.get("ok")), f"serve daemon: replay ack of {seq}: {ack}")
+            code, got, _ = _http_json(daemon.http, "POST", "/v1/streams/suite/drain")
+            _require(code == 200 and got.get("ok") and got["cursor"] == NUM_BATCHES, f"serve daemon: drain {code} {got}")
+            _require(got["results"] == ref_drained["results"], f"serve daemon: results {got['results']} vs {ref_drained['results']}")
+            code, exported, _ = _http_json(daemon.http, "GET", "/v1/streams/suite/state")
+            _require(code == 200 and exported.get("ok") and exported["watermark"] == NUM_BATCHES, f"serve daemon: export {code}")
+            _require_payloads_bitwise(decode_state(exported["state"])["checkpoint"], ref_state["checkpoint"],
+                                      "serve daemon: drained states against the uninterrupted run")
+            code, health, _ = _http_json(daemon.http, "GET", "/healthz")
+            _require(code == 200, f"serve daemon: /healthz {code} {health}")
+            client.close()
+            client = None
+            rc = daemon.kill(signal.SIGTERM)
+            _require(rc == 0, f"serve daemon: the SIGTERM drain exited {rc}")
+        finally:
+            if client is not None:
+                client.close()
+            daemon.kill(signal.SIGKILL)
+        ingest_sps = (SERVE_KILL_AFTER + 1) * SERVE_JSON_ROWS / ingest_s
+        out["daemon"] = {"decode_ms": decode_ms, "ingest_sps": ingest_sps, "restart_s": restart_s,
+                         "first_ready_s": first_ready_s, "resumed_at": resumed_at}
+        print(f"[serve] daemon: JSON decode {decode_ms:.2f} ms per {SERVE_JSON_ROWS} x {NUM_CLASSES} batch (json.loads +"
+              f" decode_batch, host), socket ingest {ingest_sps:.1f} samples/s over {SERVE_KILL_AFTER + 1} acked batches,"
+              f" ready in {first_ready_s:.2f} s, restart-to-ready {restart_s:.2f} s after SIGKILL, resumed at seq {resumed_at},"
+              f" drained states bitwise equal to the uninterrupted run, /healthz 200; {smi}")
+
+        # 3) the fleet: two port leaf daemons with 4 batches each, one port aggregator
+        leaves, agg = {}, None
+        try:
+            for i in range(2):
+                leaf = ServeDaemon(os.path.join(work, f"leaf{i}"), publish=False, device=device).start()
+                leaves[f"leaf{i}"] = leaf
+                _require(bool(leaf.create_stream(dict(dspec, name="suite", fused=False))["ok"]), "serve fleet: create")
+                for seq, batch in enumerate(wire_batches[4 * i: 4 * i + 4]):
+                    _require(bool(leaf.ingest("suite", seq, batch, block=True, deadline_s=SERVE_WAIT_S).get("ok")), "serve fleet: ingest")
+                _require(bool(leaf.flush("suite").get("ok")), "serve fleet: flush")
+            export_ms, export_bytes = [], 0
+            for leaf in leaves.values():
+                t0 = time.perf_counter()
+                code, _, export_bytes = _http_json(leaf.http_address(), "GET", "/v1/state")
+                export_ms.append((time.perf_counter() - t0) * 1e3)
+                _require(code == 200, f"serve fleet: export {code}")
+            agg = FleetAggregator(os.path.join(work, "agg"), pull_interval_s=3600.0, publish=False, device=device).start()
+            for name, leaf in sorted(leaves.items()):
+                host_, port_ = leaf.http_address()
+                _require(bool(agg.add_leaf(name, f"http://{host_}:{port_}").get("ok")), "serve fleet: add_leaf")
+            agg.pull_now()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = agg.aggregate()
+            torch.cuda.synchronize()
+            fold_ms = (time.perf_counter() - t0) * 1e3
+            _require(not result["errors"] and result["coverage"] == 1.0, f"serve fleet: {result['errors']} {result['coverage']}")
+            # the fold's states, through the aggregator's own fold of its slots
+            folded = None
+            for name in sorted(leaves):
+                slot = agg._slots[name]["suite"]
+                inst = agg._build_loaded(slot["spec"], slot["kind"], slot["payload"]["checkpoint"])
+                if folded is None:
+                    folded = inst
+                    continue
+                members = dict(inst.items(keep_base=True, copy_state=False))
+                for mname, member in folded.items(keep_base=True, copy_state=False):
+                    _fold_metric(member, members[mname])
+            one = serve_suite(device)
+            for batch in wire_batches:
+                one.update(*decode_batch(batch))
+            _require_payloads_bitwise(_suite_checkpoint(folded), _suite_checkpoint(one), "serve fleet: folded states against one fold of all 8")
+            want = one.compute()
+            for key, value in result["streams"]["suite"]["value"].items():
+                _require(abs(value - float(want[key])) <= SERVE_FLEET_ATOL, f"serve fleet: {key} {value} vs {float(want[key])}")
+        finally:
+            if agg is not None:
+                agg.shutdown()
+            for leaf in leaves.values():
+                leaf.shutdown(drain=False)
+        out["fleet"] = {"export_ms": statistics.median(export_ms), "export_bytes": export_bytes, "fold_ms": fold_ms}
+        print(f"[serve] fleet: two leaf daemons x 4 JSON batches, a FleetAggregator on the card: /v1/state export"
+              f" {statistics.median(export_ms):.2f} ms and {export_bytes} B a leaf (HTTP on localhost), aggregate() fold"
+              f" {fold_ms:.2f} ms; integer states bitwise equal to one fold of all 8, values within {SERVE_FLEET_ATOL}; {smi}")
+
+        # 4) the planes: heavy hitters (K3) and per-cohort accuracy (K4, K2s), served and run directly
+        sketch_streams, _ = _sketch_streams(device)
+        tags = sketch_streams["tags"]
+        planes = {}
+        k3 = {"cm_track": KERNELS["cm_track"]}
+        _zero(k3)
+        hh = _serve_stream(os.path.join(work, "hh", "store"), device, name="hh", target=f"{SERVE_FACTORIES}:heavy_hitters")
+        t0 = time.perf_counter()
+        _serve_drive(hh, [(t.cpu().numpy(),) for t in tags])
+        planes["heavy_hitters_s"] = time.perf_counter() - t0
+        planes["k3"] = _counts(k3)["cm_track"]
+        _require(planes["k3"] >= NUM_BATCHES, f"serve planes: K3 launched {planes['k3']} times under the served stream")
+        direct = HeavyHitters(device=device)
+        for t in tags:
+            direct.update(t)
+        _require_payloads_bitwise(hh.evaluator.metric.save_checkpoint(), direct.save_checkpoint(),
+                                  "serve planes: heavy hitters against the metric run directly")
+        # the plan captures its step: replays pass no wrapper, the profiler counts them
+        sliced_k = {name: KERNELS[name] for name in ("slice_assign", "stat_counts_segmented")}
+        keys = _suite_keys(device)
+        sliced_host = [(keys[i].cpu().numpy(), *host[i]) for i in range(NUM_BATCHES)]
+        sliced_runs = []
+
+        def served_sliced():
+            stream = _serve_stream(os.path.join(work, f"sliced{len(sliced_runs)}", "store"), device, name="sliced",
+                                   target=f"{SERVE_FACTORIES}:sliced_accuracy",
+                                   kwargs={"num_classes": NUM_CLASSES, "num_cells": SERVE_CELLS})
+            t0 = time.perf_counter()
+            _serve_drive(stream, sliced_host)
+            torch.cuda.synchronize()
+            sliced_runs.append((stream, time.perf_counter() - t0))
+
+        _zero(sliced_k)
+        traced_s = {}
+        for _ in range(3):  # K4's device kernel is its lookup
+            got = _kernel_launches_traced(served_sliced, ("slice_lookup", "stat_counts_segmented"))
+            got["slice_assign"] = got.pop("slice_lookup")
+            traced_s = {k: max(traced_s.get(k, 0), n) for k, n in got.items()}
+            if all(n >= NUM_BATCHES for n in traced_s.values()):
+                break
+        planes["sliced"], planes["sliced_wrapped"] = traced_s, _counts(sliced_k)
+        sl, planes["sliced_s"] = sliced_runs[-1]
+        _require(all(n >= NUM_BATCHES for n in traced_s.values()) and all(n > 0 for n in planes["sliced_wrapped"].values()),
+                 f"serve planes: K4/K2s under the served stream: profiler {traced_s}, wrappers {planes['sliced_wrapped']}")
+        plan = tm.MulticlassAccuracy(num_classes=NUM_CLASSES, validate_args=False, device=device).sliced(num_cells=SERVE_CELLS)
+        for i, (logits, labels) in enumerate(batches):
+            plan.update(keys[i], logits, labels)
+        _require_payloads_bitwise(sl.evaluator.metric.save_checkpoint(), plan.save_checkpoint(),
+                                  "serve planes: the sliced stream against the plan run directly")
+        out["planes"] = planes
+        print(f"[serve] planes: heavy_hitters over {NUM_BATCHES} x {BATCH} Zipf-like tags {planes['heavy_hitters_s'] * 1e3:.1f} ms"
+              f" (K3 {planes['k3']} launches), sliced_accuracy({NUM_CLASSES} classes, {SERVE_CELLS} cells) over {NUM_BATCHES} x"
+              f" {BATCH} rows {planes['sliced_s'] * 1e3:.1f} ms (K4/K2s in the profiler {planes['sliced']}, wrapper counts"
+              f" {planes['sliced_wrapped']}); drained states bitwise equal to the metrics run directly; {smi}")
+
+        # 5) the guard: guarded_binary_accuracy(policy="mask") over the guard phase's poisoned rows
+        gb, masks = _guard_batches(device, batches)
+        bin_host, filtered = [], tm.BinaryAccuracy(validate_args=False, device=device)
+        want_counts = {"nan_rows": 0, "inf_rows": 0, "domain_rows": 0, "masked_rows": 0, "rejected_batches": 0, "poisoned": 0}
+        for (logits, labels), m in zip(gb, masks):
+            nan_row = torch.from_numpy(m["nan"]).to(device)
+            inf_row = torch.from_numpy(m["inf"]).to(device) & ~nan_row
+            preds = torch.sigmoid(torch.nan_to_num(logits[:, 0]))
+            preds = torch.where(nan_row, float("nan"), torch.where(inf_row, float("inf"), preds))
+            target = torch.where(labels >= NUM_CLASSES, 2, torch.where(labels < 0, -1, labels % 2)).to(torch.int32)
+            p, t = preds.cpu().numpy(), target.cpu().numpy()
+            nan, inf = np.isnan(p), np.isinf(p)
+            dom = (np.isfinite(p) & ((p < 0) | (p > 1))) | ~np.isin(t, (0, 1))
+            bad = nan | inf | dom
+            for key, mask in (("nan_rows", nan), ("inf_rows", inf), ("domain_rows", dom), ("masked_rows", bad)):
+                want_counts[key] += int(mask.sum())
+            bin_host.append((p, t))
+            if not bad.all():
+                filtered.update(torch.from_numpy(p[~bad]).to(device), torch.from_numpy(t[~bad]).to(device))
+        gs = _serve_stream(os.path.join(work, "guard", "store"), device, name="guarded",
+                           target=f"{SERVE_FACTORIES}:guarded_binary_accuracy", kwargs={"policy": "mask"})
+        _serve_drive(gs, bin_host)
+        got_counts = guard_counters(gs.evaluator.metric)
+        _require(got_counts == want_counts, f"serve guard: counters {got_counts} vs numpy {want_counts}")
+        _require(gs.status()["guard"]["rollbacks"] == 0, f"serve guard: {gs.status()['guard']}")
+        for name in ("tp", "fp", "tn", "fn"):
+            _assert_bitwise(getattr(gs.evaluator.metric, name).to(torch.int32), getattr(filtered, name).to(torch.int32),
+                            f"serve guard: {name} against the unguarded metric over the valid rows")
+        out["guard"] = got_counts
+        print(f"[serve] guard: guarded_binary_accuracy(mask) over the poisoned stream: counters {got_counts} equal to"
+              f" numpy's; states bitwise equal to the unguarded metric over the valid rows; {smi}")
+        for s in [hh, gs, ref_stream] + [r[0] for r in runs] + [r[0] for r in sliced_runs]:
+            s.abandon()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[serve] phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5301,6 +5788,7 @@ def main() -> int:
     obs_run = phase_obs(device, batches, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
     durable = phase_durable(device, batches, KERNELS, run, exact, smi)
+    serve = phase_serve(device, batches, KERNELS, run, smi)
     dist_run = phase_dist(run, exact, fused, smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -5357,7 +5845,11 @@ def main() -> int:
         f" ms unguarded/mask/reject/propagate {'/'.join(f'{v['fused']:.3f}' for v in guard['pass_ms'].values())}, row_invalid"
         f" {guard['row_invalid_ms'] * 1e3:.2f} us (bound {guard['row_invalid_bound_ms'] * 1e3:.2f}); obs phase {obs_run['seconds']:.1f} s,"
         f" fused pass {obs_run['pass_ms'][('fused', 'off')]:.3f} ms untraced / {obs_run['pass_ms'][('fused', 'on')]:.3f} traced, jit step"
-        f" {obs_run['step_ms']['off']:.4f} / {obs_run['step_ms']['on']:.4f} ms telemetry off / on;"
+        f" {obs_run['step_ms']['off']:.4f} / {obs_run['step_ms']['on']:.4f} ms telemetry off / on; serve phase"
+        f" {serve['seconds']:.1f} s, served suite {serve['stream']['served_sps']:.1f} samples/s (fused pass"
+        f" {serve['stream']['fused_sps']:.1f}), JSON decode {serve['daemon']['decode_ms']:.2f} ms a batch, socket ingest"
+        f" {serve['daemon']['ingest_sps']:.1f} samples/s, restart-to-ready {serve['daemon']['restart_s']:.2f} s, export"
+        f" {serve['fleet']['export_ms']:.2f} ms ({serve['fleet']['export_bytes']} B), fold {serve['fleet']['fold_ms']:.2f} ms;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

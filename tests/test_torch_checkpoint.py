@@ -617,3 +617,67 @@ def test_load_installs_on_the_metric_device_and_clears_the_mesh_flag():
     dst.load_checkpoint(src.save_checkpoint())
     assert not dst._mesh_replicated
     assert all(t.device == dst.device for t in dst.state_tree().values())
+
+
+# -------------------------------------------- bfloat16 states (ROADMAP C5)
+
+
+def _bf16_pair():
+    """MSE of each package after one float32 batch, then narrowed to bfloat16:
+    its float state holds bfloat16 values that are not all zero."""
+    rng = np.random.default_rng(3)
+    preds, target = rng.standard_normal(32).astype(np.float32), rng.standard_normal(32).astype(np.float32)
+    m, jm = T.MeanSquaredError(device="cpu"), J.MeanSquaredError()
+    m.update(torch.from_numpy(preds), torch.from_numpy(target))
+    jm.update(jnp.asarray(preds), jnp.asarray(target))
+    return m.set_dtype(torch.bfloat16), jm.set_dtype(jnp.bfloat16)
+
+
+def _bits(x):
+    return np.asarray(x).view(np.uint16)
+
+
+def test_bfloat16_checkpoint_crosses_both_ways():
+    """With ``ml_dtypes`` present the port writes a bfloat16 leaf as JAX does
+    (an ``ml_dtypes`` ndarray): JAX's ``load_checkpoint`` reads the port's
+    checkpoint and the port reads JAX's, bit for bit."""
+    from torchmetrics_tpu.robustness.checkpoint import load_checkpoint as j_load
+
+    m, jm = _bf16_pair()
+    ours, theirs = pickle.loads(pickle.dumps(m.save_checkpoint())), pickle.loads(pickle.dumps(jm.save_checkpoint()))
+    leaf = ours["metrics"][""]["state"]["sum_squared_error"]
+    assert leaf.dtype == theirs["metrics"][""]["state"]["sum_squared_error"].dtype and leaf.dtype.name == "bfloat16"
+    np.testing.assert_array_equal(_bits(leaf), _bits(theirs["metrics"][""]["state"]["sum_squared_error"]))
+    assert ours["fingerprint"] == theirs["fingerprint"]
+    fresh_j = J.MeanSquaredError().set_dtype(jnp.bfloat16)
+    j_load(fresh_j, ours)
+    np.testing.assert_array_equal(_bits(np.asarray(fresh_j.sum_squared_error)), _bits(leaf))
+    fresh = T.MeanSquaredError(device="cpu").set_dtype(torch.bfloat16)
+    fresh.load_checkpoint(theirs)
+    assert fresh.sum_squared_error.dtype == torch.bfloat16
+    assert torch.equal(fresh.sum_squared_error.view(torch.int16), m.sum_squared_error.view(torch.int16))
+    assert float(fresh.compute()) == float(m.compute())
+
+
+def test_bfloat16_checkpoint_without_ml_dtypes(monkeypatch):
+    """Without ``ml_dtypes`` (hidden here) a bfloat16 leaf is the port's
+    ``Bfloat16Array``: its dtype name is ``"bfloat16"``, it pickles, and it
+    restores bit for bit; its values are the ones the ``ml_dtypes`` leaf holds."""
+    import sys
+
+    from torchmetrics_tpu_torch.robustness.bf16 import Bfloat16Array
+
+    m, _ = _bf16_pair()
+    with_ml = m.save_checkpoint()["metrics"][""]["state"]["sum_squared_error"]
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    ckpt = pickle.loads(pickle.dumps(m.save_checkpoint()))
+    leaf = ckpt["metrics"][""]["state"]["sum_squared_error"]
+    assert isinstance(leaf, Bfloat16Array) and str(leaf.dtype) == "bfloat16" and leaf.shape == (1,)
+    assert leaf.tolist() == np.asarray(with_ml, np.float32).tolist()
+    np.testing.assert_array_equal(leaf.bits, np.asarray(with_ml).view(np.uint16))
+    fresh = T.MeanSquaredError(device="cpu").set_dtype(torch.bfloat16)
+    fresh.load_checkpoint(ckpt)
+    assert torch.equal(fresh.sum_squared_error.view(torch.int16), m.sum_squared_error.view(torch.int16))
+    # a float32 metric refuses it by name, as it refuses any other dtype
+    with pytest.raises(StateRestoreError, match="bfloat16"):
+        T.MeanSquaredError(device="cpu").load_checkpoint(ckpt)

@@ -168,3 +168,126 @@ def test_dtype_robustness(name, tcls, jcls, args, batches, tol, tdt, jdt):
     scale = max(1.0, float(np.max(np.abs(ref))))
     np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * scale, err_msg=name)
     np.testing.assert_allclose(got, jgot, rtol=tol, atol=tol * scale, err_msg=f"{name} against JAX")
+
+
+# ------------------------------- set_dtype, then float32 inputs (ROADMAP C4)
+#
+# JAX promotes by the dtype lattice alone: a ``(1,)`` bfloat16 state plus a
+# 0-d float32 batch sum is float32. Torch would keep the state narrow. Every
+# exported metric with a float state is narrowed, then fed one float32 batch
+# from a seed; its state dtypes must equal JAX's and its states and value lie
+# within _C4_BUDGET (absolute, scaled by max(1, |reference|)) of JAX's.
+
+_C4_BUDGET = 1e-5
+_C4_N, _C4_C = 32, 5
+_C4_BIN = {"task": "binary"}
+_C4_MC = {"task": "multiclass", "num_classes": _C4_C}
+
+
+def _c4_batch(kind, seed):
+    r = np.random.default_rng(seed)
+    n, c = _C4_N, _C4_C
+    if kind == "prob":
+        return r.random(n).astype(np.float32), r.integers(0, 2, n)
+    if kind == "logit":
+        return r.standard_normal((n, c)).astype(np.float32), r.integers(0, c, n)
+    if kind == "reg":
+        return r.standard_normal(n).astype(np.float32), r.standard_normal(n).astype(np.float32)
+    if kind == "pos":
+        return (r.random(n) + 0.1).astype(np.float32), (r.random(n) + 0.1).astype(np.float32)
+    if kind == "dist":
+        p, q = r.random((n, 6)), r.random((n, 6))
+        return (p / p.sum(1, keepdims=True)).astype(np.float32), (q / q.sum(1, keepdims=True)).astype(np.float32)
+    if kind == "rows":
+        return r.standard_normal((n, 6)).astype(np.float32), r.standard_normal((n, 6)).astype(np.float32)
+    return (r.standard_normal(n).astype(np.float32),)
+
+
+# (exported class, kwargs, input kind) for every exported metric class
+# outside the wrappers: the float-state ones form the sweep below
+_C4_CASES = [
+    ("AUROC", _C4_MC, "logit"), ("Accuracy", _C4_MC, "logit"), ("AveragePrecision", _C4_BIN, "prob"),
+    ("CalibrationError", _C4_BIN, "prob"), ("CalibrationError", _C4_MC, "logit"), ("CohenKappa", _C4_MC, "logit"),
+    ("ConfusionMatrix", _C4_MC, "logit"), ("Dice", {"num_classes": _C4_C}, "logit"), ("ExactMatch", _C4_MC, "logit"),
+    ("F1Score", _C4_MC, "logit"), ("FBetaScore", dict(_C4_MC, beta=2.0), "logit"), ("HammingDistance", _C4_MC, "logit"),
+    ("HingeLoss", _C4_BIN, "prob"), ("HingeLoss", _C4_MC, "logit"), ("JaccardIndex", _C4_MC, "logit"),
+    ("MatthewsCorrCoef", _C4_MC, "logit"), ("NegativePredictiveValue", _C4_MC, "logit"), ("Precision", _C4_MC, "logit"),
+    ("PrecisionAtFixedRecall", dict(_C4_BIN, min_recall=0.5, thresholds=11), "prob"),
+    ("PrecisionRecallCurve", dict(_C4_BIN, thresholds=11), "prob"), ("ROC", dict(_C4_BIN, thresholds=11), "prob"),
+    ("Recall", _C4_MC, "logit"), ("RecallAtFixedPrecision", dict(_C4_BIN, min_precision=0.5, thresholds=11), "prob"),
+    ("SensitivityAtSpecificity", dict(_C4_BIN, min_specificity=0.5, thresholds=11), "prob"),
+    ("Specificity", _C4_MC, "logit"), ("SpecificityAtSensitivity", dict(_C4_BIN, min_sensitivity=0.5, thresholds=11), "prob"),
+    ("StatScores", _C4_MC, "logit"),
+    ("ConcordanceCorrCoef", {}, "reg"), ("CosineSimilarity", {"reduction": "mean"}, "rows"),
+    ("CriticalSuccessIndex", {"threshold": 0.5}, "pos"), ("ExplainedVariance", {}, "reg"), ("KLDivergence", {}, "dist"),
+    ("KendallRankCorrCoef", {}, "reg"), ("LogCoshError", {}, "reg"), ("MeanAbsoluteError", {}, "reg"),
+    ("MeanAbsolutePercentageError", {}, "pos"), ("MeanSquaredError", {}, "reg"), ("MeanSquaredLogError", {}, "pos"),
+    ("MinkowskiDistance", {"p": 3.0}, "reg"), ("PearsonCorrCoef", {}, "reg"), ("R2Score", {}, "reg"),
+    ("RelativeSquaredError", {}, "reg"), ("SpearmanCorrCoef", {}, "reg"), ("SymmetricMeanAbsolutePercentageError", {}, "pos"),
+    ("TweedieDevianceScore", {"power": 1.5}, "pos"), ("WeightedMeanAbsolutePercentageError", {}, "pos"),
+    ("CatMetric", {}, "one"), ("MaxMetric", {}, "one"), ("MinMetric", {}, "one"), ("MeanMetric", {}, "one"),
+    ("SumMetric", {}, "one"), ("RunningMean", {"window": 3}, "one"), ("RunningSum", {"window": 3}, "one"),
+    ("Median", {}, "one"), ("Quantile", {"q": 0.5}, "one"),
+]
+_C4_WRAPPERS = {
+    "BinaryTargetTransformer", "BootStrapper", "ClasswiseWrapper", "CompositionalMetric", "LambdaInputTransformer",
+    "Metric", "MetricInputTransformer", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
+}
+
+
+def _c4_id(case):
+    return case[0] + (f"-{case[1]['task']}" if "task" in case[1] else "")
+
+
+def _c4_leaves(metric, walk):
+    """Every tensor leaf of the deep state, keyed by path."""
+    out = {}
+    for path, m in walk(metric):
+        for key, value in m.state_tree().items():
+            items = value if isinstance(value, list) else ([value] if hasattr(value, "dtype") else list(value))
+            for i, leaf in enumerate(items):
+                out[f"{path}.{key}.{i}"] = leaf
+    return out
+
+
+def _c4_has_float_state(case):
+    from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics
+
+    metric = getattr(T, case[0])(device=CPU, **case[1])
+    return any(leaf.dtype.is_floating_point for leaf in _c4_leaves(metric, _walk_metrics).values())
+
+
+_C4_FLOAT = [case for case in _C4_CASES if _c4_has_float_state(case)]
+
+
+def test_c4_sweep_covers_every_exported_metric():
+    exported = {n for n in T.__all__ if isinstance(getattr(T, n), type) and issubclass(getattr(T, n), Metric)}
+    assert exported - _C4_WRAPPERS == {case[0] for case in _C4_CASES}
+    assert len(_C4_FLOAT) >= 25
+
+
+@pytest.mark.parametrize("case", _C4_FLOAT, ids=[_c4_id(c) for c in _C4_FLOAT])
+@pytest.mark.parametrize("tdt,jdt", [(torch.bfloat16, jnp.bfloat16), (torch.float16, jnp.float16)], ids=["bf16", "f16"])
+def test_set_dtype_then_float32_update_promotes_as_jax(case, tdt, jdt):
+    from torchmetrics_tpu.parallel.sharded import _walk_metrics as jwalk
+    from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics as twalk
+
+    name, kwargs, kind = case
+    batch = _c4_batch(kind, seed=sum(map(ord, name)))
+    m, jm = getattr(T, name)(device=CPU, **kwargs), getattr(J, name)(**kwargs)
+    m.set_dtype(tdt)
+    jm.set_dtype(jdt)
+    m.update(*[torch.from_numpy(a) for a in batch])
+    jm.update(*[jnp.asarray(a) for a in batch])
+    got, want = _c4_leaves(m, twalk), _c4_leaves(jm, jwalk)
+    assert sorted(got) == sorted(want)
+    for key, leaf in got.items():
+        assert str(leaf.dtype).removeprefix("torch.") == str(want[key].dtype), (name, key)
+        if leaf.dtype.is_floating_point:
+            ref = np.asarray(want[key], np.float64)
+            np.testing.assert_allclose(
+                _value(leaf), ref, rtol=0, atol=_C4_BUDGET * max(1.0, float(np.max(np.abs(ref), initial=0.0))),
+                err_msg=f"{name} {key}",
+            )
+    ref = np.asarray(jm.compute(), np.float64)
+    np.testing.assert_allclose(_value(m.compute()), ref, rtol=0, atol=_C4_BUDGET * max(1.0, float(np.max(np.abs(ref)))))

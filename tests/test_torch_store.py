@@ -342,3 +342,29 @@ def test_stores_cross_packages_and_pass_metricdoctor(tmp_path, writer):
     for name, (_, any_store, _, _) in pkgs.items():
         with pytest.warns(Warning, match="step 3"):
             assert any_store(directory).latest()[0] == 2, name
+
+
+@pytest.mark.parametrize("hide_ml_dtypes", [False, True], ids=["ml_dtypes", "no_ml_dtypes"])
+def test_bfloat16_state_snapshots_and_resumes(tmp_path, monkeypatch, hide_ml_dtypes):
+    """A bfloat16 state goes through the store (pickle, CRC, manifest) and a
+    resumed evaluator restores it bit for bit, with or without ``ml_dtypes``
+    (hidden here): ROADMAP C5."""
+    import sys
+
+    from torchmetrics_tpu_torch.robustness import StreamingEvaluator
+
+    if hide_ml_dtypes:
+        monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    rng = np.random.default_rng(9)
+    m = T.MeanSquaredError(device="cpu")
+    m.update(torch.from_numpy(rng.standard_normal(16).astype(np.float32)), torch.zeros(16))
+    m.set_dtype(torch.bfloat16)
+    runner = StreamingEvaluator(m, store=_store(tmp_path))
+    runner.cursor = 1
+    assert runner.snapshot() == 1
+    assert _store(tmp_path).verify()["ok"]
+    fresh = T.MeanSquaredError(device="cpu").set_dtype(torch.bfloat16)
+    resumed = StreamingEvaluator(fresh, store=_store(tmp_path))
+    assert resumed._restore_latest() == 1
+    assert fresh.sum_squared_error.dtype == torch.bfloat16
+    assert torch.equal(fresh.sum_squared_error.view(torch.int16), m.sum_squared_error.view(torch.int16))

@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from torchmetrics_tpu_torch.functional.regression.utils import _check_data_shape_to_num_outputs, _float32_pair
+from torchmetrics_tpu_torch.functional.regression.utils import _check_data_shape_to_num_outputs, _float32_pair, _jnp_add
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _is_concrete
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -42,11 +42,11 @@ def _pearson_corrcoef_update(
     num_obs = preds.shape[0]
 
     total = num_prior + num_obs
-    mx_new = (num_prior * mean_x + torch.sum(preds, dim=0)) / total
-    my_new = (num_prior * mean_y + torch.sum(target, dim=0)) / total
-    var_x = var_x + torch.sum((preds - mx_new) * (preds - mean_x), dim=0)
-    var_y = var_y + torch.sum((target - my_new) * (target - mean_y), dim=0)
-    corr_xy = corr_xy + torch.sum((preds - mx_new) * (target - mean_y), dim=0)
+    mx_new = _jnp_add(num_prior * mean_x, torch.sum(preds, dim=0)) / total
+    my_new = _jnp_add(num_prior * mean_y, torch.sum(target, dim=0)) / total
+    var_x = _jnp_add(var_x, torch.sum((preds - mx_new) * (preds - mean_x), dim=0))
+    var_y = _jnp_add(var_y, torch.sum((target - my_new) * (target - mean_y), dim=0))
+    corr_xy = _jnp_add(corr_xy, torch.sum((preds - mx_new) * (target - mean_y), dim=0))
     return mx_new, my_new, var_x, var_y, corr_xy, total
 
 

@@ -26,6 +26,17 @@ def _jnp_dtype(x: Tensor) -> Tensor:
     return x if narrowed is None else x.to(narrowed)
 
 
+def _jnp_add(a: Tensor, b: Tensor) -> Tensor:
+    """``a + b`` in the dtype ``jnp`` gives it, by the dtype lattice alone.
+
+    Torch lets a 0-d operand lose to a dimensioned one of the same kind, so a
+    ``(1,)`` bfloat16 state plus a 0-d float32 batch sum stays bfloat16;
+    ``jnp`` widens it to float32 (a state narrowed by ``set_dtype``).
+    """
+    common = torch.promote_types(a.dtype, b.dtype)
+    return a.to(common) + b.to(common)
+
+
 def _float32_pair(preds: Any, target: Any) -> Tuple[Tensor, Tensor]:
     """A functional's two inputs as float32 tensors: tensors stay where they
     lie, anything else goes to the card (a CPU caller passes CPU tensors)."""

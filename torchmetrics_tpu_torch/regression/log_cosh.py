@@ -11,6 +11,7 @@ from typing import Any
 import torch
 
 from torchmetrics_tpu_torch.functional.regression.log_cosh import _log_cosh_error_compute, _log_cosh_error_update
+from torchmetrics_tpu_torch.functional.regression.utils import _jnp_add
 from torchmetrics_tpu_torch.metric import Metric
 
 Tensor = torch.Tensor
@@ -38,7 +39,7 @@ class LogCoshError(Metric):
         sum_log_cosh_error, num_obs = _log_cosh_error_update(
             preds.to(torch.float32), target.to(torch.float32), self.num_outputs
         )
-        self.sum_log_cosh_error = self.sum_log_cosh_error + sum_log_cosh_error
+        self.sum_log_cosh_error = _jnp_add(self.sum_log_cosh_error, sum_log_cosh_error)
         self.total = self.total + num_obs
 
     def compute(self) -> Tensor:

@@ -11,7 +11,7 @@ from typing import Any
 import torch
 
 from torchmetrics_tpu_torch.functional.regression.mae import _mean_absolute_error_compute, _mean_absolute_error_update
-from torchmetrics_tpu_torch.functional.regression.utils import _jnp_dtype
+from torchmetrics_tpu_torch.functional.regression.utils import _jnp_add, _jnp_dtype
 from torchmetrics_tpu_torch.metric import Metric
 
 Tensor = torch.Tensor
@@ -37,7 +37,7 @@ class MeanAbsoluteError(Metric):
         """Fold a batch of absolute errors into the state."""
         preds, target = self._inputs(preds, target)
         sum_abs_error, num_obs = _mean_absolute_error_update(_jnp_dtype(preds), _jnp_dtype(target), self.num_outputs)
-        self.sum_abs_error = self.sum_abs_error + sum_abs_error
+        self.sum_abs_error = _jnp_add(self.sum_abs_error, sum_abs_error)
         self.total = self.total + num_obs
 
     def compute(self) -> Tensor:

@@ -13,7 +13,7 @@ from typing import Any
 import torch
 
 from torchmetrics_tpu_torch.functional.regression.mse import _mean_squared_error_compute, _mean_squared_error_update
-from torchmetrics_tpu_torch.functional.regression.utils import _jnp_dtype
+from torchmetrics_tpu_torch.functional.regression.utils import _jnp_add, _jnp_dtype
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.robustness.guard import ArgSpec, DomainContract
 
@@ -51,7 +51,7 @@ class MeanSquaredError(Metric):
         """Fold a batch of squared errors into the state."""
         preds, target = self._inputs(preds, target)
         sum_squared_error, num_obs = _mean_squared_error_update(_jnp_dtype(preds), _jnp_dtype(target), self.num_outputs)
-        self.sum_squared_error = self.sum_squared_error + sum_squared_error
+        self.sum_squared_error = _jnp_add(self.sum_squared_error, sum_squared_error)
         self.total = self.total + num_obs
 
     def compute(self) -> Tensor:

@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from torchmetrics_tpu_torch.functional.regression.r2 import _r2_score_compute, _r2_score_update
+from torchmetrics_tpu_torch.functional.regression.utils import _jnp_add
 from torchmetrics_tpu_torch.metric import Metric
 
 Tensor = torch.Tensor
@@ -57,9 +58,9 @@ class R2Score(Metric):
         """Fold a batch into the streaming sums."""
         preds, target = self._inputs(preds, target)
         sum_squared_obs, sum_obs, rss, num_obs = _r2_score_update(preds.to(torch.float32), target.to(torch.float32))
-        self.sum_squared_error = self.sum_squared_error + sum_squared_obs
-        self.sum_error = self.sum_error + sum_obs
-        self.residual = self.residual + rss
+        self.sum_squared_error = _jnp_add(self.sum_squared_error, sum_squared_obs)
+        self.sum_error = _jnp_add(self.sum_error, sum_obs)
+        self.residual = _jnp_add(self.residual, rss)
         self.total = self.total + num_obs
 
     def compute(self) -> Tensor:

@@ -13,6 +13,7 @@ import torch
 
 from torchmetrics_tpu_torch.functional.regression.r2 import _r2_score_update
 from torchmetrics_tpu_torch.functional.regression.rse import _relative_squared_error_compute
+from torchmetrics_tpu_torch.functional.regression.utils import _jnp_add
 from torchmetrics_tpu_torch.metric import Metric
 
 Tensor = torch.Tensor
@@ -38,9 +39,9 @@ class RelativeSquaredError(Metric):
         """Fold a batch into the streaming sums."""
         preds, target = self._inputs(preds, target)
         sum_squared_obs, sum_obs, rss, num_obs = _r2_score_update(preds.to(torch.float32), target.to(torch.float32))
-        self.sum_squared_obs = self.sum_squared_obs + sum_squared_obs
-        self.sum_obs = self.sum_obs + sum_obs
-        self.sum_squared_error = self.sum_squared_error + rss
+        self.sum_squared_obs = _jnp_add(self.sum_squared_obs, sum_squared_obs)
+        self.sum_obs = _jnp_add(self.sum_obs, sum_obs)
+        self.sum_squared_error = _jnp_add(self.sum_squared_error, rss)
         self.total = self.total + num_obs
 
     def compute(self) -> Tensor:

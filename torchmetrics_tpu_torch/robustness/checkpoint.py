@@ -36,6 +36,7 @@ import torch
 
 from torchmetrics_tpu_torch.obs import counters as _obs_counters
 from torchmetrics_tpu_torch.obs import trace as _obs_trace
+from torchmetrics_tpu_torch.robustness.bf16 import host_bfloat16
 from torchmetrics_tpu_torch.robustness.spec import SKETCH_PAYLOAD_KEY, spec_fingerprint, validate_state_tree
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
@@ -65,11 +66,14 @@ def checkpoint_fingerprint(metric: Any) -> str:
     return hashlib.sha256(json.dumps(canon, separators=(",", ":")).encode()).hexdigest()[:16]
 
 
-def _host_copy(value: torch.Tensor) -> np.ndarray:
+def _host_copy(value: torch.Tensor) -> Any:
     """A tensor as a numpy array of its own: a CPU tensor's ``.numpy()``
     shares the live state's memory, so it is copied; a device tensor's
-    ``.cpu()`` is already a new buffer."""
+    ``.cpu()`` is already a new buffer. numpy has no bfloat16: a bfloat16
+    tensor becomes the host leaf of ``robustness/bf16.py``."""
     value = value.detach()
+    if value.dtype == torch.bfloat16:
+        return host_bfloat16(value)
     if value.device.type == "cpu":
         return value.numpy().copy()
     return value.cpu().numpy()

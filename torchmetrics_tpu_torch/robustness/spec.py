@@ -20,6 +20,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch.robustness.bf16 import BFLOAT16, bfloat16_tensor, is_bfloat16
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, sketch_state_class
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
 
@@ -42,6 +43,8 @@ def _dtype_name(dtype: Any) -> str:
     """A torch or numpy dtype by its numpy name (``torch.int32`` -> ``"int32"``)."""
     if isinstance(dtype, torch.dtype):
         return str(dtype).removeprefix("torch.")
+    if str(dtype) == BFLOAT16:  # ml_dtypes' or the port's own host bfloat16
+        return BFLOAT16
     return np.dtype(dtype).name
 
 
@@ -245,7 +248,7 @@ def validate_state_tree(metric: Any, tree: Dict[str, Any], strict: bool = True) 
 def _numeric(value: Any, name: str, cls: str) -> Any:
     """``value`` as a tensor or a numeric numpy array; anything else (an
     object array, a string) is a corrupted leaf."""
-    if isinstance(value, torch.Tensor):
+    if isinstance(value, torch.Tensor) or is_bfloat16(value):
         return value
     value = value if isinstance(value, np.ndarray) else np.asarray(value)
     if value.dtype.kind not in "biufc":
@@ -261,4 +264,6 @@ def _owned_tensor(value: Any, device: torch.device) -> torch.Tensor:
     """
     if isinstance(value, torch.Tensor):
         return value.detach().to(device, copy=True)
+    if is_bfloat16(value):
+        return bfloat16_tensor(value, device)
     return torch.tensor(np.array(value, copy=True), device=device)
