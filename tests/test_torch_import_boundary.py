@@ -85,7 +85,7 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_turns.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_no_jax(path):

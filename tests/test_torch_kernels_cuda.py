@@ -23,7 +23,8 @@ tracker) and metric arithmetic on the card compute what they compute on the
 CPU, with K1 and K2 launching under them; a card metric plots what a CPU
 one plots (matplotlib, where installed).
 The sketch plane on the card equals it on the CPU; K3 (the Count-Min
-table's scan) equals its loop bitwise, and the one-metric step of
+table's scan) equals its loop bitwise, filtered or not, with its counters
+equal to the host's trace of its filters, and the one-metric step of
 ``make_jit_update`` captures and equals eager updates. K4 (the slice
 table), K2s and K1s (the segmented stat counts and binned curve state) equal
 their plain versions bitwise (also at the StateGuard's one-cell shape), and
@@ -773,26 +774,74 @@ def test_two_ranks_share_the_card_through_gloo(card, tmp_path):
         assert f"rank {rank}: card sync checks passed" in out, out
 
 
-@pytest.mark.parametrize("n", [1, 33, 5000])
+def _cm_track_case(case, n, k, rng):
+    """Tags, estimates and a starting table for K3. ``random``: Zipf-like
+    tags with an estimate drawn per occurrence (a tag with two estimates:
+    the kernel keeps every tag); ``zipf_empty``/``zipf_filled``: the sketch
+    stream's shape, one estimate per tag (the filters keep first occurrences
+    above the minimum); ``adversarial``: every tag distinct, estimates
+    strictly increasing, so every tag is admitted; ``live_duplicate`` and
+    ``negative_count``: tables that break the filter's preconditions."""
+    if case == "random":
+        tags = (rng.zipf(1.3, n) % 5000).astype(np.int32) - 2500
+        ests = rng.integers(0, 60, n).astype(np.int32)
+    elif case == "adversarial":
+        tags = rng.permutation(n).astype(np.int32) * 7919 - 2**30
+        ests = np.arange(1, n + 1, dtype=np.int32)
+    else:
+        tags = (np.floor(np.exp(rng.random(n) * np.log(1e6))) - 1).astype(np.int32)
+        ests = (np.bincount(tags, minlength=1_000_000)[tags] + rng.integers(0, 3, 1_000_000)[tags]).astype(np.int32)
+    keys = rng.integers(0, 2**32, k, dtype=np.int64)
+    counts = rng.integers(0, 3, k).astype(np.int32)
+    if case == "zipf_empty":
+        keys[:], counts[:] = 0, 0
+    elif case in ("zipf_filled", "live_duplicate", "negative_count"):
+        keys[: min(k, 8)] = np.argsort(-np.bincount(tags))[: min(k, 8)]  # the hottest keys already tracked
+        counts = rng.integers(1, 40, k).astype(np.int32)
+        if case == "live_duplicate" and k > 1:
+            keys[k - 1] = keys[0]
+        if case == "negative_count":
+            counts[k // 2] = -1
+    return [torch.from_numpy(tags), torch.from_numpy(ests), torch.from_numpy(keys).to(torch.uint32), torch.from_numpy(counts)]
+
+
+@pytest.mark.parametrize(
+    "n, case",
+    [(1, "random"), (33, "random"), (5000, "random")]
+    + [(65536, c) for c in ("zipf_empty", "zipf_filled", "adversarial", "live_duplicate", "negative_count")],
+)
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 1024])
-def test_cm_track_matches_plain(card, k, n):
-    """K3 against the scan as a loop, bitwise, on Zipf-like tags (hot keys
-    that get tracked, a long tail that competes for the minimum slot), from a
-    table that already holds some keys; the launch counter moves."""
-    from torchmetrics_tpu_torch.ops import cm_track, cm_track_plain
+def test_cm_track_matches_plain(card, k, n, case):
+    """K3 against the scan as a loop, bitwise: Zipf-like tags (hot keys that
+    get tracked, a long tail that competes for the minimum slot), from an
+    empty table and from one that already holds keys; every tag admitted;
+    tables and estimates that break the filter's preconditions. The kernel's
+    counters (the mode, the tile filters' survivors, the steps run) equal
+    the host's trace of the same filters; one launch a call."""
+    from torchmetrics_tpu_torch.ops import cm_track
+    from torchmetrics_tpu_torch.ops.cm_track import cm_track_stats
 
     rng = np.random.default_rng(k * 7 + n)
-    tags = torch.from_numpy((rng.zipf(1.3, n) % 5000).astype(np.int32) - 2500)
-    ests = torch.from_numpy(rng.integers(0, 60, n).astype(np.int32))
-    keys = torch.from_numpy(rng.integers(0, 2**32, k, dtype=np.int64)).to(torch.uint32)
-    counts = torch.from_numpy(rng.integers(0, 3, k).astype(np.int32))
-    want = cm_track_plain(tags, ests, keys, counts)
+    n = min(n, 16384) if k == 1024 else n  # the host loop is O(n k)
+    args = _cm_track_case(case, n, k, rng)
+    if case == "live_duplicate" and k == 1:
+        args[3][0] = -1  # one slot holds no duplicate: break the other precondition
+    *want, want_stats = cm_track_stats(*args)  # on the host: cm_track_plain, and the filters' trace
     before = cm_track.launches
-    got = cm_track(tags.to(card), ests.to(card), keys.to(card), counts.to(card))
+    *got, stats = cm_track_stats(*(a.to(card) for a in args))
     torch.cuda.synchronize()
     assert cm_track.launches == before + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu().to(torch.int64), w.to(torch.int64))
+    assert stats.cpu().tolist() == want_stats.tolist()
+    if case in ("live_duplicate", "negative_count") or (case == "random" and n > 1):
+        assert stats[0].item() == 0 and stats[2].item() == n  # the unfiltered mode steps every tag
+    if case in ("zipf_empty", "zipf_filled"):
+        assert stats[0].item() == 1 and stats[1].item() < n
+    got = cm_track(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert cm_track.launches == before + 2
+    assert all(torch.equal(g.cpu().to(torch.int64), w.to(torch.int64)) for g, w in zip(got, want))
 
 
 def test_sketch_plane_on_the_card_equals_cpu(card):
@@ -941,34 +990,60 @@ def test_stat_counts_segmented_matches_plain(card, mode, num_classes, ignore_ind
     assert torch.equal(got.cpu(), want)
 
 
+def _segmented_cells(layout, n, num_cells, rng):
+    """(n,) int32 cells: ``random`` (a few rows dropped), ``all_dropped``,
+    ``none_dropped``, ``skewed`` (one cell holds 90% of the rows), ``big_cell``
+    (131,072 rows, more than a 16-bit count, in cell 0)."""
+    if layout == "random":
+        return rng.integers(-1, num_cells, n).astype(np.int32)
+    if layout == "all_dropped":
+        return np.full(n, -1, np.int32)
+    if layout == "none_dropped":
+        return rng.integers(0, num_cells, n).astype(np.int32)
+    if layout == "skewed":
+        return np.where(rng.random(n) < 0.9, num_cells // 2, rng.integers(-1, num_cells, n)).astype(np.int32)
+    cells = rng.integers(-1, num_cells, n).astype(np.int32)
+    cells[:131072] = 0
+    return cells
+
+
+@pytest.mark.parametrize("layout", ["random", "all_dropped", "none_dropped", "skewed", "big_cell"])
+@pytest.mark.parametrize("num_cells", [1, 33])
 @pytest.mark.parametrize("len_t", [5, 128, 13000])
 @pytest.mark.parametrize("labels", [True, False], ids=["labels", "matrix"])
-def test_binned_curve_state_segmented_matches_plain(card, labels, len_t):
+def test_binned_curve_state_segmented_matches_plain(card, labels, len_t, num_cells, layout):
     """K1s against its plain version: NaN/inf probabilities, masked targets,
-    cells of -1 dropped; thresholds in shared and in global memory; bitwise."""
+    cells of -1 dropped; one cell (K1 with a row mask) and many (the sort
+    and the cell-run count); all, no and 90% of the rows in one cell, and
+    131,072 rows in one cell; thresholds in shared and in global memory,
+    with and without the affine bin index; bitwise, one launch a call."""
     from torchmetrics_tpu_torch.ops import binned_curve_state_segmented, binned_curve_state_segmented_plain
 
     rng = np.random.default_rng(45)
-    n, k, num_cells = 3001, 7, 33
+    n = 140000 if layout == "big_cell" else 3001
+    k = 7 if len_t == 5 else 8
     p = rng.random((n, k)).astype(np.float32)
     p.reshape(-1)[:5] = [np.nan, np.inf, -np.inf, -0.5, 1.5]
     thr = _linspace_like_jax(0.0, 1.0, len_t, device=card)
     target = rng.integers(-1, k + 1, n if labels else (n, k)).astype(np.int32)
-    cells = rng.integers(-1, num_cells, n).astype(np.int32)
+    cells = _segmented_cells(layout, n, num_cells, rng)
     args = [torch.from_numpy(a) for a in (p, target, cells)]
-    before = binned_curve_state_segmented.launches
-    got = binned_curve_state_segmented(args[0].to(card), thr, args[1].to(card), labels, args[2].to(card), num_cells)
     want = binned_curve_state_segmented_plain(args[0], thr.cpu(), args[1], labels, args[2], num_cells)
-    torch.cuda.synchronize()
-    assert binned_curve_state_segmented.launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    for affine in (None, _uniform_grid(len_t)):
+        before = binned_curve_state_segmented.launches
+        got = binned_curve_state_segmented(args[0].to(card), thr, args[1].to(card), labels, args[2].to(card), num_cells, affine)
+        torch.cuda.synchronize()
+        assert binned_curve_state_segmented.launches == before + 1
+        assert torch.equal(got.cpu(), want), affine
 
 
+@pytest.mark.parametrize("rows", ["guard", "all_dropped", "none_dropped", "rows_131072"])
 @pytest.mark.parametrize("kernel", ["k2s", "k1s"])
-def test_guard_mask_one_cell_matches_plain(card, kernel):
+def test_guard_mask_one_cell_matches_plain(card, kernel, rows):
     """The StateGuard's mask shape: ``num_cells=1``, invalid rows as cell -1
-    (``where(invalid_row, -1, 0)``), at the flagship width; K2s and K1s
-    bitwise against their plain versions."""
+    (``where(invalid_row, -1, 0)``), at the flagship width: 1.5% of the rows
+    invalid, all of them, none, and 131,072 rows (more than a 16-bit count);
+    K2s and K1s bitwise against their plain versions."""
     from torchmetrics_tpu_torch.ops import (
         binned_curve_state_segmented,
         binned_curve_state_segmented_plain,
@@ -977,10 +1052,10 @@ def test_guard_mask_one_cell_matches_plain(card, kernel):
     )
 
     rng = np.random.default_rng(47)
-    n, c = 65536, 64
+    n, c = 131072 if rows == "rows_131072" else 65536, 64
     preds = rng.standard_normal((n, c)).astype(np.float32)
     target = rng.integers(0, c, n).astype(np.int64)
-    invalid = rng.random(n) < 0.015
+    invalid = {"all_dropped": np.ones(n, bool), "none_dropped": np.zeros(n, bool)}.get(rows, rng.random(n) < 0.015)
     cells = torch.from_numpy(np.where(invalid, -1, 0).astype(np.int32))
     if kernel == "k2s":
         args = (torch.from_numpy(preds), torch.from_numpy(target))
@@ -993,7 +1068,7 @@ def test_guard_mask_one_cell_matches_plain(card, kernel):
         thr = _linspace_like_jax(0.0, 1.0, 128, device=card)
         tgt = torch.from_numpy(target.astype(np.int32))
         before = binned_curve_state_segmented.launches
-        got = binned_curve_state_segmented(probs.to(card), thr, tgt.to(card), True, cells.to(card), 1)
+        got = binned_curve_state_segmented(probs.to(card), thr, tgt.to(card), True, cells.to(card), 1, _uniform_grid(128))
         want = binned_curve_state_segmented_plain(probs, thr.cpu(), tgt, True, cells, 1)
         launches = binned_curve_state_segmented.launches - before
     torch.cuda.synchronize()

@@ -101,7 +101,14 @@ class _AbstractCurveMetric(Metric):
         per_row = preds.shape[0] // rows if rows else 0
         cells = cells[:, None].expand(rows, per_row).reshape(-1)  # each row's cell, for each of its entries
         state = _binned_curve_state(
-            preds, target, self.thresholds, labels=labels, ascending=self._thresholds_ascend, cells=cells, num_cells=num_cells
+            preds,
+            target,
+            self.thresholds,
+            labels=labels,
+            ascending=self._thresholds_ascend,
+            affine=self._thresholds_affine,
+            cells=cells,
+            num_cells=num_cells,
         )
         return {"confmat": state.reshape((num_cells, *self.confmat.shape))}
 

@@ -67,6 +67,8 @@
 //   fits its histogram in 100 KB of shared memory, the blocks count with
 //   atomics straight into the global histogram, and where the thresholds
 //   exceed 48 KB they are read from global memory.
+// - A row mask, for K1s at one cell: where `cells` is given, a row of cell
+//   -1 counts nowhere (K1's own entry passes none).
 // Launches on the caller's stream, allocates nothing (the caller zeroes the
 // scratch: the global histogram and one ticket per column tile) and returns
 // the launch's error.
@@ -77,14 +79,35 @@
 // with cell -1 is dropped), in both target modes. Replaces JAX's per-row
 // vmap of _binned_curve_state followed by segment_sum over the cells
 // (torchmetrics_tpu/parallel/sliced.py ::_row_states and ::_segment_reduce),
-// whose (N, T, K, 2, 2) row states the card never holds. Bound: bytes, p
-// and the labels read once and the (num_cells, T, K, 2, 2) state written
-// once. Design: one thread per entry (neighbouring threads on neighbouring
-// columns of a row), the bin by a binary search over the thresholds in
-// shared memory, one global atomic into a zeroed (num_cells, T+1, K, 2)
-// histogram (a cell's histogram is too large to keep per block); a second
-// launch takes each (cell, column, y) prefix over the bins and writes
-// below / total - below.
+// whose (N, T, K, 2, 2) row states the card never holds; the StateGuard's
+// mask calls it with one cell and its refused rows as cell -1
+// (robustness/guard.py ::_mask_apply).
+// Bound: bytes, p and the labels (and cells) read once and the
+// (num_cells, T, K, 2, 2) state written once: 16.8 MB + 0.5 MB + 33.6 MB at
+// 65536 x 64, T = 128 into 256 cells, 15.2 us at 3.35 TB/s; at one cell
+// the state is 0.26 MB and the bound 5.2 us, K1's.
+// Design:
+// - One cell: K1 itself, with the cells as a row mask (a row of cell -1
+//   counts nowhere): the packed shared histogram, K1's grid, its epilogue
+//   writing the state. No sort, no prefix launch.
+// - More cells (up to 4096), where K1's histogram fits shared memory: a
+//   counting sort of the row indices by cell in two launches (each block of
+//   4096 rows counts its cells in shared memory; then each block takes its
+//   places from those counts and scatters its rows into order[] through
+//   shared cursors, cell -1 dropping out; no global atomics, which queue on
+//   a few hot counters), then a fixed grid of (blocks, column
+//   tiles), the same for every batch of a shape, walks order[] in equal
+//   ranges of at most 65535 rows. Each block counts its range into K1's
+//   packed (T+1) x tw histogram in shared memory, with K1's affine or
+//   searched bin index, and adds the non-zero bins into the cell's global
+//   (T+1, K, 2) histogram, one 64-bit atomic per bin, whenever the cell
+//   changes in its range and at its end. A prefix launch, one thread per
+//   (cell, column, y), then writes below / total - below. The prefix stays a
+//   launch of its own: a block's range spans several cells, and a cell's
+//   bins come from several blocks, so no block knows when a cell is whole.
+// - Thresholds too many for the shared histogram (K1's 100 KB limit), or
+//   more than 4096 cells: one thread per entry, the bin by binary search,
+//   one global atomic into the zeroed histogram, then the prefix launch.
 #include <math_constants.h>
 
 #include <algorithm>
@@ -144,7 +167,8 @@ struct Shape {
 template <int VEC, bool LABELS, bool UNIFORM, bool HIST_SMEM, bool THR_SMEM>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) binned_curve_state_kernel(
     const float* __restrict__ p, const float* __restrict__ thr_global, const void* __restrict__ target_raw,
-    int target64, Shape s, int* __restrict__ g_hist, unsigned* __restrict__ tickets, int* __restrict__ state) {
+    int target64, const int* __restrict__ cells, Shape s, int* __restrict__ g_hist, unsigned* __restrict__ tickets,
+    int* __restrict__ state) {
   extern __shared__ int smem[];
   __shared__ int2 s_seg[kThreads];  // the epilogue's per-segment sums
   __shared__ bool s_last;
@@ -189,6 +213,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) binned_curve_state_ker
           if (VEC == 4) vals[u] = __ldcs(reinterpret_cast<const float4*>(src));
           else vals[u].x = __ldcs(src);
           lab[u] = !LABELS ? 0 : min(target64 ? static_cast<int>(t64[row]) : t32[row], K - 1);
+          if (cells != nullptr && cells[row] < 0) lab[u] = -1;  // K1s at one cell: a dropped row
         }
       }
 #pragma unroll
@@ -291,8 +316,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) binned_curve_state_ker
 }
 
 template <int VEC, bool LABELS, bool UNIFORM, bool HIST_SMEM, bool THR_SMEM>
-cudaError_t launch(const float* p, const float* thr, const void* target, int target64, Shape s, int* scratch,
-                   int* state, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const float* p, const float* thr, const void* target, int target64, const int* cells, Shape s,
+                   int* scratch, int* state, size_t smem, cudaStream_t stream) {
   auto kernel = binned_curve_state_kernel<VEC, LABELS, UNIFORM, HIST_SMEM, THR_SMEM>;
   static LaunchCache cache[kMaxDevices] = {};
   int sms = 0;
@@ -309,14 +334,14 @@ cudaError_t launch(const float* p, const float* thr, const void* target, int tar
   s.rows_per_block = (s.n + per_tile - 1) / per_tile;
   int* g_hist = scratch;
   auto* tickets = reinterpret_cast<unsigned*>(scratch + static_cast<long long>(s.T + 1) * s.K * 2);
-  kernel<<<dim3(static_cast<unsigned>(per_tile), tiles, 1), kThreads, smem, stream>>>(p, thr, target, target64, s, g_hist,
-                                                                                    tickets, state);
+  kernel<<<dim3(static_cast<unsigned>(per_tile), tiles, 1), kThreads, smem, stream>>>(p, thr, target, target64, cells, s,
+                                                                                    g_hist, tickets, state);
   return cudaGetLastError();
 }
 
 template <int VEC, bool LABELS, bool UNIFORM>
-cudaError_t dispatch_smem(const float* p, const float* thr, const void* target, int target64, Shape s, int* scratch,
-                          int* state, cudaStream_t stream) {
+cudaError_t dispatch_smem(const float* p, const float* thr, const void* target, int target64, const int* cells, Shape s,
+                          int* scratch, int* state, cudaStream_t stream) {
   // the widest tile (a power of two, up to kMaxTile columns) whose packed
   // histogram fits beside the thresholds; none fits: global memory
   const size_t thr_bytes = (static_cast<size_t>(s.T) + 3) * sizeof(float);  // padded with three NaN
@@ -324,29 +349,236 @@ cudaError_t dispatch_smem(const float* p, const float* thr, const void* target, 
     const size_t hist_bytes = (static_cast<size_t>(s.T) + 1) * ((1u << ltw) + 1) * sizeof(unsigned);
     if (thr_bytes + hist_bytes <= kHistSmemLimit) {
       s.ltw = ltw;
-      return launch<VEC, LABELS, UNIFORM, true, true>(p, thr, target, target64, s, scratch, state,
+      return launch<VEC, LABELS, UNIFORM, true, true>(p, thr, target, target64, cells, s, scratch, state,
                                                       thr_bytes + hist_bytes, stream);
     }
   }
   if (thr_bytes <= kDefaultSmem)
-    return launch<VEC, LABELS, UNIFORM, false, true>(p, thr, target, target64, s, scratch, state, thr_bytes, stream);
-  return launch<VEC, LABELS, UNIFORM, false, false>(p, thr, target, target64, s, scratch, state, 0, stream);
+    return launch<VEC, LABELS, UNIFORM, false, true>(p, thr, target, target64, cells, s, scratch, state, thr_bytes, stream);
+  return launch<VEC, LABELS, UNIFORM, false, false>(p, thr, target, target64, cells, s, scratch, state, 0, stream);
 }
 
 template <int VEC>
 cudaError_t dispatch_mode(const float* p, const float* thr, const void* target, int target64, int labels, int uniform,
-                          Shape s, int* scratch, int* state, cudaStream_t stream) {
+                          const int* cells, Shape s, int* scratch, int* state, cudaStream_t stream) {
   if (labels) {
-    return uniform ? dispatch_smem<VEC, true, true>(p, thr, target, target64, s, scratch, state, stream)
-                   : dispatch_smem<VEC, true, false>(p, thr, target, target64, s, scratch, state, stream);
+    return uniform ? dispatch_smem<VEC, true, true>(p, thr, target, target64, cells, s, scratch, state, stream)
+                   : dispatch_smem<VEC, true, false>(p, thr, target, target64, cells, s, scratch, state, stream);
   }
-  return uniform ? dispatch_smem<VEC, false, true>(p, thr, target, target64, s, scratch, state, stream)
-                 : dispatch_smem<VEC, false, false>(p, thr, target, target64, s, scratch, state, stream);
+  return uniform ? dispatch_smem<VEC, false, true>(p, thr, target, target64, cells, s, scratch, state, stream)
+                 : dispatch_smem<VEC, false, false>(p, thr, target, target64, cells, s, scratch, state, stream);
+}
+
+// K1 in one launch (the shape's tile width, float4 loads where they may be used).
+cudaError_t binned_curve_state_launch(const void* p, const void* thr, const void* target, int target64, int labels,
+                                      const int* cells, long long n, int k, int t, int uniform, float lo, float scale,
+                                      int vec4, void* scratch, void* state, cudaStream_t stream) {
+  int ltw = 0;
+  while ((1 << ltw) < kMaxTile && (1 << ltw) < k) ++ltw;
+  Shape s{n, k, t, ltw, 0, lo, scale};
+  const auto* p_ = static_cast<const float*>(p);
+  const auto* thr_ = static_cast<const float*>(thr);
+  auto* scratch_ = static_cast<int*>(scratch);
+  auto* state_ = static_cast<int*>(state);
+  if (vec4 && ltw >= 2)
+    return dispatch_mode<4>(p_, thr_, target, target64, labels, uniform, cells, s, scratch_, state_, stream);
+  return dispatch_mode<1>(p_, thr_, target, target64, labels, uniform, cells, s, scratch_, state_, stream);
 }
 
 // ------------------------------------------------------------ segmented mode
 
 constexpr int kSegThreads = 256;
+constexpr int kSortThreads = 256;
+constexpr int kSortRows = 4096;       // rows per block of the counting sort
+constexpr int kMaxSortCells = 4096;   // cells the sort's shared counters hold
+constexpr int kSortPerThread = kSortRows / kSortThreads;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// Row u of this thread in its block's range of the counting sort.
+__device__ __forceinline__ long long row_of(int u) {
+  return static_cast<long long>(blockIdx.x) * kSortRows + threadIdx.x + static_cast<long long>(u) * kSortThreads;
+}
+
+// The cells of this thread's rows, all loads issued at once (-1 past n).
+__device__ __forceinline__ void load_cells(const int* __restrict__ cells, long long n, int (&c)[kSortPerThread]) {
+#pragma unroll
+  for (int u = 0; u < kSortPerThread; ++u) c[u] = row_of(u) < n ? cells[row_of(u)] : -1;
+}
+
+// Counting sort, step 1: the rows of each cell in each block's range of
+// kSortRows rows (cell -1 drops out), counted in shared memory; written to
+// counts[cell * blocks + block].
+__global__ void __launch_bounds__(kSortThreads) cell_count_kernel(const int* __restrict__ cells, long long n, int num_cells,
+                                                                  int* __restrict__ counts) {
+  __shared__ int s_count[kMaxSortCells];
+  int cell[kSortPerThread];
+  load_cells(cells, n, cell);
+  for (int c = threadIdx.x; c < num_cells; c += blockDim.x) s_count[c] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kSortPerThread; ++u) {
+    if (cell[u] >= 0) atomicAdd(&s_count[cell[u]], 1);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < num_cells; c += blockDim.x) counts[static_cast<long long>(c) * gridDim.x + blockIdx.x] = s_count[c];
+}
+
+// Counting sort, step 2: each block finds its place in each cell (the rows
+// of the cells before it, all blocks, plus the cell's rows in the blocks
+// before it) from the counts, then writes its rows' indices into order[],
+// each at a place taken from a shared cursor (rows keep no order inside a
+// cell: the counts do not need one). Block 0 writes each cell's offset and,
+// at offsets[num_cells], every kept row.
+__global__ void __launch_bounds__(kSortThreads) cell_scatter_kernel(const int* __restrict__ cells, long long n, int num_cells,
+                                                                    const int* __restrict__ counts,
+                                                                    int* __restrict__ offsets, int* __restrict__ order) {
+  __shared__ int s_cursor[kMaxSortCells];
+  __shared__ int s_total[kMaxSortCells];
+  __shared__ int s_warp[kSortThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int cell[kSortPerThread];
+  load_cells(cells, n, cell);  // in flight while the places are worked out
+  const int per = (num_cells + blockDim.x - 1) / blockDim.x;  // a thread's cells, contiguous
+  const int c0 = threadIdx.x * per, c1 = min(num_cells, c0 + per);
+  int sum = 0;
+  for (int c = c0; c < c1; ++c) {
+    const int* row = counts + static_cast<long long>(c) * gridDim.x;
+    int total = 0, before = 0;
+#pragma unroll 8
+    for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {
+      const int v = row[b];
+      total += v;
+      before += b < static_cast<int>(blockIdx.x) ? v : 0;
+    }
+    s_cursor[c] = before;
+    s_total[c] = total;
+    sum += total;
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kSortThreads / 32 ? s_warp[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(kFullMask, w, off);
+      if (lane >= off) w += u;
+    }
+    if (lane < kSortThreads / 32) s_warp[lane] = w;
+  }
+  __syncthreads();
+  int run = (warp ? s_warp[warp - 1] : 0) + incl - sum;  // the rows of the cells before c0
+  for (int c = c0; c < c1; ++c) {
+    if (blockIdx.x == 0) offsets[c] = run;
+    s_cursor[c] += run;
+    run += s_total[c];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) offsets[num_cells] = s_warp[kSortThreads / 32 - 1];
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kSortPerThread; ++u) {
+    if (cell[u] >= 0) order[atomicAdd(&s_cursor[cell[u]], 1)] = static_cast<int>(row_of(u));
+  }
+}
+
+// The count over rows grouped by cell: block (x, y) walks positions
+// [x * rows_per_block, ...) of order[] for the column tile y, counting into
+// K1's packed histogram in shared memory, and adds its non-zero bins into
+// the cell's global histogram (one 64-bit atomic a bin) each time the cell
+// changes in its range and at its end. A range holds at most 65535 rows, so
+// a 16-bit half never overflows.
+template <int VEC, bool LABELS, bool UNIFORM>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) binned_curve_cells_kernel(
+    const float* __restrict__ p, const float* __restrict__ thr_global, const void* __restrict__ target_raw,
+    int target64, const int* __restrict__ cells, const int* __restrict__ offsets, const int* __restrict__ order,
+    int num_cells, Shape s, int* __restrict__ g_hist) {
+  extern __shared__ int smem[];
+  const int K = s.K, T = s.T, tw = 1 << s.ltw;
+  float* s_thr = reinterpret_cast<float*>(smem);
+  unsigned* s_hist = reinterpret_cast<unsigned*>(smem + T + 3);
+  const int stride = tw + 1;
+  const int n_bins = (T + 1) << s.ltw;
+  for (int i = threadIdx.x; i < T + 3; i += blockDim.x) s_thr[i] = i < T ? thr_global[i] : CUDART_NAN_F;
+  for (int i = threadIdx.x; i < (T + 1) * stride; i += blockDim.x) s_hist[i] = 0u;
+  __syncthreads();
+  const auto* t32 = static_cast<const int*>(target_raw);
+  const auto* t64 = static_cast<const long long*>(target_raw);
+
+  const int col0 = blockIdx.y << s.ltw;
+  const int lvpr = s.ltw - (VEC == 4 ? 2 : 0);
+  const int c_first = col0 + (threadIdx.x & ((1 << lvpr) - 1)) * VEC;
+  const int rows_per_step = blockDim.x >> lvpr;
+  const long long kept = offsets[num_cells];
+  const long long r_begin = static_cast<long long>(blockIdx.x) * s.rows_per_block;
+  const long long r_end = min(kept, r_begin + s.rows_per_block);
+  long long seg = r_begin;
+  int cell = seg < r_end ? cells[order[seg]] : 0;
+  while (seg < r_end) {
+    const long long seg_end = min(r_end, static_cast<long long>(offsets[cell + 1]));
+    if (c_first < K) {
+      for (long long r0 = seg + (threadIdx.x >> lvpr); r0 < seg_end; r0 += static_cast<long long>(rows_per_step) * kUnroll) {
+        long long row[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long at = r0 + static_cast<long long>(u) * rows_per_step;
+          row[u] = at < seg_end ? order[at] : -1;
+        }
+        float4 vals[kUnroll];
+        int lab[kUnroll];  // labels: the clipped class index, -1 masks the row
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          lab[u] = -1;
+          vals[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (row[u] >= 0) {
+            const float* src = p + row[u] * K + c_first;
+            if (VEC == 4) vals[u] = __ldcs(reinterpret_cast<const float4*>(src));
+            else vals[u].x = __ldcs(src);
+            lab[u] = !LABELS ? 0 : min(target64 ? static_cast<int>(t64[row[u]]) : t32[row[u]], K - 1);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (lab[u] < 0) continue;
+          const float v4[4] = {vals[u].x, vals[u].y, vals[u].z, vals[u].w};
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const int c = c_first + j;
+            int y;
+            if (LABELS) {
+              y = lab[u] == c;
+            } else {
+              const long long at = row[u] * K + c;
+              const int t = target64 ? static_cast<int>(t64[at]) : t32[at];
+              if (t < 0) continue;  // a masked entry
+              y = t > 0;
+            }
+            const int b = bin_of<UNIFORM, true>(v4[j], s_thr, T, s.lo, s.scale);
+            atomicAdd(&s_hist[b * stride + (c - col0)], y ? 0x10000u : 1u);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    int* cell_hist = g_hist + static_cast<long long>(cell) * (T + 1) * K * 2;
+    for (int i = threadIdx.x; i < n_bins; i += blockDim.x) {
+      unsigned* word = &s_hist[(i >> s.ltw) * stride + (i & (tw - 1))];
+      const unsigned w = *word;
+      const int col = col0 + (i & (tw - 1));
+      if (w == 0u || col >= K) continue;
+      *word = 0u;
+      auto* pair = reinterpret_cast<unsigned long long*>(cell_hist + (static_cast<long long>(i >> s.ltw) * K + col) * 2);
+      atomicAdd(pair, static_cast<unsigned long long>(w & 0xffffu) | (static_cast<unsigned long long>(w >> 16) << 32));
+    }
+    __syncthreads();
+    seg = seg_end;
+    if (seg < r_end) cell = cells[order[seg]];
+  }
+}
 
 template <bool LABELS, bool THR_SMEM, typename Tgt>
 __global__ void __launch_bounds__(kSegThreads) binned_curve_segmented_kernel(
@@ -391,6 +623,13 @@ __global__ void __launch_bounds__(kSegThreads) binned_curve_prefix_kernel(const 
   }
 }
 
+cudaError_t launch_prefix(const int* hist, int num_cells, int K, int T, int* state, cudaStream_t stream) {
+  const long long lanes = static_cast<long long>(num_cells) * K * 2;
+  binned_curve_prefix_kernel<<<static_cast<unsigned>((lanes + kSegThreads - 1) / kSegThreads), kSegThreads, 0, stream>>>(
+      hist, num_cells, K, T, state);
+  return cudaGetLastError();
+}
+
 template <bool LABELS, typename Tgt>
 cudaError_t launch_segmented(const float* p, const float* thr, const Tgt* target, const int* cells, long long n, int K,
                              int T, int num_cells, int* hist, int* state, cudaStream_t stream) {
@@ -407,10 +646,74 @@ cudaError_t launch_segmented(const float* p, const float* thr, const Tgt* target
     kernel<<<static_cast<unsigned>(blocks), kSegThreads, smem, stream>>>(p, thr, target, cells, n, K, T, hist);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  const long long lanes = static_cast<long long>(num_cells) * K * 2;
-  binned_curve_prefix_kernel<<<static_cast<unsigned>((lanes + kSegThreads - 1) / kSegThreads), kSegThreads, 0, stream>>>(
-      hist, num_cells, K, T, state);
+  return launch_prefix(hist, num_cells, K, T, state, stream);
+}
+
+
+// The widest tile (a power of two from ltw down) whose packed histogram fits
+// beside the padded thresholds, or -1: the cells route then takes the
+// global atomics.
+int cells_tile(int T, int ltw, int vec) {
+  const size_t thr_bytes = (static_cast<size_t>(T) + 3) * sizeof(float);
+  for (; ltw >= (vec == 4 ? 2 : 0); --ltw) {
+    if (thr_bytes + (static_cast<size_t>(T) + 1) * ((1u << ltw) + 1) * sizeof(unsigned) <= kHistSmemLimit) return ltw;
+  }
+  return -1;
+}
+
+template <int VEC, bool LABELS, bool UNIFORM>
+cudaError_t launch_cells(const float* p, const float* thr, const void* target, int target64, const int* cells,
+                         const int* offsets, const int* order, int num_cells, Shape s, int* hist, cudaStream_t stream) {
+  auto kernel = binned_curve_cells_kernel<VEC, LABELS, UNIFORM>;
+  const size_t smem = ((static_cast<size_t>(s.T) + 3) + (static_cast<size_t>(s.T) + 1) * ((1u << s.ltw) + 1)) * 4;
+  static LaunchCache cache[kMaxDevices] = {};
+  int sms = 0;
+  cudaError_t err = hist_launch::prepare(kernel, smem, cache, &sms);
+  if (err != cudaSuccess) return err;
+  const int tw = 1 << s.ltw;
+  const int tiles = (s.K + tw - 1) / tw;
+  const long long rows_per_step = kThreads / (tw / VEC);
+  // a fixed grid: the ranges split all n positions, those past the kept rows count nothing
+  long long per_tile = (static_cast<long long>(kBlocksPerSm) * sms + tiles - 1) / tiles;
+  per_tile = std::min(per_tile, std::max(1LL, (s.n + rows_per_step - 1) / rows_per_step));
+  per_tile = std::max(per_tile, (s.n + kMaxPackedCount - 1) / kMaxPackedCount);
+  s.rows_per_block = (s.n + per_tile - 1) / per_tile;
+  kernel<<<dim3(static_cast<unsigned>(per_tile), tiles, 1), kThreads, smem, stream>>>(p, thr, target, target64, cells,
+                                                                                      offsets, order, num_cells, s, hist);
   return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t dispatch_cells(const float* p, const float* thr, const void* target, int target64, int labels, int uniform,
+                           const int* cells, const int* offsets, const int* order, int num_cells, Shape s, int* hist,
+                           cudaStream_t stream) {
+  if (labels) {
+    return uniform ? launch_cells<VEC, true, true>(p, thr, target, target64, cells, offsets, order, num_cells, s, hist, stream)
+                   : launch_cells<VEC, true, false>(p, thr, target, target64, cells, offsets, order, num_cells, s, hist, stream);
+  }
+  return uniform ? launch_cells<VEC, false, true>(p, thr, target, target64, cells, offsets, order, num_cells, s, hist, stream)
+                 : launch_cells<VEC, false, false>(p, thr, target, target64, cells, offsets, order, num_cells, s, hist, stream);
+}
+
+// K1s over more than one cell with the histogram in shared memory: the
+// counting sort (two launches), the count, the prefix. sort: the cells'
+// offsets (num_cells + 1), the rows' order (n), the blocks' counts
+// (num_cells * ceil(n / kSortRows)).
+cudaError_t launch_sorted(const float* p, const float* thr, const void* target, int target64, int labels, int uniform,
+                          const int* cells, int num_cells, Shape s, int vec, int* hist, int* sort, int* state,
+                          cudaStream_t stream) {
+  int* offsets = sort;
+  int* order = sort + num_cells + 1;
+  int* counts = order + s.n;
+  const auto blocks = static_cast<unsigned>((s.n + kSortRows - 1) / kSortRows);
+  cell_count_kernel<<<blocks, kSortThreads, 0, stream>>>(cells, s.n, num_cells, counts);
+  cell_scatter_kernel<<<blocks, kSortThreads, 0, stream>>>(cells, s.n, num_cells, counts, offsets, order);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = vec == 4 ? dispatch_cells<4>(p, thr, target, target64, labels, uniform, cells, offsets, order, num_cells, s, hist, stream)
+                 : dispatch_cells<1>(p, thr, target, target64, labels, uniform, cells, offsets, order, num_cells, s, hist, stream);
+  if (err != cudaSuccess) return err;
+  return launch_prefix(hist, num_cells, s.K, s.T, state, stream);
 }
 
 }  // namespace
@@ -424,25 +727,20 @@ extern "C" int binned_curve_state(const void* p, const void* thr, const void* ta
                                   long long n, int k, int t, int uniform, float lo, float scale, int vec4,
                                   void* scratch, void* state, void* stream) {
   if (n == 0 || k == 0 || t == 0) return 0;
-  int ltw = 0;
-  while ((1 << ltw) < kMaxTile && (1 << ltw) < k) ++ltw;
-  Shape s{n, k, t, ltw, 0, lo, scale};
-  const auto* p_ = static_cast<const float*>(p);
-  const auto* thr_ = static_cast<const float*>(thr);
-  auto* scratch_ = static_cast<int*>(scratch);
-  auto* state_ = static_cast<int*>(state);
-  auto stream_ = static_cast<cudaStream_t>(stream);
-  if (vec4 && ltw >= 2)
-    return dispatch_mode<4>(p_, thr_, target, target64, labels, uniform, s, scratch_, state_, stream_);
-  return dispatch_mode<1>(p_, thr_, target, target64, labels, uniform, s, scratch_, state_, stream_);
+  return static_cast<int>(binned_curve_state_launch(p, thr, target, target64, labels, nullptr, n, k, t, uniform, lo, scale,
+                                                    vec4, scratch, state, static_cast<cudaStream_t>(stream)));
 }
 
-// p, thr, target and labels as binned_curve_state takes them; cells: (n,)
-// int32, each row's cohort cell or -1 (dropped); hist: (num_cells, t + 1,
-// k, 2) int32, zeroed; state: (num_cells, t, k, 2, 2) int32.
+// p, thr, target, labels and the grid (uniform, lo, scale) and vec4 as
+// binned_curve_state takes them; cells: (n,) int32, each row's cohort cell
+// or -1 (dropped); hist: num_cells * (t + 1) * k * 2 + k int32, zeroed (the
+// histogram, then K1's tickets at one cell); sort: num_cells + 1 + n +
+// num_cells * ceil(n / 4096) int32 (launch_sorted's; not read at one cell);
+// state: (num_cells, t, k, 2, 2) int32.
 extern "C" int binned_curve_state_segmented(const void* p, const void* thr, const void* target, int target64,
                                             int labels, const void* cells, long long n, int k, int t, int num_cells,
-                                            void* hist, void* state, void* stream) {
+                                            int uniform, float lo, float scale, int vec4, void* hist, void* sort,
+                                            void* state, void* stream) {
   if (k == 0 || t == 0 || num_cells == 0) return 0;
   const auto* p_ = static_cast<const float*>(p);
   const auto* thr_ = static_cast<const float*>(thr);
@@ -450,6 +748,19 @@ extern "C" int binned_curve_state_segmented(const void* p, const void* thr, cons
   auto* hist_ = static_cast<int*>(hist);
   auto* state_ = static_cast<int*>(state);
   auto stream_ = static_cast<cudaStream_t>(stream);
+  if (num_cells == 1 && n > 0)  // K1 with the row mask: the state of one cell is K1's (t, k, 2, 2)
+    return static_cast<int>(binned_curve_state_launch(p, thr, target, target64, labels, cells_, n, k, t, uniform, lo, scale,
+                                                      vec4, hist, state, stream_));
+  int ltw = 0;
+  while ((1 << ltw) < kMaxTile && (1 << ltw) < k) ++ltw;
+  const int vec = vec4 && ltw >= 2 ? 4 : 1;
+  const int tile = n > 0 && num_cells <= kMaxSortCells ? cells_tile(t, ltw, vec) : -1;
+  if (tile >= 0) {
+    const Shape s{n, k, t, tile, 0, lo, scale};
+    return static_cast<int>(launch_sorted(p_, thr_, target, target64, labels, uniform, cells_, num_cells, s, vec, hist_,
+                                          static_cast<int*>(sort), state_, stream_));
+  }
+  // thresholds too many for the shared histogram: an atomic per entry into the global one
   if (target64) {
     const auto* tg = static_cast<const long long*>(target);
     return labels ? launch_segmented<true>(p_, thr_, tg, cells_, n, k, t, num_cells, hist_, state_, stream_)

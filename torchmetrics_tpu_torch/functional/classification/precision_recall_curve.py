@@ -172,7 +172,7 @@ def _binned_curve_state(
         thr, order = torch.sort(thr, stable=True)
         affine = None
     if cells is not None:
-        state = binned_curve_state_segmented(p, thr, tgt, labels, cells, num_cells)  # (cells, T, K, 2, 2)
+        state = binned_curve_state_segmented(p, thr, tgt, labels, cells, num_cells, affine)  # (cells, T, K, 2, 2)
         if order is not None:
             state = torch.empty_like(state).index_copy_(1, order, state)
         return state.reshape((num_cells, len_t) + inner + (2, 2))

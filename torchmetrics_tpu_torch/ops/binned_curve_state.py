@@ -157,6 +157,7 @@ binned_curve_state.launches = 0  # launches of the CUDA kernel (the plain versio
 binned_curve_state.matrix_launches = 0  # of them, launches in matrix mode (an (N, K) target: binary, micro, multilabel)
 
 
+_SORT_ROWS = 4096  # rows per block of K1s's counting sort (kSortRows in csrc/binned_curve_state.cu)
 _SEGMENTED_ARGTYPES = [
     ctypes.c_void_p,  # p
     ctypes.c_void_p,  # thresholds
@@ -168,7 +169,12 @@ _SEGMENTED_ARGTYPES = [
     ctypes.c_int,  # k
     ctypes.c_int,  # t
     ctypes.c_int,  # num_cells
-    ctypes.c_void_p,  # hist (scratch)
+    ctypes.c_int,  # uniform
+    ctypes.c_float,  # lo
+    ctypes.c_float,  # scale
+    ctypes.c_int,  # vec4
+    ctypes.c_void_p,  # hist (scratch, zeroed)
+    ctypes.c_void_p,  # the counting sort (scratch)
     ctypes.c_void_p,  # state
     ctypes.c_void_p,  # stream
 ]
@@ -215,17 +221,25 @@ def binned_curve_state_segmented_plain(
 
 
 def binned_curve_state_segmented(
-    p: torch.Tensor, thresholds: torch.Tensor, target: torch.Tensor, labels: bool, cells: torch.Tensor, num_cells: int
+    p: torch.Tensor,
+    thresholds: torch.Tensor,
+    target: torch.Tensor,
+    labels: bool,
+    cells: torch.Tensor,
+    num_cells: int,
+    affine: Optional[Tuple[float, float]] = None,
 ) -> torch.Tensor:
     """(num_cells, T, K, 2, 2) int32 state of each cohort cell.
 
-    ``p``, ``thresholds``, ``target`` and ``labels`` as
+    ``p``, ``thresholds``, ``target``, ``labels`` and ``affine`` as
     :func:`binned_curve_state` takes them; ``cells`` is (N,) int32, the cell
     of each row of ``p``, ``-1`` for a row that is dropped (it spilled from
-    the slice table). Cell ``c``'s state is :func:`binned_curve_state` of the
-    rows whose cell is ``c``, bit for bit.
+    the slice table, or the StateGuard's mask refused it). Cell ``c``'s state
+    is :func:`binned_curve_state` of the rows whose cell is ``c``, bit for bit.
 
-    CUDA tensors go through the hand kernel (K1s); CPU tensors through
+    CUDA tensors go through the hand kernel (K1s: K1 with a row mask at one
+    cell, else a counting sort of the rows by cell and K1's shared-memory
+    count per run of a cell); CPU tensors through
     :func:`binned_curve_state_segmented_plain`.
     """
     tensors = (p, thresholds, target, cells)
@@ -237,13 +251,18 @@ def binned_curve_state_segmented(
     n, k = p.shape
     _check_cells(cells, n, "binned_curve_state_segmented")
     len_t = thresholds.shape[0]
-    if num_cells * (len_t + 1) * k * 2 >= 2**31:
+    if num_cells * (len_t + 1) * k * 2 + k >= 2**31 or n + num_cells * -(-n // _SORT_ROWS) >= 2**31:
         raise ValueError(f"binned_curve_state_segmented: {num_cells} cells of ({len_t + 1}, {k}, 2) bins do not fit int32 indexing")
     if n == 0 or k == 0 or len_t == 0 or num_cells == 0:  # nothing to count: no launch, and none is counted
         return torch.zeros((num_cells, len_t, k, 2, 2), dtype=torch.int32, device=p.device)
-    state = torch.empty((num_cells, len_t, k, 2, 2), dtype=torch.int32, device=p.device)  # the prefix launch writes all of it
+    state = torch.empty((num_cells, len_t, k, 2, 2), dtype=torch.int32, device=p.device)  # the kernel writes all of it
     p, thresholds, target, cells = p.contiguous(), thresholds.contiguous(), target.contiguous(), cells.contiguous()
-    hist = torch.zeros((num_cells, len_t + 1, k, 2), dtype=torch.int32, device=p.device)
+    # the (num_cells, T+1, K, 2) histogram, then K1's tickets at one cell
+    hist = torch.zeros(num_cells * (len_t + 1) * k * 2 + k, dtype=torch.int32, device=p.device)
+    # the counting sort's cell offsets, row order and per-block counts (K1 at one cell needs none)
+    sort_len = num_cells + 1 + n + num_cells * -(-n // _SORT_ROWS)
+    sort = torch.empty(sort_len, dtype=torch.int32, device=p.device) if num_cells > 1 else hist
+    lo, scale = affine if affine is not None else (0.0, 0.0)
     fn = _build.function("binned_curve_state_segmented", _SEGMENTED_ARGTYPES, library="binned_curve_state")
     with torch.cuda.device(p.device):
         status = fn(
@@ -257,7 +276,12 @@ def binned_curve_state_segmented(
             k,
             len_t,
             num_cells,
+            int(affine is not None),
+            lo,
+            scale,
+            int(k % 4 == 0 and p.data_ptr() % 16 == 0),
             hist.data_ptr(),
+            sort.data_ptr(),
             state.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream,
         )
