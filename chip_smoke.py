@@ -140,8 +140,12 @@ result) if it fails:
    their rows, the fan-out's states over all cells to one metric over every
    row, the drift scores of ``compute_all`` within 1e-6 of each cohort's own;
    K4, K2s and K1s bitwise against their plain versions at the main path's
-   shapes and timed, K1s also at 1 and 256 cells in both target modes with
-   every row dropped, none, 90% in one cell and 131,072 rows in one cell;
+   shapes and timed, K1s and K2s also at 1 and 256 cells in both target
+   (K2s: scores and labels) modes with every row dropped, none, 90% in one
+   cell and 131,072 rows in one cell; K4 also timed from an empty table at
+   the suite's and the fan-out's first batches and a spill batch (2,048
+   cohorts into 1,024 cells), table and cells bitwise, its new keys and
+   rounds equal to the host's count of the same route;
    the captured passes timed (samples/s, the naive loop of
    1024 metric instances over one batch beside it, scored windows/s) and the
    suite's pass profiled (busy share, top device ops); JAX's small test suite
@@ -4392,6 +4396,7 @@ def phase_sketch(device, kernels, smi):
 
 #: the hand kernels of the sliced plane (phase 14); its geometries run them beside no other
 SLICED_KERNELS = ("slice_assign", "stat_counts_segmented", "binned_curve_state_segmented")
+K2S_KERNEL = "stat_counts_cells"  # K2s's device kernel over more than one cell (at one cell it is K2's, stat_counts_kernel)
 FANOUT_CELLS = 1024  # bench_workloads.py SLICED_CELLS
 FANOUT_BATCH = 8192  # bench_workloads.py SLICED_BATCH
 FANOUT_CLASSES = 8  # bench_workloads.py SLICED_CLASSES
@@ -4493,39 +4498,94 @@ def _require_payloads_bitwise(got, want, what):
         _require(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), f"{what}: {key} differs")
 
 
+SPILL_COHORTS = 2048  # K4's spill batch: FANOUT_BATCH keys over twice FANOUT_CELLS cohorts
+K4_FRESH_TABLES = 6  # empty tables a first-batch shape is timed over, one call each
+
+
+def _k4_bound(batch, num_cells, new_keys):
+    """K4's least time: the keys read and the cells written once, the table read
+    once and each new key written once; the hash's few tens of integer operations a key."""
+    return _bound(batch * 4 * 2 + num_cells * 5 + new_keys * 5 + 4, batch * 40)
+
+
 def check_slice_assign(device, suite_keys, fanout_keys):
     """K4 against ``slice_assign_plain`` (JAX's while_loop as a host loop) on
     the card at the main path's shapes: the suite's 65536 keys over 200
     cohorts into 256 cells and the fan-out's 8192 keys into 1024 cells, each
     from an empty table (insertion rounds) and again on the filled one
-    (lookups); table and cells bitwise. Timed in steady state (every cohort
-    resident) beside the plain version and the bound."""
+    (lookups), and a spill batch (8192 keys over 2048 cohorts into 1024
+    cells); table and cells bitwise, the kernel's new keys and rounds equal
+    to the host's count of its route (``slice_assign_reps_plain``). Each
+    first batch timed over fresh tables, and the steady state (every cohort
+    resident), beside the plain version and the bound."""
     import torch
 
     from torchmetrics_tpu_torch.ops import slice_assign, slice_assign_plain
+    from torchmetrics_tpu_torch.ops.slice_assign import _kept_buffers, slice_assign_reps_plain, slice_assign_stats
 
     def table(n):
         return (torch.zeros((n, 1), dtype=torch.int32, device=device), torch.zeros(n, dtype=torch.bool, device=device),
                 torch.zeros((), dtype=torch.int32, device=device))
 
-    for what, n, kmats in (("suite", SUITE_CELLS, suite_keys[:2]), ("fan-out", FANOUT_CELLS, fanout_keys[:2])):
-        mine, plain = table(n), table(n)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 23)
+    spill_keys = torch.randint(0, SPILL_COHORTS, (2, FANOUT_BATCH), generator=gen, device=device, dtype=torch.int32)
+    shapes = {}
+    for what, n, kmats in (("suite", SUITE_CELLS, suite_keys[:2]), ("fan-out", FANOUT_CELLS, fanout_keys[:2]),
+                           ("spill", FANOUT_CELLS, spill_keys)):
+        mine, plain, reps = table(n), table(n), table(n)
         for i, k in enumerate(kmats):
-            got = slice_assign(*mine, k[:, None].contiguous())
-            want = slice_assign_plain(*plain, k[:, None].contiguous())
+            kmat = k[:, None].contiguous()
+            got = slice_assign(*mine, kmat)
+            want = slice_assign_plain(*plain, kmat)
+            host = {}
+            slice_assign_reps_plain(*reps, kmat, stats=host)
             torch.cuda.synchronize()
             _require(torch.equal(got, want), f"slice_assign, {what} batch {i}: cells differ from the plain version")
-            for a, b in zip(mine, plain):
-                _require(torch.equal(a, b), f"slice_assign, {what} batch {i}: the table differs from the plain version")
+            for a, b, c in zip(mine, plain, reps):
+                _require(torch.equal(a, b) and torch.equal(c, b), f"slice_assign, {what} batch {i}: the table differs from the plain version")
+            stats = slice_assign_stats(mine[0])
+            _require(stats == host, f"slice_assign, {what} batch {i}: kernel new keys and rounds {stats}, host {host}")
+            if i == 0:
+                shapes[what] = dict(stats, spilled_rows=int((got < 0).sum()), batch=int(kmat.shape[0]), cells=n)
+    for what, kmats in (("suite", suite_keys), ("fan-out", fanout_keys), ("spill", spill_keys)):
+        rec = shapes[what]
+        kmat = kmats[0][:, None].contiguous()
+
+        def first_call():  # an empty table and the buffers kept with it are made first (their memsets are not K4's)
+            fresh = table(rec["cells"])
+            _kept_buffers(fresh[0], rec["batch"])
+            slice_assign(*fresh, kmat)
+
+        _, found = _device_ms(first_call, [()], reps=K4_FRESH_TABLES)
+        ms = _kernel_only_us(found, "slice_assign") / 1e3  # the call's one launch
+        fresh = [table(rec["cells"]) for _ in range(K4_FRESH_TABLES)]
+        for t in fresh:
+            _kept_buffers(t[0], rec["batch"])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for t in fresh:
+            slice_assign(*t, kmat)
+        end.record()
+        torch.cuda.synchronize()
+        plain_wall_ms = _timed(lambda: slice_assign_plain(*table(rec["cells"]), kmat)) * 1e3  # a host loop of rounds
+        bound_ms, bound_by = _k4_bound(rec["batch"], rec["cells"], rec["new_keys"])
+        rec.update(ms=ms, stream_ms=start.elapsed_time(end) / K4_FRESH_TABLES, plain_wall_ms=plain_wall_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print(f"[kernels] slice_assign, {what} first batch ({rec['batch']} keys into {rec['cells']} empty cells): {rec['new_keys']} new"
+              f" keys, {rec['rounds']} rounds, {rec['spilled_rows']} rows spilled; device {ms:.5f} ms (stream {rec['stream_ms']:.5f})"
+              f" against the plain version's {plain_wall_ms:.3f} ms wall and the bound {bound_ms:.5f} ({bound_by})")
     print(f"[kernels] slice_assign: bitwise equal to its plain version (table and cells) at {BATCH} keys into {SUITE_CELLS}"
-          f" cells and {FANOUT_BATCH} into {FANOUT_CELLS}, from an empty and from a filled table")
+          f" cells, {FANOUT_BATCH} into {FANOUT_CELLS} and a spill batch over {SPILL_COHORTS} cohorts, from an empty and from a"
+          f" filled table; new keys and rounds equal to the host's count")
     steady = table(SUITE_CELLS)
     slice_assign(*steady, suite_keys[0][:, None].contiguous())
     arg_sets = [(*steady, k[:, None].contiguous()) for k in suite_keys]
     times = _measure([("kernel", slice_assign, arg_sets), ("plain", slice_assign_plain, arg_sets[:2]),
                       ("read_floor", _read_floor, [(k,) for k in suite_keys])], profile_reps=SKETCH_REPS, timing_reps=SKETCH_REPS)
     n_bytes = BATCH * 4 * 2 + SUITE_CELLS * 5 + 4  # keys read, cells written, the table read once
-    bound_ms, bound_by = _bound(n_bytes, BATCH * 40)  # the hash's multiplies, shifts and xors and a compare a key
+    bound_ms, bound_by = _k4_bound(BATCH, SUITE_CELLS, 0)
     return {
         "name": "slice_assign",
         "route": "cuda",
@@ -4538,16 +4598,19 @@ def check_slice_assign(device, suite_keys, fanout_keys):
         "bound_by": bound_by,
         "library_ms": None,
         "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
-        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "slice_lookup"),
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "slice_assign"),
         "bytes": n_bytes,
         "read_floor_ms": times["read_floor"]["device_ms"],
+        "first_batches": shapes,
     }
 
 
 def check_stat_counts_segmented(device, batches, cells_list, fanout):
     """K2s against ``stat_counts_segmented_plain`` on the card: the suite's
     65536 x 64 logits into 256 cells and the fan-out's 8192 x 8 into 1024,
-    spilled (-1) rows beside; bitwise. Timed at the suite's shape."""
+    spilled (-1) rows beside; then at 1 and 256 cells, scores and labels
+    mode, every row dropped, none, 90% in one cell, 131,072 rows in one
+    cell; bitwise. Timed at the suite's shape, and at the fan-out's."""
     import torch
 
     from torchmetrics_tpu_torch.ops import stat_counts_segmented, stat_counts_segmented_plain
@@ -4560,12 +4623,30 @@ def check_stat_counts_segmented(device, batches, cells_list, fanout):
         _assert_bitwise(stat_counts_segmented(preds[0], target[0], spilled, FANOUT_CELLS, FANOUT_CLASSES, ignore),
                         stat_counts_segmented_plain(preds[0], target[0], spilled, FANOUT_CELLS, FANOUT_CLASSES, ignore),
                         f"stat_counts_segmented, fan-out shape, ignore_index={ignore}")
+    logits2 = torch.cat([batches[0][0], batches[1][0]])
+    labels2 = torch.cat([batches[0][1], batches[1][1]])
+    preds2 = torch.cat([batches[2][1], batches[3][1]])  # class indices: the labels mode
+    layouts = 0
+    for num_cells in (1, SUITE_CELLS):
+        for layout, (rows, lay_cells) in _segmented_layouts(device, num_cells).items():
+            for mode, p in (("scores", logits2[:rows]), ("labels", preds2[:rows])):
+                args = (p, labels2[:rows], lay_cells, num_cells, NUM_CLASSES)
+                _assert_bitwise(stat_counts_segmented(*args), stat_counts_segmented_plain(*args),
+                                f"stat_counts_segmented, {num_cells} cells, {layout}, {mode} mode")
+                layouts += 1
     print(f"[kernels] stat_counts_segmented: bitwise equal to its plain version at {BATCH}x{NUM_CLASSES} into {SUITE_CELLS} cells"
-          f" and {FANOUT_BATCH}x{FANOUT_CLASSES} into {FANOUT_CELLS} with dropped rows and an ignore_index")
+          f" and {FANOUT_BATCH}x{FANOUT_CLASSES} into {FANOUT_CELLS} with dropped rows and an ignore_index; and on {layouts} layouts"
+          f" (1 and {SUITE_CELLS} cells, scores and labels mode: every row dropped, none, 90% in one cell, 131072 rows in one cell)")
     times = _measure([("kernel", stat_counts_segmented, arg_sets), ("plain", stat_counts_segmented_plain, arg_sets),
                       ("read_floor", _read_floor, [(a[0],) for a in arg_sets])])
+    fan_sets = [(preds[i], target[i], keys[i], FANOUT_CELLS, FANOUT_CLASSES) for i in range(NUM_BATCHES)]
+    fan_ms, fan_found = _device_ms(stat_counts_segmented, fan_sets)
     n_bytes = BATCH * NUM_CLASSES * 4 + BATCH * 4 * 2 + SUITE_CELLS * 4 * NUM_CLASSES * 4
     bound_ms, bound_by = _bound(n_bytes, BATCH * NUM_CLASSES)  # one compare per score
+    fan_bytes = FANOUT_BATCH * FANOUT_CLASSES * 4 + FANOUT_BATCH * 4 * 2 + FANOUT_CELLS * 4 * FANOUT_CLASSES * 4
+    print(f"[kernels] stat_counts_segmented at the fan-out's shape ({FANOUT_BATCH}x{FANOUT_CLASSES} into {FANOUT_CELLS} cells):"
+          f" device {fan_ms:.5f} ms, bound {_bound(fan_bytes, FANOUT_BATCH * FANOUT_CLASSES)[0]:.5f}; by kernel"
+          f" {', '.join(f'{_short_kernel_name(k)} {t / max(1, n):.2f} us' for k, (t, n) in fan_found.items())}")
     return {
         "name": "stat_counts_segmented",
         "route": "cuda",
@@ -4578,9 +4659,11 @@ def check_stat_counts_segmented(device, batches, cells_list, fanout):
         "bound_by": bound_by,
         "library_ms": None,
         "stream_ms": {k: v["stream_ms"] for k, v in times.items()},
-        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], "stat_counts_segmented"),
+        "kernel_only_us": _kernel_only_us(times["kernel"]["found"], K2S_KERNEL),
         "bytes": n_bytes,
         "read_floor_ms": times["read_floor"]["device_ms"],
+        "fanout_ms": fan_ms,
+        "by_kernel_us": {_short_kernel_name(k): t / max(1, n) for k, (t, n) in times["kernel"]["found"].items()},
     }
 
 
@@ -4830,7 +4913,7 @@ def phase_sliced(device, batches, smi):
     for attempt in range(1, 4):  # torch.profiler on an H100 was seen to drop events of a trace: take it again
         found, busy_us, wall_us = _profile(suite_pass, 1)
         per_pass = {name: sum(n for key, (_, n) in found.items() if f"{kernel}_kernel" in key)
-                    for name, kernel in (("slice_assign", "slice_lookup"), ("stat_counts_segmented", "stat_counts_segmented"),
+                    for name, kernel in (("slice_assign", "slice_assign"), ("stat_counts_segmented", K2S_KERNEL),
                                          ("binned_curve_state_segmented", "binned_curve_cells"))}
         if all(n == NUM_BATCHES for n in per_pass.values()):
             break
@@ -5025,7 +5108,8 @@ def check_guard_segmented(device, guard_batches, masks):
     affine = _uniform_grid(THRESHOLDS)  # the guard's mask route passes the suite's grid
     rows = []
     for name, kernel, plain, plain_sets, extra, tag, n_bytes, n_ops in (
-        ("stat_counts_segmented", stat_counts_segmented, stat_counts_segmented_plain, k2, (), "stat_counts_segmented",
+        # K2 with the row mask at one cell
+        ("stat_counts_segmented", stat_counts_segmented, stat_counts_segmented_plain, k2, (), "stat_counts",
          BATCH * NUM_CLASSES * 4 + BATCH * 4 * 2 + 4 * NUM_CLASSES * 4, BATCH * NUM_CLASSES),
         # K1 with the row mask at one cell
         ("binned_curve_state_segmented", binned_curve_state_segmented, binned_curve_state_segmented_plain, k1, (affine,),
@@ -5799,9 +5883,9 @@ def phase_serve(device, batches, kernels, slice_run, smi):
 
         _zero(sliced_k)
         traced_s = {}
-        for _ in range(3):  # K4's device kernel is its lookup
-            got = _kernel_launches_traced(served_sliced, ("slice_lookup", "stat_counts_segmented"))
-            got["slice_assign"] = got.pop("slice_lookup")
+        for _ in range(3):  # K2s's device kernel over more than one cell
+            got = _kernel_launches_traced(served_sliced, ("slice_assign", K2S_KERNEL))
+            got["stat_counts_segmented"] = got.pop(K2S_KERNEL)
             traced_s = {k: max(traced_s.get(k, 0), n) for k, n in got.items()}
             if all(n >= NUM_BATCHES for n in traced_s.values()):
                 break

@@ -7,9 +7,12 @@
 runs, for each root in the order given, that root's own ``chip_smoke.py``
 phases of the hand kernels' main paths (``sketch``: K3 eager and the fused
 sketch pass; ``sliced``: K1s, K2s and K4 under the sliced suite; ``guard``:
-K2s and K1s at one cell under the StateGuard's mask), each in a process of its
-own with that root's package and kernels, and prints one ``[turns]`` line
-per run and the median of each number per root. Needs one NVIDIA GPU; it
+K2s and K1s at one cell under the StateGuard's mask), then K2s and K4 through
+their wrappers at those phases' shapes split into their device operations
+(K4 also from empty tables: the suite's and the fan-out's first batches and
+a spill batch), each in a process of its own with that root's package and
+kernels, and prints one ``[turns]`` line per run and the median of each
+number per root. Needs one NVIDIA GPU; it
 exits 2 without one. A root is any directory holding ``chip_smoke.py`` and
 ``torchmetrics_tpu_torch`` (an older commit unpacked with ``git archive``).
 """
@@ -20,6 +23,54 @@ import os
 import statistics
 import subprocess
 import sys
+
+
+def _split(cs, fn, arg_sets, reps):
+    """Device ms of one call of ``fn`` and its device operations (us a call), from ``root``'s profiler helper."""
+    ms, found = cs._device_ms(fn, arg_sets, reps)
+    return ms, {cs._short_kernel_name(k): round(t / reps, 3) for k, (t, n) in found.items()}
+
+
+def _kernel_split(cs, device) -> dict:
+    """K2s and K4 through their public wrappers at the shapes of the sliced and
+    guard phases, each call split into its device operations: K2s at one cell
+    (1.5% of 65,536 x 64 rows dropped), into 256 cells and 8,192 x 8 into 1,024;
+    K4 in steady state (65,536 keys, every cohort resident) and from empty
+    tables at the suite's first batch (65,536 keys over 200 cohorts into 256
+    cells), the fan-out's (8,192 over 1,024 into 1,024) and a spill batch
+    (8,192 over 2,048 into 1,024), a fresh table a call."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import slice_assign, stat_counts_segmented
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cs.SEED + 30)
+    n, c = cs.BATCH, cs.NUM_CLASSES
+    logits = [torch.randn((n, c), generator=gen, device=device) for _ in range(4)]
+    labels = [torch.randint(0, c, (n,), generator=gen, device=device, dtype=torch.int32) for _ in range(4)]
+    one = [torch.where(torch.rand(n, generator=gen, device=device) < 0.015, -1, 0).to(torch.int32) for _ in range(4)]
+    many = [torch.randint(0, 200, (n,), generator=gen, device=device, dtype=torch.int32) for _ in range(4)]
+    fan = [(torch.randn((8192, 8), generator=gen, device=device), torch.randint(0, 8, (8192,), generator=gen, device=device, dtype=torch.int32),
+            torch.randint(0, 1024, (8192,), generator=gen, device=device, dtype=torch.int32)) for _ in range(4)]
+    out = {}
+    for label, sets in (("K2s 1 cell", [(x, y, z, 1, c) for x, y, z in zip(logits, labels, one)]),
+                        ("K2s 256 cells", [(x, y, z, 256, c) for x, y, z in zip(logits, labels, many)]),
+                        ("K2s fan-out", [(x, y, z, 1024, 8) for x, y, z in fan])):
+        out[f"{label} ms"], out[f"{label} ops"] = _split(cs, stat_counts_segmented, sets, cs.PROFILE_REPS)
+
+    def table(cells):
+        return (torch.zeros((cells, 1), dtype=torch.int32, device=device), torch.zeros(cells, dtype=torch.bool, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+
+    steady = table(256)
+    keys = [torch.randint(0, 200, (n, 1), generator=gen, device=device, dtype=torch.int32) for _ in range(4)]
+    slice_assign(*steady, keys[0])
+    out["K4 steady ms"], out["K4 steady ops"] = _split(cs, slice_assign, [(*steady, k) for k in keys], cs.PROFILE_REPS)
+    for label, cells, rows, cohorts in (("suite first", 256, n, 200), ("fan-out first", 1024, 8192, 1024), ("spill", 1024, 8192, 2048)):
+        kmat = torch.randint(0, cohorts, (rows, 1), generator=gen, device=device, dtype=torch.int32)
+        fresh = iter([table(cells) for _ in range(7 * cs.PROFILE_TRACES)])
+        out[f"K4 {label} ms"], out[f"K4 {label} ops"] = _split(cs, lambda: slice_assign(*next(fresh), kmat), [()], 6)
+    return out
 
 
 def _one(root: str) -> dict:
@@ -34,6 +85,7 @@ def _one(root: str) -> dict:
     sketch = cs.phase_sketch(device, {"cm_track": KERNELS["cm_track"]}, smi)
     sliced = cs.phase_sliced(device, batches, smi)
     guard = cs.phase_guard(device, batches, smi)
+    kernels = _kernel_split(cs, device)
     return {
         "card": smi,
         "sketch fused pass wall ms": sketch["fused_wall_us"] / 1e3,
@@ -42,6 +94,7 @@ def _one(root: str) -> dict:
         "sliced suite busy ms": sliced["suite_busy_us"] / 1e3,
         **{f"guard {policy} fused pass ms": t["fused"] for policy, t in guard["pass_ms"].items()},
         **{f"{row['name']} device ms": row["ms"] for row in (sketch["k3_row"], *sliced["rows"], *guard["rows"])},
+        **kernels,
     }
 
 

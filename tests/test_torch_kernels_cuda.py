@@ -937,51 +937,71 @@ def test_count_captures_where_torch_bincount_cannot(card):
 # ------------------------------------------------------- the sliced plane
 
 
-# 24 cells: claims in shared memory; 13000: in global scratch; more cohorts
-# than cells spill
-@pytest.mark.parametrize(("num_cells", "key_width", "cohorts"), [(24, 1, 7), (24, 2, 60), (13000, 1, 9000), (5, 3, 4)])
-def test_slice_assign_matches_plain(card, num_cells, key_width, cohorts):
+# 24 cells: the table staged in shared memory; 13000: in global memory, and
+# more than 2048 new keys (their state in global scratch); more cohorts than
+# cells spill. Then the main path's shapes (keys over 2 x cohorts values):
+# the suite's first batch (65,536 keys, 200 new cohorts into 256 cells), the
+# fan-out's (8,192 keys, 1,024 cohorts into 1,024 cells, a full table), a
+# spill batch (8,192 keys over 2,048 cohorts into 1,024 cells), each
+# followed by a steady batch.
+@pytest.mark.parametrize(
+    ("num_cells", "key_width", "cohorts", "batches"),
+    [(24, 1, 7, (4096, 1, 20000)), (24, 2, 60, (4096, 1, 20000)), (13000, 1, 9000, (4096, 1, 20000)), (5, 3, 4, (4096, 1, 20000)),
+     (256, 1, 100, (65536, 65536)), (1024, 1, 512, (8192, 8192)), (1024, 1, 1024, (8192, 8192))],
+)
+def test_slice_assign_matches_plain(card, num_cells, key_width, cohorts, batches):
     """K4 against its plain version (JAX's while_loop as a host loop):
-    table and cells bitwise, batch after batch, spills included."""
+    table and cells bitwise, batch after batch, spills included; one launch a
+    call; the kernel's count of new keys and rounds equals the host's route."""
     from torchmetrics_tpu_torch.ops import slice_assign, slice_assign_plain
+    from torchmetrics_tpu_torch.ops.slice_assign import slice_assign_reps_plain, slice_assign_stats
 
     rng = np.random.default_rng(43)
     tables = [
         (torch.zeros((num_cells, key_width), dtype=torch.int32, device=dev), torch.zeros(num_cells, dtype=torch.bool, device=dev),
          torch.zeros((), dtype=torch.int32, device=dev))
-        for dev in (card, torch.device("cpu"))
+        for dev in (card, torch.device("cpu"), torch.device("cpu"))
     ]
-    for batch in (4096, 1, 20000):
+    for batch in batches:
         kmat = torch.from_numpy(rng.integers(-cohorts, cohorts, (batch, key_width)).astype(np.int32))
         before = slice_assign.launches
         got = slice_assign(*tables[0], kmat.to(card))
         want = slice_assign_plain(*tables[1], kmat)
+        stats = {}
+        slice_assign_reps_plain(*tables[2], kmat, stats=stats)
         torch.cuda.synchronize()
         assert slice_assign.launches == before + 1
         assert torch.equal(got.cpu(), want)
-        for a, b in zip(tables[0], tables[1]):
+        for a, b, c in zip(*tables):
             assert torch.equal(a.cpu(), b)
+            assert torch.equal(c, b)
+        assert slice_assign_stats(tables[0][0]) == stats
     before = slice_assign.launches
     assert slice_assign(*tables[0], torch.zeros((0, key_width), dtype=torch.int32, device=card)).shape == (0,)
     assert slice_assign.launches == before
 
 
+@pytest.mark.parametrize("layout", ["random", "all_dropped", "none_dropped", "skewed", "big_cell"])
+@pytest.mark.parametrize("num_cells", [1, 257, 1024])
 @pytest.mark.parametrize("ignore_index", [None, 3, -7])
 @pytest.mark.parametrize(("mode", "num_classes"), [("float4", 64), ("scalar", 7), ("int32", 64), ("int64", 5)])
-def test_stat_counts_segmented_matches_plain(card, mode, num_classes, ignore_index):
+def test_stat_counts_segmented_matches_plain(card, mode, num_classes, ignore_index, num_cells, layout):
     """K2s against its plain version, cells of -1 dropped, out-of-range and
-    ignored labels, bitwise."""
+    ignored labels, bitwise: one cell (K2 with a row mask) and many (cell
+    counters in shared memory, and global atomics at 1024 cells of 64
+    classes, whose counters do not fit); all, no and 90% of the rows in one
+    cell, and 131,072 rows in one cell; one launch a call."""
     from torchmetrics_tpu_torch.ops import stat_counts_segmented, stat_counts_segmented_plain
 
     rng = np.random.default_rng(44)
-    n, num_cells = 30001, 257
+    n = 140000 if layout == "big_cell" else 30001
     if mode in ("float4", "scalar"):
         preds = torch.from_numpy(rng.standard_normal((n, num_classes)).astype(np.float32))
     else:
         preds = torch.from_numpy(rng.integers(-2, num_classes + 2, n).astype(np.int32 if mode == "int32" else np.int64))
     target = torch.from_numpy(rng.integers(-3, num_classes + 3, n).astype(np.int64))
     target[::11] = 3
-    cells = torch.from_numpy(rng.integers(-1, num_cells, n).astype(np.int32))
+    cells = torch.from_numpy(_segmented_cells(layout, n, num_cells, rng))
     before = stat_counts_segmented.launches
     got = stat_counts_segmented(preds.to(card), target.to(card), cells.to(card), num_cells, num_classes, ignore_index)
     want = stat_counts_segmented_plain(preds, target, cells, num_cells, num_classes, ignore_index)
@@ -1183,6 +1203,12 @@ def test_sliced_plan_on_the_card_equals_cpu(card):
         ring_cpu_metric.update(preds, target)
         for r in rings:
             r.observe(i + 1)
+    # the closed windows' integer states, bitwise, before any float compute
+    assert len(rings[0]._ring) == len(rings[1]._ring) == 2
+    for got, want in zip(rings[0]._ring, rings[1]._ring):
+        for name, state in want["members"]["MulticlassAccuracy"].items():
+            assert torch.equal(torch.as_tensor(got["members"]["MulticlassAccuracy"][name]).cpu(), torch.as_tensor(state)), name
+    # the macro average's float sum runs in one order on both devices (utilities/compute.py::_sum_last_in_xla_order)
     assert torch.equal(rings[0].query(last=2).cpu(), rings[1].query(last=2))
 
 

@@ -129,6 +129,32 @@ def test_adjust_weights_safe_divide_parity(average, top_k):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7, equal_nan=True)
 
 
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+@pytest.mark.parametrize("num", [1, 5, 8, 31, 32, 33, 40, 63, 64])
+def test_sum_last_in_xla_order_is_jnp_sum(num, jit):
+    """The fixed-order float sum equals ``jnp.sum(-1)`` on the CPU bit for bit
+    (XLA's order), so a card and the CPU sum a macro average alike (ROADMAP C6)."""
+    rng = np.random.default_rng(num)
+    x = (rng.random((4000, num)) / num).astype(np.float32)
+    x[:5] *= np.float32(1e-6)  # rows that mix magnitudes
+    jsum = jax.jit(lambda a: a.sum(-1)) if jit else (lambda a: jnp.sum(a, -1))
+    want = np.asarray(jsum(jnp.asarray(x)))
+    got = tcompute._sum_last_in_xla_order(torch.from_numpy(x))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("num_classes", [8, 64])
+def test_macro_average_bitwise_parity(num_classes):
+    """Macro averages of random counts equal JAX's bit for bit, the float sum
+    in XLA's order (the card takes the same order)."""
+    rng = np.random.default_rng(num_classes)
+    tp, fp, fn = (rng.integers(0, 5000, (64, num_classes)).astype(np.int32) for _ in range(3))
+    score = np.array(jcompute._safe_divide(jnp.asarray(tp), jnp.asarray(tp + fn)))
+    want = np.asarray(jcompute._adjust_weights_safe_divide(jnp.asarray(score), "macro", False, *map(jnp.asarray, (tp, fp, fn))))
+    got = tcompute._adjust_weights_safe_divide(torch.from_numpy(score), "macro", False, *map(torch.from_numpy, (tp, fp, fn)))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
 def test_auc_compute_without_check_parity():
     rng = np.random.default_rng(6)
     x = np.sort(rng.random((3, 33)).astype(np.float32), axis=1)

@@ -53,13 +53,35 @@
 // dropped). Replaces JAX's per-row vmap of the bincount branch followed by
 // segment_sum over the cells (torchmetrics_tpu/parallel/sliced.py
 // ::_row_states and ::_segment_reduce): the counts are linear in the rows,
-// so each row adds to its cell directly and no (N, 4, C) row state exists.
-// Bound: bytes, the scores and labels read once and the (num_cells, 4, C)
-// output written once. Design: the row loop and the argmax of stat_counts
-// (a lane group per row, shuffles), then global atomics into the row's cell
-// (the cells are too many for a block-private copy), and the row's +1 to
-// its cell's total in a (num_cells,) scratch; a second launch adds each
-// cell's total to its tn row. Wrapping int32 adds, as JAX's sums.
+// so each row adds to its cell directly and no (N, 4, C) row state exists;
+// the StateGuard's mask calls it with one cell and its refused rows as
+// cell -1 (robustness/guard.py ::_mask_apply).
+// Bound: bytes, the scores and labels (and cells) read once and the
+// (num_cells, 4, C) output written once: 17.6 MB at 65536 x 64 into 256
+// cells, 5.2 us at 3.35 TB/s; at one cell 5.2 us, K2's.
+// Design:
+// - One cell: K2 itself (stat_counts_kernel) with the cells as a row mask,
+//   a row of cell -1 counting nowhere: K2's shared (4, C) partial, one
+//   flush a block, one launch into the zeroed (1, 4, C) output.
+// - More cells, where their counters fit a block's 227 KB: per cell only
+//   three sums of rows are kept, the diagonal d, the row sums r (by target)
+//   and the column sums q (by prediction), 3C counters of 16 bits, two a
+//   word (98,304 bytes at 256 x 64, 49,152 at 1024 x 8; a block counts at
+//   most 65535 rows). Every block holds the counters of all cells in shared
+//   memory, walks its rows in order as K2 does (a lane group a row, the
+//   argmax by shuffles), adds with shared atomics, and adds its non-zero
+//   counters into a zeroed global copy. A second launch, a warp a cell,
+//   derives tp = d, fp = q - d, fn = r - d, tn = total - r - q + d, total
+//   the sum of r, and writes the output. Three device operations: the
+//   copy's memset and the two launches.
+//   A counting sort of the rows by cell and one flush a run of a cell (K1s's
+//   route) was built beside it and timed on the H100 at 65536 x 64 into 256
+//   cells and 8192 x 8 into 1024: slower at both, its two sort launches
+//   alone near the counters' whole call. So the counters were kept.
+// - More cells than fit (num_cells * 3C counters past 227 KB): one global
+//   atomic per partial into the zeroed output and each cell's total in a
+//   scratch, then a launch that adds each total to its tn row.
+// Wrapping int32 adds throughout, as JAX's sums.
 #include <math_constants.h>
 
 #include <algorithm>
@@ -74,7 +96,11 @@ using hist_launch::kThreads;
 using hist_launch::kWarps;
 using hist_launch::LaunchCache;
 
-constexpr int kUnroll = 2;  // rows loaded ahead per lane group
+constexpr int kUnroll = 2;                     // rows loaded ahead per lane group
+constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kCellSmemMax = 227 * 1024;    // the cell counters: the opt-in limit of a block on sm_90
+constexpr size_t kSmSmem = 228 * 1024;         // shared memory of an SM
+constexpr long long kMaxBlockRows = 65535;     // the rows a 16-bit cell counter holds
 
 // jnp.argmax's order: NaN above every number, the lower index first among
 // NaNs and among equal values (so -0 and 0 tie); (v, i) wins over (w, j)?
@@ -82,6 +108,60 @@ __device__ __forceinline__ bool beats(float v, int i, float w, int j) {
   const bool nv = isnan(v), nw = isnan(w);
   if (nv || nw) return nv && (!nw || i < j);
   return v > w || (v == w && i < j);
+}
+
+// The prediction of `row`: the argmax of its scores over the row's group of
+// L lanes (`sub` this lane's place; every lane of the group gets it, and
+// every lane of the warp must call), or its label. A dead row gives junk.
+template <bool SCORES, int VEC, typename Pred>
+__device__ __forceinline__ int row_pred(const float* __restrict__ scores, const Pred* __restrict__ labels, long long row,
+                                        bool live, int C, int L, int sub) {
+  if (!SCORES) return live ? static_cast<int>(labels[row]) : 0;
+  const int n_vec = VEC == 4 ? C >> 2 : C;  // vectors per row
+  float best = -CUDART_INF_F;
+  int arg = 0x7fffffff;  // loses every tie: a row of -inf gives index 0
+  if (live) {
+    const float* src = scores + row * C;
+#pragma unroll 4
+    for (int v = sub; v < n_vec; v += L) {
+      if (VEC == 4) {
+        const float4 x = __ldcs(reinterpret_cast<const float4*>(src) + v);
+        const int i = v << 2;
+        if (beats(x.x, i, best, arg)) { best = x.x; arg = i; }
+        if (beats(x.y, i + 1, best, arg)) { best = x.y; arg = i + 1; }
+        if (beats(x.z, i + 2, best, arg)) { best = x.z; arg = i + 2; }
+        if (beats(x.w, i + 3, best, arg)) { best = x.w; arg = i + 3; }
+      } else {
+        const float x = __ldcs(src + v);
+        if (beats(x, v, best, arg)) { best = x; arg = v; }
+      }
+    }
+  }
+  for (int off = 1; off < L; off <<= 1) {
+    const float w = __shfl_xor_sync(kFull, best, off);
+    const int j = __shfl_xor_sync(kFull, arg, off);
+    if (beats(w, j, best, arg)) { best = w; arg = j; }
+  }
+  return arg;
+}
+
+// The confusion-matrix cell (i, j) = (target, pred) of a sample, from the
+// index b = target * C + pred in int32 arithmetic that wraps as XLA's does:
+// b < 0 counts in bin 0 and b >= C*C nowhere (false), as jnp.bincount; with
+// an ignore_index, a sample whose target is it counts nowhere and pred is
+// first clamped to [0, C-1].
+template <bool IGNORE>
+__device__ __forceinline__ bool row_bin(int pred, int t, int C, int ignore_index, int& i, int& j) {
+  if (IGNORE) {
+    if (t == ignore_index) return false;
+    pred = pred < 0 ? 0 : (pred > C - 1 ? C - 1 : pred);
+  }
+  int b = static_cast<int>(static_cast<unsigned>(t) * static_cast<unsigned>(C) + static_cast<unsigned>(pred));
+  if (b < 0) b = 0;
+  if (b >= C * C) return false;
+  i = b / C;
+  j = b - i * C;
+  return true;
 }
 
 struct Shape {
@@ -92,10 +172,11 @@ struct Shape {
   long long rows_per_block;
 };
 
+// K2, and K2s at one cell: `cells`, where given, masks the rows of cell -1 out.
 template <bool SCORES, int VEC, bool IGNORE, bool SMEM, typename Pred, typename Tgt>
 __global__ void __launch_bounds__(kThreads) stat_counts_kernel(
-    const float* __restrict__ scores, const Pred* __restrict__ labels, const Tgt* __restrict__ target, Shape s,
-    int* __restrict__ out) {
+    const float* __restrict__ scores, const Pred* __restrict__ labels, const Tgt* __restrict__ target,
+    const int* __restrict__ cells, Shape s, int* __restrict__ out) {
   extern __shared__ int s_part[];  // (4, C): tp, fp, tn without the total, fn
   __shared__ int s_total[kThreads / 32];
   const int C = s.C;
@@ -109,7 +190,6 @@ __global__ void __launch_bounds__(kThreads) stat_counts_kernel(
   const int rows_per_step = blockDim.x >> (SCORES ? s.llpr : 0);
   const long long r_begin = static_cast<long long>(blockIdx.x) * s.rows_per_block;
   const long long r_end = min(s.n, r_begin + s.rows_per_block);
-  const int n_vec = SCORES ? (VEC == 4 ? C >> 2 : C) : 0;  // vectors per row
   int total = 0;
 
   // every thread runs the same steps, so the shuffles see the whole warp
@@ -118,47 +198,12 @@ __global__ void __launch_bounds__(kThreads) stat_counts_kernel(
     for (int u = 0; u < kUnroll; ++u) {
       const long long row = base + static_cast<long long>(u) * rows_per_step + (threadIdx.x >> (SCORES ? s.llpr : 0));
       const bool live = row < r_end;
-      int pred = 0;
-      if (SCORES) {
-        float best = -CUDART_INF_F;
-        int arg = 0x7fffffff;  // loses every tie: a row of -inf gives index 0
-        if (live) {
-          const float* src = scores + row * C;
-#pragma unroll 4
-          for (int v = sub; v < n_vec; v += L) {
-            if (VEC == 4) {
-              const float4 x = __ldcs(reinterpret_cast<const float4*>(src) + v);
-              const int i = v << 2;
-              if (beats(x.x, i, best, arg)) { best = x.x; arg = i; }
-              if (beats(x.y, i + 1, best, arg)) { best = x.y; arg = i + 1; }
-              if (beats(x.z, i + 2, best, arg)) { best = x.z; arg = i + 2; }
-              if (beats(x.w, i + 3, best, arg)) { best = x.w; arg = i + 3; }
-            } else {
-              const float x = __ldcs(src + v);
-              if (beats(x, v, best, arg)) { best = x; arg = v; }
-            }
-          }
-        }
-        for (int off = 1; off < L; off <<= 1) {
-          const float w = __shfl_xor_sync(0xffffffffu, best, off);
-          const int j = __shfl_xor_sync(0xffffffffu, arg, off);
-          if (beats(w, j, best, arg)) { best = w; arg = j; }
-        }
-        pred = arg;
-      } else if (live) {
-        pred = static_cast<int>(labels[row]);
-      }
+      const int pred = row_pred<SCORES, VEC>(scores, labels, row, live, C, L, sub);
       if (!live || sub != 0) continue;
-      const int t = static_cast<int>(target[row]);
-      if (IGNORE) {
-        if (t == s.ignore_index) continue;
-        pred = pred < 0 ? 0 : (pred > C - 1 ? C - 1 : pred);
-      }
-      // int32 multiply-add that wraps like XLA's, without signed-overflow UB
-      int b = static_cast<int>(static_cast<unsigned>(t) * static_cast<unsigned>(C) + static_cast<unsigned>(pred));
-      if (b < 0) b = 0;                // jnp.bincount clips negatives into bin 0 ...
-      if (b >= C * C) continue;        // ... and drops indices past the last bin
-      const int i = b / C, j = b - (b / C) * C;
+      if (cells != nullptr && cells[row] < 0) continue;
+      int i, j;
+      if (!row_bin<IGNORE>(pred, static_cast<int>(target[row]), C, s.ignore_index, i, j)) continue;
+      // each sample adds to tp, fp, fn and tn directly (see the note above)
       ++total;
       if (i == j) {
         atomicAdd(&part[i], 1);
@@ -174,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) stat_counts_kernel(
 
   // the block's total, which every tn[c] gets
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+  for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(kFull, total, off);
   if ((threadIdx.x & 31) == 0) s_total[threadIdx.x >> 5] = total;
   __syncthreads();
   int block_total = 0;
@@ -194,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) stat_counts_kernel(
 }
 
 template <bool SCORES, int VEC, bool IGNORE, bool SMEM, typename Pred, typename Tgt>
-cudaError_t launch(const float* scores, const Pred* labels, const Tgt* target, Shape s, int* out,
+cudaError_t launch(const float* scores, const Pred* labels, const Tgt* target, const int* cells, Shape s, int* out,
                    cudaStream_t stream) {
   auto kernel = stat_counts_kernel<SCORES, VEC, IGNORE, SMEM, Pred, Tgt>;
   const size_t smem = SMEM ? 4 * static_cast<size_t>(s.C) * sizeof(int) : 0;
@@ -207,39 +252,8 @@ cudaError_t launch(const float* scores, const Pred* labels, const Tgt* target, S
   const long long steps = (s.n + rows_per_step - 1) / rows_per_step;
   const long long blocks = std::max(1LL, std::min(2LL * sms, steps));
   s.rows_per_block = (s.n + blocks - 1) / blocks;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(scores, labels, target, s, out);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(scores, labels, target, cells, s, out);
   return cudaGetLastError();
-}
-
-template <bool SCORES, int VEC, typename Pred, typename Tgt>
-cudaError_t dispatch(const float* scores, const Pred* labels, const Tgt* target, int has_ignore, Shape s, int* out,
-                     cudaStream_t stream) {
-  const bool smem = 4 * static_cast<size_t>(s.C) * sizeof(int) <= kDefaultSmem;
-  if (has_ignore) {
-    return smem ? launch<SCORES, VEC, true, true>(scores, labels, target, s, out, stream)
-                : launch<SCORES, VEC, true, false>(scores, labels, target, s, out, stream);
-  }
-  return smem ? launch<SCORES, VEC, false, true>(scores, labels, target, s, out, stream)
-              : launch<SCORES, VEC, false, false>(scores, labels, target, s, out, stream);
-}
-
-template <typename Tgt>
-cudaError_t dispatch_preds(const void* preds, int preds_mode, const Tgt* target, int has_ignore, Shape s, int* out,
-                           cudaStream_t stream) {
-  switch (preds_mode) {
-    case 0: {  // float32 scores, float4 rows
-      const auto* p = static_cast<const float*>(preds);
-      return dispatch<true, 4, int>(p, nullptr, target, has_ignore, s, out, stream);
-    }
-    case 1: {  // float32 scores, scalar loads
-      const auto* p = static_cast<const float*>(preds);
-      return dispatch<true, 1, int>(p, nullptr, target, has_ignore, s, out, stream);
-    }
-    case 2:  // int32 labels
-      return dispatch<false, 1>(nullptr, static_cast<const int*>(preds), target, has_ignore, s, out, stream);
-    default:  // int64 labels
-      return dispatch<false, 1>(nullptr, static_cast<const long long*>(preds), target, has_ignore, s, out, stream);
-  }
 }
 
 // ------------------------------------------------------------ segmented mode
@@ -250,8 +264,80 @@ struct SegShape {
   int llpr;     // log2 of the lanes per row (scores mode)
   int ignore_index;
   int num_cells;
+  long long rows_per_block;  // the cell-counter route
 };
 
+// Over more than one cell: every block holds the counters of all cells, two
+// 16-bit counters a word (a block counts at most 65535 rows); its rows in order, as K2.
+__device__ __forceinline__ void bump(unsigned* pk, int t) { atomicAdd(&pk[t >> 1], (t & 1) ? 0x10000u : 1u); }
+
+template <bool SCORES, int VEC, bool IGNORE, typename Pred, typename Tgt>
+__global__ void __launch_bounds__(kThreads) stat_counts_cells_kernel(
+    const float* __restrict__ scores, const Pred* __restrict__ labels, const Tgt* __restrict__ target,
+    const int* __restrict__ cells, SegShape s, int* __restrict__ acc) {
+  extern __shared__ unsigned s_pk[];  // (num_cells, 3, C) counters d, r, q, packed in pairs
+  const int C = s.C;
+  const int counters = s.num_cells * 3 * C;
+  const int words = (counters + 1) >> 1;
+  for (int k = threadIdx.x; k < words; k += blockDim.x) s_pk[k] = 0;
+  __syncthreads();
+  const int lg = SCORES ? s.llpr : 0;
+  const int L = 1 << lg;
+  const int sub = threadIdx.x & (L - 1);
+  const int rows_per_step = blockDim.x >> lg;
+  const long long r_begin = static_cast<long long>(blockIdx.x) * s.rows_per_block;
+  const long long r_end = min(s.n, r_begin + s.rows_per_block);
+  for (long long base = r_begin; base < r_end; base += static_cast<long long>(rows_per_step) * kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long row = base + static_cast<long long>(u) * rows_per_step + (threadIdx.x >> lg);
+      const bool live = row < r_end;
+      const int pred = row_pred<SCORES, VEC>(scores, labels, row, live, C, L, sub);
+      if (!live || sub != 0) continue;
+      const int cell = cells[row];
+      if (cell < 0) continue;
+      int i, j;
+      if (!row_bin<IGNORE>(pred, static_cast<int>(target[row]), C, s.ignore_index, i, j)) continue;
+      const int at = cell * 3 * C;
+      bump(s_pk, at + C + i);
+      bump(s_pk, at + 2 * C + j);
+      if (i == j) bump(s_pk, at + i);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < words; k += blockDim.x) {
+    const unsigned v = s_pk[k];
+    if (v & 0xffffu) atomicAdd(&acc[2 * k], static_cast<int>(v & 0xffffu));
+    if (v >> 16) atomicAdd(&acc[2 * k + 1], static_cast<int>(v >> 16));
+  }
+}
+
+// The cell counters' second launch: a warp a cell derives its four rows
+// from the summed counters d, r, q and the cell's total, the sum of r, in
+// unsigned arithmetic that wraps as int32 sums do.
+__global__ void __launch_bounds__(kThreads) stat_counts_derive_kernel(const int* __restrict__ acc, int num_cells, int C,
+                                                                      int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  for (long long cell = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5; cell < num_cells; cell += warps) {
+    const unsigned* d = reinterpret_cast<const unsigned*>(acc) + cell * 3 * C;
+    const unsigned* r = d + C;
+    const unsigned* q = r + C;
+    unsigned total = 0;
+    for (int c = lane; c < C; c += 32) total += r[c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(kFull, total, off);
+    int* o = out + cell * 4 * C;
+    for (int c = lane; c < C; c += 32) {
+      o[c] = static_cast<int>(d[c]);
+      o[C + c] = static_cast<int>(q[c] - d[c]);
+      o[2 * C + c] = static_cast<int>(total - r[c] - q[c] + d[c]);
+      o[3 * C + c] = static_cast<int>(r[c] - d[c]);
+    }
+  }
+}
+
+// The global route: an atomic per partial into the row's cell, its +1 into the cell's total.
 template <bool SCORES, int VEC, bool IGNORE, typename Pred, typename Tgt>
 __global__ void __launch_bounds__(kThreads) stat_counts_segmented_kernel(
     const float* __restrict__ scores, const Pred* __restrict__ labels, const Tgt* __restrict__ target,
@@ -261,52 +347,16 @@ __global__ void __launch_bounds__(kThreads) stat_counts_segmented_kernel(
   const int L = 1 << lg;
   const int sub = threadIdx.x & (L - 1);
   const long long groups = (static_cast<long long>(gridDim.x) * blockDim.x) >> lg;
-  const int n_vec = SCORES ? (VEC == 4 ? C >> 2 : C) : 0;
   // the loop's trip count is the block's, so the shuffles see the whole warp
   for (long long base = (static_cast<long long>(blockIdx.x) * blockDim.x) >> lg; base < s.n; base += groups) {
     const long long row = base + (threadIdx.x >> lg);
     const bool live = row < s.n;
-    int pred = 0;
-    if (SCORES) {
-      float best = -CUDART_INF_F;
-      int arg = 0x7fffffff;  // loses every tie: a row of -inf gives index 0
-      if (live) {
-        const float* src = scores + row * C;
-        for (int v = sub; v < n_vec; v += L) {
-          if (VEC == 4) {
-            const float4 x = __ldcs(reinterpret_cast<const float4*>(src) + v);
-            const int i = v << 2;
-            if (beats(x.x, i, best, arg)) { best = x.x; arg = i; }
-            if (beats(x.y, i + 1, best, arg)) { best = x.y; arg = i + 1; }
-            if (beats(x.z, i + 2, best, arg)) { best = x.z; arg = i + 2; }
-            if (beats(x.w, i + 3, best, arg)) { best = x.w; arg = i + 3; }
-          } else {
-            const float x = __ldcs(src + v);
-            if (beats(x, v, best, arg)) { best = x; arg = v; }
-          }
-        }
-      }
-      for (int off = 1; off < L; off <<= 1) {
-        const float w = __shfl_xor_sync(0xffffffffu, best, off);
-        const int j = __shfl_xor_sync(0xffffffffu, arg, off);
-        if (beats(w, j, best, arg)) { best = w; arg = j; }
-      }
-      pred = arg;
-    } else if (live) {
-      pred = static_cast<int>(labels[row]);
-    }
+    const int pred = row_pred<SCORES, VEC>(scores, labels, row, live, C, L, sub);
     if (!live || sub != 0) continue;
     const int cell = cells[row];
     if (cell < 0) continue;  // a spilled row
-    const int t = static_cast<int>(target[row]);
-    if (IGNORE) {
-      if (t == s.ignore_index) continue;
-      pred = pred < 0 ? 0 : (pred > C - 1 ? C - 1 : pred);
-    }
-    int b = static_cast<int>(static_cast<unsigned>(t) * static_cast<unsigned>(C) + static_cast<unsigned>(pred));
-    if (b < 0) b = 0;
-    if (b >= C * C) continue;
-    const int i = b / C, j = b - (b / C) * C;
+    int i, j;
+    if (!row_bin<IGNORE>(pred, static_cast<int>(target[row]), C, s.ignore_index, i, j)) continue;
     int* part = out + static_cast<long long>(cell) * 4 * C;
     atomicAdd(&totals[cell], 1);
     if (i == j) {
@@ -333,48 +383,91 @@ __global__ void __launch_bounds__(kThreads) add_cell_totals_kernel(const int* __
   *tn = static_cast<int>(static_cast<unsigned>(*tn) + static_cast<unsigned>(total));
 }
 
+// The routes of K2s (the wrapper picks one; see stat_counts_segmented below).
+enum Route { kOneCell = 0, kCellCounters = 1, kGlobal = 2 };
+
+struct SegArgs {
+  const int* cells;
+  int route;
+  int* scratch;
+  int* out;
+  cudaStream_t stream;
+};
+
+// Blocks for a grid over n rows, at most `per_sm` a SM, each with a full step of rows.
+long long row_blocks(long long n, long long rows_per_step, int sms, int per_sm) {
+  return std::max(1LL, std::min(static_cast<long long>(per_sm) * sms, (n + rows_per_step - 1) / rows_per_step));
+}
+
 template <bool SCORES, int VEC, bool IGNORE, typename Pred, typename Tgt>
-cudaError_t launch_segmented(const float* scores, const Pred* labels, const Tgt* target, const int* cells, SegShape s,
-                             int* totals, int* out, cudaStream_t stream) {
+cudaError_t launch_segmented(const float* scores, const Pred* labels, const Tgt* target, SegShape s, SegArgs a) {
+  const long long rows_per_step = kThreads >> (SCORES ? s.llpr : 0);
+  int sms = 0;
+  cudaError_t err;
+  if (a.route == kOneCell) {
+    const Shape one{s.n, s.C, s.llpr, s.ignore_index, 0};
+    return 4 * static_cast<size_t>(s.C) * sizeof(int) <= kDefaultSmem
+               ? launch<SCORES, VEC, IGNORE, true>(scores, labels, target, a.cells, one, a.out, a.stream)
+               : launch<SCORES, VEC, IGNORE, false>(scores, labels, target, a.cells, one, a.out, a.stream);
+  }
+  if (a.route == kCellCounters) {
+    auto kernel = stat_counts_cells_kernel<SCORES, VEC, IGNORE, Pred, Tgt>;
+    static LaunchCache cache[kMaxDevices] = {};
+    const size_t smem = (static_cast<size_t>(s.num_cells) * 3 * s.C + 1) / 2 * sizeof(unsigned);
+    if (smem > kCellSmemMax) return cudaErrorInvalidValue;
+    if ((err = hist_launch::prepare(kernel, smem, cache, &sms)) != cudaSuccess) return err;
+    const int per_sm = static_cast<int>(std::max<size_t>(1, std::min<size_t>(4, kSmSmem / (smem + 1024))));
+    long long blocks = row_blocks(s.n, rows_per_step * kUnroll, sms, per_sm);
+    blocks = std::max(blocks, (s.n + kMaxBlockRows - 1) / kMaxBlockRows);  // a 16-bit counter holds a block's rows
+    s.rows_per_block = (s.n + blocks - 1) / blocks;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(scores, labels, target, a.cells, s, a.scratch);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long warps_needed = s.num_cells;
+    const long long dblocks = std::max(1LL, std::min(8LL * sms, (warps_needed * 32 + kThreads - 1) / kThreads));
+    stat_counts_derive_kernel<<<static_cast<unsigned>(dblocks), kThreads, 0, a.stream>>>(a.scratch, s.num_cells, s.C, a.out);
+    return cudaGetLastError();
+  }
   auto kernel = stat_counts_segmented_kernel<SCORES, VEC, IGNORE, Pred, Tgt>;
   static LaunchCache cache[kMaxDevices] = {};
-  int sms = 0;
-  cudaError_t err = hist_launch::prepare(kernel, 0, cache, &sms);
-  if (err != cudaSuccess) return err;
-  const long long rows_per_step = kThreads >> (SCORES ? s.llpr : 0);
-  const long long steps = (s.n + rows_per_step - 1) / rows_per_step;
-  const long long blocks = std::max(1LL, std::min(4LL * sms, steps));
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(scores, labels, target, cells, s, totals, out);
+  if ((err = hist_launch::prepare(kernel, 0, cache, &sms)) != cudaSuccess) return err;
+  const long long blocks = row_blocks(s.n, rows_per_step, sms, 4);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(scores, labels, target, a.cells, s, a.scratch, a.out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long elems = static_cast<long long>(s.num_cells) * s.C;
-  add_cell_totals_kernel<<<static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      totals, s.num_cells, s.C, out);
+  add_cell_totals_kernel<<<static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0, a.stream>>>(
+      a.scratch, s.num_cells, s.C, a.out);
   return cudaGetLastError();
 }
 
+// One entry for both modes: the segmented one when seg != nullptr.
 template <bool SCORES, int VEC, typename Pred, typename Tgt>
-cudaError_t dispatch_segmented(const float* scores, const Pred* labels, const Tgt* target, const int* cells,
-                               int has_ignore, SegShape s, int* totals, int* out, cudaStream_t stream) {
-  if (has_ignore) return launch_segmented<SCORES, VEC, true>(scores, labels, target, cells, s, totals, out, stream);
-  return launch_segmented<SCORES, VEC, false>(scores, labels, target, cells, s, totals, out, stream);
+cudaError_t dispatch(const float* scores, const Pred* labels, const Tgt* target, int has_ignore, Shape s, int* out,
+                     const SegShape* seg, const SegArgs* a, cudaStream_t stream) {
+  if (seg != nullptr) {
+    return has_ignore ? launch_segmented<SCORES, VEC, true>(scores, labels, target, *seg, *a)
+                      : launch_segmented<SCORES, VEC, false>(scores, labels, target, *seg, *a);
+  }
+  const bool smem = 4 * static_cast<size_t>(s.C) * sizeof(int) <= kDefaultSmem;
+  if (has_ignore) {
+    return smem ? launch<SCORES, VEC, true, true>(scores, labels, target, nullptr, s, out, stream)
+                : launch<SCORES, VEC, true, false>(scores, labels, target, nullptr, s, out, stream);
+  }
+  return smem ? launch<SCORES, VEC, false, true>(scores, labels, target, nullptr, s, out, stream)
+              : launch<SCORES, VEC, false, false>(scores, labels, target, nullptr, s, out, stream);
 }
 
 template <typename Tgt>
-cudaError_t dispatch_segmented_preds(const void* preds, int preds_mode, const Tgt* target, const int* cells,
-                                     int has_ignore, SegShape s, int* totals, int* out, cudaStream_t stream) {
+cudaError_t dispatch_preds(const void* preds, int preds_mode, const Tgt* target, int has_ignore, Shape s, int* out,
+                           const SegShape* seg, const SegArgs* a, cudaStream_t stream) {
   switch (preds_mode) {
-    case 0:
-      return dispatch_segmented<true, 4, int>(static_cast<const float*>(preds), nullptr, target, cells, has_ignore, s,
-                                              totals, out, stream);
-    case 1:
-      return dispatch_segmented<true, 1, int>(static_cast<const float*>(preds), nullptr, target, cells, has_ignore, s,
-                                              totals, out, stream);
-    case 2:
-      return dispatch_segmented<false, 1>(nullptr, static_cast<const int*>(preds), target, cells, has_ignore, s, totals,
-                                          out, stream);
-    default:
-      return dispatch_segmented<false, 1>(nullptr, static_cast<const long long*>(preds), target, cells, has_ignore, s,
-                                          totals, out, stream);
+    case 0:  // float32 scores, float4 rows
+      return dispatch<true, 4, int>(static_cast<const float*>(preds), nullptr, target, has_ignore, s, out, seg, a, stream);
+    case 1:  // float32 scores, scalar loads
+      return dispatch<true, 1, int>(static_cast<const float*>(preds), nullptr, target, has_ignore, s, out, seg, a, stream);
+    case 2:  // int32 labels
+      return dispatch<false, 1>(nullptr, static_cast<const int*>(preds), target, has_ignore, s, out, seg, a, stream);
+    default:  // int64 labels
+      return dispatch<false, 1>(nullptr, static_cast<const long long*>(preds), target, has_ignore, s, out, seg, a, stream);
   }
 }
 
@@ -387,28 +480,30 @@ cudaError_t dispatch_segmented_preds(const void* preds, int preds_mode, const Tg
 extern "C" int stat_counts(const void* preds, int preds_mode, const void* target, int target64, long long n, int c,
                            int llpr, int has_ignore, int ignore_index, void* out, void* stream) {
   if (n == 0) return 0;
-  Shape s{n, c, llpr, ignore_index, 0};
-  auto* out_ = static_cast<int*>(out);
-  auto stream_ = static_cast<cudaStream_t>(stream);
-  if (target64) return dispatch_preds(preds, preds_mode, static_cast<const long long*>(target), has_ignore, s, out_, stream_);
-  return dispatch_preds(preds, preds_mode, static_cast<const int*>(target), has_ignore, s, out_, stream_);
-}
-
-// stat_counts's arguments, and cells: (n,) int32, each row's cohort cell or
-// -1 (dropped); totals: (num_cells,) int32, zeroed; out: (num_cells, 4, c)
-// int32, zeroed.
-extern "C" int stat_counts_segmented(const void* preds, int preds_mode, const void* target, int target64,
-                                     const void* cells, long long n, int c, int num_cells, int llpr, int has_ignore,
-                                     int ignore_index, void* totals, void* out, void* stream) {
-  if (n == 0 || num_cells == 0) return 0;
-  SegShape s{n, c, llpr, ignore_index, num_cells};
-  const auto* cells_ = static_cast<const int*>(cells);
-  auto* totals_ = static_cast<int*>(totals);
+  const Shape s{n, c, llpr, ignore_index, 0};
   auto* out_ = static_cast<int*>(out);
   auto stream_ = static_cast<cudaStream_t>(stream);
   if (target64)
-    return dispatch_segmented_preds(preds, preds_mode, static_cast<const long long*>(target), cells_, has_ignore, s,
-                                    totals_, out_, stream_);
-  return dispatch_segmented_preds(preds, preds_mode, static_cast<const int*>(target), cells_, has_ignore, s, totals_,
-                                  out_, stream_);
+    return dispatch_preds(preds, preds_mode, static_cast<const long long*>(target), has_ignore, s, out_, nullptr, nullptr,
+                          stream_);
+  return dispatch_preds(preds, preds_mode, static_cast<const int*>(target), has_ignore, s, out_, nullptr, nullptr, stream_);
+}
+
+// stat_counts's arguments, and cells: (n,) int32, each row's cohort cell or
+// -1 (dropped); route and what it takes: 0, one cell: out (1, 4, c) zeroed,
+// no scratch; 1, cell counters: out (num_cells, 4, c) uninitialised,
+// scratch (num_cells * 3 * c) int32 zeroed, ceil(num_cells * 3 * c / 2) * 4
+// bytes <= 227 KB; 2, global: out zeroed, scratch (num_cells,) int32 zeroed.
+extern "C" int stat_counts_segmented(const void* preds, int preds_mode, const void* target, int target64,
+                                     const void* cells, long long n, int c, int num_cells, int llpr, int has_ignore,
+                                     int ignore_index, int route, void* scratch, void* out, void* stream) {
+  if (n == 0 || num_cells == 0) return 0;
+  const SegShape seg{n, c, llpr, ignore_index, num_cells, 0};
+  const SegArgs a{static_cast<const int*>(cells), route, static_cast<int*>(scratch), static_cast<int*>(out),
+                  static_cast<cudaStream_t>(stream)};
+  const Shape unused{n, c, llpr, ignore_index, 0};
+  if (target64)
+    return dispatch_preds(preds, preds_mode, static_cast<const long long*>(target), has_ignore, unused, nullptr, &seg, &a,
+                          a.stream);
+  return dispatch_preds(preds, preds_mode, static_cast<const int*>(target), has_ignore, unused, nullptr, &seg, &a, a.stream);
 }

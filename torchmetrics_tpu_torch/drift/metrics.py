@@ -12,8 +12,9 @@ checkpoints apply without new state kinds.
 an eager update refreshes a cached float dict that :meth:`serve_gauges`
 returns without touching the device. Updates inside a fused plan's step or
 a CUDA graph capture skip the cache (the JAX package skips it under trace);
-the scores stay available through ``compute``. The serve daemon that
-publishes the gauges waits for ROADMAP A13. Sliced over cohort cells
+the scores stay available through ``compute``. A served stream
+(``serve/stream.py``) publishes them as the ``drift.<name>.*`` gauges.
+Sliced over cohort cells
 (``DriftScore(...).sliced(num_cells=...)``), the live histograms fold by
 segment and ``compute_all`` scores every cohort at once.
 """

@@ -8,6 +8,8 @@ Counterpart of ``torchmetrics_tpu/parallel/sliced.py::_assign_cells`` (with
 gives the algorithm, the bound and the design. On CPU tensors
 :func:`slice_assign` computes :func:`slice_assign_plain`; on CUDA tensors it
 launches the kernel or raises. Both update the table in place.
+:func:`slice_assign_reps_plain` takes the kernel's route on the host (one
+representative per new key), for the tests to hold against both.
 
 **Hashing in int64.** Torch's ``uint32`` has no shifts or remainder on the
 CPU, so the plain version mixes the keys in int64 tensors holding values in
@@ -16,6 +18,7 @@ CPU, so the plain version mixes the keys in int64 tensors holding values in
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,10 +34,47 @@ _ARGTYPES = [
     ctypes.c_int,  # n
     ctypes.c_void_p,  # spills (in place)
     ctypes.c_void_p,  # cells
+    ctypes.c_void_p,  # ctrl (kept with the table)
+    ctypes.c_void_p,  # hash (kept with the table)
+    ctypes.c_longlong,  # hash slots
     ctypes.c_void_p,  # scratch
     ctypes.c_void_p,  # stream
 ]
-_MAX_SMEM_CLAIMS = 12288  # csrc/slice_assign.cu kMaxSmemClaims
+_CTRL_WORDS = 8
+# (device index, table keys' address) -> (ctrl, hash): the kernel's control
+# words and key hash, zeroed once and left ready by every call. Never freed:
+# a captured CUDA graph may hold their addresses.
+_KEPT: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_LAST_CTRL: Dict[Tuple[int, int], torch.Tensor] = {}  # the control words of each table's last call
+
+
+def _hash_slots(batch: int) -> int:
+    """The key hash's size for a batch: a power of two, at least twice the rows."""
+    return 1 << max(1, (2 * batch - 1).bit_length())
+
+
+def _kept_buffers(keys: torch.Tensor, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The control words and key hash kept with this table, made at its first
+    call outside a capture; inside one, or for a batch larger than the kept
+    hash holds, a zeroed pair for this call alone (two memsets)."""
+    slots = _hash_slots(batch)
+    key = (keys.device.index, keys.data_ptr())
+    kept = _KEPT.get(key)
+    if kept is None or kept[1].numel() < slots:
+        fresh = (torch.zeros(_CTRL_WORDS, dtype=torch.int32, device=keys.device), torch.zeros(slots, dtype=torch.int64, device=keys.device))
+        if kept is None and not torch.cuda.is_current_stream_capturing():
+            _KEPT[key] = fresh
+        kept = fresh
+    _LAST_CTRL[key] = kept[0]
+    return kept
+
+
+def slice_assign_stats(keys: torch.Tensor) -> Dict[str, int]:
+    """The representatives (distinct new keys) and the rounds of this
+    table's last call, as the kernel left them (0 and 0 where every key was
+    resident; a host read)."""
+    ctrl = _LAST_CTRL[(keys.device.index, keys.data_ptr())].tolist()
+    return {"new_keys": ctrl[2], "rounds": ctrl[3]}
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -99,6 +139,50 @@ def slice_assign_plain(
     return cells.to(torch.int32)
 
 
+def slice_assign_reps_plain(
+    keys: torch.Tensor, occupied: torch.Tensor, spills: torch.Tensor, kmat: torch.Tensor, stats: Optional[Dict[str, int]] = None
+) -> torch.Tensor:
+    """The kernel's route on the host, for the tests: what
+    :func:`slice_assign_plain` computes, by another way.
+
+    The resident lookup, then the rounds over one representative per
+    distinct unresolved key (its lowest row) without JAX's third step, and
+    only while a slot is empty; each representative's cell goes to every row
+    of its key (``csrc/slice_assign.cu`` argues why that is JAX's result).
+    ``stats``, if given, receives the representatives (``new_keys``) and the
+    rounds run, as the kernel counts them.
+    """
+    _check_args(keys, occupied, spills, kmat)
+    n, batch = keys.shape[0], kmat.shape[0]
+    resident = (keys[None, :, :] == kmat[:, None, :]).all(-1) & occupied[None, :]
+    cells = torch.where(resident.any(1), resident.to(torch.int8).argmax(1), -1)
+    rows = torch.nonzero(cells < 0).reshape(-1)
+    uniq, inverse = torch.unique(kmat[rows], dim=0, return_inverse=True)
+    reps = torch.full((uniq.shape[0],), batch, dtype=torch.int64, device=kmat.device).scatter_reduce(0, inverse, rows, "amin")
+    h0 = hash_rows(kmat[reps]) % n
+    rep_cells = torch.full((reps.numel(),), -1, dtype=torch.int64, device=kmat.device)
+    j = 0
+    while reps.numel() and j < n and bool((~occupied).any()):
+        slot = (h0 + j) % n
+        match = occupied[slot] & (keys[slot] == kmat[reps]).all(1)
+        rep_cells = torch.where((rep_cells < 0) & match, slot, rep_cells)
+        cand = (rep_cells < 0) & ~occupied[slot]
+        winner = torch.full((n + 1,), batch, dtype=torch.int64, device=kmat.device)
+        winner = winner.scatter_reduce(0, torch.where(cand, slot, n), reps, reduce="amin")
+        is_winner = cand & (winner[slot] == reps)
+        keys[slot[is_winner]] = kmat[reps[is_winner]]
+        occupied[slot[is_winner]] = True
+        rep_cells = torch.where(is_winner, slot, rep_cells)
+        j += 1
+        if not bool((rep_cells < 0).any()):
+            break
+    cells[rows] = rep_cells[inverse]
+    spills.add_((cells < 0).sum().to(torch.int32))
+    if stats is not None:
+        stats.update(new_keys=int(reps.numel()), rounds=j)
+    return cells.to(torch.int32)
+
+
 def slice_assign(keys: torch.Tensor, occupied: torch.Tensor, spills: torch.Tensor, kmat: torch.Tensor) -> torch.Tensor:
     """Place each row of ``kmat`` (B, key_width) int32 in the slice table and
     return its (B,) int32 cell, ``-1`` for a row that spilled.
@@ -120,7 +204,8 @@ def slice_assign(keys: torch.Tensor, occupied: torch.Tensor, spills: torch.Tenso
     cells = torch.empty((batch,), dtype=torch.int32, device=keys.device)
     if batch == 0:  # nothing to place: no launch, and none is counted
         return cells
-    scratch = torch.zeros((batch + 1 + (n if n > _MAX_SMEM_CLAIMS else 0),), dtype=torch.int32, device=keys.device)
+    ctrl, hashed = _kept_buffers(keys, batch)
+    scratch = torch.empty((batch + hashed.numel() + 5 * batch + n,), dtype=torch.int32, device=keys.device)
     fn = _build.function("slice_assign", _ARGTYPES)
     with torch.cuda.device(keys.device):
         status = fn(
@@ -132,6 +217,9 @@ def slice_assign(keys: torch.Tensor, occupied: torch.Tensor, spills: torch.Tenso
             n,
             spills.data_ptr(),
             cells.data_ptr(),
+            ctrl.data_ptr(),
+            hashed.data_ptr(),
+            hashed.numel(),
             scratch.data_ptr(),
             torch.cuda.current_stream(keys.device).cuda_stream,
         )

@@ -195,10 +195,41 @@ _SEGMENTED_ARGTYPES = _ARGTYPES[:4] + [ctypes.c_void_p] + [  # cells
     ctypes.c_int,  # llpr
     ctypes.c_int,  # has_ignore
     ctypes.c_int,  # ignore_index
-    ctypes.c_void_p,  # totals
+    ctypes.c_int,  # route
+    ctypes.c_void_p,  # scratch
     ctypes.c_void_p,  # out
     ctypes.c_void_p,  # stream
 ]
+# K2s's routes (csrc/stat_counts.cu, enum Route)
+_ONE_CELL, _CELL_COUNTERS, _GLOBAL = 0, 1, 2
+_CELL_SMEM_MAX = 227 * 1024  # kCellSmemMax in csrc/stat_counts.cu
+
+
+def _cell_counter_bytes(num_cells: int, num_classes: int) -> int:
+    """The cell counters' shared memory: three 16-bit counters a class and cell, two a word."""
+    return (num_cells * 3 * num_classes + 1) // 2 * 4
+
+
+def _segmented_route(num_cells: int, num_classes: int) -> int:
+    """The route K2s takes for a shape (see ``csrc/stat_counts.cu``)."""
+    if num_cells == 1:
+        return _ONE_CELL
+    if _cell_counter_bytes(num_cells, num_classes) <= _CELL_SMEM_MAX:
+        return _CELL_COUNTERS
+    return _GLOBAL
+
+
+def _segmented_buffers(route: int, num_cells: int, num_classes: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, scratch)`` of a route: zeroed where the route adds into them,
+    uninitialised where a launch writes them."""
+    shape = (num_cells, 4, num_classes)
+    if route == _ONE_CELL:
+        out = torch.zeros(shape, dtype=torch.int32, device=device)
+        return out, out
+    if route == _CELL_COUNTERS:  # the derive launch writes every output word
+        return (torch.empty(shape, dtype=torch.int32, device=device),
+                torch.zeros(num_cells * 3 * num_classes, dtype=torch.int32, device=device))
+    return torch.zeros(shape, dtype=torch.int32, device=device), torch.zeros(num_cells, dtype=torch.int32, device=device)
 
 
 def _kernel_preds(preds: torch.Tensor, target: torch.Tensor, num_classes: int, who: str) -> Tuple[torch.Tensor, int, int]:
@@ -253,10 +284,11 @@ def stat_counts_segmented(
         raise ValueError(f"stat_counts_segmented: expected ({target.numel()},) int32 cells, got {tuple(cells.shape)} {cells.dtype}")
     cells = cells.reshape(-1).contiguous()
     preds, mode, llpr = _kernel_preds(preds, target, num_classes, "stat_counts_segmented")
-    out = torch.zeros((num_cells, 4, num_classes), dtype=torch.int32, device=preds.device)
-    if target.numel() == 0 or num_cells == 0:  # nothing to count: no launch, and none is counted
-        return out
-    totals = torch.zeros((num_cells,), dtype=torch.int32, device=preds.device)
+    n = target.numel()
+    if n == 0 or num_cells == 0:  # nothing to count: no launch, and none is counted
+        return torch.zeros((num_cells, 4, num_classes), dtype=torch.int32, device=preds.device)
+    route = _segmented_route(num_cells, num_classes)
+    out, scratch = _segmented_buffers(route, num_cells, num_classes, preds.device)
     fn = _build.function("stat_counts_segmented", _SEGMENTED_ARGTYPES, library="stat_counts")
     with torch.cuda.device(preds.device):
         status = fn(
@@ -265,13 +297,14 @@ def stat_counts_segmented(
             target.data_ptr(),
             int(target.dtype == torch.int64),
             cells.data_ptr(),
-            target.numel(),
+            n,
             num_classes,
             num_cells,
             llpr,
             int(ignore_index is not None),
             ignore_index if ignore_index is not None else 0,
-            totals.data_ptr(),
+            route,
+            scratch.data_ptr(),
             out.data_ptr(),
             torch.cuda.current_stream(preds.device).cuda_stream,
         )

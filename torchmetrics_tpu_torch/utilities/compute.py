@@ -51,7 +51,30 @@ def _adjust_weights_safe_divide(
             weights = torch.where(mask, torch.zeros_like(weights), weights)
         weights = torch.where(torch.isnan(score), torch.zeros_like(weights), weights)
     score = torch.where(torch.isnan(score), torch.zeros_like(score), score)
-    return _safe_divide(weights * score, weights.sum(-1, keepdim=True)).sum(-1)
+    return _sum_last_in_xla_order(_safe_divide(weights * score, weights.sum(-1, keepdim=True)))
+
+
+def _sum_last_in_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(-1)`` of float values, added in one fixed order on every device.
+
+    ``Tensor.sum`` adds in an order of each backend's choosing, so the same
+    float32 scores sum to other last bits on a card than on the CPU. This
+    takes the order of XLA's CPU reduction, which the JAX package's
+    ``.sum(-1)`` gets: a row of up to 32 values from left to right; a longer
+    row as the sum of its two halves (the left one ``ceil(n / 2)`` long),
+    each summed so. For rows of up to 64 that is XLA's order bit for bit
+    (``tests/test_torch_utilities.py``); longer rows keep the rule.
+    """
+    n = x.shape[-1]
+    if n == 0:
+        return x.sum(-1)
+    if n <= 32:
+        acc = x[..., 0]
+        for i in range(1, n):
+            acc = acc + x[..., i]
+        return acc
+    h = (n + 1) // 2
+    return _sum_last_in_xla_order(x[..., :h]) + _sum_last_in_xla_order(x[..., h:])
 
 
 def _auc_compute_without_check(x: torch.Tensor, y: torch.Tensor, direction: float, axis: int = -1) -> torch.Tensor:
