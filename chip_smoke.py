@@ -268,6 +268,44 @@ result) if it fails:
    counters equal numpy's, the states the unguarded metric's over the valid
    rows. Works in a temporary directory it removes.
 
+21. domains (runs after dist): segmentation, pairwise, nominal and
+   retrieval (ROADMAP A14) at full width, inputs made on the card from a
+   seed. ``MeanIoU`` and ``GeneralizedDiceScore`` (19 classes, Cityscapes'
+   evaluation classes; ``input_format="index"``, ``per_class=True``, with
+   and without the background) over 8 batches of 8 x 512 x 1024 label maps:
+   values within DOMAIN_SEG_ATOL of float64 numpy from per-sample
+   ``np.bincount`` confusion counts, the first batch's per-sample, per-class
+   intersection and union bitwise equal to the port's on the CPU, one
+   ``mean_iou`` over one-hot inputs (two 319 MB int32 tensors) bitwise equal
+   to the index format's. The five pairwise functions at BERT-base width
+   (cosine, euclidean, linear over 4,096 x 768; manhattan and minkowski,
+   exponent 3, over 1,024 x 768, their broadcast 3.2 GB), with and without
+   ``y``, reductions None and ``"mean"``, against float64 numpy within the
+   stated budgets (the broadcast ones on their first 256 rows). The four
+   contingency metrics (64 classes) over the slice's batches argmaxed,
+   ``nan_strategy="replace"``, and over float labels with about 1% NaN rows,
+   ``"drop"``: ``confmat`` bitwise equal to a numpy ``np.bincount`` fold and
+   values within DOMAIN_NOMINAL_ATOL of float64; ``fleiss_kappa`` over
+   65,536 subjects x 5 categories x 10 raters and ``cramers_v_matrix`` over
+   a 65,536 x 8 table the same way. The eleven retrieval classes over MS
+   MARCO passage dev re-ranking's shape (6,980 queries x 1,000 candidates,
+   about one relevant passage a query, scores rounded to 1e-3 with zeros of
+   both signs) in 8 batches: each value equal to the same state's compute on
+   the CPU within DOMAIN_RETRIEVAL_CPU_ATOL and to a float64 numpy reference
+   (a stable argsort per query) within DOMAIN_RETRIEVAL_ATOL;
+   ``RetrievalAUROC(max_fpr=0.1)``, whose compute is a host loop over the
+   queries, over the first 256 queries. Each family's update and compute
+   timed against its bound, ``_pack_queries``' share of a retrieval
+   compute, the peak memory.
+22. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
+   and ``--mode poison`` (seed 11) with ``--device cuda``: every daemon the
+   harness starts must print a ready line naming the card, and the reports
+   must carry the invariants JAX's tests assert (short: legs main and
+   circuit, quarantined [6], degraded observed, at least 2 restarts; poison:
+   quarantined [2, 4], 2 rollbacks, 4 masked rows, 2 rejected batches, the
+   health walk ok, degraded, ok). A failed leg fails the script. Each leg's
+   seconds and each daemon's time to its ready line are printed.
+
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
 
@@ -276,7 +314,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers and the dist phase's time, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains and chaos phases' seconds, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, and K2s and K1s at the
 StateGuard's one-cell shape) and
 ``{"ok": true, "device": {...}}``.
@@ -5944,6 +5982,588 @@ def phase_serve(device, batches, kernels, slice_run, smi):
     return out
 
 
+# ---------------------------------------------------------------- domains
+
+DOMAIN_SEG_CLASSES = 19  # Cityscapes' evaluation classes
+DOMAIN_SEG_SHAPE = (8, 512, 1024)  # 8 label maps a batch, Cityscapes at half resolution
+DOMAIN_PAIR_ROWS, DOMAIN_PAIR_DIM = 4096, 768  # BERT-base width
+DOMAIN_PAIR_BCAST_ROWS = 1024  # manhattan and minkowski: a (1024, 1024, 768) broadcast, 3.2 GB
+DOMAIN_PAIR_REF_ROWS = 256  # rows of the broadcast distances held against numpy float64
+DOMAIN_NOMINAL_CLASSES = NUM_CLASSES
+DOMAIN_FLEISS = (65536, 5, 10)  # subjects, categories, raters
+DOMAIN_TABLE = (65536, 8)  # cramers_v_matrix: rows, categorical variables
+DOMAIN_QUERIES, DOMAIN_DOCS = 6980, 1000  # MS MARCO passage dev re-ranking: queries x candidates
+DOMAIN_MAX_FPR_QUERIES = 256  # RetrievalAUROC(max_fpr=...) runs a host loop over queries: cut to these
+DOMAIN_REPS = 10
+DOMAIN_SEG_ATOL = 1e-6
+DOMAIN_NOMINAL_ATOL = 1e-5
+DOMAIN_RETRIEVAL_CPU_ATOL = 1e-6
+DOMAIN_RETRIEVAL_ATOL = 1e-5
+DOMAIN_PAIR_RTOL = 1e-5  # cosine: of 1; linear: of |x||y|; manhattan, minkowski: of the value
+DOMAIN_EUCLID_REL = 1e-6  # euclidean: squared distance within this share of |x|^2 + |y|^2
+
+
+def _domain_timed(fn, args, n_bytes, n_ops, reps=DOMAIN_REPS):
+    """One call's stream ms (CUDA events), its device ms and launches from
+    the profiler (None where PROFILE_TRACES traces in a row held no device
+    event: torch.profiler on the card was seen to drop a lone cuBLAS
+    kernel), and the bound of the same work."""
+    stream_ms = _events_ms(lambda: fn(*args), reps)
+    try:
+        ms, found = _device_ms(fn, [args], reps)
+        launches = sum(n for _, n in found.values()) / reps
+    except SmokeFailure:
+        ms = launches = None
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    return {"ms": ms, "stream_ms": stream_ms, "launches": launches, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _domain_timed_text(name, t):
+    device = "not measured" if t["ms"] is None else f"{t['ms']:.5f}"
+    launches = "not counted" if t["launches"] is None else f"{t['launches']:.0f}"
+    return f"{name} {device} / {t['stream_ms']:.5f} ({launches}; {t['bound_ms']:.5f}, {t['bound_by']})"
+
+
+def _segmentation_batches(device):
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 17)
+    out = []
+    for _ in range(NUM_BATCHES):
+        target = torch.randint(0, DOMAIN_SEG_CLASSES, DOMAIN_SEG_SHAPE, generator=gen, device=device, dtype=torch.int32)
+        noise = torch.randint(0, DOMAIN_SEG_CLASSES, DOMAIN_SEG_SHAPE, generator=gen, device=device, dtype=torch.int32)
+        keep = torch.rand(DOMAIN_SEG_SHAPE, generator=gen, device=device) < 0.7
+        out.append((torch.where(keep, target, noise), target))
+    return out
+
+
+def _numpy_segmentation(seg):
+    """Per batch, the (N, C, C) float64 confusion counts of each sample
+    (rows the target), from ``np.bincount`` on the host."""
+    import numpy as np
+
+    c = DOMAIN_SEG_CLASSES
+    out = []
+    for preds, target in seg:
+        p = preds.cpu().numpy().reshape(preds.shape[0], -1).astype(np.int64)
+        t = target.cpu().numpy().reshape(target.shape[0], -1).astype(np.int64)
+        out.append(np.stack([np.bincount(t[i] * c + p[i], minlength=c * c).reshape(c, c) for i in range(p.shape[0])]).astype(np.float64))
+    return out
+
+
+def _numpy_seg_values(counts, background):
+    """MeanIoU and GeneralizedDiceScore (square weights), per class, in float64."""
+    import numpy as np
+
+    iou_batches, dice_sum, samples = [], 0.0, 0
+    for cm in counts:
+        inter = np.diagonal(cm, axis1=1, axis2=2)
+        tsum, psum = cm.sum(2), cm.sum(1)
+        if not background:
+            inter, tsum, psum = inter[:, 1:], tsum[:, 1:], psum[:, 1:]
+        union = tsum + psum - inter
+        iou_batches.append(np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0).mean(0))
+        with np.errstate(divide="ignore"):
+            w = 1.0 / tsum**2
+        finite_max = np.where(np.isinf(w), 0.0, w).max(1, keepdims=True)
+        w = np.where(np.isinf(w), finite_max, w)
+        num, den = 2 * inter * w, (tsum + psum) * w
+        dice_sum = dice_sum + np.where(den != 0, num / np.where(den != 0, den, 1), 0.0).sum(0)
+        samples += cm.shape[0]
+    return np.mean(iou_batches, 0), dice_sum / samples
+
+
+def _domain_segmentation(tm, device, out):
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.utilities.data import to_onehot
+
+    iou = importlib.import_module("torchmetrics_tpu_torch.functional.segmentation.mean_iou")
+    gd = importlib.import_module("torchmetrics_tpu_torch.functional.segmentation.generalized_dice")
+    c = DOMAIN_SEG_CLASSES
+    seg = _segmentation_batches(device)
+    counts = _numpy_segmentation(seg)
+    errs = {}
+    for background in (True, False):
+        metrics = {"iou": tm.MeanIoU(c, include_background=background, per_class=True, input_format="index", device=device),
+                   "dice": tm.GeneralizedDiceScore(c, include_background=background, per_class=True, input_format="index",
+                                                   device=device)}
+        for preds, target in seg:
+            for m in metrics.values():
+                m.update(preds, target)
+        want_iou, want_dice = _numpy_seg_values(counts, background)
+        errs[f"iou bg={background}"] = _require_close(metrics["iou"].compute().cpu().numpy(), want_iou, DOMAIN_SEG_ATOL,
+                                                      f"MeanIoU(include_background={background})")
+        errs[f"dice bg={background}"] = _require_close(metrics["dice"].compute().cpu().numpy(), want_dice, DOMAIN_SEG_ATOL,
+                                                       f"GeneralizedDiceScore(include_background={background})")
+        # the first batch's per-sample, per-class counts on the card equal the port's on the CPU
+        p0, t0 = seg[0]
+        card = iou._mean_iou_update(p0, t0, c, background, "index")
+        host = iou._mean_iou_update(p0.cpu(), t0.cpu(), c, background, "index")
+        for g, w, what in zip(card, host, ("intersection", "union")):
+            _require(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)), f"segmentation {what} (bg={background}): card != CPU")
+    p0, t0 = seg[0]
+    by_index = tm.functional.mean_iou(p0, t0, c, input_format="index")
+    by_onehot = tm.functional.mean_iou(to_onehot(p0, c), to_onehot(t0, c), c, input_format="one-hot")
+    _require(torch.equal(by_index, by_onehot), "mean_iou: one-hot format != index format")
+    pixels = math.prod(DOMAIN_SEG_SHAPE)
+    seg_bytes = 2 * pixels * 4 + 2 * DOMAIN_SEG_SHAPE[0] * c * 4
+    out["timed"]["iou_update"] = _domain_timed(lambda p, t: iou._mean_iou_update(p, t, c, True, "index"), seg[1], seg_bytes, 5 * pixels * c)
+    out["timed"]["dice_update"] = _domain_timed(lambda p, t: gd._generalized_dice_update(p, t, c, True, "square", "index"), seg[1],
+                                                seg_bytes, 5 * pixels * c)
+    out["errors"]["segmentation"] = max(errs.values())
+    del seg
+
+
+def _pairwise_reference(name, x, y, exponent=3):
+    """The float64 numpy distance matrix of ``x``'s rows against ``y``'s."""
+    import numpy as np
+
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    if name == "cosine":
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)) @ (y / np.linalg.norm(y, axis=1, keepdims=True)).T
+    if name == "linear":
+        return x @ y.T
+    if name == "euclidean":
+        return np.sqrt(np.maximum((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :] - 2 * x @ y.T, 0))
+    rows = []
+    for i in range(0, x.shape[0], 32):
+        diff = np.abs(x[i:i + 32, None, :] - y[None, :, :])
+        rows.append(diff.sum(-1) if name == "manhattan" else ((diff**exponent).sum(-1)) ** (1 / exponent))
+    return np.concatenate(rows)
+
+
+def _domain_pairwise(tm, device, out):
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 18)
+    x = torch.randn((DOMAIN_PAIR_ROWS, DOMAIN_PAIR_DIM), generator=gen, device=device)
+    y = torch.randn((DOMAIN_PAIR_ROWS, DOMAIN_PAIR_DIM), generator=gen, device=device)
+    f = tm.functional
+    fns = {"cosine": f.pairwise_cosine_similarity, "euclidean": f.pairwise_euclidean_distance,
+           "linear": f.pairwise_linear_similarity, "manhattan": f.pairwise_manhattan_distance,
+           "minkowski": lambda *a, **k: f.pairwise_minkowski_distance(*a, exponent=3, **k)}
+    worst = 0.0
+    for name, fn in fns.items():
+        broadcast = name in ("manhattan", "minkowski")
+        rows = DOMAIN_PAIR_BCAST_ROWS if broadcast else DOMAIN_PAIR_ROWS
+        xs, ys = x[:rows], y[:rows]
+        checked = DOMAIN_PAIR_REF_ROWS if broadcast else rows
+        xn, yn = xs.cpu().numpy(), ys.cpu().numpy()
+        for with_y in (True, False):
+            other = yn if with_y else xn
+            want = _pairwise_reference(name, xn[:checked], other)
+            if not with_y:
+                np.fill_diagonal(want, 0.0)
+            sq_x = (xn[:checked].astype(np.float64) ** 2).sum(1)[:, None]
+            sq_y = (other.astype(np.float64) ** 2).sum(1)[None, :]
+            if name == "euclidean":
+                budget = np.sqrt(DOMAIN_EUCLID_REL * (sq_x + sq_y)) + 1e-6
+            elif name == "linear":
+                budget = DOMAIN_PAIR_RTOL * np.sqrt(sq_x * sq_y) + 1e-6
+            elif name == "cosine":
+                budget = np.full(want.shape, DOMAIN_PAIR_RTOL)
+            else:
+                budget = DOMAIN_PAIR_RTOL * np.abs(want) + 1e-6
+            for reduction in (None, "mean"):
+                got = fn(xs, ys if with_y else None, reduction=reduction)[:checked].double().cpu().numpy()
+                w, b = (want, budget) if reduction is None else (want.mean(-1), budget.mean(-1))
+                err = np.abs(got - w)
+                _require(bool(np.isfinite(got).all()) and bool((err <= b).all()),
+                         f"pairwise {name} (y={'given' if with_y else 'None'}, reduction={reduction}): max |err| {err.max()}"
+                         f" over the budget (worst share {(err / b).max():.3f})")
+                worst = max(worst, float((err / b).max()))
+        n, m, d = rows, rows, DOMAIN_PAIR_DIM
+        ops = 2 * n * m * d if not broadcast else (3 if name == "manhattan" else 5) * n * m * d
+        out["timed"][f"pairwise_{name}"] = _domain_timed(lambda a, b: fn(a, b), (xs, ys), 2 * n * d * 4 + n * m * 4, ops,
+                                                          reps=3 if broadcast else DOMAIN_REPS)
+    out["errors"]["pairwise (share of budget)"] = worst
+    del x, y
+
+
+def _numpy_nominal(cm, name, bias=True):
+    """Cramér's V, Pearson's C, Theil's U or Tschuprow's T of a contingency
+    table (rows the target), in float64, with JAX's bias correction."""
+    import numpy as np
+
+    cm = np.asarray(cm, np.float64)
+    cm = cm[cm.sum(1) != 0]
+    cm = cm[:, cm.sum(0) != 0]
+    n = cm.sum()
+    r, c = cm.shape
+    if name == "theils_u":
+        p_xy, p_y = cm / n, cm.sum(1) / n
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s_xy = np.where(p_xy > 0, p_xy * np.log(p_y[:, None] / np.where(p_xy > 0, p_xy, 1)), 0.0).sum()
+        p_x = cm.sum(0) / n
+        s_x = -(p_x[p_x > 0] * np.log(p_x[p_x > 0])).sum()
+        return 0.0 if s_x == 0 else (s_x - s_xy) / s_x
+    expected = np.outer(cm.sum(1), cm.sum(0)) / n
+    df = expected.size - r - c + 1
+    if df == 0:
+        chi2 = 0.0
+    else:
+        obs = cm
+        if df == 1 and bias and name != "pearsons_contingency_coefficient":
+            diff = expected - cm
+            obs = cm + np.sign(diff) * np.minimum(0.5, np.abs(diff))
+        chi2 = ((obs - expected) ** 2 / expected).sum()
+    phi2 = chi2 / n
+    if name == "pearsons_contingency_coefficient":
+        return float(np.clip(np.sqrt(phi2 / (1 + phi2)), 0, 1))
+    if bias:
+        phi2 = max(0.0, phi2 - (r - 1) * (c - 1) / (n - 1))
+        r, c = r - (r - 1) ** 2 / (n - 1), c - (c - 1) ** 2 / (n - 1)
+    value = np.sqrt(phi2 / min(r - 1, c - 1)) if name == "cramers_v" else np.sqrt(phi2 / np.sqrt((r - 1) * (c - 1)))
+    return float(np.clip(value, 0, 1))
+
+
+def _numpy_fleiss(counts):
+    import numpy as np
+
+    counts = np.asarray(counts, np.float64)
+    n_raters = counts.sum(1).max()
+    p_i = counts.sum(0) / (counts.shape[0] * n_raters)
+    p_j = ((counts**2).sum(1) - n_raters) / (n_raters * (n_raters - 1))
+    pe = (p_i**2).sum()
+    return (p_j.mean() - pe) / (1 - pe + 1e-5)
+
+
+def _domain_nominal(tm, device, batches, out):
+    import importlib
+
+    import numpy as np
+    import torch
+
+    nu = importlib.import_module("torchmetrics_tpu_torch.functional.nominal.utils")
+    nm = importlib.import_module("torchmetrics_tpu_torch.functional.nominal.metrics")
+    c = DOMAIN_NOMINAL_CLASSES
+    classes = {"cramers_v": "CramersV", "pearsons_contingency_coefficient": "PearsonsContingencyCoefficient",
+               "theils_u": "TheilsU", "tschuprows_t": "TschuprowsT"}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 19)
+    drop_batches, want = [], {"replace": np.zeros(c * c, np.int64), "drop": np.zeros(c * c, np.int64)}
+    for logits, labels in batches:
+        pred = torch.argmax(logits, dim=1)
+        nan_rows = torch.rand(pred.shape, generator=gen, device=device) < 0.01
+        drop_batches.append((torch.where(nan_rows, torch.full(pred.shape, float("nan"), device=device), pred.float()), labels.float()))
+        p, t, keep = pred.cpu().numpy().astype(np.int64), labels.cpu().numpy().astype(np.int64), ~nan_rows.cpu().numpy()
+        want["replace"] += np.bincount(t * c + p, minlength=c * c)
+        want["drop"] += np.bincount(t[keep] * c + p[keep], minlength=c * c)
+    errs = []
+    for strategy, stream in (("replace", batches), ("drop", drop_batches)):
+        metrics = {name: getattr(tm, cls)(num_classes=c, nan_strategy=strategy, device=device) for name, cls in classes.items()}
+        for batch in stream:
+            for m in metrics.values():
+                m.update(*batch)
+        cm = want[strategy].reshape(c, c)
+        for name, m in metrics.items():
+            _require(torch.equal(m.confmat.cpu(), torch.from_numpy(cm.astype(np.float32))),
+                     f"{classes[name]}({strategy}): confmat != the numpy np.bincount fold")
+            errs.append(_require_close(float(m.compute()), _numpy_nominal(cm, name), DOMAIN_NOMINAL_ATOL, f"{classes[name]}({strategy})"))
+    subjects, cats, raters = DOMAIN_FLEISS
+    truth = torch.randint(0, cats, (subjects, 1), generator=gen, device=device)
+    choice = torch.where(torch.rand((subjects, raters), generator=gen, device=device) < 0.4, truth,
+                         torch.randint(0, cats, (subjects, raters), generator=gen, device=device))
+    counts = (choice[..., None] == torch.arange(cats, device=device)).sum(1, dtype=torch.int32)
+    errs.append(_require_close(float(tm.functional.fleiss_kappa(counts)), _numpy_fleiss(counts.cpu().numpy()), DOMAIN_NOMINAL_ATOL,
+                               "fleiss_kappa"))
+    rows, variables = DOMAIN_TABLE
+    base = torch.randint(0, 6, (rows, 1), generator=gen, device=device)
+    noise = torch.randint(0, 9, (rows, variables), generator=gen, device=device)
+    table = torch.where(torch.rand((rows, variables), generator=gen, device=device) < 0.3, base, noise)
+    got = tm.functional.cramers_v_matrix(table).cpu().numpy()
+    tab = table.cpu().numpy()
+    want_m = np.ones((variables, variables))
+    for i in range(variables):
+        for j in range(i + 1, variables):
+            vals, inv = np.unique(np.concatenate([tab[:, i], tab[:, j]]), return_inverse=True)
+            a, b = inv[:rows], inv[rows:]
+            k = len(vals)
+            want_m[i, j] = want_m[j, i] = _numpy_nominal(np.bincount(b * k + a, minlength=k * k).reshape(k, k), "cramers_v")
+    errs.append(_require_close(got, want_m, DOMAIN_NOMINAL_ATOL, "cramers_v_matrix"))
+    logits, labels = batches[1]
+    out["timed"]["nominal_update"] = _domain_timed(lambda p, t: nu._nominal_confmat(p, t, c), (logits, labels),
+                                                   BATCH * (c + 1) * 4 + c * c * 4, 2 * BATCH * c)
+    confmat = torch.from_numpy(want["replace"].reshape(c, c).astype(np.float32)).to(device)
+    out["timed"]["cramers_v_compute"] = _domain_timed(lambda m: nm._cramers_v_compute(m, True), (confmat,), c * c * 4 + 4, 10 * c * c)
+    out["timed"]["fleiss_kappa"] = _domain_timed(tm.functional.fleiss_kappa, (counts,), subjects * cats * 4 + 4, 4 * subjects * cats)
+    out["errors"]["nominal"] = max(errs)
+
+
+def _retrieval_stream(device):
+    """MS MARCO passage dev re-ranking's shape: DOMAIN_QUERIES queries of
+    DOMAIN_DOCS candidates, one relevant passage per query and a second for
+    about 6% of them; scores rounded to 1e-3 (ties), about 1% of them 0 of
+    either sign. Flat (indexes, preds, target) in query order."""
+    import torch
+
+    q, d = DOMAIN_QUERIES, DOMAIN_DOCS
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 20)
+    scores = torch.rand((q, d), generator=gen, device=device) * 0.6
+    hard = torch.rand((q, d), generator=gen, device=device) < 0.003
+    scores = torch.where(hard, torch.rand((q, d), generator=gen, device=device), scores)
+    target = torch.zeros((q, d), dtype=torch.int32, device=device)
+    rows = torch.arange(q, device=device)
+    first = torch.randint(0, d, (q,), generator=gen, device=device)
+    second = torch.randint(0, d, (q,), generator=gen, device=device)
+    target[rows, first] = 1
+    extra = torch.rand(q, generator=gen, device=device) < 0.06
+    target[rows[extra], second[extra]] = 1
+    scores = torch.where(target > 0, 0.6 + 0.4 * torch.rand((q, d), generator=gen, device=device), scores)
+    scores = torch.round(scores * 1000) / 1000
+    zeros = torch.rand((q, d), generator=gen, device=device)
+    scores = torch.where(zeros < 0.005, torch.zeros_like(scores), scores)
+    scores = torch.where(zeros > 0.995, -torch.zeros_like(scores), scores)
+    indexes = rows[:, None].expand(q, d).to(torch.int32)
+    return indexes.reshape(-1), scores.reshape(-1), target.reshape(-1)
+
+
+def _numpy_retrieval(indexes, preds, target):
+    """Every retrieval value of the phase in float64 from a stable argsort of
+    each query's negated scores (one row per query: every query has
+    DOMAIN_DOCS candidates), and the per-k mean curves."""
+    import numpy as np
+    from scipy.stats import rankdata
+
+    q, d = DOMAIN_QUERIES, DOMAIN_DOCS
+    p = preds.reshape(q, d)
+    t = target.reshape(q, d).astype(np.float64)
+    order = np.argsort(-p, axis=1, kind="stable")
+    s = np.take_along_axis(t, order, 1)
+    ps = np.take_along_axis(p, order, 1)
+    n_rel = s.sum(1)
+    hits = np.cumsum(s, 1)
+    k = np.arange(1, d + 1)
+    has_pos, n_neg = n_rel > 0, d - n_rel
+    first = np.argmax(s > 0, 1)
+    r_prec = np.take_along_axis(hits, np.maximum(n_rel.astype(np.int64) - 1, 0)[:, None], 1)[:, 0] / np.maximum(n_rel, 1)
+    # tie-averaged DCG@10: each run of equal scores shares its mean gain
+    runs = np.cumsum(np.c_[np.zeros((q, 1), np.int64), ps[:, 1:] != ps[:, :-1]], 1) + np.arange(q)[:, None] * d
+    mean_gain = (np.bincount(runs.ravel(), weights=s.ravel()) / np.maximum(np.bincount(runs.ravel()), 1))[runs]
+    disc = 1 / np.log2(np.arange(10) + 2)
+    ideal = (-np.sort(-t, 1))[:, :10] @ disc
+    dcg = mean_gain[:, :10] @ disc
+    ranks = rankdata(p, axis=1)
+    auc = ((ranks * t).sum(1) - n_rel * (n_rel + 1) / 2) / np.maximum(n_rel * n_neg, 1)
+    prec_curve = (hits[:, :100] / k[:100]).mean(0)
+    rec_curve = (hits[:, :100] / np.maximum(n_rel, 1)[:, None]).mean(0)
+    ok = prec_curve >= 0.5
+    best = max(zip(rec_curve[ok], k[:100][ok])) if ok.any() else (0.0, 100)
+    values = {
+        "RetrievalMAP": np.where(has_pos, (hits / k * s).sum(1) / np.maximum(n_rel, 1), 0).mean(),
+        "RetrievalMRR": np.where(has_pos, 1 / (first + 1), 0).mean(),
+        "RetrievalPrecision": np.where(has_pos, hits[:, 9] / 10, 0).mean(),
+        "RetrievalRecall": np.where(has_pos, hits[:, 99] / np.maximum(n_rel, 1), 0).mean(),
+        "RetrievalHitRate": (hits[:, 9] > 0).mean(),
+        "RetrievalFallOut": np.where(n_neg > 0, (10 - hits[:, 9]) / np.maximum(n_neg, 1), 0).mean(),
+        "RetrievalRPrecision": np.where(has_pos, r_prec, 0).mean(),
+        "RetrievalNormalizedDCG": np.where(ideal > 0, dcg / np.where(ideal > 0, ideal, 1), 0).mean(),
+        "RetrievalAUROC": np.where(has_pos & (n_neg > 0), auc, 0).mean(),
+        "RetrievalPrecisionRecallCurve": (prec_curve, rec_curve),
+        "RetrievalRecallAtFixedPrecision": best,
+    }
+    return values
+
+
+def _numpy_partial_auc(p, t, max_fpr):
+    """One query's McClish-standardized partial AUROC up to ``max_fpr``, in float64."""
+    import numpy as np
+
+    order = np.argsort(-p, kind="stable")
+    p, t = p[order].astype(np.float64), t[order].astype(np.float64)
+    last = np.r_[np.flatnonzero(np.diff(p)), p.size - 1]
+    tps, fps = np.cumsum(t)[last], np.cumsum(1 - t)[last]
+    tpr, fpr = np.r_[0, tps / tps[-1]], np.r_[0, fps / fps[-1]]
+    stop = np.searchsorted(fpr, max_fpr, "right")
+    x = np.r_[fpr[:stop], max_fpr]
+    y = np.r_[tpr[:stop], np.interp(max_fpr, fpr, tpr)]
+    area = np.trapezoid(y, x) if hasattr(np, "trapezoid") else np.trapz(y, x)
+    lo, hi = 0.5 * max_fpr**2, max_fpr
+    return 0.5 * (1 + (area - lo) / (hi - lo))
+
+
+def _domain_retrieval(tm, device, out):
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch.retrieval.base as rbase
+    from torchmetrics_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    indexes, preds, target = _retrieval_stream(device)
+    kwargs = {"RetrievalMAP": {}, "RetrievalMRR": {}, "RetrievalPrecision": {"top_k": 10}, "RetrievalRecall": {"top_k": 100},
+              "RetrievalHitRate": {"top_k": 10}, "RetrievalFallOut": {"top_k": 10}, "RetrievalRPrecision": {},
+              "RetrievalNormalizedDCG": {"top_k": 10}, "RetrievalAUROC": {}, "RetrievalPrecisionRecallCurve": {"max_k": 100},
+              "RetrievalRecallAtFixedPrecision": {"min_precision": 0.5, "max_k": 100}}
+    metrics = {name: getattr(tm, name)(device=device, **kw) for name, kw in kwargs.items()}
+    parts = torch.arange(indexes.numel(), device=device).chunk(NUM_BATCHES)
+    update_s = 0.0
+    for part in parts:
+        for m in metrics.values():
+            update_s += _timed(lambda: m.update(preds[part], target[part], indexes=indexes[part]))
+    want = _numpy_retrieval(indexes.cpu().numpy(), preds.cpu().numpy(), target.cpu().numpy())
+    errs, cpu_errs, compute_s, pack_s = [], [], {}, {}
+    pack = rbase._pack_queries
+
+    def timed_pack(*states):  # the host's share of a compute: packing the queries into the grid
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = pack(*states)
+        torch.cuda.synchronize()
+        pack_s[name] = time.perf_counter() - t0
+        return grid
+
+    for name, m in metrics.items():
+        got = None
+
+        def run():
+            nonlocal got
+            got = m.compute()
+
+        rbase._pack_queries = timed_pack
+        try:
+            compute_s[name] = _timed(run)
+        finally:
+            rbase._pack_queries = pack
+        host = getattr(tm, name)(device="cpu", **kwargs[name])
+        state_from_numpy(host, state_to_numpy(m, include_count=True))
+        on_cpu = host.compute()
+        pairs = list(zip(got, on_cpu)) if isinstance(got, tuple) else [(got, on_cpu)]
+        for g, h in pairs:
+            _require(g.dtype == h.dtype and g.shape == h.shape, f"{name}: card {g.dtype}{tuple(g.shape)} vs CPU {h.dtype}{tuple(h.shape)}")
+            cpu_errs.append(_require_close(g.cpu().double().numpy(), h.double().numpy(), DOMAIN_RETRIEVAL_CPU_ATOL, f"{name}: card vs CPU"))
+        w = want[name]
+        if name == "RetrievalRecallAtFixedPrecision":
+            errs.append(_require_close(float(got[0]), w[0], DOMAIN_RETRIEVAL_ATOL, name))
+            _require(int(got[1]) == int(w[1]), f"{name}: k {int(got[1])} vs numpy's {int(w[1])}")
+        elif name == "RetrievalPrecisionRecallCurve":
+            errs.append(_require_close(got[0].cpu().numpy(), w[0], DOMAIN_RETRIEVAL_ATOL, f"{name} precision"))
+            errs.append(_require_close(got[1].cpu().numpy(), w[1], DOMAIN_RETRIEVAL_ATOL, f"{name} recall"))
+        else:
+            errs.append(_require_close(float(got), w, DOMAIN_RETRIEVAL_ATOL, name))
+    grid = pack(*[torch.cat(getattr(metrics["RetrievalMAP"], k)) for k in ("indexes", "preds", "target")])
+    from torchmetrics_tpu_torch.functional.retrieval.metrics import _average_precision_kernel
+
+    docs = indexes.numel()
+    out["timed"]["retrieval_ap_rows"] = _domain_timed(_average_precision_kernel, grid, docs * 9 + DOMAIN_QUERIES * 4,
+                                                      docs * math.ceil(math.log2(DOMAIN_DOCS)), reps=3)
+    # RetrievalAUROC(max_fpr): JAX's host loop, one exact binary curve per query, over the first queries
+    cut = DOMAIN_MAX_FPR_QUERIES * DOMAIN_DOCS
+    partial = tm.RetrievalAUROC(max_fpr=0.1, device=device)
+    partial.update(preds[:cut], target[:cut], indexes=indexes[:cut])
+    value = None
+
+    def run_partial():
+        nonlocal value
+        value = partial.compute()
+
+    max_fpr_s = _timed(run_partial)
+    p, t = preds[:cut].cpu().numpy().reshape(-1, DOMAIN_DOCS), target[:cut].cpu().numpy().reshape(-1, DOMAIN_DOCS)
+    errs.append(_require_close(float(value), np.mean([_numpy_partial_auc(a, b, 0.1) for a, b in zip(p, t)]), DOMAIN_RETRIEVAL_ATOL,
+                               "RetrievalAUROC(max_fpr=0.1)"))
+    out["errors"]["retrieval"] = max(errs)
+    out["errors"]["retrieval card vs CPU"] = max(cpu_errs)
+    out["retrieval"] = {"update_ms_per_batch": update_s / NUM_BATCHES / len(metrics) * 1e3, "compute_ms": {k: v * 1e3 for k, v in compute_s.items()},
+                        "pack_ms": [min(pack_s.values()) * 1e3, max(pack_s.values()) * 1e3],
+                        "pack_share": [min(pack_s[k] / compute_s[k] for k in pack_s), max(pack_s[k] / compute_s[k] for k in pack_s)],
+                        "max_fpr_s": max_fpr_s,
+                        "max_fpr_ms_per_query": max_fpr_s / DOMAIN_MAX_FPR_QUERIES * 1e3}
+
+
+def phase_domains(device, batches, smi):
+    """Segmentation, pairwise, nominal and retrieval (ROADMAP A14) at full
+    width on the card: see the module docstring, phase 21."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"timed": {}, "errors": {}}
+    _domain_segmentation(tm, device, out)
+    _domain_pairwise(tm, device, out)
+    _domain_nominal(tm, device, batches, out)
+    _domain_retrieval(tm, device, out)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    r = out["retrieval"]
+    print(
+        f"[domains] {smi}; device ms / stream ms per call (launches; bound ms, by):"
+        f" {'; '.join(_domain_timed_text(k, v) for k, v in out['timed'].items())};"
+        f" retrieval update {r['update_ms_per_batch']:.3f} ms wall a batch a metric, compute ms wall"
+        f" {', '.join(f'{k} {v:.1f}' for k, v in r['compute_ms'].items())}, of it _pack_queries"
+        f" {r['pack_ms'][0]:.1f}-{r['pack_ms'][1]:.1f} ms ({r['pack_share'][0]:.3f}-{r['pack_share'][1]:.3f} of each compute),"
+        f" RetrievalAUROC(max_fpr=0.1) host loop over the first"
+        f" {DOMAIN_MAX_FPR_QUERIES} of {DOMAIN_QUERIES} queries {r['max_fpr_s']:.2f} s ({r['max_fpr_ms_per_query']:.2f} ms a query);"
+        f" max |err| {', '.join(f'{k} {v:.2e}' for k, v in out['errors'].items())}; peak {out['peak_mib']:.1f} MiB;"
+        f" {out['seconds']:.1f} s"
+    )
+    return out
+
+
+# ------------------------------------------------------------------ chaos
+
+CHAOS_TIMEOUT_S = 420
+
+
+def phase_chaos(smi):
+    """The port's chaos harness (``torchmetrics_tpu_torch/serve/chaos.py``)
+    in ``short`` and ``poison`` modes with its daemons on the card: see the
+    module docstring, phase 22."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    harness = os.path.join(root, "torchmetrics_tpu_torch", "serve", "chaos.py")
+    work = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    t_phase = time.perf_counter()
+    reports = {}
+    try:
+        for mode in ("short", "poison"):
+            try:
+                done = subprocess.run(
+                    [sys.executable, harness, "--workdir", os.path.join(work, mode), "--mode", mode, "--seed", "11", "--device", "cuda"],
+                    capture_output=True, text=True, timeout=CHAOS_TIMEOUT_S, cwd=work,
+                )
+            except subprocess.TimeoutExpired as err:
+                raise SmokeFailure(f"chaos {mode}: the harness outlived {CHAOS_TIMEOUT_S} s") from err
+            lines = done.stdout.strip().splitlines()
+            _require(done.returncode == 0 and lines, f"chaos {mode}: rc {done.returncode}\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+            report = json.loads(lines[-1])
+            _require(report.get("ok") and report.get("device") == "cuda", f"chaos {mode}: {report}")
+            reports[mode] = {leg["leg"]: leg for leg in report["legs"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    short, poison = reports["short"], reports["poison"]["poison"]
+    _require(set(short) == {"main", "circuit"}, f"chaos short: legs {sorted(short)}")
+    _require(short["main"]["quarantined"] == [6] and short["main"]["degraded_observed"] is True, f"chaos short main: {short['main']}")
+    _require(short["circuit"]["restarts"] >= 2, f"chaos short circuit: {short['circuit']}")
+    _require(poison["quarantined"] == [2, 4] and poison["rollbacks"] == 2 and poison["masked_rows"] == 4
+             and poison["rejected_batches"] == 2 and poison["health_walk"] == ["ok", "degraded", "ok"], f"chaos poison: {poison}")
+    legs = {**{f"short.{k}": v for k, v in short.items()}, "poison": poison}
+    seconds = time.perf_counter() - t_phase
+    print(
+        f"[chaos] {smi}; daemons on --device cuda; legs (seconds; each daemon's start to ready line, s):"
+        f" {'; '.join(f'{k} {v['seconds']:.2f} ({', '.join(f'{s:.2f}' for s in v['ready_s'])})' for k, v in legs.items())};"
+        f" short main quarantined {short['main']['quarantined']}, circuit restarts {short['circuit']['restarts']}; poison"
+        f" rollbacks {poison['rollbacks']}, masked rows {poison['masked_rows']}, rejected batches {poison['rejected_batches']},"
+        f" health {poison['health_walk']}; {seconds:.1f} s"
+    )
+    return {"seconds": seconds, "legs": legs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5987,6 +6607,8 @@ def main() -> int:
     durable = phase_durable(device, batches, KERNELS, run, exact, smi)
     serve = phase_serve(device, batches, KERNELS, run, smi)
     dist_run = phase_dist(run, exact, fused, smi)
+    domains = phase_domains(device, batches, smi)
+    chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
     matrix_row.update(name="binned_curve_state, matrix mode (multilabel path)", route="cuda",
@@ -6047,6 +6669,7 @@ def main() -> int:
         f" {serve['stream']['fused_sps']:.1f}), JSON decode {serve['daemon']['decode_ms']:.2f} ms a batch, socket ingest"
         f" {serve['daemon']['ingest_sps']:.1f} samples/s, restart-to-ready {serve['daemon']['restart_s']:.2f} s, export"
         f" {serve['fleet']['export_ms']:.2f} ms ({serve['fleet']['export_bytes']} B), fold {serve['fleet']['fold_ms']:.2f} ms;"
+        f" domains phase {domains['seconds']:.1f} s, peak {domains['peak_mib']:.1f} MiB; chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

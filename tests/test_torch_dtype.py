@@ -200,6 +200,12 @@ def _c4_batch(kind, seed):
         return (p / p.sum(1, keepdims=True)).astype(np.float32), (q / q.sum(1, keepdims=True)).astype(np.float32)
     if kind == "rows":
         return r.standard_normal((n, 6)).astype(np.float32), r.standard_normal((n, 6)).astype(np.float32)
+    if kind == "labels":  # segmentation label maps
+        return r.integers(0, c, (4, 6, 5)).astype(np.int32), r.integers(0, c, (4, 6, 5)).astype(np.int32)
+    if kind == "counts":  # Fleiss' kappa: 4 ratings a subject over c categories
+        return (np.eye(c, dtype=np.int32)[r.integers(0, c, (n, 4))].sum(1),)
+    if kind == "retrieval":
+        return r.random(n).astype(np.float32), r.integers(0, 2, n), r.integers(0, 4, n)
     return (r.standard_normal(n).astype(np.float32),)
 
 
@@ -228,6 +234,16 @@ _C4_CASES = [
     ("CatMetric", {}, "one"), ("MaxMetric", {}, "one"), ("MinMetric", {}, "one"), ("MeanMetric", {}, "one"),
     ("SumMetric", {}, "one"), ("RunningMean", {"window": 3}, "one"), ("RunningSum", {"window": 3}, "one"),
     ("Median", {}, "one"), ("Quantile", {"q": 0.5}, "one"),
+    ("MeanIoU", {"num_classes": _C4_C, "input_format": "index"}, "labels"),
+    ("GeneralizedDiceScore", {"num_classes": _C4_C, "input_format": "index"}, "labels"),
+    ("CramersV", {"num_classes": _C4_C}, "logit"), ("PearsonsContingencyCoefficient", {"num_classes": _C4_C}, "logit"),
+    ("TheilsU", {"num_classes": _C4_C}, "logit"), ("TschuprowsT", {"num_classes": _C4_C}, "logit"),
+    ("FleissKappa", {}, "counts"),
+    ("RetrievalAUROC", {}, "retrieval"), ("RetrievalFallOut", {}, "retrieval"), ("RetrievalHitRate", {}, "retrieval"),
+    ("RetrievalMAP", {}, "retrieval"), ("RetrievalMRR", {}, "retrieval"), ("RetrievalNormalizedDCG", {}, "retrieval"),
+    ("RetrievalPrecision", {}, "retrieval"), ("RetrievalPrecisionRecallCurve", {}, "retrieval"),
+    ("RetrievalRecall", {}, "retrieval"), ("RetrievalRecallAtFixedPrecision", {}, "retrieval"),
+    ("RetrievalRPrecision", {}, "retrieval"),
 ]
 _C4_WRAPPERS = {
     "BinaryTargetTransformer", "BootStrapper", "ClasswiseWrapper", "CompositionalMetric", "LambdaInputTransformer",

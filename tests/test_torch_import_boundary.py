@@ -134,6 +134,23 @@ def test_robustness_exports_equal_jax_but_stateguard():
     assert TR.validate_state_tree is not None  # importable, as in JAX, though not in __all__
 
 
+@pytest.mark.parametrize("package", ["segmentation", "functional.segmentation", "functional.pairwise", "nominal",
+                                     "functional.nominal", "retrieval", "functional.retrieval", "serve.chaos"])
+def test_the_new_domains_and_the_chaos_harness_are_scanned(package):
+    """The domains of A14 ported so far and the chaos harness are among the
+    modules the two checks above import and scan."""
+    assert f"torchmetrics_tpu_torch.{package}" in _port_modules()
+
+
+def test_chaos_harness_imports_only_the_standard_library():
+    """``serve/chaos.py`` runs as a file path with neither torch nor either
+    package importable (its tests poison them): the standard library alone."""
+    import sys as _sys
+
+    names = {name.split(".")[0] for name in _imports(PORT / "serve" / "chaos.py")}
+    assert names <= set(_sys.stdlib_module_names) | {"__future__"}, names - set(_sys.stdlib_module_names)
+
+
 def test_store_format_copy_imports_only_the_standard_library():
     path = PORT / "robustness" / "store_format.py"
     names = {name.split(".")[0] for name in _imports(path)}

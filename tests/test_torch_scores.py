@@ -598,12 +598,12 @@ def test_argument_errors_match_jax(name, bad):
 
 def test_exports_equal_jax_but_generalized_dice_score():
     """The port's ``classification`` and ``functional.classification`` export
-    JAX's names; ``generalized_dice_score`` (segmentation, ROADMAP A14) is the
-    one exception."""
+    JAX's names, ``generalized_dice_score`` among them since segmentation is
+    ported (the name is kept from when it was the one exception)."""
     import torchmetrics_tpu_torch.classification as port_classes
 
     assert sorted(port_classes.__all__) == sorted(JC.__all__)
-    assert sorted(TF.__all__) == sorted(set(JF.__all__) - {"generalized_dice_score"})
+    assert sorted(TF.__all__) == sorted(JF.__all__)
     for name in port_classes.__all__:
         assert getattr(port_classes, name).__module__.startswith("torchmetrics_tpu_torch.")
     for name in TF.__all__:

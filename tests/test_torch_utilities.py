@@ -143,6 +143,43 @@ def test_sum_last_in_xla_order_is_jnp_sum(num, jit):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+@pytest.mark.parametrize("num", [1, 5, 19, 33, 64])
+def test_mean_last_in_xla_order_is_jnp_mean(num):
+    """``jnp.mean(-1)`` is XLA's sum times the float32 reciprocal of the count,
+    bit for bit (segmentation's class means, retrieval's curve means)."""
+    rng = np.random.default_rng(num + 100)
+    x = rng.random((2000, num)).astype(np.float32)
+    want = np.asarray(jnp.mean(jnp.asarray(x), axis=-1))
+    got = tcompute._mean_last_in_xla_order(torch.from_numpy(x))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32])
+def test_safe_matmul_parity(dtype):
+    rng = np.random.default_rng(7)
+    x, y = rng.standard_normal((6, 16)).astype(dtype), rng.standard_normal((4, 16)).astype(dtype)
+    want = np.asarray(jcompute._safe_matmul(jnp.asarray(x), jnp.asarray(y)))
+    got = tcompute._safe_matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got.astype(np.float32), want.astype(np.float32), rtol=1e-3 if dtype == np.float16 else 1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("shapes", [((1, 4, 1), (1, 4, 1)), ((3, 1, 5), (3, 1, 5)), ((1, 1), (1, 1)), ((0,), (0,)), ((2, 3), (0,))])
+def test_input_squeeze_and_empty_check_parity(shapes):
+    from torchmetrics_tpu.utilities import checks as jchecks
+    from torchmetrics_tpu_torch.utilities import checks as tchecks
+
+    p, t = (np.arange(int(np.prod(s)), dtype=np.float32).reshape(s) for s in shapes)
+    assert tchecks._check_for_empty_tensors(torch.from_numpy(p), torch.from_numpy(t)) == jchecks._check_for_empty_tensors(
+        jnp.asarray(p), jnp.asarray(t))
+    if p.size and p.shape == t.shape:
+        want = jchecks._input_squeeze(jnp.asarray(p), jnp.asarray(t))
+        got = tchecks._input_squeeze(torch.from_numpy(p), torch.from_numpy(t))
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 @pytest.mark.parametrize("num_classes", [8, 64])
 def test_macro_average_bitwise_parity(num_classes):
     """Macro averages of random counts equal JAX's bit for bit, the float sum

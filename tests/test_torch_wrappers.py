@@ -560,14 +560,6 @@ NOT_PORTED = {
     "StructuralSimilarityIndexMeasure", "TotalVariation", "UniversalImageQualityIndex", "VisualInformationFidelity",
     # multimodal
     "CLIPImageQualityAssessment", "CLIPScore",
-    # nominal
-    "CramersV", "FleissKappa", "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT",
-    # retrieval
-    "RetrievalAUROC", "RetrievalFallOut", "RetrievalHitRate", "RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG",
-    "RetrievalPrecision", "RetrievalPrecisionRecallCurve", "RetrievalRPrecision", "RetrievalRecall",
-    "RetrievalRecallAtFixedPrecision",
-    # segmentation
-    "GeneralizedDiceScore", "MeanIoU",
     # text
     "BERTScore", "BLEUScore", "CHRFScore", "CharErrorRate", "EditDistance", "ExtendedEditDistance", "InfoLM",
     "MatchErrorRate", "Perplexity", "ROUGEScore", "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate",

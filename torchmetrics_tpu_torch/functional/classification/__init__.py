@@ -141,7 +141,10 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     stat_scores,
 )
 
+from torchmetrics_tpu_torch.functional.segmentation.generalized_dice import generalized_dice_score  # JAX re-exports it here too
+
 __all__ = [
+    "generalized_dice_score",
     "accuracy",
     "auroc",
     "average_precision",

@@ -13,28 +13,10 @@ from typing import Any, Tuple
 
 import torch
 
-from torchmetrics_tpu_torch.utilities.data import _to_tensors
+# the regression modules import these two from here
+from torchmetrics_tpu_torch.utilities.data import _jnp_add, _jnp_dtype, _to_tensors  # noqa: F401
 
 Tensor = torch.Tensor
-
-_NARROWED = {torch.float64: torch.float32, torch.int64: torch.int32}
-
-
-def _jnp_dtype(x: Tensor) -> Tensor:
-    """``x`` in the dtype ``jnp.asarray`` gives it: float64 as float32, int64 as int32."""
-    narrowed = _NARROWED.get(x.dtype)
-    return x if narrowed is None else x.to(narrowed)
-
-
-def _jnp_add(a: Tensor, b: Tensor) -> Tensor:
-    """``a + b`` in the dtype ``jnp`` gives it, by the dtype lattice alone.
-
-    Torch lets a 0-d operand lose to a dimensioned one of the same kind, so a
-    ``(1,)`` bfloat16 state plus a 0-d float32 batch sum stays bfloat16;
-    ``jnp`` widens it to float32 (a state narrowed by ``set_dtype``).
-    """
-    common = torch.promote_types(a.dtype, b.dtype)
-    return a.to(common) + b.to(common)
 
 
 def _float32_pair(preds: Any, target: Any) -> Tuple[Tensor, Tensor]:

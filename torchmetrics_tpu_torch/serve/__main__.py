@@ -33,7 +33,8 @@ Usage::
 with an error rather than serve on the host), restores every stream whose
 ``spec.json`` survives there (restart = resume from the snapshot cursor),
 prints ONE ready line of JSON (``{"ok": true, "http": [host, port],
-"socket": ..., "pid": ...}`` — parse it to discover the ephemeral port) and
+"socket": ..., "pid": ..., "device": "cuda:0"}`` — parse it to discover the
+ephemeral port and the device it serves on) and
 then blocks. SIGTERM/SIGINT trigger the graceful drain: stop admitting,
 apply every admitted batch, snapshot + final-compute every stream in sorted
 order, one last telemetry tick.
@@ -101,7 +102,8 @@ def _cmd_serve(args) -> int:
         device=args.device,
     ).start()
     host, port = daemon.http_address()
-    ready = {"ok": True, "http": [host, port], "socket": socket_path, "pid": os.getpid()}
+    ready = {"ok": True, "http": [host, port], "socket": socket_path, "pid": os.getpid(),
+             "device": str(daemon.device)}
     print(json.dumps(ready), flush=True)
 
     stop = threading.Event()
@@ -161,7 +163,7 @@ def _cmd_fleet(args) -> int:
                 return 1
         host, port = agg.http_address()
         print(json.dumps({"ok": True, "http": [host, port], "epoch": agg.epoch,
-                          "leaves": agg.leaves(), "pid": os.getpid()}), flush=True)
+                          "leaves": agg.leaves(), "pid": os.getpid(), "device": str(agg.device)}), flush=True)
         stop = threading.Event()
 
         def _graceful(signum, frame) -> None:

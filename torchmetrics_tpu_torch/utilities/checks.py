@@ -18,9 +18,11 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Any, Iterator, Optional
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
+
+from torchmetrics_tpu_torch.utilities.data import _jnp_dtype
 
 _FUSED_STEP = threading.local()
 
@@ -75,6 +77,17 @@ def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
         )
 
 
+def _check_for_empty_tensors(preds: torch.Tensor, target: torch.Tensor) -> bool:
+    """True when BOTH inputs are empty."""
+    return preds.numel() == 0 and target.numel() == 0
+
+
+def _input_squeeze(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop singleton axes, keeping the batch axis when it is 1."""
+    if preds.shape[0] == 1:
+        return preds.squeeze().unsqueeze(0), target.squeeze().unsqueeze(0)
+    return preds.squeeze(), target.squeeze()
+
 
 def is_overridden(method_name: str, instance: object, parent: type) -> bool:
     """True when ``instance``'s class overrides ``parent.method_name``."""
@@ -83,6 +96,63 @@ def is_overridden(method_name: str, instance: object, parent: type) -> bool:
     if instance_attr is None or parent_attr is None:
         return False
     return instance_attr is not parent_attr
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float preds; a bool, integer or float target whose values lie in
+    [0, 1] unless ``allow_non_binary_target`` (fractional relevance passes,
+    as in JAX). The range is read on the host only where the target is
+    concrete. Both come back flat: preds float32, the target float32 unless
+    non-binary targets are allowed, then in its own dtype, 64-bit narrowed."""
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a array of floats")
+    if target.is_complex():
+        raise ValueError("`target` must be a array of booleans, integers or floats")
+    if (
+        not allow_non_binary_target
+        and _is_concrete(target)
+        and target.numel()
+        and bool((target.max() > 1) | (target.min() < 0))
+    ):
+        raise ValueError("`target` must contain `binary` values")
+    target = target.reshape(-1)
+    return preds.reshape(-1).to(torch.float32), _jnp_dtype(target) if allow_non_binary_target else target.to(torch.float32)
+
+
+def _check_retrieval_functional_inputs(
+    preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check and flatten one query's inputs."""
+    if preds.shape != target.shape or preds.ndim == 0 or preds.numel() == 0:
+        raise ValueError("`preds` and `target` must be non-empty and of the same shape")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: torch.Tensor,
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check and flatten a retrieval module's batch. Rows whose target is
+    ``ignore_index`` go first (a boolean select, which reads the mask's count
+    on the host), then an empty batch raises: an all-ignored batch is an
+    error, as in JAX. ``indexes`` come back int32, as JAX's with 64-bit
+    types off."""
+    if indexes.shape != preds.shape or preds.shape != target.shape or indexes.ndim == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and of the same shape")
+    if indexes.is_floating_point() or indexes.is_complex() or indexes.dtype == torch.bool:
+        raise ValueError("`indexes` must be a array of integers")
+    if ignore_index is not None:
+        valid = target != ignore_index
+        indexes, preds, target = indexes[valid], preds[valid], target[valid]
+    if preds.numel() == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and of the same shape")
+    preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+    return indexes.reshape(-1).to(torch.int32), preds, target
 
 
 def _allclose_recursive(res1: Any, res2: Any, atol: float = 1e-6) -> bool:

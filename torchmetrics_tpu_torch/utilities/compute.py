@@ -14,6 +14,17 @@ def _dim_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
     return x.sum(dim=axis, dtype=x.dtype) if x.ndim > 0 else x
 
 
+def _safe_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y.T``; half-precision inputs multiply in float32 and the product
+    comes back in ``x``'s dtype. A float32 product runs in float32 on the
+    card too: the port never turns TF32 on
+    (``torch.backends.cuda.matmul.allow_tf32`` stays ``False``)."""
+    half = (torch.float16, torch.bfloat16)
+    if x.dtype in half or y.dtype in half:
+        return (x.to(torch.float32) @ y.to(torch.float32).T).to(x.dtype)
+    return x @ y.T
+
+
 def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x * log(y)`` that is 0 wherever ``x == 0``, ``y`` NaN included, as the JAX package's is."""
     return torch.where(x == 0, torch.zeros_like(x), x * torch.log(y))
@@ -75,6 +86,14 @@ def _sum_last_in_xla_order(x: torch.Tensor) -> torch.Tensor:
         return acc
     h = (n + 1) // 2
     return _sum_last_in_xla_order(x[..., :h]) + _sum_last_in_xla_order(x[..., h:])
+
+
+def _mean_last_in_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, axis=-1)`` of float32 values, bitwise on every device:
+    :func:`_sum_last_in_xla_order`, times the float32 reciprocal of the
+    count, which is how XLA's CPU compiler divides by a constant."""
+    recip = torch.full((), 1.0 / x.shape[-1], dtype=x.dtype, device=x.device)
+    return _sum_last_in_xla_order(x) * recip
 
 
 def _auc_compute_without_check(x: torch.Tensor, y: torch.Tensor, direction: float, axis: int = -1) -> torch.Tensor:

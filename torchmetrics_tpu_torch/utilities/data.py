@@ -140,6 +140,26 @@ def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor, rtol: float = 1e-5, a
     return bool(torch.allclose(tensor1.to(torch.float32), tensor2.to(tensor1.device, torch.float32), rtol=rtol, atol=atol))
 
 
+_NARROWED = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _jnp_dtype(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype ``jnp.asarray`` gives it: float64 as float32, int64 as int32."""
+    narrowed = _NARROWED.get(x.dtype)
+    return x if narrowed is None else x.to(narrowed)
+
+
+def _jnp_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` in the dtype ``jnp`` gives it, by the dtype lattice alone.
+
+    Torch lets a 0-d operand lose to a dimensioned one of the same kind, so a
+    ``(1,)`` bfloat16 state plus a 0-d float32 batch sum stays bfloat16;
+    ``jnp`` widens it to float32 (a state narrowed by ``set_dtype``).
+    """
+    common = torch.promote_types(a.dtype, b.dtype)
+    return a.to(common) + b.to(common)
+
+
 def _float32_inputs(preds: torch.Tensor) -> torch.Tensor:
     """float64 predictions become float32, as ``jnp.asarray`` makes them with 64-bit types off."""
     return preds.to(torch.float32) if preds.dtype == torch.float64 else preds
