@@ -15,7 +15,8 @@ result) if it fails:
    bitwise, at the main path's shape and on edge batches, then timed beside
    its plain version, its bound, (where one exists) one PyTorch call
    computing the same function, and one ``torch.sum`` reading its main
-   input (what a plain read of those bytes takes on the card);
+   input (what a plain read of those bytes takes on the card); K5 is timed
+   here on the audio phase's inputs and checked there (phase 22);
 4. entry: the one-batch suite step of ``torchmetrics_tpu_torch._entry.entry``
    (C=8, T=32, N=256) on the card, as a user calls it (``fn(*args)``): each
    kernel must launch once and the values must agree with the same step on
@@ -297,7 +298,43 @@ result) if it fails:
    queries, over the first 256 queries. Each family's update and compute
    timed against its bound, ``_pack_queries``' share of a retrieval
    compute, the peak memory.
-22. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
+22. audio (after domains): clustering and audio (ROADMAP A14) at full
+   width, inputs made on the card from a seed. Clustering at ImageNet-1k
+   validation's size as deep-clustering evaluations report it: the nine
+   label-pair classes over 50,000 samples in 1,000 clusters (a clustering
+   partly aligned with the classes through a permutation) and the three
+   intrinsic classes over 50,000 x 2,048 float32 features (ResNet-50's
+   pooled width) with 1,000 labels, each updated in 8 batches and computed;
+   the int32 contingency table bitwise equal to numpy's ``np.bincount``,
+   the label-pair values within CLUSTER_ATOL and the intrinsic ones within
+   CLUSTER_RTOL of float64 numpy/scipy references (the expected MI by
+   ``scipy.stats.hypergeom``); each compute's wall time, the AMI's host EMI
+   time and the peak memory of the intrinsic computes (Davies-Bouldin's and
+   Dunn's (1000, 1000, 2048) centroid difference). Separation at
+   WSJ0-2mix's shape as Conv-TasNet evaluates it (8 kHz, 2 speakers, 4 s,
+   batch 16, speakers swapped in every other mixture): SNR, SI-SNR, SI-SDR,
+   SA-SDR, C-SI-SNR (on a ``torch.stft`` of the same signals), SDR (filter
+   length 512) and PIT speaker-wise with SI-SDR and with SDR, functional and
+   module, against float64 numpy (SDR by ``scipy.linalg.solve_toeplitz``),
+   PIT's permutations equal to numpy's exhaustive search; each call timed
+   against its bound. Speech quality on DNS Challenge-shaped clips (10 s at
+   16 kHz, batch 8, 23 cochlear filters, made on the card): SRMR with
+   ``norm`` False and True is the main path (K5 counted from 0, two
+   launches a call), both within SRMR_REF_RTOL of a float64
+   ``scipy.signal.lfilter`` pipeline at full length (float32's own error
+   there is percent-level) and bitwise equal with cuDNN's TF32 flag on and
+   off, and within SRMR_CPU_RTOL of the port on the CPU at T = 16,000
+   over SRMR_CPU_SEEDS seeded batches, with its witness (the card on the
+   CPU's envelope within SRMR_WITNESS_RTOL); STOI and ESTOI bitwise equal
+   to the same numpy run on the host; PESQ and DNSMOS raising their
+   ``ModuleNotFoundError``. K5 on the main path's own inputs at T = 160,000
+   (the clips into the gammatone cascade, their envelope into the
+   modulation bank), timed in phase 3 (device ms, stream ms, byte bound,
+   chain floor: T dependent steps of 16 cycles at the card's top SM
+   clock), and here held bitwise against its plain loop at that full length, the loop's
+   steps replayed from CUDA graphs of 2,000 steps, and over the first
+   2,000 samples against the eager loop (the CPU route's launches).
+23. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
    and ``--mode poison`` (seed 11) with ``--device cuda``: every daemon the
    harness starts must print a ready line naming the card, and the reports
    must carry the invariants JAX's tests assert (short: legs main and
@@ -314,9 +351,9 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains and chaos phases' seconds, ``nvidia-smi``'s
-line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, and K2s and K1s at the
-StateGuard's one-cell shape) and
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio and chaos phases' seconds, ``nvidia-smi``'s
+line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, K2s and K1s at the
+StateGuard's one-cell shape, and K5 on the gammatone and the modulation bank) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -394,12 +431,17 @@ def phase_device():
 # ---------------------------------------------------------------------- build
 
 
+#: nvcc's output for each kernel source, from phase_build (ptxas's registers and spills)
+BUILD_LOGS = {}
+
+
 def phase_build():
     from torchmetrics_tpu_torch.ops import _build
 
     names = _build.kernel_sources()
     t0 = time.perf_counter()
     logs = _build.build(names)
+    BUILD_LOGS.update(logs)
     seconds = time.perf_counter() - t0
     for name in names:
         _build.load(name)
@@ -6510,6 +6552,700 @@ def phase_domains(device, batches, smi):
     return out
 
 
+# ------------------------------------------------------- clustering and audio
+
+CLUSTER_SAMPLES, CLUSTER_K, CLUSTER_DIM = 50000, 1000, 2048  # ImageNet-1k val, 1,000 clusters, ResNet-50's pooled width
+CLUSTER_ATOL = 1e-4  # label-pair scores (float32 sums of logs over a 1000 x 1000 table) against numpy float64
+CLUSTER_RTOL = 1e-4  # intrinsic scores (float32 sums over 50,000 x 2,048) against numpy float64, relative
+SEP_FS, SEP_SPK, SEP_T, SEP_BATCH = 8000, 2, 32000, 16  # WSJ0-2mix as Conv-TasNet evaluates it: 4 s utterances
+SEP_ATOL = 1e-3  # SNR, SI-SNR, SI-SDR, SA-SDR, C-SI-SNR in dB against numpy float64
+SDR_RTOL, SDR_ATOL = 2e-2, 0.1  # SDR against a float64 scipy.linalg.solve_toeplitz (JAX's own test's budget)
+SEP_FILTER = 512
+QUALITY_FS, QUALITY_T, QUALITY_BATCH = 16000, 160000, 8  # DNS Challenge test clips: 10 s at 16 kHz
+QUALITY_FILTERS = 23
+# float32 SRMR against a float64 scipy.signal.lfilter pipeline, relative: at 16 kHz the 4 Hz modulation band's
+# poles lie 1.6e-3 from 1, and float32 rounding alone moves SRMR by 0.8-6.6% on speech-shaped clips (scipy's own
+# float32 lfilter of the same pipeline does too; 7.3-7.5% on the card's clips)
+SRMR_REF_RTOL = 0.1
+# the card's SRMR against the CPU's (K5's plain loop, bitwise K5's arithmetic) on SRMR_CPU_SEEDS batches of clips at
+# T = SRMR_CPU_T: cuFFT and pocketfft differ in the envelope's last bits, which re-roll the modulation bank's float32
+# rounding noise (the same noise that puts float32 SRMR percents from float64). The witness: the card's SRMR on the
+# CPU's envelope, which must then agree within SRMR_WITNESS_RTOL (only the windowed energy's sum order differs).
+# Read on an H100 80GB HBM3 at 700 W: 2.62e-4, 1.37e-4, 7.57e-5, 1.13e-4 by batch (1.02e-4 on the audio phase's
+# own clips), the witness 2.36e-7; each budget is about 4x its largest reading.
+SRMR_CPU_RTOL = 1e-3
+SRMR_WITNESS_RTOL = 1e-6
+SRMR_CPU_T, SRMR_CPU_SEEDS = 16000, 4  # the CPU's plain loop issues ~7 ops a time step: 1 s clips
+K5_PLAIN_CHUNK = 2000  # time steps of the plain loop in one CUDA graph; the eager plain loop is timed over as many
+K5_STEP_CYCLES = 16  # a stage's recurrence: an add, a multiply, a subtract and an add, 4 cycles each
+AUDIO_REPS = 3
+
+
+def _cluster_streams(device):
+    """Two label vectors (a clustering partly aligned with the classes through a
+    permutation) and 50,000 x 2,048 features around 1,000 centres, made on the card."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 23)
+    n, k, d = CLUSTER_SAMPLES, CLUSTER_K, CLUSTER_DIM
+    target = torch.randint(0, k, (n,), generator=gen, device=device, dtype=torch.int32)
+    perm = torch.randperm(k, generator=gen, device=device).to(torch.int32)
+    preds = torch.where(torch.rand(n, generator=gen, device=device) < 0.6, perm[target.long()],
+                        torch.randint(0, k, (n,), generator=gen, device=device, dtype=torch.int32))
+    centres = 2.0 * torch.randn((k, d), generator=gen, device=device)
+    labels = torch.randint(0, k, (n,), generator=gen, device=device, dtype=torch.int32)
+    data = centres[labels.long()] + torch.randn((n, d), generator=gen, device=device)
+    return preds, target, data, labels
+
+
+def _numpy_label_pair_scores(preds, target):
+    """The nine label-pair scores in float64 from a numpy contingency table
+    (rows: preds' clusters), sklearn's formulas; the expected MI as the sum
+    over the distinct marginal pairs of the hypergeometric expectation, its
+    pmf from binomial coefficients in log form (``scipy.special.gammaln``)."""
+    import numpy as np
+    from scipy.special import gammaln
+
+    def log_choose(n, k):
+        return gammaln(n + 1) - gammaln(k + 1) - gammaln(n - k + 1)
+
+    pu, pi = np.unique(preds, return_inverse=True)
+    tu, ti = np.unique(target, return_inverse=True)
+    cont = np.bincount(pi * len(tu) + ti, minlength=len(pu) * len(tu)).reshape(len(pu), len(tu))
+    n = float(cont.sum())
+    a, b = cont.sum(1).astype(np.float64), cont.sum(0).astype(np.float64)
+    nz = cont > 0
+    c = cont[nz].astype(np.float64)
+    outer = np.outer(a, b)[nz]
+    mi = float((c / n * (np.log(c) + np.log(n) - np.log(outer))).sum())
+
+    def entropy(m):
+        p = m[m > 0] / n
+        return float(-(p * np.log(p)).sum())
+
+    h_p, h_t = entropy(a), entropy(b)
+    emi = 0.0
+    ua, ca = np.unique(a, return_counts=True)
+    ub, cb = np.unique(b, return_counts=True)
+    nij = np.arange(1, int(min(a.max(), b.max())) + 1, dtype=np.float64)
+    k, bb = nij[None, :], ub[:, None]
+    for av, an in zip(ua, ca):
+        valid = (k <= av) & (k <= bb) & (bb - k <= n - av)
+        kc, rest = np.where(valid, k, 0.0), np.where(valid, bb - k, 0.0)
+        pmf = np.where(valid, np.exp(log_choose(av, kc) + log_choose(n - av, rest) - log_choose(n, bb)), 0.0)
+        term = k / n * np.log(n * k / (av * bb))
+        emi += an * float((cb[:, None] * pmf * term).sum())
+    ami = (mi - emi) / (0.5 * (h_p + h_t) - emi)
+    nmi = mi / (0.5 * (h_p + h_t))
+    hom, com = mi / h_t, mi / h_p
+    sum_sq = float((cont.astype(np.float64) ** 2).sum())
+    sa, sb = float((a**2).sum()), float((b**2).sum())
+    tp, fp, fn = sum_sq - n, sb - sum_sq, sa - sum_sq
+    tn = n * n - n - tp - fp - fn
+    return cont, emi, {
+        "MutualInfoScore": mi, "AdjustedMutualInfoScore": ami, "NormalizedMutualInfoScore": nmi,
+        "HomogeneityScore": hom, "CompletenessScore": com, "VMeasureScore": 2 * hom * com / (hom + com),
+        "RandScore": (tp + tn) / (n * n - n), "AdjustedRandScore": 2 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn)),
+        "FowlkesMallowsIndex": tp / np.sqrt((tp + fp) * (tp + fn)),
+    }
+
+
+def _numpy_intrinsic_scores(data, labels):
+    """Calinski-Harabasz, Davies-Bouldin and Dunn (p = 2) in float64, the centroids by a sparse one-hot product."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.spatial.distance import cdist
+
+    data = np.asarray(data, np.float64)
+    uniq, inv = np.unique(labels, return_inverse=True)
+    k, n = len(uniq), data.shape[0]
+    onehot = csr_matrix((np.ones(n), (inv, np.arange(n))), shape=(k, n))
+    counts = np.bincount(inv, minlength=k).astype(np.float64)
+    cents = (onehot @ data) / counts[:, None]
+    dist = np.sqrt(((data - cents[inv]) ** 2).sum(1))
+    between = (counts * ((cents - data.mean(0)) ** 2).sum(1)).sum()
+    within = (dist**2).sum()
+    intra = np.bincount(inv, weights=dist, minlength=k) / counts
+    cd = cdist(cents, cents)
+    ratio = (intra[:, None] + intra[None, :]) / np.where(cd == 0, np.inf, cd)
+    np.fill_diagonal(ratio, -np.inf)
+    max_intra = np.full(k, -np.inf)
+    np.maximum.at(max_intra, inv, dist)
+    return {
+        "CalinskiHarabaszScore": between * (n - k) / (within * (k - 1)),
+        "DaviesBouldinScore": ratio.max(1).mean(),
+        "DunnIndex": cd[np.triu_indices(k, 1)].min() / max_intra.max(),
+    }
+
+
+def _audio_clustering(tm, device, out):
+    """The twelve clustering classes at ImageNet-1k validation's size (see the module docstring, phase 22)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    cu = importlib.import_module("torchmetrics_tpu_torch.functional.clustering.utils")
+    emi_mod = importlib.import_module("torchmetrics_tpu_torch.functional.clustering.adjusted_mutual_info_score")
+    preds, target, data, labels = _cluster_streams(device)
+    t0 = time.perf_counter()
+    cont, emi_ref, pair_ref = _numpy_label_pair_scores(preds.cpu().numpy(), target.cpu().numpy())
+    intr_ref = _numpy_intrinsic_scores(data.cpu().numpy(), labels.cpu().numpy())
+    out["cluster_reference_s"] = time.perf_counter() - t0
+    got_cont = cu.calculate_contingency_matrix(preds, target)
+    _require(got_cont.dtype == torch.int32 and np.array_equal(got_cont.cpu().numpy(), cont),
+             "clustering: the contingency table differs from numpy's bincount")
+    errs, emi_calls = {}, []
+    emi_fn = emi_mod.expected_mutual_info_score
+
+    def timed_emi(contingency, n_samples):  # the AMI compute's host EMI, timed where it runs
+        t0 = time.perf_counter()
+        value = emi_fn(contingency, n_samples)
+        emi_calls.append((time.perf_counter() - t0, float(value)))
+        return value
+    out["cluster_compute_s"] = {}
+    for name in (*pair_ref, *intr_ref):
+        intrinsic = name in intr_ref
+        metric = getattr(tm, name)(device=device)
+        a, b = (data, labels) if intrinsic else (preds, target)
+        for part in range(NUM_BATCHES):
+            rows = slice(part * CLUSTER_SAMPLES // NUM_BATCHES, (part + 1) * CLUSTER_SAMPLES // NUM_BATCHES)
+            metric.update(a[rows], b[rows])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        emi_mod.expected_mutual_info_score = timed_emi
+        try:
+            t0 = time.perf_counter()
+            value = float(metric.compute())
+            torch.cuda.synchronize()
+            out["cluster_compute_s"][name] = time.perf_counter() - t0
+        finally:
+            emi_mod.expected_mutual_info_score = emi_fn
+        if intrinsic:
+            out.setdefault("cluster_peak_mib", {})[name] = torch.cuda.max_memory_allocated() / 2**20
+            want = intr_ref[name]
+            err = abs(value - want) / abs(want)
+            _require(np.isfinite(value) and err <= CLUSTER_RTOL, f"{name}: {value} vs numpy float64 {want} (relative {err})")
+        else:
+            err = _require_close(value, pair_ref[name], CLUSTER_ATOL, name)
+        errs[name] = err
+        del metric
+    _require(len(emi_calls) == 1, f"clustering: the EMI ran {len(emi_calls)} times, not once in the AMI compute")
+    out["emi_s"] = emi_calls[0][0]
+    errs["expected MI"] = _require_close(emi_calls[0][1], emi_ref, CLUSTER_ATOL, "expected mutual information")
+    out["errors"].update(errs)
+    out["cluster_values"] = {**pair_ref, **intr_ref}
+    del preds, target, data, labels
+
+
+def _sep_streams(device):
+    """WSJ0-2mix-shaped separation outputs: 16 mixtures of 2 speakers, 4 s at 8 kHz; each estimate a
+    leak of the other speaker plus noise, speaker order swapped in half the mixtures."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 24)
+    target = torch.randn((SEP_BATCH, SEP_SPK, SEP_T), generator=gen, device=device)
+    est = 0.9 * target + 0.2 * target.flip(1) + 0.1 * torch.randn(target.shape, generator=gen, device=device)
+    swap = torch.arange(SEP_BATCH, device=device) % 2 == 1
+    preds = torch.where(swap[:, None, None], est.flip(1), est)
+    return preds, target
+
+
+def _numpy_si_sdr(p, t, zero_mean=False, scale_invariant=True, axes=(-1,)):
+    import numpy as np
+
+    eps = np.finfo(np.float32).eps
+    p, t = np.asarray(p, np.float64), np.asarray(t, np.float64)
+    if zero_mean:
+        p, t = p - p.mean(-1, keepdims=True), t - t.mean(-1, keepdims=True)
+    if scale_invariant:
+        t = ((p * t).sum(axes, keepdims=True) + eps) / ((t**2).sum(axes, keepdims=True) + eps) * t
+    return 10 * np.log10(((t**2).sum(axes) + eps) / (((t - p) ** 2).sum(axes) + eps))
+
+
+def _numpy_sdr(p, t, filter_length):
+    import numpy as np
+    from scipy.linalg import solve_toeplitz
+
+    p, t = np.asarray(p, np.float64).reshape(-1, p.shape[-1]), np.asarray(t, np.float64).reshape(-1, t.shape[-1])
+    t = t / np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-6)
+    p = p / np.maximum(np.linalg.norm(p, axis=-1, keepdims=True), 1e-6)
+    n_fft = 2 ** int(np.ceil(np.log2(p.shape[-1] + t.shape[-1] - 1)))
+    tf = np.fft.rfft(t, n_fft)
+    r = np.fft.irfft(np.abs(tf) ** 2, n_fft)[:, :filter_length]
+    b = np.fft.irfft(np.conj(tf) * np.fft.rfft(p, n_fft), n_fft)[:, :filter_length]
+    coh = np.array([bb @ solve_toeplitz(rr, bb) for rr, bb in zip(r, b)])
+    return 10 * np.log10(coh / (1 - coh))
+
+
+def _audio_separation(tm, device, out):
+    """SI-SDR, SA-SDR, SNR, SI-SNR, C-SI-SNR, SDR and PIT at WSJ0-2mix's shape (see the module docstring, phase 22)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    f = tm.functional
+    preds, target = _sep_streams(device)
+    spec = lambda x: torch.view_as_real(torch.stft(x.reshape(-1, SEP_T), 256, 64, window=torch.hann_window(256, device=device),
+                                                   return_complex=True)).reshape(*x.shape[:-1], 129, -1, 2)  # noqa: E731
+    sp, st = spec(preds), spec(target)
+    pn, tn, spn, stn = (x.cpu().numpy() for x in (preds, target, sp, st))
+    refs = {
+        "SignalNoiseRatio": (f.signal_noise_ratio, (preds, target), _numpy_si_sdr(pn, tn, scale_invariant=False)),
+        "ScaleInvariantSignalDistortionRatio": (f.scale_invariant_signal_distortion_ratio, (preds, target), _numpy_si_sdr(pn, tn)),
+        "ScaleInvariantSignalNoiseRatio": (f.scale_invariant_signal_noise_ratio, (preds, target), _numpy_si_sdr(pn, tn, True)),
+        "SourceAggregatedSignalDistortionRatio": (f.source_aggregated_signal_distortion_ratio, (preds, target),
+                                                  _numpy_si_sdr(pn, tn, axes=(-1, -2))),
+        "ComplexScaleInvariantSignalNoiseRatio": (f.complex_scale_invariant_signal_noise_ratio, (sp, st),
+                                                  _numpy_si_sdr(spn.reshape(*spn.shape[:-3], -1), stn.reshape(*stn.shape[:-3], -1))),
+        "SignalDistortionRatio": (f.signal_distortion_ratio, (preds, target), _numpy_sdr(pn, tn, SEP_FILTER).reshape(SEP_BATCH, SEP_SPK)),
+    }
+    pair_si = _numpy_si_sdr(pn[:, None, :, :], tn[:, :, None, :])  # (B, target speaker, pred speaker)
+    pair_sdr = _numpy_sdr(np.broadcast_to(pn[:, None], (SEP_BATCH, SEP_SPK, SEP_SPK, SEP_T)),
+                          np.broadcast_to(tn[:, :, None], (SEP_BATCH, SEP_SPK, SEP_SPK, SEP_T)), SEP_FILTER).reshape(SEP_BATCH, SEP_SPK, SEP_SPK)
+    for name, mtx, fn in (("PIT(SI-SDR)", pair_si, f.scale_invariant_signal_distortion_ratio), ("PIT(SDR)", pair_sdr, f.signal_distortion_ratio)):
+        perms = list(itertools.permutations(range(SEP_SPK)))
+        scores = np.stack([mtx[:, np.arange(SEP_SPK), list(p)].mean(-1) for p in perms], -1)
+        refs[name] = (lambda p, t, fn=fn: f.permutation_invariant_training(p, t, fn)[0], (preds, target), scores.max(-1))
+        best = np.asarray(perms)[scores.argmax(-1)]
+        _require(np.array_equal(f.permutation_invariant_training(preds, target, fn)[1].cpu().numpy(), best),
+                 f"{name}: the best permutations differ from numpy's")
+        _require(bool((best[1::2] == [1, 0]).all()) and bool((best[::2] == [0, 1]).all()), f"{name}: the swap was not undone")
+    errs = {}
+    solved = ("SignalDistortionRatio", "PIT(SDR)")  # the distortion filter's float32 Toeplitz solve
+    for name, (fn, args, want) in refs.items():
+        got = fn(*args).double().cpu().numpy()
+        err = np.abs(got - want)
+        budget = SDR_ATOL + SDR_RTOL * np.abs(want) if name in solved else SEP_ATOL
+        _require(got.shape == want.shape and bool(np.isfinite(got).all()) and bool((err <= budget).all()),
+                 f"{name}: max |err| {err.max()} dB against numpy float64 over the budget")
+        errs[f"{name}, dB"] = float(err.max())
+        cls = name if not name.startswith("PIT") else None
+        if cls:  # the module class over the batch in two halves: its mean against numpy's
+            metric = getattr(tm, cls)(device=device)
+            for half in (slice(0, SEP_BATCH // 2), slice(SEP_BATCH // 2, SEP_BATCH)):
+                metric.update(*(a[half] for a in args))
+            _require_close(float(metric.compute()), want.mean(), float(np.max(budget)), f"{cls} (module)")
+        n_in = sum(a.numel() * a.element_size() for a in args)
+        ops = 6 * sum(a.numel() for a in args) if name not in solved else \
+            SEP_BATCH * SEP_SPK * (SEP_SPK if name.startswith("PIT") else 1) * (SEP_FILTER**3 // 3 + 30 * SEP_T)
+        out["timed"][name] = _domain_timed(fn, args, n_in + got.size * 4, ops, reps=AUDIO_REPS)
+    pit = tm.PermutationInvariantTraining(f.scale_invariant_signal_distortion_ratio, device=device)
+    for half in (slice(0, SEP_BATCH // 2), slice(SEP_BATCH // 2, SEP_BATCH)):
+        pit.update(preds[half], target[half])
+    _require_close(float(pit.compute()), refs["PIT(SI-SDR)"][2].mean(), SEP_ATOL, "PermutationInvariantTraining (module)")
+    out["errors"].update(errs)
+
+
+def _speechlike(device, gen, batch, length, fs):
+    """Speech-shaped test clips made on the card: pink-ish noise under a
+    4 Hz syllable envelope with pauses, a reverberant tail by an exponential
+    impulse response (FFT convolution), peak 0.9."""
+    import torch
+
+    noise = torch.randn((batch, length), generator=gen, device=device)
+    freqs = torch.fft.rfftfreq(length, 1 / fs, device=device)
+    pink = torch.fft.irfft(torch.fft.rfft(noise) / freqs.clamp(min=50) ** 0.5, length)
+    t = torch.arange(length, device=device) / fs
+    rate = 3.0 + 2.0 * torch.rand((batch, 1), generator=gen, device=device)
+    envelope = torch.sin(torch.pi * rate * t).abs() ** 2 * (torch.sin(2 * torch.pi * 0.25 * t) > -0.5)
+    taps = torch.exp(-torch.arange(fs // 4, device=device) / (0.05 * fs)) * torch.randn(fs // 4, generator=gen, device=device)
+    dry = pink * envelope
+    wet = torch.fft.irfft(torch.fft.rfft(dry, 2 * length) * torch.fft.rfft(taps, 2 * length), 2 * length)[:, :length]
+    clip = dry + 0.3 * wet / wet.abs().amax(-1, keepdim=True) * dry.abs().amax(-1, keepdim=True)
+    return 0.9 * clip / clip.abs().amax(-1, keepdim=True)
+
+
+def _numpy_srmr(x, fs, n_filters=QUALITY_FILTERS, low_freq=125, min_cf=4):
+    """SRMR in float64 with ``norm`` False and True, ``{norm: values}``:
+    the port's filter designs (the JAX package's, copied), every IIR by
+    ``scipy.signal.lfilter``, the Hilbert envelope by numpy's FFT at the same
+    padded length (one front end for both), the windowed energies frame by frame."""
+    import importlib
+    from math import ceil
+
+    import numpy as np
+    from scipy.signal import lfilter
+
+    sr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    x = np.asarray(x, np.float64)
+    x = x / np.maximum(np.abs(x).max(-1, keepdims=True), 1.0)
+    batch, length = x.shape
+    co = sr._make_erb_filters(fs, n_filters, low_freq)
+    gt = np.empty((batch, n_filters, length))
+    for ch in range(n_filters):
+        y = x
+        for k in (1, 2, 3, 4):
+            y = lfilter([co[ch, 0], co[ch, k], co[ch, 5]], co[ch, 6:9], y, axis=-1)
+        gt[:, ch] = y / co[ch, 9]
+    n = length if length % 16 == 0 else ceil(length / 16) * 16
+    h = np.zeros(n)
+    h[0] = 1
+    if n % 2 == 0:
+        h[n // 2] = 1
+        h[1 : n // 2] = 2
+    else:
+        h[1 : (n + 1) // 2] = 2
+    env = np.abs(np.fft.ifft(np.fft.fft(gt, n=n, axis=-1) * h, axis=-1)[..., :length])
+    del gt
+    w_len, w_inc = ceil(0.256 * fs), ceil(0.064 * fs)
+    frames = int(1 + (length - w_len) // w_inc) if length >= w_len else 1
+    w2 = np.hamming(w_len + 2)[:w_len] ** 2
+    erbs = np.flipud(sr._calc_erbs(low_freq, fs, n_filters))
+    out = {}
+    for norm in (False, True):
+        _, mf_b, mf_a, lower, _ = sr._modulation_filterbank_and_cutoffs(min_cf, 30 if norm else 128, 8, float(fs), 2)
+        energy = np.empty((batch, n_filters, 8, frames))
+        for k in range(8):
+            sq = lfilter(mf_b[k], mf_a[k], env, axis=-1) ** 2
+            sq = np.pad(sq, ((0, 0), (0, 0), (0, max(0, (frames - 1) * w_inc + w_len - length))))
+            for fr in range(frames):
+                energy[:, :, k, fr] = sq[..., fr * w_inc : fr * w_inc + w_len] @ w2
+        if norm:
+            peak = energy.mean(1, keepdims=True).max(2, keepdims=True).max(3, keepdims=True)
+            energy = np.clip(energy, peak * 10**-3, peak)
+        avg = energy.mean(-1)
+        perc = avg.sum(2) * 100 / avg.reshape(batch, -1).sum(-1)[:, None]
+        k90 = np.argmax(np.flip(perc, -1).cumsum(-1) > 90, axis=-1)
+        kstar = 4 + (lower[4:8][None, :] <= erbs[k90][:, None]).sum(-1)
+        out[norm] = avg[:, :, :4].sum((1, 2)) / np.array([avg[i, :, 4 : kstar[i]].sum() for i in range(batch)])
+    return out
+
+
+def _device_ms_or_events(fn, args, stream_ms):
+    """``fn(*args)``'s device ms from the profiler, its kernels, and the
+    source of the ms; where PROFILE_TRACES traces in a row held no device
+    event (torch.profiler on the card was seen to go blind late in a long
+    process), the CUDA-event stream ms of the same call, and the source
+    says so (it goes into the kernels line)."""
+    try:
+        ms, found = _device_ms(fn, [args], AUDIO_REPS)
+        return ms, found, "profiler"
+    except SmokeFailure:
+        return stream_ms, {}, "cuda events"
+
+
+class _GraphedSteps:
+    """The plain loop's stage walk (``ops.biquad.stage_steps``) replayed from
+    a CUDA graph of K5_PLAIN_CHUNK steps, one per row count: the same ops on
+    the same values, one launch each, without the host's cost of launching
+    them (the eager loop issues ~7 ops a time step, 4.5 million for the
+    gammatone at 10 s). A chunk's inputs and carry go in by copies; the tail
+    short of a chunk runs eagerly."""
+
+    def __init__(self):
+        self.graphs = {}
+
+    def _capture(self, rows, device):
+        import torch
+
+        from torchmetrics_tpu_torch.ops.biquad import stage_steps
+
+        cols = [torch.zeros((rows, K5_PLAIN_CHUNK), device=device) for _ in range(4)]  # bx0, bx1, bx2, out
+        vecs = [torch.zeros(rows, device=device) for _ in range(4)]  # a1, a2, z1, z2
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            stage_steps(*cols[:3], *vecs, cols[3])  # warm-up outside the capture
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            z1, z2 = stage_steps(*cols[:3], *vecs, cols[3])
+            vecs[2].copy_(z1)
+            vecs[3].copy_(z2)
+        return graph, cols, vecs
+
+    def __call__(self, bx0, bx1, bx2, a1, a2, z1, z2, out):
+        from torchmetrics_tpu_torch.ops.biquad import stage_steps
+
+        rows, length = bx0.shape
+        if rows not in self.graphs:
+            self.graphs[rows] = self._capture(rows, bx0.device)
+        graph, (c0, c1, c2, c_out), vecs = self.graphs[rows]
+        for dst, src in zip(vecs, (a1, a2, z1, z2)):
+            dst.copy_(src)
+        whole = length - length % K5_PLAIN_CHUNK
+        for t0 in range(0, whole, K5_PLAIN_CHUNK):
+            for dst, src in ((c0, bx0), (c1, bx1), (c2, bx2)):
+                dst.copy_(src[:, t0 : t0 + K5_PLAIN_CHUNK])
+            graph.replay()
+            out[:, t0 : t0 + K5_PLAIN_CHUNK].copy_(c_out)
+        z1, z2 = vecs[2].clone(), vecs[3].clone()
+        if whole < length:
+            z1, z2 = stage_steps(bx0[:, whole:], bx1[:, whole:], bx2[:, whole:], a1, a2, z1, z2, out[:, whole:])
+        return z1, z2
+
+
+def _quality_clips(device):
+    """The speech-quality clips (QUALITY_BATCH x QUALITY_T, seeded) and the generator after them."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 25)
+    return _speechlike(device, gen, QUALITY_BATCH, QUALITY_T, QUALITY_FS), gen
+
+
+def _k5_banks(clips):
+    """K5's two calls in SRMR on ``clips`` (default arguments): ``(bank,
+    stages, (x, num, den))`` with SRMR's own inputs, the preconditioned clips
+    into the gammatone cascade and their envelope into the modulation bank."""
+    import importlib
+
+    import torch
+
+    sr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    peak = clips.abs().amax(-1, keepdim=True)
+    wave = clips / torch.where(peak > 1, peak, torch.ones_like(peak))  # SRMR's own precondition
+    fcoefs = sr._make_erb_filters(QUALITY_FS, QUALITY_FILTERS, 125)
+    num, den, _ = sr._gammatone_banks(fcoefs)
+    env = sr._hilbert_envelope(sr._erb_filterbank(wave, fcoefs)).reshape(-1, clips.shape[-1])
+    _, mf_b, mf_a, _, _ = sr._modulation_filterbank_and_cutoffs(4, 128, 8, float(QUALITY_FS), 2)
+    mb, ma = torch.tensor(mf_b, dtype=torch.float32)[:, None], torch.tensor(mf_a, dtype=torch.float32)[:, None]
+    return (("gammatone", 4, (wave, num, den)), ("modulation", 1, (env, mb, ma)))
+
+
+def time_biquad_cascade(device):
+    """K5's rows, timed early in the run (torch.profiler has been seen to go
+    blind late in a long process), on the audio phase's inputs at
+    T = QUALITY_T: device ms, stream ms, bound, chain floor, read floor. The
+    audio phase adds the launches, the check and the plain loop's time."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import biquad_cascade
+
+    smi_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                               capture_output=True, text=True, timeout=60).stdout.strip()
+    clock_hz = float(smi_clock) * 1e6 if smi_clock.replace(".", "", 1).isdigit() else 1.98e9
+    regs = [int(w) for line in BUILD_LOGS.get("biquad", "").splitlines() if "registers" in line for w in line.split("Used")[1].split()[:1]]
+    spills = sum(1 for line in BUILD_LOGS.get("biquad", "").splitlines()
+                 if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
+    rows = []
+    for bank, stages, args in _k5_banks(_quality_clips(device)[0]):
+        out_rows = args[0].shape[0] * args[1].shape[0]
+        n_bytes = (args[0].numel() + out_rows * QUALITY_T) * 4
+        bound_ms, bound_by = _bound(n_bytes, out_rows * QUALITY_T * stages * 9)
+        stream_ms = _events_ms(lambda: biquad_cascade(*args), AUDIO_REPS)
+        dev_ms, found, source = _device_ms_or_events(biquad_cascade, args, stream_ms)
+        floor_ms, _, floor_source = _device_ms_or_events(_read_floor, (args[0],), _events_ms(lambda: _read_floor(args[0]), AUDIO_REPS))
+        rows.append({
+            "name": f"biquad_cascade, {bank} ({stages} stage{'s' if stages > 1 else ''}, {out_rows} rows, T={QUALITY_T})",
+            "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/biquad.cu",
+            "replaces": "torchmetrics_tpu/functional/audio/srmr.py:107", "launches": None, "max_abs_err": None,
+            "ms": dev_ms, "ms_source": source, "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "stream_ms": {"kernel": stream_ms}, "kernel_only_us": _kernel_only_us(found, "biquad_cascade"), "bytes": n_bytes,
+            "read_floor_ms": floor_ms, "read_floor_source": floor_source, "chain_floor_ms": QUALITY_T * K5_STEP_CYCLES / clock_hz * 1e3, "clock_mhz": clock_hz / 1e6,
+            "registers": f"{min(regs, default=0)}-{max(regs, default=0)}", "spills": spills,
+        })
+        del args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k5_check(rows, clips, main_launches, smi):
+    """K5 held bitwise against its plain loop on the main path's own inputs
+    at T = QUALITY_T, the loop's steps replayed from CUDA graphs
+    (_GraphedSteps) and, over the first K5_PLAIN_CHUNK samples, run eagerly
+    as the CPU route runs them: the eager loop, its replay and K5 agree
+    there bit for bit. Fills in the rows of :func:`time_biquad_cascade`."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import biquad_cascade, biquad_cascade_plain
+
+    graphed = _GraphedSteps()
+    for (bank, stages, args), row in zip(_k5_banks(clips), rows):
+        x, b, a = args
+        got = biquad_cascade(*args)
+        head = x[:, :K5_PLAIN_CHUNK]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = biquad_cascade_plain(head, b, a)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        _require(torch.equal(biquad_cascade_plain(head, b, a, steps=graphed), eager),
+                 f"biquad_cascade ({bank}): the plain loop replayed from a CUDA graph differs from the eager loop")
+        _require(torch.equal(got[:, :K5_PLAIN_CHUNK], eager), f"biquad_cascade ({bank}): K5 differs from the eager plain loop")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = biquad_cascade_plain(*args, steps=graphed)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        _require(got.shape == want.shape and torch.equal(got, want), f"biquad_cascade ({bank}): K5 differs from its plain loop at T={QUALITY_T}")
+        row.update(launches=main_launches, max_abs_err=float((got - want).abs().max()), plain_ms=plain_s * 1e3,
+                   eager_ms_per_step=eager_s * 1e3 / K5_PLAIN_CHUNK)
+        print(f"[kernels] biquad_cascade ({bank}): bitwise equal to its plain loop on the main path's inputs at T={QUALITY_T},"
+              f" {got.shape[0]} rows, {stages} stage(s); {smi}; device ms {row['ms']:.5f} ({row['ms_source']}, timed"
+              f" in phase 3), stream ms {row['stream_ms']['kernel']:.5f}, bound {row['bound_ms']:.5f}"
+              f" ({row['bound_by']}, {row['bytes']} B), chain floor {row['chain_floor_ms']:.5f} ({K5_STEP_CYCLES} cycles a"
+              f" step at {row['clock_mhz']:.0f} MHz), read floor {row['read_floor_ms']:.5f} ({row['read_floor_source']}); plain loop {plain_s * 1e3:.1f} ms"
+              f" wall (steps replayed from CUDA graphs of {K5_PLAIN_CHUNK}), eager {row['eager_ms_per_step']:.4f} ms a"
+              f" time step over the first {K5_PLAIN_CHUNK} (equal bits); registers {row['registers']}, {row['spills']} with"
+              f" spills; launches per SRMR call 2, on the main path {main_launches}")
+        del got, want, eager
+    return rows
+
+
+def _srmr_card_against_cpu(tm, device, out):
+    """SRMR on the card against the CPU's on SRMR_CPU_SEEDS batches of clips
+    at T = SRMR_CPU_T, per batch; and the witness of the gap's cause: the
+    card's SRMR with the CPU's envelope put in place of its own."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    sr = importlib.import_module("torchmetrics_tpu_torch.functional.audio.srmr")
+    srmr = tm.functional.speech_reverberation_modulation_energy_ratio
+    batches = []
+    for k in range(SRMR_CPU_SEEDS):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 40 + k)
+        batches.append(_speechlike(device, gen, QUALITY_BATCH, SRMR_CPU_T, QUALITY_FS))
+    clips = torch.cat(batches)
+    own, envelopes = sr._hilbert_envelope, []
+
+    def recorded(x):
+        envelopes.append(own(x))
+        return envelopes[-1]
+
+    t0 = time.perf_counter()
+    sr._hilbert_envelope = recorded
+    try:
+        cpu = srmr(clips.cpu(), QUALITY_FS).double().numpy()
+    finally:
+        sr._hilbert_envelope = own
+    out["srmr_cpu_s"] = time.perf_counter() - t0
+    card = srmr(clips, QUALITY_FS).double().cpu().numpy()
+    sr._hilbert_envelope = lambda x: envelopes[0].to(x.device)
+    try:
+        witness = srmr(clips, QUALITY_FS).double().cpu().numpy()
+    finally:
+        sr._hilbert_envelope = own
+    rel = (np.abs(card - cpu) / np.abs(cpu)).reshape(SRMR_CPU_SEEDS, QUALITY_BATCH).max(-1)
+    rel_witness = float((np.abs(witness - cpu) / np.abs(cpu)).max())
+    out["srmr_cpu_rel"], out["srmr_witness_rel"] = rel.tolist(), rel_witness
+    print(f"[audio] SRMR card vs CPU at T={SRMR_CPU_T}, relative, by seed batch of {QUALITY_BATCH}:"
+          f" {', '.join(f'{v:.3e}' for v in rel)} (budget {SRMR_CPU_RTOL:g}); on the CPU's envelope {rel_witness:.3e}"
+          f" (budget {SRMR_WITNESS_RTOL:g}); the CPU's SRMR {out['srmr_cpu_s']:.1f} s")
+    _require(bool(np.isfinite(card).all()) and float(rel.max()) <= SRMR_CPU_RTOL,
+             f"SRMR on the card {card} vs the CPU's {cpu} at T={SRMR_CPU_T} (relative {rel})")
+    _require(rel_witness <= SRMR_WITNESS_RTOL, f"SRMR on the card from the CPU's envelope: relative {rel_witness} to the CPU's")
+    out["errors"]["SRMR card vs CPU, relative"] = float(rel.max())
+    out["errors"]["SRMR card on the CPU's envelope vs CPU, relative"] = rel_witness
+
+
+def _audio_quality(tm, device, out, smi, k5_rows):
+    """SRMR through K5 (the main path: K5's count from 0), K5's rows on the
+    main path's inputs, SRMR TF32-invariant, against float64 lfilter and
+    against the CPU; STOI and ESTOI against the host's numpy; PESQ and
+    DNSMOS refused (see the module docstring, phase 22)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.ops import biquad_cascade
+
+    st = importlib.import_module("torchmetrics_tpu_torch.functional.audio.stoi")
+    clips, gen = _quality_clips(device)
+    srmr = {norm: tm.SpeechReverberationModulationEnergyRatio(fs=QUALITY_FS, norm=norm, device=device) for norm in (False, True)}
+    torch.cuda.synchronize()
+    biquad_cascade.launches = 0  # the main path: the SRMR metrics' updates
+    t0 = time.perf_counter()
+    for norm, metric in srmr.items():
+        for half in (slice(0, QUALITY_BATCH // 2), slice(QUALITY_BATCH // 2, QUALITY_BATCH)):
+            metric.update(clips[half])
+    torch.cuda.synchronize()
+    out["srmr_update_s"] = (time.perf_counter() - t0) / 4
+    main_launches = biquad_cascade.launches
+    _require(main_launches == 8, f"SRMR: K5 launched {main_launches} times over 4 updates, not 2 a call")
+    rows = _k5_check(k5_rows, clips, main_launches, smi)
+    host = clips.cpu().numpy()
+    t0 = time.perf_counter()
+    ref = _numpy_srmr(host, QUALITY_FS)
+    out["srmr_reference_s"] = time.perf_counter() - t0
+    _srmr_card_against_cpu(tm, device, out)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for norm in (False, True):
+            values = []
+            for flag in (True, False):  # PyTorch's default, then off: SRMR depends on neither
+                torch.backends.cudnn.allow_tf32 = flag
+                values.append(tm.functional.speech_reverberation_modulation_energy_ratio(clips, QUALITY_FS, norm=norm))
+            _require(torch.equal(values[0], values[1]), f"SRMR(norm={norm}): cuDNN's TF32 flag changed the result")
+            got = values[1].double().cpu().numpy()
+            rel = np.abs(got - ref[norm]) / np.abs(ref[norm])
+            _require(bool(np.isfinite(got).all()) and bool((rel <= SRMR_REF_RTOL).all()),
+                     f"SRMR(norm={norm}): {got} vs float64 lfilter {ref[norm]} (relative {rel.max()})")
+            out["errors"][f"SRMR norm={norm}, relative"] = float(rel.max())
+            _require_close(float(srmr[norm].compute()), got.mean(), 1e-5 * abs(got.mean()), f"SpeechReverberationModulationEnergyRatio(norm={norm})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    call = lambda x: tm.functional.speech_reverberation_modulation_energy_ratio(x, QUALITY_FS)  # noqa: E731
+    out["timed"]["srmr"] = _domain_timed(call, (clips,), clips.numel() * 4 + QUALITY_BATCH * 4,
+                                         QUALITY_BATCH * QUALITY_FILTERS * QUALITY_T * (4 * 9 + 8 * 9 + 40), reps=AUDIO_REPS)
+    noisy = clips + 0.05 * torch.randn(clips.shape, generator=gen, device=device)
+    out["stoi_s"] = {}
+    for extended in (False, True):
+        t0 = time.perf_counter()
+        got = tm.functional.short_time_objective_intelligibility(noisy, clips, QUALITY_FS, extended)
+        out["stoi_s"][extended] = time.perf_counter() - t0
+        p, c = noisy.cpu().numpy().astype(np.float64), clips.cpu().numpy().astype(np.float64)
+        want = np.asarray([st._stoi_single(cc, pp, QUALITY_FS, extended) for pp, cc in zip(p, c)], np.float32)
+        _require(got.device == clips.device and np.array_equal(got.cpu().numpy(), want),
+                 f"{'E' if extended else ''}STOI on the card's clips differs from the host's numpy")
+        out[f"{'e' if extended else ''}stoi"] = want.tolist()
+    stoi = tm.ShortTimeObjectiveIntelligibility(fs=QUALITY_FS, device=device)
+    stoi.update(noisy, clips)
+    _require(abs(float(stoi.compute()) - float(np.mean(out["stoi"], dtype=np.float32))) <= 1e-6, "ShortTimeObjectiveIntelligibility (module)")
+    for fn, args in ((tm.functional.perceptual_evaluation_speech_quality, (noisy, clips, QUALITY_FS, "wb")),
+                     (tm.functional.deep_noise_suppression_mean_opinion_score, (noisy, QUALITY_FS)),
+                     (lambda: tm.PerceptualEvaluationSpeechQuality(QUALITY_FS, "wb", device=device), ()),
+                     (lambda: tm.DeepNoiseSuppressionMeanOpinionScore(QUALITY_FS, device=device), ())):
+        try:
+            fn(*args)
+        except ModuleNotFoundError as err:
+            _require("pesq" in str(err) or "onnxruntime" in str(err), f"unexpected message: {err}")
+        else:
+            raise SmokeFailure(f"{getattr(fn, '__name__', fn)} ran without its backend")
+    out["srmr_values"] = {norm: ref[norm].tolist() for norm in ref}
+    return rows
+
+
+def phase_audio(device, smi, k5_rows):
+    """Clustering (ImageNet-1k val) and audio (WSJ0-2mix separation, DNS
+    Challenge clips) at full width, K5 held against its plain loop: see the
+    module docstring, phase 22."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"timed": {}, "errors": {}}
+    _audio_clustering(tm, device, out)
+    torch.cuda.empty_cache()
+    _audio_separation(tm, device, out)
+    torch.cuda.empty_cache()
+    out["rows"] = _audio_quality(tm, device, out, smi, k5_rows)
+    out["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print(
+        f"[audio] {smi}; clustering at {CLUSTER_SAMPLES} x {CLUSTER_DIM}, {CLUSTER_K} clusters, 8 batches: compute s"
+        f" {', '.join(f'{k} {v:.3f}' for k, v in out['cluster_compute_s'].items())}; the AMI's host EMI"
+        f" {out['emi_s']:.2f} s; peak MiB {', '.join(f'{k} {v:.1f}' for k, v in out['cluster_peak_mib'].items())};"
+        f" numpy references {out['cluster_reference_s']:.1f} s; device ms / stream ms per call (launches; bound ms, by):"
+        f" {'; '.join(_domain_timed_text(k, v) for k, v in out['timed'].items())}; SRMR update {out['srmr_update_s']:.3f} s a"
+        f" call of {QUALITY_BATCH // 2} x {QUALITY_T}, its float64 reference {out['srmr_reference_s']:.1f} s; STOI / ESTOI"
+        f" host s {out['stoi_s'][False]:.2f} / {out['stoi_s'][True]:.2f}; max |err| {', '.join(f'{k} {v:.2e}' for k, v in out['errors'].items())};"
+        f" {out['seconds']:.1f} s"
+    )
+    return out
+
+
 # ------------------------------------------------------------------ chaos
 
 CHAOS_TIMEOUT_S = 420
@@ -6588,6 +7324,7 @@ def main() -> int:
     ml_batches = _multilabel_batches(device)
     rows = [check_binned_curve_state(device, batches), check_stat_counts(device, batches)]
     matrix_row = check_binned_curve_matrix_mode(device, ml_batches)
+    k5_rows = time_biquad_cascade(device)
     sketch_kernels = {"cm_track": KERNELS["cm_track"]}
     KERNELS = _classification_kernels()
     entry_diffs = phase_entry(KERNELS)
@@ -6608,6 +7345,7 @@ def main() -> int:
     serve = phase_serve(device, batches, KERNELS, run, smi)
     dist_run = phase_dist(run, exact, fused, smi)
     domains = phase_domains(device, batches, smi)
+    audio = phase_audio(device, smi, k5_rows)
     chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -6618,10 +7356,11 @@ def main() -> int:
     rows.append(sketch["k3_row"])
     rows.extend(sliced["rows"])
     rows.extend(guard["rows"])
+    rows.extend(audio["rows"])
     for row in rows:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
-            f"[kernels] {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
+            f"[kernels] {row['name']}: device ms {row['ms']:.5f} ({row.get('ms_source', 'profiler')}; kernel alone {row['kernel_only_us'] or 0:.2f} us),"
             f" plain {row['plain_ms']:.5f}, library {row['library_ms']}, bound {row['bound_ms']:.5f}"
             f" ({row['bound_by']}, {row['bytes']} B), read floor {row['read_floor_ms']:.5f} (torch.sum of the main input),"
             f" launches {row['launches']}; stream ms per call: {stream}"
@@ -6669,11 +7408,14 @@ def main() -> int:
         f" {serve['stream']['fused_sps']:.1f}), JSON decode {serve['daemon']['decode_ms']:.2f} ms a batch, socket ingest"
         f" {serve['daemon']['ingest_sps']:.1f} samples/s, restart-to-ready {serve['daemon']['restart_s']:.2f} s, export"
         f" {serve['fleet']['export_ms']:.2f} ms ({serve['fleet']['export_bytes']} B), fold {serve['fleet']['fold_ms']:.2f} ms;"
-        f" domains phase {domains['seconds']:.1f} s, peak {domains['peak_mib']:.1f} MiB; chaos phase {chaos['seconds']:.1f} s;"
+        f" domains phase {domains['seconds']:.1f} s, peak {domains['peak_mib']:.1f} MiB; audio phase {audio['seconds']:.1f} s,"
+        f" K5 at T={QUALITY_T} {'/'.join(f'{r['ms']:.3f}' for r in audio['rows'])} ms device (gammatone/modulation);"
+        f" chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    # ms_source: "profiler" (torch.profiler's device time; every row but K5's fails without it) or "cuda events"
+    print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, "ms_source": row.get("ms_source", "profiler")} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 

@@ -135,7 +135,9 @@ def test_robustness_exports_equal_jax_but_stateguard():
 
 
 @pytest.mark.parametrize("package", ["segmentation", "functional.segmentation", "functional.pairwise", "nominal",
-                                     "functional.nominal", "retrieval", "functional.retrieval", "serve.chaos"])
+                                     "functional.nominal", "retrieval", "functional.retrieval", "serve.chaos",
+                                     "clustering", "functional.clustering", "audio", "functional.audio",
+                                     "utilities.imports"])
 def test_the_new_domains_and_the_chaos_harness_are_scanned(package):
     """The domains of A14 ported so far and the chaos harness are among the
     modules the two checks above import and scan."""
@@ -230,7 +232,8 @@ def test_sketch_drift_and_k3_import_no_jax(rel):
 _WAITING: dict = {}
 
 
-@pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel", "obs"])
+@pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel", "obs", "clustering", "functional.clustering",
+                                 "audio", "functional.audio"])
 def test_subpackage_exports_equal_jax(sub):
     import importlib
 
@@ -239,6 +242,20 @@ def test_subpackage_exports_equal_jax(sub):
     assert sorted(tmod.__all__) == sorted(set(jmod.__all__) - _WAITING.get(sub, set()))
     for name in tmod.__all__:
         assert hasattr(tmod, name), name
+
+
+def test_imports_copy_is_the_standard_library_and_jax_s_flags():
+    """``utilities/imports.py``: the port's own copy (stdlib only), each of
+    its flags probing the module JAX's flag of the same name probes."""
+    import sys as _sys
+
+    import torchmetrics_tpu.utilities.imports as JI
+    import torchmetrics_tpu_torch.utilities.imports as TI
+
+    names = {name.split(".")[0] for name in _imports(PORT / "utilities" / "imports.py")}
+    assert names <= set(_sys.stdlib_module_names) | {"__future__"}, names
+    flags = sorted(n for n in vars(TI) if n.endswith("_AVAILABLE"))
+    assert flags and all(getattr(TI, n).module == getattr(JI, n).module for n in flags)
 
 
 @pytest.mark.parametrize(

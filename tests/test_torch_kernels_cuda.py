@@ -29,7 +29,11 @@ equal to the host's trace of its filters, and the one-metric step of
 table), K2s and K1s (the segmented stat counts and binned curve state) equal
 their plain versions bitwise (also at the StateGuard's one-cell shape), and
 a sliced plan captured on the card equals the same plan on the CPU; so does
-the guarded flagship suite captured in a fused plan.
+the guarded flagship suite captured in a fused plan. K5 (SRMR's biquad
+cascade) equals its plain loop bitwise for both banks; SRMR launches it
+twice a call, gives the same bits with cuDNN's TF32 on and off and is
+refused by a fused plan's capture, naming the member; the clustering and
+audio classes on the card compute what they compute on the CPU.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -1210,6 +1214,94 @@ def test_sliced_plan_on_the_card_equals_cpu(card):
             assert torch.equal(torch.as_tensor(got["members"]["MulticlassAccuracy"][name]).cpu(), torch.as_tensor(state)), name
     # the macro average's float sum runs in one order on both devices (utilities/compute.py::_sum_last_in_xla_order)
     assert torch.equal(rings[0].query(last=2).cpu(), rings[1].query(last=2))
+
+
+@pytest.mark.parametrize("length", [1, 31, 32, 2017])
+@pytest.mark.parametrize("bank", ["gammatone", "modulation"])
+def test_biquad_matches_plain(card, bank, length):
+    """K5 against its plain loop on the same CUDA inputs, bitwise: the
+    gammatone's 4 stages over 23 coefficient sets and the modulation bank's
+    one stage over 8, ragged tails and rows that fill no whole warp; a
+    launch per call, none for the plain loop."""
+    from torchmetrics_tpu_torch.functional.audio import srmr as ts
+    from torchmetrics_tpu_torch.ops import biquad_cascade, biquad_cascade_plain
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(71)
+    if bank == "gammatone":
+        num, den, _ = ts._gammatone_banks(ts._make_erb_filters(16000, 23, 125))
+        x = torch.randn((3, length), generator=gen, device=card)
+    else:
+        _, mf_b, mf_a, _, _ = ts._modulation_filterbank_and_cutoffs(4, 128, 8, 16000.0, 2)
+        num, den = torch.tensor(mf_b, dtype=torch.float32)[:, None], torch.tensor(mf_a, dtype=torch.float32)[:, None]
+        x = torch.rand((37, length), generator=gen, device=card)
+    before = biquad_cascade.launches
+    got = biquad_cascade(x, num, den)
+    assert biquad_cascade.launches == before + 1
+    want = biquad_cascade_plain(x, num, den)
+    torch.cuda.synchronize()
+    assert biquad_cascade.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_srmr_on_the_card_two_launches_tf32_invariant_and_refused_by_a_capture(card):
+    """SRMR on the card launches K5 twice a call, gives the same bits with
+    cuDNN's TF32 on and off, lies within the CPU's budget, and a fused plan
+    refuses it at capture, naming the member (its K* check reads the host)."""
+    from torchmetrics_tpu_torch.ops import biquad_cascade
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(72)
+    wave = torch.randn((2, 8000), generator=gen, device=card)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        values = []
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            before = biquad_cascade.launches
+            values.append(T.functional.speech_reverberation_modulation_energy_ratio(wave, 8000))
+            assert biquad_cascade.launches == before + 2
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert torch.equal(values[0], values[1])
+    cpu = T.functional.speech_reverberation_modulation_energy_ratio(wave.cpu(), 8000)
+    # K5 is bitwise its plain loop; cuFFT and pocketfft differ in the envelope's last bits, which re-roll the
+    # modulation bank's float32 rounding noise (chip_smoke.py: SRMR_CPU_RTOL)
+    assert torch.allclose(values[0].cpu(), cpu, rtol=1e-3, atol=0)
+    plan = T.MetricCollection({"srmr": T.SpeechReverberationModulationEnergyRatio(fs=8000, device=card)}).fused()
+    with pytest.raises(RuntimeError, match=r"member 'srmr'"):
+        plan.update(wave)
+
+
+def test_clustering_and_audio_on_the_card_equal_cpu(card):
+    """The clustering classes and the SNR family on the card against the
+    same stream on the CPU: integer contingency tables bitwise, values within
+    1e-5 (sums in another order); STOI bitwise (the same host numpy)."""
+    from torchmetrics_tpu_torch.functional.clustering.utils import calculate_contingency_matrix
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(73)
+    preds, target = torch.randint(0, 40, (5000,), generator=gen), torch.randint(0, 50, (5000,), generator=gen)
+    assert torch.equal(calculate_contingency_matrix(preds.to(card), target.to(card)).cpu(), calculate_contingency_matrix(preds, target))
+    data = torch.randn((5000, 16), generator=gen) + 3 * (preds % 5)[:, None]
+    for name in ("MutualInfoScore", "AdjustedMutualInfoScore", "AdjustedRandScore", "FowlkesMallowsIndex", "VMeasureScore",
+                 "CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex"):
+        a, b = (data, preds % 5) if name in ("CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex") else (preds, target)
+        m_card, m_cpu = getattr(T, name)(device=card), getattr(T, name)(device="cpu")
+        for part in range(2):
+            m_card.update(a[part::2].to(card), b[part::2].to(card))
+            m_cpu.update(a[part::2], b[part::2])
+        assert torch.allclose(m_card.compute().cpu(), m_cpu.compute(), rtol=1e-5, atol=1e-6), name
+    sig = torch.randn((4, 2, 4000), generator=gen)
+    noisy = sig + 0.3 * torch.randn((4, 2, 4000), generator=gen)
+    for name in ("SignalNoiseRatio", "ScaleInvariantSignalDistortionRatio", "SignalDistortionRatio",
+                 "SourceAggregatedSignalDistortionRatio"):
+        m_card, m_cpu = getattr(T, name)(device=card), getattr(T, name)(device="cpu")
+        m_card.update(noisy.to(card), sig.to(card))
+        m_cpu.update(noisy, sig)
+        assert torch.allclose(m_card.compute().cpu(), m_cpu.compute(), rtol=1e-5, atol=1e-3), name
+    stoi = T.functional.short_time_objective_intelligibility
+    assert torch.equal(stoi(noisy[:, 0].to(card), sig[:, 0].to(card), 8000).cpu(), stoi(noisy[:, 0], sig[:, 0], 8000))
 
 
 if __name__ == "__main__":

@@ -539,15 +539,6 @@ def test_wrappers_never_join_a_compute_group():
 
 # the JAX package's top-level names whose domains are not ported yet (ROADMAP A14)
 NOT_PORTED = {
-    # audio
-    "ComplexScaleInvariantSignalNoiseRatio", "DeepNoiseSuppressionMeanOpinionScore", "PerceptualEvaluationSpeechQuality",
-    "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
-    "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio", "SourceAggregatedSignalDistortionRatio",
-    "SpeechReverberationModulationEnergyRatio",
-    # clustering
-    "AdjustedMutualInfoScore", "AdjustedRandScore", "CalinskiHarabaszScore", "CompletenessScore", "DaviesBouldinScore",
-    "DunnIndex", "FowlkesMallowsIndex", "HomogeneityScore", "MutualInfoScore", "NormalizedMutualInfoScore", "RandScore",
-    "VMeasureScore",
     # detection
     "CompleteIntersectionOverUnion", "DistanceIntersectionOverUnion", "GeneralizedIntersectionOverUnion",
     "IntersectionOverUnion", "MeanAveragePrecision", "PanopticQuality", "ModifiedPanopticQuality",

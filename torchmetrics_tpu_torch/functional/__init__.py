@@ -1,8 +1,12 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
 """Functional metrics of the port: a flat namespace, as the JAX package's."""
+from torchmetrics_tpu_torch.functional.audio import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.audio import __all__ as _audio_all
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
@@ -15,7 +19,9 @@ from torchmetrics_tpu_torch.functional.segmentation import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.segmentation import __all__ as _segmentation_all
 
 __all__ = (
-    list(_classification_all)
+    list(_audio_all)
+    + list(_classification_all)
+    + list(_clustering_all)
     + list(_nominal_all)
     + list(_pairwise_all)
     + list(_regression_all)

@@ -12,6 +12,8 @@
   heavy-hitter table after a batch of tags, a dependent scan over the tags.
 - :func:`slice_assign` (K4, ``csrc/slice_assign.cu``): the sliced plan's
   slice table, a batch of cohort keys placed in it.
+- :func:`biquad_cascade` (K5, ``csrc/biquad.cu``): SRMR's IIR filter
+  banks, rows of samples through a cascade of biquads along time.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute. A
 CUDA graph that holds a launch replays it without the wrapper, so a count
@@ -24,6 +26,7 @@ from torchmetrics_tpu_torch.ops.binned_curve_state import (
     binned_curve_state_segmented,
     binned_curve_state_segmented_plain,
 )
+from torchmetrics_tpu_torch.ops.biquad import biquad_cascade, biquad_cascade_plain
 from torchmetrics_tpu_torch.ops.cm_track import cm_track, cm_track_plain
 from torchmetrics_tpu_torch.ops.slice_assign import slice_assign, slice_assign_plain
 from torchmetrics_tpu_torch.ops.stat_counts import (
@@ -41,10 +44,13 @@ KERNELS = {
     "binned_curve_state_segmented": binned_curve_state_segmented,
     "stat_counts_segmented": stat_counts_segmented,
     "slice_assign": slice_assign,
+    "biquad_cascade": biquad_cascade,
 }
 
 __all__ = [
     "KERNELS",
+    "biquad_cascade",
+    "biquad_cascade_plain",
     "binned_curve_state",
     "binned_curve_state_plain",
     "binned_curve_state_segmented",
