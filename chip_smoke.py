@@ -334,7 +334,32 @@ result) if it fails:
    clock), and here held bitwise against its plain loop at that full length, the loop's
    steps replayed from CUDA graphs of 2,000 steps, and over the first
    2,000 samples against the eager loop (the CPU route's launches).
-23. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
+23. detection (after audio): ROADMAP A14's detection at COCO val2017's shape (5,000
+   images, 80 classes, 36,781 ground truths, 0-63 an image, about 1%
+   crowds, COCO's small/medium/large mix; 100 detections an image, jittered
+   from the ground truths and false positives; made on the card from a
+   seed). ``MeanAveragePrecision(class_metrics=True, extended_summary=True)``
+   fed in batches of 16 images, then ``compute`` is the main path (K6
+   counted from 0: one launch); the compute again with its stages timed
+   (host packing, IoU, K6, the ignore masks, accumulation, summary), the
+   tables equal; K6 on the compute's own inputs bitwise against its plain
+   loop and timed (device ms from the profiler, or CUDA events where it sees
+   no device time; stream ms, bound, chain floor, registers),
+   and on an adversarial batch (ties, NaNs, crowds, all-ignored and empty
+   images, D and G not multiples of 32, thresholds 1.0, 0, -1 and NaN, a
+   matched set past a register, rows past the shared-memory stage); the
+   card's result against the port's CPU route on the same inputs, the
+   first 1,000 images (tables and classes bitwise, summaries within
+   DET_SUMMARY_ATOL; the whole stream's CPU compute took 34 s); the four
+   IoU classes over the same 1,000 images, updates timed,
+   ``IntersectionOverUnion`` within 1e-5 of a float64 numpy mean. segm, cut to 200 images x 20
+   detections of 480 x 640 ellipse masks (the host codec's time): the
+   codec's runs bitwise against the numpy plain route on 10 images, the
+   card against the CPU on the same RLEs. Panoptic quality, cut to 64 images
+   at 480 x 640 with COCO panoptic's 80 thing and 53 stuff categories (host
+   numpy's time): the update timed, the states and values of both classes
+   on the card bitwise equal to the CPU's over the first 2 images.
+24. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
    and ``--mode poison`` (seed 11) with ``--device cuda``: every daemon the
    harness starts must print a ready line naming the card, and the reports
    must carry the invariants JAX's tests assert (short: legs main and
@@ -351,9 +376,9 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio and chaos phases' seconds, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection and chaos phases' seconds, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, K2s and K1s at the
-StateGuard's one-cell shape, and K5 on the gammatone and the modulation bank) and
+StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, and K6) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -7246,6 +7271,540 @@ def phase_audio(device, smi, k5_rows):
     return out
 
 
+# --------------------------------------------------------------- detection
+
+DET_IMAGES = 5000  # COCO val2017
+DET_CLASSES = 80
+DET_GTS = 36781  # COCO val2017's instance annotations
+DET_MAX_GT = 63  # val2017's most annotations in one image
+DET_PER_IMAGE = 100  # the max-detections cap that Faster R-CNN, DETR and YOLO evaluations use
+DET_BATCH = 16  # images an update, as a detector's evaluation loop feeds them
+DET_H, DET_W = 480, 640  # COCO's usual image size
+DET_SIZE_MIX = (0.41, 0.34)  # COCO's small and medium instance shares (large: the rest)
+DET_CROWD = 0.01
+DET_REPS = 5
+DET_SUMMARY_ATOL = 1e-6  # the summary means: float32 sums of up to T x R x K cells in another order
+SEGM_IMAGES, SEGM_DETS, SEGM_CODEC_CHECK = 200, 20, 10  # cut: the host codec's time
+PQ_IMAGES, PQ_THINGS, PQ_STUFFS, PQ_BATCH, PQ_CPU_IMAGES = 64, 80, 53, 8, 2  # cut: host numpy's time
+# the CPU route's compute and the IoU classes' per-image updates over the first 1,000 images: the full
+# stream took 34 s and 16.6 s of the phase on the card's host
+DET_CPU_IMAGES = DET_IOU_IMAGES = 1000
+K6_ROUND_CYCLES = 30  # a shuffle round and its compare and select (an assumption, not measured)
+K6_OPS_PER_CELL = 4  # per (image, area, threshold, detection, ground truth): two selects, two compares
+
+
+def _require_same_bits(got, want, what):
+    """``got`` and ``want`` hold the same bits (floats compared as their integer views)."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    _require(got.dtype == want.dtype and got.shape == want.shape,
+             f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+        got, want = got.view(view), want.view(view)
+    _require(torch.equal(got, want), f"{what}: the bits differ")
+
+
+def _det_boxes(gen, n, device):
+    """``n`` COCO-like xyxy boxes in a DET_W x DET_H image: COCO's small /
+    medium / large mix, log-uniform areas in each range and aspect ratios in [1/2, 2]."""
+    import torch
+
+    u = torch.rand(n, generator=gen, device=device)
+    small, medium = u < DET_SIZE_MIX[0], u < DET_SIZE_MIX[0] + DET_SIZE_MIX[1]
+    lo = torch.where(small, 16.0, torch.where(medium, 32.0**2, 96.0**2))
+    hi = torch.where(small, 32.0**2, torch.where(medium, 96.0**2, 0.5 * DET_W * DET_H))
+    area = torch.exp(torch.log(lo) + torch.rand(n, generator=gen, device=device) * (torch.log(hi) - torch.log(lo)))
+    ratio = torch.exp((torch.rand(n, generator=gen, device=device) * 2 - 1) * math.log(2))
+    w = torch.sqrt(area * ratio).clamp(max=DET_W)
+    h = (area / w).clamp(max=DET_H)
+    x0 = torch.rand(n, generator=gen, device=device) * (DET_W - w)
+    y0 = torch.rand(n, generator=gen, device=device) * (DET_H - h)
+    return torch.stack([x0, y0, x0 + w, y0 + h], -1)
+
+
+def _det_stream(device, n_imgs=None, n_gts=None):
+    """COCO val2017's shape made from SEED on ``device``: per-image ground
+    truths (0 to DET_MAX_GT, DET_GTS in all, about 1% crowds) and
+    DET_PER_IMAGE detections (a jittered copy of each ground truth with
+    probability 0.85, a duplicate with 0.3, false positives for the rest;
+    labels kept with probability 0.9). Returns per-image dicts (views of a
+    few large tensors) and the per-image counts."""
+    import numpy as np
+    import torch
+
+    n_imgs = n_imgs or DET_IMAGES
+    n_gts = n_gts or DET_GTS
+    rng = np.random.default_rng(SEED + 19)
+    counts = np.clip(rng.negative_binomial(1.3, 1.3 / (1.3 + n_gts / n_imgs), n_imgs), 0, DET_MAX_GT)
+    counts[0] = DET_MAX_GT
+    while counts.sum() != n_gts:
+        i = int(rng.integers(1, n_imgs))
+        step = 1 if counts.sum() < n_gts else -1
+        if 0 <= counts[i] + step <= DET_MAX_GT:
+            counts[i] += step
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    gt_boxes = _det_boxes(gen, n_gts, device)
+    gt_labels = torch.randint(0, DET_CLASSES, (n_gts,), generator=gen, device=device)
+    gt_crowd = torch.rand(n_gts, generator=gen, device=device) < DET_CROWD
+    ng = torch.as_tensor(counts, device=device)[:, None]
+    offsets = torch.as_tensor(np.cumsum(counts) - counts, device=device)[:, None]
+    slot = torch.arange(DET_PER_IMAGE, device=device)[None, :]
+    shape = (n_imgs, DET_PER_IMAGE)
+    hit = (slot < ng) & (torch.rand(shape, generator=gen, device=device) < 0.85)
+    dup = (slot >= ng) & (slot < 2 * ng) & (torch.rand(shape, generator=gen, device=device) < 0.3)
+    src = (offsets + slot % ng.clamp(min=1)).clamp(max=n_gts - 1)
+    base = gt_boxes[src]
+    wh = base[..., 2:] - base[..., :2]
+    sigma = 0.01 + 0.19 * torch.rand(shape + (1,), generator=gen, device=device)
+    center = (base[..., :2] + base[..., 2:]) / 2 + wh * sigma * torch.randn(shape + (2,), generator=gen, device=device)
+    half = wh * torch.exp(sigma * torch.randn(shape + (2,), generator=gen, device=device)) / 2
+    jittered = torch.cat([center - half, center + half], -1)
+    from_gt = (hit | dup)[..., None]
+    det_boxes = torch.where(from_gt, jittered, _det_boxes(gen, n_imgs * DET_PER_IMAGE, device).reshape(shape + (4,)))
+    keep_label = (hit | dup) & (torch.rand(shape, generator=gen, device=device) < 0.9)
+    det_labels = torch.where(keep_label, gt_labels[src], torch.randint(0, DET_CLASSES, shape, generator=gen, device=device))
+    u = torch.rand(shape, generator=gen, device=device)
+    det_scores = torch.where(hit, 0.5 + 0.5 * u, torch.where(dup, 0.3 + 0.5 * u, 0.6 * u))
+    split = counts.tolist()
+    preds = [{"boxes": b, "scores": s, "labels": lab} for b, s, lab in zip(det_boxes, det_scores, det_labels)]
+    target = [{"boxes": b, "labels": lab, "iscrowd": c} for b, lab, c in
+              zip(gt_boxes.split(split), gt_labels.split(split), gt_crowd.split(split))]
+    return preds, target, counts
+
+
+def _det_on(items, device):
+    """The same per-image dicts on ``device`` (one copy of each large tensor, then views)."""
+    import torch
+
+    out = []
+    keys = list(items[0]) if items else []
+    moved = {}
+    for key in keys:
+        parts = [it[key] for it in items]
+        flat = torch.cat([p.reshape(-1) for p in parts]).to(device)
+        moved[key] = [v.reshape(p.shape) for v, p in zip(flat.split([p.numel() for p in parts]), parts)]
+    for i in range(len(items)):
+        out.append({key: moved[key][i] for key in keys})
+    return out
+
+
+def _map_module():
+    import importlib
+
+    return importlib.import_module("torchmetrics_tpu_torch.functional.detection.map")
+
+
+def _timed_map_compute(metric, keep=None):
+    """``metric.compute()`` with each stage timed (a synchronize on both
+    sides of each): the host packing, the IoU, K6, the matching around it,
+    the accumulation and the summary; with ``keep`` a dict, K6's arguments
+    go there."""
+    import torch
+
+    tmap = _map_module()
+    names = ("_bbox_iou_and_area", "coco_match", "_match", "_accumulate", "_match_and_accumulate")
+    originals = {name: getattr(tmap, name) for name in names}
+    parts = dict.fromkeys(names, 0.0)
+
+    def timed(name):
+        fn = originals[name]
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t0
+            if name == "coco_match" and keep is not None:
+                keep["args"] = args
+            return out
+        return wrapper
+
+    for name in names:
+        setattr(tmap, name, timed(name))
+    metric._computed = None  # compute again, not from the cache
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = metric.compute()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(tmap, name, fn)
+    split = {
+        "host packing": total - parts["_bbox_iou_and_area"] - parts["_match_and_accumulate"],
+        "IoU": parts["_bbox_iou_and_area"],
+        "K6": parts["coco_match"],
+        "ignore masks": parts["_match"] - parts["coco_match"],
+        "accumulation": parts["_accumulate"],
+        "summary": parts["_match_and_accumulate"] - parts["_match"] - parts["_accumulate"],
+    }
+    return result, total, split
+
+
+def _require_map_equal(got, want, what):
+    """The card's mAP dict against the CPU route's: the same keys, the tables
+    and classes bitwise, the summaries within DET_SUMMARY_ATOL. Returns the
+    largest summary difference."""
+    import torch
+
+    _require(sorted(got) == sorted(want), f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for key, w in want.items():
+        g, w = got[key].cpu(), w.cpu()
+        _require(g.dtype == w.dtype and g.shape == w.shape, f"{what} {key}: {g.dtype} {tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+        if key in ("precision", "recall", "scores", "classes"):
+            _require(torch.equal(g, w), f"{what} {key}: the card's table differs from the CPU's")
+        else:
+            err = float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+            _require(err <= DET_SUMMARY_ATOL, f"{what} {key}: |card - CPU| {err} > {DET_SUMMARY_ATOL}")
+            worst = max(worst, err)
+    return worst
+
+
+def _k6_adversarial(device):
+    """K6 bitwise against its plain loop on a card batch built to break it:
+    IoUs on a 0.05 grid (ties), NaN IoUs, 10% crowds, an all-ignored image,
+    images without detections or ground truths, D and G not multiples of 32,
+    thresholds at 1.0, 0, -1 and NaN; then past the register matched set
+    (G = 1,100) and past the shared-memory stage (D x G x 4 > 48 KB)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    cases = 0
+    for n, d, g, a, thrs in ((16, 37, 45, 4, torch.linspace(0.5, 0.95, 10)),
+                             (16, 37, 45, 4, torch.tensor([1.0, 0.0, -1.0, float("nan"), 0.75])),
+                             (4, 9, 1100, 2, torch.linspace(0.5, 0.95, 10)),
+                             (4, 200, 70, 4, torch.linspace(0.3, 0.9, 23))):
+        iou = torch.round(torch.rand((n, d, g), generator=gen, device=device) * 20) / 20
+        iou[torch.rand((n, d, g), generator=gen, device=device) < 0.02] = float("nan")
+        iou[:, ::5] = 1.0
+        det_labels = torch.randint(0, 3, (n, d), generator=gen, device=device, dtype=torch.int32)
+        gt_labels = torch.randint(0, 3, (n, g), generator=gen, device=device, dtype=torch.int32)
+        det_valid = torch.rand((n, d), generator=gen, device=device) < 0.9
+        gt_valid = torch.rand((n, g), generator=gen, device=device) < 0.9
+        gt_crowd = torch.rand((n, g), generator=gen, device=device) < 0.1
+        gt_crowd[0] = True
+        gt_ig = (torch.rand((n, a, g), generator=gen, device=device) < 0.2) | gt_crowd[:, None, :]
+        det_valid[1] = False
+        gt_valid[2] = False
+        args = (iou, det_labels, det_valid, gt_labels, gt_valid, gt_crowd, gt_ig, thrs.to(device))
+        got, want = coco_match(*args), coco_match_plain(*args)
+        for x, y, name in zip(got, want, ("det_matched", "det_ignored")):
+            _require_same_bits(x, y, f"K6 adversarial ({n}, {d}, {g}, {a}, T={thrs.numel()}) {name}")
+        cases += 1
+    return cases
+
+
+def _k6_row(args, main_launches):
+    """K6 on the main path's own inputs: bitwise against its plain loop,
+    device ms (profiler), stream ms (events), the plain loop's ms, the bound
+    and the chain floor, registers and spills."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
+
+    iou = args[0]
+    n, d, g = iou.shape
+    a, t = args[6].shape[1], args[7].numel()
+    got = coco_match(*args)
+    plain_stream = _events_ms(lambda: coco_match_plain(*args), 1)
+    want = coco_match_plain(*args)
+    for x, y, name in zip(got, want, ("det_matched", "det_ignored")):
+        _require_same_bits(x, y, f"K6 at the main path's shape {name}")
+    del got, want
+    stream_ms = _events_ms(lambda: coco_match(*args), DET_REPS)
+    dev_ms, found, source = _device_ms_or_events(coco_match, args, stream_ms)
+    floor_ms, _, floor_source = _device_ms_or_events(_read_floor, (iou,), _events_ms(lambda: _read_floor(iou), DET_REPS))
+    n_bytes = sum(x.numel() * x.element_size() for x in args) + 2 * n * a * t * d
+    bound_ms, bound_by = _bound(n_bytes, K6_OPS_PER_CELL * n * a * t * d * g)
+    smi_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                               capture_output=True, text=True, timeout=60).stdout.strip()
+    clock_hz = float(smi_clock) * 1e6 if smi_clock.replace(".", "", 1).isdigit() else 1.98e9
+    log = BUILD_LOGS.get("coco_match", "")
+    regs = [int(w) for line in log.splitlines() if "registers" in line for w in line.split("Used")[1].split()[:1]]
+    spills = sum(1 for line in log.splitlines() if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
+    return {
+        "name": f"coco_match ({n} images x {d} detections x {g} ground truths, A={a}, T={t})",
+        "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/coco_match.cu",
+        "replaces": "torchmetrics_tpu/functional/detection/map.py:92", "launches": main_launches, "max_abs_err": 0.0,
+        "ms": dev_ms, "ms_source": source, "plain_ms": plain_stream, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "stream_ms": {"kernel": stream_ms, "plain": plain_stream},
+        "kernel_only_us": _kernel_only_us(found, "coco_match"), "bytes": n_bytes, "read_floor_ms": floor_ms,
+        "read_floor_source": floor_source, "chain_floor_ms": d * 5 * K6_ROUND_CYCLES / clock_hz * 1e3,
+        "clock_mhz": clock_hz / 1e6, "registers": f"{min(regs, default=0)}-{max(regs, default=0)}", "spills": spills,
+    }
+
+
+def _det_bbox(tm, device, out):
+    """The bbox cell: the COCO val2017-shaped stream through
+    ``MeanAveragePrecision.update`` in batches of DET_BATCH, ``compute`` with
+    K6 counted from 0 (the main path), its stages timed in a second compute,
+    K6 held against its plain loop, the card against the CPU route, and the
+    four IoU classes over its first images."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import coco_match
+
+    preds, target, counts = _det_stream(device)
+    kw = {"class_metrics": True, "extended_summary": True}
+    metric = tm.MeanAveragePrecision(device=device, **kw)
+    torch.cuda.synchronize()
+    coco_match.launches = 0
+    t0 = time.perf_counter()
+    for i in range(0, len(preds), DET_BATCH):
+        metric.update(preds[i:i + DET_BATCH], target[i:i + DET_BATCH])
+    torch.cuda.synchronize()
+    out["update_ms"] = {"MeanAveragePrecision": (time.perf_counter() - t0) * 1e3 / math.ceil(len(preds) / DET_BATCH)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = metric.compute()
+    torch.cuda.synchronize()
+    out["compute_s"] = time.perf_counter() - t0
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["main_launches"] = coco_match.launches
+    _require(out["main_launches"] == 1, f"detection: K6 launched {out['main_launches']} times in the compute, not once")
+    num_k = res["classes"].numel()
+    _require(res["precision"].shape == (10, 101, num_k, 4, 3) and num_k == DET_CLASSES, f"detection: tables {tuple(res['precision'].shape)}")
+    for key in ("map", "map_50", "map_75", "mar_100", "map_small", "map_large"):
+        v = float(res[key])
+        _require(math.isfinite(v) and 0.0 < v <= 1.0, f"detection {key} = {v}")
+    out["values"] = {key: float(res[key]) for key in ("map", "map_50", "map_75", "map_small", "map_medium", "map_large", "mar_1", "mar_10", "mar_100")}
+    keep = {}
+    res2, total, split = _timed_map_compute(metric, keep)
+    _require_map_equal(res2, res, "detection: a second compute")
+    out["timed_compute_s"], out["compute_split_s"] = total, split
+    out["k6_row"] = _k6_row(keep["args"], out["main_launches"])
+    del keep
+    torch.cuda.empty_cache()
+    # the CPU route on the same inputs: the first DET_CPU_IMAGES images, on the card and on the CPU
+    first_p, first_t = preds[:DET_CPU_IMAGES], target[:DET_CPU_IMAGES]
+    card_metric, cpu_metric = tm.MeanAveragePrecision(device=device, **kw), tm.MeanAveragePrecision(device="cpu", **kw)
+    cpu_preds, cpu_target = _det_on(first_p, "cpu"), _det_on(first_t, "cpu")
+    for i in range(0, len(first_p), DET_BATCH):
+        card_metric.update(first_p[i:i + DET_BATCH], first_t[i:i + DET_BATCH])
+        cpu_metric.update(cpu_preds[i:i + DET_BATCH], cpu_target[i:i + DET_BATCH])
+    got = card_metric.compute()
+    t0 = time.perf_counter()
+    want = cpu_metric.compute()
+    out["cpu_compute_s"] = time.perf_counter() - t0
+    out["errors"]["mAP card vs CPU"] = _require_map_equal(got, want, "detection: card vs CPU")
+    del card_metric, cpu_metric, cpu_preds, cpu_target, got, want, res, res2, metric
+    # the four IoU classes over the stream's first DET_IOU_IMAGES images
+    first_p, first_t = preds[:DET_IOU_IMAGES], target[:DET_IOU_IMAGES]
+    for name in ("IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
+                 "CompleteIntersectionOverUnion"):
+        m = getattr(tm, name)(device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(first_p), DET_BATCH):
+            m.update(first_p[i:i + DET_BATCH], first_t[i:i + DET_BATCH])
+        torch.cuda.synchronize()
+        out["update_ms"][name] = (time.perf_counter() - t0) * 1e3 / math.ceil(len(first_p) / DET_BATCH)
+        value = float(next(iter(m.compute().values())))
+        _require(math.isfinite(value) and -1.0 <= value <= 1.0, f"detection {name} = {value}")
+        out["values"][name] = value
+        if name == "IntersectionOverUnion":
+            out["errors"]["IoU vs numpy"] = _require_close(value, _numpy_mean_iou(first_p, first_t), 1e-5, name)
+        del m
+    out["images"], out["gts"] = len(preds), int(counts.sum())
+    del preds, target
+
+
+def _numpy_mean_iou(preds, target):
+    """The mean IoU over label-equal (detection, ground truth) pairs in float64 numpy."""
+    import numpy as np
+
+    total, count = 0.0, 0
+    for p, t in zip(preds, target):
+        d, g = p["boxes"].double().cpu().numpy(), t["boxes"].double().cpu().numpy()
+        if not len(d) or not len(g):
+            continue
+        lt, rb = np.maximum(d[:, None, :2], g[None, :, :2]), np.minimum(d[:, None, 2:], g[None, :, 2:])
+        inter = np.clip(rb - lt, 0, None).prod(-1)
+        union = np.prod(d[:, 2:] - d[:, :2], -1)[:, None] + np.prod(g[:, 2:] - g[:, :2], -1)[None, :] - inter
+        iou = np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
+        same = p["labels"].cpu().numpy()[:, None] == t["labels"].cpu().numpy()[None, :]
+        total += iou[same].sum()
+        count += int(same.sum())
+    return total / count if count else 0.0
+
+
+def _ellipses(boxes, device):
+    """``(n, DET_H, DET_W)`` uint8 masks of the ellipses inscribed in ``boxes``."""
+    import torch
+
+    ys = torch.arange(DET_H, device=device, dtype=torch.float32)[None, :, None] + 0.5
+    xs = torch.arange(DET_W, device=device, dtype=torch.float32)[None, None, :] + 0.5
+    c = (boxes[:, :2] + boxes[:, 2:]) / 2
+    r = ((boxes[:, 2:] - boxes[:, :2]) / 2).clamp(min=0.5)
+    return ((((xs - c[:, None, None, 0]) / r[:, None, None, 0]) ** 2
+             + ((ys - c[:, None, None, 1]) / r[:, None, None, 1]) ** 2) <= 1).to(torch.uint8)
+
+
+def _det_segm(tm, device, out):
+    """The segm cell, cut to SEGM_IMAGES images of SEGM_DETS detections: the
+    bbox stream's first images as ellipse masks at 480 x 640 on the card,
+    RLE-encoded by the port's codec at update; the codec's runs bitwise
+    against the numpy plain route on SEGM_CODEC_CHECK images; the card's mAP
+    against the CPU route on the same RLEs."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.functional.detection import mask_utils
+    from torchmetrics_tpu_torch.ops import coco_match
+
+    preds, target, _ = _det_stream(device, n_imgs=SEGM_IMAGES, n_gts=SEGM_IMAGES * DET_GTS // DET_IMAGES)
+    metric = tm.MeanAveragePrecision(iou_type="segm", device=device, extended_summary=True)
+    t_update, checked = 0.0, 0
+    before = coco_match.launches
+    for i in range(0, SEGM_IMAGES, DET_BATCH):
+        batch_p, batch_t = [], []
+        for p, t in zip(preds[i:i + DET_BATCH], target[i:i + DET_BATCH]):
+            top = torch.argsort(p["scores"], descending=True)[:SEGM_DETS]
+            batch_p.append({"masks": _ellipses(p["boxes"][top], device), "scores": p["scores"][top], "labels": p["labels"][top]})
+            batch_t.append({"masks": _ellipses(t["boxes"], device), "labels": t["labels"], "iscrowd": t["iscrowd"]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(batch_p, batch_t)
+        t_update += time.perf_counter() - t0
+        for j, item in enumerate(batch_p):
+            if checked < SEGM_CODEC_CHECK:
+                host = item["masks"].cpu().numpy()
+                for k in range(host.shape[0]):
+                    rle = metric.detection_mask[i + j][k]
+                    _require(np.array_equal(rle["counts"], mask_utils._encode_numpy(host[k].flatten(order="F"))),
+                             f"segm: the codec's runs of image {i + j} mask {k} differ from the numpy route's")
+                checked += 1
+    out["segm_update_ms"] = t_update * 1e3 / math.ceil(SEGM_IMAGES / DET_BATCH)
+    t0 = time.perf_counter()
+    res = metric.compute()
+    torch.cuda.synchronize()
+    out["segm_compute_s"] = time.perf_counter() - t0
+    _require(coco_match.launches == before + 1, "segm: K6 did not launch once in the compute")
+    cpu_metric = tm.MeanAveragePrecision(iou_type="segm", device="cpu", extended_summary=True)
+    cpu_metric.update(
+        [{"masks": m, "scores": s.cpu(), "labels": lab.cpu()} for m, s, lab in
+         zip(metric.detection_mask, metric.detection_scores, metric.detection_labels)],
+        [{"masks": m, "labels": lab.cpu(), "iscrowd": c.cpu()} for m, lab, c in
+         zip(metric.groundtruth_mask, metric.groundtruth_labels, metric.groundtruth_crowds)],
+    )
+    out["errors"]["segm card vs CPU"] = _require_map_equal(res, cpu_metric.compute(), "segm: card vs CPU")
+    out["values"]["segm map"] = float(res["map"])
+    _require(0.0 < out["values"]["segm map"] <= 1.0, f"segm map = {out['values']['segm map']}")
+    out["segm_codec_images"] = checked
+
+
+def _panoptic_maps(gen, n, device, things, stuffs):
+    """``(n, DET_H, DET_W, 2)`` int64 (category, instance) maps: an 8 x 8
+    grid of stuff regions under 12-24 thing instances (ellipses); and the
+    predictions: instances redrawn from jittered boxes, 10% of instance and
+    region categories changed."""
+    import torch
+
+    things_t, stuffs_t = torch.tensor(sorted(things), device=device), torch.tensor(sorted(stuffs), device=device)
+    target = torch.zeros((n, DET_H, DET_W, 2), dtype=torch.int64, device=device)
+    preds = torch.zeros_like(target)
+    for i in range(n):
+        grid = stuffs_t[torch.randint(0, len(stuffs_t), (8, 8), generator=gen, device=device)]
+        cat = grid.repeat_interleave(DET_H // 8, 0).repeat_interleave(DET_W // 8, 1)
+        flip = torch.rand((8, 8), generator=gen, device=device) < 0.1
+        grid_p = torch.where(flip, stuffs_t[torch.randint(0, len(stuffs_t), (8, 8), generator=gen, device=device)], grid)
+        cat_p = grid_p.repeat_interleave(DET_H // 8, 0).repeat_interleave(DET_W // 8, 1)
+        inst, inst_p = torch.zeros_like(cat), torch.zeros_like(cat)
+        k = int(torch.randint(12, 25, (1,), generator=gen, device=device))
+        boxes = _det_boxes(gen, k, device)
+        labels = things_t[torch.randint(0, len(things_t), (k,), generator=gen, device=device)]
+        wh = boxes[:, 2:] - boxes[:, :2]
+        jitter = torch.cat([wh, wh], -1) * 0.05 * torch.randn((k, 4), generator=gen, device=device)
+        labels_p = torch.where(torch.rand(k, generator=gen, device=device) < 0.1,
+                               things_t[torch.randint(0, len(things_t), (k,), generator=gen, device=device)], labels)
+        masks, masks_p = _ellipses(boxes, device).bool(), _ellipses(boxes + jitter, device).bool()
+        for j in range(k):
+            cat, inst = torch.where(masks[j], labels[j], cat), torch.where(masks[j], j + 1, inst)
+            cat_p, inst_p = torch.where(masks_p[j], labels_p[j], cat_p), torch.where(masks_p[j], j + 1, inst_p)
+        target[i, ..., 0], target[i, ..., 1], preds[i, ..., 0], preds[i, ..., 1] = cat, inst, cat_p, inst_p
+    return preds, target
+
+
+def _det_panoptic(tm, device, out):
+    """The panoptic cell, cut to PQ_IMAGES images at 480 x 640 with COCO
+    panoptic's 133 categories (80 things, 53 stuff): PanopticQuality on the
+    card in batches of PQ_BATCH (the per-image matching is host numpy); the
+    states and values of PanopticQuality and ModifiedPanopticQuality on the
+    card equal to the CPU's over the first PQ_CPU_IMAGES images."""
+    import torch
+
+    things, stuffs = set(range(1, PQ_THINGS + 1)), set(range(PQ_THINGS + 1, PQ_THINGS + PQ_STUFFS + 1))
+    gen = torch.Generator(device=device).manual_seed(SEED + 133)
+    preds, target = _panoptic_maps(gen, PQ_IMAGES, device, things, stuffs)
+    metric = tm.PanopticQuality(things=things, stuffs=stuffs, return_sq_and_rq=True, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, PQ_IMAGES, PQ_BATCH):
+        metric.update(preds[i:i + PQ_BATCH], target[i:i + PQ_BATCH])
+    torch.cuda.synchronize()
+    out["pq_update_ms"] = (time.perf_counter() - t0) * 1e3 / (PQ_IMAGES // PQ_BATCH)
+    pq = metric.compute()
+    _require(bool(torch.isfinite(pq).all()) and 0.0 < float(pq[0]) <= 1.0, f"panoptic quality {pq.tolist()}")
+    out["values"]["PQ, SQ, RQ"] = [round(float(v), 6) for v in pq]
+    cut = slice(0, PQ_CPU_IMAGES)
+    for name in ("PanopticQuality", "ModifiedPanopticQuality"):
+        card = getattr(tm, name)(things=things, stuffs=stuffs, return_sq_and_rq=True, device=device)
+        cpu = getattr(tm, name)(things=things, stuffs=stuffs, return_sq_and_rq=True, device="cpu")
+        card.update(preds[cut], target[cut])
+        cpu.update(preds[cut].cpu(), target[cut].cpu())
+        for key in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
+            _require_same_bits(getattr(card, key).cpu(), getattr(cpu, key), f"{name} {key}: card vs CPU")
+        _require_same_bits(card.compute().cpu(), cpu.compute(), f"{name}: card vs CPU")
+    del preds, target
+
+
+def phase_detection(device, smi):
+    """Detection (ROADMAP A14) at COCO val2017's shape, K6 on the main path: see the module docstring, phase 23."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"errors": {}, "values": {}}
+    out["adversarial_cases"] = _k6_adversarial(device)
+    _det_bbox(tm, device, out)
+    torch.cuda.empty_cache()
+    _det_segm(tm, device, out)
+    torch.cuda.empty_cache()
+    _det_panoptic(tm, device, out)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    row = out["k6_row"]
+    print(
+        f"[detection] {smi}; bbox at COCO val2017's shape ({out['images']} images, {out['gts']} ground truths,"
+        f" {DET_PER_IMAGE} detections an image, {DET_CLASSES} classes): K6 device ms {row['ms']:.5f} ({row['ms_source']};"
+        f" kernel alone {row['kernel_only_us'] or 0:.2f} us), stream ms {row['stream_ms']['kernel']:.5f}, launches per compute"
+        f" {out['main_launches']}, bound {row['bound_ms']:.5f} ({row['bound_by']}, {row['bytes']} B), chain floor"
+        f" {row['chain_floor_ms']:.5f} ({K6_ROUND_CYCLES} cycles a shuffle round assumed, {row['clock_mhz']:.0f} MHz),"
+        f" registers {row['registers']}, {row['spills']} with spills; plain matcher {row['plain_ms']:.3f} ms; read floor"
+        f" {row['read_floor_ms']:.5f}; compute wall {out['compute_s']:.3f} s (timed again {out['timed_compute_s']:.3f}:"
+        f" {', '.join(f'{k} {v:.4f}' for k, v in out['compute_split_s'].items())}), the CPU route's {out['cpu_compute_s']:.2f} s"
+        f" on the first {DET_CPU_IMAGES} images;"
+        f" peak {out['peak_mib']:.1f} MiB; update ms per {DET_BATCH} images (the IoU classes over the first {DET_IOU_IMAGES})"
+        f" {', '.join(f'{k} {v:.2f}' for k, v in out['update_ms'].items())}; segm ({SEGM_IMAGES} x {SEGM_DETS}, 480 x 640)"
+        f" update {out['segm_update_ms']:.1f} ms, compute {out['segm_compute_s']:.3f} s, codec = numpy on"
+        f" {out['segm_codec_images']} images; PQ ({PQ_IMAGES} at 480 x 640, {PQ_THINGS} + {PQ_STUFFS} categories) update"
+        f" {out['pq_update_ms']:.1f} ms per {PQ_BATCH}; K6 adversarial cases {out['adversarial_cases']} bitwise; values"
+        f" {', '.join(f'{k} {v if isinstance(v, list) else round(v, 6)}' for k, v in out['values'].items())}; max |err|"
+        f" {', '.join(f'{k} {v:.2e}' for k, v in out['errors'].items())}; {out['seconds']:.1f} s"
+    )
+    return out
+
+
 # ------------------------------------------------------------------ chaos
 
 CHAOS_TIMEOUT_S = 420
@@ -7254,7 +7813,7 @@ CHAOS_TIMEOUT_S = 420
 def phase_chaos(smi):
     """The port's chaos harness (``torchmetrics_tpu_torch/serve/chaos.py``)
     in ``short`` and ``poison`` modes with its daemons on the card: see the
-    module docstring, phase 22."""
+    module docstring, phase 24."""
     import shutil
     import tempfile
 
@@ -7346,6 +7905,7 @@ def main() -> int:
     dist_run = phase_dist(run, exact, fused, smi)
     domains = phase_domains(device, batches, smi)
     audio = phase_audio(device, smi, k5_rows)
+    detection = phase_detection(device, smi)
     chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -7357,6 +7917,7 @@ def main() -> int:
     rows.extend(sliced["rows"])
     rows.extend(guard["rows"])
     rows.extend(audio["rows"])
+    rows.append(detection["k6_row"])
     for row in rows:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
@@ -7410,7 +7971,8 @@ def main() -> int:
         f" {serve['fleet']['export_ms']:.2f} ms ({serve['fleet']['export_bytes']} B), fold {serve['fleet']['fold_ms']:.2f} ms;"
         f" domains phase {domains['seconds']:.1f} s, peak {domains['peak_mib']:.1f} MiB; audio phase {audio['seconds']:.1f} s,"
         f" K5 at T={QUALITY_T} {'/'.join(f'{r['ms']:.3f}' for r in audio['rows'])} ms device (gammatone/modulation);"
-        f" chaos phase {chaos['seconds']:.1f} s;"
+        f" detection phase {detection['seconds']:.1f} s, K6 {detection['k6_row']['ms']:.5f} ms device at COCO val2017's shape,"
+        f" mAP compute {detection['compute_s']:.3f} s; chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

@@ -219,6 +219,11 @@ def _c4_batch(kind, seed):
         return (target + 0.3 * r.standard_normal(shape)).astype(np.float32), target
     if kind == "wave":  # SRMR's single input: 4 waves of 0.1 s at 8 kHz
         return (r.standard_normal((4, 800)).astype(np.float32),)
+    if kind == "panoptic":  # (B, H, W, 2) (category, instance) maps over things {0, 1} and stuff {6}
+        target = np.stack([r.choice([0, 1, 6], (3, 6, 5)), r.integers(0, 3, (3, 6, 5))], -1)
+        preds = target.copy()
+        preds[..., 0] = np.where(r.random((3, 6, 5)) < 0.3, r.choice([0, 1, 6], (3, 6, 5)), preds[..., 0])
+        return preds, target
     return (r.standard_normal(n).astype(np.float32),)
 
 
@@ -275,6 +280,12 @@ _C4_CASES = [
     ("PermutationInvariantTraining", {"metric_func": _c4_pit_si_sdr}, "speakers"),
     ("ShortTimeObjectiveIntelligibility", {"fs": 8000}, "audio"),
     ("SpeechReverberationModulationEnergyRatio", {"fs": 8000}, "wave"),
+    # detection: the IoU family and the mAP hold list states alone (no float leaf, so not swept)
+    ("IntersectionOverUnion", {}, "boxes"), ("GeneralizedIntersectionOverUnion", {}, "boxes"),
+    ("DistanceIntersectionOverUnion", {}, "boxes"), ("CompleteIntersectionOverUnion", {}, "boxes"),
+    ("MeanAveragePrecision", {}, "boxes"),
+    ("PanopticQuality", {"things": {0, 1}, "stuffs": {6}}, "panoptic"),
+    ("ModifiedPanopticQuality", {"things": {0, 1}, "stuffs": {6}}, "panoptic"),
 ]
 _C4_WRAPPERS = {
     "BinaryTargetTransformer", "BootStrapper", "ClasswiseWrapper", "CompositionalMetric", "LambdaInputTransformer",

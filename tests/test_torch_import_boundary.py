@@ -6,11 +6,14 @@ Two checks: importing every module of ``torchmetrics_tpu_torch`` in a fresh
 interpreter leaves no ``jax*`` and no ``torchmetrics_tpu``/``torchmetrics_tpu.*``
 module loaded (a subprocess, because this test process has JAX loaded by
 ``tests/conftest.py``), and an AST scan of every source file of the port and
-of ``chip_smoke.py`` finds no such import.
+of ``chip_smoke.py`` finds no such import. A third scan finds no path into
+the JAX package in those files (a ``"torchmetrics_tpu" / ...`` join, a
+``torchmetrics_tpu/native`` string): the port reads none of its files.
 """
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -93,6 +96,70 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+#: a path component ``torchmetrics_tpu`` followed by more path: a file or folder of the JAX package
+_JAX_PATH = re.compile(r"(^|[/\\])torchmetrics_tpu[/\\]")
+#: a ``file:line`` label naming the JAX function a kernel replaces (chip_smoke.py's kernels line): not read
+_FILE_LINE = re.compile(r"torchmetrics_tpu/[\w/.]+\.py:\d+")
+_PATH_CALLS = {"join", "joinpath", "Path", "PurePath", "open", "read_text", "read_bytes"}
+
+
+def _jax_path_reaches(source: str):
+    """Places in ``source`` that name a path into the JAX package: a string
+    holding one (docstrings and ``file:line`` labels aside), a ``/`` join
+    or a path call with a ``"torchmetrics_tpu"`` part."""
+    tree = ast.parse(source)
+    docs = {
+        id(node.body[0].value)
+        for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant)
+    }
+
+    def jax_part(node):
+        return isinstance(node, ast.Constant) and isinstance(node.value, str) and (
+            node.value.strip("/\\") == "torchmetrics_tpu" or node.value.startswith(("torchmetrics_tpu/", "torchmetrics_tpu\\"))
+        )
+
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            for word in re.split(r"[\s'\"`,;()]+", node.value):
+                if _JAX_PATH.search(word) and not _FILE_LINE.fullmatch(word):
+                    hits.append((node.lineno, word))
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div) and (jax_part(node.left) or jax_part(node.right)):
+            hits.append((node.lineno, "/ 'torchmetrics_tpu'"))
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in _PATH_CALLS:
+            if any(jax_part(arg) for arg in node.args):
+                hits.append((node.lineno, "a path call with 'torchmetrics_tpu'"))
+    return hits
+
+
+@pytest.mark.parametrize("snippet,bad", [
+    ('p = Path(__file__).parent.parent / "torchmetrics_tpu" / "native" / "rle_codec.cpp"', True),
+    ('p = os.path.join(root, "torchmetrics_tpu", "native", "rle_codec.cpp")', True),
+    ('src = "torchmetrics_tpu/native/rle_codec.cpp"', True),
+    ('src = ROOT.joinpath("torchmetrics_tpu/native")', True),
+    ('row = {"replaces": "torchmetrics_tpu/functional/detection/map.py:92"}', False),
+    ('def f():\n    """Counterpart of ``torchmetrics_tpu/functional/detection/map.py``."""', False),
+    ('p = os.path.join(root, "torchmetrics_tpu_torch", "native")', False),
+    ('cache = "~/.torchmetrics_tpu/DNSMOS"', False),
+], ids=["pathlib", "os-join", "string", "joinpath", "label", "docstring", "port-path", "home-cache"])
+def test_jax_path_check_fires_on_reaches_only(snippet, bad):
+    assert bool(_jax_path_reaches(snippet)) == bad
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_turns.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_source_names_no_path_into_the_jax_package(path):
+    """The port reads no file of the JAX package, not even by path (its RLE
+    codec is its own copy of the C++ source)."""
+    hits = _jax_path_reaches(path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)} names paths into the JAX package: {hits}"
+
+
 def test_chip_smoke_and_the_port_import_no_matplotlib_at_top_level():
     """The card's machine has no matplotlib: ``chip_smoke.py`` never imports
     it, and the port imports it only inside a plot call."""
@@ -137,7 +204,8 @@ def test_robustness_exports_equal_jax_but_stateguard():
 @pytest.mark.parametrize("package", ["segmentation", "functional.segmentation", "functional.pairwise", "nominal",
                                      "functional.nominal", "retrieval", "functional.retrieval", "serve.chaos",
                                      "clustering", "functional.clustering", "audio", "functional.audio",
-                                     "utilities.imports"])
+                                     "utilities.imports", "detection", "functional.detection", "native",
+                                     "ops.coco_match"])
 def test_the_new_domains_and_the_chaos_harness_are_scanned(package):
     """The domains of A14 ported so far and the chaos harness are among the
     modules the two checks above import and scan."""
@@ -233,7 +301,7 @@ _WAITING: dict = {}
 
 
 @pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel", "obs", "clustering", "functional.clustering",
-                                 "audio", "functional.audio"])
+                                 "audio", "functional.audio", "detection", "functional.detection"])
 def test_subpackage_exports_equal_jax(sub):
     import importlib
 

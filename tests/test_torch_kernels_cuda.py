@@ -33,7 +33,12 @@ the guarded flagship suite captured in a fused plan. K5 (SRMR's biquad
 cascade) equals its plain loop bitwise for both banks; SRMR launches it
 twice a call, gives the same bits with cuDNN's TF32 on and off and is
 refused by a fused plan's capture, naming the member; the clustering and
-audio classes on the card compute what they compute on the CPU.
+audio classes on the card compute what they compute on the CPU. K6 (COCO's
+greedy matcher) equals its plain loop bitwise through each of its four
+instantiations (staged or not, matched set in a register or a scratch),
+on ties, crowds, NaN IoUs and edge thresholds; the mAP on the card has
+the CPU's tables bitwise and its summaries within 1e-6, launching K6 once
+a compute; the IoU classes and panoptic quality on the card equal the CPU.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -1302,6 +1307,101 @@ def test_clustering_and_audio_on_the_card_equal_cpu(card):
         assert torch.allclose(m_card.compute().cpu(), m_cpu.compute(), rtol=1e-5, atol=1e-3), name
     stoi = T.functional.short_time_objective_intelligibility
     assert torch.equal(stoi(noisy[:, 0].to(card), sig[:, 0].to(card), 8000).cpu(), stoi(noisy[:, 0], sig[:, 0], 8000))
+
+
+def _coco_case(gen, n, d, g, a, classes=3, nan=0.0):
+    """Seeded K6 inputs on the CPU: IoUs on a 0.05 grid (ties), padding, crowds, NaNs."""
+    iou = torch.round(torch.rand((n, d, g), generator=gen) * 20) / 20
+    if nan:
+        iou[torch.rand((n, d, g), generator=gen) < nan] = float("nan")
+    return (iou, torch.randint(0, classes, (n, d), generator=gen, dtype=torch.int32),
+            torch.rand((n, d), generator=gen) < 0.9, torch.randint(0, classes, (n, g), generator=gen, dtype=torch.int32),
+            torch.rand((n, g), generator=gen) < 0.9, torch.rand((n, g), generator=gen) < 0.1,
+            torch.rand((n, a, g), generator=gen) < 0.25)
+
+
+# (n, d, g, a): staged with the matched set in a register; staged with G > 1024 (scratch); D * G * 4 past
+# the 48 KB stage (device-memory reads); both
+@pytest.mark.parametrize("shape", [(64, 104, 64, 4), (3, 5, 1100, 2), (4, 200, 70, 4), (2, 12, 1500, 1), (5, 1, 1, 3)],
+                         ids=["coco", "scratch", "unstaged", "unstaged-scratch", "one"])
+@pytest.mark.parametrize("thrs", ["coco", "edges", "many"])
+def test_coco_match_matches_plain(card, shape, thrs):
+    from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    args = _coco_case(gen, *shape, nan=0.02)
+    args[0][:, ::7] = 1.0
+    bar = {"coco": torch.linspace(0.5, 0.95, 10), "edges": torch.tensor([1.0, 0.0, -1.0, float("nan"), 0.5]),
+           "many": torch.rand(37, generator=gen)}[thrs]
+    want = coco_match_plain(*args, bar)
+    before = coco_match.launches
+    got = coco_match(*(x.to(card) for x in args), bar.to(card))
+    torch.cuda.synchronize()
+    assert coco_match.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+def _detections(seed, n_imgs=12, classes=5):
+    rng = np.random.default_rng(seed)
+    preds, target = [], []
+    for i in range(n_imgs):
+        n_g, n_d = int(rng.integers(0, 9)), int(rng.integers(0, 14))
+        xy = rng.uniform(0, 300, (n_g, 2))
+        gt = np.concatenate([xy, xy + rng.uniform(4, 150, (n_g, 2))], 1)
+        xy = rng.uniform(0, 300, (n_d, 2))
+        det = np.concatenate([xy, xy + rng.uniform(4, 150, (n_d, 2))], 1)
+        k = min(n_g, n_d)
+        det[:k] = gt[:k] + rng.normal(0, 5, (k, 4))
+        preds.append({"boxes": torch.tensor(det, dtype=torch.float32), "scores": torch.tensor(rng.random(n_d), dtype=torch.float32),
+                      "labels": torch.tensor(rng.integers(0, classes, n_d))})
+        target.append({"boxes": torch.tensor(gt, dtype=torch.float32), "labels": torch.tensor(rng.integers(0, classes, n_g)),
+                       "iscrowd": torch.tensor(rng.random(n_g) < 0.1)})
+    return preds, target
+
+
+def test_detection_on_the_card_equals_cpu(card):
+    from torchmetrics_tpu_torch.ops import coco_match
+
+    preds, target = _detections(81)
+    on = lambda items: [{k: v.to(card) for k, v in it.items()} for it in items]  # noqa: E731
+    kw = {"class_metrics": True, "extended_summary": True}
+    m_card, m_cpu = T.MeanAveragePrecision(device=card, **kw), T.MeanAveragePrecision(device="cpu", **kw)
+    for i in range(0, 12, 4):
+        m_card.update(on(preds[i:i + 4]), on(target[i:i + 4]))
+        m_cpu.update(preds[i:i + 4], target[i:i + 4])
+    before = coco_match.launches
+    got, want = m_card.compute(), m_cpu.compute()
+    assert coco_match.launches == before + 1
+    for key, w in want.items():
+        g = got[key]
+        assert g.device.type == "cuda", key
+        if key in ("precision", "recall", "scores", "classes"):
+            assert torch.equal(g.cpu(), w), key
+        else:
+            assert torch.allclose(g.cpu(), w, atol=1e-6, rtol=0), key
+    for name in ("IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
+                 "CompleteIntersectionOverUnion"):
+        i_card, i_cpu = getattr(T, name)(device=card, class_metrics=True), getattr(T, name)(device="cpu", class_metrics=True)
+        i_card.update(on(preds), on(target))
+        i_cpu.update(preds, target)
+        got, want = i_card.compute(), i_cpu.compute()
+        assert sorted(got) == sorted(want), name
+        for key in want:
+            assert torch.allclose(got[key].cpu(), want[key], atol=1e-6, rtol=1e-6), (name, key)
+    gen = torch.Generator().manual_seed(82)
+    cats = torch.tensor([0, 1, 2, 6, 7])
+    target_pq = torch.stack([cats[torch.randint(0, 5, (4, 24, 32), generator=gen)], torch.randint(0, 3, (4, 24, 32), generator=gen)], -1)
+    preds_pq = target_pq.clone()
+    preds_pq[..., 0] = torch.where(torch.rand((4, 24, 32), generator=gen) < 0.3, cats[torch.randint(0, 5, (4, 24, 32), generator=gen)], preds_pq[..., 0])
+    for name in ("PanopticQuality", "ModifiedPanopticQuality"):
+        p_card = getattr(T, name)(things={0, 1, 2}, stuffs={6, 7}, return_sq_and_rq=True, device=card)
+        p_cpu = getattr(T, name)(things={0, 1, 2}, stuffs={6, 7}, return_sq_and_rq=True, device="cpu")
+        p_card.update(preds_pq.to(card), target_pq.to(card))
+        p_cpu.update(preds_pq, target_pq)
+        for key in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
+            assert torch.equal(getattr(p_card, key).cpu(), getattr(p_cpu, key)), (name, key)
+        assert torch.equal(p_card.compute().cpu(), p_cpu.compute()), name
 
 
 if __name__ == "__main__":

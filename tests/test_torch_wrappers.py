@@ -539,9 +539,6 @@ def test_wrappers_never_join_a_compute_group():
 
 # the JAX package's top-level names whose domains are not ported yet (ROADMAP A14)
 NOT_PORTED = {
-    # detection
-    "CompleteIntersectionOverUnion", "DistanceIntersectionOverUnion", "GeneralizedIntersectionOverUnion",
-    "IntersectionOverUnion", "MeanAveragePrecision", "PanopticQuality", "ModifiedPanopticQuality",
     # image
     "ErrorRelativeGlobalDimensionlessSynthesis", "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance",
     "LearnedPerceptualImagePatchSimilarity", "MemorizationInformedFrechetInceptionDistance",

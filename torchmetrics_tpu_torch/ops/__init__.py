@@ -14,6 +14,8 @@
   slice table, a batch of cohort keys placed in it.
 - :func:`biquad_cascade` (K5, ``csrc/biquad.cu``): SRMR's IIR filter
   banks, rows of samples through a cascade of biquads along time.
+- :func:`coco_match` (K6, ``csrc/coco_match.cu``): COCO's greedy matching
+  of score-ordered detections to ground truths, the mAP's hot loop.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute. A
 CUDA graph that holds a launch replays it without the wrapper, so a count
@@ -28,6 +30,7 @@ from torchmetrics_tpu_torch.ops.binned_curve_state import (
 )
 from torchmetrics_tpu_torch.ops.biquad import biquad_cascade, biquad_cascade_plain
 from torchmetrics_tpu_torch.ops.cm_track import cm_track, cm_track_plain
+from torchmetrics_tpu_torch.ops.coco_match import coco_match, coco_match_plain
 from torchmetrics_tpu_torch.ops.slice_assign import slice_assign, slice_assign_plain
 from torchmetrics_tpu_torch.ops.stat_counts import (
     stat_counts,
@@ -45,6 +48,7 @@ KERNELS = {
     "stat_counts_segmented": stat_counts_segmented,
     "slice_assign": slice_assign,
     "biquad_cascade": biquad_cascade,
+    "coco_match": coco_match,
 }
 
 __all__ = [
@@ -57,6 +61,8 @@ __all__ = [
     "binned_curve_state_segmented_plain",
     "cm_track",
     "cm_track_plain",
+    "coco_match",
+    "coco_match_plain",
     "slice_assign",
     "slice_assign_plain",
     "stat_counts",
