@@ -16,7 +16,8 @@ result) if it fails:
    its plain version, its bound, (where one exists) one PyTorch call
    computing the same function, and one ``torch.sum`` reading its main
    input (what a plain read of those bytes takes on the card); K5 is timed
-   here on the audio phase's inputs and checked there (phase 22);
+   here on the audio phase's inputs and checked there (phase 22), K7 on the
+   image phase's first two batches and checked there (phase 24);
 4. entry: the one-batch suite step of ``torchmetrics_tpu_torch._entry.entry``
    (C=8, T=32, N=256) on the card, as a user calls it (``fn(*args)``): each
    kernel must launch once and the values must agree with the same step on
@@ -359,7 +360,40 @@ result) if it fails:
    at 480 x 640 with COCO panoptic's 80 thing and 53 stuff categories (host
    numpy's time): the update timed, the states and values of both classes
    on the card bitwise equal to the CPU's over the first 2 images.
-24. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
+24. image (after detection): ROADMAP A14's image domain, made on the card
+   from a seed. The main path: the full-reference classes (SSIM with the
+   11 x 11 Gaussian and with a 7 x 7 uniform window, MS-SSIM at 5 scales,
+   UQI, VIF, SCC, PSNR, PSNRB on the first channel, ERGAS, SAM, RMSE-SW,
+   RASE, TV) over 4 batches of 8 x 3 x 1,356 x 2,040 float32 (DIV2K's 2K
+   scale, cut from DIV2K validation's 100 images), K7 counted from 0 on each
+   path (4, 4, 20, 1, 16 and 4 launches) and nowhere else; each update and
+   compute timed; the first 2 images of the first batch held against a
+   float64 route of the plain version (float64 convolutions) within
+   IMG_F64_ATOL / IMG_F64_RTOL, RMSE-SW and RASE against the CPU on a
+   crop, ``image_gradients`` against its differences; SSIM's gradient
+   through K7's autograd route against autograd through the plain loop.
+   Every distinct K7 launch of the first batch (SSIM's 11 x 11 and 7 x 7,
+   MS-SSIM's five scales, UQI's compute over the 32 images, VIF's four
+   scales, SCC's 8 x 8 on the zero-padded high pass; 13 at that full shape)
+   and of D_lambda and D_s kept as it ran and held bitwise against the plain
+   loop on its own arguments; K7 also bitwise on edge batches (constant
+   images, a window as large as the image). K7 timed beside its plain loop,
+   cuDNN's depthwise conv over the stacked input (TF32 off; a yardstick the
+   port never calls), the byte bound and both operation bounds (a separable
+   window's, which binds when the table is rank 1, and the direct window's),
+   the read floor. Pan
+   sharpening at WorldView-3's 8 bands, 4:1 (preds and pan 4 x 8 x 1,024 x
+   1,024, ms 4 x 8 x 256 x 256): D_lambda, D_s with and without ``pan_lr``,
+   QNR (K7 2, 2, 2, 4 launches), the card against the CPU on a crop. FID over
+   10,000 real and 10,000 fake uint8 images at 299² in batches of 200 on the
+   full Inception-v3 (seeded weights), the tower held against the CPU's on
+   the first 8 images within TOWER_RTOL, the host eigvals of FID's compute
+   timed apart; KID (100 subsets of 1,000), IS (10 splits) and MiFID each on
+   its own tower over 2,000 real and 2,000 fake (a cut). LPIPS with each
+   trunk on 1,024 pairs at 256 x 256 in batches of 64, the card against the
+   CPU on the first 8 pairs. PPL over 1,000 samples of a small seeded
+   generator, LPIPS vgg.
+25. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
    and ``--mode poison`` (seed 11) with ``--device cuda``: every daemon the
    harness starts must print a ready line naming the card, and the reports
    must carry the invariants JAX's tests assert (short: legs main and
@@ -376,9 +410,9 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection and chaos phases' seconds, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image and chaos phases' seconds, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, K2s and K1s at the
-StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, and K6) and
+StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, K6 and K7) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -7805,6 +7839,659 @@ def phase_detection(device, smi):
     return out
 
 
+# ------------------------------------------------------------------ image
+
+IMG_SHAPE = (8, 3, 1356, 2040)  # DIV2K's 2K scale: 8 images a batch, cut from DIV2K validation's 100
+IMG_BATCHES = 4
+IMG_F64_IMAGES = 2  # images of the first batch held against the float64 route of the plain version
+IMG_F64_ATOL = 1e-5  # SSIM, MS-SSIM, UQI, VIF, SCC per image against float64 (float32's E[x²] - mu² cancellation)
+IMG_F64_RTOL = 1e-5  # PSNR, ERGAS, SAM, TV against float64
+IMG_CPU_ATOL = 1e-5  # RMSE-SW, RASE, the pan-sharpening indices: the card against the port on the CPU
+PAN_SHAPE = (4, 8, 1024, 1024)  # WorldView-3's 8 multispectral bands, pan and fused at 4:1 over ms
+PAN_RATIO = 4
+PAN_CPU_CROP = 128  # the pan-sharpening indices held card vs CPU on a crop of the first image
+GEN_IMAGES = 10_000  # real and fake each, FID
+GEN_CUT = 2_000  # KID, IS and MiFID each run their own tower over this many real and fake (a cut)
+GEN_BATCH = 200
+GEN_CPU_IMAGES = 8  # the tower held card vs CPU
+TOWER_RTOL = 1e-4  # of a feature row's largest value: cuDNN's float32 convolutions against oneDNN's
+LPIPS_PAIRS = 1024
+LPIPS_BATCH = 64
+LPIPS_SIZE = 256
+LPIPS_CPU_PAIRS = 8
+LPIPS_CPU_RTOL = 1e-4
+PPL_SAMPLES = 1000
+K7_OPS_PER_TAP = 10  # five products by the weight and five sums at each tap of each output
+K7_RANK_RTOL = 1e-6  # a window table is rank 1 (separable) to within float32 rounding of its outer product
+K7_OPS_PER_INPUT = 3  # x², y², xy once per input pixel: the least work of the function
+K7_GRAD_RTOL = 1e-4  # SSIM's gradient through K7's adjoint against autograd through the plain loop
+IMG_REPS = 10
+
+
+def _img_batches(device, count=IMG_BATCHES):
+    """IMG_BATCHES (preds, target) pairs made on the card from SEED: ``target`` in [0, 1), ``preds`` a
+    noisy copy clamped to [1/255, 1] (an 8-bit image's range: no pixel is black in every band, where
+    SAM's angle is 0/0, in JAX as in the port)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 20)
+    out = []
+    for _ in range(count):
+        target = torch.rand(IMG_SHAPE, generator=gen, device=device)
+        preds = torch.clamp(target + 0.05 * torch.randn(IMG_SHAPE, generator=gen, device=device), 1 / 255, 1)
+        out.append((preds, target))
+    return out
+
+
+def _k7_cases(p, t, device):
+    """K7's three windows on one batch, as the main paths pad and call it."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_kernel_2d, reflect_pad_2d
+    from torchmetrics_tpu_torch.functional.image.metrics import _vif_filter
+
+    g11 = _gaussian_kernel_2d(1, (11, 11), (1.5, 1.5), device=device)[0, 0].contiguous()
+    return {
+        "gaussian 11x11 (SSIM, MS-SSIM, UQI)": (reflect_pad_2d(p, 5, 5), reflect_pad_2d(t, 5, 5), g11),
+        "uniform 7x7 (SSIM)": (reflect_pad_2d(p, 3, 3), reflect_pad_2d(t, 3, 3), torch.ones((7, 7), device=device) / 49),
+        "VIF 17x17 VALID": (t, p, _vif_filter(17.0, 17 / 5, device)),
+    }
+
+
+def time_window_moments(device):
+    """K7 timed in phase 3 (torch.profiler was seen to go blind late in a long
+    run) on the image phase's first two batches, the Gaussian 11 x 11 case:
+    device ms (profiler), stream ms, the plain loop's and cuDNN's stacked
+    depthwise conv's ms, the bounds, the read floor, registers. The bound
+    counts a separable window's operations when the table is rank 1 (every
+    table the port passes K7 is: SSIM's and UQI's Gaussian is an outer
+    product, VIF's exp(-(a² + b²)/s) factors, the uniform windows are
+    constant); the direct window's operations are kept beside it."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.helpers import conv2d
+    from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
+
+    key = "gaussian 11x11 (SSIM, MS-SSIM, UQI)"
+    arg_sets = [_k7_cases(p, t, device)[key] for p, t in _img_batches(device, 2)]
+    x, y, w = arg_sets[0]
+    b, c, hp, wp = x.shape
+    kh, kw = w.shape
+    outputs, inputs = b * c * (hp - kh + 1) * (wp - kw + 1), x.numel()
+    stacked = [torch.cat([a, bb, a * a, bb * bb, a * bb]) for a, bb, _ in arg_sets]
+    w3 = w[None, None].expand(c, 1, kh, kw).contiguous()
+
+    def library(s):
+        return conv2d(s, w3, groups=c)
+
+    _require(torch.allclose(library(stacked[0]).reshape(5, b, c, hp - kh + 1, wp - kw + 1), window_moments(x, y, w),
+                            rtol=1e-5, atol=1e-6), "K7 against cuDNN's stacked depthwise conv")
+    before = window_moments.launches
+    m = _measure([("kernel", window_moments, arg_sets), ("library", library, [(s,) for s in stacked])],
+                 profile_reps=IMG_REPS, timing_reps=IMG_REPS)
+    window_moments.launches = before  # timing launches are not the main path's
+    del stacked
+    torch.cuda.empty_cache()
+    plain_ms = _events_ms(lambda: window_moments_plain(x, y, w), 1)
+    floor_ms, _ = _device_ms(_read_floor, [(x,)], IMG_REPS)
+    n_bytes = 2 * inputs * 4 + 5 * outputs * 4
+    n_ops_direct = K7_OPS_PER_TAP * kh * kw * outputs + K7_OPS_PER_INPUT * inputs
+    # a separable window: a kw-tap pass along rows over all hp rows, then a kh-tap pass along columns
+    n_ops_separable = K7_OPS_PER_TAP * b * c * (wp - kw + 1) * (kw * hp + kh * (hp - kh + 1)) + K7_OPS_PER_INPUT * inputs
+    rank = int(torch.linalg.matrix_rank(w.to(torch.float64).cpu(), rtol=K7_RANK_RTOL))
+    bound_ms, bound_by = _bound(n_bytes, n_ops_separable if rank == 1 else n_ops_direct)
+    log = BUILD_LOGS.get("window_moments", "")
+    regs = [int(v) for line in log.splitlines() if "registers" in line for v in line.split("Used")[1].split()[:1]]
+    spills = sum(1 for line in log.splitlines() if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
+    del arg_sets, x, y
+    torch.cuda.empty_cache()
+    return {
+        "name": f"window_moments ({b} x {c} x {hp - kh + 1} x {wp - kw + 1}, 11 x 11 Gaussian)",
+        "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/window_moments.cu",
+        "replaces": "torchmetrics_tpu/functional/image/ssim.py:114", "max_abs_err": 0.0,
+        "ms": m["kernel"]["device_ms"], "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": m["library"]["device_ms"],
+        "stream_ms": {"kernel": m["kernel"]["stream_ms"], "plain": plain_ms, "library": m["library"]["stream_ms"]},
+        "kernel_only_us": _kernel_only_us(m["kernel"]["found"], "window_moments"), "bytes": n_bytes,
+        "read_floor_ms": floor_ms,
+        "window_rank": rank, "separable_ms": n_ops_separable / PEAK_FP32_OPS_PER_S * 1e3,
+        "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "direct_ops_ms": n_ops_direct / PEAK_FP32_OPS_PER_S * 1e3,
+        "registers": f"{min(regs, default=0)}-{max(regs, default=0)}", "spills": spills,
+    }
+
+
+class _K7Recorder:
+    """Stands in for K7's wrapper in the image modules (``helpers``: SSIM, MS-SSIM, UQI and the pan-sharpening
+    indices; ``metrics``: VIF and SCC). Every call goes to the wrapper, whose count moves as it would; while
+    armed, the first launch of each (path, input shape, window shape) keeps its arguments and its result, which
+    :meth:`check` then holds bit for bit against the plain loop on the same arguments."""
+
+    def __init__(self):
+        self.armed, self.path, self.calls, self.checked = False, None, {}, []
+
+    def __enter__(self):
+        from torchmetrics_tpu_torch.functional.image import helpers, metrics
+
+        self.modules = (helpers, metrics)
+        for module in self.modules:
+            module.window_moments = self
+        return self
+
+    def __exit__(self, *exc):
+        from torchmetrics_tpu_torch.ops import window_moments
+
+        for module in self.modules:
+            module.window_moments = window_moments
+
+    def __call__(self, x, y, weight):
+        from torchmetrics_tpu_torch.ops import window_moments
+
+        out = window_moments(x, y, weight)
+        key = (self.path, tuple(x.shape), tuple(weight.shape))
+        if self.armed and key not in self.calls:
+            self.calls[key] = (x, y, weight, out)
+        return out
+
+    def check(self):
+        """Each kept launch against the plain loop, compared on the card as int32 views, then let go."""
+        import torch
+
+        from torchmetrics_tpu_torch.ops import window_moments_plain
+
+        for (path, shape, window), (x, y, weight, out) in self.calls.items():
+            what = f"{path} {'x'.join(map(str, window))} at {'x'.join(map(str, shape))}"
+            want = window_moments_plain(x, y, weight)
+            _require(out.dtype == want.dtype == torch.float32 and out.shape == want.shape, f"K7 {what}: {out.shape} vs {want.shape}")
+            _require(torch.equal(out.view(torch.int32), want.view(torch.int32)), f"K7 {what}: the bits differ from the plain loop")
+            self.checked.append(what)
+            del want
+        self.calls = {}
+        torch.cuda.empty_cache()
+
+
+def _k7_checks(device, batches):
+    """K7 bitwise against its plain loop on the edge batches (the main path's launches are held by _K7Recorder)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 21)
+    g11 = _k7_cases(*(v[:1, :1, :16, :16] for v in batches[0]), device)["gaussian 11x11 (SSIM, MS-SSIM, UQI)"][2]
+    edges = {
+        "constant images": (torch.full((2, 3, 40, 40), 0.3, device=device), torch.full((2, 3, 40, 40), -1.7, device=device), g11),
+        "a window as large as the image": (torch.rand((2, 3, 33, 33), generator=gen, device=device),
+                                           torch.rand((2, 3, 33, 33), generator=gen, device=device),
+                                           torch.ones((33, 33), device=device) / 1089),
+    }
+    for what, args in edges.items():
+        _require_same_bits(window_moments(*args), window_moments_plain(*args), f"K7 on {what}")
+    return sorted(edges)
+
+
+def _conv64(x, table):
+    """The plain version's filter in float64: a VALID depthwise conv of every channel."""
+    import torch.nn.functional as F
+
+    c = x.shape[1]
+    return F.conv2d(x, table.to(x.dtype)[None, None].expand(c, 1, *table.shape), groups=c)
+
+
+def _ssim64(p, t, table, pad, c1, c2):
+    """Per-image SSIM and contrast sensitivity in float64 (JAX's formula and crops), reflection padded by ``pad``."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.helpers import reflect_pad_2d
+
+    x, y = reflect_pad_2d(p, pad, pad), reflect_pad_2d(t, pad, pad)
+    mx, my, exx, eyy, exy = (_conv64(v, table) for v in (x, y, x * x, y * y, x * y))
+    vx, vy, cov = torch.clamp(exx - mx**2, min=0), torch.clamp(eyy - my**2, min=0), exy - mx * my
+    upper, lower = 2 * cov + c2, vx + vy + c2
+    ssim = ((2 * mx * my + c1) * upper) / ((mx**2 + my**2 + c1) * lower)
+    cs = (upper / lower)[..., pad:-pad, pad:-pad]
+    return ssim.flatten(1).mean(1), cs.flatten(1).mean(1)
+
+
+def _vif64(p, t, sigma_n_sq=2.0):
+    """Pixel-domain VIF in float64, every channel, then the mean (JAX's ``visual_information_fidelity``)."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.metrics import _vif_filter
+
+    eps = 1e-10
+    num = den = 0.0
+    for scale in range(4):
+        n = 2.0 ** (4 - scale) + 1
+        table = _vif_filter(n, n / 5, p.device).to(torch.float64)
+        if scale > 0:
+            t, p = _conv64(t, table)[:, :, ::2, ::2], _conv64(p, table)[:, :, ::2, ::2]
+        mt, mp, ett, epp, etp = (_conv64(v, table) for v in (t, p, t * t, p * p, t * p))
+        st, sp, stp = torch.clamp(ett - mt**2, min=0), torch.clamp(epp - mp**2, min=0), etp - mt * mp
+        g = stp / (st + eps)
+        sv = sp - g * stp
+        low_t, low_p = st < eps, sp < eps
+        g, sv, st = torch.where(low_t, 0.0, g), torch.where(low_t, sp, sv), torch.where(low_t, 0.0, st)
+        g, sv = torch.where(low_p, 0.0, g), torch.where(low_p, 0.0, sv)
+        neg = g < 0
+        sv, g = torch.where(neg, sp, sv), torch.where(neg, 0.0, g)
+        sv = torch.clamp(sv, min=eps)
+        num = num + torch.log10(1.0 + g**2 * st / (sv + sigma_n_sq)).sum((2, 3))
+        den = den + torch.log10(1.0 + st / sigma_n_sq).sum((2, 3))
+    return (num / den).mean()
+
+
+def _scc64(p, t, window=8):
+    """SCC in float64: the high pass by a symmetric-padded flipped filter, then the uniform window's moments."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional.image.metrics import _symmetric_reflect_pad_2d
+
+    hp = torch.tensor([[-1.0, -1.0, -1.0], [-1.0, 8.0, -1.0], [-1.0, -1.0, -1.0]], dtype=torch.float64, device=p.device)
+    p, t = (_conv64(_symmetric_reflect_pad_2d(v, (1, 1, 1, 1)), hp) * 2.0 for v in (p, t))
+    left, right = math.ceil((window - 1) / 2), math.floor((window - 1) / 2)
+    p, t = (F.pad(v, (left, right, left, right)) for v in (p, t))
+    box = torch.ones((window, window), dtype=torch.float64, device=p.device) / window**2
+    mp, mt, epp, ett, etp = (_conv64(v, box) for v in (p, t, p * p, t * t, t * p))
+    den = torch.sqrt(torch.clamp(ett - mt**2, min=0)) * torch.sqrt(torch.clamp(epp - mp**2, min=0))
+    cov = etp - mt * mp
+    return torch.where(den == 0, 0.0, cov / torch.where(den == 0, 1.0, den)).mean()
+
+
+def _img_float64_errors(tm, p32, t32):
+    """The first IMG_F64_IMAGES images through the port (float32, K7) against the float64 route of the plain version."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_kernel_2d, avg_pool2d, reflect_pad_2d
+
+    F_ = tm.functional
+    p, t = p32.to(torch.float64), t32.to(torch.float64)
+    g11 = _gaussian_kernel_2d(1, (11, 11), (1.5, 1.5), device=p.device)[0, 0].to(torch.float64)
+    rng = torch.maximum(p.max() - p.min(), t.max() - t.min())
+    c1, c2 = (0.01 * rng) ** 2, (0.03 * rng) ** 2
+    ref = {"ssim": _ssim64(p, t, g11, 5, c1, c2)[0],
+           "ssim_uniform7": _ssim64(p, t, torch.ones((7, 7), dtype=torch.float64, device=p.device) / 49, 3, 1e-4, 9e-4)[0]}
+    scales, x, y = [], p, t
+    for _ in range(5):
+        scales.append(_ssim64(x, y, g11, 5, 1e-4, 9e-4))
+        x, y = avg_pool2d(x), avg_pool2d(y)
+    mcs = torch.stack([torch.relu(cs) for _, cs in scales[:-1]] + [torch.relu(scales[-1][0])])
+    betas = torch.tensor((0.0448, 0.2856, 0.3001, 0.2363, 0.1333), dtype=torch.float64, device=p.device)[:, None]
+    ref["ms_ssim"] = torch.prod(mcs**betas, 0)
+    got = {
+        "ssim": F_.structural_similarity_index_measure(p32, t32, reduction="none"),
+        "ssim_uniform7": F_.structural_similarity_index_measure(p32, t32, gaussian_kernel=False, kernel_size=7,
+                                                                data_range=1.0, reduction="none"),
+        "ms_ssim": F_.multiscale_structural_similarity_index_measure(p32, t32, data_range=1.0, reduction="none"),
+        "uqi": F_.universal_image_quality_index(p32, t32),
+        "vif": F_.visual_information_fidelity(p32, t32),
+        "scc": F_.spatial_correlation_coefficient(p32, t32),
+        "psnr": F_.peak_signal_noise_ratio(p32, t32, data_range=1.0),
+        "ergas": F_.error_relative_global_dimensionless_synthesis(p32, t32),
+        "sam": F_.spectral_angle_mapper(p32, t32),
+        "tv": F_.total_variation(p32),
+    }
+    x, y = (reflect_pad_2d(v, 5, 5) for v in (p, t))
+    mx, my, exx, eyy, exy = (_conv64(v, g11) for v in (x, y, x * x, y * y, x * y))
+    vx, vy = torch.clamp(exx - mx**2, min=0), torch.clamp(eyy - my**2, min=0)
+    uqi = (2 * mx * my * 2 * (exy - mx * my)) / ((mx**2 + my**2) * (vx + vy) + torch.finfo(torch.float32).eps)
+    ref["uqi"] = uqi[..., 5:-5, 5:-5].mean()
+    ref["vif"] = _vif64(p, t)
+    ref["scc"] = _scc64(p, t)
+    ref["psnr"] = 10 * torch.log10(1.0 / ((p - t) ** 2).mean())
+    b, c = p.shape[:2]
+    rmse = torch.sqrt(((p - t) ** 2).reshape(b, c, -1).mean(2))
+    ref["ergas"] = (100 / 4 * torch.sqrt(((rmse / t.reshape(b, c, -1).mean(2)) ** 2).sum(1) / c)).mean()
+    cos = (p * t).sum(1) / (torch.sqrt((p * p).sum(1)) * torch.sqrt((t * t).sum(1)))
+    ref["sam"] = torch.arccos(torch.clamp(cos, -1, 1)).mean()
+    ref["tv"] = ((p[..., 1:, :] - p[..., :-1, :]).abs().sum() + (p[..., :, 1:] - p[..., :, :-1]).abs().sum())
+    errors = {}
+    for key, want in ref.items():
+        g = got[key].to(torch.float64)
+        err = float((g - want).abs().max())
+        budget = IMG_F64_ATOL if key in ("ssim", "ssim_uniform7", "ms_ssim", "uqi", "vif", "scc") else IMG_F64_RTOL * float(want.abs().max())
+        _require(err <= budget, f"image {key}: {err:.3e} from float64, budget {budget:.3e}")
+        errors[key] = err
+    return errors
+
+
+def _img_gradient_check(tm, device, p, t):
+    """SSIM's gradient in ``preds`` through K7's autograd route against autograd through the plain loop, on the card."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image import helpers
+    from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
+
+    grads = []
+    for route in (window_moments, window_moments_plain):
+        leaf = p[:2, :, :512, :512].clone().requires_grad_(True)
+        helpers.window_moments = route
+        try:
+            tm.functional.structural_similarity_index_measure(leaf, t[:2, :, :512, :512]).backward()
+        finally:
+            helpers.window_moments = window_moments
+        grads.append(leaf.grad)
+    scale = float(grads[1].abs().max())
+    err = float((grads[0] - grads[1]).abs().max())
+    _require(err <= K7_GRAD_RTOL * scale, f"K7's gradient route: {err:.3e} from plain autograd (largest {scale:.3e})")
+    return err / scale
+
+
+def _img_full_reference(tm, device, batches, out):
+    """The main path: the full-reference classes over IMG_BATCHES batches, K7 counted from 0 on each K7 path."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import window_moments
+
+    I_ = tm.image
+    metrics = {
+        "ssim": I_.StructuralSimilarityIndexMeasure(device=device),
+        "ssim_uniform7": I_.StructuralSimilarityIndexMeasure(gaussian_kernel=False, kernel_size=7, data_range=1.0, device=device),
+        "ms_ssim": I_.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        "uqi": I_.UniversalImageQualityIndex(device=device),
+        "vif": I_.VisualInformationFidelity(device=device),
+        "scc": I_.SpatialCorrelationCoefficient(device=device),
+        "psnr": I_.PeakSignalNoiseRatio(data_range=1.0, device=device),
+        "psnrb": I_.PeakSignalNoiseRatioWithBlockedEffect(device=device),
+        "ergas": I_.ErrorRelativeGlobalDimensionlessSynthesis(device=device),
+        "sam": I_.SpectralAngleMapper(device=device),
+        "rmse_sw": I_.RootMeanSquaredErrorUsingSlidingWindow(device=device),
+        "rase": I_.RelativeAverageSpectralError(device=device),
+        "tv": I_.TotalVariation(device=device),
+    }
+    window_moments.launches = 0
+    launches, update_ms, compute_ms, values = {}, {}, {}, {}
+    with _K7Recorder() as k7:
+        for name, metric in metrics.items():
+            before = window_moments.launches
+            walls = []
+            k7.path = name
+            for i, (p, t) in enumerate(batches):
+                k7.armed = i == 0  # every distinct launch of the first batch is held against the plain loop
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "psnrb":
+                    metric.update(p[:, :1], t[:, :1])  # grayscale only: the first channel
+                elif name == "tv":
+                    metric.update(p)
+                else:
+                    metric.update(p, t)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            k7.armed = True  # UQI's launch is in its compute
+            t1 = time.perf_counter()
+            value = metric.compute()
+            torch.cuda.synchronize()
+            update_ms[name] = (walls[0], statistics.median(walls[1:]))  # the first update, the median of the rest
+            compute_ms[name] = (time.perf_counter() - t1) * 1e3
+            launches[name] = window_moments.launches - before
+            values[name] = float(value.mean())
+            _require(bool(torch.isfinite(value).all()), f"image {name}: {value}")
+            metric.reset()
+            k7.armed = False
+            k7.check()
+    out["k7_bitwise"] = k7.checked
+    del metrics
+    torch.cuda.empty_cache()
+    want = {"ssim": IMG_BATCHES, "ssim_uniform7": IMG_BATCHES, "ms_ssim": 5 * IMG_BATCHES, "uqi": 1, "vif": 4 * IMG_BATCHES,
+            "scc": IMG_BATCHES}
+    for name, n in want.items():
+        _require(launches[name] == n, f"K7 launched {launches[name]} times on the {name} path, expected {n}")
+    _require(all(launches[k] == 0 for k in launches if k not in want), f"K7 off its paths: {launches}")
+    held = {w.split()[0] for w in k7.checked}
+    _require(held == set(want), f"K7's launches held bitwise on {sorted(held)}, expected {sorted(want)}")
+    dy, dx = tm.functional.image_gradients(batches[0][0])
+    p0 = batches[0][0]
+    _require(torch.equal(dy[..., :-1, :], p0[..., 1:, :] - p0[..., :-1, :]) and torch.equal(dx[..., :, :-1], p0[..., :, 1:] - p0[..., :, :-1])
+             and bool((dy[..., -1, :] == 0).all()) and bool((dx[..., :, -1] == 0).all()), "image_gradients")
+    out.update(launches=launches, update_ms=update_ms, compute_ms=compute_ms, values=values)
+    p, t = (v[:IMG_F64_IMAGES] for v in batches[0])
+    out["f64_errors"] = _img_float64_errors(tm, p, t)
+    cpu_p, cpu_t = p[:1, :, :512, :512].cpu(), t[:1, :, :512, :512].cpu()
+    for name in ("root_mean_squared_error_using_sliding_window", "relative_average_spectral_error"):
+        card = getattr(tm.functional, name)(p[:1, :, :512, :512], t[:1, :, :512, :512])
+        cpu = getattr(tm.functional, name)(cpu_p, cpu_t)
+        err = float((card.cpu() - cpu).abs().max())
+        _require(err <= IMG_CPU_ATOL * max(1.0, float(cpu.abs().max())), f"image {name}: card vs CPU {err:.3e}")
+        out["f64_errors"][f"{name} (card vs CPU)"] = err
+    out["grad_rel_err"] = _img_gradient_check(tm, device, *batches[0])
+
+
+def _img_pansharpening(tm, device, out):
+    """D_lambda, D_s (with and without ``pan_lr``) and QNR at WorldView-3's 8 bands, 4:1."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.ops import window_moments
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 22)
+    b, c, h, w = PAN_SHAPE
+    ms = torch.rand((b, c, h // PAN_RATIO, w // PAN_RATIO), generator=gen, device=device)
+    pan = torch.rand(PAN_SHAPE, generator=gen, device=device)
+    preds = torch.clamp(0.6 * pan + 0.4 * F.interpolate(ms, scale_factor=PAN_RATIO, mode="nearest"), 0, 1)
+    pan_lr = torch.rand(ms.shape, generator=gen, device=device)
+    I_ = tm.image
+    cases = {
+        "d_lambda": (I_.SpectralDistortionIndex(device=device), (preds, ms)),
+        "d_s": (I_.SpatialDistortionIndex(device=device), (preds, {"ms": ms, "pan": pan})),
+        "d_s_pan_lr": (I_.SpatialDistortionIndex(device=device), (preds, {"ms": ms, "pan": pan, "pan_lr": pan_lr})),
+        "qnr": (I_.QualityWithNoReference(device=device), (preds, {"ms": ms, "pan": pan})),
+    }
+    values, ms_wall, launches = {}, {}, {}
+    with _K7Recorder() as k7:
+        for name, (metric, args) in cases.items():
+            before = window_moments.launches
+            k7.path, k7.armed = name, name in ("d_lambda", "d_s")  # QNR's and pan_lr's launches repeat these shapes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metric.update(*args)
+            value = metric.compute()
+            torch.cuda.synchronize()
+            ms_wall[name] = (time.perf_counter() - t0) * 1e3
+            launches[name] = window_moments.launches - before
+            values[name] = float(value)
+            _require(math.isfinite(values[name]) and -1e-6 <= values[name] <= 1 + 1e-6, f"pan-sharpening {name}: {values[name]}")
+            k7.armed = False
+            k7.check()
+    _require(launches == {"d_lambda": 2, "d_s": 2, "d_s_pan_lr": 2, "qnr": 4}, f"K7 launches of the pan-sharpening indices {launches}")
+    k = PAN_CPU_CROP
+    crop = (preds[:1, :, :k, :k], ms[:1, :, : k // PAN_RATIO, : k // PAN_RATIO], pan[:1, :, :k, :k])
+    errs = {}
+    for name in ("spectral_distortion_index", "spatial_distortion_index", "quality_with_no_reference"):
+        args = crop[:2] if name == "spectral_distortion_index" else crop
+        card = getattr(tm.functional, name)(*args)
+        cpu = getattr(tm.functional, name)(*[a.cpu() for a in args])
+        errs[name] = float((card.cpu() - cpu).abs())
+        _require(errs[name] <= IMG_CPU_ATOL, f"{name}: card vs CPU {errs[name]:.3e}")
+    out["pan"] = {"values": values, "ms": ms_wall, "launches": launches, "cpu_errors": errs, "k7_bitwise": k7.checked}
+
+
+def _gen_images(gen, device, n, real):
+    import torch
+
+    imgs = torch.randint(0, 256, (n, 3, 299, 299), generator=gen, device=device, dtype=torch.uint8)
+    return imgs if real else (imgs.to(torch.float32) * 0.6 + 50).to(torch.uint8)
+
+
+def _img_generative(tm, device, out):
+    """FID over GEN_IMAGES real and fake at 299², KID (100 subsets of 1,000), IS (10 splits) and MiFID over GEN_CUT."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.image.backbones.inception import InceptionFeatureExtractor
+
+    I_ = tm.image
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 23)
+    fid = I_.FrechetInceptionDistance(device=device)
+    first = _gen_images(gen, device, GEN_CPU_IMAGES, True)
+    cpu_feats = InceptionFeatureExtractor(("2048",), device="cpu")(first.cpu())
+    card_feats = fid.inception(first).cpu()
+    tower_err = float(((card_feats - cpu_feats).abs() / cpu_feats.abs().amax(1, keepdim=True)).max())
+    _require(tower_err <= TOWER_RTOL, f"Inception card vs CPU: {tower_err:.3e} of each row's largest value")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GEN_IMAGES // GEN_BATCH):
+        fid.update(_gen_images(gen, device, GEN_BATCH, True), real=True)
+        fid.update(_gen_images(gen, device, GEN_BATCH, False), real=False)
+    torch.cuda.synchronize()
+    fid_update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_value = float(fid.compute())
+    fid_compute_s = time.perf_counter() - t0
+    n = np.float64(int(fid.real_features_num_samples))
+    mean = fid.real_features_sum.double().cpu().numpy() / n
+    sigma = (fid.real_features_cov_sum.double().cpu().numpy() - n * np.outer(mean, mean)) / (n - 1)
+    t0 = time.perf_counter()
+    np.linalg.eigvals(sigma @ sigma)
+    eigvals_s = time.perf_counter() - t0
+    _require(math.isfinite(fid_value) and fid_value >= -1e-3, f"FID {fid_value}")
+    del fid
+    torch.cuda.empty_cache()
+    others = {
+        "kid": I_.KernelInceptionDistance(subsets=100, subset_size=1000, device=device),
+        "is": I_.InceptionScore(splits=10, device=device),
+        "mifid": I_.MemorizationInformedFrechetInceptionDistance(device=device),
+    }
+    update_s, compute_s, values = {}, {}, {"fid": fid_value}
+    for name, metric in others.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GEN_CUT // GEN_BATCH):
+            if name == "is":
+                metric.update(_gen_images(gen, device, GEN_BATCH, False))
+            else:
+                metric.update(_gen_images(gen, device, GEN_BATCH, True), real=True)
+                metric.update(_gen_images(gen, device, GEN_BATCH, False), real=False)
+        torch.cuda.synchronize()
+        update_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        value = metric.compute()
+        compute_s[name] = time.perf_counter() - t0
+        value = value if isinstance(value, tuple) else (value,)
+        _require(all(math.isfinite(float(v)) for v in value), f"{name} {value}")
+        values[name] = [float(v) for v in value]
+    _require(values["is"][0] >= 1.0 - 1e-5, f"IS {values['is']}")
+    out["gen"] = {"fid_images_per_s": 2 * GEN_IMAGES / fid_update_s, "fid_update_s": fid_update_s, "fid_compute_s": fid_compute_s,
+                  "eigvals_s": eigvals_s, "update_s": update_s, "compute_s": compute_s, "values": values, "tower_err": tower_err}
+
+
+def _img_lpips(tm, device, out):
+    """LPIPS with each trunk on LPIPS_PAIRS pairs at LPIPS_SIZE², the card against the CPU on the first pairs."""
+    import torch
+
+    res = {}
+    for net_type in ("alex", "vgg", "squeeze"):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 24)
+        metric = tm.image.LearnedPerceptualImagePatchSimilarity(net_type=net_type, device=device)
+        first = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LPIPS_PAIRS // LPIPS_BATCH):
+            a = torch.rand((LPIPS_BATCH, 3, LPIPS_SIZE, LPIPS_SIZE), generator=gen, device=device) * 2 - 1
+            b = torch.clamp(a + 0.3 * torch.randn(a.shape, generator=gen, device=device), -1, 1)
+            first = first if first is not None else (a[:LPIPS_CPU_PAIRS], b[:LPIPS_CPU_PAIRS])
+            metric.update(a, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        value = float(metric.compute())
+        _require(math.isfinite(value) and value >= 0, f"LPIPS {net_type} {value}")
+        cpu_net = tm.image.LearnedPerceptualImagePatchSimilarity(net_type=net_type, device="cpu").net
+        with torch.no_grad():
+            card = metric.net(*first).cpu()
+            cpu = cpu_net(*(v.cpu() for v in first))
+        err = float((card - cpu).abs().max() / cpu.abs().max())
+        _require(err <= LPIPS_CPU_RTOL, f"LPIPS {net_type} card vs CPU {err:.3e}")
+        res[net_type] = {"pairs_per_s": LPIPS_PAIRS / wall, "value": value, "cpu_rel_err": err}
+    out["lpips"] = res
+
+
+def _img_ppl(tm, device, out):
+    """PPL over PPL_SAMPLES samples of a small seeded generator on the card, LPIPS vgg."""
+    import torch
+
+    class SmokeGenerator(torch.nn.Module):
+        """128-d latents, a linear map to 3 x 64 x 64 images in [0, 255]."""
+
+        def __init__(self):
+            super().__init__()
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(SEED + 25)
+            self.weight = torch.nn.Parameter(torch.randn((128, 3 * 64 * 64), generator=self.gen, device=device) / 128**0.5)
+
+        def sample(self, n):
+            return torch.randn((n, 128), generator=self.gen, device=device)
+
+        def forward(self, z):
+            return 255 * torch.sigmoid(z @ self.weight).reshape(z.shape[0], 3, 64, 64)
+
+    metric = tm.image.PerceptualPathLength(num_samples=PPL_SAMPLES, sim_net="vgg", device=device)
+    metric.update(SmokeGenerator())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, std, kept = metric.compute()
+    torch.cuda.synchronize()
+    _require(math.isfinite(float(mean)) and math.isfinite(float(std)) and 0 < kept.numel() <= PPL_SAMPLES, f"PPL {mean} {std}")
+    out["ppl"] = {"s": time.perf_counter() - t0, "mean": float(mean), "kept": int(kept.numel())}
+
+
+def phase_image(device, smi, k7_row):
+    """The image domain (ROADMAP A14) at DIV2K's 2K scale, K7 on the main path: see the module docstring, phase 24."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    batches = _img_batches(device)
+    _img_full_reference(tm, device, batches, out)
+    k7_row.update(launches=sum(out["launches"].values()), edge_cases=_k7_checks(device, batches))
+    out["k7_row"] = k7_row
+    del batches
+    torch.cuda.empty_cache()
+    _img_pansharpening(tm, device, out)
+    torch.cuda.empty_cache()
+    _img_generative(tm, device, out)
+    torch.cuda.empty_cache()
+    _img_lpips(tm, device, out)
+    _img_ppl(tm, device, out)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    row, g, pan = out["k7_row"], out["gen"], out["pan"]
+    print(
+        f"[image] {smi}; K7 at {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
+        f" stream ms {row['stream_ms']['kernel']:.5f}, plain {row['plain_ms']:.3f}, cuDNN's stacked depthwise conv"
+        f" {row['library_ms']:.5f} device / {row['stream_ms']['library']:.5f} stream; bound {row['bound_ms']:.5f}"
+        f" ({row['bound_by']}; bytes {row['bytes_ms']:.5f}, separable operations {row['separable_ms']:.5f} (window rank"
+        f" {row['window_rank']}), direct operations {row['direct_ops_ms']:.5f}), read floor {row['read_floor_ms']:.5f}; registers {row['registers']}, {row['spills']}"
+        f" with spills; bitwise on every distinct launch of the main path's first batch ({len(out['k7_bitwise'])}:"
+        f" {'; '.join(out['k7_bitwise'])}), of the pan-sharpening indices ({len(pan['k7_bitwise'])}), and on"
+        f" {', '.join(row['edge_cases'])}; K7 launches on the main path"
+        f" {out['launches']}; update ms a batch, first / the rest's median"
+        f" {', '.join(f'{k} {v[0]:.2f} / {v[1]:.2f}' for k, v in out['update_ms'].items())};"
+        f" compute ms {', '.join(f'{k} {v:.2f}' for k, v in out['compute_ms'].items())}; values"
+        f" {', '.join(f'{k} {v:.6f}' for k, v in out['values'].items())}; max |err| from float64 / the CPU"
+        f" {', '.join(f'{k} {v:.2e}' for k, v in out['f64_errors'].items())}; SSIM gradient route {out['grad_rel_err']:.2e} of"
+        f" its largest; pan-sharpening ms {', '.join(f'{k} {v:.1f}' for k, v in pan['ms'].items())}, values"
+        f" {', '.join(f'{k} {v:.6f}' for k, v in pan['values'].items())}, K7 {pan['launches']}; FID over {GEN_IMAGES} + {GEN_IMAGES}"
+        f" at 299²: {g['fid_images_per_s']:.1f} images/s through the tower, compute {g['fid_compute_s']:.2f} s (host eigvals of"
+        f" 2048 x 2048 alone {g['eigvals_s']:.2f} s); over {GEN_CUT} (+ {GEN_CUT}): updates s"
+        f" {', '.join(f'{k} {v:.2f}' for k, v in g['update_s'].items())}, computes s"
+        f" {', '.join(f'{k} {v:.2f}' for k, v in g['compute_s'].items())}; values {g['values']}; tower card vs CPU"
+        f" {g['tower_err']:.2e} of a row's largest; LPIPS pairs/s at {LPIPS_SIZE}²"
+        f" {', '.join(f'{k} {v['pairs_per_s']:.1f} (card vs CPU {v['cpu_rel_err']:.2e})' for k, v in out['lpips'].items())};"
+        f" PPL over {PPL_SAMPLES} samples {out['ppl']['s']:.2f} s, mean {out['ppl']['mean']:.4f}; peak {out['peak_mib']:.1f} MiB;"
+        f" {out['seconds']:.1f} s"
+    )
+    return out
+
+
 # ------------------------------------------------------------------ chaos
 
 CHAOS_TIMEOUT_S = 420
@@ -7813,7 +8500,7 @@ CHAOS_TIMEOUT_S = 420
 def phase_chaos(smi):
     """The port's chaos harness (``torchmetrics_tpu_torch/serve/chaos.py``)
     in ``short`` and ``poison`` modes with its daemons on the card: see the
-    module docstring, phase 24."""
+    module docstring, phase 25."""
     import shutil
     import tempfile
 
@@ -7884,6 +8571,7 @@ def main() -> int:
     rows = [check_binned_curve_state(device, batches), check_stat_counts(device, batches)]
     matrix_row = check_binned_curve_matrix_mode(device, ml_batches)
     k5_rows = time_biquad_cascade(device)
+    k7_row = time_window_moments(device)
     sketch_kernels = {"cm_track": KERNELS["cm_track"]}
     KERNELS = _classification_kernels()
     entry_diffs = phase_entry(KERNELS)
@@ -7906,6 +8594,7 @@ def main() -> int:
     domains = phase_domains(device, batches, smi)
     audio = phase_audio(device, smi, k5_rows)
     detection = phase_detection(device, smi)
+    image = phase_image(device, smi, k7_row)
     chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -7918,6 +8607,7 @@ def main() -> int:
     rows.extend(guard["rows"])
     rows.extend(audio["rows"])
     rows.append(detection["k6_row"])
+    rows.append(image["k7_row"])
     for row in rows:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
@@ -7972,7 +8662,8 @@ def main() -> int:
         f" domains phase {domains['seconds']:.1f} s, peak {domains['peak_mib']:.1f} MiB; audio phase {audio['seconds']:.1f} s,"
         f" K5 at T={QUALITY_T} {'/'.join(f'{r['ms']:.3f}' for r in audio['rows'])} ms device (gammatone/modulation);"
         f" detection phase {detection['seconds']:.1f} s, K6 {detection['k6_row']['ms']:.5f} ms device at COCO val2017's shape,"
-        f" mAP compute {detection['compute_s']:.3f} s; chaos phase {chaos['seconds']:.1f} s;"
+        f" mAP compute {detection['compute_s']:.3f} s; image phase {image['seconds']:.1f} s, K7 {image['k7_row']['ms']:.5f} ms"
+        f" device at {IMG_SHAPE}; chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

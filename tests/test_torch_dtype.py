@@ -219,6 +219,19 @@ def _c4_batch(kind, seed):
         return (target + 0.3 * r.standard_normal(shape)).astype(np.float32), target
     if kind == "wave":  # SRMR's single input: 4 waves of 0.1 s at 8 kHz
         return (r.standard_normal((4, 800)).astype(np.float32),)
+    if kind in ("img", "gray", "vif", "one", "lambda"):  # image pairs in [0, 1] (VIF needs 41 x 41, PSNRB one channel)
+        shape = {"img": (2, 3, 16, 16), "gray": (2, 1, 16, 16), "vif": (2, 1, 44, 44), "one": (2, 3, 16, 16),
+                 "lambda": (2, 3, 16, 16)}[kind]
+        target = r.random(shape, dtype=np.float32)
+        preds = np.clip(target + 0.1 * r.standard_normal(shape), 0, 1).astype(np.float32)
+        return (preds,) if kind == "one" else (preds, target)
+    if kind == "pan":  # D_s and QNR: a fused image and its ms/pan references
+        pan = r.random((2, 3, 32, 32), dtype=np.float32)
+        return pan * 0.9, {"ms": r.random((2, 3, 8, 8), dtype=np.float32), "pan": pan}
+    if kind in ("real", "fake"):  # the generative metrics' images, through _c4_features
+        return r.random((6, 3, 4, 4), dtype=np.float32), kind == "real"
+    if kind == "lpips":
+        return tuple(r.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32) for _ in range(2))
     if kind == "panoptic":  # (B, H, W, 2) (category, instance) maps over things {0, 1} and stuff {6}
         target = np.stack([r.choice([0, 1, 6], (3, 6, 5)), r.integers(0, 3, (3, 6, 5))], -1)
         preds = target.copy()
@@ -232,6 +245,34 @@ def _c4_pit_si_sdr(preds, target):
     if isinstance(preds, torch.Tensor):
         return T.functional.scale_invariant_signal_distortion_ratio(preds, target)
     return J.functional.scale_invariant_signal_distortion_ratio(preds, target)
+
+
+def _c4_features(imgs):
+    """The generative metrics' feature callable in either package: the first 8 values of each image."""
+    if isinstance(imgs, torch.Tensor):
+        return imgs.reshape(imgs.shape[0], -1)[:, :8].to(torch.float32)
+    return jnp.reshape(imgs, (imgs.shape[0], -1))[:, :8].astype(jnp.float32)
+
+
+def _c4_lpips_tree():
+    """A seeded flax tree of JAX's alex LPIPS net, which both packages load."""
+    import functools
+
+    import jax
+
+    from torchmetrics_tpu.image.lpip import _LPIPSNet
+
+    init = functools.partial(_LPIPSNet(net_type="alex").init, normalize=False)
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), jnp.zeros((1, 32, 32, 3)))
+    rng = np.random.default_rng(8)
+    return jax.tree_util.tree_map(lambda leaf: (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32), shapes)
+
+
+def _c4_as(arg, convert):
+    """A batch argument as a package's array (dicts item by item; flags as they are)."""
+    if isinstance(arg, dict):
+        return {k: convert(v) for k, v in arg.items()}
+    return convert(arg) if isinstance(arg, np.ndarray) else arg
 
 
 # (exported class, kwargs, input kind) for every exported metric class
@@ -286,6 +327,20 @@ _C4_CASES = [
     ("MeanAveragePrecision", {}, "boxes"),
     ("PanopticQuality", {"things": {0, 1}, "stuffs": {6}}, "panoptic"),
     ("ModifiedPanopticQuality", {"things": {0, 1}, "stuffs": {6}}, "panoptic"),
+    # image: the generative metrics through a feature callable, LPIPS on a carried tree
+    ("PeakSignalNoiseRatio", {}, "img"), ("PeakSignalNoiseRatioWithBlockedEffect", {}, "gray"),
+    ("StructuralSimilarityIndexMeasure", {}, "img"),
+    ("MultiScaleStructuralSimilarityIndexMeasure", {"kernel_size": 3, "betas": (0.5, 0.5)}, "img"),
+    ("UniversalImageQualityIndex", {}, "img"), ("ErrorRelativeGlobalDimensionlessSynthesis", {}, "img"),
+    ("SpectralAngleMapper", {}, "img"), ("SpatialCorrelationCoefficient", {}, "img"),
+    ("RelativeAverageSpectralError", {}, "img"), ("RootMeanSquaredErrorUsingSlidingWindow", {}, "img"),
+    ("TotalVariation", {}, "one"), ("SpectralDistortionIndex", {}, "lambda"), ("SpatialDistortionIndex", {}, "pan"),
+    ("QualityWithNoReference", {}, "pan"), ("VisualInformationFidelity", {}, "vif"),
+    ("FrechetInceptionDistance", {"feature": _c4_features}, "real"),
+    ("KernelInceptionDistance", {"feature": _c4_features, "subsets": 2, "subset_size": 4}, "fake"),
+    ("InceptionScore", {"feature": _c4_features, "splits": 2}, "one"),
+    ("MemorizationInformedFrechetInceptionDistance", {"feature": _c4_features}, "real"),
+    ("LearnedPerceptualImagePatchSimilarity", {"net_params": _c4_lpips_tree()}, "lpips"),
 ]
 _C4_WRAPPERS = {
     "BinaryTargetTransformer", "BootStrapper", "ClasswiseWrapper", "CompositionalMetric", "LambdaInputTransformer",
@@ -334,12 +389,15 @@ def test_set_dtype_then_float32_update_promotes_as_jax(case, tdt, jdt):
     from torchmetrics_tpu_torch.parallel.sharded import _walk_metrics as twalk
 
     name, kwargs, kind = case
-    batch = _c4_batch(kind, seed=sum(map(ord, name)))
+    batches = [_c4_batch(kind, seed=sum(map(ord, name)))]
+    if kind == "real":  # the Frechet distances need fake samples too
+        batches.append(_c4_batch("fake", seed=sum(map(ord, name)) + 1))
     m, jm = getattr(T, name)(device=CPU, **kwargs), getattr(J, name)(**kwargs)
     m.set_dtype(tdt)
     jm.set_dtype(jdt)
-    m.update(*[torch.from_numpy(a) for a in batch])
-    jm.update(*[jnp.asarray(a) for a in batch])
+    for batch in batches:
+        m.update(*[_c4_as(a, torch.from_numpy) for a in batch])
+        jm.update(*[_c4_as(a, jnp.asarray) for a in batch])
     got, want = _c4_leaves(m, twalk), _c4_leaves(jm, jwalk)
     budget = _C4_CASE_BUDGET.get(name, _C4_BUDGET)
     assert sorted(got) == sorted(want)

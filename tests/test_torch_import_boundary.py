@@ -143,7 +143,11 @@ def _jax_path_reaches(source: str):
     ('def f():\n    """Counterpart of ``torchmetrics_tpu/functional/detection/map.py``."""', False),
     ('p = os.path.join(root, "torchmetrics_tpu_torch", "native")', False),
     ('cache = "~/.torchmetrics_tpu/DNSMOS"', False),
-], ids=["pathlib", "os-join", "string", "joinpath", "label", "docstring", "port-path", "home-cache"])
+    ('w = os.path.join(os.path.dirname(__file__), "..", "..", "torchmetrics_tpu", "image", "weights")', True),
+    ('w = ROOT / "torchmetrics_tpu/image/weights/lpips_heads_alex.npz"', True),
+    ('w = os.path.join(os.path.dirname(__file__), "weights")', False),
+], ids=["pathlib", "os-join", "string", "joinpath", "label", "docstring", "port-path", "home-cache", "jax-weights-join",
+        "jax-weights-string", "port-weights"])
 def test_jax_path_check_fires_on_reaches_only(snippet, bad):
     assert bool(_jax_path_reaches(snippet)) == bad
 
@@ -205,7 +209,8 @@ def test_robustness_exports_equal_jax_but_stateguard():
                                      "functional.nominal", "retrieval", "functional.retrieval", "serve.chaos",
                                      "clustering", "functional.clustering", "audio", "functional.audio",
                                      "utilities.imports", "detection", "functional.detection", "native",
-                                     "ops.coco_match"])
+                                     "ops.coco_match", "image", "functional.image", "image.backbones.inception",
+                                     "image.lpip", "image.perceptual_path_length", "ops.window_moments"])
 def test_the_new_domains_and_the_chaos_harness_are_scanned(package):
     """The domains of A14 ported so far and the chaos harness are among the
     modules the two checks above import and scan."""
@@ -301,7 +306,8 @@ _WAITING: dict = {}
 
 
 @pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel", "obs", "clustering", "functional.clustering",
-                                 "audio", "functional.audio", "detection", "functional.detection"])
+                                 "audio", "functional.audio", "detection", "functional.detection", "image",
+                                 "functional.image"])
 def test_subpackage_exports_equal_jax(sub):
     import importlib
 

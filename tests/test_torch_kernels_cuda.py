@@ -39,6 +39,12 @@ instantiations (staged or not, matched set in a register or a scratch),
 on ties, crowds, NaN IoUs and edge thresholds; the mAP on the card has
 the CPU's tables bitwise and its summaries within 1e-6, launching K6 once
 a compute; the IoU classes and panoptic quality on the card equal the CPU.
+K7 (the image domain's windowed moments) equals its plain loop bitwise for
+Gaussian and uniform windows, odd and even sides, a window as large as the
+image, a tile shrunk by a wide window's halo and more planes than the
+grid's z extent; its refusal of a halo too large holds on the card, its
+autograd route matches autograd through the plain loop, and the image
+convolutions stay float32 with cuDNN's global TF32 flag on.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -1402,6 +1408,111 @@ def test_detection_on_the_card_equals_cpu(card):
         for key in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
             assert torch.equal(getattr(p_card, key).cpu(), getattr(p_cpu, key)), (name, key)
         assert torch.equal(p_card.compute().cpu(), p_cpu.compute()), name
+
+
+def _k7_window(kind, kh, kw):
+    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_kernel_2d
+
+    if kind == "gaussian":
+        return _gaussian_kernel_2d(1, (kh, kw), (1.5, 1.2))[0, 0].contiguous()
+    return torch.ones((kh, kw)) / (kh * kw)
+
+
+@pytest.mark.parametrize(("shape", "window"), [
+    ((2, 3, 70, 90), (11, 11)), ((1, 1, 17, 17), (17, 17)), ((3, 2, 40, 33), (7, 5)), ((2, 1, 9, 300), (1, 9)),
+    ((1, 2, 200, 250), (155, 155)), ((70000, 1, 12, 12), (8, 8)),
+], ids=["ssim11", "window-as-image", "non-square", "one-row", "tile-h-2", "grid-z-chunks"])
+@pytest.mark.parametrize("kind", ["gaussian", "uniform"])
+def test_window_moments_matches_plain(card, shape, window, kind):
+    """K7 against its plain loop on the same CUDA inputs, bitwise: Gaussian
+    and uniform windows, odd and even sides, a window as large as the image,
+    a window so large the tile shrinks to one row, more planes than the
+    grid's z extent; a launch per call, none for the plain loop."""
+    from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(91)
+    x = torch.rand(shape, generator=gen, device=card)
+    y = torch.rand(shape, generator=gen, device=card) * 2 - 0.5
+    weight = _k7_window(kind, *window).to(card)
+    before = window_moments.launches
+    got = window_moments(x, y, weight)
+    assert window_moments.launches == before + 1
+    want = window_moments_plain(x, y, weight)
+    torch.cuda.synchronize()
+    assert window_moments.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_window_moments_constant_images_and_refusal(card):
+    """Constant images give the plain loop's bits; a window whose halo does not fit is refused on the card."""
+    from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
+
+    x = torch.full((2, 3, 40, 40), 0.3, device=card)
+    y = torch.full((2, 3, 40, 40), -1.7, device=card)
+    weight = _k7_window("gaussian", 11, 11).to(card)
+    assert torch.equal(window_moments(x, y, weight), window_moments_plain(x, y, weight))
+    big = torch.ones((2, 2, 300, 300), device=card)
+    with pytest.raises(ValueError, match="halo needs"):
+        window_moments(big, big, torch.ones((201, 201), device=card))
+
+
+def test_window_moments_gradient_equals_plain_autograd(card):
+    """K7's autograd route (the plain adjoint) against autograd through the plain loop, for SSIM's gradient."""
+    from torchmetrics_tpu_torch.functional.image import helpers as thelpers
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(92)
+    p = torch.rand((2, 3, 48, 40), generator=gen, device=card)
+    t = torch.rand((2, 3, 48, 40), generator=gen, device=card)
+    grads = []
+    for plain in (False, True):
+        leaf = p.clone().requires_grad_(True)
+        if plain:
+            from torchmetrics_tpu_torch.ops import window_moments_plain
+
+            saved = thelpers.window_moments
+            thelpers.window_moments = window_moments_plain
+        try:
+            T.functional.structural_similarity_index_measure(leaf, t).backward()
+        finally:
+            if plain:
+                thelpers.window_moments = saved
+        grads.append(leaf.grad)
+    assert torch.allclose(grads[0], grads[1], rtol=1e-4, atol=1e-7)
+
+
+def test_image_convolutions_stay_float32_under_the_global_tf32_flag(card):
+    """With ``torch.backends.cudnn.allow_tf32`` True (PyTorch's default), the
+    port's convolutions (VIF's downsampling, the uniform filter, 3-D SSIM,
+    the Inception tower) give their float32 values: the CPU's within float32
+    rounding, where TF32's 10-bit mantissa would miss by about 1e-3."""
+    saved = torch.backends.cudnn.allow_tf32
+    gen = torch.Generator().manual_seed(93)
+    p, t = torch.rand((2, 3, 64, 64), generator=gen), torch.rand((2, 3, 64, 64), generator=gen)
+    v = torch.rand((1, 1, 20, 24, 28), generator=gen)
+    imgs = torch.randint(0, 256, (2, 3, 299, 299), generator=gen, dtype=torch.uint8)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        card_vals = [
+            T.functional.visual_information_fidelity(p.to(card), t.to(card)),
+            T.functional.root_mean_squared_error_using_sliding_window(p.to(card), t.to(card)),
+            T.functional.structural_similarity_index_measure(v.to(card), (0.9 * v + 0.05).to(card), kernel_size=5),
+        ]
+        tower = T.image.backbones.inception.InceptionFeatureExtractor(("2048",), device=card)
+        feats = tower(imgs.to(card))
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    cpu_vals = [
+        T.functional.visual_information_fidelity(p, t),
+        T.functional.root_mean_squared_error_using_sliding_window(p, t),
+        T.functional.structural_similarity_index_measure(v, 0.9 * v + 0.05, kernel_size=5),
+    ]
+    for got, want in zip(card_vals, cpu_vals):
+        assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-6), (got, want)
+    cpu_tower = T.image.backbones.inception.InceptionFeatureExtractor(("2048",), device="cpu")
+    assert torch.allclose(feats.cpu(), cpu_tower(imgs), rtol=1e-4, atol=1e-5)
 
 
 if __name__ == "__main__":

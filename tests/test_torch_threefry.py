@@ -60,3 +60,16 @@ def test_uniform(seed, rank, n):
     want = jax.random.uniform(jsub, (n,), jnp.float32)
     assert _bits(got) == _bits(want)
     assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+@pytest.mark.parametrize("bounds", [(0, 10), (0, 1000), (3, 70000), (0, 1), (-5, 5), (7, 7), (0, 2**31 - 1)],
+                         ids=lambda b: f"{b[0]}-{b[1]}")
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint(seed, bounds):
+    """``jax.random.randint(PRNGKey(seed), (n,), lo, hi)`` (PPL's conditional labels), bit for bit: spans
+    past 2**16 wrap the multiplier's uint32 square as JAX's does; an empty range gives ``lo``."""
+    lo, hi = bounds
+    got = _threefry.randint(_threefry.prng_key(seed, CPU), 257, lo, hi)
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (257,), lo, hi))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    assert np.array_equal(got.numpy(), want)

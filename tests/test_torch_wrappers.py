@@ -539,13 +539,6 @@ def test_wrappers_never_join_a_compute_group():
 
 # the JAX package's top-level names whose domains are not ported yet (ROADMAP A14)
 NOT_PORTED = {
-    # image
-    "ErrorRelativeGlobalDimensionlessSynthesis", "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance",
-    "LearnedPerceptualImagePatchSimilarity", "MemorizationInformedFrechetInceptionDistance",
-    "MultiScaleStructuralSimilarityIndexMeasure", "PeakSignalNoiseRatio", "PeakSignalNoiseRatioWithBlockedEffect",
-    "QualityWithNoReference", "RelativeAverageSpectralError", "RootMeanSquaredErrorUsingSlidingWindow",
-    "SpatialCorrelationCoefficient", "SpatialDistortionIndex", "SpectralAngleMapper", "SpectralDistortionIndex",
-    "StructuralSimilarityIndexMeasure", "TotalVariation", "UniversalImageQualityIndex", "VisualInformationFidelity",
     # multimodal
     "CLIPImageQualityAssessment", "CLIPScore",
     # text

@@ -16,6 +16,8 @@
   banks, rows of samples through a cascade of biquads along time.
 - :func:`coco_match` (K6, ``csrc/coco_match.cu``): COCO's greedy matching
   of score-ordered detections to ground truths, the mAP's hot loop.
+- :func:`window_moments` (K7, ``csrc/window_moments.cu``): the five windowed
+  moments of two image stacks, the filter of SSIM, MS-SSIM, UQI, VIF and SCC.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute. A
 CUDA graph that holds a launch replays it without the wrapper, so a count
@@ -38,6 +40,7 @@ from torchmetrics_tpu_torch.ops.stat_counts import (
     stat_counts_segmented,
     stat_counts_segmented_plain,
 )
+from torchmetrics_tpu_torch.ops.window_moments import window_moments, window_moments_plain
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {
@@ -49,6 +52,7 @@ KERNELS = {
     "slice_assign": slice_assign,
     "biquad_cascade": biquad_cascade,
     "coco_match": coco_match,
+    "window_moments": window_moments,
 }
 
 __all__ = [
@@ -69,4 +73,6 @@ __all__ = [
     "stat_counts_plain",
     "stat_counts_segmented",
     "stat_counts_segmented_plain",
+    "window_moments",
+    "window_moments_plain",
 ]

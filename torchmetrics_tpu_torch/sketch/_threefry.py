@@ -1,8 +1,8 @@
 # Copyright The TorchMetrics-TPU contributors.
 # Licensed under the Apache License, Version 2.0.
 """JAX's threefry2x32 PRNG in torch, bit for bit: the key layout, ``split``,
-``fold_in`` and float32 ``uniform`` of ``jax.random`` under
-``jax_threefry_partitionable=True`` (JAX's default).
+``fold_in``, float32 ``uniform`` and int32 ``randint`` of ``jax.random``
+under ``jax_threefry_partitionable=True`` (JAX's default).
 
 The reservoir sketch keeps its PRNG key in its state, so a reservoir saved
 by either package and resumed in the other goes on drawing the same tags.
@@ -78,13 +78,30 @@ def split(key: Tensor) -> Tuple[Tensor, Tensor]:
     return _as_key(b1[0], b2[0]), _as_key(b1[1], b2[1])
 
 
+def _bits(key: Tensor, n: int) -> Tensor:
+    """``n`` 32-bit random words of ``key`` (``bits1 ^ bits2`` of counts ``(0, i)``), int64."""
+    k1, k2 = _words(key)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = _hash(k1, k2, torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def randint(key: Tensor, n: int, minval: int, maxval: int) -> Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)`` as int32 (int32 bounds):
+    two words a value from the two halves of ``split(key)``, the high word's
+    remainder scaled by ``2**32 % span`` plus the low word's, modulo ``span``."""
+    k1, k2 = split(key)
+    higher, lower = _bits(k1, n), _bits(k2, n)
+    span = (maxval - minval) & _MASK32 if maxval > minval else 1
+    multiplier = ((2**16 % span) ** 2 & _MASK32) % span  # uint32 products wrap, as in JAX
+    offset = (((higher % span) * multiplier) & _MASK32) + (lower % span)
+    return (minval + (offset & _MASK32) % span).to(torch.int32)
+
+
 def uniform(key: Tensor, n: int) -> Tensor:
     """``jax.random.uniform(key, (n,), float32)`` in ``[0, 1)``: 32 random bits
     per value (``bits1 ^ bits2`` of counts ``(0, i)``), the top 23 as the
     mantissa of a float in ``[1, 2)``, minus 1."""
-    k1, k2 = _words(key)
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    b1, b2 = _hash(k1, k2, torch.zeros_like(lo), lo)
-    float_bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    float_bits = (_bits(key, n) >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp(floats, min=0.0)
