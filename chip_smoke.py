@@ -376,12 +376,12 @@ result) if it fails:
    MS-SSIM's five scales, UQI's compute over the 32 images, VIF's four
    scales, SCC's 8 x 8 on the zero-padded high pass; 13 at that full shape)
    and of D_lambda and D_s kept as it ran and held bitwise against the plain
-   loop on its own arguments; K7 also bitwise on edge batches (constant
-   images, a window as large as the image). K7 timed beside its plain loop,
-   cuDNN's depthwise conv over the stacked input (TF32 off; a yardstick the
-   port never calls), the byte bound and both operation bounds (a separable
-   window's, which binds when the table is rank 1, and the direct window's),
-   the read floor. Pan
+   route on its own arguments; K7 also bitwise on edge batches (constant
+   images, a window as large as the image, a row pitch of 33 floats). K7
+   (its window passed as two factors) timed beside its plain route, cuDNN's
+   depthwise conv over the stacked input under the factors' outer product
+   (TF32 off; a yardstick the port never calls), the byte bound and the
+   separable window's operation bound, the read floor. Pan
    sharpening at WorldView-3's 8 bands, 4:1 (preds and pan 4 x 8 x 1,024 x
    1,024, ms 4 x 8 x 256 x 256): D_lambda, D_s with and without ``pan_lr``,
    QNR (K7 2, 2, 2, 4 launches), the card against the CPU on a crop. FID over
@@ -7861,8 +7861,7 @@ LPIPS_SIZE = 256
 LPIPS_CPU_PAIRS = 8
 LPIPS_CPU_RTOL = 1e-4
 PPL_SAMPLES = 1000
-K7_OPS_PER_TAP = 10  # five products by the weight and five sums at each tap of each output
-K7_RANK_RTOL = 1e-6  # a window table is rank 1 (separable) to within float32 rounding of its outer product
+K7_OPS_PER_TAP = 10  # five products by the factor and five sums at each tap of each pass
 K7_OPS_PER_INPUT = 3  # x², y², xy once per input pixel: the least work of the function
 K7_GRAD_RTOL = 1e-4  # SSIM's gradient through K7's adjoint against autograd through the plain loop
 IMG_REPS = 10
@@ -7885,17 +7884,16 @@ def _img_batches(device, count=IMG_BATCHES):
 
 
 def _k7_cases(p, t, device):
-    """K7's three windows on one batch, as the main paths pad and call it."""
-    import torch
+    """K7's three windows on one batch, as the main paths pad and call it: ``(x, y, col, row)``."""
+    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_factors, _uniform_factors, reflect_pad_2d
+    from torchmetrics_tpu_torch.functional.image.metrics import _vif_factor
 
-    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_kernel_2d, reflect_pad_2d
-    from torchmetrics_tpu_torch.functional.image.metrics import _vif_filter
-
-    g11 = _gaussian_kernel_2d(1, (11, 11), (1.5, 1.5), device=device)[0, 0].contiguous()
+    vif = _vif_factor(17.0, 17 / 5, device)
     return {
-        "gaussian 11x11 (SSIM, MS-SSIM, UQI)": (reflect_pad_2d(p, 5, 5), reflect_pad_2d(t, 5, 5), g11),
-        "uniform 7x7 (SSIM)": (reflect_pad_2d(p, 3, 3), reflect_pad_2d(t, 3, 3), torch.ones((7, 7), device=device) / 49),
-        "VIF 17x17 VALID": (t, p, _vif_filter(17.0, 17 / 5, device)),
+        "gaussian 11x11 (SSIM, MS-SSIM, UQI)": (reflect_pad_2d(p, 5, 5), reflect_pad_2d(t, 5, 5),
+                                                *_gaussian_factors((11, 11), (1.5, 1.5), device=device)),
+        "uniform 7x7 (SSIM)": (reflect_pad_2d(p, 3, 3), reflect_pad_2d(t, 3, 3), *_uniform_factors((7, 7), 49.0, device=device)),
+        "VIF 17x17 VALID": (t, p, vif, vif),
     }
 
 
@@ -7903,11 +7901,10 @@ def time_window_moments(device):
     """K7 timed in phase 3 (torch.profiler was seen to go blind late in a long
     run) on the image phase's first two batches, the Gaussian 11 x 11 case:
     device ms (profiler), stream ms, the plain loop's and cuDNN's stacked
-    depthwise conv's ms, the bounds, the read floor, registers. The bound
-    counts a separable window's operations when the table is rank 1 (every
-    table the port passes K7 is: SSIM's and UQI's Gaussian is an outer
-    product, VIF's exp(-(a² + b²)/s) factors, the uniform windows are
-    constant); the direct window's operations are kept beside it."""
+    depthwise conv's ms (over the factors' outer product), the bounds, the
+    read floor, registers. The operation bound is the separable window's: a
+    row pass over every input row, then a column pass, two operations a tap a
+    moment, and x², y², xy once an input."""
     import torch
 
     from torchmetrics_tpu_torch.functional.image.helpers import conv2d
@@ -7915,17 +7912,17 @@ def time_window_moments(device):
 
     key = "gaussian 11x11 (SSIM, MS-SSIM, UQI)"
     arg_sets = [_k7_cases(p, t, device)[key] for p, t in _img_batches(device, 2)]
-    x, y, w = arg_sets[0]
+    x, y, col, row = arg_sets[0]
     b, c, hp, wp = x.shape
-    kh, kw = w.shape
+    kh, kw = col.numel(), row.numel()
     outputs, inputs = b * c * (hp - kh + 1) * (wp - kw + 1), x.numel()
-    stacked = [torch.cat([a, bb, a * a, bb * bb, a * bb]) for a, bb, _ in arg_sets]
-    w3 = w[None, None].expand(c, 1, kh, kw).contiguous()
+    stacked = [torch.cat([a, bb, a * a, bb * bb, a * bb]) for a, bb, _, _ in arg_sets]
+    w3 = torch.outer(col, row)[None, None].expand(c, 1, kh, kw).contiguous()
 
     def library(s):
         return conv2d(s, w3, groups=c)
 
-    _require(torch.allclose(library(stacked[0]).reshape(5, b, c, hp - kh + 1, wp - kw + 1), window_moments(x, y, w),
+    _require(torch.allclose(library(stacked[0]).reshape(5, b, c, hp - kh + 1, wp - kw + 1), window_moments(x, y, col, row),
                             rtol=1e-5, atol=1e-6), "K7 against cuDNN's stacked depthwise conv")
     before = window_moments.launches
     m = _measure([("kernel", window_moments, arg_sets), ("library", library, [(s,) for s in stacked])],
@@ -7933,14 +7930,12 @@ def time_window_moments(device):
     window_moments.launches = before  # timing launches are not the main path's
     del stacked
     torch.cuda.empty_cache()
-    plain_ms = _events_ms(lambda: window_moments_plain(x, y, w), 1)
+    plain_ms = _events_ms(lambda: window_moments_plain(x, y, col, row), 1)
     floor_ms, _ = _device_ms(_read_floor, [(x,)], IMG_REPS)
     n_bytes = 2 * inputs * 4 + 5 * outputs * 4
-    n_ops_direct = K7_OPS_PER_TAP * kh * kw * outputs + K7_OPS_PER_INPUT * inputs
-    # a separable window: a kw-tap pass along rows over all hp rows, then a kh-tap pass along columns
-    n_ops_separable = K7_OPS_PER_TAP * b * c * (wp - kw + 1) * (kw * hp + kh * (hp - kh + 1)) + K7_OPS_PER_INPUT * inputs
-    rank = int(torch.linalg.matrix_rank(w.to(torch.float64).cpu(), rtol=K7_RANK_RTOL))
-    bound_ms, bound_by = _bound(n_bytes, n_ops_separable if rank == 1 else n_ops_direct)
+    # a kw-tap pass along rows over all hp rows, then a kh-tap pass along columns
+    n_ops = K7_OPS_PER_TAP * b * c * (wp - kw + 1) * (kw * hp + kh * (hp - kh + 1)) + K7_OPS_PER_INPUT * inputs
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
     log = BUILD_LOGS.get("window_moments", "")
     regs = [int(v) for line in log.splitlines() if "registers" in line for v in line.split("Used")[1].split()[:1]]
     spills = sum(1 for line in log.splitlines() if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
@@ -7955,8 +7950,7 @@ def time_window_moments(device):
         "stream_ms": {"kernel": m["kernel"]["stream_ms"], "plain": plain_ms, "library": m["library"]["stream_ms"]},
         "kernel_only_us": _kernel_only_us(m["kernel"]["found"], "window_moments"), "bytes": n_bytes,
         "read_floor_ms": floor_ms,
-        "window_rank": rank, "separable_ms": n_ops_separable / PEAK_FP32_OPS_PER_S * 1e3,
-        "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "direct_ops_ms": n_ops_direct / PEAK_FP32_OPS_PER_S * 1e3,
+        "ops_ms": n_ops / PEAK_FP32_OPS_PER_S * 1e3, "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
         "registers": f"{min(regs, default=0)}-{max(regs, default=0)}", "spills": spills,
     }
 
@@ -7984,13 +7978,13 @@ class _K7Recorder:
         for module in self.modules:
             module.window_moments = window_moments
 
-    def __call__(self, x, y, weight):
+    def __call__(self, x, y, col, row):
         from torchmetrics_tpu_torch.ops import window_moments
 
-        out = window_moments(x, y, weight)
-        key = (self.path, tuple(x.shape), tuple(weight.shape))
+        out = window_moments(x, y, col, row)
+        key = (self.path, tuple(x.shape), (col.numel(), row.numel()))
         if self.armed and key not in self.calls:
-            self.calls[key] = (x, y, weight, out)
+            self.calls[key] = (x, y, col, row, out)
         return out
 
     def check(self):
@@ -7999,9 +7993,9 @@ class _K7Recorder:
 
         from torchmetrics_tpu_torch.ops import window_moments_plain
 
-        for (path, shape, window), (x, y, weight, out) in self.calls.items():
+        for (path, shape, window), (x, y, col, row, out) in self.calls.items():
             what = f"{path} {'x'.join(map(str, window))} at {'x'.join(map(str, shape))}"
-            want = window_moments_plain(x, y, weight)
+            want = window_moments_plain(x, y, col, row)
             _require(out.dtype == want.dtype == torch.float32 and out.shape == want.shape, f"K7 {what}: {out.shape} vs {want.shape}")
             _require(torch.equal(out.view(torch.int32), want.view(torch.int32)), f"K7 {what}: the bits differ from the plain loop")
             self.checked.append(what)
@@ -8011,19 +8005,22 @@ class _K7Recorder:
 
 
 def _k7_checks(device, batches):
-    """K7 bitwise against its plain loop on the edge batches (the main path's launches are held by _K7Recorder)."""
+    """K7 bitwise against its plain route on the edge batches (the main path's launches are held by _K7Recorder)."""
     import torch
 
+    from torchmetrics_tpu_torch.functional.image.helpers import _uniform_factors
     from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 21)
-    g11 = _k7_cases(*(v[:1, :1, :16, :16] for v in batches[0]), device)["gaussian 11x11 (SSIM, MS-SSIM, UQI)"][2]
+    g11 = _k7_cases(*(v[:1, :1, :16, :16] for v in batches[0]), device)["gaussian 11x11 (SSIM, MS-SSIM, UQI)"][2:]
+    box33 = _uniform_factors((33, 33), 1089.0, device=device)
     edges = {
-        "constant images": (torch.full((2, 3, 40, 40), 0.3, device=device), torch.full((2, 3, 40, 40), -1.7, device=device), g11),
+        "constant images": (torch.full((2, 3, 40, 40), 0.3, device=device), torch.full((2, 3, 40, 40), -1.7, device=device), *g11),
         "a window as large as the image": (torch.rand((2, 3, 33, 33), generator=gen, device=device),
-                                           torch.rand((2, 3, 33, 33), generator=gen, device=device),
-                                           torch.ones((33, 33), device=device) / 1089),
+                                           torch.rand((2, 3, 33, 33), generator=gen, device=device), *box33),
+        "a row pitch of 33 floats": (torch.rand((3, 2, 70, 33), generator=gen, device=device),
+                                     torch.rand((3, 2, 70, 33), generator=gen, device=device), *g11),
     }
     for what, args in edges.items():
         _require_same_bits(window_moments(*args), window_moments_plain(*args), f"K7 on {what}")
@@ -8103,11 +8100,11 @@ def _img_float64_errors(tm, p32, t32):
     """The first IMG_F64_IMAGES images through the port (float32, K7) against the float64 route of the plain version."""
     import torch
 
-    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_kernel_2d, avg_pool2d, reflect_pad_2d
+    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_factors, avg_pool2d, reflect_pad_2d
 
     F_ = tm.functional
     p, t = p32.to(torch.float64), t32.to(torch.float64)
-    g11 = _gaussian_kernel_2d(1, (11, 11), (1.5, 1.5), device=p.device)[0, 0].to(torch.float64)
+    g11 = torch.outer(*_gaussian_factors((11, 11), (1.5, 1.5), device=p.device)).to(torch.float64)
     rng = torch.maximum(p.max() - p.min(), t.max() - t.min())
     c1, c2 = (0.01 * rng) ** 2, (0.03 * rng) ** 2
     ref = {"ssim": _ssim64(p, t, g11, 5, c1, c2)[0],
@@ -8468,8 +8465,8 @@ def phase_image(device, smi, k7_row):
         f"[image] {smi}; K7 at {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
         f" stream ms {row['stream_ms']['kernel']:.5f}, plain {row['plain_ms']:.3f}, cuDNN's stacked depthwise conv"
         f" {row['library_ms']:.5f} device / {row['stream_ms']['library']:.5f} stream; bound {row['bound_ms']:.5f}"
-        f" ({row['bound_by']}; bytes {row['bytes_ms']:.5f}, separable operations {row['separable_ms']:.5f} (window rank"
-        f" {row['window_rank']}), direct operations {row['direct_ops_ms']:.5f}), read floor {row['read_floor_ms']:.5f}; registers {row['registers']}, {row['spills']}"
+        f" ({row['bound_by']}; bytes {row['bytes_ms']:.5f}, operations {row['ops_ms']:.5f}), read floor"
+        f" {row['read_floor_ms']:.5f}; registers {row['registers']}, {row['spills']}"
         f" with spills; bitwise on every distinct launch of the main path's first batch ({len(out['k7_bitwise'])}:"
         f" {'; '.join(out['k7_bitwise'])}), of the pan-sharpening indices ({len(pan['k7_bitwise'])}), and on"
         f" {', '.join(row['edge_cases'])}; K7 launches on the main path"

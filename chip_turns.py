@@ -2,18 +2,22 @@
 # Licensed under the Apache License, Version 2.0.
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 chip_turns.py OTHER_ROOT . . OTHER_ROOT
+    python3 chip_turns.py [--phases kernels,image] OTHER_ROOT . . OTHER_ROOT
 
 runs, for each root in the order given, that root's own ``chip_smoke.py``
-phases of the hand kernels' main paths (``sketch``: K3 eager and the fused
-sketch pass; ``sliced``: K1s, K2s and K4 under the sliced suite; ``guard``:
-K2s and K1s at one cell under the StateGuard's mask), then K2s and K4 through
-their wrappers at those phases' shapes split into their device operations
-(K4 also from empty tables: the suite's and the fan-out's first batches and
-a spill batch), each in a process of its own with that root's package and
-kernels, and prints one ``[turns]`` line per run and the median of each
-number per root. Needs one NVIDIA GPU; it
-exits 2 without one. A root is any directory holding ``chip_smoke.py`` and
+phases of the hand kernels' main paths, each in a process of its own with
+that root's package and kernels, and prints one ``[turns]`` line per run
+and the median of each number per root. The phases (all by default):
+``kernels``: ``sketch`` (K3 eager and the fused sketch pass), ``sliced``
+(K1s, K2s and K4 under the sliced suite) and ``guard`` (K2s and K1s at one
+cell under the StateGuard's mask), then K2s and K4 through their wrappers
+at those phases' shapes split into their device operations (K4 also from
+empty tables: the suite's and the fan-out's first batches and a spill
+batch); ``image``: K7 alone at SSIM's 11 x 11 Gaussian on the image phase's
+8 x 3 x 1,356 x 2,040 batches (the root's ``time_window_moments``), then
+the steady updates (the median of batches 2-4) of SSIM, MS-SSIM, VIF and
+SCC over the image phase's 4 batches. Needs one NVIDIA GPU; it exits 2
+without one. A root is any directory holding ``chip_smoke.py`` and
 ``torchmetrics_tpu_torch`` (an older commit unpacked with ``git archive``).
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def _split(cs, fn, arg_sets, reps):
@@ -73,21 +78,45 @@ def _kernel_split(cs, device) -> dict:
     return out
 
 
-def _one(root: str) -> dict:
-    """The phases of ``root``'s chip_smoke.py, in this process."""
-    sys.path.insert(0, root)
-    import chip_smoke as cs
+def _image(cs, device, smi) -> dict:
+    """K7 alone at the image phase's 11 x 11 shape, then the steady SSIM, MS-SSIM, VIF and SCC updates."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    k7 = cs.time_window_moments(device)
+    out = {"K7 11x11 device ms": k7["ms"], "K7 11x11 stream ms": k7["stream_ms"]["kernel"]}
+    I_ = tm.image
+    metrics = {
+        "SSIM": I_.StructuralSimilarityIndexMeasure(device=device),
+        "MS-SSIM": I_.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        "VIF": I_.VisualInformationFidelity(device=device),
+        "SCC": I_.SpatialCorrelationCoefficient(device=device),
+    }
+    batches = cs._img_batches(device)
+    for name, metric in metrics.items():
+        walls = []
+        for p, t in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metric.update(p, t)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name} steady update ms"] = statistics.median(walls[1:])
+        metric.reset()
+    return out
+
+
+def _kernels(cs, device, smi) -> dict:
+    """The sketch, sliced and guard phases, then K2s and K4 split into their device operations."""
     from torchmetrics_tpu_torch.ops import KERNELS
 
-    device, smi = cs.phase_device()
-    cs.phase_build()
     batches = cs._main_path_batches(device)
     sketch = cs.phase_sketch(device, {"cm_track": KERNELS["cm_track"]}, smi)
     sliced = cs.phase_sliced(device, batches, smi)
     guard = cs.phase_guard(device, batches, smi)
     kernels = _kernel_split(cs, device)
     return {
-        "card": smi,
         "sketch fused pass wall ms": sketch["fused_wall_us"] / 1e3,
         "sketch fused pass busy ms": sketch["fused_busy_us"] / 1e3,
         "sliced suite pass ms": sliced["suite_pass_ms"],
@@ -98,23 +127,46 @@ def _one(root: str) -> dict:
     }
 
 
+PHASES = {"kernels": _kernels, "image": _image}
+
+
+def _one(root: str, phases: list) -> dict:
+    """The named phases of ``root``'s chip_smoke.py, in this process."""
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+
+    device, smi = cs.phase_device()
+    cs.phase_build()
+    out = {"card": smi}
+    for phase in phases:
+        out.update(PHASES[phase](cs, device, smi))
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_turns: torch.cuda.is_available() is false; the turns need an NVIDIA GPU", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print("[turns] " + json.dumps({"root": sys.argv[2], **_one(sys.argv[2])}), flush=True)
+    args = sys.argv[1:]
+    phases = list(PHASES)
+    if len(args) >= 2 and args[0] == "--phases":
+        phases, args = args[1].split(","), args[2:]
+        if not phases or any(p not in PHASES for p in phases):
+            print(f"chip_turns: --phases takes a comma-separated subset of {sorted(PHASES)}", file=sys.stderr)
+            return 2
+    if len(args) == 2 and args[0] == "--one":
+        print("[turns] " + json.dumps({"root": args[1], **_one(args[1], phases)}), flush=True)
         return 0
-    roots = [os.path.abspath(r) for r in sys.argv[1:]]
+    roots = [os.path.abspath(r) for r in args]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
     for root in roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], cwd=root, capture_output=True,
-                              text=True, timeout=600)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phases", ",".join(phases), "--one", root],
+                              cwd=root, capture_output=True, text=True, timeout=600)
         lines = [line for line in proc.stdout.splitlines() if line.startswith("[turns] ")]
         if proc.returncode != 0 or not lines:
             print(f"chip_turns: {root} failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}", file=sys.stderr)

@@ -39,10 +39,11 @@ instantiations (staged or not, matched set in a register or a scratch),
 on ties, crowds, NaN IoUs and edge thresholds; the mAP on the card has
 the CPU's tables bitwise and its summaries within 1e-6, launching K6 once
 a compute; the IoU classes and panoptic quality on the card equal the CPU.
-K7 (the image domain's windowed moments) equals its plain loop bitwise for
-Gaussian and uniform windows, odd and even sides, a window as large as the
-image, a tile shrunk by a wide window's halo and more planes than the
-grid's z extent; its refusal of a halo too large holds on the card, its
+K7 (the image domain's windowed moments) equals its plain route bitwise for
+Gaussian, uniform and VIF factors, odd, even and unequal sides, a window as
+large as the image, row pitches off a multiple of 4 floats, outputs ending
+mid-tile, tiles shrunk by a wide window and more planes than a grid's z
+extent; its refusal of a staged tile too large holds on the card, its
 autograd route matches autograd through the plain loop, and the image
 convolutions stay float32 with cuDNN's global TF32 flag on.
 Two ranks of one gloo group share the card (this file run as a script is
@@ -1410,51 +1411,67 @@ def test_detection_on_the_card_equals_cpu(card):
         assert torch.equal(p_card.compute().cpu(), p_cpu.compute()), name
 
 
-def _k7_window(kind, kh, kw):
-    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_kernel_2d
+def _k7_factors(kind, kh, kw):
+    """K7's ``(col, row)``: the Gaussian (sigma 1.5 x 1.2), the uniform window's or VIF's (square)."""
+    from torchmetrics_tpu_torch.functional.image.helpers import _gaussian_factors, _uniform_factors
+    from torchmetrics_tpu_torch.functional.image.metrics import _vif_factor
 
     if kind == "gaussian":
-        return _gaussian_kernel_2d(1, (kh, kw), (1.5, 1.2))[0, 0].contiguous()
-    return torch.ones((kh, kw)) / (kh * kw)
+        return _gaussian_factors((kh, kw), (1.5, 1.2))
+    if kind == "vif":
+        return _vif_factor(float(kh), kh / 5), _vif_factor(float(kw), kw / 5)
+    return _uniform_factors((kh, kw), float(kh * kw))
 
 
-@pytest.mark.parametrize(("shape", "window"), [
-    ((2, 3, 70, 90), (11, 11)), ((1, 1, 17, 17), (17, 17)), ((3, 2, 40, 33), (7, 5)), ((2, 1, 9, 300), (1, 9)),
-    ((1, 2, 200, 250), (155, 155)), ((70000, 1, 12, 12), (8, 8)),
-], ids=["ssim11", "window-as-image", "non-square", "one-row", "tile-h-2", "grid-z-chunks"])
-@pytest.mark.parametrize("kind", ["gaussian", "uniform"])
-def test_window_moments_matches_plain(card, shape, window, kind):
-    """K7 against its plain loop on the same CUDA inputs, bitwise: Gaussian
-    and uniform windows, odd and even sides, a window as large as the image,
-    a window so large the tile shrinks to one row, more planes than the
-    grid's z extent; a launch per call, none for the plain loop."""
+K7_CASES = [  # (id, shape, window, factors, the tile height the wrapper picks)
+    ("ssim11", (2, 3, 70, 90), (11, 11), "gaussian", 48), ("ssim11-uniform", (2, 3, 70, 90), (11, 11), "uniform", 48),
+    ("window-as-image", (1, 1, 17, 17), (17, 17), "gaussian", 32), ("window-as-image-uniform", (2, 3, 33, 33), (33, 33), "uniform", 48),
+    ("non-square-pitch-33", (3, 2, 40, 33), (7, 5), "gaussian", 48), ("one-row", (2, 1, 9, 300), (1, 9), "uniform", 48),
+    ("one-by-one", (1, 2, 5, 6), (1, 1), "uniform", 48), ("mid-tile-pitch-2050", (2, 3, 61, 2050), (11, 11), "gaussian", 48),
+    ("mid-tile-uniform-8", (2, 2, 100, 131), (8, 8), "uniform", 48), ("tile-h-8", (1, 2, 200, 250), (80, 80), "uniform", 8),
+    ("tile-h-1", (1, 1, 120, 130), (90, 90), "gaussian", 1), ("many-planes", (70000, 1, 12, 12), (8, 8), "uniform", 48),
+    ("vif17-valid", (2, 3, 100, 99), (17, 17), "vif", 32), ("vif9-valid", (2, 3, 42, 43), (9, 9), "vif", 48),
+]
+
+
+@pytest.mark.parametrize(("shape", "window", "kind", "tile_h"), [c[1:] for c in K7_CASES], ids=[c[0] for c in K7_CASES])
+def test_window_moments_matches_plain(card, shape, window, kind, tile_h):
+    """K7 against its plain route on the same CUDA inputs, bitwise: Gaussian,
+    uniform and VIF factors, odd, even and unequal sides, 1 x 1, a window as
+    large as the image, row pitches that are not a multiple of 4 floats,
+    outputs that end mid-tile in both axes, every tile height from 48 rows
+    (two blocks an SM) through 32 (VIF's 17 x 17) to 8 and 1 (wide windows),
+    more planes than a grid's z extent; a launch per call, none for the
+    plain route."""
     from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
+    from torchmetrics_tpu_torch.ops.window_moments import tile_height
 
     gen = torch.Generator(device=card)
     gen.manual_seed(91)
     x = torch.rand(shape, generator=gen, device=card)
     y = torch.rand(shape, generator=gen, device=card) * 2 - 0.5
-    weight = _k7_window(kind, *window).to(card)
+    col, row = (f.to(card) for f in _k7_factors(kind, *window))
+    assert tile_height(*window) == tile_h
     before = window_moments.launches
-    got = window_moments(x, y, weight)
+    got = window_moments(x, y, col, row)
     assert window_moments.launches == before + 1
-    want = window_moments_plain(x, y, weight)
+    want = window_moments_plain(x, y, col, row)
     torch.cuda.synchronize()
     assert window_moments.launches == before + 1
-    assert got.shape == want.shape and torch.equal(got, want)
+    assert got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_window_moments_constant_images_and_refusal(card):
-    """Constant images give the plain loop's bits; a window whose halo does not fit is refused on the card."""
+    """Constant images give the plain route's bits; a window whose staged tile does not fit is refused on the card."""
     from torchmetrics_tpu_torch.ops import window_moments, window_moments_plain
 
     x = torch.full((2, 3, 40, 40), 0.3, device=card)
     y = torch.full((2, 3, 40, 40), -1.7, device=card)
-    weight = _k7_window("gaussian", 11, 11).to(card)
-    assert torch.equal(window_moments(x, y, weight), window_moments_plain(x, y, weight))
+    col, row = (f.to(card) for f in _k7_factors("gaussian", 11, 11))
+    assert torch.equal(window_moments(x, y, col, row), window_moments_plain(x, y, col, row))
     big = torch.ones((2, 2, 300, 300), device=card)
-    with pytest.raises(ValueError, match="halo needs"):
-        window_moments(big, big, torch.ones((201, 201), device=card))
+    with pytest.raises(ValueError, match="staged tile needs"):
+        window_moments(big, big, torch.ones(201, device=card), torch.ones(201, device=card))
 
 
 def test_window_moments_gradient_equals_plain_autograd(card):

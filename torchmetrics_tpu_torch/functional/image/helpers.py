@@ -3,9 +3,10 @@
 """Shared image helpers (counterpart of ``torchmetrics_tpu/functional/image/helpers.py``).
 
 The Gaussian tables are built as the JAX package builds them (float32,
-the outer product of two 1-D tables), so the plain route and the windowed
-moments kernel (K7, :mod:`torchmetrics_tpu_torch.ops.window_moments`) read
-the same weights. Every convolution of the image domain goes through
+the outer product of two 1-D tables); the windowed moments kernel (K7,
+:mod:`torchmetrics_tpu_torch.ops.window_moments`) and its plain route take
+the two 1-D tables themselves (:func:`_gaussian_factors`,
+:func:`_uniform_factors`). Every convolution of the image domain goes through
 :func:`conv2d`/:func:`conv3d` here, which run cuDNN with TF32 off for the
 call (PyTorch lets cuDNN round float32 convolutions to TF32 by default;
 JAX's convolutions are float32). The global flag is left as it was.
@@ -52,11 +53,12 @@ def conv_transpose2d(x: Tensor, weight: Tensor, groups: int = 1) -> Tensor:
         return F.conv_transpose2d(x, weight, groups=groups)
 
 
-def _moments_2d(preds: Tensor, target: Tensor, weight: Tensor) -> Tuple[Tensor, ...]:
-    """``(mu_x, mu_y, E[x²], E[y²], E[xy])`` of a padded 2-D batch through K7, in the inputs' dtype
-    (SSIM's and UQI's filter)."""
+def _moments_2d(preds: Tensor, target: Tensor, col: Tensor, row: Tensor) -> Tuple[Tensor, ...]:
+    """``(mu_x, mu_y, E[x²], E[y²], E[xy])`` of a padded 2-D batch through K7 under the window
+    ``outer(col, row)``, in the inputs' dtype (SSIM's and UQI's filter)."""
     dtype = preds.dtype
-    out = window_moments(preds.to(torch.float32), target.to(torch.float32), weight.to(torch.float32))
+    f32 = torch.float32
+    out = window_moments(preds.to(f32), target.to(f32), col.to(f32), row.to(f32))
     return tuple(m.to(dtype) for m in out)
 
 
@@ -78,14 +80,19 @@ def _gaussian(kernel_size: int, sigma: float, dtype=torch.float32, device=None) 
     return (gauss / gauss.sum())[None, :]
 
 
-def _gaussian_kernel_2d(
-    channel: int, kernel_size: Sequence[int], sigma: Sequence[float], dtype=torch.float32, device=None
-) -> Tensor:
-    """``(C, 1, kh, kw)`` depthwise Gaussian kernel: the outer product of two 1-D tables."""
-    kx = _gaussian(kernel_size[0], sigma[0], dtype, device)
-    ky = _gaussian(kernel_size[1], sigma[1], dtype, device)
-    kernel = kx.T @ ky
-    return kernel.expand(channel, 1, kernel_size[0], kernel_size[1])
+def _gaussian_factors(
+    kernel_size: Sequence[int], sigma: Sequence[float], dtype=torch.float32, device=None
+) -> Tuple[Tensor, Tensor]:
+    """K7's ``(col, row)`` of the 2-D Gaussian: JAX's ``_gaussian_kernel_2d`` table is their outer product."""
+    return _gaussian(kernel_size[0], sigma[0], dtype, device)[0], _gaussian(kernel_size[1], sigma[1], dtype, device)[0]
+
+
+def _uniform_factors(kernel_size: Sequence[int], area: float, dtype=torch.float32, device=None) -> Tuple[Tensor, Tensor]:
+    """K7's ``(col, row)`` of the uniform window ``ones / area``: ``ones(kh) / area`` and ``ones(kw)``."""
+    return (
+        torch.ones(kernel_size[0], dtype=dtype, device=device) / area,
+        torch.ones(kernel_size[1], dtype=dtype, device=device),
+    )
 
 
 def _gaussian_kernel_3d(

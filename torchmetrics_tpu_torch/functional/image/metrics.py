@@ -24,8 +24,9 @@ import torch
 from torchmetrics_tpu_torch.functional.image.helpers import (
     _as_float,
     _check_image_pair,
-    _gaussian_kernel_2d,
+    _gaussian_factors,
     _moments_2d,
+    _uniform_factors,
     _uniform_filter,
     conv2d,
     reduce,
@@ -176,12 +177,12 @@ def _uqi_map(
         raise ValueError(f"Expected `sigma` to have positive number. Got {sigma}.")
 
     dtype = preds.dtype
-    window = _gaussian_kernel_2d(1, kernel_size, sigma, dtype, preds.device)[0, 0]
+    col, row = _gaussian_factors(kernel_size, sigma, dtype, preds.device)
     pad_h = (kernel_size[0] - 1) // 2
     pad_w = (kernel_size[1] - 1) // 2
     preds = reflect_pad_2d(preds, pad_w, pad_h)
     target = reflect_pad_2d(target, pad_w, pad_h)
-    mu_pred, mu_target, e_pred_sq, e_target_sq, e_pred_target = _moments_2d(preds, target, window)
+    mu_pred, mu_target, e_pred_sq, e_target_sq, e_pred_target = _moments_2d(preds, target, col, row)
 
     mu_pred_sq = mu_pred**2
     mu_target_sq = mu_target**2
@@ -294,8 +295,8 @@ def _scc_map(preds: Tensor, target: Tensor, hp_filter: Tensor, window_size: int)
     right = int(math.floor((window_size - 1) / 2))
     p = torch.nn.functional.pad(preds_hp, (left, right, left, right))
     t = torch.nn.functional.pad(target_hp, (left, right, left, right))
-    window = torch.ones((window_size, window_size), dtype=dtype, device=preds.device) / (window_size**2)
-    preds_mean, target_mean, e_pp, e_tt, e_pt = window_moments(p, t, window)
+    col, row = _uniform_factors((window_size, window_size), window_size**2, dtype, preds.device)
+    preds_mean, target_mean, e_pp, e_tt, e_pt = window_moments(p, t, col, row)
     preds_var = torch.clamp(e_pp - preds_mean**2, min=0.0)
     target_var = torch.clamp(e_tt - target_mean**2, min=0.0)
     cov = e_pt - target_mean * preds_mean
@@ -421,6 +422,14 @@ def _vif_filter(win_size: float, sigma: float, device=None) -> Tensor:
     return g / torch.sum(g)
 
 
+def _vif_factor(win_size: float, sigma: float, device=None) -> Tensor:
+    """K7's 1-D factor of :func:`_vif_filter` (both ``col`` and ``row``): ``exp(-a²/2σ²)``, normalised;
+    its outer product is the 2-D table up to float32 rounding."""
+    coords = torch.arange(win_size, dtype=torch.float32, device=device) - (win_size - 1) / 2
+    g = torch.exp(-(coords**2) / (2.0 * sigma**2))
+    return g / torch.sum(g)
+
+
 def _vif_per_channel(preds: Tensor, target: Tensor, sigma_n_sq: float = 2.0) -> Tensor:
     """Pixel-domain VIF of each (image, channel): ``(B, C)`` (JAX runs one channel at a time)."""
     dtype = preds.dtype
@@ -431,14 +440,14 @@ def _vif_per_channel(preds: Tensor, target: Tensor, sigma_n_sq: float = 2.0) -> 
     target_vif = torch.zeros(preds.shape[:2], dtype=dtype, device=preds.device)
     for scale in range(4):
         n = 2.0 ** (4 - scale) + 1
-        window = _vif_filter(n, n / 5, preds.device)
-
         if scale > 0:
+            window = _vif_filter(n, n / 5, preds.device)
             kernel = window[None, None].expand(channels, 1, *window.shape)
             target = conv2d(target, kernel, groups=channels)[:, :, ::2, ::2]
             preds = conv2d(preds, kernel, groups=channels)[:, :, ::2, ::2]
 
-        mu_target, mu_preds, e_target_sq, e_preds_sq, e_target_preds = window_moments(target, preds, window)
+        factor = _vif_factor(n, n / 5, preds.device)
+        mu_target, mu_preds, e_target_sq, e_preds_sq, e_target_preds = window_moments(target, preds, factor, factor)
         mu_target_sq = mu_target**2
         mu_preds_sq = mu_preds**2
         mu_target_preds = mu_target * mu_preds

@@ -18,9 +18,10 @@ import torch
 
 from torchmetrics_tpu_torch.functional.image.helpers import (
     _check_image_pair,
-    _gaussian_kernel_2d,
+    _gaussian_factors,
     _gaussian_kernel_3d,
     _moments_2d,
+    _uniform_factors,
     avg_pool2d,
     avg_pool3d,
     conv3d,
@@ -125,13 +126,12 @@ def _ssim_update(
     else:
         preds = reflect_pad_2d(preds, pad_h, pad_w)
         target = reflect_pad_2d(target, pad_h, pad_w)
-        window = (
-            _gaussian_kernel_2d(1, gauss_kernel_size, sigma, dtype, device)[0, 0]
+        col, row = (
+            _gaussian_factors(gauss_kernel_size, sigma, dtype, device)
             if gaussian_kernel
-            else torch.ones(tuple(kernel_size), dtype=dtype, device=device)
-            / _window_area(kernel_size)
+            else _uniform_factors(kernel_size, _window_area(kernel_size), dtype, device)
         )
-        mu_pred, mu_target, e_pred_sq, e_target_sq, e_pred_target = _moments_2d(preds, target, window)
+        mu_pred, mu_target, e_pred_sq, e_target_sq, e_pred_target = _moments_2d(preds, target, col, row)
 
     mu_pred_sq = mu_pred**2
     mu_target_sq = mu_target**2

@@ -3,8 +3,8 @@
 """MeanSquaredError (counterpart of ``torchmetrics_tpu/regression/mse.py``).
 
 States: ``sum_squared_error`` (float32, ``(num_outputs,)``) and ``total``
-(int32, 0-d). The JAX package's StateGuard domain contract is not ported
-(see ROADMAP.md).
+(int32, 0-d). Its StateGuard domain contract is the JAX package's:
+``preds`` and ``target`` finite (:meth:`MeanSquaredError.domain_contract`).
 """
 from __future__ import annotations
 
