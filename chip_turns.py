@@ -2,7 +2,7 @@
 # Licensed under the Apache License, Version 2.0.
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 chip_turns.py [--phases kernels,image] OTHER_ROOT . . OTHER_ROOT
+    python3 chip_turns.py [--phases kernels,image,audio] OTHER_ROOT . . OTHER_ROOT
 
 runs, for each root in the order given, that root's own ``chip_smoke.py``
 phases of the hand kernels' main paths, each in a process of its own with
@@ -16,8 +16,13 @@ empty tables: the suite's and the fan-out's first batches and a spill
 batch); ``image``: K7 alone at SSIM's 11 x 11 Gaussian on the image phase's
 8 x 3 x 1,356 x 2,040 batches (the root's ``time_window_moments``), then
 the steady updates (the median of batches 2-4) of SSIM, MS-SSIM, VIF and
-SCC over the image phase's 4 batches. Needs one NVIDIA GPU; it exits 2
-without one. A root is any directory holding ``chip_smoke.py`` and
+SCC over the image phase's 4 batches; ``audio``: K5's two banks alone on
+the audio phase's 8 clips of 160,000 samples (the root's
+``time_biquad_cascade``: the gammatone cascade and the modulation bank,
+device and stream ms), then the steady SRMR update (``norm=False``, the
+median of updates 2-5 of those clips). K5 is compared with its parent as
+``python3 chip_turns.py --phases audio PARENT . . PARENT``. Needs one
+NVIDIA GPU; it exits 2 without one. A root is any directory holding ``chip_smoke.py`` and
 ``torchmetrics_tpu_torch`` (an older commit unpacked with ``git archive``).
 """
 from __future__ import annotations
@@ -107,6 +112,32 @@ def _image(cs, device, smi) -> dict:
     return out
 
 
+AUDIO_UPDATES = 5
+
+
+def _audio(cs, device, smi) -> dict:
+    """K5's two banks alone at the audio phase's shape, then the steady SRMR update (norm False) on its clips."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    out = {}
+    for row, bank in zip(cs.time_biquad_cascade(device), ("gammatone", "modulation")):
+        out[f"K5 {bank} device ms"] = row["ms"]
+        out[f"K5 {bank} stream ms"] = row["stream_ms"]["kernel"]
+    clips = cs._quality_clips(device)[0]
+    metric = tm.SpeechReverberationModulationEnergyRatio(fs=cs.QUALITY_FS, norm=False, device=device)
+    walls = []
+    for _ in range(AUDIO_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(clips)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["SRMR steady update ms"] = statistics.median(walls[1:])
+    return out
+
+
 def _kernels(cs, device, smi) -> dict:
     """The sketch, sliced and guard phases, then K2s and K4 split into their device operations."""
     from torchmetrics_tpu_torch.ops import KERNELS
@@ -127,7 +158,7 @@ def _kernels(cs, device, smi) -> dict:
     }
 
 
-PHASES = {"kernels": _kernels, "image": _image}
+PHASES = {"kernels": _kernels, "image": _image, "audio": _audio}
 
 
 def _one(root: str, phases: list) -> dict:

@@ -171,6 +171,21 @@ def test_cpu_tensors_take_the_plain_route_and_count_no_launch():
     assert torch.equal(out, plain) and biquad_cascade.launches == before
 
 
+def test_constants_match_the_kernel_source():
+    """``ops/biquad.py``'s tile and ring (the card tests' lengths around a turn of the rings) are the kernel's."""
+    import re
+    from pathlib import Path
+
+    from torchmetrics_tpu_torch.ops import biquad
+
+    src = (Path(biquad.__file__).resolve().parent.parent / "csrc" / "biquad.cu").read_text()
+    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == biquad.TILE
+    assert int(re.search(r"constexpr int kRing = (\d+);", src).group(1)) == biquad.RING
+    assert biquad.RING & (biquad.RING - 1) == 0  # the kernel takes a slot as k & (kRing - 1)
+    stages = tuple(int(v) for v in re.findall(r"case (\d+): return static_cast<int>\(launch<", src))
+    assert stages == biquad._STAGES  # the wrapper's stage counts are the kernel's instantiations
+
+
 @pytest.mark.parametrize("case", ["1d_input", "float64_input", "two_stages", "five_stages", "den_shape"])
 def test_bad_arguments_raise(case):
     x = torch.zeros(2, 16)

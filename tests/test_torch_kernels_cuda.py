@@ -30,7 +30,9 @@ table), K2s and K1s (the segmented stat counts and binned curve state) equal
 their plain versions bitwise (also at the StateGuard's one-cell shape), and
 a sliced plan captured on the card equals the same plan on the CPU; so does
 the guarded flagship suite captured in a fused plan. K5 (SRMR's biquad
-cascade) equals its plain loop bitwise for both banks; SRMR launches it
+cascade) equals its plain loop bitwise for both banks, at lengths around
+a turn of its rings, row counts around its 32-row block, one row alone,
+silence, an impulse decaying through the denormals and a NaN; SRMR launches it
 twice a call, gives the same bits with cuDNN's TF32 on and off and is
 refused by a fused plan's capture, naming the member; the clustering and
 audio classes on the card compute what they compute on the CPU. K6 (COCO's
@@ -69,6 +71,7 @@ from torchmetrics_tpu_torch.functional.classification.average_precision import (
 )
 import torchmetrics_tpu_torch as T
 from torchmetrics_tpu_torch.ops import binned_curve_state, binned_curve_state_plain, stat_counts, stat_counts_plain
+from torchmetrics_tpu_torch.ops.biquad import RING as BIQUAD_RING, TILE as BIQUAD_TILE
 from torchmetrics_tpu_torch.parallel import DeviceFeed
 from torchmetrics_tpu_torch.utilities.compute import _linspace_like_jax
 
@@ -1228,32 +1231,95 @@ def test_sliced_plan_on_the_card_equals_cpu(card):
     assert torch.equal(rings[0].query(last=2).cpu(), rings[1].query(last=2))
 
 
-@pytest.mark.parametrize("length", [1, 31, 32, 2017])
-@pytest.mark.parametrize("bank", ["gammatone", "modulation"])
-def test_biquad_matches_plain(card, bank, length):
-    """K5 against its plain loop on the same CUDA inputs, bitwise: the
-    gammatone's 4 stages over 23 coefficient sets and the modulation bank's
-    one stage over 8, ragged tails and rows that fill no whole warp; a
-    launch per call, none for the plain loop."""
+def _k5_bank(bank):
+    """``(num, den)`` of one of SRMR's two banks at 16 kHz: the gammatone's 4 stages over 23 coefficient
+    sets, or the modulation bank's one stage over 8."""
     from torchmetrics_tpu_torch.functional.audio import srmr as ts
-    from torchmetrics_tpu_torch.ops import biquad_cascade, biquad_cascade_plain
 
-    gen = torch.Generator(device=card)
-    gen.manual_seed(71)
     if bank == "gammatone":
         num, den, _ = ts._gammatone_banks(ts._make_erb_filters(16000, 23, 125))
-        x = torch.randn((3, length), generator=gen, device=card)
-    else:
-        _, mf_b, mf_a, _, _ = ts._modulation_filterbank_and_cutoffs(4, 128, 8, 16000.0, 2)
-        num, den = torch.tensor(mf_b, dtype=torch.float32)[:, None], torch.tensor(mf_a, dtype=torch.float32)[:, None]
-        x = torch.rand((37, length), generator=gen, device=card)
+        return num, den
+    _, mf_b, mf_a, _, _ = ts._modulation_filterbank_and_cutoffs(4, 128, 8, 16000.0, 2)
+    return torch.tensor(mf_b, dtype=torch.float32)[:, None], torch.tensor(mf_a, dtype=torch.float32)[:, None]
+
+
+def _k5_bitwise(x, num, den):
+    """K5 on ``x`` against its plain loop on the same CUDA inputs: the same bits (NaNs included) and one
+    launch, none for the plain loop."""
+    from torchmetrics_tpu_torch.ops import biquad_cascade, biquad_cascade_plain
+
     before = biquad_cascade.launches
     got = biquad_cascade(x, num, den)
     assert biquad_cascade.launches == before + 1
     want = biquad_cascade_plain(x, num, den)
     torch.cuda.synchronize()
     assert biquad_cascade.launches == before + 1
-    assert got.shape == want.shape and torch.equal(got, want)
+    assert got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+# a whole turn of the kernel's rings in samples (ops/biquad.py mirrors csrc/biquad.cu): lengths just short
+# of, at and past it, where a barrier's phase or a slot index would slip
+_K5_TURN = BIQUAD_RING * BIQUAD_TILE
+
+
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 2017, _K5_TURN - 1, _K5_TURN, _K5_TURN + 1, 16000])
+@pytest.mark.parametrize("bank", ["gammatone", "modulation"])
+def test_biquad_matches_plain(card, bank, length):
+    """K5 against its plain loop on the same CUDA inputs, bitwise: the
+    gammatone's 4 stages over 23 coefficient sets (3 input rows: 69 rows,
+    the last block 5 rows) and the modulation bank's one stage over 8 (37
+    input rows: 296 rows, the last block 8), ragged tails, lengths around a
+    turn of the kernel's rings; a launch per call, none for the plain loop."""
+    num, den = _k5_bank(bank)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(71)
+    if bank == "gammatone":
+        x = torch.randn((3, length), generator=gen, device=card)
+    else:
+        x = torch.rand((37, length), generator=gen, device=card)
+    _k5_bitwise(x, num, den)
+
+
+@pytest.mark.parametrize("bank,inputs", [("gammatone", 1), ("gammatone", 2), ("modulation", 4), ("modulation", 5), ("single", 1)])
+def test_biquad_partial_blocks_and_a_single_row(card, bank, inputs):
+    """Row counts around the kernel's 32-row block: 23 and 46 gammatone rows
+    (one partial block; a whole one and a partial one), 32 and 40 modulation
+    rows (exactly one block; a whole one and 8 rows), and one row alone
+    (group 1, one stage: a block of 31 idle lanes); bitwise, one launch."""
+    num, den = _k5_bank("modulation" if bank == "single" else bank)
+    if bank == "single":
+        num, den = num[:1], den[:1]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(73)
+    x = torch.randn((inputs, _K5_TURN + 1), generator=gen, device=card)
+    assert _k5_bitwise(x, num, den).shape[0] == inputs * num.shape[0]
+
+
+@pytest.mark.parametrize("case", ["zeros", "impulse", "nan"])
+@pytest.mark.parametrize("bank", ["gammatone", "modulation"])
+def test_biquad_silence_impulse_and_nan(card, bank, case):
+    """Inputs that reach the corners of float32, at T = 16,000: all zeros;
+    an impulse then 15,999 silent samples, whose tails decay through the
+    denormals (the kernel is built without flush-to-zero, as the plain loop
+    runs); a NaN sample mid-row, which poisons the same outputs, bit for
+    bit, as in the plain loop. Bitwise, one launch."""
+    num, den = _k5_bank(bank)
+    x = torch.zeros((3, 16000), device=card)
+    if case == "impulse":
+        x[:, 0] = 1.0
+    elif case == "nan":
+        gen = torch.Generator(device=card)
+        gen.manual_seed(74)
+        x = torch.randn((3, 16000), generator=gen, device=card)
+        x[1, 7000] = float("nan")
+    got = _k5_bitwise(x, num, den)
+    if case == "impulse":
+        mag = got.abs()
+        assert bool(((mag > 0) & (mag < torch.finfo(torch.float32).tiny)).any())  # the tails passed through denormals
+    if case == "nan":
+        group = num.shape[0]
+        assert bool(got[group : 2 * group, 7000:].isnan().all()) and not bool(got[:, :7000].isnan().any())
 
 
 def test_srmr_on_the_card_two_launches_tf32_invariant_and_refused_by_a_capture(card):

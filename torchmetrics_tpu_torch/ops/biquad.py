@@ -7,7 +7,10 @@ Counterpart of the ``lax.scan`` of ``_biquad`` in
 ``torchmetrics_tpu/functional/audio/srmr.py`` (a transposed direct-form-II
 biquad), which SRMR runs twice a call: the 4-stage gammatone cascade and
 the 8-band modulation bank. The kernel is ``csrc/biquad.cu``; its source
-note gives the step, the bound and the design. On CPU tensors
+note gives the step, the bound (the 16-cycle chain of a stage's step) and
+the design: a block of 32 rows with a warp for each stage, a loader warp
+and a storer warp, tiles of :data:`TILE` samples handed from one to the
+next through rings of :data:`RING` tiles in shared memory. On CPU tensors
 :func:`biquad_cascade` computes :func:`biquad_cascade_plain`; on CUDA
 tensors it launches the kernel or raises.
 
@@ -36,6 +39,8 @@ _ARGTYPES = [
     ctypes.c_void_p,  # stream
 ]
 _STAGES = (1, 4)  # the kernel's instantiations: the modulation bank and the gammatone cascade
+TILE = 64  # csrc/biquad.cu kTile: time samples a tile
+RING = 4  # csrc/biquad.cu kRing: tiles a ring holds
 
 
 def normalized_coefficients(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
