@@ -18,22 +18,21 @@ timed only. Then a probe kernel runs one stage's step on registers alone
 reports its cycles a step by ``clock64``: the chain as the card runs it.
 ``--sass`` writes the SASS of the base library to
 ``smoke_checkout/k5_variants/base.sass``; ``--only`` runs the named
-variants alone. Needs one NVIDIA GPU; exits 2 without one.
+variants alone (``--only none``: the probe alone). The build, the edits and
+the turns are ``chip_variants.py``'s. Needs one NVIDIA GPU; exits 2 without
+one.
 """
 from __future__ import annotations
 
 import ctypes
-import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+import chip_variants
+
 ROOT = Path(__file__).resolve().parent
-SOURCE = ROOT / "torchmetrics_tpu_torch" / "csrc" / "biquad.cu"
-OUT = ROOT / "smoke_checkout" / "k5_variants"
 REPS = 10
 HANG_S = 30.0  # a variant's first call at the main shape takes a few ms; one that runs this long is deadlocked
 
@@ -91,34 +90,6 @@ extern "C" int chain_probe_launch(const float* c, float* out, long long* cycles,
 """
 
 
-def _nvcc_flags():
-    sys.path.insert(0, str(ROOT))
-    from torchmetrics_tpu_torch.ops import _build
-
-    return _build._nvcc(), _build._NVCC_FLAGS
-
-
-def _build_source(name: str, text: str) -> tuple:
-    nvcc, flags = _nvcc_flags()
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-    src.write_text(text)
-    proc = subprocess.run([nvcc, *flags, "-o", str(lib), str(src)], capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}\n{proc.stderr}")
-    regs = sorted({int(line.split("Used")[1].split()[0]) for line in (proc.stdout + proc.stderr).splitlines() if "registers" in line})
-    return ctypes.CDLL(str(lib)), lib, regs
-
-
-def _variant_text(base: str, edits) -> str:
-    text = base
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"variant edit does not apply: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def _caller(lib):
     import torch
 
@@ -169,10 +140,10 @@ def _events_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-def _probe(clock_hz) -> dict:
+def _probe(build, clock_hz) -> dict:
     import torch
 
-    lib, _, regs = _build_source("chain_probe", PROBE)
+    lib, _, regs, _ = build("chain_probe", PROBE)
     fn = lib.chain_probe_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -183,63 +154,27 @@ def _probe(clock_hz) -> dict:
     run = lambda: fn(c.data_ptr(), out.data_ptr(), cycles.data_ptr(), steps, torch.cuda.current_stream().cuda_stream)  # noqa: E731
     ms = _events_ms(run)
     per_step = int(cycles.item()) / steps
-    return {"cycles_per_step": per_step, "ms_at_160000": ms, "ms_at_clock": per_step * steps / clock_hz * 1e3, "registers": regs}
+    return {"cycles_per_step": per_step, "ms_at_160000": ms, "ms_at_clock": per_step * steps / clock_hz * 1e3, "registers": regs,
+            "text": f"chain probe: {per_step:.3f} cycles a step (clock64), {ms:.5f} ms for 160,000 steps (CUDA events;"
+                    f" {per_step * steps / clock_hz * 1e3:.5f} at {clock_hz / 1e6:.0f} MHz)"}
 
 
-def main() -> int:
+def _same(got, want) -> bool:
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_k5_variants: torch.cuda.is_available() is false; the variants need an NVIDIA GPU", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    clock_hz = float(smi.split(",")[-1].split()[0]) * 1e6
-    print(f"[k5 variants] {smi}", flush=True)
-    base_text = SOURCE.read_text()
-    base_lib, base_path, base_regs = _build_source("base", base_text)
-    if "--sass" in sys.argv[1:]:
-        dump = subprocess.run([str(Path(_nvcc_flags()[0]).parent / "cuobjdump"), "-sass", str(base_path)],
-                              capture_output=True, text=True, timeout=120)
-        (OUT / "base.sass").write_text(dump.stdout + dump.stderr)
-    base = _caller(base_lib)
-    banks = cs._k5_banks(cs._quality_clips(torch.device("cuda:0"))[0])
-    want = {bank: base(*args) for bank, _, args in banks}
-    _bounded_sync("the source as it is")
-    results = {"card": smi, "base_registers": base_regs}
-    args = sys.argv[1:]
-    only = args[args.index("--only") + 1].split(",") if "--only" in args[:-1] else list(VARIANTS)
-    for name in only:
-        spec = VARIANTS[name]
-        lib, _, regs = _build_source(name, _variant_text(base_text, spec["edits"]))
-        var = _caller(lib)
-        row = {"registers": regs}
-        try:
-            for bank, _, args in banks:
-                got = var(*args)
-                _bounded_sync(f"variant {name}, {bank} bank")
-                if spec["exact"] and not torch.equal(got.view(torch.int32), want[bank].view(torch.int32)):
-                    raise RuntimeError(f"variant {name} changed the bits of the {bank} bank")
-                del got
-                times = [_events_ms(lambda f=f: f(*args)) for f in (base, var, var, base)]
-                row[bank] = {"base_ms": statistics.mean(times[0::3]), "variant_ms": statistics.mean(times[1:3]), "turns": times}
-        except RuntimeError as err:  # a variant that does not launch, or changes the bits, is reported, not timed
-            results[name] = {"registers": regs, "error": str(err)}
-            print(f"[k5 variants] {name}: {err}", flush=True)
-            continue
-        results[name] = row
-        print(f"[k5 variants] {name} (registers {regs}): " + "; ".join(
-            f"{bank} {row[bank]['variant_ms']:.5f} ms against the base's {row[bank]['base_ms']:.5f}" for bank, _, _ in banks), flush=True)
-    results["probe"] = _probe(clock_hz)
-    p = results["probe"]
-    print(f"[k5 variants] chain probe: {p['cycles_per_step']:.3f} cycles a step (clock64), {p['ms_at_160000']:.5f} ms for"
-          f" 160,000 steps (CUDA events; {p['ms_at_clock']:.5f} at {clock_hz / 1e6:.0f} MHz)", flush=True)
-    print("[k5 variants] " + json.dumps(results), flush=True)
-    return 0
+
+def _inputs(cs, device):
+    """SRMR's two banks at the audio phase's shape: {bank: (x, num, den)}."""
+    return {bank: args for bank, _, args in cs._k5_banks(cs._quality_clips(device)[0])}
+
+
+SPEC = chip_variants.Spec(
+    tag="k5", source=ROOT / "torchmetrics_tpu_torch" / "csrc" / "biquad.cu", variants=VARIANTS, caller=_caller,
+    inputs=_inputs, timer=lambda cs, fn, args: _events_ms(lambda: fn(*args)),
+    same=_same, sync=_bounded_sync, probe=_probe)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(chip_variants.main(SPEC))

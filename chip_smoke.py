@@ -17,7 +17,8 @@ result) if it fails:
    computing the same function, and one ``torch.sum`` reading its main
    input (what a plain read of those bytes takes on the card); K5 is timed
    here on the audio phase's inputs and checked there (phase 22), K7 on the
-   image phase's first two batches and checked there (phase 24);
+   image phase's first two batches and checked there (phase 24), K6 on the
+   bbox compute's own arguments and checked there (phase 23);
 4. entry: the one-batch suite step of ``torchmetrics_tpu_torch._entry.entry``
    (C=8, T=32, N=256) on the card, as a user calls it (``fn(*args)``): each
    kernel must launch once and the values must agree with the same step on
@@ -344,11 +345,17 @@ result) if it fails:
    counted from 0: one launch); the compute again with its stages timed
    (host packing, IoU, K6, the ignore masks, accumulation, summary), the
    tables equal; K6 on the compute's own inputs bitwise against its plain
-   loop and timed (device ms from the profiler, or CUDA events where it sees
-   no device time; stream ms, bound, chain floor, registers),
-   and on an adversarial batch (ties, NaNs, crowds, all-ignored and empty
-   images, D and G not multiples of 32, thresholds 1.0, 0, -1 and NaN, a
-   matched set past a register, rows past the shared-memory stage); the
+   loop, the same inputs as phase 3 timed it on (device ms from the
+   profiler, or CUDA events where it sees no device time; stream ms; the
+   bound of the walk over candidates, its least bytes and operations,
+   beside the dense bound; the chain floor, the longest image's walk at
+   the cycles a step of chip_k6_variants.py's register-only chain probe;
+   K6 on the densest image alone; registers), and on adversarial batches (ties, NaNs, crowds, all-ignored
+   and empty images, D and G not multiples of 32, thresholds 1.0, +-0, -1,
+   -2 and NaN, G around a word and the 128 ground truths held in
+   registers, a matched set past them, a block's masks past shared memory,
+   candidate IoUs of -1, -2 and +-0, rows covered by candidates; each of
+   the five instantiations reached); the
    card's result against the port's CPU route on the same inputs, the
    first 1,000 images (tables and classes bitwise, summaries within
    DET_SUMMARY_ATOL; the whole stream's CPU compute took 34 s); the four
@@ -7076,9 +7083,7 @@ def time_biquad_cascade(device):
 
     from torchmetrics_tpu_torch.ops import biquad_cascade
 
-    smi_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
-                               capture_output=True, text=True, timeout=60).stdout.strip()
-    clock_hz = float(smi_clock) * 1e6 if smi_clock.replace(".", "", 1).isdigit() else 1.98e9
+    clock_hz = _sm_clock_hz()
     regs = [int(w) for line in BUILD_LOGS.get("biquad", "").splitlines() if "registers" in line for w in line.split("Used")[1].split()[:1]]
     spills = sum(1 for line in BUILD_LOGS.get("biquad", "").splitlines()
                  if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
@@ -7323,8 +7328,13 @@ PQ_IMAGES, PQ_THINGS, PQ_STUFFS, PQ_BATCH, PQ_CPU_IMAGES = 64, 80, 53, 8, 2  # c
 # the CPU route's compute and the IoU classes' per-image updates over the first 1,000 images: the full
 # stream took 34 s and 16.6 s of the phase on the card's host
 DET_CPU_IMAGES = DET_IOU_IMAGES = 1000
-K6_ROUND_CYCLES = 30  # a shuffle round and its compare and select (an assumption, not measured)
-K6_OPS_PER_CELL = 4  # per (image, area, threshold, detection, ground truth): two selects, two compares
+K6_OPS_PER_CELL = 4  # the dense bound's count a (image, area, threshold, detection, ground truth) cell: two selects, two compares
+# the walk's count, for each (image, area range, threshold): a candidate's compare in each of the two stages, and
+# each detection's two compares with the bar
+K6_OPS_PER_CANDIDATE = K6_OPS_PER_STEP = 2
+# one thread's step on registers alone, in cycles, at 0, 1, 2, 3 and 4 candidates a step (chip_k6_variants.py's
+# chain probe on an NVIDIA H100 80GB HBM3 at 700 W); past 4 candidates a step, the last difference a candidate
+K6_STEP_CYCLES = (63.657, 308.188, 407.657, 505.407, 603.657)
 
 
 def _require_same_bits(got, want, what):
@@ -7499,102 +7509,244 @@ def _require_map_equal(got, want, what):
     return worst
 
 
-def _k6_adversarial(device):
-    """K6 bitwise against its plain loop on a card batch built to break it:
-    IoUs on a 0.05 grid (ties), NaN IoUs, 10% crowds, an all-ignored image,
-    images without detections or ground truths, D and G not multiples of 32,
-    thresholds at 1.0, 0, -1 and NaN; then past the register matched set
-    (G = 1,100) and past the shared-memory stage (D x G x 4 > 48 KB)."""
+K6_EDGE_THRS = (1.0, 0.0, -0.0, -1.0, float("nan"), 0.5, -2.0, -1.5)
+
+
+def _k6_inputs(gen, device, n, d, g, a, kind):
+    """K6's arguments but the thresholds, made on ``device`` from ``gen``: ``grid`` IoUs on a 0.05 grid
+    (ties) with 2% NaNs and every 5th detection at 1.0, three classes, 10% invalid, 10% crowds (image 0
+    all crowds: all ignored), image 1 without detections, image 2 without ground truths; ``special``
+    the same flags, one class, IoUs from -1.0, -2.0, -0.0, +0.0, NaN, 1.0 and 0.5; ``cover`` every ground
+    truth valid, of the one class, unignored, IoUs from -1.0, -2.0, -1.5 and -0.0 (stage 1's
+    candidates cover the row: no -1.0 column outside them)."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
+    def draw(values):
+        values = torch.tensor(values, device=device)
+        return values[torch.randint(0, len(values), (n, d, g), generator=gen, device=device)]
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 61)
-    cases = 0
-    for n, d, g, a, thrs in ((16, 37, 45, 4, torch.linspace(0.5, 0.95, 10)),
-                             (16, 37, 45, 4, torch.tensor([1.0, 0.0, -1.0, float("nan"), 0.75])),
-                             (4, 9, 1100, 2, torch.linspace(0.5, 0.95, 10)),
-                             (4, 200, 70, 4, torch.linspace(0.3, 0.9, 23))):
+    if kind == "cover":
+        return (draw([-1.0, -2.0, -1.5, -0.0]), torch.zeros((n, d), dtype=torch.int32, device=device),
+                torch.ones((n, d), dtype=torch.bool, device=device), torch.zeros((n, g), dtype=torch.int32, device=device),
+                torch.ones((n, g), dtype=torch.bool, device=device), torch.zeros((n, g), dtype=torch.bool, device=device),
+                torch.zeros((n, a, g), dtype=torch.bool, device=device))
+    if kind == "special":
+        iou = draw([-1.0, -2.0, -0.0, 0.0, float("nan"), 1.0, 0.5])
+    else:
         iou = torch.round(torch.rand((n, d, g), generator=gen, device=device) * 20) / 20
         iou[torch.rand((n, d, g), generator=gen, device=device) < 0.02] = float("nan")
         iou[:, ::5] = 1.0
-        det_labels = torch.randint(0, 3, (n, d), generator=gen, device=device, dtype=torch.int32)
-        gt_labels = torch.randint(0, 3, (n, g), generator=gen, device=device, dtype=torch.int32)
-        det_valid = torch.rand((n, d), generator=gen, device=device) < 0.9
-        gt_valid = torch.rand((n, g), generator=gen, device=device) < 0.9
-        gt_crowd = torch.rand((n, g), generator=gen, device=device) < 0.1
-        gt_crowd[0] = True
-        gt_ig = (torch.rand((n, a, g), generator=gen, device=device) < 0.2) | gt_crowd[:, None, :]
-        det_valid[1] = False
-        gt_valid[2] = False
-        args = (iou, det_labels, det_valid, gt_labels, gt_valid, gt_crowd, gt_ig, thrs.to(device))
-        got, want = coco_match(*args), coco_match_plain(*args)
-        for x, y, name in zip(got, want, ("det_matched", "det_ignored")):
-            _require_same_bits(x, y, f"K6 adversarial ({n}, {d}, {g}, {a}, T={thrs.numel()}) {name}")
-        cases += 1
-    return cases
+    classes = 1 if kind == "special" else 3
+    det_labels = torch.randint(0, classes, (n, d), generator=gen, device=device, dtype=torch.int32)
+    gt_labels = torch.randint(0, classes, (n, g), generator=gen, device=device, dtype=torch.int32)
+    det_valid = torch.rand((n, d), generator=gen, device=device) < 0.9
+    gt_valid = torch.rand((n, g), generator=gen, device=device) < 0.9
+    gt_crowd = torch.rand((n, g), generator=gen, device=device) < 0.1
+    gt_crowd[0] = True
+    gt_ig = (torch.rand((n, a, g), generator=gen, device=device) < 0.2) | gt_crowd[:, None, :]
+    det_valid[1] = False
+    gt_valid[2] = False
+    return iou, det_labels, det_valid, gt_labels, gt_valid, gt_crowd, gt_ig
 
 
-def _k6_row(args, main_launches):
-    """K6 on the main path's own inputs: bitwise against its plain loop,
-    device ms (profiler), stream ms (events), the plain loop's ms, the bound
-    and the chain floor, registers and spills."""
+def _k6_adversarial(device):
+    """K6 bitwise against its plain loop on card batches built to break it
+    (``_k6_inputs``): ties, NaN IoUs, crowds, all-ignored and empty images,
+    D and G not multiples of 32, thresholds at 1.0, +-0, -1, -2, -1.5 and
+    NaN; G at 32, 63, 64, 65 and around the 128 ground truths the matched
+    set holds in registers; past them (G = 1,100: the scratch
+    instantiation); D x G x 4 past 48 KB (the old kernel's stage); a block's
+    masks past 48 KB of shared memory (200 detections, one area range: the
+    scratch instantiation); candidate IoUs of -1.0, -2.0 and +-0 with
+    several NaNs a row; rows whose candidates cover every ground truth (no
+    filler). Returns the number of cases and the instantiations reached."""
     import torch
 
     from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
+    from torchmetrics_tpu_torch.ops.coco_match import coco_match_instantiation
 
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    coco, edges = torch.linspace(0.5, 0.95, 10), torch.tensor(K6_EDGE_THRS)
+    cases = [(16, 37, 45, 4, coco, "grid"), (16, 37, 45, 4, edges, "grid"), (4, 9, 1100, 2, coco, "grid"),
+             (4, 200, 70, 4, torch.linspace(0.3, 0.9, 23), "grid"), (6, 200, 100, 1, edges, "grid"),
+             (8, 50, 45, 4, edges, "special"), (4, 30, 129, 2, edges, "special"), (4, 20, 37, 2, edges, "cover"),
+             (4, 20, 128, 2, edges, "cover")]
+    cases += [(8, 40, g, 4, coco, "grid") for g in (32, 63, 64, 65, 127, 128, 129)]
+    reached = set()
+    for n, d, g, a, thrs, kind in cases:
+        args = (*_k6_inputs(gen, device, n, d, g, a, kind), thrs.to(device))
+        got, want = coco_match(*args), coco_match_plain(*args)
+        for x, y, name in zip(got, want, ("det_matched", "det_ignored")):
+            _require_same_bits(x, y, f"K6 adversarial {kind} ({n}, {d}, {g}, {a}, T={thrs.numel()}) {name}")
+        reached.add(coco_match_instantiation(n, d, g, a, thrs.numel()))
+    _require(reached == {0, 1, 2, 3, 4}, f"K6 adversarial: instantiations reached {sorted(reached)}, not 0-4")
+    return len(cases), sorted(reached)
+
+
+def _k6_least_bytes(args):
+    """The bytes the matcher must move on these inputs: the labels and flags,
+    the thresholds, the 32-byte sectors of the IoU that hold a candidate (a
+    valid ground truth of the detection's label, on a valid detection), and
+    the two outputs."""
+    iou, det_labels, det_valid, gt_labels, gt_valid, gt_crowd, gt_ig, thrs = args
+    n, d, g = iou.shape
+    a, t = gt_ig.shape[1], thrs.numel()
+    cand = det_valid[:, :, None] & gt_valid[:, None, :] & (det_labels[:, :, None] == gt_labels[:, None, :])
+    sectors = (cand.reshape(-1).nonzero()[:, 0] // 8).unique().numel()
+    flags = sum(x.numel() * x.element_size() for x in (det_labels, det_valid, gt_labels, gt_valid, gt_crowd, gt_ig, thrs))
+    return flags + sectors * 32 + 2 * n * a * t * d, int(cand.sum()), sectors
+
+
+def _sm_clock_hz():
+    """The card's top SM clock from nvidia-smi, in Hz (1.98 GHz, the H100 SXM's, if it does not answer)."""
+    smi_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                               capture_output=True, text=True, timeout=60).stdout.strip()
+    return float(smi_clock) * 1e6 if smi_clock.replace(".", "", 1).isdigit() else 1.98e9
+
+
+def _det_fed(tm, device):
+    """``MeanAveragePrecision`` fed the COCO val2017-shaped stream in batches
+    of DET_BATCH: the metric, the stream, its counts and the ms an update."""
+    import torch
+
+    preds, target, counts = _det_stream(device)
+    metric = tm.MeanAveragePrecision(device=device, class_metrics=True, extended_summary=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(preds), DET_BATCH):
+        metric.update(preds[i:i + DET_BATCH], target[i:i + DET_BATCH])
+    torch.cuda.synchronize()
+    return metric, preds, target, counts, (time.perf_counter() - t0) * 1e3 / math.ceil(len(preds) / DET_BATCH)
+
+
+def k6_bbox_inputs(device):
+    """The bbox compute at COCO val2017's shape and K6's arguments from it:
+    the fed metric (computed once) and the (5,000, 104, 64) IoU with its
+    labels, flags, ignore masks and thresholds, as the compute passes them."""
+    import torchmetrics_tpu_torch as tm
+
+    metric = _det_fed(tm, device)[0]
+    keep = {}
+    _timed_map_compute(metric, keep)
+    return metric, tuple(x.contiguous() for x in keep["args"])
+
+
+def _k6_walk_cycles(args):
+    """The chain floor of K6's launch on these inputs, in cycles: each image's
+    walk of D steps, a step's cycles those of the chain probe
+    (K6_STEP_CYCLES) at its candidates (valid ground truths of the
+    detection's label), the longest image's. Every thread of an image walks
+    the same steps; under a bar above -1 (COCO's thresholds) a step without
+    candidates is skipped. Returns the cycles, the image and its candidate
+    pairs."""
+    import torch
+
+    cand = args[2][:, :, None] & args[4][:, None, :] & (args[1][:, :, None] == args[3][:, None, :])
+    counts = cand.sum(2)
+    top = len(K6_STEP_CYCLES) - 1
+    table = torch.tensor(K6_STEP_CYCLES, dtype=torch.float64, device=counts.device)
+    slope = K6_STEP_CYCLES[top] - K6_STEP_CYCLES[top - 1]
+    walk = (table[counts.clamp(max=top)] + (counts - top).clamp(min=0).double() * slope).sum(1)
+    image = int(walk.argmax())
+    return float(walk[image]), image, int(counts[image].sum())
+
+
+def time_coco_match(device):
+    """K6's row, timed in phase 3 (torch.profiler was seen to go blind late in
+    a long run, and CUDA events around K6's 0.1 ms launch then time the
+    host's launch cost) on the bbox compute's own arguments at COCO
+    val2017's shape (``k6_bbox_inputs``): device ms (profiler), stream ms;
+    the bound of the walk over candidates: the least bytes (labels, flags,
+    thresholds, the candidates' IoU sectors, the outputs) and its operations
+    (K6_OPS_PER_CANDIDATE, K6_OPS_PER_STEP), beside the dense bound (the
+    dense step's K6_OPS_PER_CELL a (detection, ground truth) cell of every
+    image, area range and threshold, every input byte); the chain floor
+    (``_k6_walk_cycles`` at the card's top clock); K6 on the image with the
+    most candidate pairs alone (a launch's time on that image, not a floor);
+    the read floor, registers. The detection phase adds the launches, the
+    check and the plain loop's time on the same inputs."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import coco_match
+
+    metric, args = k6_bbox_inputs(device)
+    del metric
     iou = args[0]
     n, d, g = iou.shape
     a, t = args[6].shape[1], args[7].numel()
+    stream_ms = _events_ms(lambda: coco_match(*args), DET_REPS)
+    dev_ms, found, source = _device_ms_or_events(coco_match, args, stream_ms)
+    floor_ms, _, floor_source = _device_ms_or_events(_read_floor, (iou,), _events_ms(lambda: _read_floor(iou), DET_REPS))
+    dense_bytes = sum(x.numel() * x.element_size() for x in args) + 2 * n * a * t * d
+    dense_ms, dense_by = _bound(dense_bytes, K6_OPS_PER_CELL * n * a * t * d * g)
+    least_bytes, candidates, sectors = _k6_least_bytes(args)
+    walk_ops = a * t * (K6_OPS_PER_CANDIDATE * candidates + K6_OPS_PER_STEP * n * d)
+    bound_ms, bound_by = _bound(least_bytes, walk_ops)
+    clock_hz = _sm_clock_hz()
+    chain_cycles, chain_image, chain_pairs = _k6_walk_cycles(args)
+    pair_ok = args[2][:, :, None] & args[4][:, None, :] & (args[1][:, :, None] == args[3][:, None, :])
+    densest = int(pair_ok.sum((1, 2)).argmax())
+    one = tuple(x[densest : densest + 1] for x in args[:7]) + (args[7],)
+    # the profiler's device time only: CUDA events around a lone small launch time the host's launch cost
+    try:
+        densest_ms, _ = _device_ms(coco_match, [one], DET_REPS)
+        densest_source = f"profiler, image {densest} alone ({int(pair_ok[densest].sum())} candidate pairs)"
+    except SmokeFailure:
+        densest_ms, densest_source = None, "not measured: torch.profiler saw no device time"
+    log = BUILD_LOGS.get("coco_match", "")
+    regs = [int(w) for line in log.splitlines() if "registers" in line for w in line.split("Used")[1].split()[:1]]
+    spills = sum(1 for line in log.splitlines() if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
+    del args, iou, one, pair_ok
+    torch.cuda.empty_cache()
+    return {
+        "name": f"coco_match ({n} images x {d} detections x {g} ground truths, A={a}, T={t})",
+        "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/coco_match.cu",
+        "replaces": "torchmetrics_tpu/functional/detection/map.py:92", "launches": None, "max_abs_err": None,
+        "ms": dev_ms, "ms_source": source, "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "stream_ms": {"kernel": stream_ms},
+        "kernel_only_us": _kernel_only_us(found, "coco_match"), "bytes": least_bytes, "walk_ops": walk_ops,
+        "candidates": candidates, "candidate_sectors": sectors, "dense_bound_ms": dense_ms, "dense_bound_by": dense_by,
+        "dense_bytes": dense_bytes, "read_floor_ms": floor_ms, "read_floor_source": floor_source,
+        "chain_floor_ms": chain_cycles / clock_hz * 1e3, "chain_cycles": chain_cycles, "chain_image": chain_image,
+        "chain_pairs": chain_pairs, "clock_mhz": clock_hz / 1e6, "densest_image_ms": densest_ms,
+        "densest_image_source": densest_source, "registers": f"{min(regs, default=0)}-{max(regs, default=0)}", "spills": spills,
+    }
+
+
+def _k6_row(args, main_launches, row):
+    """K6's row from phase 3 (``time_coco_match``) completed on the main
+    path's own inputs: the same inputs (their candidates and least bytes
+    equal), K6 bitwise against its plain loop, the plain loop's ms, the
+    launches."""
+    from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
+
+    _require(_k6_least_bytes(args) == (row["bytes"], row["candidates"], row["candidate_sectors"]),
+             "detection: K6's arguments differ from those timed in phase 3")
     got = coco_match(*args)
     plain_stream = _events_ms(lambda: coco_match_plain(*args), 1)
     want = coco_match_plain(*args)
     for x, y, name in zip(got, want, ("det_matched", "det_ignored")):
         _require_same_bits(x, y, f"K6 at the main path's shape {name}")
-    del got, want
-    stream_ms = _events_ms(lambda: coco_match(*args), DET_REPS)
-    dev_ms, found, source = _device_ms_or_events(coco_match, args, stream_ms)
-    floor_ms, _, floor_source = _device_ms_or_events(_read_floor, (iou,), _events_ms(lambda: _read_floor(iou), DET_REPS))
-    n_bytes = sum(x.numel() * x.element_size() for x in args) + 2 * n * a * t * d
-    bound_ms, bound_by = _bound(n_bytes, K6_OPS_PER_CELL * n * a * t * d * g)
-    smi_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
-                               capture_output=True, text=True, timeout=60).stdout.strip()
-    clock_hz = float(smi_clock) * 1e6 if smi_clock.replace(".", "", 1).isdigit() else 1.98e9
-    log = BUILD_LOGS.get("coco_match", "")
-    regs = [int(w) for line in log.splitlines() if "registers" in line for w in line.split("Used")[1].split()[:1]]
-    spills = sum(1 for line in log.splitlines() if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
-    return {
-        "name": f"coco_match ({n} images x {d} detections x {g} ground truths, A={a}, T={t})",
-        "route": "cuda", "source": "torchmetrics_tpu_torch/csrc/coco_match.cu",
-        "replaces": "torchmetrics_tpu/functional/detection/map.py:92", "launches": main_launches, "max_abs_err": 0.0,
-        "ms": dev_ms, "ms_source": source, "plain_ms": plain_stream, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "stream_ms": {"kernel": stream_ms, "plain": plain_stream},
-        "kernel_only_us": _kernel_only_us(found, "coco_match"), "bytes": n_bytes, "read_floor_ms": floor_ms,
-        "read_floor_source": floor_source, "chain_floor_ms": d * 5 * K6_ROUND_CYCLES / clock_hz * 1e3,
-        "clock_mhz": clock_hz / 1e6, "registers": f"{min(regs, default=0)}-{max(regs, default=0)}", "spills": spills,
-    }
+    row.update(launches=main_launches, max_abs_err=0.0, plain_ms=plain_stream)
+    row["stream_ms"]["plain"] = plain_stream
+    return row
 
 
-def _det_bbox(tm, device, out):
+def _det_bbox(tm, device, out, k6_row):
     """The bbox cell: the COCO val2017-shaped stream through
     ``MeanAveragePrecision.update`` in batches of DET_BATCH, ``compute`` with
     K6 counted from 0 (the main path), its stages timed in a second compute,
-    K6 held against its plain loop, the card against the CPU route, and the
-    four IoU classes over its first images."""
+    K6 held against its plain loop (``k6_row``, timed in phase 3, completed),
+    the card against the CPU route, and the four IoU classes over its first
+    images."""
     import torch
 
     from torchmetrics_tpu_torch.ops import coco_match
 
-    preds, target, counts = _det_stream(device)
     kw = {"class_metrics": True, "extended_summary": True}
-    metric = tm.MeanAveragePrecision(device=device, **kw)
-    torch.cuda.synchronize()
     coco_match.launches = 0
-    t0 = time.perf_counter()
-    for i in range(0, len(preds), DET_BATCH):
-        metric.update(preds[i:i + DET_BATCH], target[i:i + DET_BATCH])
-    torch.cuda.synchronize()
-    out["update_ms"] = {"MeanAveragePrecision": (time.perf_counter() - t0) * 1e3 / math.ceil(len(preds) / DET_BATCH)}
+    metric, preds, target, counts, update_ms = _det_fed(tm, device)
+    out["update_ms"] = {"MeanAveragePrecision": update_ms}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -7614,7 +7766,7 @@ def _det_bbox(tm, device, out):
     res2, total, split = _timed_map_compute(metric, keep)
     _require_map_equal(res2, res, "detection: a second compute")
     out["timed_compute_s"], out["compute_split_s"] = total, split
-    out["k6_row"] = _k6_row(keep["args"], out["main_launches"])
+    out["k6_row"] = _k6_row(keep["args"], out["main_launches"], k6_row)
     del keep
     torch.cuda.empty_cache()
     # the CPU route on the same inputs: the first DET_CPU_IMAGES images, on the card and on the CPU
@@ -7800,7 +7952,7 @@ def _det_panoptic(tm, device, out):
     del preds, target
 
 
-def phase_detection(device, smi):
+def phase_detection(device, smi, k6_row):
     """Detection (ROADMAP A14) at COCO val2017's shape, K6 on the main path: see the module docstring, phase 23."""
     import torch
 
@@ -7810,7 +7962,7 @@ def phase_detection(device, smi):
     torch.cuda.empty_cache()
     out = {"errors": {}, "values": {}}
     out["adversarial_cases"] = _k6_adversarial(device)
-    _det_bbox(tm, device, out)
+    _det_bbox(tm, device, out, k6_row)
     torch.cuda.empty_cache()
     _det_segm(tm, device, out)
     torch.cuda.empty_cache()
@@ -7821,9 +7973,13 @@ def phase_detection(device, smi):
     print(
         f"[detection] {smi}; bbox at COCO val2017's shape ({out['images']} images, {out['gts']} ground truths,"
         f" {DET_PER_IMAGE} detections an image, {DET_CLASSES} classes): K6 device ms {row['ms']:.5f} ({row['ms_source']};"
-        f" kernel alone {row['kernel_only_us'] or 0:.2f} us), stream ms {row['stream_ms']['kernel']:.5f}, launches per compute"
-        f" {out['main_launches']}, bound {row['bound_ms']:.5f} ({row['bound_by']}, {row['bytes']} B), chain floor"
-        f" {row['chain_floor_ms']:.5f} ({K6_ROUND_CYCLES} cycles a shuffle round assumed, {row['clock_mhz']:.0f} MHz),"
+        f" kernel alone {row['kernel_only_us'] or 0:.2f} us; both in phase 3), stream ms {row['stream_ms']['kernel']:.5f}, launches"
+        f" per compute {out['main_launches']}, bound {row['bound_ms']:.5f} ({row['bound_by']}: the walk's {row['bytes']} B, its"
+        f" {row['candidates']} candidate pairs in {row['candidate_sectors']} IoU sectors, {row['walk_ops']} operations), dense"
+        f" bound {row['dense_bound_ms']:.5f} ({row['dense_bound_by']}, {row['dense_bytes']} B), chain floor"
+        f" {row['chain_floor_ms']:.5f} (image {row['chain_image']}'s walk, {row['chain_pairs']} candidate pairs, at the chain"
+        f" probe's cycles a step {K6_STEP_CYCLES}, {row['clock_mhz']:.0f} MHz), densest image alone {row['densest_image_ms']}"
+        f" ({row['densest_image_source']}),"
         f" registers {row['registers']}, {row['spills']} with spills; plain matcher {row['plain_ms']:.3f} ms; read floor"
         f" {row['read_floor_ms']:.5f}; compute wall {out['compute_s']:.3f} s (timed again {out['timed_compute_s']:.3f}:"
         f" {', '.join(f'{k} {v:.4f}' for k, v in out['compute_split_s'].items())}), the CPU route's {out['cpu_compute_s']:.2f} s"
@@ -7832,7 +7988,8 @@ def phase_detection(device, smi):
         f" {', '.join(f'{k} {v:.2f}' for k, v in out['update_ms'].items())}; segm ({SEGM_IMAGES} x {SEGM_DETS}, 480 x 640)"
         f" update {out['segm_update_ms']:.1f} ms, compute {out['segm_compute_s']:.3f} s, codec = numpy on"
         f" {out['segm_codec_images']} images; PQ ({PQ_IMAGES} at 480 x 640, {PQ_THINGS} + {PQ_STUFFS} categories) update"
-        f" {out['pq_update_ms']:.1f} ms per {PQ_BATCH}; K6 adversarial cases {out['adversarial_cases']} bitwise; values"
+        f" {out['pq_update_ms']:.1f} ms per {PQ_BATCH}; K6 adversarial cases {out['adversarial_cases'][0]} bitwise"
+        f" (instantiations {out['adversarial_cases'][1]}); values"
         f" {', '.join(f'{k} {v if isinstance(v, list) else round(v, 6)}' for k, v in out['values'].items())}; max |err|"
         f" {', '.join(f'{k} {v:.2e}' for k, v in out['errors'].items())}; {out['seconds']:.1f} s"
     )
@@ -8569,6 +8726,7 @@ def main() -> int:
     matrix_row = check_binned_curve_matrix_mode(device, ml_batches)
     k5_rows = time_biquad_cascade(device)
     k7_row = time_window_moments(device)
+    k6_row = time_coco_match(device)
     sketch_kernels = {"cm_track": KERNELS["cm_track"]}
     KERNELS = _classification_kernels()
     entry_diffs = phase_entry(KERNELS)
@@ -8590,7 +8748,7 @@ def main() -> int:
     dist_run = phase_dist(run, exact, fused, smi)
     domains = phase_domains(device, batches, smi)
     audio = phase_audio(device, smi, k5_rows)
-    detection = phase_detection(device, smi)
+    detection = phase_detection(device, smi, k6_row)
     image = phase_image(device, smi, k7_row)
     chaos = phase_chaos(smi)
     for row in rows:

@@ -2,7 +2,7 @@
 # Licensed under the Apache License, Version 2.0.
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 chip_turns.py [--phases kernels,image,audio] OTHER_ROOT . . OTHER_ROOT
+    python3 chip_turns.py [--phases kernels,image,audio,detection] OTHER_ROOT . . OTHER_ROOT
 
 runs, for each root in the order given, that root's own ``chip_smoke.py``
 phases of the hand kernels' main paths, each in a process of its own with
@@ -20,8 +20,13 @@ SCC over the image phase's 4 batches; ``audio``: K5's two banks alone on
 the audio phase's 8 clips of 160,000 samples (the root's
 ``time_biquad_cascade``: the gammatone cascade and the modulation bank,
 device and stream ms), then the steady SRMR update (``norm=False``, the
-median of updates 2-5 of those clips). K5 is compared with its parent as
-``python3 chip_turns.py --phases audio PARENT . . PARENT``. Needs one
+median of updates 2-5 of those clips); ``detection``: K6 alone on the
+bbox compute's own arguments at COCO val2017's shape (the detection
+phase's stream of 5,000 images through ``MeanAveragePrecision``; device
+and stream ms), then that compute's wall time (the median of 3). K5 is
+compared with its parent as ``python3 chip_turns.py --phases audio PARENT
+. . PARENT``, K6 as ``python3 chip_turns.py --phases detection PARENT . .
+PARENT``. Needs one
 NVIDIA GPU; it exits 2 without one. A root is any directory holding ``chip_smoke.py`` and
 ``torchmetrics_tpu_torch`` (an older commit unpacked with ``git archive``).
 """
@@ -158,7 +163,50 @@ def _kernels(cs, device, smi) -> dict:
     }
 
 
-PHASES = {"kernels": _kernels, "image": _image, "audio": _audio}
+DET_COMPUTES = 3
+K6_REPS = 50
+
+
+def _bbox_inputs(cs, device):
+    """The root's fed bbox metric and K6's arguments from its compute (the root's ``k6_bbox_inputs``; a root
+    from before that helper builds them from its stream the same way)."""
+    if hasattr(cs, "k6_bbox_inputs"):
+        return cs.k6_bbox_inputs(device)
+    import torchmetrics_tpu_torch as tm
+
+    preds, target, _ = cs._det_stream(device)
+    metric = tm.MeanAveragePrecision(device=device, class_metrics=True, extended_summary=True)
+    for i in range(0, len(preds), cs.DET_BATCH):
+        metric.update(preds[i:i + cs.DET_BATCH], target[i:i + cs.DET_BATCH])
+    keep = {}
+    cs._timed_map_compute(metric, keep)
+    return metric, keep["args"]
+
+
+def _detection(cs, device, smi) -> dict:
+    """K6 alone on the bbox compute's own arguments (device and stream ms), then the mAP compute's wall
+    time (the median of DET_COMPUTES computes of the same state, after a first one)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import coco_match
+
+    metric, args = _bbox_inputs(cs, device)
+    stream_ms = cs._events_ms(lambda: coco_match(*args), K6_REPS)
+    out = {"K6 device ms": cs._device_ms_or_events(coco_match, args, stream_ms)[0], "K6 stream ms": stream_ms}
+    del args
+    walls = []
+    for _ in range(DET_COMPUTES):
+        metric._computed = None  # compute again, not from the cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.compute()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["mAP compute wall ms"] = statistics.median(walls)
+    return out
+
+
+PHASES = {"kernels": _kernels, "image": _image, "audio": _audio, "detection": _detection}
 
 
 def _one(root: str, phases: list) -> dict:

@@ -12,7 +12,10 @@ again, all-ignored and empty images, NaN IoUs (``jnp.max`` and
 ``jnp.argmax`` take a NaN as the largest value), thresholds at exactly 1.0
 (pycocotools' bar ``min(t, 1 - 1e-10)`` is 1.0 in float32, so an IoU of 1.0
 matches there), 0.0, -1.0 (the -1.0 sentinel of non-candidates then
-matches) and NaN. The card test of the kernel itself is in
+matches) and NaN; candidate IoUs of -1.0, -2.0 and +-0, several NaNs a row,
+rows whose candidates are every ground truth, and G around a word and
+around the kernel's 128 ground truths in registers. The card test of the
+kernel itself is in
 ``tests/test_torch_kernels_cuda.py``.
 """
 from __future__ import annotations
@@ -131,6 +134,41 @@ def test_edge_thresholds(thrs):
     want = _assert_same(case, thrs)
     if thrs[0] == 1.0:
         assert want[0][:, :, 0].any()  # an IoU of exactly 1.0 matches at the threshold 1.0
+
+
+@pytest.mark.parametrize("g", [32, 63, 64, 65, 127, 128, 129])
+def test_ground_truth_counts_around_a_word_and_the_register_cap(g):
+    """G at one word of 32 bits and around it, and around the kernel's 128 ground truths in registers."""
+    want = _assert_same(_case(20 + g, n=2, d=11, g=g, classes=2, quantum=0.1))
+    assert want[0].any()
+
+
+EDGE_THRS = np.float32([-2.0, -1.5, -1.0, -0.0, 0.0, 0.5, 1.0, np.nan])
+
+
+@pytest.mark.parametrize("values", [[-1.0, 0.5], [-2.0, -1.0, 0.3], [-0.0, 0.0], [np.nan, np.nan, 0.7, -1.0]],
+                         ids=["minus-one", "minus-two", "signed-zeros", "nans"])
+def test_special_candidate_values(values):
+    """Candidate IoUs of exactly -1.0 (tied with every non-candidate's -1.0, so the later index wins), below
+    it (a non-candidate then wins), -0.0 against +0.0 (equal: the later index wins) and several NaNs a row
+    (the last NaN wins, and fails every threshold)."""
+    case = _case(30, n=3, d=12, g=10, classes=1, crowd=0.1, valid=0.9)
+    rng = np.random.default_rng(31)
+    case["iou"] = np.asarray(values, np.float32)[rng.integers(0, len(values), case["iou"].shape)]
+    want = _assert_same(case, EDGE_THRS)
+    assert want[0].any() and not want[0].all()
+
+
+def test_candidates_cover_the_row():
+    """Every ground truth valid, of the detections' one class and unignored (area range "all", no crowd),
+    IoUs at or below -1.0: at the first step stage 1's candidates are the whole row, so no -1.0 column
+    outside them takes part, and a threshold of -2.0 matches the last of the largest IoUs."""
+    case = _case(32, n=3, d=9, g=40, classes=1, crowd=0.0, valid=1.0)
+    rng = np.random.default_rng(33)
+    case["iou"] = np.float32([-1.0, -2.0, -1.5])[rng.integers(0, 3, case["iou"].shape)]
+    want = _assert_same(case, EDGE_THRS)
+    first = case["iou"][:, 0]
+    assert want[0][:, 0, 0, 0].all() and want[0][:, 0, 2, 0].all() == bool((first == -1.0).any(-1).all())
 
 
 def test_match_bar_is_jax_float32_minimum():

@@ -88,7 +88,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_turns.py", ROOT / "chip_k5_variants.py"],
+    sorted(PORT.rglob("*.py"))
+    + [ROOT / name for name in ("chip_smoke.py", "chip_turns.py", "chip_variants.py", "chip_k5_variants.py", "chip_k6_variants.py")],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_no_jax(path):
@@ -154,7 +155,8 @@ def test_jax_path_check_fires_on_reaches_only(snippet, bad):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_turns.py", ROOT / "chip_k5_variants.py"],
+    sorted(PORT.rglob("*.py"))
+    + [ROOT / name for name in ("chip_smoke.py", "chip_turns.py", "chip_variants.py", "chip_k5_variants.py", "chip_k6_variants.py")],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_names_no_path_into_the_jax_package(path):

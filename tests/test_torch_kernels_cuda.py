@@ -36,9 +36,10 @@ silence, an impulse decaying through the denormals and a NaN; SRMR launches it
 twice a call, gives the same bits with cuDNN's TF32 on and off and is
 refused by a fused plan's capture, naming the member; the clustering and
 audio classes on the card compute what they compute on the CPU. K6 (COCO's
-greedy matcher) equals its plain loop bitwise through each of its four
-instantiations (staged or not, matched set in a register or a scratch),
-on ties, crowds, NaN IoUs and edge thresholds; the mAP on the card has
+greedy matcher) equals its plain loop bitwise through each of its five
+instantiations (the matched set in 1-4 register words, or masks and sets in
+a scratch), on ties, crowds, NaN IoUs, candidate IoUs of -1, -2 and +-0,
+rows without a -1.0 column outside the candidates, and edge thresholds; the mAP on the card has
 the CPU's tables bitwise and its summaries within 1e-6, launching K6 once
 a compute; the IoU classes and panoptic quality on the card equal the CPU.
 K7 (the image domain's windowed moments) equals its plain route bitwise for
@@ -1393,18 +1394,53 @@ def _coco_case(gen, n, d, g, a, classes=3, nan=0.0):
             torch.rand((n, a, g), generator=gen) < 0.25)
 
 
-# (n, d, g, a): staged with the matched set in a register; staged with G > 1024 (scratch); D * G * 4 past
-# the 48 KB stage (device-memory reads); both
-@pytest.mark.parametrize("shape", [(64, 104, 64, 4), (3, 5, 1100, 2), (4, 200, 70, 4), (2, 12, 1500, 1), (5, 1, 1, 3)],
-                         ids=["coco", "scratch", "unstaged", "unstaged-scratch", "one"])
+def _coco_special(gen, n, d, g, a):
+    """K6 inputs whose candidate IoUs are -1.0, -2.0, -0.0 and +0.0 (ties), several NaNs a row, and
+    1.0; one class, so most ground truths are candidates."""
+    values = torch.tensor([-1.0, -2.0, -0.0, 0.0, float("nan"), 1.0, 0.5])
+    iou = values[torch.randint(0, len(values), (n, d, g), generator=gen)]
+    args = list(_coco_case(gen, n, d, g, a, classes=1))
+    args[0] = iou
+    return tuple(args)
+
+
+def _coco_cover(gen, n, d, g, a):
+    """Every ground truth valid, a candidate of every detection and never ignored, with IoUs at or below
+    -1.0: stage 1's candidates cover the row, so no -1.0 column outside them (no filler) takes part."""
+    values = torch.tensor([-1.0, -2.0, -1.5, -0.0])
+    iou = values[torch.randint(0, len(values), (n, d, g), generator=gen)]
+    return (iou, torch.zeros((n, d), dtype=torch.int32), torch.ones((n, d), dtype=torch.bool),
+            torch.zeros((n, g), dtype=torch.int32), torch.ones((n, g), dtype=torch.bool),
+            torch.zeros((n, g), dtype=torch.bool), torch.zeros((n, a, g), dtype=torch.bool))
+
+
+# (n, d, g, a[, inputs]): the matched set in 1-4 registers (G 32, 63, 64, 65, 127, 128) or past them (G 129,
+# 1,100, 1,500: the scratch instantiation); a block's masks and staged IoUs past 48 KB at 32 threads (200
+# detections, one area range: the scratch instantiation at 8 and 10 thresholds, 64 threads a block at 37);
+# special candidate values; candidates covering the row
+_COCO_SHAPES = {
+    "coco": (64, 104, 64, 4), "scratch": (3, 5, 1100, 2), "unstaged": (4, 200, 70, 4), "unstaged-scratch": (2, 12, 1500, 1),
+    "one": (5, 1, 1, 3), "g32": (6, 40, 32, 4), "g63": (6, 40, 63, 4), "g64": (6, 40, 64, 4), "g65": (6, 40, 65, 4),
+    "g127": (4, 40, 127, 2), "g128": (4, 40, 128, 2), "g129": (4, 40, 129, 2), "scratch-masks": (6, 200, 100, 1),
+    "special": (8, 50, 45, 4, _coco_special), "special-g129": (3, 30, 129, 2, _coco_special),
+    "cover": (4, 20, 37, 2, _coco_cover),
+}
+
+
+@pytest.mark.parametrize("shape", list(_COCO_SHAPES.values()), ids=list(_COCO_SHAPES))
 @pytest.mark.parametrize("thrs", ["coco", "edges", "many"])
 def test_coco_match_matches_plain(card, shape, thrs):
     from torchmetrics_tpu_torch.ops import coco_match, coco_match_plain
 
-    gen = torch.Generator().manual_seed(sum(shape))
-    args = _coco_case(gen, *shape, nan=0.02)
-    args[0][:, ::7] = 1.0
-    bar = {"coco": torch.linspace(0.5, 0.95, 10), "edges": torch.tensor([1.0, 0.0, -1.0, float("nan"), 0.5]),
+    gen = torch.Generator().manual_seed(sum(shape[:4]))
+    make = shape[4] if len(shape) > 4 else None
+    if make is None:
+        args = _coco_case(gen, *shape, nan=0.02)
+        args[0][:, ::7] = 1.0
+    else:
+        args = make(gen, *shape[:4])
+    bar = {"coco": torch.linspace(0.5, 0.95, 10),
+           "edges": torch.tensor([1.0, 0.0, -0.0, -1.0, float("nan"), 0.5, -2.0, -1.5]),
            "many": torch.rand(37, generator=gen)}[thrs]
     want = coco_match_plain(*args, bar)
     before = coco_match.launches
@@ -1413,6 +1449,17 @@ def test_coco_match_matches_plain(card, shape, thrs):
     assert coco_match.launches == before + 1
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y)
+
+
+def test_coco_match_shapes_reach_every_instantiation(card):
+    """The shapes above reach each of K6's five instantiations (1-4 register words, the scratch)."""
+    from torchmetrics_tpu_torch.ops.coco_match import coco_match_instantiation
+
+    reached = {coco_match_instantiation(n, d, g, a, t) for n, d, g, a, *_ in _COCO_SHAPES.values() for t in (10, 8, 37)}
+    assert reached == {0, 1, 2, 3, 4}
+    assert coco_match_instantiation(6, 200, 100, 1, 8) == 0  # the masks overflow shared memory
+    assert coco_match_instantiation(64, 104, 64, 4, 10) == 2
+    assert coco_match_instantiation(0, 104, 64, 4, 10) == -1
 
 
 def _detections(seed, n_imgs=12, classes=5):

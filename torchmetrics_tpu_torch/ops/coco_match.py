@@ -25,6 +25,7 @@ from torchmetrics_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_longlong] + [ctypes.c_int] * 4
 
 #: pycocotools' bar is min(t, 1 - 1e-10); in float32 that constant is 1.0, as JAX's weak constant rounds
 _BAR_CAP = float(np.float32(1 - 1e-10))
@@ -100,6 +101,16 @@ def coco_match_plain(iou: Tensor, det_labels: Tensor, det_valid: Tensor, gt_labe
     return det_matched, det_ignored
 
 
+def coco_match_instantiation(n: int, d: int, g: int, a: int, t: int) -> int:
+    """The kernel instantiation a launch at these sizes takes: 1-4, the words
+    of its matched set in registers (G up to 128, the block's masks in shared
+    memory), 0 the one that keeps masks, matched sets and output bits in a
+    scratch, -1 no launch. Asks the built library (``csrc/coco_match.cu``'s
+    plan), so it needs ``nvcc``."""
+    fn = _build.function("coco_match_instantiation", _PLAN_ARGTYPES, library="coco_match")
+    return fn(n, d, g, a, t)
+
+
 def coco_match(iou: Tensor, det_labels: Tensor, det_valid: Tensor, gt_labels: Tensor, gt_valid: Tensor,
                gt_crowd: Tensor, gt_ig: Tensor, iou_thrs: Tensor) -> Tuple[Tensor, Tensor]:
     """``(det_matched, det_ignored)``, each ``(N, A, T, D)`` bool: COCO's
@@ -125,8 +136,11 @@ def coco_match(iou: Tensor, det_labels: Tensor, det_valid: Tensor, gt_labels: Te
         det_matched.zero_()
         det_ignored.zero_()
         return det_matched, det_ignored
-    words = _build.function("coco_match_scratch_words", [ctypes.c_int], library="coco_match")(g)
-    scratch = torch.zeros(n * a * t * words * 32 if words else 0, dtype=torch.int32, device=dev)
+    words = ctypes.c_longlong(0)
+    _build.function("coco_match_scratch_words", _PLAN_ARGTYPES + [ctypes.POINTER(ctypes.c_longlong)],
+                    library="coco_match")(n, d, g, a, t, ctypes.byref(words))
+    words = words.value
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)  # the kernel initialises what it reads
     args = [x.contiguous() for x in (iou, det_labels, det_valid, gt_labels, gt_valid, gt_crowd, gt_ig)]
     bar = match_bar(iou_thrs.to(dev)).contiguous()
     fn = _build.function("coco_match", _ARGTYPES)
