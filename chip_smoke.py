@@ -18,7 +18,8 @@ result) if it fails:
    input (what a plain read of those bytes takes on the card); K5 is timed
    here on the audio phase's inputs and checked there (phase 22), K7 on the
    image phase's first two batches and checked there (phase 24), K6 on the
-   bbox compute's own arguments and checked there (phase 23);
+   bbox compute's own arguments and checked there (phase 23), K8 on the text
+   phase's first batch and checked there (phase 25);
 4. entry: the one-batch suite step of ``torchmetrics_tpu_torch._entry.entry``
    (C=8, T=32, N=256) on the card, as a user calls it (``fn(*args)``): each
    kernel must launch once and the values must agree with the same step on
@@ -400,7 +401,38 @@ result) if it fails:
    trunk on 1,024 pairs at 256 x 256 in batches of 64, the card against the
    CPU on the first 8 pairs. PPL over 1,000 samples of a small seeded
    generator, LPIPS vgg.
-25. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
+25. text (after image): ROADMAP A14's text domain, inputs made from a
+   seed. The main path: ``Perplexity(ignore_index=-100)`` over 8 updates of
+   GPT-2-shaped float32 logits (8 x 1,024 x 50,257, made on the card, about
+   5% of the targets ignored), K8 (``token_nll``) counted from 0 (one launch
+   an update); the first batch's rows held against the plain route within
+   K8_F32_BUDGET and its total, a slice of it card against CPU; 2 more
+   updates on a bfloat16 stream. K8 against its plain route on edge batches
+   (every target ignored, targets -1 and -V, targets >= V and < -V, rows of
+   +-inf and NaN logits, V = 1, V = 32,000 in three types, a row pitch of
+   1,003), its gradient against autograd through the plain route, its
+   capture in a CUDA graph; timed in phase 3 beside its byte bound, the plain
+   route, ``F.cross_entropy(reduction="none")`` (a yardstick the port never
+   calls) and the read floor, in float32 and bfloat16, with the peak memory
+   of an update through each. The error-rate family (WER, CER, MER, WIL,
+   WIP, ``EditDistance``) over LibriSpeech test-clean's shape (2,620
+   utterances, about 52,600 words from 8,000, 3% substitutions, 1%
+   insertions, 1% deletions) in batches of 64, card against the CPU route
+   bitwise, the first 200 pairs against a Python DP. BLEU, SacreBLEU (13a,
+   intl), chrF++, TER, EED and ROUGE (1, 2, L, Lsum) over WMT14 en-de
+   newstest2014's shape (3,003 segments, one reference each) in batches of
+   64, each update and compute timed, the CPU route fed the first 8 batches
+   and bitwise equal to the card's states there. SQuAD over SQuAD v1.1
+   dev's shape (10,570 questions, 1-3 answers), card against CPU bitwise.
+   BERTScore at bert-base-uncased's widths (seeded weights, a word-hash
+   tokenizer) over the 3,003 MT pairs at ``max_length=128``, idf off and on,
+   ``all_layers=True`` on the first 64 pairs, card against CPU on the first
+   16 within BERT_CPU_ATOL; InfoLM on the same widths as a masked LM, cut
+   to 256 pairs (one forward a token of every sentence) for the KL
+   divergence and 64 for the AB divergence, card against CPU on the first
+   4; the default-model paths
+   raising (nothing is downloaded).
+26. chaos (runs last): ``torchmetrics_tpu_torch/serve/chaos.py --mode short``
    and ``--mode poison`` (seed 11) with ``--device cuda``: every daemon the
    harness starts must print a ready line naming the card, and the reports
    must carry the invariants JAX's tests assert (short: legs main and
@@ -417,9 +449,9 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image and chaos phases' seconds, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image, text and chaos phases' seconds, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, K2s and K1s at the
-StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, K6 and K7) and
+StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, K6, K7 and K8) and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -8646,6 +8678,644 @@ def phase_image(device, smi, k7_row):
     return out
 
 
+# ------------------------------------------------------------------- text
+
+TEXT_SEED = SEED + 25
+PPL_SHAPE = (8, 1024, 50257)  # GPT-2's evaluation shape: batch 8, context 1,024, vocabulary 50,257
+PPL_UPDATES = 8
+PPL_BF16_UPDATES = 2
+PPL_IGNORED = 0.05  # share of the targets set to ignore_index
+PPL_IGNORE = -100
+PPL_CPU_TOKENS = 128  # the first tokens of each sequence of the first batch, held card against the CPU
+PPL_CPU_RTOL = 1e-5
+K8_F32_BUDGET = 2e-6  # a float32 row: |K8 - plain| within this share of max(1, |plain|) (another sum order, expf)
+K8_16BIT_EPS = 2  # a 16-bit row: within 2 eps of the type times max(1, |plain|) (the plain route rounds 4 times)
+K8_GRAD_RTOL = 1e-5  # K8's gradient against autograd through the plain route, of the largest entry
+K8_REPS = 10
+
+
+def _ppl_batch(gen, device, shape=PPL_SHAPE, dtype=None):
+    """One batch of GPT-2-shaped logits (float32 normal, times 3) and int64 targets, PPL_IGNORED of them
+    PPL_IGNORE, made on the card from ``gen``."""
+    import torch
+
+    b, t, v = shape
+    logits = torch.randn((b, t, v), generator=gen, device=device, dtype=torch.float32).mul_(3.0)
+    target = torch.randint(0, v, (b, t), generator=gen, device=device)
+    ignored = torch.rand((b, t), generator=gen, device=device) < PPL_IGNORED
+    target = torch.where(ignored, torch.full_like(target, PPL_IGNORE), target)
+    return (logits if dtype is None else logits.to(dtype)), target
+
+
+def _k8_compare(got, want, what):
+    """K8's ``(nll, valid)`` against the plain route's: validity equal, NaN and +-inf in the same rows, the
+    finite rows within the stated budget; returns the largest error as a share of max(1, |plain|)."""
+    import torch
+
+    (nll, valid), (pnll, pvalid) = got, want
+    _require(nll.dtype == pnll.dtype and nll.shape == pnll.shape, f"K8 {what}: {nll.dtype} {tuple(nll.shape)} vs {pnll.dtype}")
+    _require(torch.equal(valid, pvalid), f"K8 {what}: the valid rows differ")
+    a, b = nll.to(torch.float32), pnll.to(torch.float32)
+    _require(torch.equal(torch.isnan(a), torch.isnan(b)), f"K8 {what}: NaN in other rows than the plain route")
+    _require(torch.equal(torch.isinf(a), torch.isinf(b)) and torch.equal(a[torch.isinf(a)], b[torch.isinf(b)]),
+             f"K8 {what}: +-inf in other rows than the plain route")
+    fin = torch.isfinite(b)
+    if not bool(fin.any()):
+        return 0.0
+    err = float(((a[fin] - b[fin]).abs() / b[fin].abs().clamp(min=1.0)).max())
+    budget = K8_F32_BUDGET if nll.dtype == torch.float32 else K8_16BIT_EPS * torch.finfo(nll.dtype).eps
+    _require(err <= budget, f"K8 {what}: error {err:.3e} of max(1, |plain|) over the budget {budget:.3e}")
+    return err
+
+
+def check_token_nll(device):
+    """K8 against its plain route on the card on the edge batches, its gradient against autograd through
+    the plain route, and its capture in a CUDA graph (a replay bitwise equal to the eager launch)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import token_nll, token_nll_plain
+
+    before = token_nll.launches
+    gen = torch.Generator(device=device)
+    gen.manual_seed(TEXT_SEED + 1)
+
+    def rand(n, v, dtype=torch.float32):
+        return torch.randn((n, v), generator=gen, device=device).mul_(3.0).to(dtype)
+
+    def targets(n, v):
+        return torch.randint(0, v, (n,), generator=gen, device=device)
+
+    v = 1000
+    special = rand(8, v)
+    special[0, 7] = float("inf")
+    special[1] = float("-inf")
+    special[2, 3] = float("nan")
+    special[3, 5] = float("-inf")
+    special[4, :] = float("inf")
+    wide = torch.randn((96, 1003), generator=gen, device=device)
+    cases = {
+        "every target ignored": (rand(64, v), torch.full((64,), PPL_IGNORE, device=device), PPL_IGNORE),
+        "targets -1 and -V": (rand(64, v), torch.tensor([-1, -v] * 32, device=device), None),
+        "targets >= V and < -V (NaN)": (rand(64, v), torch.tensor([v, v + 7, -v - 1, 3] * 16, device=device), PPL_IGNORE),
+        "rows of +-inf and NaN logits": (special, torch.tensor([7, 2, 2, 5, 0, 1, 2, 3], device=device), None),
+        "V = 1": (rand(64, 1), torch.zeros(64, dtype=torch.int64, device=device), None),
+        "V = 32,000": (rand(256, 32000), targets(256, 32000), 0),
+        "V = 32,000 bfloat16": (rand(256, 32000, torch.bfloat16), targets(256, 32000), None),
+        "V = 32,000 float16": (rand(256, 32000, torch.float16), targets(256, 32000), None),
+        "a row pitch of 1,003 (not a multiple of 4)": (wide[:, :v], targets(96, v), None),
+        "a row pitch of 1,003, bfloat16": (wide.to(torch.bfloat16)[:, :v], targets(96, v), None),
+        "int32 targets, V = 50,257": (rand(33, 50257), targets(33, 50257).to(torch.int32), None),
+    }
+    errors = {}
+    for what, (x, t, ignore) in cases.items():
+        errors[what] = _k8_compare(token_nll(x, t, ignore), token_nll_plain(x, t, ignore), what)
+    torch.cuda.synchronize()
+
+    x = rand(256, 32000).requires_grad_(True)
+    t = torch.where(targets(256, 32000) % 7 == 0, torch.full((256,), PPL_IGNORE, device=device), targets(256, 32000))
+    weights = torch.rand(256, generator=gen, device=device)
+    nll, _ = token_nll(x, t, PPL_IGNORE)
+    (grad,) = torch.autograd.grad((nll * weights).sum(), x)
+    xp = x.detach().clone().requires_grad_(True)
+    pnll, _ = token_nll_plain(xp, t, PPL_IGNORE)
+    (pgrad,) = torch.autograd.grad((pnll * weights).sum(), xp)
+    grad_err = float((grad - pgrad).abs().max() / pgrad.abs().max())
+    _require(grad_err <= K8_GRAD_RTOL, f"K8's gradient: {grad_err:.3e} of the largest entry from autograd through the plain route")
+
+    xs, ts = rand(512, 50257), targets(512, 50257)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        token_nll(xs, ts, PPL_IGNORE)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = token_nll(xs, ts, PPL_IGNORE)
+    xs.copy_(rand(512, 50257))
+    graph.replay()
+    eager = token_nll(xs, ts, PPL_IGNORE)
+    torch.cuda.synchronize()
+    _require_same_bits(captured[0], eager[0], "K8 replayed from a CUDA graph against its eager launch")
+    _require(torch.equal(captured[1], eager[1]), "K8's valid rows replayed from a CUDA graph")
+    token_nll.launches = before  # these launches are not the main path's
+    del x, xp, xs, grad, pgrad, graph
+    torch.cuda.empty_cache()
+    return {"errors": errors, "grad_err": grad_err}
+
+
+def time_token_nll(device):
+    """K8 timed in phase 3 on the main path's first batch (GPT-2's shape, float32, then the same logits in
+    bfloat16): device ms (profiler), stream ms, ``F.cross_entropy(reduction="none", ignore_index=-100)``
+    (the library's call for the same function; the port never calls it), the plain route, the bounds, the
+    read floor, registers, and the peak memory of a Perplexity update through K8 against the plain route's."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional.text.perplexity import _perplexity_update
+    from torchmetrics_tpu_torch.ops import token_nll, token_nll_plain
+    from torchmetrics_tpu_torch.utilities.compute import _sum_in_xla_order
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(TEXT_SEED)
+    logits, target = _ppl_batch(gen, device)
+    n, v = logits.shape[0] * logits.shape[1], logits.shape[2]
+    x, t = logits.reshape(n, v), target.reshape(n)
+    before = token_nll.launches
+    out = {}
+    for label, xx in (("float32", x), ("bfloat16", x.to(torch.bfloat16))):
+        err = _k8_compare(token_nll(xx, t, PPL_IGNORE), token_nll_plain(xx, t, PPL_IGNORE), f"GPT-2's shape, {label}")
+
+        def library(a, b):
+            return F.cross_entropy(a, b, reduction="none", ignore_index=PPL_IGNORE)
+
+        m = _measure([("kernel", token_nll, [(xx, t, PPL_IGNORE)]), ("library", library, [(xx, t)])],
+                     profile_reps=K8_REPS, timing_reps=K8_REPS)
+        plain_ms = _events_ms(lambda: token_nll_plain(xx, t, PPL_IGNORE), 2)
+        floor_ms, _ = _device_ms(_read_floor, [(xx,)], K8_REPS)
+        n_bytes = xx.numel() * xx.element_size() + t.numel() * t.element_size() + n * (xx.element_size() + 1)
+        n_ops = 3 * n * v  # a compare, an exponential and an add a logit
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        out[label] = {
+            "max_abs_err": err, "ms": m["kernel"]["device_ms"], "library_ms": m["library"]["device_ms"], "plain_ms": plain_ms,
+            "stream_ms": {"kernel": m["kernel"]["stream_ms"], "plain": plain_ms, "library": m["library"]["stream_ms"]},
+            "kernel_only_us": _kernel_only_us(m["kernel"]["found"], "token_nll"), "bytes": n_bytes, "bound_ms": bound_ms,
+            "bound_by": bound_by, "read_floor_ms": floor_ms, "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "ops_ms": n_ops / PEAK_FP32_OPS_PER_S * 1e3,
+        }
+        torch.cuda.empty_cache()
+    peak = {}
+    for label, fn in (("K8", lambda: _perplexity_update(logits, target, PPL_IGNORE)),
+                      ("plain", lambda: _sum_in_xla_order(token_nll_plain(x, t, PPL_IGNORE)[0]))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        torch.cuda.empty_cache()
+    token_nll.launches = before  # timing launches are not the main path's
+    log = BUILD_LOGS.get("token_nll", "")
+    regs = [int(w) for line in log.splitlines() if "registers" in line for w in line.split("Used")[1].split()[:1]]
+    spills = sum(1 for line in log.splitlines() if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
+    row = dict(out["float32"])
+    row.update(
+        name=f"token_nll ({n} x {v}, float32)", route="cuda", source="torchmetrics_tpu_torch/csrc/token_nll.cu",
+        replaces="torchmetrics_tpu/functional/text/perplexity.py:44", bf16=out["bfloat16"], peak_mib=peak,
+        registers=f"{min(regs, default=0)}-{max(regs, default=0)}", spills=spills,
+    )
+    del logits, target, x, t
+    torch.cuda.empty_cache()
+    return row
+
+
+ASR_UTTERANCES = 2620  # LibriSpeech test-clean: 2,620 utterances, 52,576 words
+ASR_MEAN_WORDS = 20.07
+ASR_VOCAB = 8000
+ASR_EDITS = (0.03, 0.01, 0.01)  # substitutions, insertions, deletions a word
+ASR_BATCH = 64
+ASR_DP_PAIRS = 200
+MT_SEGMENTS = 3003  # WMT14 en-de newstest2014: 3,003 segments, one reference each
+MT_MEAN_WORDS = 20.6
+MT_VOCAB = 20000
+MT_BATCH = 64
+MT_BLEU_RTOL = 1e-6  # BLEU's value card against CPU (states bitwise; the log and exp of each device)
+MT_CPU_BATCHES = 8  # the CPU route is fed the first 8 batches (512 segments) and held against the card's states then
+SQUAD_QUESTIONS = 10570  # SQuAD v1.1 dev
+SQUAD_BATCH = 1024
+BERT_VOCAB = 30522  # bert-base-uncased's published widths: 12 layers, hidden 768, 12 heads, FFN 3,072
+BERT_MAX_LENGTH = 128
+BERT_BATCH = 64
+BERT_ALL_LAYERS_PAIRS = 64
+BERT_CPU_PAIRS = 16
+BERT_CPU_ATOL = 1e-4  # a score card against CPU: 12 float32 layers through cuBLAS and oneDNN in other orders
+INFOLM_PAIRS = 256  # cut: InfoLM runs one forward per token of every sentence (KL divergence)
+INFOLM_AB_PAIRS = 64  # the AB divergence, cut further: the first 64 of them (about 20 s at 256 on an H100)
+INFOLM_CPU_PAIRS = 4
+INFOLM_CPU_RTOL = 1e-4  # of max(1, |score|), card against CPU
+TEXT_MT_CLASSES = ("BLEUScore", "SacreBLEUScore 13a", "SacreBLEUScore intl", "CHRFScore", "TranslationEditRate",
+                   "ExtendedEditDistance", "ROUGEScore")
+
+
+def _text_words(rng, n, capital_share=0.0):
+    """``n`` distinct seeded lowercase words of 2-10 letters (a share capitalized)."""
+    import numpy as np
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 11))))
+        words.add(w.capitalize() if rng.random() < capital_share else w)
+    return sorted(words)
+
+
+def _text_edit(rng, words, vocab, sub, ins, dele, swap=0.0):
+    """A hypothesis from a reference: each word dropped, replaced, or followed by an inserted word at these
+    rates, and with probability ``swap`` one word moved two places on (a reordering for TER's shifts)."""
+    out = []
+    for w in words:
+        r = rng.random()
+        if r < dele:
+            continue
+        out.append(str(vocab[int(rng.integers(len(vocab)))]) if r < dele + sub else w)
+        if rng.random() < ins:
+            out.append(str(vocab[int(rng.integers(len(vocab)))]))
+    if swap and len(out) > 4 and rng.random() < swap:
+        k = int(rng.integers(0, len(out) - 3))
+        out[k : k + 3] = out[k + 1 : k + 3] + out[k : k + 1]
+    return out
+
+
+def _text_corpus(seed, n, mean_words, n_vocab, edits, capital_share=0.0, punct=False, swap=0.0):
+    """Seeded references of Zipf-distributed words, lognormal lengths of mean ``mean_words``, and their
+    hypotheses (``_text_edit``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = _text_words(rng, n_vocab, capital_share)
+    lens = np.clip(np.round(rng.lognormal(np.log(mean_words) - 0.18, 0.6, n)), 1, 100).astype(int)
+    p = 1.0 / (np.arange(n_vocab) + 10.0)
+    ids = rng.choice(n_vocab, size=int(lens.sum()), p=p / p.sum())
+    refs, hyps, k = [], [], 0
+    for length in lens:
+        words = [vocab[i] for i in ids[k : k + length]]
+        k += length
+        if punct:
+            for j in range(len(words)):
+                if rng.random() < 0.08:
+                    words[j] += str(rng.choice([",", ";", ":", "!", "?"]))
+                elif rng.random() < 0.02:
+                    words[j] = str(int(rng.integers(0, 10000)))
+            words[-1] += "."
+        refs.append(" ".join(words))
+        hyps.append(" ".join(_text_edit(rng, words, vocab, *edits, swap=swap)))
+    return hyps, refs
+
+
+def _levenshtein(a, b):
+    """The textbook DP, in Python."""
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+def _states_equal(card, cpu, what):
+    """Every state of a card metric bitwise equal to the CPU route's (lists leaf by leaf)."""
+    for key, value in card.state_tree().items():
+        want = cpu.state_tree()[key]
+        for i, (a, b) in enumerate(zip(*[v if isinstance(v, list) else [v] for v in (value, want)])):
+            _require_same_bits(a, b, f"{what} state {key}[{i}] card against CPU")
+        if isinstance(value, list):
+            _require(len(value) == len(want), f"{what} state {key}: {len(value)} leaves against {len(want)}")
+
+
+def _flat_values(value):
+    import torch
+
+    if isinstance(value, dict):
+        return {k: v for k, v in value.items() if isinstance(v, torch.Tensor)}
+    if isinstance(value, tuple):
+        return {str(i): v for i, v in enumerate(value)}
+    return {"value": value}
+
+
+def _text_asr(tm, device, out):
+    """The error-rate family over LibriSpeech test-clean's shape, card against the CPU route bitwise, the
+    first ASR_DP_PAIRS pairs against a Python DP."""
+    hyps, refs = _text_corpus(TEXT_SEED + 2, ASR_UTTERANCES, ASR_MEAN_WORDS, ASR_VOCAB, ASR_EDITS)
+    names = ("WordErrorRate", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved", "EditDistance")
+    timing, values = {}, {}
+    for name in names:
+        card, cpu = getattr(tm, name)(), getattr(tm, name)(device="cpu")
+        t0 = time.perf_counter()
+        for i in range(0, len(hyps), ASR_BATCH):
+            card.update(hyps[i : i + ASR_BATCH], refs[i : i + ASR_BATCH])
+        t1 = time.perf_counter()
+        value = card.compute()
+        timing[name] = ((t1 - t0) * 1e3 / -(-len(hyps) // ASR_BATCH), (time.perf_counter() - t1) * 1e3)
+        for i in range(0, len(hyps), ASR_BATCH):
+            cpu.update(hyps[i : i + ASR_BATCH], refs[i : i + ASR_BATCH])
+        _states_equal(card, cpu, name)
+        _require_same_bits(value, cpu.compute(), f"{name} value card against CPU")
+        values[name] = float(value)
+    head = slice(0, ASR_DP_PAIRS)
+    word_dp = [_levenshtein(h.split(), r.split()) for h, r in zip(hyps[head], refs[head])]
+    char_dp = [_levenshtein(h, r) for h, r in zip(hyps[head], refs[head])]
+    wer, cer, ed = tm.WordErrorRate(), tm.CharErrorRate(), tm.EditDistance(reduction="none")
+    for m in (wer, cer, ed):
+        m.update(hyps[head], refs[head])
+    _require(float(wer.errors) == sum(word_dp) and float(wer.total) == sum(len(r.split()) for r in refs[head]),
+             f"WER over the first {ASR_DP_PAIRS} pairs: {float(wer.errors)} errors against the Python DP's {sum(word_dp)}")
+    _require(float(cer.errors) == sum(char_dp), f"CER: {float(cer.errors)} against the Python DP's {sum(char_dp)}")
+    _require(ed.compute().cpu().tolist() == char_dp, "EditDistance per pair against the Python DP")
+    out["asr"] = {"words": sum(len(r.split()) for r in refs), "ms": timing, "values": values}
+
+
+def _text_mt(tm, device, out):
+    """BLEU, SacreBLEU (13a, intl), chrF++, TER, EED and ROUGE over WMT14 en-de newstest2014's shape on the
+    card, each update and compute timed; the CPU route fed the first MT_CPU_BATCHES batches, its states then
+    bitwise equal to the card's at that point, and its value too."""
+    hyps, refs = _text_corpus(TEXT_SEED + 3, MT_SEGMENTS, MT_MEAN_WORDS, MT_VOCAB, (0.15, 0.03, 0.05),
+                              capital_share=0.3, punct=True, swap=0.3)
+    targets = [[r] for r in refs]
+    makers = {
+        "BLEUScore": lambda **kw: tm.BLEUScore(n_gram=4, **kw),
+        "SacreBLEUScore 13a": lambda **kw: tm.SacreBLEUScore(tokenize="13a", **kw),
+        "SacreBLEUScore intl": lambda **kw: tm.SacreBLEUScore(tokenize="intl", **kw),
+        "CHRFScore": lambda **kw: tm.CHRFScore(n_word_order=2, **kw),
+        "TranslationEditRate": lambda **kw: tm.TranslationEditRate(**kw),
+        "ExtendedEditDistance": lambda **kw: tm.ExtendedEditDistance(**kw),
+        "ROUGEScore": lambda **kw: tm.ROUGEScore(rouge_keys=("rouge1", "rouge2", "rougeL", "rougeLsum"), **kw),
+    }
+    timing, values = {}, {}
+    for name, make in makers.items():
+        card, cpu = make(), make(device="cpu")
+        t0 = time.perf_counter()
+        for b, i in enumerate(range(0, len(hyps), MT_BATCH)):
+            if b == MT_CPU_BATCHES:
+                head = {k: [x.clone() for x in v] if isinstance(v, list) else v if k == "_update_count" else v.clone()
+                        for k, v in card.state_tree(include_count=True).items()}
+                t_head = time.perf_counter()
+                for j in range(0, i, MT_BATCH):
+                    cpu.update(hyps[j : j + MT_BATCH], targets[j : j + MT_BATCH])
+                t0 += time.perf_counter() - t_head
+            card.update(hyps[i : i + MT_BATCH], targets[i : i + MT_BATCH])
+        t1 = time.perf_counter()
+        value = card.compute()
+        timing[name] = ((t1 - t0) * 1e3 / -(-len(hyps) // MT_BATCH), (time.perf_counter() - t1) * 1e3)
+        for key, want in cpu.state_tree(include_count=True).items():
+            got = head[key]
+            if key == "_update_count":
+                _require(got == want, f"{name}: {got} updates against the CPU's {want}")
+                continue
+            for i, (a, b) in enumerate(zip(*[v if isinstance(v, list) else [v] for v in (got, want)])):
+                _require_same_bits(a, b, f"{name} state {key}[{i}] after {MT_CPU_BATCHES} batches, card against CPU")
+        card_head = make()
+        card_head.load_state_tree({k: v for k, v in head.items()})
+        head_values = _flat_values(card_head.compute())
+        for key, v in _flat_values(cpu.compute()).items():
+            if name.startswith(("BLEU", "SacreBLEU")):  # exp(sum(w * log p)) through each device's float32 log and exp
+                got = float(head_values[key])
+                _require(abs(got - float(v)) <= MT_BLEU_RTOL * abs(float(v)), f"{name} value card {got} against CPU {float(v)}")
+            else:
+                _require_same_bits(head_values[key], v, f"{name} value {key} card against CPU")
+        values[name] = {k: float(v) for k, v in _flat_values(value).items()}
+        for key, v in values[name].items():
+            _require(math.isfinite(v) and 0.0 <= v <= (1.0 if name != "TranslationEditRate" else 10.0), f"{name} {key} = {v}")
+    out["mt"] = {"words": sum(len(r.split()) for r in refs), "ms": timing, "values": values}
+
+
+def _text_squad(tm, device, out):
+    """SQuAD over SQuAD v1.1 dev's shape (10,570 questions with 1-3 answers), card against CPU bitwise."""
+    import numpy as np
+
+    rng = np.random.default_rng(TEXT_SEED + 4)
+    vocab = np.array(_text_words(rng, 5000))
+    preds, targets = [], []
+    for q in range(SQUAD_QUESTIONS):
+        answers = [" ".join(rng.choice(vocab, int(rng.integers(1, 6)))) for _ in range(int(rng.integers(1, 4)))]
+        r = rng.random()
+        first = answers[0].split()
+        if r < 0.6:
+            pred = ("the " if rng.random() < 0.2 else "") + answers[int(rng.integers(len(answers)))]
+        elif r < 0.85:
+            pred = " ".join(first[: max(1, len(first) - 1)] + list(rng.choice(vocab, 1)))
+        else:
+            pred = " ".join(rng.choice(vocab, int(rng.integers(1, 5))))
+        preds.append({"prediction_text": pred, "id": f"q{q}"})
+        targets.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"q{q}"})
+    card, cpu = tm.SQuAD(), tm.SQuAD(device="cpu")
+    t0 = time.perf_counter()
+    for i in range(0, SQUAD_QUESTIONS, SQUAD_BATCH):
+        card.update(preds[i : i + SQUAD_BATCH], targets[i : i + SQUAD_BATCH])
+        cpu.update(preds[i : i + SQUAD_BATCH], targets[i : i + SQUAD_BATCH])
+    value = card.compute()
+    seconds = time.perf_counter() - t0
+    _states_equal(card, cpu, "SQuAD")
+    for key, v in cpu.compute().items():
+        _require_same_bits(value[key], v, f"SQuAD {key} card against CPU")
+    _require(float(card.total) == SQUAD_QUESTIONS, f"SQuAD counted {float(card.total)} questions")
+    out["squad"] = {"s": seconds, "values": {k: float(v) for k, v in value.items()}}
+
+
+def _text_perplexity(tm, device, out):
+    """The main path: Perplexity over PPL_UPDATES batches at GPT-2's shape made on the card, K8 counted from
+    0 (one launch an update); the first batch's rows held against the plain route, a slice of it card against
+    CPU; then PPL_BF16_UPDATES bfloat16 updates."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.text.perplexity import perplexity
+    from torchmetrics_tpu_torch.ops import token_nll, token_nll_plain
+    from torchmetrics_tpu_torch.utilities.compute import _sum_in_xla_order
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(TEXT_SEED)
+    metric = tm.Perplexity(ignore_index=PPL_IGNORE)
+    token_nll.launches = 0
+    update_ms, kept, counted = [], 0, 0
+    for i in range(PPL_UPDATES):
+        logits, target = _ppl_batch(gen, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(logits, target)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        counted += int((target != PPL_IGNORE).sum())
+        if i == 0:
+            first = (logits, target, metric.total_log_probs.clone())
+    launches = token_nll.launches
+    _require(launches == PPL_UPDATES, f"K8 launched {launches} times over {PPL_UPDATES} Perplexity updates")
+    value = float(metric.compute())
+    _require(math.isfinite(value) and value > 1.0, f"Perplexity {value}")
+    _require(float(metric.count) == counted, f"Perplexity counted {float(metric.count)} tokens, the batches hold {counted}")
+    logits, target, total0 = first
+    x, t = logits.reshape(-1, logits.shape[-1]), target.reshape(-1)
+    row_err = _k8_compare(token_nll(x, t, PPL_IGNORE), token_nll_plain(x, t, PPL_IGNORE), "the main path's first batch")
+    plain_total = float(_sum_in_xla_order(token_nll_plain(x, t, PPL_IGNORE)[0]))
+    total_err = abs(float(total0) - plain_total) / abs(plain_total)
+    _require(total_err <= K8_F32_BUDGET, f"the first update's total {float(total0)} against the plain route's {plain_total}")
+    head = (logits[:, :PPL_CPU_TOKENS].contiguous(), target[:, :PPL_CPU_TOKENS].contiguous())
+    card_ppl = float(perplexity(*head, ignore_index=PPL_IGNORE))
+    cpu_ppl = float(perplexity(head[0].cpu(), head[1].cpu(), ignore_index=PPL_IGNORE))
+    _require(abs(card_ppl - cpu_ppl) <= PPL_CPU_RTOL * cpu_ppl, f"perplexity card {card_ppl} against CPU {cpu_ppl}")
+    del first, logits, target, x, t, head
+    torch.cuda.empty_cache()
+    half = tm.Perplexity(ignore_index=PPL_IGNORE)
+    before = token_nll.launches
+    for _ in range(PPL_BF16_UPDATES):
+        logits, target = _ppl_batch(gen, device, dtype=torch.bfloat16)
+        half.update(logits, target)
+    _require(token_nll.launches - before == PPL_BF16_UPDATES, "K8 on the bfloat16 stream: one launch an update")
+    half_value = float(half.compute())
+    _require(math.isfinite(half_value) and half.total_log_probs.dtype == torch.float32, f"bfloat16 Perplexity {half_value}")
+    del logits, target
+    torch.cuda.empty_cache()
+    out["ppl"] = {"launches": launches, "value": value, "bf16_value": half_value, "update_ms": update_ms,
+                  "row_err": row_err, "total_err": total_err, "cpu": (card_ppl, cpu_ppl)}
+
+
+class _WordHashTokenizer:
+    """A seeded offline word tokenizer with bert-base-uncased's special ids: lowercased words split on
+    whitespace, each to ``1000 + crc32(word) % (vocab - 1000)``, [CLS] 101 first, [SEP] 102 last, [PAD] 0."""
+
+    cls_token_id, sep_token_id, pad_token_id, mask_token_id = 101, 102, 0, 103
+
+    def __init__(self, vocab_size=BERT_VOCAB):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text, padding=True, truncation=True, max_length=None, return_tensors="np", **kw):
+        import zlib
+
+        import numpy as np
+
+        max_length = max_length or 512
+        rows = []
+        for sentence in text:
+            ids = [1000 + zlib.crc32(w.encode()) % (self.vocab_size - 1000) for w in sentence.lower().split()]
+            rows.append([self.cls_token_id] + ids[: max_length - 2] + [self.sep_token_id])
+        width = max_length if padding == "max_length" else max(len(r) for r in rows)
+        input_ids = np.zeros((len(rows), width), np.int64)
+        attention_mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            input_ids[i, : len(r)] = r
+            attention_mask[i, : len(r)] = 1
+        return {"input_ids": input_ids, "attention_mask": attention_mask}
+
+
+def _bert_towers(device):
+    """bert-base-uncased's architecture with seeded weights: the encoder (BERTScore) and the masked LM
+    (InfoLM), on the card."""
+    import torch
+    from transformers import BertConfig, BertForMaskedLM, BertModel
+
+    config = BertConfig(vocab_size=BERT_VOCAB, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                        intermediate_size=3072, max_position_embeddings=512)
+    torch.manual_seed(TEXT_SEED)
+    encoder = BertModel(config).eval().to(device)
+    torch.manual_seed(TEXT_SEED + 1)
+    mlm = BertForMaskedLM(config).eval().to(device)
+    return encoder, mlm
+
+
+def _text_towers(tm, device, out):
+    """BERTScore and InfoLM at bert-base-uncased's widths with seeded weights and the word-hash tokenizer:
+    see the module docstring, phase 25. The default-model paths raise (nothing is downloaded)."""
+    import copy
+
+    import torch
+
+    from torchmetrics_tpu_torch.functional.text import bert_score, infolm
+
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")  # the default-model paths read the local cache alone; say so to the hub too
+    for make in (lambda: tm.BERTScore(), lambda: tm.InfoLM()):
+        try:
+            make()
+        except (OSError, ModuleNotFoundError) as err:
+            out.setdefault("default_raises", []).append(type(err).__name__)
+        else:
+            raise SmokeFailure("a default-model path loaded a model: nothing should be in the cache")
+    hyps, refs = _text_corpus(TEXT_SEED + 3, MT_SEGMENTS, MT_MEAN_WORDS, MT_VOCAB, (0.15, 0.03, 0.05),
+                              capital_share=0.3, punct=True, swap=0.3)
+    tok = _WordHashTokenizer()
+    encoder, mlm = _bert_towers(device)
+    res = {}
+    for idf in (False, True):
+        metric = tm.BERTScore(model=encoder, user_tokenizer=tok, idf=idf, max_length=BERT_MAX_LENGTH, batch_size=BERT_BATCH)
+        t0 = time.perf_counter()
+        for i in range(0, len(hyps), BERT_BATCH):
+            metric.update(hyps[i : i + BERT_BATCH], refs[i : i + BERT_BATCH])
+        t1 = time.perf_counter()
+        score = metric.compute()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        f1 = score["f1"]
+        _require(f1.shape == (len(hyps),) and bool(torch.isfinite(f1).all()), f"BERTScore idf={idf}: {f1.shape}")
+        res[f"idf={idf}"] = {"update_s": t1 - t0, "compute_s": t2 - t1, "f1": float(f1.mean()),
+                             "pairs_per_s": len(hyps) / (t2 - t1)}
+    layers = bert_score(hyps[:BERT_ALL_LAYERS_PAIRS], refs[:BERT_ALL_LAYERS_PAIRS], model=encoder, user_tokenizer=tok,
+                        all_layers=True, max_length=BERT_MAX_LENGTH)
+    n_states = encoder.config.num_hidden_layers + 1  # the embeddings' output and each layer's
+    _require(layers["f1"].shape == (n_states * BERT_ALL_LAYERS_PAIRS,) and bool(torch.isfinite(layers["f1"]).all()),
+             f"all_layers: {layers['f1'].shape}")
+    cpu_encoder = copy.deepcopy(encoder).cpu()
+    head = (hyps[:BERT_CPU_PAIRS], refs[:BERT_CPU_PAIRS])
+    bert_err = 0.0
+    for idf in (False, True):
+        card = bert_score(*head, model=encoder, user_tokenizer=tok, idf=idf, max_length=BERT_MAX_LENGTH)
+        cpu = bert_score(*head, model=cpu_encoder, user_tokenizer=tok, idf=idf, max_length=BERT_MAX_LENGTH)
+        for key in ("precision", "recall", "f1"):
+            bert_err = max(bert_err, float((card[key].cpu() - cpu[key]).abs().max()))
+    _require(bert_err <= BERT_CPU_ATOL, f"BERTScore card against CPU on {BERT_CPU_PAIRS} pairs: {bert_err:.2e}")
+    del cpu_encoder
+    measures = {"kl_divergence": ({}, INFOLM_PAIRS), "ab_divergence": ({"alpha": 0.5, "beta": 0.5}, INFOLM_AB_PAIRS)}
+    for measure, (kw, pairs) in measures.items():
+        metric = tm.InfoLM(model=mlm, user_tokenizer=tok, information_measure=measure, return_sentence_level_score=True, **kw)
+        t0 = time.perf_counter()
+        for i in range(0, pairs, BERT_BATCH):
+            metric.update(hyps[i : min(i + BERT_BATCH, pairs)], refs[i : min(i + BERT_BATCH, pairs)])
+        mean, sentences = metric.compute()
+        torch.cuda.synchronize()
+        _require(sentences.shape == (pairs,) and bool(torch.isfinite(sentences).all()), f"InfoLM {measure}")
+        res[f"infolm {measure} ({pairs} pairs)"] = {"s": time.perf_counter() - t0, "mean": float(mean)}
+    cpu_mlm = copy.deepcopy(mlm).cpu()
+    head = (hyps[:INFOLM_CPU_PAIRS], refs[:INFOLM_CPU_PAIRS])
+    infolm_err = 0.0
+    for measure, (kw, _) in measures.items():
+        _, card = infolm(*head, model=mlm, user_tokenizer=tok, information_measure=measure, return_sentence_level_score=True, **kw)
+        _, cpu = infolm(*head, model=cpu_mlm, user_tokenizer=tok, information_measure=measure, return_sentence_level_score=True, **kw)
+        infolm_err = max(infolm_err, float(((card.cpu() - cpu).abs() / cpu.abs().clamp(min=1.0)).max()))
+    _require(infolm_err <= INFOLM_CPU_RTOL, f"InfoLM card against CPU on {INFOLM_CPU_PAIRS} pairs: {infolm_err:.2e}")
+    del encoder, mlm, cpu_mlm
+    torch.cuda.empty_cache()
+    out["towers"] = {**res, "bert_cpu_err": bert_err, "infolm_cpu_err": infolm_err}
+
+
+def phase_text(device, smi, k8_row):
+    """The text domain (ROADMAP A14), K8 on Perplexity's main path: see the module docstring, phase 25."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    _text_perplexity(tm, device, out)
+    k8_row.update(launches=out["ppl"]["launches"], checks=check_token_nll(device))
+    out["k8_row"] = k8_row
+    _text_asr(tm, device, out)
+    _text_mt(tm, device, out)
+    _text_squad(tm, device, out)
+    _text_towers(tm, device, out)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = time.perf_counter() - t_phase
+    row, ppl, tw = k8_row, out["ppl"], out["towers"]
+    print(
+        f"[text] {smi}; K8 at {row['name']}: device ms {row['ms']:.5f} (kernel alone {row['kernel_only_us'] or 0:.2f} us),"
+        f" stream ms {row['stream_ms']['kernel']:.5f}, plain {row['plain_ms']:.3f}, F.cross_entropy"
+        f" {row['library_ms']:.5f} device / {row['stream_ms']['library']:.5f} stream; bound {row['bound_ms']:.5f}"
+        f" ({row['bound_by']}; bytes {row['bytes_ms']:.5f}, operations {row['ops_ms']:.5f}), read floor {row['read_floor_ms']:.5f};"
+        f" bfloat16: device ms {row['bf16']['ms']:.5f}, F.cross_entropy {row['bf16']['library_ms']:.5f}, plain"
+        f" {row['bf16']['plain_ms']:.3f}, bound {row['bf16']['bound_ms']:.5f}, read floor {row['bf16']['read_floor_ms']:.5f};"
+        f" registers {row['registers']}, {row['spills']} with spills; peak MiB of an update K8 {row['peak_mib']['K8']:.1f},"
+        f" plain {row['peak_mib']['plain']:.1f}; row errors (of max(1, |plain|)) {row['max_abs_err']:.2e} float32,"
+        f" {row['bf16']['max_abs_err']:.2e} bfloat16, main path {ppl['row_err']:.2e}, edge batches"
+        f" {'; '.join(f'{k} {v:.2e}' for k, v in row['checks']['errors'].items())}; gradient {row['checks']['grad_err']:.2e};"
+        f" captured in a CUDA graph; K8 launches on the main path {ppl['launches']}; Perplexity {ppl['value']:.4f}"
+        f" (bfloat16 stream {ppl['bf16_value']:.4f}), update ms {', '.join(f'{v:.2f}' for v in ppl['update_ms'])},"
+        f" card/CPU {ppl['cpu'][0]:.6f}/{ppl['cpu'][1]:.6f}; ASR ({out['asr']['words']} words) update/compute ms"
+        f" {', '.join(f'{k} {a:.2f}/{b:.2f}' for k, (a, b) in out['asr']['ms'].items())}, values"
+        f" {', '.join(f'{k} {v:.6f}' for k, v in out['asr']['values'].items())}; MT ({out['mt']['words']} words) update/compute ms"
+        f" {', '.join(f'{k} {a:.2f}/{b:.2f}' for k, (a, b) in out['mt']['ms'].items())}, values {out['mt']['values']};"
+        f" SQuAD {out['squad']['s']:.2f} s (card and CPU) {out['squad']['values']}; towers {tw}; default models raise"
+        f" {out['default_raises']}; peak {out['peak_mib']:.1f} MiB; {out['seconds']:.1f} s"
+    )
+    return out
+
+
 # ------------------------------------------------------------------ chaos
 
 CHAOS_TIMEOUT_S = 420
@@ -8654,7 +9324,7 @@ CHAOS_TIMEOUT_S = 420
 def phase_chaos(smi):
     """The port's chaos harness (``torchmetrics_tpu_torch/serve/chaos.py``)
     in ``short`` and ``poison`` modes with its daemons on the card: see the
-    module docstring, phase 25."""
+    module docstring, phase 26."""
     import shutil
     import tempfile
 
@@ -8727,6 +9397,7 @@ def main() -> int:
     k5_rows = time_biquad_cascade(device)
     k7_row = time_window_moments(device)
     k6_row = time_coco_match(device)
+    k8_row = time_token_nll(device)
     sketch_kernels = {"cm_track": KERNELS["cm_track"]}
     KERNELS = _classification_kernels()
     entry_diffs = phase_entry(KERNELS)
@@ -8750,6 +9421,7 @@ def main() -> int:
     audio = phase_audio(device, smi, k5_rows)
     detection = phase_detection(device, smi, k6_row)
     image = phase_image(device, smi, k7_row)
+    text = phase_text(device, smi, k8_row)
     chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -8763,6 +9435,7 @@ def main() -> int:
     rows.extend(audio["rows"])
     rows.append(detection["k6_row"])
     rows.append(image["k7_row"])
+    rows.append(text["k8_row"])
     for row in rows:
         stream = ", ".join(f"{k} {v:.4f}" for k, v in row["stream_ms"].items())
         print(
@@ -8818,7 +9491,8 @@ def main() -> int:
         f" K5 at T={QUALITY_T} {'/'.join(f'{r['ms']:.3f}' for r in audio['rows'])} ms device (gammatone/modulation);"
         f" detection phase {detection['seconds']:.1f} s, K6 {detection['k6_row']['ms']:.5f} ms device at COCO val2017's shape,"
         f" mAP compute {detection['compute_s']:.3f} s; image phase {image['seconds']:.1f} s, K7 {image['k7_row']['ms']:.5f} ms"
-        f" device at {IMG_SHAPE}; chaos phase {chaos['seconds']:.1f} s;"
+        f" device at {IMG_SHAPE}; text phase {text['seconds']:.1f} s, K8 {text['k8_row']['ms']:.5f} ms device at"
+        f" {PPL_SHAPE} (F.cross_entropy {text['k8_row']['library_ms']:.5f}); chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

@@ -492,7 +492,8 @@ def test_imports_copy_is_standard_library_and_agrees_with_jax():
     import torchmetrics_tpu_torch.utilities.imports as TI
 
     flags = [n for n in vars(TI) if n.startswith("_") and n.endswith("_AVAILABLE")]
-    assert {"_PESQ_AVAILABLE", "_ONNXRUNTIME_AVAILABLE"} == set(flags)  # the flags the ported domains read
+    # the flags the ported domains read: audio's, then text's
+    assert {"_PESQ_AVAILABLE", "_ONNXRUNTIME_AVAILABLE", "_REGEX_AVAILABLE", "_NLTK_AVAILABLE", "_TRANSFORMERS_AVAILABLE"} == set(flags)
     for name in flags:
         assert getattr(TI, name).module == getattr(JI, name).module and bool(getattr(TI, name)) == bool(getattr(JI, name))
     assert repr(TI.ModuleAvailableCache("numpy")) == repr(JI.ModuleAvailableCache("numpy"))

@@ -93,6 +93,55 @@ def _update_then_compute(metric, batch, pkg):
     metric.compute()  # MinMaxMetric folds its bounds at compute
 
 
+def _ppl_batches(seed=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(NB):
+        target = rng.integers(0, 11, (4, 8))
+        target[0, :2] = -100
+        out.append(((2 * rng.standard_normal((4, 8, 11))).astype(np.float32), target))
+    return out
+
+
+def _text_batches(seed=4):
+    rng = np.random.default_rng(seed)
+    words = ["the", "cat", "sat", "on", "a", "mat", "dog", "ran", "in", "park"]
+    out = []
+    for _ in range(NB):
+        refs = [" ".join(rng.choice(words, int(rng.integers(2, 9)))) for _ in range(3)]
+        out.append(([" ".join(w for w in r.split() if rng.random() > 0.3) or "a" for r in refs], refs))
+    return out
+
+
+def _text_update(metric, batch, pkg):
+    metric.update(*batch)
+
+
+class _HashTokenizer:
+    """Words to ``3 + crc32(word) % 29``, [CLS] 1, [SEP] 2, [PAD] 0, padded to ``max_length``."""
+
+    def __call__(self, text, padding=True, truncation=True, max_length=12, return_tensors="np", **kw):
+        import zlib
+
+        ids = np.zeros((len(text), max_length), np.int32)
+        for i, sentence in enumerate(text):
+            row = [1] + [3 + zlib.crc32(w.encode()) % 29 for w in sentence.split()][: max_length - 2] + [2]
+            ids[i, : len(row)] = row
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int32)}
+
+
+_EMBEDDINGS = np.random.default_rng(5).standard_normal((32, 8)).astype(np.float32)
+
+
+def _bert_score(pkg):
+    """BERTScore over a fixed embedding table (its ``user_forward_fn``): the states are token ids and masks."""
+    if pkg is J:
+        return J.BERTScore(model=jnp.asarray(_EMBEDDINGS), user_tokenizer=_HashTokenizer(), max_length=12,
+                           user_forward_fn=lambda m, b: m[b["input_ids"]])
+    return T.BERTScore(model=torch.from_numpy(_EMBEDDINGS), user_tokenizer=_HashTokenizer(), max_length=12,
+                       user_forward_fn=lambda m, b: m[b["input_ids"].long()], device="cpu")
+
+
 #: (id, factory(pkg), batches, per-batch step)
 CASES = [
     ("binned_auroc", lambda p: p.classification.MulticlassAUROC(num_classes=C, thresholds=THR, **_kw(p)), _cls_batches, _update),
@@ -111,6 +160,8 @@ CASES = [
         _update,
     ),
     ("mean_nan", lambda p: p.MeanMetric(nan_strategy="disable", **_kw(p)), _nan_batches, _update),
+    ("perplexity", lambda p: p.Perplexity(ignore_index=-100, **_kw(p)), _ppl_batches, _update),
+    ("bertscore", _bert_score, _text_batches, _text_update),
 ]
 
 

@@ -237,6 +237,19 @@ def _c4_batch(kind, seed):
         preds = target.copy()
         preds[..., 0] = np.where(r.random((3, 6, 5)) < 0.3, r.choice([0, 1, 6], (3, 6, 5)), preds[..., 0])
         return preds, target
+    if kind in ("text", "text_multi"):  # ASR/MT strings: hypotheses and their references (one each)
+        words = ["the", "cat", "sat", "on", "a", "mat", "dog", "ran", "Hello,", "world.", "it's", "3.5"]
+        refs = [" ".join(r.choice(words, int(r.integers(2, 9)))) for _ in range(6)]
+        hyps = [" ".join(w for w in ref.split() if r.random() > 0.2) + " dog" for ref in refs]
+        return (hyps, refs) if kind == "text" else (hyps, [[ref] for ref in refs])
+    if kind == "squad":
+        answers = [["the cat", "a cat"], ["blue sky"], ["ran"]]
+        preds = [{"prediction_text": p, "id": str(i)} for i, p in enumerate(["cat", "blue skies", "ran"])]
+        return preds, [{"answers": {"answer_start": [0] * len(a), "text": a}, "id": str(i)} for i, a in enumerate(answers)]
+    if kind == "ppl":  # Perplexity's (B, T, V) logits and targets, one ignored
+        target = r.integers(0, 11, (4, 6))
+        target[0, 0] = -100
+        return r.standard_normal((4, 6, 11)).astype(np.float32), target
     return (r.standard_normal(n).astype(np.float32),)
 
 
@@ -341,14 +354,28 @@ _C4_CASES = [
     ("InceptionScore", {"feature": _c4_features, "splits": 2}, "one"),
     ("MemorizationInformedFrechetInceptionDistance", {"feature": _c4_features}, "real"),
     ("LearnedPerceptualImagePatchSimilarity", {"net_params": _c4_lpips_tree()}, "lpips"),
+    # text: host strings (the list states of ROUGE and EED start empty: not swept), Perplexity's logits
+    ("BLEUScore", {}, "text_multi"), ("SacreBLEUScore", {}, "text_multi"), ("CHRFScore", {}, "text_multi"),
+    ("ROUGEScore", {}, "text_multi"), ("TranslationEditRate", {}, "text_multi"), ("ExtendedEditDistance", {}, "text_multi"),
+    ("WordErrorRate", {}, "text"), ("CharErrorRate", {}, "text"), ("MatchErrorRate", {}, "text"),
+    ("WordInfoLost", {}, "text"), ("WordInfoPreserved", {}, "text"), ("EditDistance", {}, "text"),
+    ("SQuAD", {}, "squad"), ("Perplexity", {"ignore_index": -100}, "ppl"),
 ]
 _C4_WRAPPERS = {
     "BinaryTargetTransformer", "BootStrapper", "ClasswiseWrapper", "CompositionalMetric", "LambdaInputTransformer",
     "Metric", "MetricInputTransformer", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 }
-# exported metrics whose constructor needs a backend this machine lacks (``pesq``, ``onnxruntime``); both
-# packages raise ModuleNotFoundError there (tests/test_torch_audio.py)
-_C4_NEEDS_BACKEND = {"PerceptualEvaluationSpeechQuality", "DeepNoiseSuppressionMeanOpinionScore"}
+# exported metrics whose constructor needs a backend this machine lacks (``pesq``, ``onnxruntime``; a
+# transformer model, which BERTScore and InfoLM load at construction unless given one); both packages raise
+# there (tests/test_torch_audio.py, tests/test_torch_text_models.py)
+_C4_NEEDS_BACKEND = {"PerceptualEvaluationSpeechQuality", "DeepNoiseSuppressionMeanOpinionScore", "BERTScore", "InfoLM"}
+
+
+def _c4_computed(value):
+    """A compute's value as float64 numpy (a dict's entries in key order: ROUGE, SQuAD)."""
+    if isinstance(value, dict):
+        return np.stack([_value(value[k]) for k in sorted(value)])
+    return _value(value)
 
 
 def _c4_id(case):
@@ -409,5 +436,5 @@ def test_set_dtype_then_float32_update_promotes_as_jax(case, tdt, jdt):
                 _value(leaf), ref, rtol=0, atol=budget * max(1.0, float(np.max(np.abs(ref), initial=0.0))),
                 err_msg=f"{name} {key}",
             )
-    ref = np.asarray(jm.compute(), np.float64)
-    np.testing.assert_allclose(_value(m.compute()), ref, rtol=0, atol=budget * max(1.0, float(np.max(np.abs(ref)))))
+    ref = _c4_computed(jm.compute())
+    np.testing.assert_allclose(_c4_computed(m.compute()), ref, rtol=0, atol=budget * max(1.0, float(np.max(np.abs(ref)))))

@@ -48,7 +48,12 @@ large as the image, row pitches off a multiple of 4 floats, outputs ending
 mid-tile, tiles shrunk by a wide window and more planes than a grid's z
 extent; its refusal of a staged tile too large holds on the card, its
 autograd route matches autograd through the plain loop, and the image
-convolutions stay float32 with cuDNN's global TF32 flag on.
+convolutions stay float32 with cuDNN's global TF32 flag on. K8 (Perplexity's
+token log-likelihood) equals its plain route within a stated per-row budget
+in float32, bfloat16 and float16, at V = 1 to 50,257 and row pitches off a
+multiple of 4, on ignored, wrapped and out-of-range targets and rows of
++-inf and NaN; its gradient matches autograd through the plain route, it
+captures in a CUDA graph, and Perplexity launches it once an update.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -1644,6 +1649,130 @@ def test_image_convolutions_stay_float32_under_the_global_tf32_flag(card):
     cpu_tower = T.image.backbones.inception.InceptionFeatureExtractor(("2048",), device="cpu")
     assert torch.allclose(feats.cpu(), cpu_tower(imgs), rtol=1e-4, atol=1e-5)
 
+
+# K8 (Perplexity's token log-likelihood): per row, within these shares of max(1, |plain|) of the plain route
+# (float32: another order of the sum of exponentials and the card's expf; 16-bit: the plain route rounds where
+# XLA rounds, four times, the kernel once)
+K8_BUDGET = {torch.float32: 2e-6, torch.bfloat16: 2 * 2.0**-7, torch.float16: 2 * 2.0**-10}
+
+
+def _k8_case(card, n, v, dtype=torch.float32, seed=0, pitch=None):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = 3 * torch.randn((n, pitch or v), generator=gen, device=card)
+    return x[:, :v].to(dtype), torch.randint(0, v, (n,), generator=gen, device=card)
+
+
+def _k8_assert_close(got, want, what):
+    (nll, valid), (pnll, pvalid) = got, want
+    assert nll.dtype == pnll.dtype and torch.equal(valid, pvalid), what
+    a, b = nll.float().cpu(), pnll.float().cpu()
+    assert torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.isinf(a), torch.isinf(b)), what
+    fin = torch.isfinite(b)
+    err = ((a[fin] - b[fin]).abs() / b[fin].abs().clamp(min=1)).max() if fin.any() else torch.tensor(0.0)
+    assert float(err) <= K8_BUDGET[nll.dtype], (what, float(err))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,v,pitch", [(64, 1, None), (33, 7, None), (256, 32000, None), (96, 1000, 1003), (17, 50257, None),
+                                       (8, 50257, 50261)])
+def test_token_nll_matches_plain(card, dtype, n, v, pitch):
+    from torchmetrics_tpu_torch.ops import token_nll, token_nll_plain
+
+    x, t = _k8_case(card, n, v, dtype, seed=n + v, pitch=pitch)
+    before = token_nll.launches
+    _k8_assert_close(token_nll(x, t, None), token_nll_plain(x, t, None), f"{n} x {v} {dtype}")
+    assert token_nll.launches == before + 1
+
+
+def test_token_nll_targets_and_special_rows_as_plain(card):
+    """Ignored rows, targets -1 and -V (wrapped), >= V and < -V (NaN), rows of +-inf and NaN logits."""
+    from torchmetrics_tpu_torch.ops import token_nll, token_nll_plain
+
+    x, _ = _k8_case(card, 12, 50, seed=5)
+    x[0, 3] = float("inf")
+    x[1] = float("-inf")
+    x[2, 4] = float("nan")
+    x[3, 9] = float("-inf")
+    t = torch.tensor([1, 1, 1, 9, -1, -50, 50, -51, -100, -100, 0, 49], device=card)
+    for ignore in (None, -100, 0):
+        _k8_assert_close(token_nll(x, t, ignore), token_nll_plain(x, t, ignore), f"ignore_index={ignore}")
+    nll, valid = token_nll(x, torch.full((12,), -100, device=card), -100)
+    assert not bool(valid.any()) and bool((nll == 0).all())
+
+
+def test_token_nll_gradient_matches_autograd_through_plain(card):
+    from torchmetrics_tpu_torch.ops import token_nll, token_nll_plain
+
+    x, t = _k8_case(card, 64, 3000, seed=7)
+    t[::5] = -100
+    w = torch.linspace(0.5, 1.5, 64, device=card)
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    (token_nll(xk, t, -100)[0] * w).sum().backward()
+    (token_nll_plain(xp, t, -100)[0] * w).sum().backward()
+    assert torch.allclose(xk.grad, xp.grad, rtol=1e-5, atol=1e-7)
+
+
+def test_token_nll_captures_in_a_cuda_graph(card):
+    from torchmetrics_tpu_torch.ops import token_nll
+
+    x, t = _k8_case(card, 128, 50257, seed=9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        token_nll(x, t, -100)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = token_nll(x, t, -100)
+    x.copy_(_k8_case(card, 128, 50257, seed=10)[0])
+    graph.replay()
+    eager = token_nll(x, t, -100)
+    assert torch.equal(captured[0].view(torch.int32), eager[0].view(torch.int32)) and torch.equal(captured[1], eager[1])
+
+
+def test_perplexity_launches_k8_once_an_update_and_equals_cpu(card):
+    from torchmetrics_tpu_torch.ops import token_nll
+
+    gen = torch.Generator().manual_seed(11)
+    batches = [(3 * torch.randn((2, 16, 1000), generator=gen), torch.randint(0, 1000, (2, 16), generator=gen)) for _ in range(3)]
+    on_card, on_cpu = T.Perplexity(ignore_index=-100), T.Perplexity(ignore_index=-100, device="cpu")
+    before = token_nll.launches
+    for x, t in batches:
+        t[0, :3] = -100
+        on_card.update(x.to(card), t.to(card))
+        on_cpu.update(x, t)
+    assert token_nll.launches == before + 3
+    assert torch.equal(on_card.count.cpu(), on_cpu.count)
+    assert torch.allclose(on_card.compute().cpu(), on_cpu.compute(), rtol=1e-6)
+
+
+
+def test_perplexity_in_a_fused_plan_equals_eager(card):
+    """The update captures in the fused plan's CUDA graph (K8 and the XLA-order sum, no host check): the
+    replays' states equal the eager collection's bitwise, K8 traced once a replay."""
+    from torchmetrics_tpu_torch.ops import token_nll
+
+    gen = torch.Generator(device=card).manual_seed(13)
+    batches = []
+    for _ in range(4):
+        t = torch.randint(0, 2000, (4, 64), generator=gen, device=card)
+        t[:, ::9] = -100
+        batches.append((3 * torch.randn((4, 64, 2000), generator=gen, device=card), t))
+    ref, fus = (T.MetricCollection({"ppl": T.Perplexity(ignore_index=-100)}) for _ in range(2))
+    for b in batches:
+        ref.update(*b)
+    fus.update(*batches[0])
+    fus.update(*batches[1])
+    plan = fus.fused()
+    plan.update(*batches[2])  # warm-up, capture, first replay
+    before = token_nll.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        plan.update(*batches[3])
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages() if "token_nll_kernel" in e.key) == 1
+    assert token_nll.launches == before and len(plan._captured) == 1
+    plan.fold_back()
+    _assert_collections_bitwise(ref, fus)
 
 if __name__ == "__main__":
     _dist_worker(sys.argv)

@@ -220,6 +220,33 @@ def _check_regression_folds(T, mesh, rank: int, saved: dict) -> None:
     _save_members(saved, "regression", members)
 
 
+def _perplexity_batches():
+    """Two (N, T, V) logit batches and their targets, some ignored (JAX's sweep's ``_perplexity_data``, wider)."""
+    rng = np.random.default_rng(19)
+    out = []
+    for _ in range(2):
+        target = rng.integers(0, 11, (N, 12))
+        target[rng.random((N, 12)) < 0.1] = -100
+        out.append(((3 * rng.standard_normal((N, 12, 11))).astype(np.float32), target))
+    return out
+
+
+def _check_perplexity(T, mesh, rank: int, saved: dict) -> None:
+    """Perplexity rides ``sharded_update`` (JAX's sweep has it): each rank's half of each batch, states summed
+    over the mesh, against the one-process fold."""
+    from torchmetrics_tpu_torch.parallel import sharded_update
+
+    m = T.Perplexity(ignore_index=-100, device="cpu")
+    ref = T.Perplexity(ignore_index=-100, device="cpu", distributed_available_fn=lambda: False)
+    shard = slice(rank * HALF, (rank + 1) * HALF)
+    for logits, target in _perplexity_batches():
+        sharded_update(m, mesh, torch.from_numpy(logits[shard]), torch.from_numpy(target[shard]))
+        ref.update(torch.from_numpy(logits), torch.from_numpy(target))
+    assert torch.equal(m.count, ref.count), (m.count, ref.count)
+    assert torch.allclose(m.compute(), ref.compute(), rtol=1e-6), f"sharded Perplexity {m.compute()} vs {ref.compute()}"
+    _save_members(saved, "perplexity", {"ppl": m})
+
+
 def _wrapper_reg_batches():
     rng = np.random.default_rng(17)
     out = []
@@ -401,6 +428,9 @@ def _scenario_sharded(rank: int, world: int, out_dir: Path) -> None:
     # 6) wrapper metrics: the deep walk, one window slot per event for Running
     _check_wrappers(T, mesh, rank, saved)
 
+    # 7) Perplexity, the text metric whose update is device work
+    _check_perplexity(T, mesh, rank, saved)
+
     np.savez(out_dir / f"sharded_rank{rank}.npz", **saved)
     dist.barrier()
     print(f"rank {rank}: all sharded checks passed", flush=True)
@@ -514,6 +544,25 @@ def test_fused_mesh_catbuffers_match_jax(worker_states, jax_batches):
                 jbuf = plan.state["members"][key][name]
                 for part, want in zip(jbuf._fields, jbuf):
                     _assert_bitwise(saved[f"fused_exact.{key}.{name}.{part}"], np.asarray(want), f"{key}.{name}.{part}")
+
+
+def test_sharded_perplexity_matches_jax(worker_states):
+    """Perplexity through ``sharded_update`` on both ranks == JAX's ``sharded_update`` over the whole batches:
+    the float32 token count bitwise, the summed -log p within ``rtol=1e-6`` (each rank adds its half first)."""
+    import jax.numpy as jnp
+
+    import torchmetrics_tpu as J
+    from torchmetrics_tpu.parallel import sharded_update
+
+    jm = J.Perplexity(ignore_index=-100)
+    for logits, target in _perplexity_batches():
+        sharded_update(jm, _jax_mesh(), jnp.asarray(logits), jnp.asarray(target))
+    want = jm.state_tree()
+    for saved in worker_states:
+        _assert_bitwise(saved["perplexity.ppl.count"], np.asarray(want["count"]), "count")
+        got = saved["perplexity.ppl.total_log_probs"]
+        assert got.dtype == np.asarray(want["total_log_probs"]).dtype
+        np.testing.assert_allclose(got, np.asarray(want["total_log_probs"]), rtol=1e-6)
 
 
 def test_sharded_regression_folds_match_jax(worker_states):

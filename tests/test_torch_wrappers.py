@@ -541,10 +541,6 @@ def test_wrappers_never_join_a_compute_group():
 NOT_PORTED = {
     # multimodal
     "CLIPImageQualityAssessment", "CLIPScore",
-    # text
-    "BERTScore", "BLEUScore", "CHRFScore", "CharErrorRate", "EditDistance", "ExtendedEditDistance", "InfoLM",
-    "MatchErrorRate", "Perplexity", "ROUGEScore", "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate",
-    "WordInfoLost", "WordInfoPreserved",
     # not metrics: the version string and the functional namespace, which the port reaches as a module
     "__version__", "functional",
 }

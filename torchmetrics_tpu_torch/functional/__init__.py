@@ -21,6 +21,8 @@ from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.functional.segmentation import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.segmentation import __all__ as _segmentation_all
+from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = (
     list(_audio_all)
@@ -33,4 +35,5 @@ __all__ = (
     + list(_regression_all)
     + list(_retrieval_all)
     + list(_segmentation_all)
+    + list(_text_all)
 )

@@ -18,6 +18,9 @@
   of score-ordered detections to ground truths, the mAP's hot loop.
 - :func:`window_moments` (K7, ``csrc/window_moments.cu``): the five windowed
   moments of two image stacks, the filter of SSIM, MS-SSIM, UQI, VIF and SCC.
+- :func:`token_nll` (K8, ``csrc/token_nll.cu``): each row's negative
+  log-likelihood of its target under the softmax of its logits, Perplexity's
+  update, in one read of the logits.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute. A
 CUDA graph that holds a launch replays it without the wrapper, so a count
@@ -40,6 +43,7 @@ from torchmetrics_tpu_torch.ops.stat_counts import (
     stat_counts_segmented,
     stat_counts_segmented_plain,
 )
+from torchmetrics_tpu_torch.ops.token_nll import token_nll, token_nll_plain
 from torchmetrics_tpu_torch.ops.window_moments import window_moments, window_moments_plain
 
 #: every kernel wrapper of the port, by kernel name
@@ -53,6 +57,7 @@ KERNELS = {
     "biquad_cascade": biquad_cascade,
     "coco_match": coco_match,
     "window_moments": window_moments,
+    "token_nll": token_nll,
 }
 
 __all__ = [
@@ -73,6 +78,8 @@ __all__ = [
     "stat_counts_plain",
     "stat_counts_segmented",
     "stat_counts_segmented_plain",
+    "token_nll",
+    "token_nll_plain",
     "window_moments",
     "window_moments_plain",
 ]

@@ -3,7 +3,9 @@
 """Numerically-safe compute helpers (counterpart of ``torchmetrics_tpu/utilities/compute.py``)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import itertools
+from functools import lru_cache
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -88,12 +90,78 @@ def _sum_last_in_xla_order(x: torch.Tensor) -> torch.Tensor:
     return _sum_last_in_xla_order(x[..., :h]) + _sum_last_in_xla_order(x[..., h:])
 
 
+@lru_cache(maxsize=None)
+def _xla_order_plan(n: int) -> Tuple[List[List[int]], List[Tuple[List[int], List[int], List[int]]]]:
+    """The tree of :func:`_sum_last_in_xla_order` over ``n`` values: its
+    leaves' positions (each at most 32, in order), then its inner nodes by
+    height, as (node, left child, right child) slots of one table whose
+    first slots are the leaves', the root last."""
+    leaves: List[List[int]] = []
+
+    def collect(start: int, length: int) -> None:
+        if length <= 32:
+            leaves.append(list(range(start, start + length)))
+            return
+        h = (length + 1) // 2
+        collect(start, h)
+        collect(start + h, length - h)
+
+    collect(0, n)
+    next_leaf, next_node = iter(range(len(leaves))), itertools.count(len(leaves))
+    levels: Dict[int, Tuple[List[int], List[int], List[int]]] = {}
+
+    def build(length: int) -> Tuple[int, int]:  # (slot, height), leaves met in the order collect met them
+        if length <= 32:
+            return next(next_leaf), 0
+        h = (length + 1) // 2
+        (left, hl), (right, hr) = build(h), build(length - h)
+        slot, height = next(next_node), max(hl, hr) + 1
+        for part, value in zip(levels.setdefault(height, ([], [], [])), (slot, left, right)):
+            part.append(value)
+        return slot, height
+
+    build(n)
+    return leaves, [levels[height] for height in sorted(levels)]
+
+
+_XLA_ORDER_INDICES: Dict[Tuple[int, str], Tuple[torch.Tensor, list]] = {}
+
+
+def _sum_in_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """``_sum_last_in_xla_order`` of a 1-D float tensor, bit for bit, in a
+    few dozen vector ops instead of one op a value: the leaves' runs of up
+    to 32 values as the columns of one gather (short runs padded with -0.0,
+    which adds exactly nothing), summed column by column, then the inner
+    nodes level by level. The index tensors are kept per length and device,
+    so a CUDA graph captured after a first call holds no host copy."""
+    n = x.shape[0]
+    if n <= 32:
+        return _sum_last_in_xla_order(x)
+    key = (n, str(x.device))
+    if key not in _XLA_ORDER_INDICES:
+        leaves, plan = _xla_order_plan(n)
+        table = torch.full((len(leaves), 32), n, dtype=torch.int64)
+        for i, leaf in enumerate(leaves):
+            table[i, : len(leaf)] = torch.tensor(leaf)
+        steps = [tuple(torch.tensor(v, dtype=torch.int64, device=x.device) for v in level) for level in plan]
+        _XLA_ORDER_INDICES[key] = (table.to(x.device), steps)
+    table, steps = _XLA_ORDER_INDICES[key]
+    padded = torch.cat([x, torch.full((1,), -0.0, dtype=x.dtype, device=x.device)])[table]
+    acc = padded[:, 0]
+    for i in range(1, 32):
+        acc = acc + padded[:, i]
+    slots = torch.cat([acc, torch.empty(sum(len(level[0]) for level in steps), dtype=x.dtype, device=x.device)])
+    for nodes, lefts, rights in steps:
+        slots = slots.index_copy(0, nodes, slots[lefts] + slots[rights])
+    return slots[-1]
+
+
 def _mean_last_in_xla_order(x: torch.Tensor) -> torch.Tensor:
     """``jnp.mean(x, axis=-1)`` of float32 values, bitwise on every device:
     :func:`_sum_last_in_xla_order`, times the float32 reciprocal of the
     count, which is how XLA's CPU compiler divides by a constant."""
     recip = torch.full((), 1.0 / x.shape[-1], dtype=x.dtype, device=x.device)
-    return _sum_last_in_xla_order(x) * recip
+    return (_sum_in_xla_order(x) if x.ndim == 1 else _sum_last_in_xla_order(x)) * recip
 
 
 def _auc_compute_without_check(x: torch.Tensor, y: torch.Tensor, direction: float, axis: int = -1) -> torch.Tensor:

@@ -4,8 +4,9 @@
 
 The port's own copy, standard library only: a flag probes
 ``importlib.util.find_spec`` once, lazily, and never imports the module.
-It holds the flags the ported domains read (audio's PESQ and DNSMOS); the
-JAX package's other flags come with the domains that read them.
+It holds the flags the ported domains read (audio's PESQ and DNSMOS; text's
+``intl`` tokenizer, ROUGE's stemmer and the transformer towers of BERTScore
+and InfoLM); the JAX package's other flags come with the domains that read them.
 """
 from __future__ import annotations
 
@@ -37,3 +38,6 @@ class ModuleAvailableCache:
 
 _PESQ_AVAILABLE = ModuleAvailableCache("pesq")
 _ONNXRUNTIME_AVAILABLE = ModuleAvailableCache("onnxruntime")
+_REGEX_AVAILABLE = ModuleAvailableCache("regex")
+_NLTK_AVAILABLE = ModuleAvailableCache("nltk")
+_TRANSFORMERS_AVAILABLE = ModuleAvailableCache("transformers")
