@@ -440,6 +440,26 @@ result) if it fails:
    quarantined [2, 4], 2 rollbacks, 4 masked rows, 2 rejected batches, the
    health walk ok, degraded, ok). A failed leg fails the script. Each leg's
    seconds and each daemon's time to its ready line are printed.
+27. multimodal (runs after text, before chaos): ROADMAP A14's last domain on seeded towers built from
+   the published configurations (transformers' ``CLIPModel``, nothing downloaded), through the harness's
+   own processor (``_ClipProcessor``: torch and numpy, CLIP's published preprocessing, a seeded word-hash
+   tokenizer with CLIP's ids; no PIL). ``CLIPScore`` at openai/clip-vit-large-patch14's widths (vision 24
+   layers, hidden 1,024, 16 heads, MLP 4,096, patch 14 at 224; text 12 layers, hidden 768, 12 heads, MLP
+   3,072, vocabulary 49,408, 77 positions; projection 768) over MS-COCO val2017's shape: 3 x 480 x 640
+   uint8 images made on the card, one caption of 8-20 words each, cut to 1,024 of the 5,000 images in 16
+   updates of 64, three captions of 90 words (the truncation warning fires three times); the value in
+   [0, 100], the functional against the module over the first 128 pairs and two half-batches against one
+   batch within MM_BATCHING_ATOL, the card against the CPU on the first 4 pairs within
+   CLIP_SCORE_CPU_ATOL. ``CLIPImageQualityAssessment`` at openai/clip-vit-base-patch16's widths (vision 12
+   layers, hidden 768, 12 heads, MLP 3,072, patch 16; text 12 layers, hidden 512, 8 heads, MLP 2,048;
+   projection 512) over KonIQ-10k's shape (3 x 768 x 1,024 in [0, 1], made on the card), cut to 512 images
+   in 8 updates of 64, the 16 prompt keywords and one custom pair (34 anchor texts): the dict and
+   ``format_as_dict=False`` equal, every probability in [0, 1], the card against the CPU on the first 4
+   images within CLIP_IQA_CPU_ATOL. The towers run in float32 (cuDNN's TF32 off, matmuls at
+   ``"highest"``) and leave both flags as they were; each tower's features hold ``projection_dim`` in
+   the form the card's transformers returns (printed). Printed: each tower's images (captions, prompts)
+   per second, an update's host preprocessing against the rest, the peak memory of an update, each
+   check's largest error, the phase's seconds; the default-model paths raise (nothing is downloaded).
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -449,7 +469,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image, text and chaos phases' seconds, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image, text, multimodal (with its towers' images/s) and chaos phases' seconds, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, K2s and K1s at the
 StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, K6, K7 and K8) and
 ``{"ok": true, "device": {...}}``.
@@ -9316,6 +9336,318 @@ def phase_text(device, smi, k8_row):
     return out
 
 
+# ------------------------------------------------------------- multimodal
+
+MM_SEED = SEED + 27
+#: openai/clip-vit-large-patch14's published widths (CLIPScore's default model)
+CLIP_L14 = {"vision": dict(num_hidden_layers=24, hidden_size=1024, num_attention_heads=16, intermediate_size=4096,
+                           patch_size=14, image_size=224),
+            "text": dict(num_hidden_layers=12, hidden_size=768, num_attention_heads=12, intermediate_size=3072,
+                         vocab_size=49408, max_position_embeddings=77),
+            "projection_dim": 768}
+#: openai/clip-vit-base-patch16's published widths (CLIP-IQA's default model)
+CLIP_B16 = {"vision": dict(num_hidden_layers=12, hidden_size=768, num_attention_heads=12, intermediate_size=3072,
+                           patch_size=16, image_size=224),
+            "text": dict(num_hidden_layers=12, hidden_size=512, num_attention_heads=8, intermediate_size=2048,
+                         vocab_size=49408, max_position_embeddings=77),
+            "projection_dim": 512}
+CLIP_BOS, CLIP_EOS = 49406, 49407  # CLIP's tokenizer: <|startoftext|>, <|endoftext|> (also its padding)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)  # CLIP's published image normalisation
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+COCO_IMAGE = (3, 480, 640)  # MS-COCO val2017's common shape (640 x 480), uint8
+COCO_IMAGES = 1024  # cut from val2017's 5,000
+COCO_BATCH = 64
+COCO_WORDS = (8, 20)  # one caption an image, 8-20 words
+COCO_LONG = (3, 9, 14)  # the batches holding a caption of 90 words (past CLIP's 77 positions)
+KONIQ_IMAGE = (3, 768, 1024)  # KonIQ-10k's 1024 x 768 images, in [0, 1]
+KONIQ_IMAGES = 512  # cut from KonIQ-10k's 10,073
+KONIQ_BATCH = 64
+IQA_CUSTOM = ("Crisp photo.", "Grainy photo.")
+MM_CPU_IMAGES = 4
+CLIP_SCORE_CPU_ATOL = 1e-3  # 100 * cos, card against CPU: 24 (ViT-L) float32 layers through cuBLAS and oneDNN
+CLIP_IQA_CPU_ATOL = 2e-4  # a probability, card against CPU: p(1 - p) * 100 times the cosines' gap at most
+MM_BATCHING_ATOL = 1e-3  # 100 * cos on the card, the same pairs in batches of other sizes
+
+
+class _ClipProcessor:
+    """The harness's CLIP processor, written in torch and numpy (no PIL): images (3, H, W) uint8 (scaled by
+    1/255) or float in [0, 1], their shortest side resized to 224 (bicubic, antialiased), centre-cropped to
+    224 x 224 and normalised by CLIP's mean and std; text lowercased, split on whitespace, each word to
+    ``crc32(word, seed) % 49406``, between <|startoftext|> and <|endoftext|>, padded with <|endoftext|> to
+    the longest caption and never truncated (the metric truncates at 77 and warns). Times its calls."""
+
+    def __init__(self, seed=MM_SEED, size=224):
+        self.seed, self.size, self.seconds = seed, size, []
+
+    def _pixels(self, images):
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+
+        x = torch.from_numpy(np.stack(images))
+        x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x.to(torch.float32)
+        h, w = x.shape[-2:]
+        scale = self.size / min(h, w)
+        oh, ow = max(self.size, round(h * scale)), max(self.size, round(w * scale))
+        x = F.interpolate(x, size=(oh, ow), mode="bicubic", align_corners=False, antialias=True)
+        top, left = (oh - self.size) // 2, (ow - self.size) // 2
+        x = x[..., top : top + self.size, left : left + self.size]
+        mean = torch.tensor(CLIP_MEAN).view(1, 3, 1, 1)
+        std = torch.tensor(CLIP_STD).view(1, 3, 1, 1)
+        return ((x - mean) / std).numpy()
+
+    def _tokens(self, text):
+        import zlib
+
+        import numpy as np
+
+        rows = [[CLIP_BOS] + [zlib.crc32(w.encode(), self.seed) % CLIP_BOS for w in t.lower().split()] + [CLIP_EOS] for t in text]
+        width = max(len(r) for r in rows)
+        input_ids = np.full((len(rows), width), CLIP_EOS, np.int64)
+        attention_mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            input_ids[i, : len(r)] = r
+            attention_mask[i, : len(r)] = 1
+        return input_ids, attention_mask
+
+    def __call__(self, text=None, images=None, return_tensors="np", padding=True, **kw):
+        t0 = time.perf_counter()
+        out = {}
+        if text is not None:
+            out["input_ids"], out["attention_mask"] = self._tokens(text)
+        if images is not None:
+            out["pixel_values"] = self._pixels(images)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _clip_model(widths, device, seed):
+    """transformers' ``CLIPModel`` at ``widths`` with seeded weights, built on ``device``."""
+    import torch
+    from transformers import CLIPConfig, CLIPModel
+
+    config = CLIPConfig(text_config=widths["text"], vision_config=widths["vision"], projection_dim=widths["projection_dim"])
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = CLIPModel(config)
+    return model.eval()
+
+
+def _coco_captions(rng, n, words):
+    """``n`` seeded captions of 8-20 words from ``words``; a caption of 90 words opens each batch of ``COCO_LONG``."""
+    lens = rng.integers(COCO_WORDS[0], COCO_WORDS[1] + 1, n)
+    caps = [" ".join(rng.choice(words, int(k))) for k in lens]
+    for b in COCO_LONG:
+        caps[b * COCO_BATCH] = " ".join(rng.choice(words, 90))
+    return caps
+
+
+def _tower_rates(model, proc, device, images, text):
+    """Images/s of the vision tower and captions/s of the text tower on one preprocessed batch (CUDA events)."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _fp32_towers, _projected
+
+    batch = proc(text=text, images=[i.cpu().numpy() for i in images])
+    pixels = torch.from_numpy(batch["pixel_values"]).to(device)
+    ids = torch.from_numpy(batch["input_ids"][:, :77]).to(device)
+    mask = torch.from_numpy(batch["attention_mask"][:, :77]).to(device)
+    rates, forms, proj_err = {}, {}, {}
+    # each tower's features, read from what get_*_features returns, against the projection of its pooled output
+    explicit = {"vision": lambda: model.visual_projection(model.vision_model(pixel_values=pixels).pooler_output),
+                "text": lambda: model.text_projection(model.text_model(input_ids=ids, attention_mask=mask).pooler_output)}
+    for name, call, n in (("vision", lambda: model.get_image_features(pixels), len(images)),
+                          ("text", lambda: model.get_text_features(input_ids=ids, attention_mask=mask), len(text))):
+        with _fp32_towers():
+            out = call()
+            forms[name] = type(out).__name__
+            _require(_projected(out).shape == (n, model.config.projection_dim),
+                     f"{name} features {tuple(_projected(out).shape)}, projection_dim {model.config.projection_dim}")
+            proj_err[name] = float((_projected(out) - explicit[name]()).abs().max())
+            _require(proj_err[name] <= MM_BATCHING_ATOL / 100, f"{name} features against the projected pooled output: {proj_err[name]:.2e}")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(3):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+        rates[name] = 3 * n / (start.elapsed_time(end) / 1e3)
+    return rates, {"forms": forms, "projection_err": proj_err}
+
+
+def _mm_clip_score(tm, device, out):
+    """CLIPScore at ViT-L/14's widths over MS-COCO val2017-shaped pairs: see the module docstring, phase 27."""
+    import copy
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.functional.multimodal import clip_score
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _clip_score_update
+
+    model = _clip_model(CLIP_L14, device, MM_SEED)
+    proc = _ClipProcessor()
+    rng = np.random.default_rng(MM_SEED)
+    captions = _coco_captions(rng, COCO_IMAGES, _text_words(rng, 10000))
+    gen = torch.Generator(device).manual_seed(MM_SEED)
+    batches = [torch.randint(0, 256, (COCO_BATCH, *COCO_IMAGE), generator=gen, device=device, dtype=torch.uint8)
+               for _ in range(COCO_IMAGES // COCO_BATCH)]
+    rates, forms = _tower_rates(model, proc, device, batches[0], captions[:COCO_BATCH])
+    metric = tm.CLIPScore(model=model, processor=proc)
+    update_ms, proc_ms, peak_mib = [], [], 0.0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for b, images in enumerate(batches):
+            torch.cuda.reset_peak_memory_stats()
+            n_proc = len(proc.seconds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metric.update(images, captions[b * COCO_BATCH : (b + 1) * COCO_BATCH])
+            torch.cuda.synchronize()
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+            proc_ms.append(sum(proc.seconds[n_proc:]) * 1e3)
+            peak_mib = max(peak_mib, torch.cuda.max_memory_allocated() / 2**20)
+    truncations = [str(w.message) for w in caught if "max_position_embeddings=77" in str(w.message)]
+    _require(len(truncations) == len(COCO_LONG), f"CLIPScore: {len(truncations)} truncation warnings, want {len(COCO_LONG)}")
+    value = metric.compute()
+    _require(value.shape == () and bool(torch.isfinite(value)) and 0 <= float(value) <= 100, f"CLIPScore {value}")
+    _require(int(metric.n_samples) == COCO_IMAGES and metric.score.dtype == torch.float32, "CLIPScore states")
+    raw_mean = float(metric.score) / COCO_IMAGES  # before the clamp at 0: seeded towers score near 0 either side
+    # the functional over the module's first two batches, and the first batch in two halves; the mean
+    # 100 * cos before the clamp, which the values (clamped at 0) would hide
+    head, head_caps = torch.cat(batches[:2]), captions[: 2 * COCO_BATCH]
+    module = tm.CLIPScore(model=model, processor=proc)
+    module.update(batches[0], captions[:COCO_BATCH])
+    module.update(batches[1], captions[COCO_BATCH : 2 * COCO_BATCH])
+    pairs, n = _clip_score_update(head, head_caps, model, proc)
+    functional_err = max(abs(float(pairs.mean()) - float(module.score) / int(module.n_samples)),
+                         abs(float(clip_score(head, head_caps, model=model, processor=proc)) - float(module.compute())))
+    _require(n == int(module.n_samples) and functional_err <= MM_BATCHING_ATOL, f"CLIPScore functional against the module: {functional_err:.2e}")
+    halves = tm.CLIPScore(model=model, processor=proc)
+    half = COCO_BATCH // 2
+    halves.update(batches[0][:half], captions[:half])
+    halves.update(batches[0][half:], captions[half:COCO_BATCH])
+    one = tm.CLIPScore(model=model, processor=proc)
+    one.update(batches[0], captions[:COCO_BATCH])
+    halves_err = max(abs(float(halves.score) - float(one.score)) / COCO_BATCH, abs(float(halves.compute()) - float(one.compute())))
+    _require(halves_err <= MM_BATCHING_ATOL, f"CLIPScore two half-batches against one batch: {halves_err:.2e}")
+    # card against CPU on the first pairs
+    cpu_model = copy.deepcopy(model).cpu()
+    card, _ = _clip_score_update(batches[0][:MM_CPU_IMAGES], captions[:MM_CPU_IMAGES], model, proc)
+    cpu, _ = _clip_score_update(batches[0][:MM_CPU_IMAGES].cpu(), captions[:MM_CPU_IMAGES], cpu_model, proc, "cpu")
+    _require(card.device.type == "cuda" and cpu.device.type == "cpu", "CLIPScore ran where it was asked")
+    cpu_err = float((card.cpu() - cpu).abs().max())
+    _require(cpu_err <= CLIP_SCORE_CPU_ATOL, f"CLIPScore card against CPU on {MM_CPU_IMAGES} pairs: {cpu_err:.2e}")
+    del cpu_model, model
+    torch.cuda.empty_cache()
+    n = len(update_ms)
+    out["clip_score"] = {"value": float(value), "raw_mean": raw_mean, "rates": rates, "forms": forms, "update_ms": statistics.median(update_ms),
+                         "proc_ms": statistics.median(proc_ms), "tower_ms": statistics.median(np.subtract(update_ms, proc_ms)),
+                         "proc_share": sum(proc_ms) / sum(update_ms), "updates": n, "peak_mib": peak_mib,
+                         "truncations": len(truncations), "functional_err": functional_err, "halves_err": halves_err,
+                         "cpu_err": cpu_err, "cpu_scores": [float(v) for v in cpu]}
+
+
+def _mm_clip_iqa(tm, device, out):
+    """CLIP-IQA at ViT-B/16's widths over KonIQ-10k-shaped images: see the module docstring, phase 27."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.functional.multimodal import clip_image_quality_assessment
+    from torchmetrics_tpu_torch.functional.multimodal.clip_iqa import _PROMPTS, _clip_iqa_compute
+    from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+
+    model = _clip_model(CLIP_B16, device, MM_SEED + 1)
+    proc = _ClipProcessor()
+    prompts = tuple(_PROMPTS) + (IQA_CUSTOM,)
+    gen = torch.Generator(device).manual_seed(MM_SEED + 1)
+    batches = [torch.rand((KONIQ_BATCH, *KONIQ_IMAGE), generator=gen, device=device) for _ in range(KONIQ_IMAGES // KONIQ_BATCH)]
+    rates, forms = _tower_rates(model, proc, device, batches[0], ["Good photo."] * KONIQ_BATCH)
+    metric = tm.CLIPImageQualityAssessment(prompts=prompts, model=model, processor=proc)
+    _require(len(metric.prompts_list) == 34 and len(metric.prompts_names) == 17, "CLIP-IQA prompts")
+    update_ms, proc_ms, peak_mib = [], [], 0.0
+    for images in batches:
+        torch.cuda.reset_peak_memory_stats()
+        n_proc = len(proc.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(images)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        proc_ms.append(sum(proc.seconds[n_proc:]) * 1e3)
+        peak_mib = max(peak_mib, torch.cuda.max_memory_allocated() / 2**20)
+    t0 = time.perf_counter()
+    value = metric.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    _require(isinstance(value, dict) and list(value) == metric.prompts_names, f"CLIP-IQA dict {list(value)}")
+    for key, probs in value.items():
+        _require(probs.shape == (KONIQ_IMAGES,) and bool(((probs >= 0) & (probs <= 1)).all()), f"CLIP-IQA {key}")
+    matrix = _clip_iqa_compute(dim_zero_cat(metric.img_features), metric.anchors, metric.prompts_names, format_as_dict=False)
+    _require(matrix.shape == (KONIQ_IMAGES, 17) and torch.equal(matrix, torch.stack(list(value.values()), dim=1)),
+             "CLIP-IQA format_as_dict=False against the dict")
+    cpu_model = copy.deepcopy(model).cpu()
+    head = batches[0][:MM_CPU_IMAGES]
+    card = clip_image_quality_assessment(head, prompts=prompts, model=model, processor=proc)
+    cpu = clip_image_quality_assessment(head.cpu(), prompts=prompts, model=cpu_model, processor=proc, device="cpu")
+    cpu_err = max(float((card[k].cpu() - cpu[k]).abs().max()) for k in card)
+    _require(cpu_err <= CLIP_IQA_CPU_ATOL, f"CLIP-IQA card against CPU on {MM_CPU_IMAGES} images: {cpu_err:.2e}")
+    del cpu_model, model
+    torch.cuda.empty_cache()
+    out["clip_iqa"] = {"means": {k: float(v.mean()) for k, v in value.items()}, "rates": rates, "forms": forms,
+                       "update_ms": statistics.median(update_ms), "proc_ms": statistics.median(proc_ms),
+                       "tower_ms": statistics.median(np.subtract(update_ms, proc_ms)),
+                       "proc_share": sum(proc_ms) / sum(update_ms), "compute_ms": compute_ms, "peak_mib": peak_mib,
+                       "cpu_err": cpu_err}
+
+
+def phase_multimodal(device, smi):
+    """CLIPScore and CLIP-IQA (ROADMAP A14's last domain) on seeded towers at full CLIP widths: see the
+    module docstring, phase 27. The default-model paths raise (nothing is downloaded)."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")  # the default-model paths read the local cache alone; say so to the hub too
+    out = {"default_raises": []}
+    for make in (lambda: tm.CLIPScore(), lambda: tm.CLIPImageQualityAssessment()):
+        try:
+            make()
+        except (OSError, ModuleNotFoundError) as err:
+            out["default_raises"].append(type(err).__name__)
+        else:
+            raise SmokeFailure("a CLIP default-model path loaded a model: nothing should be in the cache")
+    flags = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    _mm_clip_score(tm, device, out)
+    _mm_clip_iqa(tm, device, out)
+    _require((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == flags,
+             f"the towers left the TF32 flags changed: {flags}")
+    out["seconds"] = time.perf_counter() - t_phase
+    cs, iqa = out["clip_score"], out["clip_iqa"]
+    print(
+        f"[multimodal] {smi}; CLIPScore at ViT-L/14's widths ({COCO_IMAGES} MS-COCO-shaped pairs in {cs['updates']}"
+        f" updates of {COCO_BATCH}): value {cs['value']:.6f} (mean 100 * cos before the clamp {cs['raw_mean']:.6f}); towers vision {cs['rates']['vision']:.1f} images/s, text"
+        f" {cs['rates']['text']:.1f} captions/s; update ms (median) {cs['update_ms']:.2f}, host preprocessing"
+        f" {cs['proc_ms']:.2f}, towers and the rest {cs['tower_ms']:.2f} (preprocessing share {cs['proc_share']:.3f});"
+        f" peak MiB of an update {cs['peak_mib']:.1f}; truncation warnings {cs['truncations']}; functional against module"
+        f" {cs['functional_err']:.2e}, halves against one batch {cs['halves_err']:.2e}, card against CPU"
+        f" {cs['cpu_err']:.2e} (budget {CLIP_SCORE_CPU_ATOL:g}); get_*_features' return forms and their largest gap to the projected pooled output {cs['forms']}. CLIP-IQA at ViT-B/16's widths"
+        f" ({KONIQ_IMAGES} KonIQ-10k-shaped images, 34 prompts): vision {iqa['rates']['vision']:.1f} images/s, text"
+        f" {iqa['rates']['text']:.1f} prompts/s; update ms (median) {iqa['update_ms']:.2f}, host preprocessing"
+        f" {iqa['proc_ms']:.2f}, towers and the rest {iqa['tower_ms']:.2f} (preprocessing share {iqa['proc_share']:.3f});"
+        f" compute {iqa['compute_ms']:.2f} ms; peak MiB of an update {iqa['peak_mib']:.1f}; card against CPU"
+        f" {iqa['cpu_err']:.2e} (budget {CLIP_IQA_CPU_ATOL:g}); means {iqa['means']}; return forms and projection gaps {iqa['forms']};"
+        f" cuDNN TF32 off and matmuls at 'highest' inside the towers, the flags restored; default models raise"
+        f" {out['default_raises']}; {out['seconds']:.1f} s"
+    )
+    return out
+
+
 # ------------------------------------------------------------------ chaos
 
 CHAOS_TIMEOUT_S = 420
@@ -9422,6 +9754,7 @@ def main() -> int:
     detection = phase_detection(device, smi, k6_row)
     image = phase_image(device, smi, k7_row)
     text = phase_text(device, smi, k8_row)
+    multimodal = phase_multimodal(device, smi)
     chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -9492,7 +9825,9 @@ def main() -> int:
         f" detection phase {detection['seconds']:.1f} s, K6 {detection['k6_row']['ms']:.5f} ms device at COCO val2017's shape,"
         f" mAP compute {detection['compute_s']:.3f} s; image phase {image['seconds']:.1f} s, K7 {image['k7_row']['ms']:.5f} ms"
         f" device at {IMG_SHAPE}; text phase {text['seconds']:.1f} s, K8 {text['k8_row']['ms']:.5f} ms device at"
-        f" {PPL_SHAPE} (F.cross_entropy {text['k8_row']['library_ms']:.5f}); chaos phase {chaos['seconds']:.1f} s;"
+        f" {PPL_SHAPE} (F.cross_entropy {text['k8_row']['library_ms']:.5f}); multimodal phase {multimodal['seconds']:.1f} s,"
+        f" ViT-L/14 {multimodal['clip_score']['rates']['vision']:.1f} images/s, ViT-B/16"
+        f" {multimodal['clip_iqa']['rates']['vision']:.1f} images/s; chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

@@ -366,9 +366,11 @@ _C4_WRAPPERS = {
     "Metric", "MetricInputTransformer", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 }
 # exported metrics whose constructor needs a backend this machine lacks (``pesq``, ``onnxruntime``; a
-# transformer model, which BERTScore and InfoLM load at construction unless given one); both packages raise
-# there (tests/test_torch_audio.py, tests/test_torch_text_models.py)
-_C4_NEEDS_BACKEND = {"PerceptualEvaluationSpeechQuality", "DeepNoiseSuppressionMeanOpinionScore", "BERTScore", "InfoLM"}
+# transformer model, which BERTScore, InfoLM and the CLIP metrics load at construction unless given one);
+# both packages raise there (tests/test_torch_audio.py, tests/test_torch_text_models.py); the CLIP metrics'
+# set_dtype is swept with a tiny CLIP in tests/test_torch_multimodal.py::test_set_dtype_then_update_as_jax
+_C4_NEEDS_BACKEND = {"PerceptualEvaluationSpeechQuality", "DeepNoiseSuppressionMeanOpinionScore", "BERTScore", "InfoLM",
+                     "CLIPScore", "CLIPImageQualityAssessment"}
 
 
 def _c4_computed(value):

@@ -212,7 +212,9 @@ def test_robustness_exports_equal_jax_but_stateguard():
                                      "clustering", "functional.clustering", "audio", "functional.audio",
                                      "utilities.imports", "detection", "functional.detection", "native",
                                      "ops.coco_match", "image", "functional.image", "image.backbones.inception",
-                                     "image.lpip", "image.perceptual_path_length", "ops.window_moments"])
+                                     "image.lpip", "image.perceptual_path_length", "ops.window_moments",
+                                     "multimodal", "functional.multimodal", "multimodal.weights", "_examples",
+                                     "_examples_generated"])
 def test_the_new_domains_and_the_chaos_harness_are_scanned(package):
     """The domains of A14 ported so far and the chaos harness are among the
     modules the two checks above import and scan."""
@@ -309,7 +311,7 @@ _WAITING: dict = {}
 
 @pytest.mark.parametrize("sub", ["sketch", "drift", "utilities", "parallel", "obs", "clustering", "functional.clustering",
                                  "audio", "functional.audio", "detection", "functional.detection", "image",
-                                 "functional.image"])
+                                 "functional.image", "multimodal", "functional.multimodal"])
 def test_subpackage_exports_equal_jax(sub):
     import importlib
 

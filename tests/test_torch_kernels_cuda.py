@@ -54,6 +54,8 @@ in float32, bfloat16 and float16, at V = 1 to 50,257 and row pitches off a
 multiple of 4, on ignored, wrapped and out-of-range targets and rows of
 +-inf and NaN; its gradient matches autograd through the plain route, it
 captures in a CUDA graph, and Perplexity launches it once an update.
+CLIPScore's and CLIP-IQA's towers on the card (a seeded small CLIP) give the
+CPU's values with TF32 turned on globally, and leave the flags as they were.
 Two ranks of one gloo group share the card (this file run as a script is
 their worker): ``gather_all_tensors`` carries CUDA tensors of uneven shapes,
 and the sharded fused plan's graphs give the eager ``sharded_update``'s
@@ -1773,6 +1775,58 @@ def test_perplexity_in_a_fused_plan_equals_eager(card):
     assert token_nll.launches == before and len(plan._captured) == 1
     plan.fold_back()
     _assert_collections_bitwise(ref, fus)
+
+
+def test_clip_towers_on_the_card_equal_cpu_under_the_global_tf32_flags(gpu):
+    """CLIPScore's and CLIP-IQA's towers (transformers' ``CLIPModel``, seeded, at a small width) with TF32
+    turned on globally for cuDNN and the float32 matmuls: the metric runs them in float32 (the CPU's scores
+    within 1e-4 of 100, its probabilities within 1e-5) and leaves both flags as they were."""
+    pytest.importorskip("transformers")
+    from transformers import CLIPConfig, CLIPModel
+
+    from torchmetrics_tpu_torch.functional.multimodal.clip_iqa import clip_image_quality_assessment
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _clip_score_update
+
+    class Processor:
+        def __call__(self, text=None, images=None, return_tensors="np", padding=True, **kw):
+            out = {}
+            if text is not None:
+                rows = [[49406] + [3 + sum(map(ord, w)) % 1000 for w in t.split()] + [49407] for t in text]
+                width = max(map(len, rows))
+                out["input_ids"] = np.array([r + [49407] * (width - len(r)) for r in rows], np.int64)
+                out["attention_mask"] = np.array([[1] * len(r) + [0] * (width - len(r)) for r in rows], np.int64)
+            if images is not None:
+                out["pixel_values"] = np.stack([np.asarray(i, np.float32) for i in images])
+            return out
+
+    config = CLIPConfig(
+        text_config={"hidden_size": 256, "intermediate_size": 1024, "num_attention_heads": 4, "num_hidden_layers": 4},
+        vision_config={"hidden_size": 256, "intermediate_size": 1024, "num_attention_heads": 4, "num_hidden_layers": 4,
+                       "image_size": 64, "patch_size": 8},
+        projection_dim=128,
+    )
+    torch.manual_seed(7)
+    cpu_model = CLIPModel(config).eval()
+    card_model = CLIPModel(config).eval().to(gpu)
+    card_model.load_state_dict(cpu_model.state_dict())
+    images = torch.rand((4, 3, 64, 64), generator=torch.Generator().manual_seed(8))
+    text = ["a photo of a cat", "a dog", "two birds in the sky", "an empty street"]
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        card, _ = _clip_score_update(images.to(gpu), text, card_model, Processor())
+        card_iqa = clip_image_quality_assessment(images.to(gpu), prompts=("quality", "warm"), model=card_model, processor=Processor())
+        assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == (True, "high")
+    finally:
+        torch.backends.cudnn.allow_tf32, precision = saved
+        torch.set_float32_matmul_precision(precision)
+    cpu, _ = _clip_score_update(images, text, cpu_model, Processor(), "cpu")
+    cpu_iqa = clip_image_quality_assessment(images, prompts=("quality", "warm"), model=cpu_model, processor=Processor(), device="cpu")
+    assert card.device.type == "cuda" and torch.allclose(card.cpu(), cpu, rtol=0, atol=1e-4), (card, cpu)
+    for key in cpu_iqa:
+        assert torch.allclose(card_iqa[key].cpu(), cpu_iqa[key], rtol=0, atol=1e-5), key
+
 
 if __name__ == "__main__":
     _dist_worker(sys.argv)

@@ -537,13 +537,9 @@ def test_wrappers_never_join_a_compute_group():
 
 # ----------------------------------------------------------------- exports
 
-# the JAX package's top-level names whose domains are not ported yet (ROADMAP A14)
-NOT_PORTED = {
-    # multimodal
-    "CLIPImageQualityAssessment", "CLIPScore",
-    # not metrics: the version string and the functional namespace, which the port reaches as a module
-    "__version__", "functional",
-}
+# the JAX package's top-level names the port does not export there: not metrics, the version string
+# and the functional namespace, which the port reaches as a module (every domain is ported)
+NOT_PORTED = {"__version__", "functional"}
 
 
 def test_exports_equal_jax_but_the_domains_not_ported():

@@ -76,14 +76,47 @@ def make_stat_scores_family(
     # pickling finds them (pickle looks classes up by __module__ + __qualname__)
     # and the state-spec fingerprint, which hashes the class name, matches JAX's
     caller_module = sys._getframe(1).f_globals.get("__name__", __name__)
+    # JAX's runnable examples: perfect predictions give the family's best value
+    perfect = "1.0" if higher_is_better else "0.0"
+    examples = {
+        "Binary": (
+            ">>> metric = Binary{name}(device='cpu')\n"
+            "    >>> metric.update(np.array([0, 1, 1, 0]), np.array([0, 1, 1, 0]))\n"
+        ),
+        "Multiclass": (
+            ">>> metric = Multiclass{name}(num_classes=3, average='macro', device='cpu')\n"
+            "    >>> metric.update(np.array([0, 1, 2, 1]), np.array([0, 1, 2, 1]))\n"
+        ),
+        "Multilabel": (
+            ">>> metric = Multilabel{name}(num_labels=2, device='cpu')\n"
+            "    >>> metric.update(np.array([[1, 0], [0, 1]]), np.array([[1, 0], [0, 1]]))\n"
+        ),
+    }
     for klass, prefix in ((_Binary, "Binary"), (_Multiclass, "Multiclass"), (_Multilabel, "Multilabel")):
         klass.__name__ = klass.__qualname__ = f"{prefix}{name}"
         klass.__module__ = caller_module
-        klass.__doc__ = f"{prefix} {name} module metric."
+        klass.__doc__ = (
+            f"{prefix} {name} module metric.\n\n"
+            "    Example:\n"
+            "    >>> import numpy as np\n"
+            f"    >>> from {caller_module} import {prefix}{name}\n"
+            f"    {examples[prefix].format(name=name)}"
+            "    >>> round(float(metric.compute()), 4)\n"
+            f"    {perfect}\n"
+        )
         klass.higher_is_better = higher_is_better
         klass.plot_lower_bound = plot_lower_bound
         klass.plot_upper_bound = plot_upper_bound
     _Wrapper.__name__ = _Wrapper.__qualname__ = name
     _Wrapper.__module__ = caller_module
-    _Wrapper.__doc__ = f"Task-dispatching {name}."
+    _Wrapper.__doc__ = (
+        f"Task-dispatching {name}.\n\n"
+        "    Example:\n"
+        "    >>> import numpy as np\n"
+        f"    >>> from {caller_module} import {name}\n"
+        f"    >>> metric = {name}(task='multiclass', num_classes=3, average='macro', device='cpu')\n"
+        "    >>> metric.update(np.array([0, 1, 2, 1]), np.array([0, 1, 2, 1]))\n"
+        "    >>> round(float(metric.compute()), 4)\n"
+        f"    {perfect}\n"
+    )
     return _Binary, _Multiclass, _Multilabel, _Wrapper

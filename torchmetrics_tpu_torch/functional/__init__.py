@@ -11,6 +11,8 @@ from torchmetrics_tpu_torch.functional.detection import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.multimodal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.multimodal import __all__ as _multimodal_all
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
@@ -30,6 +32,7 @@ __all__ = (
     + list(_clustering_all)
     + list(_detection_all)
     + list(_image_all)
+    + list(_multimodal_all)
     + list(_nominal_all)
     + list(_pairwise_all)
     + list(_regression_all)
