@@ -420,7 +420,8 @@ result) if it fails:
    insertions, 1% deletions) in batches of 64, card against the CPU route
    bitwise, the first 200 pairs against a Python DP. BLEU, SacreBLEU (13a,
    intl), chrF++, TER, EED and ROUGE (1, 2, L, Lsum) over WMT14 en-de
-   newstest2014's shape (3,003 segments, one reference each) in batches of
+   newstest2014's shape (the first 1,024 of its 3,003 segments, one reference each: the
+   metrics' host Python is most of the phase) in batches of
    64, each update and compute timed, the CPU route fed the first 8 batches
    and bitwise equal to the card's states there. SQuAD over SQuAD v1.1
    dev's shape (10,570 questions, 1-3 answers), card against CPU bitwise.
@@ -460,6 +461,20 @@ result) if it fails:
    the form the card's transformers returns (printed). Printed: each tower's images (captions, prompts)
    per second, an update's host preprocessing against the rest, the peak memory of an update, each
    check's largest error, the phase's seconds; the default-model paths raise (nothing is downloaded).
+28. lint (after multimodal, before chaos): the port's static checks (``torchmetrics_tpu_torch/lint``,
+   loaded by file path: the standard library alone) lint the port and this script in at most
+   LINT_BUDGET_S with no finding above ``lint/baseline.json``, and every rule fires on the fixture
+   corpus (``tests/torch_lint_corpus``). Then the static verdicts are held against CUDA-graph capture:
+   each capture fixture of the corpus and a list of the port's classes are built with
+   ``make_jit_update`` on the card and their step called three times (the first call runs eagerly, the
+   second captures, the third replays). A fixture the linter flags (``.item()``, ``bool(t)``,
+   boolean-mask indexing, ``torch.bincount``, ``torch.nonzero``, an upload, a host read one call away)
+   must fail with the port's capture error; its clean twin (the read under ``_is_concrete``, the port's
+   ``_bincount``, ``torch.where``, a Python scalar) must capture, replay and equal its eager fold bit
+   for bit. The classes the linter's repairs made capturable (the exact matches, MeanIoU, VIF,
+   MS-SSIM, LPIPS) and two clean updates (Dice, Perplexity) must capture and fold bitwise; the
+   host paths the port suppresses with a reason (SRMR, PanopticQuality, RetrievalMAP with an
+   ``ignore_index``) must fail. Printed: a verdict line per case, the lint run's seconds, the phase's.
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -8324,7 +8339,10 @@ def _img_float64_errors(tm, p32, t32):
         x, y = avg_pool2d(x), avg_pool2d(y)
     mcs = torch.stack([torch.relu(cs) for _, cs in scales[:-1]] + [torch.relu(scales[-1][0])])
     betas = torch.tensor((0.0448, 0.2856, 0.3001, 0.2363, 0.1333), dtype=torch.float64, device=p.device)[:, None]
-    ref["ms_ssim"] = torch.prod(mcs**betas, 0)
+    weighted = mcs**betas
+    ref["ms_ssim"] = weighted[0]
+    for row in weighted[1:]:  # row by row: torch.prod on the card compiles its kernel at run time
+        ref["ms_ssim"] = ref["ms_ssim"] * row
     got = {
         "ssim": F_.structural_similarity_index_measure(p32, t32, reduction="none"),
         "ssim_uniform7": F_.structural_similarity_index_measure(p32, t32, gaussian_kernel=False, kernel_size=7,
@@ -8895,6 +8913,7 @@ ASR_EDITS = (0.03, 0.01, 0.01)  # substitutions, insertions, deletions a word
 ASR_BATCH = 64
 ASR_DP_PAIRS = 200
 MT_SEGMENTS = 3003  # WMT14 en-de newstest2014: 3,003 segments, one reference each
+MT_HOST_SEGMENTS = 1024  # the MT metrics (host Python on the card's CPU) take the first 1,024 (16 batches) of them
 MT_MEAN_WORDS = 20.6
 MT_VOCAB = 20000
 MT_BATCH = 64
@@ -9040,6 +9059,7 @@ def _text_mt(tm, device, out):
     bitwise equal to the card's at that point, and its value too."""
     hyps, refs = _text_corpus(TEXT_SEED + 3, MT_SEGMENTS, MT_MEAN_WORDS, MT_VOCAB, (0.15, 0.03, 0.05),
                               capital_share=0.3, punct=True, swap=0.3)
+    hyps, refs = hyps[:MT_HOST_SEGMENTS], refs[:MT_HOST_SEGMENTS]
     targets = [[r] for r in refs]
     makers = {
         "BLEUScore": lambda **kw: tm.BLEUScore(n_gram=4, **kw),
@@ -9584,11 +9604,12 @@ def _mm_clip_iqa(tm, device, out):
     value = metric.compute()
     torch.cuda.synchronize()
     compute_ms = (time.perf_counter() - t0) * 1e3
-    _require(isinstance(value, dict) and list(value) == metric.prompts_names, f"CLIP-IQA dict {list(value)}")
+    # the module's dict comes with its keys sorted, as JAX's tree map rebuilds it
+    _require(isinstance(value, dict) and list(value) == sorted(metric.prompts_names), f"CLIP-IQA dict {list(value)}")
     for key, probs in value.items():
         _require(probs.shape == (KONIQ_IMAGES,) and bool(((probs >= 0) & (probs <= 1)).all()), f"CLIP-IQA {key}")
     matrix = _clip_iqa_compute(dim_zero_cat(metric.img_features), metric.anchors, metric.prompts_names, format_as_dict=False)
-    _require(matrix.shape == (KONIQ_IMAGES, 17) and torch.equal(matrix, torch.stack(list(value.values()), dim=1)),
+    _require(matrix.shape == (KONIQ_IMAGES, 17) and torch.equal(matrix, torch.stack([value[k] for k in metric.prompts_names], dim=1)),
              "CLIP-IQA format_as_dict=False against the dict")
     cpu_model = copy.deepcopy(model).cpu()
     head = batches[0][:MM_CPU_IMAGES]
@@ -9646,6 +9667,160 @@ def phase_multimodal(device, smi):
         f" {out['default_raises']}; {out['seconds']:.1f} s"
     )
     return out
+
+
+# ------------------------------------------------------------------- lint
+
+LINT_CORPUS = os.path.join("tests", "torch_lint_corpus")
+LINT_BUDGET_S = 30.0  # the package-wide lint run, as its CPU test holds it
+LINT_SEED = 27
+
+
+def _load_lint(root):
+    """The port's metriclint, loaded by file path (it imports only the standard library)."""
+    import importlib.util
+
+    lint_dir = os.path.join(root, "torchmetrics_tpu_torch", "lint")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_metriclint", os.path.join(lint_dir, "__init__.py"), submodule_search_locations=[lint_dir])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module, os.path.join(lint_dir, "baseline.json")
+
+
+def _capture_verdict(make, batches):
+    """``make_jit_update(make())`` on the card, its step called once a batch
+    (the first call runs eagerly, the second captures, the third replays):
+    ``("capture error", message)`` when the port's capture error ends it, else
+    ``("captures", equal)`` with whether the carry equals the eager fold of
+    the same batches bit for bit."""
+    import torch
+
+    from torchmetrics_tpu_torch.parallel import make_jit_update
+
+    metric = make()
+    lists = [k for k, v in metric._defaults.items() if isinstance(v, list)]
+    kw = {"cat_capacity": 64 * len(batches), "example_batch": batches[0]} if lists else {}
+    step, state = make_jit_update(metric, **kw)
+    try:
+        for batch in batches:
+            state = step(state, *batch)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        _require("as a CUDA graph failed" in str(err), f"{type(metric).__name__}: not the port's capture error: {err}")
+        return "capture error", str(err).split("failed: ", 1)[-1].splitlines()[0][:80]
+    _require(len(step._captured) == 1, f"{type(metric).__name__}: the step captured {len(step._captured)} graphs, expected 1")
+    eager = make()
+    for batch in batches:
+        eager.update(*batch)
+    return "captures", all(torch.equal(state[k], getattr(eager, k)) for k in eager._defaults if k not in lists)
+
+
+def _lint_port_cases(tm, device):
+    """``(name, static verdict, expected, make, batches)`` of the port's own
+    classes held against capture: the linter's repairs (the linter is silent
+    on them now, and they must capture and fold bitwise), the deliberate
+    host paths the port suppresses with a reason (they must fail), and two
+    clean updates."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(LINT_SEED)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=device)
+
+    def unit(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    def three(fn):
+        return lambda: [fn() for _ in range(3)]
+
+    repaired, suppressed = "repaired: clean", "suppressed (deliberate)"
+    return [
+        ("MulticlassExactMatch", repaired, "captures", lambda **kw: tm.classification.MulticlassExactMatch(num_classes=3, **kw),
+         three(lambda: (ints(3, 64, 5), ints(3, 64, 5)))),
+        ("MultilabelExactMatch", repaired, "captures", lambda **kw: tm.classification.MultilabelExactMatch(num_labels=4, **kw),
+         three(lambda: (unit(64, 4), ints(2, 64, 4)))),
+        ("MeanIoU", repaired, "captures", lambda **kw: tm.segmentation.MeanIoU(num_classes=3, **kw),
+         three(lambda: (ints(3, 2, 32, 32), ints(3, 2, 32, 32)))),
+        ("VisualInformationFidelity", repaired, "captures", lambda **kw: tm.image.VisualInformationFidelity(**kw),
+         three(lambda: (unit(2, 1, 48, 48), unit(2, 1, 48, 48)))),
+        ("MultiScaleStructuralSimilarityIndexMeasure", repaired, "captures",
+         lambda **kw: tm.image.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+         three(lambda: (unit(2, 1, 192, 192), unit(2, 1, 192, 192)))),
+        ("LearnedPerceptualImagePatchSimilarity", repaired, "captures",
+         lambda **kw: tm.image.LearnedPerceptualImagePatchSimilarity(net_type="squeeze", **kw),
+         three(lambda: (unit(2, 3, 64, 64) * 2 - 1, unit(2, 3, 64, 64) * 2 - 1))),
+        ("SpeechReverberationModulationEnergyRatio", suppressed, "capture error",
+         lambda **kw: tm.audio.SpeechReverberationModulationEnergyRatio(fs=8000, **kw), three(lambda: (unit(1, 8000) * 2 - 1,))),
+        ("PanopticQuality", suppressed, "capture error", lambda **kw: tm.detection.PanopticQuality(things={0, 1}, stuffs={2}, **kw),
+         three(lambda: (torch.stack([ints(3, 1, 16, 16), ints(2, 1, 16, 16)], -1),
+                        torch.stack([ints(3, 1, 16, 16), ints(2, 1, 16, 16)], -1)))),
+        ("RetrievalMAP(ignore_index=-1)", suppressed, "capture error", lambda **kw: tm.retrieval.RetrievalMAP(ignore_index=-1, **kw),
+         three(lambda: (unit(32), torch.where(torch.arange(32, device=device) % 7 == 0, -1, ints(2, 32)), ints(4, 32)))),
+        ("Dice(num_classes=3)", "clean", "captures", lambda **kw: tm.classification.Dice(num_classes=3, **kw),
+         three(lambda: (ints(3, 64), ints(3, 64)))),
+        ("Perplexity", "clean", "captures", lambda **kw: tm.text.Perplexity(**kw),
+         three(lambda: (torch.randn(2, 40, 8, generator=gen, device=device), ints(8, 2, 40)))),
+    ]
+
+
+def phase_lint(device, smi):
+    """The port's static checks held against CUDA-graph capture on the card:
+    see the module docstring, phase 28."""
+    import glob
+    import importlib.util
+
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    lint, baseline = _load_lint(root)
+    t0 = time.perf_counter()
+    found = lint.lint_paths([os.path.join(root, "torchmetrics_tpu_torch"), os.path.join(root, "chip_smoke.py")], root=root)
+    lint_s = time.perf_counter() - t0
+    new, stale = lint.diff_against_baseline(found, lint.load_baseline(baseline))
+    _require(not new, "metriclint findings above the baseline:\n" + "\n".join(v.render() for v in new))
+    _require(not stale, f"stale metriclint baseline entries: {stale}")
+    _require(lint_s < LINT_BUDGET_S, f"the package-wide lint run took {lint_s:.1f} s (budget {LINT_BUDGET_S:g})")
+    corpus = os.path.join(root, LINT_CORPUS)
+    corpus_found = lint.lint_paths([corpus], root=corpus)
+    fired = {v.rule for v in corpus_found}
+    _require(fired == set(lint.RULES), f"rules that did not fire on the corpus: {set(lint.RULES) - fired}")
+    rows = []
+    for path in sorted(glob.glob(os.path.join(corpus, "ml0*.py"))):
+        name = os.path.basename(path)[:-3]
+        if not name.startswith(("ml002_", "ml011_")):
+            continue
+        spec = importlib.util.spec_from_file_location(f"chip_smoke_lint_{name}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        rules = sorted({v.rule for v in corpus_found if v.path == name + ".py"})
+        static = f"flagged {'/'.join(rules)}" if rules else "clean"
+        _require(bool(rules) == (not module.CAPTURES), f"{name}: static verdict {static} against CAPTURES={module.CAPTURES}")
+        expected = "captures" if module.CAPTURES else "capture error"
+        make = lambda module=module: module.Fixture(device=device)  # noqa: E731
+        rows.append((f"corpus/{name}", static, expected) + _capture_verdict(make, module.batches(device)))
+    for name, static, expected, make, batches in _lint_port_cases(tm, device):
+        rows.append((name, static, expected) + _capture_verdict(lambda make=make: make(device=device), batches()))
+    for name, static, expected, outcome, detail in rows:
+        print(f"[lint] {name}: static {static}; on the card {outcome}"
+              + (f" ({detail})" if outcome != "captures" else f", carry {'equal' if detail else 'NOT equal'} to the eager fold bit for bit"))
+        _require(outcome == expected, f"{name}: expected {expected}, got {outcome} ({detail})")
+        _require(outcome != "captures" or detail, f"{name}: the captured step's carry differs from the eager fold")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    print(
+        f"[lint] {smi}; the port and chip_smoke.py linted in {lint_s:.2f} s (budget {LINT_BUDGET_S:g} s): {len(found)} findings,"
+        f" all baselined ML006/ML013, 0 new; every one of {len(lint.RULES)} rules fires on the corpus; capture fixtures"
+        f" {sum(1 for r in rows if r[0].startswith('corpus/'))} and port classes {sum(1 for r in rows if not r[0].startswith('corpus/'))},"
+        f" every static verdict held by capture; {seconds:.1f} s"
+    )
+    return {"seconds": seconds, "lint_s": lint_s, "rows": rows}
 
 
 # ------------------------------------------------------------------ chaos
@@ -9755,6 +9930,7 @@ def main() -> int:
     image = phase_image(device, smi, k7_row)
     text = phase_text(device, smi, k8_row)
     multimodal = phase_multimodal(device, smi)
+    lint_run = phase_lint(device, smi)
     chaos = phase_chaos(smi)
     for row in rows:
         row["launches"] = run["launches"][row["name"]]
@@ -9827,7 +10003,8 @@ def main() -> int:
         f" device at {IMG_SHAPE}; text phase {text['seconds']:.1f} s, K8 {text['k8_row']['ms']:.5f} ms device at"
         f" {PPL_SHAPE} (F.cross_entropy {text['k8_row']['library_ms']:.5f}); multimodal phase {multimodal['seconds']:.1f} s,"
         f" ViT-L/14 {multimodal['clip_score']['rates']['vision']:.1f} images/s, ViT-B/16"
-        f" {multimodal['clip_iqa']['rates']['vision']:.1f} images/s; chaos phase {chaos['seconds']:.1f} s;"
+        f" {multimodal['clip_iqa']['rates']['vision']:.1f} images/s; lint phase {lint_run['seconds']:.1f} s (the lint run"
+        f" {lint_run['lint_s']:.2f} s); chaos phase {chaos['seconds']:.1f} s;"
         f" total {time.perf_counter() - t_start:.1f} s"
     )
     print(smi)

@@ -241,12 +241,10 @@ def test_clip_iqa_matches_jax(clips, prompts):
     module.update(images[2:])
     jmodule = JM.CLIPImageQualityAssessment(prompts=prompts, model=flax, processor=proc)
     jmodule.update(images)
-    # JAX's functional keeps the prompts' order; its module's compute returns the dict through a tree map,
-    # which sorts the keys, and the port's keeps the prompts' order there too
-    for value, jvalue, order in ((got, want, list), (module.compute(), jmodule.compute(), sorted)):
+    for value, jvalue in ((got, want), (module.compute(), jmodule.compute())):
         assert type(value) is dict if len(prompts) > 1 else isinstance(value, torch.Tensor)
         value, jvalue = (value, jvalue) if isinstance(value, dict) else ({"": value}, {"": jvalue})
-        assert order(value) == list(jvalue)
+        assert list(value) == list(jvalue)
         for key in jvalue:
             assert _np(value[key]).shape == np.asarray(jvalue[key]).shape == (5,), key
             assert np.all((_np(value[key]) >= 0) & (_np(value[key]) <= 1)), key

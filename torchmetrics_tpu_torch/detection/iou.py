@@ -67,7 +67,7 @@ class IntersectionOverUnion(Metric):
         self.add_state("groundtruth_labels", default=[], dist_reduce_fx=None)
         self.add_state("iou_matrix", default=[], dist_reduce_fx=None)
 
-    def update(self, preds: Sequence[Dict[str, Any]], target: Sequence[Dict[str, Any]]) -> None:
+    def update(self, preds: Sequence[Dict[str, Tensor]], target: Sequence[Dict[str, Tensor]]) -> None:
         """Append each image's pairwise matrix, with pairs below the
         threshold or of other labels set to the invalid value."""
         _input_validator(preds, target, ignore_score=True)

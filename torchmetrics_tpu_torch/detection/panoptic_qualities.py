@@ -63,7 +63,7 @@ class PanopticQuality(Metric):
         self.add_state("false_positives", default=torch.zeros(num_categories, dtype=torch.int32), dist_reduce_fx="sum")
         self.add_state("false_negatives", default=torch.zeros(num_categories, dtype=torch.int32), dist_reduce_fx="sum")
 
-    def update(self, preds: Any, target: Any) -> None:
+    def update(self, preds: Tensor, target: Tensor) -> None:
         """Fold a batch of maps into the states (the matching on the host, the sums on the device)."""
         _validate_inputs(preds, target)
         preds_f = _preprocess_inputs(

@@ -121,7 +121,7 @@ def _erb_filterbank(wave: Tensor, coefs: np.ndarray) -> Tensor:
     return out / gain.to(wave.device)[None, :, None]
 
 
-def _hilbert_envelope(x: Tensor) -> Tensor:
+def _hilbert_envelope(x: Tensor) -> Tensor:  # metriclint: disable=ML011 -- host-built filters: fusable by the predicate, fails at capture (ROADMAP A)
     """|analytic signal| by FFT, at a length padded to a multiple of 16."""
     time = x.shape[-1]
     n = time if time % 16 == 0 else ceil(time / 16) * 16
@@ -198,7 +198,7 @@ def _srmr_arg_validate(
         raise ValueError("Expected argument `fast` to be a bool value")
 
 
-def speech_reverberation_modulation_energy_ratio(
+def speech_reverberation_modulation_energy_ratio(  # metriclint: disable=ML011 -- host-built filters: fusable by the predicate, fails at capture (ROADMAP A)
     preds: Tensor,
     fs: int,
     n_cochlear_filters: int = 23,

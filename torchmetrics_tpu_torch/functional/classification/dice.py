@@ -55,6 +55,7 @@ def _dice_format(
     if preds.is_floating_point():
         preds = (normalize_logits_if_needed(_float32_inputs(preds), "sigmoid") >= threshold).to(_I32)
     if num_classes is None:
+        # metriclint: disable=ML011 -- without num_classes the labels' max sizes the one-hot, read on the host as JAX's reads it; pass num_classes to capture
         max_label = int(torch.maximum(preds.max(), target.max()))
         if max_label > 1:
             num_classes = max_label + 1

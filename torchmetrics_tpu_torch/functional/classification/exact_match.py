@@ -44,7 +44,7 @@ def _multiclass_exact_match_update(
         preds = torch.where(target == ignore_index, torch.full_like(preds, ignore_index), preds)
     correct = (preds == target).sum(1, dtype=_I32) == preds.shape[1]
     correct = correct if multidim_average == "samplewise" else correct.sum(dtype=_I32)
-    total = torch.tensor(preds.shape[0] if multidim_average == "global" else 1, dtype=_I32, device=preds.device)
+    total = torch.full((), preds.shape[0] if multidim_average == "global" else 1, dtype=_I32, device=preds.device)
     return correct, total
 
 
@@ -74,7 +74,7 @@ def _multilabel_exact_match_update(
         preds = torch.movedim(preds, 1, -1).reshape(-1, num_labels)
         target = torch.movedim(target, 1, -1).reshape(-1, num_labels)
     correct = ((preds == target).sum(1, dtype=_I32) == num_labels).sum(dim=-1, dtype=_I32)
-    total = torch.tensor(preds.shape[0 if multidim_average == "global" else 2], dtype=_I32, device=preds.device)
+    total = torch.full((), preds.shape[0 if multidim_average == "global" else 2], dtype=_I32, device=preds.device)
     return correct, total
 
 

@@ -39,7 +39,7 @@ def _iou_family_update(
         raise ValueError(f"Expected target to be of shape (N, 4) but got {tuple(target.shape)}")
     mat = kernel(preds, target)
     if iou_threshold is not None:
-        mat = torch.where(mat < iou_threshold, torch.tensor(replacement_val, dtype=mat.dtype, device=mat.device), mat)
+        mat = mat.masked_fill(mat < iou_threshold, replacement_val)
     return mat
 
 

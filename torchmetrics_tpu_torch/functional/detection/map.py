@@ -115,8 +115,12 @@ def _mean_valid(s: Tensor, dims: Union[int, Tuple[int, ...], None] = None) -> Te
     ``dims``, every dim by default), or -1 if there is none."""
     valid = s > -1
     dims = tuple(range(s.ndim)) if dims is None else dims
-    n = valid.sum(dims)
-    total = torch.where(valid, s, 0.0).sum(dims)
+    if dims == ():
+        # jnp.sum(axis=()) reduces nothing, where torch's sum(()) reduces every dim
+        n, total = valid.to(torch.int64), torch.where(valid, s, 0.0)
+    else:
+        n = valid.sum(dims)
+        total = torch.where(valid, s, 0.0).sum(dims)
     return torch.where(n > 0, total / n.clamp(min=1).to(s.dtype), -1.0)
 
 

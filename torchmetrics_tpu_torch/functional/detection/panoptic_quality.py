@@ -22,7 +22,7 @@ from torchmetrics_tpu_torch.utilities.data import resolve_device
 Tensor = torch.Tensor
 
 
-def _host(x: Any) -> np.ndarray:
+def _host(x: Any) -> np.ndarray:  # metriclint: disable=ML011 -- panoptic segments are matched on the host in numpy, as in JAX: the update is not capturable
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 

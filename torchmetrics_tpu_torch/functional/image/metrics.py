@@ -433,7 +433,7 @@ def _vif_factor(win_size: float, sigma: float, device=None) -> Tensor:
 def _vif_per_channel(preds: Tensor, target: Tensor, sigma_n_sq: float = 2.0) -> Tensor:
     """Pixel-domain VIF of each (image, channel): ``(B, C)`` (JAX runs one channel at a time)."""
     dtype = preds.dtype
-    eps = torch.tensor(1e-10, dtype=dtype, device=preds.device)
+    eps = torch.full((), 1e-10, dtype=dtype, device=preds.device)
     channels = preds.shape[1]
 
     preds_vif = torch.zeros(preds.shape[:2], dtype=dtype, device=preds.device)

@@ -29,6 +29,7 @@ from torchmetrics_tpu_torch.functional.image.helpers import (
     reflect_pad_2d,
     reflect_pad_3d,
 )
+from torchmetrics_tpu_torch.utilities.data import _device_values
 
 Tensor = torch.Tensor
 
@@ -249,7 +250,7 @@ def _multiscale_ssim_update(
     mcs_stack = torch.stack(mcs_list)
     if normalize == "simple":
         mcs_stack = (mcs_stack + 1) / 2
-    betas_arr = torch.tensor(betas, dtype=torch.float32, device=mcs_stack.device).reshape(-1, 1)
+    betas_arr = _device_values(betas, torch.float32, mcs_stack.device).reshape(-1, 1)
     return _prod_rows(mcs_stack**betas_arr)
 
 

@@ -65,7 +65,7 @@ def _as_tensor(x: Any) -> Tensor:
     return t.to(_JAX_CANONICAL.get(t.dtype, t.dtype))
 
 
-def _host(x: Tensor) -> np.ndarray:
+def _host(x: Tensor) -> np.ndarray:  # metriclint: disable=ML011 -- the CLIP processor takes host arrays, as in JAX: CLIP updates are not capturable
     return x.detach().cpu().numpy()
 
 

@@ -25,6 +25,7 @@ from torch import nn
 
 from torchmetrics_tpu_torch.functional.image.helpers import conv2d
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.checks import _is_concrete
 from torchmetrics_tpu_torch.utilities.data import _to_tensors
 
 Tensor = torch.Tensor
@@ -164,6 +165,8 @@ def _validate_lpips_inputs(img1: Tensor, img2: Tensor, normalize: bool) -> None:
             f"Expected both inputs to be 4d tensors with 3 channels in the NCHW format,"
             f" but got {tuple(img1.shape)} and {tuple(img2.shape)}"
         )
+    if not (_is_concrete(img1) and _is_concrete(img2)):
+        return  # the value check reads the images on the host: eager updates only, as JAX's skips tracers
     lo, hi = (0.0, 1.0) if normalize else (-1.0, 1.0)
     for img in (img1, img2):
         if bool(torch.min(img) < lo) or bool(torch.max(img) > hi):

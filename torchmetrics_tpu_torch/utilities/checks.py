@@ -148,6 +148,7 @@ def _check_retrieval_inputs(
         raise ValueError("`indexes` must be a array of integers")
     if ignore_index is not None:
         valid = target != ignore_index
+        # metriclint: disable=ML011 -- ignored rows leave the batch, a size set by the values as in JAX; without ignore_index the update captures
         indexes, preds, target = indexes[valid], preds[valid], target[valid]
     if preds.numel() == 0:
         raise ValueError("`indexes`, `preds` and `target` must be non-empty and of the same shape")

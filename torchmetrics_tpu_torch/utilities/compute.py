@@ -36,7 +36,7 @@ def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 
     """Division with a defined value where ``denom == 0``; integer inputs become float32."""
     num = num if num.is_floating_point() else num.to(torch.float32)
     denom = denom if denom.is_floating_point() else denom.to(torch.float32)
-    zero = torch.tensor(zero_division, dtype=torch.result_type(num, denom), device=num.device)
+    zero = torch.full((), zero_division, dtype=torch.result_type(num, denom), device=num.device)
     nonzero = denom != 0
     return torch.where(nonzero, num / torch.where(nonzero, denom, torch.ones_like(denom)), zero)
 
@@ -143,6 +143,7 @@ def _sum_in_xla_order(x: torch.Tensor) -> torch.Tensor:
         table = torch.full((len(leaves), 32), n, dtype=torch.int64)
         for i, leaf in enumerate(leaves):
             table[i, : len(leaf)] = torch.tensor(leaf)
+        # metriclint: disable=ML011 -- built once per (length, device) and cached: a capture's warm-up run fills the cache before the recording
         steps = [tuple(torch.tensor(v, dtype=torch.int64, device=x.device) for v in level) for level in plan]
         _XLA_ORDER_INDICES[key] = (table.to(x.device), steps)
     table, steps = _XLA_ORDER_INDICES[key]

@@ -8,6 +8,7 @@ and unlike ``torch.bincount`` it can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
+from collections import OrderedDict, defaultdict
 from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -95,17 +96,43 @@ def to_categorical(x: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
     return torch.argmax(x, dim=argmax_dim)
 
 
+def _sorted_keys(data: Dict[Any, Any]) -> List[Any]:
+    try:
+        return sorted(data)
+    except TypeError:  # keys that do not compare keep their order
+        return list(data)
+
+
 def _squeeze_if_scalar(data: Any) -> Any:
-    """Squeeze every one-element tensor in a (nested) result to 0-d."""
+    """Squeeze every one-element tensor in a (nested) result to 0-d.
+
+    The result is rebuilt as ``jax.tree_util.tree_map`` rebuilds the JAX
+    package's: a plain ``dict`` (and a ``defaultdict``) comes back with its
+    keys sorted, an ``OrderedDict`` keeps its order, and so do lists, tuples
+    and NamedTuples."""
     if isinstance(data, torch.Tensor):
         return data.squeeze() if data.numel() == 1 else data
+    if isinstance(data, OrderedDict):
+        return type(data)((k, _squeeze_if_scalar(v)) for k, v in data.items())
+    if isinstance(data, defaultdict):
+        return defaultdict(data.default_factory, ((k, _squeeze_if_scalar(data[k])) for k in _sorted_keys(data)))
     if isinstance(data, dict):
-        return {k: _squeeze_if_scalar(v) for k, v in data.items()}
+        return {k: _squeeze_if_scalar(data[k]) for k in _sorted_keys(data)}
     if isinstance(data, tuple) and hasattr(data, "_fields"):  # a NamedTuple (DriftScores)
         return type(data)(*[_squeeze_if_scalar(v) for v in data])
     if isinstance(data, (list, tuple)):
         return type(data)(_squeeze_if_scalar(v) for v in data)
     return data
+
+
+def _device_values(values: Sequence[float], dtype: torch.dtype, device: Union[str, torch.device]) -> torch.Tensor:
+    """A 1-D tensor of Python numbers made on ``device`` by fill kernels.
+
+    ``torch.tensor(values, device=...)`` copies from pageable host memory,
+    which a CUDA graph cannot capture; a fill takes its value as a kernel
+    argument. The values round to ``dtype`` as ``torch.tensor`` rounds them.
+    """
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
 
 
 def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
