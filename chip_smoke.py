@@ -475,6 +475,15 @@ result) if it fails:
    MS-SSIM, LPIPS) and two clean updates (Dice, Perplexity) must capture and fold bitwise; the
    host paths the port suppresses with a reason (SRMR, PanopticQuality, RetrievalMAP with an
    ``ignore_index``) must fail. Printed: a verdict line per case, the lint run's seconds, the phase's.
+29. cache (after fused, before durable): the compiled-step cache. The headline suite through
+   ``suite.fused()`` (8 batches, fold back), then the plan rebuilt over the same suite; a
+   ``SlicedPlan`` of the suite over 256 cells, rebuilt the same way; two ``StreamingEvaluator``
+   drives (``fused=True``) over one suite. Traced: the first update of each first plan makes a
+   capture record (``obs/xla.py``) and the rebuilt plan's none (``fused.cache.hit``,
+   ``sliced.cache.hit``), and the second drive makes none. Each first update is timed by CUDA
+   events and the wall clock; the rebuilt plans' states and the second drive's are held bitwise
+   against plans built with the cache cleared. The dist phase prints ``sharded_update``'s cache
+   counters on each rank (a miss per member, then hits).
 
 Phase 3 also holds K1's matrix mode (the multilabel path's launch) bitwise
 against its plain version at 65536 x 64, T=128, with -1 entries, and times it.
@@ -484,7 +493,7 @@ one for K1's matrix mode), a ``[summary]`` line with the slice's throughput,
 busy share, device time by kernel and, per pass, the launches of the argmax,
 prefix-sum and int32-sum kernels that K1 and K2 took over, the exact and
 multilabel phases' device times, the families phase's passes and confusion-matrix update, the points
-and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image, text, multimodal (with its towers' images/s) and chaos phases' seconds, ``nvidia-smi``'s
+and scores phases' passes and update times, the regression phase's seconds, passes and update times, the wrappers phase's seconds and launches, the sketch phase's seconds, K3 and busy share, the fused phase's passes, the cache phase's first updates, the durable phase's passes and snapshot sizes, the serve phase's numbers, the dist phase's time and the domains, audio, detection, image, text, multimodal (with its towers' images/s) and chaos phases' seconds, ``nvidia-smi``'s
 line, the ``kernels`` JSON object (K1, K1's matrix mode, K2, K3, K1s, K2s, K4, K2s and K1s at the
 StateGuard's one-cell shape, K5 on the gammatone and the modulation bank, K6, K7 and K8) and
 ``{"ok": true, "device": {...}}``.
@@ -3204,6 +3213,139 @@ def phase_fused(device, batches, kernels, slice_run, exact_run):
     }
 
 
+# ---------------------------------------------------------------------- cache
+
+
+def _first_update(drive):
+    """``(CUDA-event ms, wall ms, capture records)`` of one call of ``drive``
+    under tracing: for a first update, the warm-up, capture and first replay
+    of a plan that captures, or one replay of a plan that adopted its entry."""
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+
+    before = len(obs.xla_records())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    drive()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return start.elapsed_time(end), wall_ms, len(obs.xla_records()) - before
+
+
+def _cache_counters():
+    from torchmetrics_tpu_torch import obs
+
+    return {k: v for k, v in obs.snapshot()["counters"].items() if ".cache." in k}
+
+
+def phase_cache(device, batches, smi):
+    """The compiled-step cache: a fused plan, a sliced plan (256 cells) and a
+    StreamingEvaluator drive rebuilt over the same target adopt the cached
+    entry, so the rebuilt plan's first update is one replay (no capture
+    record); the rebuilt plans' states bitwise equal to plans built with the
+    cache cleared. See the module docstring, phase 29."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.parallel.sharded import _SHARDED_FN_CACHE
+    from torchmetrics_tpu_torch.robustness import StreamingEvaluator
+
+    t_phase = time.perf_counter()
+    out = {}
+    keys = _suite_keys(device)
+    kinds = {
+        "fused": (lambda suite: _fresh_plan(suite, batches), lambda plan, i: plan.update(*batches[i])),
+        "sliced": (lambda suite: suite.sliced(num_cells=SUITE_CELLS), lambda plan, i: plan.update(keys[i], *batches[i])),
+    }
+
+    def states(plan, suite, kind):
+        if kind == "sliced":
+            return plan.save_checkpoint()
+        plan.fold_back()
+        return suite
+
+    for kind, (build, drive) in kinds.items():
+        _SHARDED_FN_CACHE.clear()
+        with obs.tracing():
+            suite = _headline_suite(tm)
+            plan = build(suite)
+            first = _first_update(lambda: drive(plan, 0))
+            for i in range(1, NUM_BATCHES):
+                drive(plan, i)
+            if kind == "fused":
+                plan.fold_back()
+            entry = plan._entry
+            del plan  # dropped, as a runner drops its plan at the end of a drive
+            suite.reset()
+            plan = suite.sliced(num_cells=SUITE_CELLS) if kind == "sliced" else suite.fused()
+            counters = _cache_counters()
+            _require(plan._entry is entry and counters == {f"{kind}.cache.miss": 1, f"{kind}.cache.hit": 1},
+                     f"cache {kind}: the rebuilt plan did not adopt the entry ({counters})")
+            rebuilt = _first_update(lambda: drive(plan, 0))
+            for i in range(1, NUM_BATCHES):
+                drive(plan, i)
+            got = states(plan, suite, kind)
+        _require(first[2] == 1 and rebuilt[2] == 0, f"cache {kind}: capture records {first[2]} then {rebuilt[2]}, expected 1 then 0")
+        _SHARDED_FN_CACHE.clear()
+        ref_suite = _headline_suite(tm)
+        ref_plan = build(ref_suite)
+        for i in range(NUM_BATCHES):
+            drive(ref_plan, i)
+        want = states(ref_plan, ref_suite, kind)
+        if kind == "sliced":
+            _require_payloads_bitwise(got, want, "cache sliced: the rebuilt plan against one built with the cache cleared")
+        else:
+            _require_suite_states_bitwise(got, want, "cache fused: the rebuilt plan against one built with the cache cleared")
+        out[kind] = {"first": first, "rebuilt": rebuilt, "counters": counters}
+        print(
+            f"[cache] {kind}: first update of the first plan (warm-up, capture, replay) {first[0]:.3f} ms by CUDA events,"
+            f" {first[1]:.3f} ms wall, {first[2]} capture record; of the plan rebuilt over the same suite (the cached"
+            f" entry adopted: one replay) {rebuilt[0]:.3f} ms / {rebuilt[1]:.3f} ms, {rebuilt[2]} capture records;"
+            f" counters {counters}; states after {NUM_BATCHES} batches bitwise equal to a plan built with the cache"
+            f" cleared; {smi}"
+        )
+        del plan, ref_plan, suite, ref_suite, got, want
+
+    # two runner drives over one suite: the second drive's plan is served from the cache
+    _SHARDED_FN_CACHE.clear()
+    suite = _headline_suite(tm)
+    drives = []
+    with obs.tracing():
+        for _ in range(2):
+            ev = StreamingEvaluator(suite, fused=True)
+            before = len(obs.xla_records())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values = ev.run(batches)
+            torch.cuda.synchronize()
+            drives.append({"ms": (time.perf_counter() - t0) * 1e3, "records": len(obs.xla_records()) - before, "values": values})
+        counters = _cache_counters()
+    _require([d["records"] for d in drives] == [1, 0] and counters.get("fused.cache.hit") == 1,
+             f"cache runner: capture records per drive {[d['records'] for d in drives]}, counters {counters}")
+    ref = _headline_suite(tm)
+    for _ in range(2):  # the same two drives (each continues the suite's state), the cache cleared before each
+        _SHARDED_FN_CACHE.clear()
+        ref_values = StreamingEvaluator(ref, fused=True).run(batches)
+    _require_values_bitwise(drives[1]["values"], ref_values, "cache runner: the second drive against a cleared cache")
+    _require_suite_states_bitwise(suite, ref, "cache runner: the second drive against a cleared cache")
+    out["runner_ms"] = [d["ms"] for d in drives]
+    print(
+        f"[cache] StreamingEvaluator(fused=True): drive 1 {drives[0]['ms']:.3f} ms wall ({drives[0]['records']} capture"
+        f" record), drive 2 over the same suite {drives[1]['ms']:.3f} ms ({drives[1]['records']} capture records,"
+        f" fused.cache.hit {counters.get('fused.cache.hit')}); values and states bitwise equal to a drive with the"
+        f" cache cleared; {smi}"
+    )
+    _SHARDED_FN_CACHE.clear()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[cache] phase {out['seconds']:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- durable
 
 DURABLE_EVERY_N = 2
@@ -3675,6 +3817,7 @@ def _dist_checks(rank, world, out_dir):
     from torch.distributed.device_mesh import init_device_mesh
 
     import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import obs
     from torchmetrics_tpu_torch.functional.classification.auroc import _multiclass_auroc_compute
     from torchmetrics_tpu_torch.functional.classification.average_precision import _multiclass_average_precision_compute
     from torchmetrics_tpu_torch.parallel import ShardedMetric
@@ -3779,9 +3922,16 @@ def _dist_checks(rank, world, out_dir):
     local = [tuple(x[rank * rows : (rank + 1) * rows] for x in batch) for batch in batches]
     sharded = _headline_suite(tm)
     wrapped = {key: ShardedMetric(m, mesh) for key, m in sharded.items(keep_base=True)}
-    for batch in local:
-        for m in wrapped.values():
-            m.update(*batch)
+    with obs.tracing():  # sharded_update's cache: one build per member, then hits
+        for batch in local:
+            for m in wrapped.values():
+                m.update(*batch)
+        cache_counters = _cache_counters()
+        cold = [e["args"]["cold"] for e in obs.get_trace() if e["name"] == "sharded.update_step"]
+    want_counters = {"sharded.cache.miss": len(wrapped), "sharded.cache.hit": len(wrapped) * (NUM_BATCHES - 1)}
+    _require(cache_counters == want_counters and cold.count(True) == len(wrapped) and len(cold) == len(wrapped) * NUM_BATCHES,
+             f"rank {rank}: sharded_update's cache counters {cache_counters}, cold spans {cold.count(True)} of {len(cold)}")
+    out["sharded_cache"] = {"counters": cache_counters, "cold": cold.count(True), "steps": len(cold)}
     _require_states_bitwise(sharded, expected, f"rank {rank}: ShardedMetric")
     _require_values_bitwise(sharded.compute(), want["slice_values"], f"rank {rank}: ShardedMetric values")
 
@@ -4143,6 +4293,12 @@ def phase_dist(slice_run, exact_run, fused_run, smi):
             f" (median of {DIST_REPS}; first pass with captures {r['sharded_first_pass_ms']:.3f} ms) against the local"
             f" fused pass {fused_run['median_s'] * 1e3:.3f} ms; K1/K2 per pass in the trace {r['sharded_plan_launches_per_pass']};"
             f" {smi}; {note}"
+        )
+    for r in ranks:
+        print(
+            f"[dist] rank {r['rank']}: sharded_update's compiled-step cache over {NUM_BATCHES} ShardedMetric events of each"
+            f" member: counters {r['sharded_cache']['counters']}, sharded.update_step spans cold {r['sharded_cache']['cold']}"
+            f" of {r['sharded_cache']['steps']} (a build per member, then the cached step)"
         )
     for r in ranks:
         print(
@@ -9921,6 +10077,7 @@ def main() -> int:
     guard = phase_guard(device, batches, smi)
     obs_run = phase_obs(device, batches, smi)
     fused = phase_fused(device, batches, KERNELS, run, exact)
+    cache = phase_cache(device, batches, smi)
     durable = phase_durable(device, batches, KERNELS, run, exact, smi)
     serve = phase_serve(device, batches, KERNELS, run, smi)
     dist_run = phase_dist(run, exact, fused, smi)
@@ -9980,7 +10137,10 @@ def main() -> int:
         f" in turns {fused['turns']['fused'] * 1e3:.3f} vs {fused['turns']['unfused'] * 1e3:.3f}), busy share"
         f" {fused['busy_share']:.3f}, {fused['device_launches']} device kernels and {fused['host_calls']} Python calls per"
         f" pass, hand kernels per pass {fused['per_pass']}, capture {fused['capture_s']:.3f} s, run_scan"
-        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); durable phase"
+        f" {fused['scan_ms']:.3f} ms, run_stream {fused['stream_ms']:.3f} ms (copies alone {fused['h2d_ms']:.3f}); cache phase"
+        f" {cache['seconds']:.1f} s, first update captured / adopted: fused {cache['fused']['first'][0]:.3f} /"
+        f" {cache['fused']['rebuilt'][0]:.3f} ms, sliced {cache['sliced']['first'][0]:.3f} / {cache['sliced']['rebuilt'][0]:.3f} ms"
+        f" (CUDA events), runner drives {cache['runner_ms'][0]:.1f} / {cache['runner_ms'][1]:.1f} ms; durable phase"
         f" {durable['seconds']:.1f} s, fused pass by snapshot_every_n {durable['cadence_ms']}, suite snapshot"
         f" {durable['suite_bytes']} B, exact snapshot {durable['exact_bytes']} B; dist phase"
         f" {dist_run['seconds']:.1f} s, sharded fused pass {dist_run['ranks'][0]['sharded_pass_ms']:.3f} ms (gloo on one card);"

@@ -5,8 +5,9 @@
 The same seeded numpy batches go through ``torchmetrics_tpu`` (its fused
 plan, a jitted step on JAX's CPU backend) and ``torchmetrics_tpu_torch``
 (``device="cpu"``: the same step run eagerly). Mirrors
-``tests/unittests/bases/test_fused.py`` case by case where the JAX case needs
-nothing the port has left for later (telemetry and the step cache); the
+``tests/unittests/bases/test_fused.py`` case by case (its two step-cache
+cases are in ``tests/test_torch_plan_cache.py``, telemetry in
+``tests/test_torch_device_telemetry.py``); the
 sharded plan's cases are in ``tests/test_torch_sharded.py`` and, for sketch
 members (``test_fused_sharded_sketch_parity``), in
 ``tests/test_torch_sketch_ranks.py``.

@@ -13,7 +13,9 @@ bitwise (the sort's order on NaN, signed zeros and ignored entries) and its
 AUROC and AP within 1e-6 (float32 sums in another order). The fused plan's
 captured CUDA graphs must give the eager path's states and values bitwise,
 capture a second graph for a new batch shape, and raise (never run eagerly)
-where a capture fails; DeviceFeed stages pinned numpy batches on the card.
+where a capture fails; a fused or sliced plan rebuilt over the same target
+replays the cached graphs with no new CUDA graph, and a live plan whose entry
+moved keeps its own results; DeviceFeed stages pinned numpy batches on the card.
 The confusion-matrix families count on the card what the CPU counts, out-of-range
 labels included, and capture in a fused plan. The regression and aggregation
 collection captures and equals its eager fold bitwise; Kendall's float32
@@ -321,6 +323,94 @@ def test_fused_plan_new_batch_shape_captures_a_second_graph(card):
     assert len(plan._captured) == 2
     plan.fold_back()
     _assert_collections_bitwise(ref, fus)
+
+
+def _cache_plans(card, kind, suite):
+    """``(build, drive)`` of a fused or a sliced plan over ``suite``."""
+    keys = (torch.arange(4096, device=card, dtype=torch.int32) * 7) % 19
+    if kind == "fused":
+        return (lambda: suite.fused()), (lambda plan, b: plan.update(*b))
+    return (lambda: suite.sliced(num_cells=32)), (lambda plan, b: plan.update(keys, *b))
+
+
+def _carry_leaves(plan):
+    from torch.utils._pytree import tree_flatten
+
+    return tree_flatten(plan.state)[0]
+
+
+@pytest.mark.parametrize("kind", ["fused", "sliced"])
+def test_plan_cache_hit_replays_without_a_new_graph(card, kind, monkeypatch):
+    """A plan rebuilt over the same target adopts the cached entry: its updates
+    replay the first plan's graph (no new ``torch.cuda.CUDAGraph``), and its
+    carry equals a freshly captured plan's bitwise."""
+    from torchmetrics_tpu_torch.parallel.sharded import _SHARDED_FN_CACHE
+
+    batches = _fused_batches(card)
+    made = []
+    real = torch.cuda.CUDAGraph
+
+    def counting(*args, **kwargs):
+        made.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", counting)
+    ref_build, ref_drive = _cache_plans(card, kind, _fused_suite(card))
+    ref = ref_build()
+    for b in batches[2:]:
+        ref_drive(ref, b)
+    suite = _fused_suite(card)
+    build, drive = _cache_plans(card, kind, suite)
+    first = build()
+    for b in batches[:2]:
+        drive(first, b)
+    entry = first._entry
+    del first
+    captured = len(made)
+    assert captured >= 2
+    second = build()
+    assert second._entry is entry
+    for b in batches[2:]:
+        drive(second, b)
+    torch.cuda.synchronize()
+    assert len(made) == captured, "a cache hit captured a new graph"
+    assert all(torch.equal(x, y) for x, y in zip(_carry_leaves(second), _carry_leaves(ref)))
+    _SHARDED_FN_CACHE.clear()
+
+
+@pytest.mark.parametrize("kind", ["fused", "sliced"])
+def test_plan_cache_handover_after_replays(card, kind):
+    """A live plan whose entry a new plan adopted keeps its carry (a copy in
+    fresh buffers) and captures anew; old and new plans driven in turns after
+    replays equal two plans built with the cache cleared, bitwise."""
+    from torchmetrics_tpu_torch.parallel.sharded import _SHARDED_FN_CACHE
+
+    batches = _fused_batches(card, n_batches=6)
+
+    def run(clear):
+        _SHARDED_FN_CACHE.clear()
+        build, drive = _cache_plans(card, kind, _fused_suite(card))
+        plan_a = build()
+        for b in batches[:3]:
+            drive(plan_a, b)  # a capture, then replays
+        if clear:
+            _SHARDED_FN_CACHE.clear()
+        entry = plan_a._entry
+        plan_b = build()
+        if clear:
+            assert plan_b._entry is not entry
+        else:
+            assert plan_b._entry is entry and plan_a._captured == {}
+        for b_a, b_b in zip(batches[3:], batches[:3]):
+            drive(plan_a, b_a)
+            drive(plan_b, b_b)
+        torch.cuda.synchronize()
+        return _carry_leaves(plan_a), _carry_leaves(plan_b)
+
+    got, want = run(False), run(True)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) and all(torch.equal(x, y) for x, y in zip(g, w))
+    _SHARDED_FN_CACHE.clear()
 
 
 def test_fused_plan_capture_failure_raises(card):

@@ -16,8 +16,8 @@ feed logits, whose per-row softmax/sigmoid decision is JAX's. The kernel
 routes run here through K1s' and K2s' plain versions (the card's kernels
 are held against them in ``tests/test_torch_kernels_cuda.py``).
 
-JAX's ``test_sliced_step_rides_cache`` (the compiled-step cache) has no
-counterpart until the step cache; ``publish_gauges``' gauges are held
+JAX's ``test_sliced_step_rides_cache`` (the compiled-step cache) has its
+counterpart in ``tests/test_torch_plan_cache.py``; ``publish_gauges``' gauges are held
 against JAX's here and its attribution row in ``tests/test_torch_obs.py``.
 The sharded variant is in ``tests/test_torch_sliced_ranks.py``.
 """

@@ -306,3 +306,51 @@ def test_cpu_tensors_to_a_functional_stay_on_the_cpu():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
     target = tdata._to_tensor(t, torch.device("cpu"))  # an explicit device is honoured
     assert target.device.type == "cpu" and target.dtype == torch.int32
+
+
+# ------------------------------------------------- reference names of JAX's API
+
+
+@pytest.mark.parametrize("name", ["AverageMethod", "DataType", "MDMCAverageMethod"])
+def test_enums_match_jax(name):
+    """The three enums: JAX's members, values, names in errors and lookups."""
+    from torchmetrics_tpu.utilities import enums as jenums
+    from torchmetrics_tpu_torch.utilities import enums as tenums
+
+    jcls, tcls = getattr(jenums, name), getattr(tenums, name)
+    assert [(m.name, m.value) for m in tcls] == [(m.name, m.value) for m in jcls]
+    assert tcls._name() == jcls._name()
+    for member in jcls:
+        got = tcls.from_str(member.name.lower())
+        assert got.name == member.name and str(got) == str(member) and got == member.value
+    with pytest.raises(ValueError) as terr:
+        tcls.from_str("nope")
+    with pytest.raises(ValueError) as jerr:
+        jcls.from_str("nope")
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_rank_zero_deprecation_matches_jax():
+    """``rank_zero_deprecation`` warns a ``DeprecationWarning`` on rank 0, as JAX's."""
+    from torchmetrics_tpu.utilities.prints import rank_zero_deprecation as jdep
+    from torchmetrics_tpu_torch.utilities.prints import rank_zero_deprecation as tdep
+
+    caught = []
+    for fn in (jdep, tdep):
+        with pytest.warns(DeprecationWarning) as record:
+            fn("old argument")
+        caught.append([(w.category, str(w.message)) for w in record])
+    assert caught[0] == caught[1] == [(DeprecationWarning, "old argument")]
+
+
+def test_jit_distributed_available_matches_jax():
+    """The default ``distributed_available_fn`` probe: false in one process in
+    both packages, and every new metric's default."""
+    import torchmetrics_tpu as J
+    import torchmetrics_tpu_torch as T
+    from torchmetrics_tpu.metric import jit_distributed_available as jprobe
+    from torchmetrics_tpu_torch.metric import jit_distributed_available as tprobe
+
+    assert tprobe() is jprobe() is False
+    assert T.SumMetric(device="cpu").distributed_available_fn is tprobe
+    assert J.SumMetric().distributed_available_fn is jprobe

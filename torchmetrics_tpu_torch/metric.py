@@ -99,6 +99,13 @@ _REDUCTION_MAP: Dict[str, Callable] = {
 assert set(_REDUCTION_MAP) == set(VALID_REDUCTION_NAMES)
 
 
+def jit_distributed_available() -> bool:
+    """The default ``distributed_available_fn``: whether ``torch.distributed``
+    runs more than one rank (the JAX package's probe asks for more than one
+    JAX process)."""
+    return _dist_available()
+
+
 def _as_state_tensor(value: Any, device: torch.device) -> torch.Tensor:
     """A state default as a tensor of its own on ``device``.
 
@@ -161,7 +168,7 @@ class Metric:
         self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
         if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
             raise ValueError(f"Expected keyword argument `dist_sync_fn` to be an callable function but got {self.dist_sync_fn}")
-        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or _dist_available
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or jit_distributed_available
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
         if not isinstance(self.sync_on_compute, bool):
             raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")

@@ -91,17 +91,34 @@ every leader's pending slot. With tracing on, the build records the
 ``.lower``/``.compile``/``.first_step`` spans and records of
 :mod:`~torchmetrics_tpu_torch.obs.xla`, keyed by the plan's fingerprint.
 
-Not ported yet (ROADMAP): the cross-plan compiled-step cache; capturing NCCL
-collectives in the sharded step's graph.
+**The compiled-step cache** (JAX's ``plan_cache_lookup``/``plan_cache_store``
+in :mod:`~torchmetrics_tpu_torch.parallel.sharded`). What a plan's captures
+bind is one :class:`_CaptureEntry`: the carry, the graphs with their static
+inputs, a sharded plan's buffers and graphs, the graph pool and the side
+stream. A plan built over the same (target, mesh, axis) with the same
+fingerprint and carry layout adopts the entry and writes its own initial
+state into the adopted carry in place, so every address a graph holds stays
+valid and its first update on the card is a replay, not a capture (a
+resumed evaluator, a plan per epoch or drive). A carry of another layout
+(shapes or dtypes) is a miss and stores a fresh entry. If the plan that held
+the entry is still alive, it gets a copy of its carry in fresh buffers and
+no graphs: its next update on the card captures anew, and its results stay
+its own. The cache keeps one entry per (kind, target, mesh, axis), with its
+carry (134 MB for the exact group) and graph pool, for as long as the
+target lives; entries are swept only when a plan stores one.
+
+Not ported yet (ROADMAP): capturing NCCL collectives in the sharded step's graph.
 """
 from __future__ import annotations
 
 import gc
 import inspect
+import weakref
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from torchmetrics_tpu_torch.obs import attribution as _obs_attr
 from torchmetrics_tpu_torch.obs import device as _obs_device
@@ -118,7 +135,14 @@ from torchmetrics_tpu_torch.parallel.cat_buffer import (
     cat_buffer_values,
     infer_cat_layout,
 )
-from torchmetrics_tpu_torch.parallel.sharded import _update_arity, _walk_metrics, mesh_reduce_tree, tree_merge
+from torchmetrics_tpu_torch.parallel.sharded import (
+    _update_arity,
+    _walk_metrics,
+    mesh_reduce_tree,
+    plan_cache_lookup,
+    plan_cache_store,
+    tree_merge,
+)
 from torchmetrics_tpu_torch.sketch.registry import is_sketch_state, map_leaves
 from torchmetrics_tpu_torch.utilities.checks import _fused_step
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
@@ -383,15 +407,86 @@ def _fold_reduced(info: _MemberInfo, mstate: Dict[str, Any], reduced: Dict[str, 
 # ------------------------------------------------------------- capture parts
 
 
+def _same_layout(a: Any, b: Any) -> bool:
+    """Whether two carries have one structure and, leaf by leaf, one shape,
+    dtype and device (a carry that a captured graph could be handed)."""
+    leaves_a, spec_a = tree_flatten(a)
+    leaves_b, spec_b = tree_flatten(b)
+    return spec_a == spec_b and all(
+        type(x) is type(y)
+        and (not isinstance(x, torch.Tensor) or (x.shape == y.shape and x.dtype == y.dtype and x.device == y.device))
+        for x, y in zip(leaves_a, leaves_b)
+    )
+
+
+class _CaptureEntry:
+    """What an owner's captured CUDA graphs bind, as one entry of the
+    compiled-step cache: the carry they write in place, the graphs with
+    their static inputs (``captured``, keyed by body and input signature),
+    a sharded plan's buffers and graphs (``sharded``), the graph pool and the
+    side stream, and a weak reference to the plan that holds it."""
+
+    __slots__ = ("carry", "captured", "sharded", "pool", "side", "holder")
+
+    def __init__(self, carry: Any) -> None:
+        self.carry = carry
+        self.captured: Dict[Any, Any] = {}
+        self.sharded: Dict[Any, Any] = {}
+        self.pool: Any = None
+        self.side: Any = None  # the side stream of warm-ups and captures
+        self.holder: Optional[weakref.ref] = None
+
+
+class _EntryField:
+    """An owner attribute that lives on its :class:`_CaptureEntry`
+    (``_carry`` is ``_entry.carry``), so adopting an entry moves all of it."""
+
+    def __set_name__(self, owner: type, name: str) -> None:
+        self._field = name.lstrip("_")
+
+    def __get__(self, owner: Any, cls: Optional[type] = None) -> Any:
+        return self if owner is None else getattr(owner._entry, self._field)
+
+    def __set__(self, owner: Any, value: Any) -> None:
+        setattr(owner._entry, self._field, value)
+
+
 class _GraphCapture:
     """What capturing a step as a CUDA graph needs: a side stream for the
     warm-ups and captures, a graph pool shared by every graph of the owner,
     and a capture that raises (naming where it failed, see
-    :meth:`_capture_site`) instead of running the step eagerly."""
+    :meth:`_capture_site`) instead of running the step eagerly. All of it,
+    with the carry the graphs write, lives on the owner's ``_entry``."""
 
     _device: torch.device
-    _pool: Any = None
-    _side: Any = None  # the side stream of warm-ups and captures
+    _entry: _CaptureEntry
+    _carry = _EntryField()
+    _captured = _EntryField()
+    _sharded = _EntryField()
+    _pool = _EntryField()
+    _side = _EntryField()
+
+    def _adopt(self, target: Any, carry: Dict[str, Any]) -> None:
+        """Take this plan's entry of the compiled-step cache, keyed by
+        (kind, target, mesh, axis, fingerprint). On a hit the plan writes
+        ``carry``, its initial state, into the entry's carry in place, and a
+        live plan that held the entry gets a copy of its own carry in fresh
+        buffers and no graphs. On a miss, or where the cached carry's layout
+        differs from ``carry``'s, a new entry holding ``carry`` is stored."""
+        cache_key, entry = plan_cache_lookup(
+            self._obs_kind, target, self._mesh, self._axis, self._fingerprint(),
+            fits=lambda cached: _same_layout(cached.carry, carry),
+        )
+        if entry is None:
+            entry = _CaptureEntry(carry)
+            plan_cache_store(self._obs_kind, cache_key, target, self._mesh, entry)
+        else:
+            held = entry.holder()
+            if held is not None and held is not self:
+                held._entry = _CaptureEntry(held._scratch_carry())
+            _copy_leaves_(entry.carry, carry)
+        entry.holder = weakref.ref(self)
+        self._entry = entry
 
     def _warm(self, fn: Callable[[], Any]) -> Any:
         """Run ``fn`` once on the side stream (a warm-up: it builds the hand
@@ -454,12 +549,8 @@ class _GraphCapture:
             "span_prefix": f"{self._obs_kind}.scan" if scan else f"{self._obs_kind}.update",
         }
 
-    # the owner's carry, written in place by every step, and a scratch copy
-    # of it for a warm-up
-    _carry: Dict[str, Any]
-    _captured: Dict[Any, _Captured]
-
     def _scratch_carry(self) -> Dict[str, Any]:
+        """A copy of the carry in fresh buffers (a warm-up's, a handover's)."""
         raise NotImplementedError
 
     def _run(self, body: Callable, batch: Tuple[torch.Tensor, ...]) -> None:
@@ -601,16 +692,15 @@ class FusedCollectionPlan(_GraphCapture):
         # device telemetry is a BUILD-time decision (obs/device.py)
         self._telemetry_on, self._histogram = _obs_device.config_token()
         self._arity = len(example_batch) if example_batch is not None else max(_update_arity(i.metric) for i in self._infos)
+        self._in_member: Optional[str] = None  # the leader whose update the step is running
+        ref_target = target if self._collection is not None else self._infos[0].metric
         if _obs_trace.ENABLED:
             with _obs_trace.span(
                 "fused.build", metric=self._target_cls, members=len(members), leaders=len(self._infos), sharded=mesh is not None
             ):
-                self._carry = self._initial_state()
+                self._adopt(ref_target, self._initial_state())
         else:
-            self._carry = self._initial_state()
-        self._captured: Dict[Any, _Captured] = {}
-        self._sharded: Dict[Any, _ShardedStep] = {}
-        self._in_member: Optional[str] = None  # the leader whose update the step is running
+            self._adopt(ref_target, self._initial_state())
         if _obs_trace.ENABLED or _obs_live.ENABLED:
             self._note_attribution()
 
@@ -933,9 +1023,8 @@ class JitUpdateStep(_GraphCapture):
         self._telemetry_on = telemetry[0]
         self._telemetry_token = telemetry
         self._reductions = {k: r for k, r in metric._reductions.items() if k not in list_keys}
-        self._carry: Optional[Dict[str, Any]] = None
+        self._entry = _CaptureEntry(None)  # not cached: the carry is made at the first call
         self._seen: set = set()
-        self._captured: Dict[Any, _Captured] = {}
 
     def _body(self, carry: Dict[str, Any], batch: Tuple[torch.Tensor, ...]) -> None:
         metric = self.metric

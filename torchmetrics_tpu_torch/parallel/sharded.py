@@ -65,17 +65,30 @@ With device telemetry enabled when the step is built
 ranks' telemetry over the mesh dim and accumulates it on the metric. Both
 drain into ``device.<Metric>.*`` gauges at ``compute()``/``sync()``.
 
-Not ported yet (ROADMAP): the compiled-step cache (``plan_cache_lookup``).
+**The compiled-step cache** (``_SHARDED_FN_CACHE``, the JAX package's keys,
+counters and eviction rules). :func:`sharded_update` keeps its built step
+and fold walk per ``(id(metric), id(mesh), axis, walk fingerprint,
+telemetry token)``: a child swap or a telemetry flip builds anew, and the
+superseded entry of the same (metric, mesh, axis) is evicted. The fused and
+sliced plans file their captures under :func:`plan_cache_lookup` /
+:func:`plan_cache_store`, one live entry per (kind, target, mesh, axis); an
+entry holds what its captured CUDA graphs bind (the carry, the graphs, their
+static inputs and pool) for as long as its target lives, and entries are
+swept only here, at a store, never from a finalizer. With tracing on, the
+``sharded.cache.*``, ``fused.cache.*`` and ``sliced.cache.*`` counters
+count hits, misses and evictions.
 """
 from __future__ import annotations
 
 import hashlib
 import inspect
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from torchmetrics_tpu_torch.obs import counters as _obs_counters
 from torchmetrics_tpu_torch.obs import device as _obs_device
 from torchmetrics_tpu_torch.obs import trace as _obs_trace
 from torchmetrics_tpu_torch.parallel.cat_buffer import (
@@ -97,9 +110,59 @@ __all__ = [
     "make_sharded_update",
     "mesh_reduce_tree",
     "metric_merge",
+    "plan_cache_lookup",
+    "plan_cache_store",
     "sharded_update",
     "tree_merge",
 ]
+
+# sharded-update steps keyed by (id(metric), id(mesh), axis, walk
+# fingerprint, telemetry token), and the plans' entries keyed by
+# (kind, id(target), id(mesh), axis, fingerprint): weak references validate
+# against id reuse after gc, the fingerprint invalidates on child swaps and
+# flag flips
+_SHARDED_FN_CACHE: Dict[Tuple, Tuple] = {}
+
+
+def plan_cache_lookup(
+    kind: str, target: Any, mesh: Optional[Any], axis: str, key: str, fits: Optional[Callable[[Any], bool]] = None
+) -> Tuple[Tuple, Optional[Any]]:
+    """The plans' cache lookup: ``(cache_key, steps or None)``, counting
+    ``<kind>.cache.hit``/``miss`` under tracing. Keys lead with ``kind``, so
+    each plan kind's keys stay apart from :func:`sharded_update`'s. An entry
+    whose ``steps`` do not ``fits`` (a carry of another layout) is a miss."""
+    cache_key = (kind, id(target), id(mesh) if mesh is not None else None, axis, key)
+    entry = _SHARDED_FN_CACHE.get(cache_key)
+    live = entry is not None and entry[0]() is target and (mesh is None or entry[1]() is mesh)
+    if live and (fits is None or fits(entry[2])):
+        if _obs_trace.ENABLED:
+            _obs_counters.inc(f"{kind}.cache.hit")
+        return cache_key, entry[2]
+    if _obs_trace.ENABLED:
+        _obs_counters.inc(f"{kind}.cache.miss")
+    return cache_key, None
+
+
+def plan_cache_store(kind: str, cache_key: Tuple, target: Any, mesh: Optional[Any], steps: Any) -> None:
+    """Store a plan's steps under ``cache_key``, evicting the superseded
+    fingerprints of the same (target, mesh, axis) and the entries whose
+    target or mesh was collected (counted as ``<kind>.cache.evict``). A plan
+    per target is the advertised use; dead entries would otherwise hold
+    their carries and graphs for ever."""
+
+    def dead(k: Tuple) -> bool:
+        e = _SHARDED_FN_CACHE[k]
+        return e[0]() is None or (e[1] is not None and e[1]() is None)
+
+    stale = [
+        k for k in _SHARDED_FN_CACHE
+        if k[:1] == (kind,) and k != cache_key and (k[1:4] == cache_key[1:4] or dead(k))
+    ]
+    for old in stale:
+        del _SHARDED_FN_CACHE[old]
+    if stale and _obs_trace.ENABLED:
+        _obs_counters.inc(f"{kind}.cache.evict", len(stale))
+    _SHARDED_FN_CACHE[cache_key] = (weakref.ref(target), weakref.ref(mesh) if mesh is not None else None, steps)
 
 
 # ------------------------------------------------------------------ pure merge
@@ -488,16 +551,43 @@ def sharded_update(metric: Any, mesh: Any, *args: Any, axis_name: str = "data") 
 
     Afterwards every rank's metric (and every child it wraps) holds the state
     of an update over the whole batch (the JAX call takes the whole batch in
-    one process and splits it over the mesh's devices).
+    one process and splits it over the mesh's devices). The built step and
+    its fold walk are cached per (metric, mesh, axis); a child swap or a
+    device-telemetry flip builds anew.
     """
+    # the walk fingerprint keys the entry: a swapped child or a flipped flag
+    # must not fold through the old walk; the telemetry token too, since
+    # telemetry is decided when the step is built
+    key = (id(metric), id(mesh), axis_name, _walk_fingerprint(metric), _obs_device.config_token())
+    entry = _SHARDED_FN_CACHE.get(key)
+    cold = entry is None or entry[0]() is not metric or entry[1]() is not mesh
+    if cold:
+        if _obs_trace.ENABLED:
+            # a live-looking key whose weak references went stale is an id
+            # reuse after gc, counted apart from a plain miss
+            _obs_counters.inc("sharded.cache.miss" if entry is None else "sharded.cache.invalidated")
+            with _obs_trace.span("sharded.jit_build", metric=type(metric).__name__, axis=axis_name):
+                built = make_sharded_update(metric, mesh, axis_name=axis_name)
+        else:
+            built = make_sharded_update(metric, mesh, axis_name=axis_name)
+        entry = (weakref.ref(metric), weakref.ref(mesh), built, _fold_targets(metric))
+        # superseded fingerprints of the same (metric, mesh, axis) go, so
+        # repeated child swaps do not grow the cache
+        stale = [k for k in _SHARDED_FN_CACHE if k[:3] == key[:3] and k != key]
+        for old in stale:
+            del _SHARDED_FN_CACHE[old]
+        if stale and _obs_trace.ENABLED:
+            _obs_counters.inc("sharded.cache.evict", len(stale))
+            _obs_trace.instant("sharded.cache.evict", metric=type(metric).__name__, evicted=len(stale))
+        _SHARDED_FN_CACHE[key] = entry
+    elif _obs_trace.ENABLED:
+        _obs_counters.inc("sharded.cache.hit")
+    step, targets = entry[2], entry[3]
     if _obs_trace.ENABLED:
-        with _obs_trace.span("sharded.jit_build", metric=type(metric).__name__, axis=axis_name):
-            step = make_sharded_update(metric, mesh, axis_name=axis_name)
-        with _obs_trace.span("sharded.update_step", metric=type(metric).__name__, cold=True):
+        with _obs_trace.span("sharded.update_step", metric=type(metric).__name__, cold=cold):
             merged = step(*args)
     else:
-        merged = make_sharded_update(metric, mesh, axis_name=axis_name)(*args)
-    targets = _fold_targets(metric)
+        merged = step(*args)
     for _, m in targets:  # every refusal before any state moves
         m._refuse_sharded_fold(m._update_count)
     for path, m in targets:

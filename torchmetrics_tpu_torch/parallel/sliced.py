@@ -92,7 +92,12 @@ folds each row as its guarded update of a one-row batch, as JAX's per-row
 the policy is ``propagate``), the ``vmap`` route selects the defaults for
 them, and the ``guard_*`` partials are the segment sums of the row verdicts.
 
-Not ported yet (ROADMAP): the cross-plan compiled-step cache.
+**The compiled-step cache** (the fused plan's, under ``"sliced"``): a plan
+built over the same (target, mesh, axis) with the same fingerprint adopts the
+cached entry, its carry, graphs and pool, and writes its own initial carry,
+slice table included, into the adopted carry in place; its first update on
+the card is a replay. A live plan that held the entry gets a copy of its
+carry and captures anew (see :mod:`~torchmetrics_tpu_torch.parallel.fused`).
 """
 from __future__ import annotations
 
@@ -113,7 +118,6 @@ from torchmetrics_tpu_torch.ops.slice_assign import hash_rows, slice_assign
 from torchmetrics_tpu_torch.parallel.cat_buffer import CatBuffer, cat_buffer_values
 from torchmetrics_tpu_torch.parallel.fused import (
     _as_input,
-    _Captured,
     _GraphCapture,
     _MemberInfo,
     _resolve_members,
@@ -510,16 +514,14 @@ class SlicedPlan(_GraphCapture):
         self._mesh = mesh
         self._axis = axis_name
         self._infos = [_MemberInfo(cg[0], members[cg[0]], cat_capacity, example_batch) for cg in groups]
+        self._in_member: Optional[str] = None  # the leader whose update the step is running
         if _obs_trace.ENABLED:
             with _obs_trace.span(
                 "sliced.build", metric=self._target_cls, cells=num_cells, leaders=len(self._infos), sharded=mesh is not None
             ):
-                self._carry = self._initial_state()
+                self._adopt(target, self._initial_state())
         else:
-            self._carry = self._initial_state()
-        self._captured: Dict[Any, _Captured] = {}
-        self._sharded: Dict[Any, _ShardedStep] = {}
-        self._in_member: Optional[str] = None  # the leader whose update the step is running
+            self._adopt(target, self._initial_state())
         if _obs_trace.ENABLED or _obs_live.ENABLED:
             _obs_attr.note_instances(type(self).__name__, list(self.members))
 

@@ -675,7 +675,9 @@ class StreamingEvaluator:
     def _begin_drive(self, start: int) -> None:
         self.cursor = start
         self._last_snapshot_t = time.monotonic()
-        self._fused_plan = None  # one plan per drive, built at the first batch
+        # one plan per drive, built at the first batch; a later drive's plan
+        # adopts the first one's captured graphs from the compiled-step cache
+        self._fused_plan = None
         self._snapshotting_stalls = bool(
             self.on_stall == "snapshot_then_raise" and self.watchdog_timeout_s
         )

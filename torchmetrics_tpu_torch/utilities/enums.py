@@ -33,6 +33,40 @@ class EnumStr(str, Enum):
         return self.value.lower() == other.lower()
 
 
+class DataType(EnumStr):
+    """Input data format."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Data type"
+
+    BINARY = "binary"
+    MULTILABEL = "multi-label"
+    MULTICLASS = "multi-class"
+    MULTIDIM_MULTICLASS = "multi-dim multi-class"
+
+
+class AverageMethod(EnumStr):
+    """Averaging strategy."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Average method"
+
+    MICRO = "micro"
+    MACRO = "macro"
+    WEIGHTED = "weighted"
+    NONE = None  # type: ignore[assignment]
+    SAMPLES = "samples"
+
+
+class MDMCAverageMethod(EnumStr):
+    """Multi-dim multi-class averaging."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"
+
+
 class ClassificationTask(EnumStr):
     """Classification task dispatch key."""
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import logging
 import warnings
-from functools import wraps
+from functools import partial, wraps
 from typing import Any, Callable
 
 import torch
@@ -38,6 +38,8 @@ def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
     kwargs.setdefault("stacklevel", 5)
     warnings.warn(message, *args, **kwargs)
 
+
+rank_zero_deprecation = partial(rank_zero_warn, category=DeprecationWarning)
 
 
 @rank_zero_only
